@@ -1,0 +1,136 @@
+"""Shared NCHW building blocks (counterparts of ``dspnet_tpu/models/layers.py``).
+
+The public model API keeps the JAX package's NHWC layout; inside, modules run
+PyTorch's NCHW. BatchNorm follows the MXNet conventions of the reference
+(eps 2e-5, ``fix_gamma`` -> no learned scale). The space-to-depth stem and
+its custom gradients in the JAX package are XLA workarounds for the same
+7x7/2 convolution, so the stem here is a plain ``conv``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 2e-5
+
+
+class BatchNorm(nn.Module):
+    """MXNet-convention BatchNorm, inference only.
+
+    ``fix_gamma=True`` mirrors mx.sym.BatchNorm(fix_gamma=True): no scale
+    parameter, only the bias. The normalize is one ``F.batch_norm`` pass,
+    which works in float32 and rounds once to the activation dtype (the JAX
+    BatchNorm folds it into a per-channel affine rounded to that dtype
+    first, an XLA fusion trick; in float32 the two agree to reassociation).
+
+    Batch statistics and the running-stat update (MXNet's biased variance,
+    momentum 0.9) belong to the training slice, so ``forward`` raises in
+    training mode rather than run an untested path.
+    """
+
+    def __init__(self, num_features: int, fix_gamma: bool = False, eps: float = BN_EPS):
+        super().__init__()
+        self.eps = eps
+        if fix_gamma:
+            self.register_parameter("weight", None)
+        else:
+            self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm training mode (batch statistics and the running-stat "
+                "update) is not ported yet: ROADMAP Queue A, BN training mode")
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            training=False, eps=self.eps)
+
+
+def conv(in_channels, features, kernel, stride=1, pad="same_explicit", use_bias=True):
+    """MXNet-style Convolution with explicit symmetric padding."""
+    if isinstance(kernel, int):
+        kernel = (kernel, kernel)
+    if isinstance(stride, int):
+        stride = (stride, stride)
+    if pad == "same_explicit":
+        pad = ((kernel[0] - 1) // 2, (kernel[1] - 1) // 2)
+    if isinstance(pad, int):
+        pad = (pad, pad)
+    return nn.Conv2d(in_channels, features, tuple(kernel), tuple(stride), tuple(pad), bias=use_bias)
+
+
+class ConvAct(nn.Module):
+    """conv + relu — reference symbol/common.py:4-38 (its optional BatchNorm
+    is off in every preset)."""
+
+    def __init__(self, in_channels, features, kernel=(1, 1), stride=(1, 1), pad=(0, 0)):
+        super().__init__()
+        self.conv = conv(in_channels, features, kernel, stride, pad)
+
+    def forward(self, x):
+        return F.relu(self.conv(x))
+
+
+def max_pool(x, kernel, stride, pad=0):
+    """MXNet 'valid'-convention max pool: floor output size, -inf padding."""
+    return F.max_pool2d(x, kernel, stride, pad)
+
+
+def avg_pool(x, kernel, stride, pad=0):
+    """Average pool, padding counted in the divisor (flax's default)."""
+    return F.avg_pool2d(x, kernel, stride, pad, count_include_pad=True)
+
+
+def resize_bilinear_align_corners(x, target_hw: Sequence[int]):
+    """Bilinear resize with align_corners=True on NCHW.
+
+    The reference's GridGenerator(identity affine) + BilinearSampler pair
+    (multitask_symbol_builder.py:574-581): source coordinate
+    ``x_src = x_dst * (W_src - 1) / (W_dst - 1)``; a size-1 source or target
+    axis reads source index 0.
+    """
+    th, tw = int(target_hw[0]), int(target_hw[1])
+    if tuple(x.shape[2:]) == (th, tw):
+        return x
+    # fractional weights truncate to zero in integer dtypes
+    if not x.is_floating_point():
+        raise TypeError(f"bilinear resize needs a floating dtype, got {x.dtype}")
+    return F.interpolate(x, size=(th, tw), mode="bilinear", align_corners=True)
+
+
+def bilinear_upsample_kernel(size: int, dtype=np.float32) -> np.ndarray:
+    """Bilinear upsampling filter for deconv init
+    (reference multi_init.py:13-21, upsample_filt)."""
+    factor = (size + 1) // 2
+    center = factor - 1 if size % 2 == 1 else factor - 0.5
+    og = np.ogrid[:size, :size]
+    return ((1 - abs(og[0] - center) / factor) * (1 - abs(og[1] - center) / factor)).astype(dtype)
+
+
+class Deconv2x(nn.ConvTranspose2d):
+    """4x4 stride-2 pad-1 transposed conv (exact 2x upsample), no bias —
+    mx.sym.Deconvolution(kernel=4, stride=2, pad=1, no_bias).
+
+    The weight is torch's ``(in, out, kh, kw)``. ``conv_transpose2d`` is the
+    true adjoint of correlation (it flips the kernel), like MXNet's and unlike
+    flax's ConvTranspose, so a flax kernel loads with a spatial flip plus a
+    transpose (utils/convert.py). ``reset_bilinear`` is the reference init
+    (multi_init.py:160-168): the bilinear filter on the channel diagonal.
+    """
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__(in_channels, features, 4, stride=2, padding=1, bias=False)
+
+    @torch.no_grad()
+    def reset_bilinear(self):
+        self.weight.zero_()
+        filt = torch.from_numpy(bilinear_upsample_kernel(4))
+        for i in range(min(self.in_channels, self.out_channels)):
+            self.weight[i, i].copy_(filt)

@@ -1,0 +1,82 @@
+"""Shared helpers for the tests of the PyTorch port: seeded numpy weights for
+a flax module, handed to both packages, and seeded NMS rows. jax is imported
+only where a flax module is read, so the NMS helpers also serve the CUDA
+tests on a machine without jax."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def random_flax_variables(module, input_shape, seed: int, **init_kwargs) -> dict:
+    """Every leaf of ``module``'s variable tree drawn from a seeded numpy
+    generator: kernels N(0, 1/fan_in), BatchNorm scale and var in
+    [0.5, 1.5) (var positive), biases and means N(0, 0.1). Returns nested
+    dicts of float32 numpy arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), jnp.zeros(input_shape, jnp.float32), **init_kwargs))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == "kernel":
+            x = rng.normal(0.0, np.sqrt(1.0 / np.prod(shape[:-1])), shape)
+        elif name in ("scale", "var"):
+            x = rng.uniform(0.5, 1.5, shape)
+        elif name in ("bias", "mean"):
+            x = rng.normal(0.0, 0.1, shape)
+        else:
+            raise KeyError(name)
+        return x.astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(draw, shapes)
+    return jax.tree_util.tree_map(np.asarray, _as_dict(tree))
+
+
+def _as_dict(tree):
+    if hasattr(tree, "items"):
+        return {k: _as_dict(v) for k, v in tree.items()}
+    return tree
+
+
+def random_nms_rows(rng, B, K):
+    """Random (boxes, ids, valid) top-K rows, as tests/test_nms_pallas.py."""
+    cx = rng.uniform(0.1, 0.9, (B, K))
+    cy = rng.uniform(0.1, 0.9, (B, K))
+    w = rng.uniform(0.05, 0.4, (B, K))
+    h = rng.uniform(0.05, 0.4, (B, K))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).astype(np.float32)
+    ids = rng.randint(0, 3, (B, K)).astype(np.float32)
+    valid = rng.rand(B, K) > 0.2
+    ids = np.where(valid, ids, -1.0).astype(np.float32)
+    return boxes, ids, valid
+
+
+#: rows whose IoUs sit exactly on the thresholds in float32: a box and its
+#: duplicate (IoU 1), a half-width box (IoU 0.5 with the unit box), a
+#: quarter-width one (0.25), and zero-area boxes (IoU 0, union 0 between two)
+BOUNDARY_BOXES = np.array([
+    [0.0, 0.0, 1.0, 1.0],
+    [0.0, 0.0, 0.5, 1.0],
+    [0.0, 0.0, 1.0, 1.0],
+    [0.0, 0.0, 0.25, 1.0],
+    [0.5, 0.5, 0.5, 0.5],
+    [0.5, 0.5, 0.5, 0.5],
+    [0.25, 0.0, 0.75, 1.0],
+    [0.0, 0.5, 1.0, 1.0],
+], np.float32)
+
+
+def with_boundary_rows(boxes, ids, valid):
+    """Overwrite the first rows of every image with BOUNDARY_BOXES, all valid
+    and of class 0, so same-class suppression is decided on them."""
+    n = len(BOUNDARY_BOXES)
+    boxes, ids, valid = boxes.copy(), ids.copy(), valid.copy()
+    boxes[:, :n] = BOUNDARY_BOXES
+    ids[:, :n] = 0.0
+    valid[:, :n] = True
+    return boxes, ids, valid
