@@ -11,13 +11,20 @@ argmax path:
 
 The network runs in ``dtype``; the class softmax, box decode and NMS run in
 float32 whatever that dtype is. On a CUDA device NMS is always the
-hand-written kernel (``ops/nms_cuda.py``). Visualisation, video, single-image
-file input and the pipelined server are not ported yet.
+hand-written kernel (``ops/nms_cuda.py``).
+
+The detector never mutates the module it is given: it serves its own copy,
+cast to ``dtype`` on ``device`` and in eval mode, and ``update_weights``
+copies new weights into that copy (the JAX Detector's
+``update_variables``), so a training loop can hand it its weights as they
+move. Visualisation, video, single-image file input and the pipelined
+server are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import copy
+from typing import List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,12 +49,14 @@ class Detector:
         nms_topk: int = 400,
         score_threshold: float = 0.01,
     ):
-        """``model`` is cast to ``dtype`` and moved to ``device`` in place."""
+        """Serves a copy of ``model`` cast to ``dtype`` on ``device``;
+        ``model`` itself is left as it was."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = torch.device(device)
         self.dtype = dtype
-        self.model = cast_floating(model.to(self.device), dtype).eval()
+        self.model = cast_floating(copy.deepcopy(model).to(self.device), dtype).eval()
+        self.model.requires_grad_(False)
         self.anchors = (None if anchors is None  # seg-only model
                         else torch.as_tensor(np.asarray(anchors, np.float32), device=self.device))
         self.data_shape = tuple(data_shape)
@@ -56,6 +65,15 @@ class Detector:
         self.force_suppress = force_suppress
         self.nms_topk = nms_topk
         self.score_threshold = score_threshold
+
+    @torch.no_grad()
+    def update_weights(self, weights: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> None:
+        """Copy every parameter and buffer of ``weights`` (a module of the
+        same architecture, or its state dict) into the served copy, cast to
+        its dtype and device; strict, like ``load_state_dict``."""
+        if isinstance(weights, torch.nn.Module):
+            weights = weights.state_dict()
+        self.model.load_state_dict(dict(weights), strict=True)
 
     # ------------------------------------------------------------- core
 

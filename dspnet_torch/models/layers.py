@@ -17,20 +17,31 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 2e-5
+BN_MOMENTUM = 0.9
 
 
 class BatchNorm(nn.Module):
-    """MXNet-convention BatchNorm, inference only.
+    """MXNet-convention BatchNorm (momentum 0.9, eps 2e-5).
 
     ``fix_gamma=True`` mirrors mx.sym.BatchNorm(fix_gamma=True): no scale
-    parameter, only the bias. The normalize is one ``F.batch_norm`` pass,
-    which works in float32 and rounds once to the activation dtype (the JAX
-    BatchNorm folds it into a per-channel affine rounded to that dtype
-    first, an XLA fusion trick; in float32 the two agree to reassociation).
+    parameter, only the bias.
 
-    Batch statistics and the running-stat update (MXNet's biased variance,
-    momentum 0.9) belong to the training slice, so ``forward`` raises in
-    training mode rather than run an untested path.
+    Training mode is the JAX BatchNorm's formula (``dspnet_tpu/models/
+    layers.py::_BatchNormImpl``), differentiated by autograd through plain
+    ops: batch statistics accumulated in float32 with the fast-variance
+    formula ``var = max(mean(x^2) - mean^2, 0)`` (the biased variance), the
+    normalize folded into ``mul = rsqrt(var + eps) * scale`` and
+    ``add = bias - mean * mul`` in float32 and applied as
+    ``x * mul + add`` in the activation dtype. The running statistics update
+    in place, outside autograd, as ``0.9 * old + 0.1 * batch``. (Not
+    ``F.batch_norm(training=True)``: its momentum weighs the batch, not the
+    old value, and it updates the running variance with the unbiased
+    estimate.)
+
+    Eval mode is one ``F.batch_norm`` pass, which works in float32 and
+    rounds once to the activation dtype; a weight cast to another dtype than
+    the running statistics (the solver's bf16 compute over float32 stats)
+    is brought to the statistics' dtype first.
     """
 
     def __init__(self, num_features: int, fix_gamma: bool = False, eps: float = BN_EPS):
@@ -45,12 +56,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training mode (batch statistics and the running-stat "
-                "update) is not ported yet: ROADMAP Queue A, BN training mode")
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, eps=self.eps)
+        if not self.training:
+            stats_dtype = self.running_mean.dtype
+            weight = None if self.weight is None else self.weight.to(stats_dtype)
+            return F.batch_norm(x, self.running_mean, self.running_var, weight,
+                                self.bias.to(stats_dtype), training=False, eps=self.eps)
+        xf = x.float()
+        dims = (0, 2, 3)
+        mean = xf.mean(dims)
+        mean2 = (xf * xf).mean(dims)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight.float()
+        add = self.bias.float() - mean * mul
+        return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
 def conv(in_channels, features, kernel, stride=1, pad="same_explicit", use_bias=True):

@@ -1,6 +1,5 @@
-"""Corner-format box math: IoU and SSD decode (counterpart of
-``dspnet_tpu/ops/boxes.py``; ``encode_targets`` comes with the training
-slice).
+"""Corner-format box math: IoU, SSD encode and decode (counterpart of
+``dspnet_tpu/ops/boxes.py``).
 
 Decoding contract (reference operator/multibox_detection.cc:102-125):
 
@@ -34,6 +33,31 @@ def iou_matrix(a, b):
     union = area_a + area_b - inter
     pos = union > 0.0
     return torch.where(pos, inter / torch.where(pos, union, torch.ones_like(union)), torch.zeros_like(union))
+
+
+def encode_targets(anchors, gt_boxes, gt_dist, variances=DEFAULT_VARIANCES):
+    """Encode matched GT corners and distance against anchors.
+
+    anchors (..., A, 4), gt_boxes (..., A, 4), gt_dist (..., A) ->
+    (..., A, 5) regression targets ``[tx, ty, tw, th, tz]``. Widths and
+    heights are floored at 1e-12 before the log: an unmatched anchor's GT
+    row may be degenerate, and callers mask its target.
+    """
+    vx, vy, vw, vh = variances
+    aw = anchors[..., 2] - anchors[..., 0]
+    ah = anchors[..., 3] - anchors[..., 1]
+    ax = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    ay = (anchors[..., 1] + anchors[..., 3]) * 0.5
+    gw = gt_boxes[..., 2] - gt_boxes[..., 0]
+    gh = gt_boxes[..., 3] - gt_boxes[..., 1]
+    gx = (gt_boxes[..., 0] + gt_boxes[..., 2]) * 0.5
+    gy = (gt_boxes[..., 1] + gt_boxes[..., 3]) * 0.5
+    tx = (gx - ax) / aw / vx
+    ty = (gy - ay) / ah / vy
+    tw = torch.log(torch.clamp_min(gw, 1e-12) / aw) / vw
+    th = torch.log(torch.clamp_min(gh, 1e-12) / ah) / vh
+    tz = gt_dist / DISTANCE_VARIANCE
+    return torch.stack([tx, ty, tw, th, tz], dim=-1)
 
 
 def decode_locations(anchors, loc_pred, variances=DEFAULT_VARIANCES, clip=True):

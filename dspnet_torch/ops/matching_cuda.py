@@ -1,0 +1,148 @@
+"""Greedy bipartite anchor<->GT matching: the CUDA kernel and its plain version.
+
+``bipartite_match`` replaces the TPU kernel
+``dspnet_tpu/ops/matching_pallas.py::_match_kernel`` (wrapper
+``bipartite_match_pallas``): phase 1 of MultiBoxTarget. For a CUDA tensor it
+launches the hand-written kernel in ``csrc/match.cu`` (one block per image, a
+per-column best-pair cache in shared memory; the source note there says what
+bounds it on the card). For a CPU tensor it runs
+``bipartite_match_reference``, the plain PyTorch version. Any other device
+raises. There is no fallback between the two.
+
+Semantics (the Pallas kernel's, and the reference operator's row-major
+strictly-greater scan, multibox_target.cc:113-149):
+repeat the global argmax over available (anchor, gt) pairs with IoU > 1e-6,
+ties to the smallest row-major index ``a * L + l``; each match retires its
+anchor and its GT column. Invalid columns never match.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from dspnet_torch.ops import _build
+
+#: kernel launches made by ``bipartite_match``; a caller may reset it to 0
+launches = 0
+
+#: shared memory one block may use on Hopper (232,448 bytes)
+_MAX_SHARED_BYTES = 227 * 1024
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build ``csrc/match.cu`` (at first use, ``ops/_build.py``) and bind it."""
+    lib = _build.load_library("match")
+    fn = lib.dspnet_bipartite_match
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.dspnet_match_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dspnet_match_shared_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _check_shapes(iou, col_valid):
+    if iou.ndim != 3:
+        raise ValueError(f"iou must be (B, A, L), got {tuple(iou.shape)}")
+    if tuple(col_valid.shape) != (iou.shape[0], iou.shape[2]):
+        raise ValueError(f"col_valid {tuple(col_valid.shape)} must be (B, L) = "
+                         f"{(iou.shape[0], iou.shape[2])}")
+    if iou.device != col_valid.device:
+        raise ValueError(f"inputs on different devices: {iou.device}, {col_valid.device}")
+
+
+def _launch(iou, col_valid):
+    global launches
+    for name, t, dtype in (("iou", iou, torch.float32), ("col_valid", col_valid, torch.bool)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, A, L = iou.shape
+    lib = load_library()
+    smem = lib.dspnet_match_shared_bytes(A, L)
+    if smem > _MAX_SHARED_BYTES:
+        raise ValueError(f"A={A}, L={L} needs {smem} bytes of shared memory per block, "
+                         f"more than the {_MAX_SHARED_BYTES} a block may use")
+    matched = torch.empty((B, A), dtype=torch.bool, device=iou.device)
+    match_gt = torch.empty((B, A), dtype=torch.int32, device=iou.device)
+    match_iou = torch.empty((B, A), dtype=torch.float32, device=iou.device)
+    if B == 0 or A == 0:
+        return matched, match_gt, match_iou
+    with torch.cuda.device(iou.device):
+        err = lib.dspnet_bipartite_match(
+            iou.data_ptr(), col_valid.data_ptr(), matched.data_ptr(), match_gt.data_ptr(),
+            match_iou.data_ptr(), B, A, L, torch.cuda.current_stream(iou.device).cuda_stream)
+    _build.check(lib, err, "bipartite match kernel launch")
+    launches += 1
+    return matched, match_gt, match_iou
+
+
+def bipartite_match_reference(iou, col_valid):
+    """Plain PyTorch matching, on any device: parallel propose/accept rounds
+    that emit exactly the sequential greedy's pairs.
+
+    Each round every open GT proposes its best available anchor (largest
+    IoU, ties to the smallest anchor), and an anchor accepts a proposal only
+    when the proposer is also the anchor's own best open GT (largest IoU,
+    ties to the smallest GT). Such a mutually best pair comes before every
+    pair that shares its anchor or its GT in the greedy's order (IoU
+    descending, then row-major index), so the greedy emits it; the global
+    first pair is always mutually best, so each round makes progress until
+    no pair above 1e-6 is left.
+
+    ``dspnet_tpu/ops/target.py::_bipartite_match`` lets an anchor accept its
+    best *proposer* instead. On exact IoU ties that can take a pair the
+    greedy does not (a GT that ties for an anchor but proposes it only in a
+    later round loses it), so there the JAX rounds differ from the Pallas
+    kernel and from the reference operator; without ties the two rules give
+    the same matching.
+
+    Returns ``(matched (B, A) bool, match_gt (B, A) int32 (-1 unmatched),
+    match_iou (B, A) f32 (-1 unmatched))``.
+    """
+    _check_shapes(iou, col_valid)
+    B, A, L = iou.shape
+    dev = iou.device
+    anchor_matched = torch.zeros((B, A), dtype=torch.bool, device=dev)
+    match_gt = torch.full((B, A), -1, dtype=torch.int32, device=dev)
+    match_iou = torch.full((B, A), -1.0, dtype=torch.float32, device=dev)
+    gt_matched = torch.zeros((B, L), dtype=torch.bool, device=dev)
+    if A == 0 or L == 0:
+        return anchor_matched, match_gt, match_iou
+    gt_range = torch.arange(L, device=dev).expand(B, L)
+    while True:
+        open_cols = col_valid & ~gt_matched
+        avail = (~anchor_matched)[:, :, None] & open_cols[:, None, :]
+        masked = torch.where(avail, iou, torch.full_like(iou, -1.0))
+        prop_v = masked.amax(dim=1)  # (B, L)
+        prop_a = masked.argmax(dim=1)  # first max: the smallest anchor
+        row_best = masked.argmax(dim=2)  # (B, A): first max, the smallest GT
+        accepted = ((prop_v > 1e-6) & open_cols
+                    & (torch.gather(row_best, 1, prop_a) == gt_range))
+        if not bool(accepted.any()):
+            return anchor_matched, match_gt, match_iou
+        b_idx, l_idx = accepted.nonzero(as_tuple=True)
+        a_idx = prop_a[b_idx, l_idx]
+        anchor_matched[b_idx, a_idx] = True
+        match_gt[b_idx, a_idx] = l_idx.to(torch.int32)
+        match_iou[b_idx, a_idx] = prop_v[b_idx, l_idx]
+        gt_matched |= accepted
+
+
+def bipartite_match(iou, col_valid):
+    """Batched greedy matching. iou (B, A, L) f32, col_valid (B, L) bool ->
+    (matched (B, A) bool, match_gt (B, A) int32, match_iou (B, A) f32).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version; any other device raises.
+    """
+    _check_shapes(iou, col_valid)
+    if iou.device.type == "cuda":
+        return _launch(iou, col_valid)
+    if iou.device.type == "cpu":
+        return bipartite_match_reference(iou, col_valid)
+    raise ValueError(f"bipartite_match runs on cuda or cpu tensors, got {iou.device}")

@@ -9,73 +9,32 @@ For a CPU tensor it runs ``nms_keep_mask_reference``, the plain PyTorch
 version. Any other device raises. There is no fallback between the two.
 
 The kernel is compiled with ``nvcc`` for sm_90a at first use, into
-``build/`` at the repository root, and loaded with ctypes.
+``build/`` at the repository root (``ops/_build.py``), and loaded with
+ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from dspnet_torch.ops import _build
 from dspnet_torch.ops.boxes import iou_matrix
-
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "nms.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: kernel launches made by ``nms_keep_mask``; a caller may reset it to 0
 launches = 0
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the NMS kernel needs the CUDA toolkit to build")
-    return found
-
-
-def build_library() -> Path:
-    """Compile ``csrc/nms.cu`` into ``build/`` (skipped when a library built
-    from the same source and flags exists) and return its path. The
-    compiler's resource report (``-Xptxas -v``) lands beside it as ``.log``."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"libdspnet_nms_{digest}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                          capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library."""
-    lib = ctypes.CDLL(str(build_library()))
+    """Build ``csrc/nms.cu`` (at first use, ``ops/_build.py``) and bind it."""
+    lib = _build.load_library("nms")
     fn = lib.dspnet_nms_keep_mask
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                            ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.dspnet_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.dspnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -112,8 +71,7 @@ def _launch(boxes, ids, valid, nms_threshold, force_suppress):
             boxes.data_ptr(), ids.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
             B, K, float(nms_threshold), int(bool(force_suppress)),
             torch.cuda.current_stream(boxes.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"NMS kernel launch failed: {lib.dspnet_cuda_error_string(err).decode()}")
+    _build.check(lib, err, "NMS kernel launch")
     launches += 1
     return keep
 

@@ -1,4 +1,5 @@
-"""Load a flax variable tree of the JAX package into a port module.
+"""Move weights between a flax variable tree of the JAX package and a port
+module.
 
 The port's submodules carry the flax module names (``backbone/stage1_unit1/
 bn1`` -> ``backbone.stage1_unit1.bn1``), so each flax leaf has one torch
@@ -13,11 +14,18 @@ tensor:
 * ``…/BatchNorm_0/{scale,bias}``             -> ``….{weight,bias}``
 * ``batch_stats …/BatchNorm_0/{mean,var}``   -> ``….{running_mean,running_var}``
 * ``…/bias`` of a conv                      -> ``….bias``
+
+``to_flax_variables`` is the exact inverse, and ``flax_path`` names the flax
+leaf of one torch tensor. Both read the module kind from the port's naming
+contract: a BatchNorm's module name is ``bn_data``, ``bn<N>`` or ends in
+``_bn``; the one transposed conv is ``score4_conv``; every other module with
+a ``weight`` is a conv.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Mapping, Tuple
+import re
+from typing import Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -77,3 +85,57 @@ def load_flax_variables(model: nn.Module, variables_np: Mapping) -> nn.Module:
     state = flax_to_state_dict(variables_np)
     model.load_state_dict(state, strict=True)
     return model
+
+
+_BN_MODULE = re.compile(r"^(bn_data|bn\d+)$|_bn$")
+_DECONV_MODULE = "score4_conv"
+_BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+_CONV_LEAF = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
+
+
+def _flax_leaf(name: str) -> Tuple[str, Tuple[str, ...]]:
+    """torch tensor name -> (collection, flax path)."""
+    *modules, leaf = name.split(".")
+    if not modules:
+        raise KeyError(f"no flax leaf for top-level tensor {name!r}")
+    if _BN_MODULE.search(modules[-1]):
+        table, extra = _BN_LEAF, ("BatchNorm_0",)
+    elif modules[-1] == _DECONV_MODULE:
+        table, extra = _CONV_LEAF, ("ConvTranspose_0",)
+    else:
+        table, extra = _CONV_LEAF, ()
+    if leaf not in table:
+        raise KeyError(f"no flax leaf for torch tensor {name!r}")
+    collection, flax_leaf = table[leaf]
+    return collection, tuple(modules) + extra + (flax_leaf,)
+
+
+def flax_path(name: str) -> str:
+    """The '/'-joined flax path (within its collection) of a torch tensor:
+    ``backbone.stage1_unit1.bn1.weight`` ->
+    ``backbone/stage1_unit1/bn1/BatchNorm_0/scale``. The JAX solver's freeze
+    regex matches against this path."""
+    return "/".join(_flax_leaf(name)[1])
+
+
+def to_flax_variables(tensors: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict[str, dict]:
+    """A port module (or a name -> tensor map such as a state dict) ->
+    ``{"params", "batch_stats"}`` nested dicts of float32 numpy arrays in the
+    flax layout; the exact inverse of ``flax_to_state_dict``. A collection
+    with no tensor is left out."""
+    if isinstance(tensors, nn.Module):
+        tensors = tensors.state_dict()
+    out: Dict[str, dict] = {}
+    for name, t in tensors.items():
+        collection, path = _flax_leaf(name)
+        arr = t.detach().float().cpu().numpy()
+        if path[-1] == "kernel" and path[-2] == "ConvTranspose_0":
+            arr = np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
+        elif path[-1] == "kernel":
+            arr = np.transpose(arr, (2, 3, 1, 0))
+        node = out.setdefault(collection, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out

@@ -83,12 +83,15 @@ def test_port_imports_no_jax():
     """Importing the package and every slice module loads none of jax,
     flax, cv2 or dspnet_tpu (the card's machine has none of them)."""
     modules = ["dspnet_torch", "dspnet_torch.api", "dspnet_torch.ops.anchors",
-               "dspnet_torch.ops.boxes", "dspnet_torch.ops.nms_cuda",
+               "dspnet_torch.ops.boxes", "dspnet_torch.ops._build", "dspnet_torch.ops.nms_cuda",
+               "dspnet_torch.ops.matching_cuda", "dspnet_torch.ops.target",
                "dspnet_torch.ops.detection", "dspnet_torch.models.factory",
                "dspnet_torch.models.layers", "dspnet_torch.models.resnet",
                "dspnet_torch.models.heads", "dspnet_torch.models.seg_head",
                "dspnet_torch.models.dspnet", "dspnet_torch.utils.convert",
-               "dspnet_torch.utils.precision", "dspnet_torch.detect.detector"]
+               "dspnet_torch.utils.precision", "dspnet_torch.utils.benchmark",
+               "dspnet_torch.detect.detector", "dspnet_torch.train.losses",
+               "dspnet_torch.train.optim", "dspnet_torch.train.lr", "dspnet_torch.train.solver"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -99,3 +102,50 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_detector_leaves_its_module_alone(slice_pair):
+    """A bf16 Detector serves its own cast copy: the caller's float32 module
+    keeps its dtype, its weights and its train mode (the JAX Detector never
+    mutates the variables it is handed)."""
+    _, _, port, frames = slice_pair
+    model = port.model.train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    try:
+        det = Detector(model, port.anchors, (H, W), dtype=torch.bfloat16)
+        det.predict_raw(frames[:1])
+        assert model.training
+        for k, v in model.state_dict().items():
+            assert v.dtype == torch.float32, k
+            assert torch.equal(v, before[k]), k
+        assert all(p.dtype == torch.bfloat16 for p in det.model.parameters())
+        assert not det.model.training
+    finally:
+        model.eval()
+
+
+def test_make_detector_update_weights_matches_a_fresh_detector(slice_pair):
+    """The solver's detector over a trained state, refreshed with
+    ``update_weights``, gives the det of a Detector built fresh on a module
+    holding the same weights."""
+    from dspnet_torch.train.solver import MultiTaskSolver
+
+    _, variables, port, frames = slice_pair
+    solver = MultiTaskSolver(port.model, port.anchors, learning_rate=1e-3, batch_size=2,
+                             seg_normalize="valid")
+    state = solver.init_state()
+    det = solver.make_detector(state, (H, W))
+    labels = np.full((2, 8, 6), -1.0, np.float32)
+    labels[:, 0] = [1, 0.2, 0.2, 0.7, 0.8, 0.3]
+    batch = {"images": np.random.RandomState(1).normal(0, 50, (2, H, W, 3)).astype(np.float32),
+             "label_det": labels,
+             "seg_label": np.random.RandomState(2).randint(0, 19, (2, H // 4, W // 4)).astype(np.int32)}
+    state, _ = solver.train_step(state, batch)
+    det.update_weights(solver.detector_variables(state))
+    fresh_model = create_model("resnet-50_multi", (H, W)).model
+    fresh_model.load_state_dict(solver.detector_variables(state))
+    fresh = Detector(fresh_model, port.anchors, (H, W))
+    got, want = det.predict_raw(frames), fresh.predict_raw(frames)
+    assert torch.equal(got["det"], want["det"]) and torch.equal(got["seg"], want["seg"])
+    stale = Detector(port.model, port.anchors, (H, W)).predict_raw(frames)
+    assert not torch.equal(stale["det"], got["det"])

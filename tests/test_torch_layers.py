@@ -63,9 +63,16 @@ def test_batchnorm_eval(rng, fix_gamma):
 
 
 def test_batchnorm_training_mode_raises():
+    """Training mode raised until it was ported; it now normalizes with the
+    batch statistics (biased variance) and raises nothing. Its parity with
+    the JAX BatchNorm is in test_torch_train.py."""
     bn = tl.BatchNorm(4).train()
-    with pytest.raises(NotImplementedError, match="training"):
-        bn(torch.zeros(1, 4, 2, 2))
+    x = torch.arange(32, dtype=torch.float32).reshape(2, 4, 2, 2)
+    y = bn(x)
+    xd = x.double()
+    want = (xd - xd.mean((0, 2, 3), keepdim=True)) / torch.sqrt(
+        xd.var((0, 2, 3), unbiased=False, keepdim=True) + tl.BN_EPS)
+    np.testing.assert_allclose(y.detach().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
 class _FlaxConv(fnn.Module):
