@@ -1,0 +1,265 @@
+"""On-device augmentation pipeline (counterpart of
+``dspnet_tpu/data/device_pipeline.py``).
+
+Host threads only decode (PNG -> raw uint8, path- or span-backed). Each raw
+uint8 batch crosses to the device through pinned memory with a
+non-blocking copy on a side stream (``data/prefetch.py``), and one call
+does the whole augmentation there, batched: affine warp (bilinear, border
+128) + horizontal flip + BGR->RGB mean-sub for the image; nearest warp
+(border 255) + flip + 1/4 nearest downsample + LUT for the seg mask; and the box-corner transform, distance rescale,
+area and out-of-image filters and top-compaction of the reference
+(iterator.py:485-539) as fixed-shape masked ops over the batch.
+
+The seed-233 parameter table, its order, the batch contract (``pad_last``,
+maskless samples filled with 255) and the matrix math are the JAX
+package's. The rotation's cosine and sine are taken in float64 and rounded
+to float32, so the card and the CPU build the same matrices. The JAX
+package's ``predownscale`` (a host ``cv2.resize``) and ``s2d`` (a TPU input
+layout) are not ported (ROADMAP Queue A items 21 and 17).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dspnet_torch.data import augment as aug
+from dspnet_torch.data.cs_labels import seg_label_lut
+from dspnet_torch.data.iterator import SampleIndex, load_sample_arrays, shard_positions
+from dspnet_torch.data.prefetch import prefetch_to_device
+
+
+def _filter_and_compact(label: torch.Tensor, data_shape, out_of_image: bool) -> torch.Tensor:
+    """(B, L, 6) labels: clear degenerate rows to -1, survivors to the top in
+    their order (iterator.py:522-539)."""
+    H, W = data_shape
+    xmin, ymin, xmax, ymax = label[..., 1], label[..., 2], label[..., 3], label[..., 4]
+    area = (xmax - xmin) * W * (ymax - ymin) * H
+    bad = (label[..., 0] < 0) | (area < 100.0)
+    if out_of_image:
+        bad |= (xmax < 0.01) | (xmin > 0.99) | (ymax < 0.01) | (ymin > 0.99)
+    label = torch.where(bad[..., None], -1.0, label)
+    order = torch.argsort(bad.to(torch.uint8), dim=1, stable=True)
+    return torch.gather(label, 1, order[..., None].expand_as(label))
+
+
+def _cos_sin(theta: torch.Tensor):
+    return torch.cos(theta.double()).float(), torch.sin(theta.double()).float()
+
+
+def _augment_boxes(label: torch.Tensor, params: torch.Tensor, data_shape) -> torch.Tensor:
+    """The box path of the reference (iterator.py:485-539), batched: (B, L, 6)
+    labels, (B, 6) params."""
+    H, W = data_shape
+    flip, theta, sx, sy, tx, ty = (params[:, i:i + 1] for i in range(6))
+    valid = label[..., 0] >= 0
+    ca, sa = _cos_sin(theta)
+
+    def tf(x, y):
+        return sx * ca * x - sy * sa * y + tx, sx * sa * x + sy * ca * y + ty
+
+    x1, y1 = tf(label[..., 1] * W, label[..., 2] * H)
+    x2, y2 = tf(label[..., 3] * W, label[..., 4] * H)
+    do_flip = flip > 0.5
+    x1f = torch.where(do_flip, W - x1, x1)
+    x2f = torch.where(do_flip, W - x2, x2)
+    # flip mirrors corners, then xmin/xmax swap (augment.py:102-108)
+    nx1 = torch.where(do_flip, x2f, x1f)
+    nx2 = torch.where(do_flip, x1f, x2f)
+    box = torch.stack([nx1 / W, y1 / H, nx2 / W, y2 / H], dim=-1).clamp(0.0, 1.0)
+    dist = label[..., 5] / torch.sqrt(sx * sy)
+    new = torch.cat([label[..., :1], box, dist[..., None]], dim=-1)
+    label = torch.where(valid[..., None], new, label)
+    return _filter_and_compact(label, data_shape, out_of_image=True)
+
+
+@torch.no_grad()
+def device_augment_batch(
+    raw_images: torch.Tensor,  # (B, hh, ww, 3) uint8 BGR
+    raw_segs: Optional[torch.Tensor],  # (B, hh, ww) uint8 or None
+    labels: torch.Tensor,  # (B, 200, 6) f32
+    params: torch.Tensor,  # (B, 6) f32 [flip, theta, sx, sy, tx, ty]
+    lut: torch.Tensor,  # (256,) int32
+    data_shape: Tuple[int, int],
+    enable_aug: bool = True,
+    mean_pixels=aug.MEAN_PIXELS,
+) -> dict:
+    """One augmented batch on the inputs' device: ``images`` (B, H, W, 3) f32
+    RGB mean-subtracted, ``seg_label`` (B, H/4, W/4) int32 (when ``raw_segs``
+    is given) and ``label_det`` (B, 200, 6) f32. Without ``enable_aug`` the
+    warp is a plain resize (border 0) and boxes are only filtered.
+
+    ``mean_pixels``: RGB, a tuple or a float32 tensor on the device. Every
+    other constant enters as a Python scalar: a small tensor made from host
+    values would be a blocking copy, which on CUDA waits for the stream
+    (and so for the train step queued ahead of this batch)."""
+    H, W = data_shape
+    B, hh, ww = raw_images.shape[:3]
+    dev = raw_images.device
+    if not enable_aug:
+        params = torch.zeros(B, 6, device=dev)
+        params[:, 2:4] = 1.0  # identity: [0, 0, 1, 1, 0, 0]
+    params = params.to(dev, torch.float32)
+    flip, theta = params[:, 0], params[:, 1]
+    sx, sy, tx, ty = params[:, 2], params[:, 3], params[:, 4], params[:, 5]
+    sx2, sy2 = sx * (W / float(ww)), sy * (H / float(hh))
+    ca, sa = _cos_sin(theta)
+    M = torch.stack([
+        torch.stack([sx2 * ca, -sy2 * sa, tx], dim=-1),
+        torch.stack([sx2 * sa, sy2 * ca, ty], dim=-1),
+    ], dim=1)  # (B, 2, 3)
+
+    border = 128.0 if enable_aug else 0.0
+    img = aug.warp_affine_batch(raw_images, M, (H, W), border)
+    do_flip = (flip > 0.5) & enable_aug
+    img = torch.where(do_flip[:, None, None, None], img.flip(2), img)
+    img = img.flip(-1) - torch.as_tensor(mean_pixels, dtype=torch.float32, device=dev)  # BGR->RGB
+
+    out = {"images": img}
+    if raw_segs is not None:
+        seg_border = 255.0 if enable_aug else 0.0
+        seg = aug.warp_affine_batch(raw_segs, M, (H, W), seg_border, nearest=True)
+        seg = torch.where(do_flip[:, None, None], seg.flip(2), seg)
+        seg = seg[:, ::4, ::4].long()  # nearest 1/4 (src = dst*4)
+        out["seg_label"] = lut.to(dev)[seg.clamp(0, 255)]
+
+    labels = labels.to(dev, torch.float32)
+    if enable_aug:
+        out["label_det"] = _augment_boxes(labels, params, (H, W))
+    else:
+        out["label_det"] = _filter_and_compact(labels, (H, W), out_of_image=False)
+    return out
+
+
+class DeviceAugIterator:
+    """Batches of ``{'images', 'label_det', 'seg_label'}`` (+ filenames),
+    augmented on ``device``.
+
+    Host worker threads decode raw images and masks, ``prefetch_to_device``
+    copies each raw batch to ``device``, and the consumer's thread runs
+    :func:`device_augment_batch`. All images must share one raw
+    resolution, checked at decode. ``device`` and ``seed`` are explicit: the
+    batches land where the caller computes, and the seed fixes the epoch's
+    order and augmentation table (233 in the reference).
+    """
+
+    def __init__(
+        self,
+        index: SampleIndex,
+        batch_size: int,
+        data_shape: Tuple[int, int],
+        *,
+        device,
+        seed: int,
+        enable_aug: bool = True,
+        shuffle: bool = True,
+        shard: Tuple[int, int] = (0, 1),
+        num_threads: int = 4,
+        pad_last: bool = False,
+    ):
+        """``pad_last``: also yield a final partial batch, padded to
+        ``batch_size`` by repeating its last sample, with ``fnames`` listing
+        only the real samples (consumers slice outputs by ``len(fnames)``);
+        eval passes True, training False."""
+        self.index = index
+        self.batch_size = batch_size
+        self.data_shape = tuple(data_shape)
+        self.device = torch.device(device)
+        self.pad_last = pad_last
+        # made on the device once: a per-batch copy from the host would wait
+        # for the stream (see device_augment_batch)
+        self.mean_pixels = torch.tensor(aug.MEAN_PIXELS, device=self.device)
+        self.enable_aug = enable_aug
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.lut = torch.from_numpy(seg_label_lut().astype(np.int32)).to(self.device)
+        self.num_samples = len(index)
+        self.positions = shard_positions(self.num_samples, shard)
+        self.order = np.arange(self.num_samples)
+        if shuffle:
+            self.rng.shuffle(self.order)
+        self._resample_aug()
+        self.cursor = 0
+        self.num_threads = num_threads
+        self.raw_hw: Optional[Tuple[int, int]] = None
+        self._hw_lock = threading.Lock()
+
+    def _resample_aug(self):
+        self.aug_params = aug.sample_aug_params(self.num_samples, self.data_shape, self.rng)
+
+    def reset(self):
+        if self.shuffle:
+            self.rng.shuffle(self.order)
+        self._resample_aug()
+        self.cursor = 0
+
+    # ------------------------------------------------------------- host side
+
+    def _load_raw(self, pos: int):
+        sample = self.index[int(self.order[pos])]
+        img, seg = load_sample_arrays(sample)
+        with self._hw_lock:
+            if self.raw_hw is None:
+                self.raw_hw = img.shape[:2]
+        if img.shape[:2] != self.raw_hw:
+            raise ValueError(
+                f"mixed raw resolutions {img.shape[:2]} vs {self.raw_hw}; on-device "
+                "augmentation batches raw images — resize the dataset offline")
+        return img, sample.label, seg, sample.image_path
+
+    def _raw_batches(self) -> Iterator:
+        from concurrent.futures import ThreadPoolExecutor
+
+        bs = self.batch_size
+        n = len(self.positions)
+        starts = list(range(0, n - bs + 1, bs))
+        if self.pad_last and n % bs:
+            starts.append((n // bs) * bs)  # padded tail
+        with ThreadPoolExecutor(self.num_threads) as pool:
+            for start in starts:
+                poss = self.positions[start:start + bs]
+                decoded = list(pool.map(lambda p: self._load_raw(int(p)), poss))
+                n_real = len(decoded)
+                # pad the tail by repeating the last decoded sample: consumers
+                # keep only the real rows (len(fnames)), so the padded content
+                # is never read, and repetition keeps one raw shape
+                decoded.extend([decoded[-1]] * (bs - n_real))
+                params = np.concatenate(
+                    [self.aug_params[poss], np.repeat(self.aug_params[poss[-1:]], bs - n_real, axis=0)])
+                segs = [d[2] for d in decoded]
+                seg_arr = None
+                if any(s is not None for s in segs):
+                    hw = next(s.shape for s in segs if s is not None)
+                    # maskless samples fill with 255 (ignore), not 0 (road)
+                    seg_arr = np.stack([s if s is not None else np.full(hw, 255, np.uint8)
+                                        for s in segs]).astype(np.uint8)
+                yield {
+                    "raw": np.stack([d[0] for d in decoded]),
+                    "segs": seg_arr,
+                    "labels": np.stack([d[1] for d in decoded]).astype(np.float32),
+                    "params": params.astype(np.float32),
+                    "names": [d[3] for d in decoded[:n_real]],
+                }
+
+    # ----------------------------------------------------------- device side
+
+    def epoch(self) -> Iterator:
+        """(batch, fnames) pairs. Decode runs ahead on ``prefetch_to_device``'s
+        thread, which also copies each raw batch to the device (pinned memory,
+        a side stream on CUDA); the augmentation runs on the consumer's stream."""
+        self.reset()
+        # closing: an abandoned epoch releases the decode thread at once
+        with contextlib.closing(prefetch_to_device(self._raw_batches(), size=3, device=self.device)) as raw:
+            for item in raw:
+                batch = device_augment_batch(
+                    item["raw"], item["segs"], item["labels"], item["params"], self.lut,
+                    self.data_shape, enable_aug=self.enable_aug, mean_pixels=self.mean_pixels)
+                yield batch, item["names"]
+
+    def __iter__(self):
+        for batch, _ in self.epoch():
+            yield batch

@@ -17,9 +17,11 @@ Clone a state's tensors to keep an earlier one.
 
 The solver's module is a template: the weights live in the state and are
 swapped in with ``torch.func.functional_call``; the module's own tensors and
-its train/eval flag are left as they were. Data parallelism over a device
-mesh, spatial sharding and the background prefetch of the JAX solver are
-not ported yet (ROADMAP Queue A items 13 and 17).
+its train/eval flag are left as they were. ``fit`` takes its batches as the
+iterator gives them (``DeviceAugIterator`` decodes ahead and puts them on
+the device; host arrays are copied at the step) and validates with
+``evaluate/loop.py``. Data parallelism over a device mesh and spatial
+sharding are not ported (ROADMAP Queue A items 25 and 17).
 """
 
 from __future__ import annotations
@@ -139,6 +141,7 @@ class MultiTaskSolver:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.tx = MXNetSGD(learning_rate, momentum, weight_decay,
                            rescale_grad=1.0 / (batch_size * self.grad_accum))
+        self._val_detector = None  # built by the first validation pass of fit()
 
     # ---------------------------------------------------------------- init
 
@@ -298,19 +301,23 @@ class MultiTaskSolver:
         epoch, ``epoch_end_callback(epoch, state)`` after each epoch.
 
         ``epoch_offset`` shifts the epoch numbers in log lines and in
-        ``metrics_sink(absolute_epoch, "train", means)``; callbacks receive
+        ``metrics_sink(absolute_epoch, split, metrics)``; callbacks receive
         the 0-based loop epoch. Under ``grad_accum > 1`` the chunks count
         microbatches and carry across epoch boundaries, and a partial chunk
         left at the end is applied as one last, smaller update.
 
-        The per-epoch validation pass is not ported yet: ``eval_iter`` with
-        ``eval_every > 0`` raises ``NotImplementedError``.
+        The iterator owns decode-ahead and the copy to the device
+        (``DeviceAugIterator`` does both); host arrays are copied at the step.
+        With ``eval_iter``, a validation pass (``evaluate_model``) runs after
+        the epoch callback whenever ``(absolute epoch + 1) % eval_every ==
+        0``, on one float32 ``Detector`` (NMS 0.5, as the JAX one) built at
+        the first pass and refreshed with the state's weights before each;
+        it logs ``epoch {ep} validation: …`` and sends the finite numbers to
+        ``metrics_sink(ep, "val", …)``. ``data_shape`` is the detector's
+        input shape.
         """
-        del data_shape
-        if eval_iter is not None and eval_every > 0:
-            raise NotImplementedError(
-                "fit(eval_iter=...) needs the evaluation loop, which is not ported "
-                "yet: ROADMAP Queue A item 14 (Eval loop)")
+        if eval_iter is not None and data_shape is None and self._val_detector is None:
+            raise ValueError("fit(eval_iter=...) needs data_shape")  # before an epoch is spent
         accum = self.grad_accum
         acc = None
         micro_n = 0
@@ -347,6 +354,24 @@ class MultiTaskSolver:
                     metrics_sink(ep, "train", means)
             if epoch_end_callback is not None:
                 epoch_end_callback(epoch, state)
+            if eval_iter is not None and eval_every > 0 and (ep + 1) % eval_every == 0:
+                self._validate(state, eval_iter, data_shape, ep, log_fn, metrics_sink)
         if acc is not None:
             state = self._apply_accumulated(state, acc)
         return state
+
+    def _validate(self, state: TrainState, eval_iter, data_shape, ep: int, log_fn, metrics_sink):
+        """The per-epoch validation pass (reference multi_solver.py:355-517)."""
+        from dspnet_torch.evaluate.loop import evaluate_model
+
+        if self._val_detector is None:
+            self._val_detector = self.make_detector(state, data_shape)
+        else:
+            self._val_detector.update_weights(self.detector_variables(state))
+        results = evaluate_model(self._val_detector, eval_iter, log_fn=log_fn)
+        log_fn(f"epoch {ep} validation: " + ", ".join(
+            f"{k}={v:.4f}" for k, v in results.items()
+            if isinstance(v, float) and k in ("mAP", "mIoU", "accuracy", "derror")))
+        if metrics_sink is not None:
+            metrics_sink(ep, "val", {k: float(v) for k, v in results.items()
+                                     if isinstance(v, (int, float)) and np.isfinite(v)})

@@ -1,0 +1,123 @@
+"""The port's CLIs in-process on the CPU: train -> checkpoint -> resume ->
+evaluate on synthetic data (resnet-18_multi at 128x256, batch 2), the
+absolute-epoch checkpoint cadence, exit code 3 on divergence, and the flags
+the port refuses."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dspnet_torch.cli import multi_eval, multi_train
+from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+torch.set_num_threads(2)  # tier-1 runs six workers on eight cores
+
+NET = ["--network", "resnet-18_multi", "--data-shape", "3,128,256", "--num-classes", "8",
+       "--batch-size", "2", "--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    path = tmp_path_factory.mktemp("torch_cli")
+    cwd = os.getcwd()
+    os.chdir(path)  # the CLIs log under ./log
+    yield path
+    os.chdir(cwd)
+
+
+def _data(workdir, n=4):
+    return ["--synthetic", str(n), "--synthetic-dir", str(workdir / "synth")]
+
+
+def _epochs(model_dir):
+    return CheckpointManager(checkpoint_prefix(str(model_dir), "resnet-18_multi", 128)).epochs()
+
+
+def _rows(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_train_validate_checkpoint_resume_evaluate(workdir):
+    """2 epochs with a validation pass after each and a checkpoint each; a
+    resume from the latest starts at epoch 2 from its step and state; the
+    eval CLI scores the latest checkpoint as the training's last pass did."""
+    model = workdir / "model"
+    jsonl = str(workdir / "m.jsonl")
+    common = NET + _data(workdir) + ["--model-dir", str(model), "--seg-normalize", "valid",
+                                    "--metrics-jsonl", jsonl]
+    st = multi_train.main(common + ["--end-epoch", "2", "--eval-every", "1", "--log-every", "1"])
+    assert st.step == 4 and _epochs(model) == [0, 1]
+    rows = _rows(jsonl)
+    assert [(r["epoch"], r["split"]) for r in rows] == [(0, "train"), (0, "val"), (1, "train"), (1, "val")]
+    for r in rows[1::2]:
+        for k in ("mAP", "mIoU", "accuracy"):
+            assert np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0, (k, r[k])
+        assert r["ms_per_batch"] >= 0
+    saved = torch.load(CheckpointManager(checkpoint_prefix(str(model), "resnet-18_multi", 128)).path(1),
+                       weights_only=True)
+    assert saved["step"] == 4
+    for k, v in st.params.items():
+        assert torch.equal(saved["params"][k], v.detach()), k
+
+    st2 = multi_train.main(common + ["--end-epoch", "3", "--resume", "0", "--eval-every", "0"])
+    assert st2.step == 6 and _epochs(model) == [0, 1, 2]
+    assert [(r["epoch"], r["split"]) for r in _rows(jsonl)[4:]] == [(2, "train")]
+
+    res = multi_eval.main(NET + _data(workdir) + ["--model-dir", str(model), "--epoch", "1"])
+    for key in ("mAP", "mIoU", "accuracy", "derror", "ms_per_batch"):
+        assert key in res, key
+    last_val = rows[3]
+    # the training pass used NMS 0.5 and the eval CLI uses 0.45, so only the
+    # seg metrics, which NMS does not touch, must agree exactly
+    assert res["mIoU"] == last_val["mIoU"] and res["accuracy"] == last_val["accuracy"]
+    res2 = multi_eval.main(NET + _data(workdir) + ["--model-dir", str(model), "--random-init",
+                                                    "--dist-errors", str(workdir / "d.txt")])
+    assert np.isfinite(res2["accuracy"]) and os.path.exists(workdir / "d.txt")
+
+
+def test_checkpoint_cadence_on_the_absolute_epoch(workdir):
+    """--checkpoint-every 2 after a resume saves at absolute epochs 1 and 3
+    (the last), where an unbroken run also saves; gating on the epoch of the
+    run, as the JAX CLI does, would save at epoch 2 instead."""
+    model = workdir / "model_every"
+    common = NET + _data(workdir) + ["--model-dir", str(model), "--seg-normalize", "valid",
+                                    "--eval-every", "0"]
+    multi_train.main(common + ["--end-epoch", "1"])
+    assert _epochs(model) == [0]  # the last epoch is always saved
+    st = multi_train.main(common + ["--end-epoch", "4", "--resume", "0", "--checkpoint-every", "2"])
+    assert _epochs(model) == [0, 1, 3] and st.step == 8
+    # --resume 0 on an empty model dir starts fresh
+    multi_train.main(common + ["--end-epoch", "1", "--resume", "0", "--model-dir", str(workdir / "fresh")])
+    assert CheckpointManager(checkpoint_prefix(str(workdir / "fresh"), "resnet-18_multi", 128)).epochs() == [0]
+
+
+def test_divergence_exits_3(workdir):
+    with pytest.raises(SystemExit) as err:
+        multi_train.main(NET + _data(workdir) + ["--model-dir", str(workdir / "model_nan"), "--lr", "1e8",
+                                                 "--log-every", "1", "--end-epoch", "2", "--eval-every", "0"])
+    assert err.value.code == 3
+
+
+def test_refusals(workdir):
+    """JAX flags the port does not honour are argparse errors; a dataset root,
+    a label space wider than the head and a missing card fail loudly."""
+    for extra in (["--remat"], ["--loader", "python"], ["--target-backend", "pallas"], ["--monitor", "1"],
+                  ["--num-devices", "2"], ["--predownscale"]):
+        with pytest.raises(SystemExit) as err:
+            multi_train.parse_args(NET + extra)
+        assert err.value.code == 2, extra
+    for extra in (["--write-results", "out"], ["--instance-eval"], ["--seg-fast"]):
+        with pytest.raises(SystemExit):
+            multi_eval.parse_args(NET + extra)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        multi_train.main(NET + ["--dataset-root", str(workdir)])
+    with pytest.raises(ValueError, match="--num-classes"):
+        multi_train.main(NET + _data(workdir) + ["--num-classes", "2", "--model-dir", str(workdir / "m2")])
+    if not torch.cuda.is_available():
+        for cli in (multi_train, multi_eval):
+            with pytest.raises(SystemExit, match="no CUDA device"):
+                cli.main(["--network", "resnet-18_multi", "--data-shape", "3,128,256", "--synthetic", "2"])

@@ -416,23 +416,47 @@ def test_grad_accum_partial_tail_and_epochs(port_r18):
         s.train_step(st, batches[0])
 
 
-def test_fit_logs_and_rejects_eval(port_r18):
-    """Logging, the per-epoch means with the absolute epoch, the callbacks;
-    an eval pass is not ported and says so."""
+def test_fit_logs_and_rejects_eval(port_r18, tmp_path):
+    """Logging, the per-epoch means with the absolute epoch, the callbacks,
+    and the validation pass: an eval without ``data_shape`` is rejected
+    before any step; the pass runs when (absolute epoch + 1) % eval_every
+    == 0 (epoch 5 of 5..6 at eval_every 2), after the epoch callback, on one
+    float32 detector refreshed with the state's weights; it logs a
+    validation line and sends finite metrics to the sink as 'val'."""
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator
+    from dspnet_torch.data.synthetic import build_dataset
+
+    val = DeviceAugIterator(build_dataset(str(tmp_path), num_samples=3, hw=(H, W), seed=91), 2, (H, W),
+                            device="cpu", seed=233, enable_aug=False, shuffle=False, pad_last=True)
     rng = np.random.RandomState(9)
     s, st = _solver(port_r18, batch_size=2)
+    with pytest.raises(ValueError, match="needs data_shape"):
+        s.fit(st, [_tiny_batch(rng)], num_epochs=1, eval_iter=val, log_fn=lambda *_: None)
+    assert st.step == 0
     lines, rows, ends = [], [], []
-    st = s.fit(st, [_tiny_batch(rng), _tiny_batch(rng)], num_epochs=2, eval_iter=[], eval_every=0,
-               log_fn=lines.append, log_every=1, epoch_offset=5,
+    st = s.fit(st, [_tiny_batch(rng), _tiny_batch(rng)], num_epochs=2, eval_iter=val, eval_every=2,
+               data_shape=(H, W), log_fn=lines.append, log_every=1, epoch_offset=5,
                metrics_sink=lambda ep, split, m: rows.append((ep, split, m)),
                epoch_end_callback=lambda ep, state: ends.append((ep, state.step)))
     assert st.step == 4 and ends == [(0, 2), (1, 4)]
-    assert [r[:2] for r in rows] == [(5, "train"), (6, "train")]
+    assert [r[:2] for r in rows] == [(5, "train"), (5, "val"), (6, "train")]
     assert set(rows[0][2]) == {"cross_entropy", "smooth_l1", "valid_anchors", "seg_loss",
                                "seg_accuracy", "loss"}
     assert lines[0].startswith("epoch 5 batch 1: ") and any(x.startswith("epoch 6 done") for x in lines)
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        s.fit(st, [], eval_iter=[], eval_every=1)
+    val_rows = rows[1][2]
+    assert {"mAP", "mIoU", "accuracy", "ms_per_batch"} <= set(val_rows)
+    assert all(np.isfinite(v) for v in val_rows.values())
+    assert 0.0 <= val_rows["mIoU"] <= 1.0 and 0.0 <= val_rows["accuracy"] <= 1.0
+    assert sum(x.startswith("epoch 5 validation: mAP=") for x in lines) == 1
+    det = s._val_detector
+    assert det.dtype == torch.float32 and det.nms_thresh == 0.5
+    # the detector serves the weights of the state at the pass (after epoch 5's
+    # two steps), not the template's
+    w = "multibox.cls_pred_0.weight"
+    assert not torch.equal(det.model.state_dict()[w], port_r18.model.state_dict()[w])
+    s.fit(st, [_tiny_batch(rng)], num_epochs=1, eval_iter=val, eval_every=1, log_fn=lines.append)
+    assert s._val_detector is det  # one detector, refreshed
+    torch.testing.assert_close(det.model.state_dict()[w], st.params[w].detach(), rtol=0, atol=0)
 
 
 def test_training_diverged(port_r18):
