@@ -10,7 +10,13 @@ Phases (any failure ends the run with a non-zero exit):
      nvcc each, started together) and print their resource reports;
   3. NMS kernel vs plain: the CUDA keep mask against the plain PyTorch
      version on the card, bit for bit, over random, duplicate, IoU-boundary,
-     zero-area and all-invalid rows; then both timed with CUDA events;
+     near-threshold, zero-area and all-invalid rows, on both sides of the
+     shared-memory limit and at more images than SMs; then timed at K = 400,
+     B = 1 and 128: device us per call (torch.profiler, the kernels by
+     name), the wrapper's host us, back-to-back CUDA events, the bound from
+     the shapes; B = 1 also on one block per image (no cluster); each shape
+     also through the kernel before its redesign for Hopper
+     (baselines/nms_two_launch.cu, same inputs, same keep mask);
   4. serving: resnet-50_multi at 512x1024 (random weights from a seed),
      bf16 ``Detector.predict_raw`` at b1 and b8 with the NMS launch counter
      reset just before; output checks; the detection stage recomputed through
@@ -19,7 +25,12 @@ Phases (any failure ends the run with a non-zero exit):
   5. matcher kernel vs plain: the CUDA bipartite matcher against the plain
      rounds, bit for bit, on the 512x1024 anchors (A = 12,264, L = 200) and
      at A = 24,576, over random GTs, GTs equal to anchors, duplicated GTs,
-     IoUs on a 1/64 grid and invalid columns in the middle; both timed;
+     one GT repeated 200 times, crowded GTs (50 and 200 jittered around one
+     centre), IoUs on a 1/64 grid and invalid columns in the middle, with
+     the columns each image refilled from device memory; timed as phase 3
+     at B = 4 and 8 with 8 GTs, B = 8 with 200, and on the crowded cases
+     (one GT x200 at B = 1, 50 crowded GTs at B = 8), each beside the
+     baseline kernel (baselines/match_one_block.cu, same result);
   6. training: the resnet-50_multi 512x1024 bf16 ``MultiTaskSolver`` step
      (float32 masters, the JAX defaults) on the canonical batch at b4 and b8,
      device-resident, with the matcher launch counter reset just before the
@@ -42,7 +53,9 @@ Phases (any failure ends the run with a non-zero exit):
      ``evaluate_model``'s ms/batch loader-fed and on batches held on the
      card beside the detector's predict alone, checkpoint save and size,
      dataset write;
-  8. one JSON line of kernel results, then the result line, last.
+  8. one JSON line of kernel results (each kernel's device, host, event and
+     bound times at the main path's shapes, beside the baseline kernels'
+     times from this run), then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 """
 
@@ -90,6 +103,19 @@ def random_rows(rng, B, K):
     return boxes, np.where(valid, ids, -1.0).astype(np.float32), valid
 
 
+def near_threshold_rows(rng, B, K, thr):
+    """The unit box, then boxes [0, 0, w, h] with w * h within a few ulps of
+    ``thr``: their IoU with the unit box is w * h / ((1 + w * h) - w * h),
+    whose rounding decides ``iou >= thr``. One class, all valid."""
+    w = rng.uniform(thr, 1.0, (B, K)).astype(np.float32)
+    h = (np.float32(thr) / w).astype(np.float32)
+    h = np.nextafter(h, np.float32(2.0) * rng.randint(0, 2, (B, K))).astype(np.float32)  # +- 1 ulp
+    z = np.zeros_like(w)
+    boxes = np.stack([z, z, w, h], -1)
+    boxes[:, 0] = (0.0, 0.0, 1.0, 1.0)
+    return boxes, np.zeros((B, K), np.float32), np.ones((B, K), bool)
+
+
 def cuda_ms(fn, n):
     for _ in range(3):
         fn()
@@ -103,16 +129,131 @@ def cuda_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+# the CUDA kernels each wrapper launches, by (a part of) their names
+NMS_KERNELS = ("nms_mask_kernel", "nms_scan_kernel", "nms_image_kernel")
+MATCH_KERNELS = ("match_kernel", "match_topk_kernel", "match_greedy_kernel")
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s,
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# the two kernels as they stood before their redesign for Hopper, built and
+# timed beside the current ones on the same inputs (not on any path)
+BASELINE_SOURCES = (ROOT / "baselines" / "nms_two_launch.cu", ROOT / "baselines" / "match_one_block.cu")
+
+
+def baseline_kernels(dev):
+    """Bind the baseline kernels (``baselines/*.cu``) with ctypes, allocating
+    as their wrappers did: returns (nms(boxes, ids, valid, thr) -> keep,
+    match(iou, col_valid) -> (matched, match_gt, match_iou))."""
+    import ctypes
+
+    from dspnet_torch.ops import _build
+
+    nms_lib, match_lib = (_build.load_library(src) for src in BASELINE_SOURCES)
+    nms_lib.dspnet_nms_keep_mask.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    match_lib.dspnet_bipartite_match.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def nms(boxes, ids, valid, thr):
+        B, K = valid.shape
+        keep = torch.empty((B, K), dtype=torch.bool, device=dev)
+        mask = torch.empty((B, K, -(-K // 64)), dtype=torch.int64, device=dev)  # u64 bits
+        err = nms_lib.dspnet_nms_keep_mask(boxes.data_ptr(), ids.data_ptr(), valid.data_ptr(),
+                                           mask.data_ptr(), keep.data_ptr(), B, K, thr, 0,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(nms_lib, err, "baseline NMS kernel launch")
+        return keep
+
+    def match(iou, col_valid):
+        B, A, L = iou.shape
+        out = (torch.empty((B, A), dtype=torch.bool, device=dev),
+               torch.empty((B, A), dtype=torch.int32, device=dev),
+               torch.empty((B, A), dtype=torch.float32, device=dev))
+        err = match_lib.dspnet_bipartite_match(iou.data_ptr(), col_valid.data_ptr(),
+                                               *(t.data_ptr() for t in out), B, A, L,
+                                               torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(match_lib, err, "baseline matcher kernel launch")
+        return out
+
+    return nms, match
+
+
+def bound_us(nbytes, ops):
+    """The least time the card could take: (us, the limiting term)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e6, ops / F32_OPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_times(fn, names, n=200, n_prof=100):
+    """A wrapper's time per call, device and host apart:
+    device_us -- the summed device time of the kernels named ``names`` under
+      torch.profiler over ``n_prof`` calls after warm-up, per call (events
+      around single launches queued behind a sleep kernel, so the host is
+      ahead, where the profiler shows no device time);
+    host_us  -- the wrapper's host time per call, host clock over ``n`` calls
+      with no synchronize inside;
+    event_ms -- CUDA events around ``n`` back-to-back calls, per call (device
+      or host time, whichever is longer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    event_ms = cuda_ms(fn, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for evt in prof.events():
+        key = next((k for k in names if k in evt.name), None)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and key is not None:
+            us, c = seen.get(key, (0.0, 0))
+            seen[key] = (us + evt.device_time, c + 1)
+    device_us = sum(us for us, _ in seen.values()) / n_prof
+    how = "torch.profiler"
+    if device_us <= 0.0:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for _ in range(n_prof):
+            torch.cuda._sleep(200_000)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        device_us, how = total / n_prof * 1e3, "events around one launch behind a sleep"
+    per_kernel = ", ".join(f"{k} x{c / n_prof:g}: {us / n_prof:.3f} us" for k, (us, c) in seen.items())
+    return {"device_us": device_us, "host_us": host_us, "event_ms": event_ms, "how": how,
+            "per_kernel": per_kernel}
+
+
+def print_times(what, t, plain_ms, bound, label):
+    print(f"{what}: device {t['device_us']:.3f} us/call ({t['how']}; {t['per_kernel']}), host "
+          f"{t['host_us']:.3f} us/call (wrapper, no synchronize), events {t['event_ms']:.4f} ms/call "
+          f"(back to back), bound {bound[0]:.4f} us ({bound[1]}), plain {plain_ms:.4f} ms [{label}]",
+          flush=True)
+
+
+def with_baseline(t, t_old):
+    """A kernel's times with its baseline's beside them (same inputs, same run)."""
+    return dict(t, before_device_us=t_old["device_us"], before_host_us=t_old["host_us"],
+                before_event_ms=t_old["event_ms"])
+
+
 def corners(rng, *shape, lo=0.05, hi=0.3):
     cx, cy = rng.uniform(0.1, 0.9, (2, *shape))
     w, h = rng.uniform(lo, hi, (2, *shape))
     return np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).astype(np.float32)
 
 
-def matcher_phase(dev, anchors_np, label):
+def matcher_phase(dev, anchors_np, label, base_match):
     """Phase 5: the matcher kernel against the plain rounds, bit for bit, and
-    both timed. Returns (max abs difference over every case, {B: (kernel ms,
-    plain ms)})."""
+    both timed, with the baseline kernel ``base_match`` on the same inputs.
+    Returns (max abs difference over every case, {shape: times})."""
     from dspnet_torch.ops import matching_cuda
     from dspnet_torch.ops.boxes import iou_matrix
 
@@ -120,19 +261,30 @@ def matcher_phase(dev, anchors_np, label):
     anchors = torch.from_numpy(anchors_np).to(dev)
     errs = []
 
+    refilled = {}
+
     def compare(iou, col_valid, what):
         iou = iou.contiguous()
-        got = matching_cuda.bipartite_match(iou, col_valid)
+        refills = torch.zeros(iou.shape[0], dtype=torch.int32, device=dev)
+        got = matching_cuda.bipartite_match(iou, col_valid, refills=refills)
         want = matching_cuda.bipartite_match_reference(iou, col_valid)
         torch.cuda.synchronize()
         errs.append(max(float((got[1] - want[1]).abs().max()), float((got[2] - want[2]).abs().max()),
                         float((got[0].int() - want[0].int()).abs().max())))
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"matcher kernel != plain at {what}: {int((got[1] != want[1]).sum())} anchors differ")
+        refilled[what] = refills.tolist()
         return got
 
     def gts(B, L):
         return torch.from_numpy(corners(rng, B, L, lo=0.1, hi=0.4)).to(dev)
+
+    def crowded(B, L):
+        """GT boxes jittered around one centre per image: their columns share
+        their best anchors, so the columns' top-T lists run out."""
+        c = rng.uniform(0.35, 0.65, (B, 1, 2)) + rng.normal(0.0, 0.02, (B, L, 2))
+        wh = rng.uniform(0.15, 0.3, (B, L, 2))
+        return torch.from_numpy(np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)).to(dev)
 
     L = 200
     for B in (1, 8):
@@ -150,29 +302,56 @@ def matcher_phase(dev, anchors_np, label):
         col_valid = torch.from_numpy(rng.rand(B, L) > 0.2).to(dev)
         col_valid[:, 40:120] = False
         compare(iou, col_valid, f"B={B} invalid middle columns")
+        # crowded GTs: heavy overlap, the columns' lists run out
+        for n in (50, 200):
+            col_valid = torch.zeros(B, L, dtype=torch.bool, device=dev)
+            col_valid[:, :n] = True
+            compare(iou_matrix(anchors, crowded(B, L)), col_valid, f"B={B} {n} crowded GTs")
     # GTs equal to anchors, each one twice: IoU 1 ties between duplicate columns
     idx = torch.from_numpy(rng.randint(0, anchors.shape[0], (2, L // 2))).to(dev)
     boxes = anchors[idx].repeat(1, 2, 1)
     compare(iou_matrix(anchors, boxes), torch.ones(2, L, dtype=torch.bool, device=dev),
             "GTs equal to anchors, duplicated")
+    # one GT box 200 times over: every column's top-T list runs out
+    boxes = gts(1, 1).repeat(1, L, 1)
+    compare(iou_matrix(anchors, boxes), torch.ones(1, L, dtype=torch.bool, device=dev),
+            "one GT repeated 200 times")
     big = torch.from_numpy(corners(rng, 24576)).to(dev)
     for n in (9, 200):
         col_valid = torch.zeros(1, L, dtype=torch.bool, device=dev)
         col_valid[:, :n] = True
         compare(iou_matrix(big, gts(1, L)), col_valid, f"B=1 A=24576 num_gt={n}")
     print(f"matcher kernel vs plain: {len(errs)} cases equal bit for bit (torch.equal on matched, "
-          f"match_gt and match_iou), A = 12,264 and 24,576")
+          f"match_gt and match_iou), A = 12,264 and 24,576; plan at B=8 A=12264 L=200: "
+          f"{matching_cuda.launch_plan(8, 12264, L)}")
+    print("matcher columns refilled from device memory (their top-T list ran out), per image: "
+          + "; ".join(f"{k}: {v}" for k, v in refilled.items()))
 
+    # the train step's shapes (8 valid GTs of 200), every column valid, and
+    # the crowded cases where lists run out; each beside the baseline kernel
     times = {}
-    for B in (4, 8):
-        iou = iou_matrix(anchors, gts(B, L)).contiguous()
+    for what, B, boxes, n_gt, n in (("num_gt=8", 4, gts(4, L), 8, 100), ("num_gt=8", 8, gts(8, L), 8, 100),
+                                    ("num_gt=200", 8, gts(8, L), L, 100),
+                                    ("one GT x200", 1, gts(1, 1).repeat(1, L, 1), L, 20),
+                                    ("50 crowded GTs", 8, crowded(8, L), 50, 20)):
+        iou = iou_matrix(anchors, boxes).contiguous()
         col_valid = torch.zeros(B, L, dtype=torch.bool, device=dev)
-        col_valid[:, :8] = True
-        k_ms = cuda_ms(lambda: matching_cuda.bipartite_match(iou, col_valid), 100)
+        col_valid[:, :n_gt] = True
+        A = iou.shape[1]
+        key = f"B={B} A={A} {what}"
+        refills = torch.zeros(B, dtype=torch.int32, device=dev)
+        got = matching_cuda.bipartite_match(iou, col_valid, refills=refills)
+        check(all(torch.equal(g, o) for g, o in zip(got, base_match(iou, col_valid))),
+              f"matcher kernel != baseline kernel at {key}")
+        t = kernel_times(lambda: matching_cuda.bipartite_match(iou, col_valid), MATCH_KERNELS, n=n, n_prof=n)
+        t_old = kernel_times(lambda: base_match(iou, col_valid), MATCH_KERNELS, n=n, n_prof=n)
         p_ms = cuda_ms(lambda: matching_cuda.bipartite_match_reference(iou, col_valid), 10)
-        times[B] = (k_ms, p_ms)
-        print(f"bipartite_match B={B} A=12264 L=200 num_gt=8: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms (CUDA events) [{label}]", flush=True)
+        # the valid columns of iou read once, col_valid, the three outputs written once
+        bound = bound_us(B * A * n_gt * 4 + B * L + B * A * (1 + 4 + 4), 0)
+        times[key] = dict(with_baseline(t, t_old), plain_ms=p_ms, bound_us=bound[0], bound_by=bound[1],
+                          refills=refills.tolist())
+        print_times(f"bipartite_match {key} (refills per image {refills.tolist()})", t, p_ms, bound, label)
+        print_times(f"bipartite_match {key}, baseline kernel", t_old, p_ms, bound, label)
     return max(errs), times
 
 
@@ -274,9 +453,9 @@ def training_phase(dev, label):
     small = canonical_train_batch(2, 128, 256, seed=2)
     states, metrics = {}, {}
     for device in ("cpu", dev):
-        net = create_model("resnet-18_multi", (128, 256), num_classes=NUM_CLASSES,
+        net = create_model("resnet-18_multi", (128, 256), num_classes=NUM_CLASSES, device=device,
                            generator=torch.Generator().manual_seed(5))
-        solver = MultiTaskSolver(net.model.to(device), net.anchors, batch_size=2,
+        solver = MultiTaskSolver(net.model, net.anchors, batch_size=2,
                                  device=device, **dict(defaults, seg_normalize="valid"))
         init = {k: v.detach().cpu().clone() for k, v in solver.init_state().params.items()}
         st, m = solver.train_step(solver.init_state(), small)
@@ -554,8 +733,8 @@ def cli_phase(dev, label, resident_ips):
 
 
 KERNEL_KINDS = (  # first match wins, on the lower-cased kernel name
-    ("matcher", ("match_kernel",)),
-    ("nms", ("nms_mask_kernel", "nms_scan_kernel")),
+    ("matcher", MATCH_KERNELS),
+    ("nms", NMS_KERNELS),
     ("conv/gemm", ("conv", "gemm", "xmma", "cutlass", "cudnn", "winograd", "dgrad", "wgrad")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reduce (BN statistics, losses)", ("reduce_kernel",)),
@@ -623,7 +802,8 @@ def main():
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     label = card_label()
-    print(f"card: {kind} | nvidia-smi name, power.limit: {label}")
+    print(f"card: {kind} | nvidia-smi name, power.limit:")
+    print(label)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -632,13 +812,14 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    libs = _build.build_libraries(["nms", "match"])
+    libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", *BASELINE_SOURCES])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
     nms_cuda.load_library()
     matching_cuda.load_library()
+    base_nms, base_match = baseline_kernels(dev)
     sys.stdout.flush()
 
     # ---- 3. kernel vs plain, bit for bit
@@ -664,23 +845,43 @@ def main():
                 for thr in (0.45, 0.5):
                     for force in (False, True):
                         compare((bx, ids, valid), thr, force, f"B={B} K={K}")
-    # nms_topk <= 0 runs NMS over every anchor: K = A = 12,264, many staged chunks
+    # nms_topk <= 0 runs NMS over every anchor: K = A = 12,264, the device-memory mask
     rows = random_rows(rng, 1, 12264)
     for force in (False, True):
         compare(rows, 0.45, force, "B=1 K=12264")
+    # both sides of the shared-memory limit, and more images than SMs
+    for B, K in ((1, 1216), (1, 1217), (133, 400)):
+        compare(random_rows(rng, B, K), 0.45, False, f"B={B} K={K}")
+    # IoUs within a few ulps of the threshold: the IEEE division decides
+    for thr in (0.45, 0.5):
+        compare(near_threshold_rows(rng, 4, 64, thr), thr, False, "IoUs at the threshold")
     boxes, ids, valid = random_rows(rng, 1, 400)
     compare((boxes, ids, np.zeros_like(valid)), 0.5, False, "an all-invalid image")
     max_err = max(errs)
-    print(f"kernel vs plain: {len(errs)} cases equal bit for bit (torch.equal on keep masks)")
+    print(f"kernel vs plain: {len(errs)} cases equal bit for bit (torch.equal on keep masks), "
+          f"plans {nms_cuda.launch_plan(1, 400)} at B=1 K=400, {nms_cuda.launch_plan(1, 1217)} at K=1217")
 
     nms_times = {}
     for B in (1, 128):
-        args = [torch.from_numpy(a).to(dev) for a in random_rows(rng, B, 400)]
-        k_ms = cuda_ms(lambda: nms_cuda.nms_keep_mask(*args, 0.45), 200)
+        rows = random_rows(rng, B, 400)
+        args = [torch.from_numpy(a).to(dev) for a in rows]
+        check(torch.equal(nms_cuda.nms_keep_mask(*args, 0.45), base_nms(*args, 0.45)),
+              f"NMS kernel != baseline kernel at B={B} K=400")
+        t = kernel_times(lambda: nms_cuda.nms_keep_mask(*args, 0.45), NMS_KERNELS)
+        t_old = kernel_times(lambda: base_nms(*args, 0.45), NMS_KERNELS)
         p_ms = cuda_ms(lambda: nms_cuda.nms_keep_mask_reference(*args, 0.45), 20)
-        nms_times[B] = (k_ms, p_ms)
-        print(f"nms_keep_mask B={B} K=400: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(CUDA events) [{label}]", flush=True)
+        # boxes, ids, valid read once and keep written once; ~13 float32
+        # operations for each pair of valid rows (IoU, class test, compare)
+        v = rows[2].sum(axis=1).astype(np.int64)
+        bound = bound_us(B * 400 * (16 + 4 + 1 + 1), 13 * int((v * (v - 1) // 2).sum()))
+        nms_times[f"B={B} K=400"] = dict(with_baseline(t, t_old), plain_ms=p_ms, bound_us=bound[0],
+                                         bound_by=bound[1])
+        print_times(f"nms_keep_mask B={B} K=400", t, p_ms, bound, label)
+        print_times(f"nms_keep_mask B={B} K=400, baseline kernel", t_old, p_ms, bound, label)
+        if nms_cuda.launch_plan(B, 400).cluster > 1:  # the same call on one block per image
+            one = nms_cuda.launch_plan(B, 400)._replace(cluster=1)
+            t1 = kernel_times(lambda: nms_cuda._launch(*args, 0.45, False, plan=one), NMS_KERNELS)
+            print_times(f"nms_keep_mask B={B} K=400 one block per image (no cluster)", t1, p_ms, bound, label)
 
     # ---- 4. the slice: resnet-50_multi 512x1024, bf16
     gen = torch.Generator().manual_seed(0)
@@ -797,36 +998,36 @@ def main():
     del det, det512, batch, res, results, out, images
     torch.cuda.empty_cache()
 
-    match_err, match_times = matcher_phase(dev, bundle.anchors, label)
+    match_err, match_times = matcher_phase(dev, bundle.anchors, label, base_match)
     match_launches, train_ips = training_phase(dev, label)
     cli_launches = cli_phase(dev, label, train_ips[4])
 
     # ---- 8. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"]}}
-    k_ms, p_ms = nms_times[1]
-    mk_ms, mp_ms = match_times[8]
-    print(json.dumps({"kernels": [{
-        "name": "nms_keep_mask",
-        "route": "cuda",
-        "source": "dspnet_torch/csrc/nms.cu",
-        "replaces": "dspnet_tpu/ops/nms_pallas.py:30",
-        "launches": sum(by_path["nms_keep_mask"].values()),
-        "launches_by_path": by_path["nms_keep_mask"],
-        "max_abs_err": float(max_err),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "bipartite_match",
-        "route": "cuda",
-        "source": "dspnet_torch/csrc/match.cu",
-        "replaces": "dspnet_tpu/ops/matching_pallas.py:42",
-        "launches": sum(by_path["bipartite_match"].values()),
-        "launches_by_path": by_path["bipartite_match"],
-        "max_abs_err": float(match_err),
-        "ms": mk_ms,
-        "plain_ms": mp_ms,
-    }]}))
+
+    shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "before_device_us", "before_host_us",
+                  "before_event_ms", "refills")
+
+    def entry(name, source, replaces, path_launches, err, times, main):
+        t = times[main]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(path_launches.values()), "launches_by_path": path_launches,
+            "max_abs_err": float(err),
+            "ms": t["device_us"] / 1e3, "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"], "library_ms": None,
+            "at": main, **{k: t[k] for k in shape_keys if k in t},
+            "other_shapes": {s: {k: v[k] for k in shape_keys if k in v}
+                             for s, v in times.items() if s != main},
+        }
+
+    print(json.dumps({"kernels": [
+        entry("nms_keep_mask", "dspnet_torch/csrc/nms.cu", "dspnet_tpu/ops/nms_pallas.py:30",
+              by_path["nms_keep_mask"], max_err, nms_times, "B=1 K=400"),
+        entry("bipartite_match", "dspnet_torch/csrc/match.cu", "dspnet_tpu/ops/matching_pallas.py:42",
+              by_path["bipartite_match"], match_err, match_times, "B=8 A=12264 num_gt=8"),
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -74,10 +74,13 @@ def create_model(
     data_shape,
     num_classes: int = 8,
     seg_classes: int = 19,
-    device="cpu",
+    device="cuda",
     generator: Optional[torch.Generator] = None,
 ) -> ModelBundle:
     """Build an initialized model bundle on ``device``, in eval mode.
+
+    ``device`` is the card unless the caller asks for the CPU
+    (``device="cpu"``); without a card the default raises.
 
     Args:
       network: 'resnet-{18,50}_{multi,det,seg}' or 'resnet101_{...}'.

@@ -17,6 +17,8 @@ import numpy as np
 
 from dspnet_torch.data import image_io
 
+# GT rows per image, the matcher's GT columns: at most the 256 that
+# ops/matching_cuda.py's kernel takes (pinned by a CPU test)
 MAX_OBJECTS = 200
 LABEL_WIDTH = 6
 

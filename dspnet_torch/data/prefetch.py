@@ -37,9 +37,10 @@ def _place(item, device: torch.device, moved: List[torch.Tensor]):
     return item
 
 
-def prefetch_to_device(iterable, size: int = 2, device="cpu") -> Iterator:
+def prefetch_to_device(iterable, size: int = 2, device="cuda") -> Iterator:
     """Yield the items of ``iterable`` with their arrays on ``device``,
-    ``size`` items ahead. If the consumer abandons the generator, the
+    ``size`` items ahead; ``device`` is the card unless the caller asks
+    for ``"cpu"``. If the consumer abandons the generator, the
     producer thread is released instead of blocking on the full queue; an
     exception in the producer is raised in the consumer."""
     device = torch.device(device)

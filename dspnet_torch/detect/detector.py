@@ -42,15 +42,16 @@ class Detector:
         model: torch.nn.Module,
         anchors: Optional[np.ndarray],
         data_shape: Tuple[int, int],
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype = torch.float32,
         nms_thresh: float = 0.5,
         force_suppress: bool = False,
         nms_topk: int = 400,
         score_threshold: float = 0.01,
     ):
-        """Serves a copy of ``model`` cast to ``dtype`` on ``device``;
-        ``model`` itself is left as it was."""
+        """Serves a copy of ``model`` cast to ``dtype`` on ``device`` (the
+        card unless the caller asks for ``"cpu"``); ``model`` itself is left
+        as it was."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = torch.device(device)

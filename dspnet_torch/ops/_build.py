@@ -1,9 +1,10 @@
-"""Compiles every kernel source under ``csrc/`` with nvcc, one library each.
+"""Compiles kernel sources (``csrc/*.cu``) with nvcc, one library each, and
+holds the card's limits that the wrappers' launch plans use.
 
-``csrc/<name>.cu`` is compiled for sm_90a into a shared library with a plain
-C interface, ``build/libdspnet_<name>_<hash>.so`` at the repository root,
-where the hash covers the source and the flags, so an edited source builds
-anew and an unchanged one is reused. The compiler's resource report
+A source ``<name>.cu`` is compiled for sm_90a into a shared library with a
+plain C interface, ``build/libdspnet_<name>_<hash>.so`` at the repository
+root, where the hash covers the source and the flags, so an edited source
+builds anew and an unchanged one is reused. The compiler's resource report
 (``-Xptxas -v``: registers, shared memory, spills per kernel) lands beside
 the library as ``.log``. Wrappers load a library with ``load_library`` and
 bind its functions with ctypes; every library exports
@@ -26,6 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: shared memory one block may use on Hopper (227 KB, dynamic and static)
+MAX_SHARED_BYTES = 232448
+#: streaming multiprocessors of an H100 SXM
+H100_SMS = 132
+
 
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -38,33 +44,32 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, for its current content."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libdspnet_{name}_{digest}.so"
+def library_path(source: Path) -> Path:
+    """Where the kernel source ``source`` builds to, for its current content."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libdspnet_{source.stem}_{digest}.so"
 
 
-def build_libraries(names: Iterable[str]) -> List[Path]:
-    """Compile every named source that has no library yet, one nvcc process
-    each, all started together; return the libraries' paths in order."""
-    names = list(names)
-    libs = [library_path(n) for n in names]
+def build_libraries(sources: Iterable[Path]) -> List[Path]:
+    """Compile every source that has no library yet, one nvcc process each,
+    all started together; return the libraries' paths in order."""
+    sources = list(sources)
+    libs = [library_path(s) for s in sources]
     jobs = []
-    for name, lib in zip(names, libs):
+    for source, lib in zip(sources, libs):
         if lib.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, lib, tmp, proc))
+        jobs.append((source, lib, tmp, proc))
     failed = []
-    for name, lib, tmp, proc in jobs:
+    for source, lib, tmp, proc in jobs:
         out, _ = proc.communicate()
         lib.with_suffix(".log").write_text(out)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on csrc/{name}.cu:\n{out}")
+            failed.append(f"nvcc failed on {source}:\n{out}")
         else:
             os.replace(tmp, lib)
     if failed:
@@ -73,9 +78,9 @@ def build_libraries(names: Iterable[str]) -> List[Path]:
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` at first use and load it."""
-    lib = ctypes.CDLL(str(build_libraries([name])[0]))
+def load_library(source: Path) -> ctypes.CDLL:
+    """Build the kernel source ``source`` at first use and load it."""
+    lib = ctypes.CDLL(str(build_libraries([source])[0]))
     lib.dspnet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dspnet_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -3,9 +3,11 @@
 ``bipartite_match`` replaces the TPU kernel
 ``dspnet_tpu/ops/matching_pallas.py::_match_kernel`` (wrapper
 ``bipartite_match_pallas``): phase 1 of MultiBoxTarget. For a CUDA tensor it
-launches the hand-written kernel in ``csrc/match.cu`` (one block per image, a
-per-column best-pair cache in shared memory; the source note there says what
-bounds it on the card). For a CPU tensor it runs
+launches the hand-written kernels in ``csrc/match.cu`` (a first pass over
+the whole card that keeps each column's top-T keys per anchor chunk, then
+one block per image that merges them and runs the greedy in one warp,
+rescanning a column from device memory only when its list runs out; the
+source note there says what bounds it on the card). For a CPU tensor it runs
 ``bipartite_match_reference``, the plain PyTorch version. Any other device
 raises. There is no fallback between the two.
 
@@ -18,30 +20,72 @@ anchor and its GT column. Invalid columns never match.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from dspnet_torch.ops import _build
 
-#: kernel launches made by ``bipartite_match``; a caller may reset it to 0
+#: calls of ``bipartite_match`` that launched the kernels (two CUDA launches
+#: each); a caller may reset it to 0
 launches = 0
 
-#: shared memory one block may use on Hopper (232,448 bytes)
-_MAX_SHARED_BYTES = 227 * 1024
+#: keys per column list and threads per block, csrc/match.cu's compile-time
+#: kT and kThreads; the plan below owns every size derived from them
+LIST_KEYS = 8
+_THREADS = 512
+#: the packed key's column and anchor fields (csrc/match.cu)
+MAX_COLUMNS = 256
+_MAX_ANCHORS = 1 << 24
+
+
+class LaunchPlan(NamedTuple):
+    chunks: int              # S: anchor chunks per image in the first pass
+    list_keys: int           # T: keys kept per column and chunk
+    scratch_bytes: int       # the (B, S, L, T) u64 chunk lists
+    topk_shared_bytes: int   # first pass, per block
+    greedy_shared_bytes: int  # second pass (lists, merge buffer, retired bitset, matches), per block
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(B: int, A: int, L: int) -> LaunchPlan:
+    """How ``csrc/match.cu`` runs B images of an (A, L) IoU matrix, a pure
+    function of its arguments and the one owner of its sizes (the kernels
+    carve their shared memory as the comments below lay it out and check
+    nothing): S anchor chunks per image so that the first pass has two
+    blocks for each SM of an H100 (S * B >= 2 * 132), with no chunk under 64
+    rows. Raises for shapes the kernels do not take."""
+    if L > MAX_COLUMNS or A >= _MAX_ANCHORS:
+        raise ValueError(f"the matcher kernel takes L <= {MAX_COLUMNS} and A < {_MAX_ANCHORS}, "
+                         f"got A={A}, L={L}")
+    S = max(1, min(-(-2 * _build.H100_SMS // max(B, 1)), A // 64))
+    # first pass: the merge buffer (threads x T u64), the valid columns (L int)
+    topk = _THREADS * LIST_KEYS * 8 + L * 4
+    # second pass: the column lists (L x T u64), the merge buffer, the retired
+    # bitset (ceil(A / 32) u32), then six int/float arrays of L
+    greedy = (L + _THREADS) * LIST_KEYS * 8 + -(-A // 32) * 4 + 6 * L * 4
+    if greedy > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"A={A}, L={L} needs {greedy} bytes of shared memory per block, "
+                         f"more than the {_build.MAX_SHARED_BYTES} a block may use")
+    return LaunchPlan(S, LIST_KEYS, B * S * L * LIST_KEYS * 8, topk, greedy)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build ``csrc/match.cu`` (at first use, ``ops/_build.py``) and bind it."""
-    lib = _build.load_library("match")
+    lib = _build.load_library(_build.CSRC / "match.cu")
     fn = lib.dspnet_bipartite_match
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.dspnet_match_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.dspnet_match_shared_bytes.restype = ctypes.c_size_t
+    lib.dspnet_match_configure.argtypes = [ctypes.c_int]
+    lib.dspnet_match_configure.restype = ctypes.c_int
     return lib
+
+
+_configured = set()  # devices whose kernels may use _build.MAX_SHARED_BYTES
 
 
 def _check_shapes(iou, col_valid):
@@ -54,7 +98,7 @@ def _check_shapes(iou, col_valid):
         raise ValueError(f"inputs on different devices: {iou.device}, {col_valid.device}")
 
 
-def _launch(iou, col_valid):
+def _launch(iou, col_valid, refills=None):
     global launches
     for name, t, dtype in (("iou", iou, torch.float32), ("col_valid", col_valid, torch.bool)):
         if t.dtype != dtype:
@@ -62,20 +106,29 @@ def _launch(iou, col_valid):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, A, L = iou.shape
-    lib = load_library()
-    smem = lib.dspnet_match_shared_bytes(A, L)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"A={A}, L={L} needs {smem} bytes of shared memory per block, "
-                         f"more than the {_MAX_SHARED_BYTES} a block may use")
-    matched = torch.empty((B, A), dtype=torch.bool, device=iou.device)
-    match_gt = torch.empty((B, A), dtype=torch.int32, device=iou.device)
-    match_iou = torch.empty((B, A), dtype=torch.float32, device=iou.device)
+    dev = iou.device
+    if refills is not None and (refills.device != dev or refills.dtype != torch.int32
+                                or tuple(refills.shape) != (B,)):
+        raise ValueError(f"refills must be a ({B},) int32 tensor on {dev}")
+    plan = launch_plan(B, A, L)
+    matched = torch.empty((B, A), dtype=torch.bool, device=dev)
+    match_gt = torch.empty((B, A), dtype=torch.int32, device=dev)
+    match_iou = torch.empty((B, A), dtype=torch.float32, device=dev)
     if B == 0 or A == 0:
         return matched, match_gt, match_iou
-    with torch.cuda.device(iou.device):
+    scratch = torch.empty(max(plan.scratch_bytes // 8, 1), dtype=torch.int64, device=dev)  # u64 keys
+    lib = load_library()
+    # enter the tensors' device only when it is not the current one
+    other = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if other else contextlib.nullcontext():
+        if dev.index not in _configured:
+            _build.check(lib, lib.dspnet_match_configure(_build.MAX_SHARED_BYTES), "matcher configure")
+            _configured.add(dev.index)
         err = lib.dspnet_bipartite_match(
             iou.data_ptr(), col_valid.data_ptr(), matched.data_ptr(), match_gt.data_ptr(),
-            match_iou.data_ptr(), B, A, L, torch.cuda.current_stream(iou.device).cuda_stream)
+            match_iou.data_ptr(), scratch.data_ptr(), None if refills is None else refills.data_ptr(),
+            B, A, L, plan.chunks, plan.topk_shared_bytes, plan.greedy_shared_bytes,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "bipartite match kernel launch")
     launches += 1
     return matched, match_gt, match_iou
@@ -133,16 +186,20 @@ def bipartite_match_reference(iou, col_valid):
         gt_matched |= accepted
 
 
-def bipartite_match(iou, col_valid):
+def bipartite_match(iou, col_valid, refills=None):
     """Batched greedy matching. iou (B, A, L) f32, col_valid (B, L) bool ->
     (matched (B, A) bool, match_gt (B, A) int32, match_iou (B, A) f32).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version; any other device raises.
+    version; any other device raises. ``refills``, a (B,) int32 CUDA tensor,
+    receives the number of columns each image rescanned from device memory
+    (a diagnostic of the kernel; the plain version has none).
     """
     _check_shapes(iou, col_valid)
     if iou.device.type == "cuda":
-        return _launch(iou, col_valid)
+        return _launch(iou, col_valid, refills)
+    if refills is not None:
+        raise ValueError("refills counts the CUDA kernel's rescans; the plain version has none")
     if iou.device.type == "cpu":
         return bipartite_match_reference(iou, col_valid)
     raise ValueError(f"bipartite_match runs on cuda or cpu tensors, got {iou.device}")

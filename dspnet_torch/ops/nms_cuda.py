@@ -3,10 +3,11 @@
 ``nms_keep_mask`` replaces the TPU kernel
 ``dspnet_tpu/ops/nms_pallas.py::_nms_kernel`` (wrapper ``nms_keep_mask``).
 For a CUDA tensor it launches the hand-written kernel in ``csrc/nms.cu``
-(bitmask build, then one sequential greedy scan per image; the source note
-there says what bounds it on the card and what its design does about it).
-For a CPU tensor it runs ``nms_keep_mask_reference``, the plain PyTorch
-version. Any other device raises. There is no fallback between the two.
+(the suppression bitmask in shared memory, built by a thread block cluster
+per image, then a tile-by-tile greedy scan; the source note there says what
+bounds it on the card and what its design does about it). For a CPU tensor it
+runs ``nms_keep_mask_reference``, the plain PyTorch version. Any other
+device raises. There is no fallback between the two.
 
 The kernel is compiled with ``nvcc`` for sm_90a at first use, into
 ``build/`` at the repository root (``ops/_build.py``), and loaded with
@@ -15,27 +16,71 @@ ctypes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from dspnet_torch.ops import _build
 from dspnet_torch.ops.boxes import iou_matrix
 
-#: kernel launches made by ``nms_keep_mask``; a caller may reset it to 0
+#: calls of ``nms_keep_mask`` that launched the kernel (one or two CUDA
+#: launches each); a caller may reset it to 0
 launches = 0
+
+_TILE = 64  # rows per mask word (csrc/nms.cu kTile)
+_MAX_CLUSTER = 16  # the largest thread block cluster Hopper schedules (8 is portable)
+
+
+class LaunchPlan(NamedTuple):
+    shared_path: bool  # True: mask in shared memory, one launch
+    cluster: int       # blocks per image on the shared path (a thread block cluster)
+    shared_bytes: int  # dynamic shared memory per block
+    mask_bytes: int    # device-memory mask scratch (0 on the shared path)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(B: int, K: int) -> LaunchPlan:
+    """How ``csrc/nms.cu`` runs B images of K rows, a pure function of its
+    arguments and the one owner of its sizes (the kernels carve their shared
+    memory as the comments below lay it out and check nothing). The
+    K x ceil(K/64) u64 mask lives in shared memory while it fits a block
+    (with the boxes, their areas and class keys, and each row's suppressors
+    inside its tile: K up to 1,216); then a cluster of up to 16 blocks builds
+    it while the images leave SMs idle (132 // B on an H100). Above that the
+    mask goes to a (B, K, T) device scratch and one block per image scans it
+    a 64-row tile at a time.
+    """
+    T = -(-K // _TILE)
+    # boxes (float4), (area, class key) (float2), the mask (K x T u64), each
+    # row's suppressors inside its tile (K u64), then validw, removed, keepw
+    # (T u64 each)
+    image = K * (16 + 8 + 8) + (K * T + 3 * T) * 8
+    if image <= _build.MAX_SHARED_BYTES:
+        return LaunchPlan(True, max(1, min(_MAX_CLUSTER, _build.H100_SMS // max(B, 1))), image, 0)
+    scan = (_TILE * T + 3 * T) * 8  # one 64-row tile of the mask, then validw, removed, keepw
+    if scan > _build.MAX_SHARED_BYTES:
+        raise ValueError(f"K={K}: a 64-row tile of the mask needs {scan} bytes of shared memory, "
+                         f"more than the {_build.MAX_SHARED_BYTES} a block may use")
+    return LaunchPlan(False, 1, scan, B * K * T * 8)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build ``csrc/nms.cu`` (at first use, ``ops/_build.py``) and bind it."""
-    lib = _build.load_library("nms")
+    lib = _build.load_library(_build.CSRC / "nms.cu")
     fn = lib.dspnet_nms_keep_mask
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.dspnet_nms_configure.argtypes = [ctypes.c_int]
+    lib.dspnet_nms_configure.restype = ctypes.c_int
     return lib
+
+
+_configured = set()  # devices whose kernels may use _build.MAX_SHARED_BYTES
 
 
 def _check_shapes(boxes, ids, valid):
@@ -49,7 +94,7 @@ def _check_shapes(boxes, ids, valid):
         raise ValueError(f"inputs on different devices: {boxes.device}, {ids.device}, {valid.device}")
 
 
-def _launch(boxes, ids, valid, nms_threshold, force_suppress):
+def _launch(boxes, ids, valid, nms_threshold, force_suppress, plan=None):
     global launches
     for name, t, dtype in (("boxes", boxes, torch.float32), ("ids", ids, torch.float32),
                            ("valid", valid, torch.bool)):
@@ -60,17 +105,25 @@ def _launch(boxes, ids, valid, nms_threshold, force_suppress):
     if boxes.data_ptr() % 16:
         raise ValueError("boxes must be 16-byte aligned (the kernel loads float4 rows)")
     B, K = valid.shape
-    keep = torch.empty((B, K), dtype=torch.bool, device=boxes.device)
+    dev = boxes.device
+    keep = torch.empty((B, K), dtype=torch.bool, device=dev)
     if B == 0 or K == 0:
         return keep
-    words = (K + 63) // 64
-    mask = torch.empty((B, K, words), dtype=torch.int64, device=boxes.device)  # uint64 bits
+    plan = plan or launch_plan(B, K)
     lib = load_library()
-    with torch.cuda.device(boxes.device):
+    mask = (torch.empty(plan.mask_bytes // 8, dtype=torch.int64, device=dev)  # u64 bits
+            if plan.mask_bytes else None)
+    # enter the tensors' device only when it is not the current one
+    other = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if other else contextlib.nullcontext():
+        if dev.index not in _configured:
+            _build.check(lib, lib.dspnet_nms_configure(_build.MAX_SHARED_BYTES), "NMS kernel configure")
+            _configured.add(dev.index)
         err = lib.dspnet_nms_keep_mask(
-            boxes.data_ptr(), ids.data_ptr(), valid.data_ptr(), mask.data_ptr(), keep.data_ptr(),
-            B, K, float(nms_threshold), int(bool(force_suppress)),
-            torch.cuda.current_stream(boxes.device).cuda_stream)
+            boxes.data_ptr(), ids.data_ptr(), valid.data_ptr(),
+            None if mask is None else mask.data_ptr(), keep.data_ptr(),
+            B, K, float(nms_threshold), int(bool(force_suppress)), int(plan.shared_path),
+            plan.cluster, plan.shared_bytes, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "NMS kernel launch")
     launches += 1
     return keep

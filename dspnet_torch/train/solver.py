@@ -102,7 +102,8 @@ class MultiTaskSolver:
         kernel for a CUDA batch, the plain rounds on the CPU), 'kernel' or
         'plain'.
       grad_accum: microbatches summed before one update (``fit`` only).
-      device: where the state and the batches live.
+      device: where the state and the batches live: the card unless the
+        caller asks for ``"cpu"``.
     """
 
     def __init__(
@@ -122,7 +123,7 @@ class MultiTaskSolver:
         compute_dtype="float32",
         target_backend: str = "auto",
         grad_accum: int = 1,
-        device="cpu",
+        device="cuda",
     ):
         self.model = model
         self.device = torch.device(device)

@@ -147,7 +147,7 @@ def test_state_from_flax_reads_a_jax_checkpoint(tmp_path):
 
     state = state_from_flax(tree)
     assert state.step == 17
-    port = create_model("resnet-18_multi", (H, W))
+    port = create_model("resnet-18_multi", (H, W), device="cpu")
     names = {n for n, _ in port.model.named_parameters()}
     assert set(state.params) == names == set(state.momentum)
     assert set(state.buffers) == {n for n, _ in port.model.named_buffers()}
@@ -164,9 +164,9 @@ def test_state_from_flax_reads_a_jax_checkpoint(tmp_path):
     assert all(v.dtype == torch.float32 and v.requires_grad for v in state.params.values())
 
     # the converted state serves in the port as the JAX variables do
-    solver = MultiTaskSolver(port.model, port.anchors)
+    solver = MultiTaskSolver(port.model, port.anchors, device="cpu")
     det = solver.make_detector(state, (H, W))
-    ref = load_flax_variables(create_model("resnet-18_multi", (H, W)).model, variables).eval()
+    ref = load_flax_variables(create_model("resnet-18_multi", (H, W), device="cpu").model, variables).eval()
     images = torch.from_numpy(np.random.RandomState(0).normal(0, 50, (1, H, W, 3)).astype(np.float32))
     with torch.no_grad():
         want_out = ref(images)

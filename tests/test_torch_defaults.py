@@ -1,0 +1,80 @@
+"""The port's entry points run on the card unless the caller asks for the CPU.
+
+``create_model``, ``Detector``, ``MultiTaskSolver`` and ``prefetch_to_device``
+default to ``device="cuda"``. Without a card a default call raises torch's
+own error; it never runs on the CPU silently. Whether a card is present is
+decided inside the test, never at import.
+"""
+
+from __future__ import annotations
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from dspnet_torch.api import create_model
+from dspnet_torch.data.prefetch import prefetch_to_device
+from dspnet_torch.detect.detector import Detector
+from dspnet_torch.train.solver import MultiTaskSolver
+
+torch.set_num_threads(2)
+
+H, W = 64, 128
+
+
+def _bundle():
+    return create_model("resnet-18_multi", (H, W), device="cpu")
+
+
+def _create_model():
+    return next(create_model("resnet-18_multi", (H, W)).model.parameters()).device
+
+
+def _detector():
+    bundle = _bundle()
+    return Detector(bundle.model, bundle.anchors, (H, W)).anchors.device
+
+
+def _solver():
+    bundle = _bundle()
+    return MultiTaskSolver(bundle.model, bundle.anchors).anchors.device
+
+
+def _prefetch():
+    return next(prefetch_to_device(iter([np.zeros(2, np.float32)]))).device
+
+
+ENTRY_POINTS = {
+    "create_model": (create_model, _create_model),
+    "Detector": (Detector.__init__, _detector),
+    "MultiTaskSolver": (MultiTaskSolver.__init__, _solver),
+    "prefetch_to_device": (prefetch_to_device, _prefetch),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_is_cuda(name):
+    fn, _ = ENTRY_POINTS[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_call_runs_on_the_card_or_raises(name):
+    _, call = ENTRY_POINTS[name]
+    if torch.cuda.is_available():
+        assert call().type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
+def test_cpu_on_request():
+    """Asked for the CPU, every entry point stays there."""
+    bundle = _bundle()
+    assert next(bundle.model.parameters()).device.type == "cpu"
+    assert Detector(bundle.model, bundle.anchors, (H, W), device="cpu").anchors.device.type == "cpu"
+    assert MultiTaskSolver(bundle.model, bundle.anchors, device="cpu").anchors.device.type == "cpu"
+    out = next(prefetch_to_device(iter([np.zeros(2, np.float32)]), device="cpu"))
+    assert out.device.type == "cpu"

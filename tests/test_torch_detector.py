@@ -32,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def slice_pair():
     bundle = jax_create_model("resnet-50_multi", (H, W))
     variables = random_flax_variables(bundle.model, (1, H, W, 3), seed=11, train=False)
-    port = create_model("resnet-50_multi", (H, W))
+    port = create_model("resnet-50_multi", (H, W), device="cpu")
     load_flax_variables(port.model, variables)
     frames = np.random.RandomState(5).randint(0, 256, (2, H, W, 3), np.uint8)
     return bundle, variables, port, frames
@@ -74,7 +74,7 @@ def test_detection_on_jax_heads_matches_jax(slice_pair):
 
 def test_predict_raw_rejects_float_frames(slice_pair):
     _, _, port, frames = slice_pair
-    pdet = Detector(port.model, port.anchors, (H, W))
+    pdet = Detector(port.model, port.anchors, (H, W), device="cpu")
     with pytest.raises(ValueError, match="uint8"):
         pdet.predict_raw(frames.astype(np.float32))
 
@@ -112,7 +112,7 @@ def test_detector_leaves_its_module_alone(slice_pair):
     model = port.model.train()
     before = {k: v.clone() for k, v in model.state_dict().items()}
     try:
-        det = Detector(model, port.anchors, (H, W), dtype=torch.bfloat16)
+        det = Detector(model, port.anchors, (H, W), device="cpu", dtype=torch.bfloat16)
         det.predict_raw(frames[:1])
         assert model.training
         for k, v in model.state_dict().items():
@@ -132,7 +132,7 @@ def test_make_detector_update_weights_matches_a_fresh_detector(slice_pair):
 
     _, variables, port, frames = slice_pair
     solver = MultiTaskSolver(port.model, port.anchors, learning_rate=1e-3, batch_size=2,
-                             seg_normalize="valid")
+                             seg_normalize="valid", device="cpu")
     state = solver.init_state()
     det = solver.make_detector(state, (H, W))
     labels = np.full((2, 8, 6), -1.0, np.float32)
@@ -142,10 +142,10 @@ def test_make_detector_update_weights_matches_a_fresh_detector(slice_pair):
              "seg_label": np.random.RandomState(2).randint(0, 19, (2, H // 4, W // 4)).astype(np.int32)}
     state, _ = solver.train_step(state, batch)
     det.update_weights(solver.detector_variables(state))
-    fresh_model = create_model("resnet-50_multi", (H, W)).model
+    fresh_model = create_model("resnet-50_multi", (H, W), device="cpu").model
     fresh_model.load_state_dict(solver.detector_variables(state))
-    fresh = Detector(fresh_model, port.anchors, (H, W))
+    fresh = Detector(fresh_model, port.anchors, (H, W), device="cpu")
     got, want = det.predict_raw(frames), fresh.predict_raw(frames)
     assert torch.equal(got["det"], want["det"]) and torch.equal(got["seg"], want["seg"])
-    stale = Detector(port.model, port.anchors, (H, W)).predict_raw(frames)
+    stale = Detector(port.model, port.anchors, (H, W), device="cpu").predict_raw(frames)
     assert not torch.equal(stale["det"], got["det"])

@@ -66,6 +66,45 @@ def test_cuda_matcher_matches_plain_on_ties(cuda_device, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("num_gt", [matching_cuda.LIST_KEYS + 1, 50, 200])
+def test_cuda_matcher_refills_exhausted_columns(cuda_device, num_gt):
+    """More GTs than list keys, all on one box, plus near copies: every
+    column's top-T anchors retire before it is matched, so the kernel
+    rescans columns from device memory (refills > 0) and still equals the
+    plain rounds."""
+    rng = np.random.RandomState(num_gt)
+    anchors = torch.from_numpy(_corners(rng, 1, 12264)).to(cuda_device)
+    box = _corners(rng, 1, 1, lo=0.2, hi=0.3)
+    gts = np.repeat(box, num_gt, axis=1) + rng.uniform(0, 1e-3, (1, num_gt, 4)).astype(np.float32) * (
+        rng.rand(1, num_gt, 1) < 0.5)
+    col_valid = torch.zeros(1, 200, dtype=torch.bool, device=cuda_device)
+    col_valid[:, :num_gt] = True
+    full = np.zeros((1, 200, 4), np.float32)
+    full[:, :num_gt] = gts
+    iou = iou_matrix(anchors, torch.from_numpy(full).to(cuda_device)).contiguous()
+    refills = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = matching_cuda.bipartite_match(iou, col_valid, refills=refills)
+    want = matching_cuda.bipartite_match_reference(iou, col_valid)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("matched", "match_gt", "match_iou")):
+        assert torch.equal(g, w), name
+    assert int(refills[0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [1000, 12263])
+def test_cuda_matcher_unequal_chunks(cuda_device, A):
+    """B = 1 with S > 1 anchor chunks of unequal length (A not a multiple of S)."""
+    S = matching_cuda.launch_plan(1, A, 200).chunks
+    assert S > 1 and A % S
+    rng = np.random.RandomState(A)
+    anchors = torch.from_numpy(_corners(rng, 1, A)).to(cuda_device)
+    gts = torch.from_numpy(_corners(rng, 1, 200, lo=0.1, hi=0.4)).to(cuda_device)
+    col_valid = torch.from_numpy(rng.rand(1, 200) > 0.5).to(cuda_device)
+    _check(iou_matrix(anchors, gts).contiguous(), col_valid)
+
+
+@pytest.mark.cuda
 def test_cuda_matcher_rejects_what_it_cannot_take(cuda_device):
     iou = torch.rand(2, 30, 8, device=cuda_device)
     col_valid = torch.ones(2, 8, dtype=torch.bool, device=cuda_device)

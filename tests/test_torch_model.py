@@ -31,7 +31,7 @@ def test_forward_matches_jax(rng, network):
     images = rng.normal(0, 50, (2, H, W, 3)).astype(np.float32)
     want = jax.jit(lambda v, x: bundle.model.apply(v, x, train=False))(variables, jnp.asarray(images))
 
-    port = create_model(network, (H, W))
+    port = create_model(network, (H, W), device="cpu")
     load_flax_variables(port.model, variables)
     np.testing.assert_array_equal(port.anchors, bundle.anchors)
     with torch.inference_mode():
@@ -50,9 +50,9 @@ def test_forward_matches_jax(rng, network):
 def test_single_task_models_serve(task, keys):
     """The _det and _seg presets are the same module with one head; the
     detector returns only that head's result."""
-    bundle = create_model(f"resnet-18_{task}", (H, W))
+    bundle = create_model(f"resnet-18_{task}", (H, W), device="cpu")
     assert (bundle.anchors is None) == (task == "seg")
-    det = Detector(bundle.model, bundle.anchors, (H, W))
+    det = Detector(bundle.model, bundle.anchors, (H, W), device="cpu")
     res = det.predict_raw(np.zeros((1, H, W, 3), np.uint8))
     assert set(res) == keys
     has_seg = any(n.startswith("seg.") for n, _ in bundle.model.named_parameters())
@@ -60,8 +60,8 @@ def test_single_task_models_serve(task, keys):
 
 
 def test_create_model_seeded_init():
-    a = create_model("resnet-18_multi", (H, W), generator=torch.Generator().manual_seed(3))
-    b = create_model("resnet-18_multi", (H, W), generator=torch.Generator().manual_seed(3))
+    a = create_model("resnet-18_multi", (H, W), device="cpu", generator=torch.Generator().manual_seed(3))
+    b = create_model("resnet-18_multi", (H, W), device="cpu", generator=torch.Generator().manual_seed(3))
     sa, sb = a.model.state_dict(), b.model.state_dict()
     assert not a.model.training
     for k in sa:
@@ -88,9 +88,9 @@ def test_create_model_seeded_init():
 ])
 def test_create_model_rejects_unported(network, error):
     with pytest.raises(error, match="ROADMAP"):
-        create_model(network, (H, W))
+        create_model(network, (H, W), device="cpu")
 
 
 def test_create_model_rejects_non_multiple_of_8():
     with pytest.raises(ValueError, match="divisible by 8"):
-        create_model("resnet-18_multi", (100, 200))
+        create_model("resnet-18_multi", (100, 200), device="cpu")

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from dspnet_torch.ops import nms_cuda
-from tests.torch_parity import random_nms_rows, with_boundary_rows
+from tests.torch_parity import near_threshold_rows, random_nms_rows, with_boundary_rows
 
 torch.set_num_threads(2)  # tier-1 runs six workers on eight cores
 
@@ -24,7 +24,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,K", [(1, 37), (8, 400), (8, 1000), (1, 12264)])
+@pytest.mark.parametrize("B,K", [(1, 37), (8, 400), (8, 1000), (1, 12264),
+                                 (1, 1216), (1, 1217), (133, 400)])
 @pytest.mark.parametrize("force", [False, True])
 def test_cuda_kernel_matches_plain(cuda_device, B, K, force):
     """Bit-exact keep masks at the thresholds the repo serves with; the
@@ -44,6 +45,21 @@ def test_cuda_kernel_matches_plain(cuda_device, B, K, force):
     assert nms_cuda.launches == before + 2
     if B > 1:
         assert not got[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.45, 0.5])
+def test_cuda_kernel_at_the_threshold(cuda_device, thr):
+    """IoUs within an ulp or two of the threshold, where the IEEE division
+    decides, on one block and on a cluster of blocks per image."""
+    rows = near_threshold_rows(np.random.RandomState(5), 4, 64, thr)
+    args = [torch.from_numpy(a).to(cuda_device) for a in rows]
+    want = nms_cuda.nms_keep_mask_reference(*args, thr)
+    for cluster in (1, 8, 16):
+        plan = nms_cuda.launch_plan(4, 64)._replace(cluster=cluster)
+        got = nms_cuda._launch(*args, thr, False, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (cluster, int((got != want).sum()))
 
 
 @pytest.mark.cuda

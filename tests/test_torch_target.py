@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from dspnet_tpu.ops import boxes as jax_boxes
 from dspnet_tpu.ops import target as jax_target
 from dspnet_tpu.ops.matching_pallas import bipartite_match_pallas
+from dspnet_torch.data.iterator import MAX_OBJECTS
+from dspnet_torch.ops import _build
 from dspnet_torch.ops import boxes as box_ops
 from dspnet_torch.ops import matching_cuda
 from dspnet_torch.ops.target import _valid_columns, multibox_target
@@ -243,3 +245,122 @@ def test_multibox_target_backends_agree_on_the_cpu(rng):
             assert torch.equal(a, b)
     with pytest.raises(ValueError, match="bipartite_backend"):
         multibox_target(anchors, torch.from_numpy(labels), cls_preds, bipartite_backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of csrc/match.cu's algorithm, where the CUDA code cannot
+# run: per-chunk top-T keys of each valid column, merged into one top-T list
+# per column, then the greedy over the lists' heads, which refills every
+# exhausted column from the full matrix when an exhausted column's bound
+# beats every head.
+
+def _key(v, a):
+    """(float bits << 32) | ~anchor, 0 at or below 1e-6."""
+    v = np.float32(v)
+    return (int(v.view(np.uint32)) << 32) | (0xFFFFFFFF - a) if v > np.float32(1e-6) else 0
+
+
+def _anchor(key):
+    return 0xFFFFFFFF - (key & 0xFFFFFFFF)
+
+
+def _pack(key, col):
+    """The greedy's order: value, then the smallest anchor, then the smallest column."""
+    return (key >> 32 << 32) | ((0xFFFFFF - _anchor(key)) << 8) | (255 - col)
+
+
+def _top(keys, T):
+    keys = sorted((k for k in keys if k), reverse=True)[:T]
+    return keys + [0] * (T - len(keys))
+
+
+def _kernel_model(iou, col_valid, T, S):
+    B, A, L = iou.shape
+    matched = np.zeros((B, A), bool)
+    match_gt = np.full((B, A), -1, np.int32)
+    match_iou = np.full((B, A), -1.0, np.float32)
+    refills = [0] * B
+    for b in range(B):
+        cols = [int(c) for c in np.nonzero(col_valid[b])[0]]
+        used = np.zeros(A, bool)
+
+        def column(c, a0, a1):
+            return _top([_key(iou[b, a, c], a) for a in range(a0, a1) if not used[a]], T)
+
+        chunks = [(A * s // S, A * (s + 1) // S) for s in range(S)]
+        lists = {c: _top([k for a0, a1 in chunks for k in column(c, a0, a1)], T) for c in cols}
+        ptr = {c: 0 for c in cols}
+        while True:
+            heads, bounds = {}, {}
+            for c in cols:
+                while ptr[c] < T and lists[c][ptr[c]] and used[_anchor(lists[c][ptr[c]])]:
+                    ptr[c] += 1
+                if ptr[c] < T and lists[c][ptr[c]]:
+                    heads[c] = _pack(lists[c][ptr[c]], c)
+                elif ptr[c] == T:  # ran off a full list: what is left is below its last key
+                    bounds[c] = _pack(lists[c][T - 1], c)
+            top = max([0, *heads.values(), *bounds.values()])
+            if top == 0:
+                break
+            if top in bounds.values():
+                for c in bounds:
+                    lists[c], ptr[c] = column(c, 0, A), 0
+                refills[b] += len(bounds)
+                continue
+            a, l = 0xFFFFFF - ((top >> 8) & 0xFFFFFF), 255 - (top & 0xFF)
+            matched[b, a], match_gt[b, a] = True, l
+            match_iou[b, a] = np.uint32(top >> 32).view(np.float32)
+            used[a] = True
+            cols.remove(l)
+    return (matched, match_gt, match_iou), refills
+
+
+@pytest.mark.parametrize("T", [1, 2, 4])
+def test_topk_greedy_model_matches_plain_and_pallas(rng, T):
+    """The kernel's algorithm at small T (so lists run out and refill), on
+    random boxes, IoUs on a 1/64 grid with duplicated and invalid columns,
+    and one GT repeated over every column: bit for bit with the plain
+    rounds and the Pallas kernel (interpret mode)."""
+    B, A, L = 3, 151, 16
+    iou = _box_iou(rng, B, A, L)
+    iou[1] = (rng.randint(0, 8, (A, L)) / 64.0).astype(np.float32)
+    iou[1, :, 9] = iou[1, :, 3]
+    iou[2] = iou[2, :, :1]  # one GT box repeated 16 times
+    col_valid = np.ones((B, L), bool)
+    col_valid[1, [5, 11]] = False
+    S = matching_cuda.launch_plan(B, A, L).chunks
+    assert S > 1 and A % S  # chunks of unequal length
+    got, refills = _kernel_model(iou, col_valid, T, S)
+    want = matching_cuda.bipartite_match_reference(torch.from_numpy(iou), torch.from_numpy(col_valid))
+    for g, w, name in zip(got, want, ("matched", "match_gt", "match_iou")):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    pallas = bipartite_match_pallas(jnp.asarray(iou), jnp.asarray(col_valid), interpret=True)
+    for g, w, name in zip(got, pallas, ("matched", "match_gt", "match_iou")):
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
+    assert refills[2] > 0  # the repeated GT exhausts every list
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("A", [12264, 24576])
+def test_launch_plan(B, A):
+    """At the train step's shapes (L = 200): the first pass has at least one
+    block per SM (S * B >= 132, chunks of >= 64 rows) and both kernels fit
+    the 227 KB a block may use."""
+    plan = matching_cuda.launch_plan(B, A, 200)
+    assert plan.chunks * B >= 132 and A // plan.chunks >= 64
+    assert plan.list_keys == matching_cuda.LIST_KEYS
+    assert plan.scratch_bytes == B * plan.chunks * 200 * plan.list_keys * 8
+    assert max(plan.topk_shared_bytes, plan.greedy_shared_bytes) <= _build.MAX_SHARED_BYTES
+    assert plan.greedy_shared_bytes == (200 + 512) * 8 * 8 + -(-A // 32) * 4 + 6 * 200 * 4
+    with pytest.raises(ValueError, match="L <= 256"):
+        matching_cuda.launch_plan(B, A, 257)
+
+
+@pytest.mark.parametrize("A", [12264, 24576])
+def test_max_objects_fit_the_matcher(A):
+    """The loader's GT rows per image are the matcher's GT columns: the
+    kernel takes every label width the loader gives (L = MAX_OBJECTS), so a
+    wider label fails here, on the CPU, and not first on the card."""
+    assert MAX_OBJECTS <= matching_cuda.MAX_COLUMNS
+    plan = matching_cuda.launch_plan(8, A, MAX_OBJECTS)
+    assert plan.greedy_shared_bytes <= _build.MAX_SHARED_BYTES

@@ -134,7 +134,7 @@ def r18():
 
 
 def _port_model(variables):
-    port = create_model("resnet-18_multi", (H, W))
+    port = create_model("resnet-18_multi", (H, W), device="cpu")
     load_flax_variables(port.model, variables)
     return port
 
@@ -333,7 +333,7 @@ def test_three_train_steps_match_jax(r18):
     st = st.replace(params=params, batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
                     opt_state=js.tx.init(params))
     port = _port_model(variables)
-    ps = MultiTaskSolver(port.model, port.anchors, **kw)
+    ps = MultiTaskSolver(port.model, port.anchors, device="cpu", **kw)
     pst = ps.init_state()
     for _ in range(3):
         st, want_m = js.train_step(st, batch)
@@ -368,12 +368,12 @@ def test_three_train_steps_match_jax(r18):
 
 @pytest.fixture(scope="module")
 def port_r18():
-    return create_model("resnet-18_multi", (H, W))
+    return create_model("resnet-18_multi", (H, W), device="cpu")
 
 
 def _solver(bundle, **kw):
     solver = MultiTaskSolver(bundle.model, bundle.anchors, learning_rate=1e-2, seg_normalize="valid",
-                             **kw)
+                             device="cpu", **kw)
     return solver, solver.init_state()
 
 

@@ -80,3 +80,17 @@ def with_boundary_rows(boxes, ids, valid):
     ids[:, :n] = 0.0
     valid[:, :n] = True
     return boxes, ids, valid
+
+
+def near_threshold_rows(rng, B, K, thr):
+    """The unit box, then boxes [0, 0, w, h] with w * h within an ulp of
+    ``thr``, all valid and of class 0: their IoU with the unit box,
+    w * h / ((1 + w * h) - w * h), sits within 2^-21 of ``thr``, so the
+    rounding of the division decides ``iou >= thr``."""
+    w = rng.uniform(thr, 1.0, (B, K)).astype(np.float32)
+    h = np.nextafter((np.float32(thr) / w).astype(np.float32),
+                     np.float32(2.0) * rng.randint(0, 2, (B, K))).astype(np.float32)
+    z = np.zeros_like(w)
+    boxes = np.stack([z, z, w, h], -1)
+    boxes[:, 0] = (0.0, 0.0, 1.0, 1.0)
+    return boxes, np.zeros((B, K), np.float32), np.ones((B, K), bool)
