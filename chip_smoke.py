@@ -53,16 +53,34 @@ Phases (any failure ends the run with a non-zero exit):
      ``evaluate_model``'s ms/batch loader-fed and on batches held on the
      card beside the detector's predict alone, checkpoint save and size,
      dataset write;
-  8. one JSON line of kernel results (each kernel's device, host, event and
-     bound times at the main path's shapes, beside the baseline kernels'
-     times from this run), then the result line, last.
+  8. real data: a prepared Cityscapes layout at raw 1024x2048 (16 train, 8
+     val JPEGs at q95 4:2:0 from the port's encoder, XML with <distance>,
+     ImageSets, trainId, instanceIds and disparity PNGs) and its .drec copy;
+     nvJPEG against the plain decoder at 4:2:0 and 4:4:4 within the gates of
+     ``jpeg_cuda.GATES``, and timed per backend it offers on this card;
+     ``multi_train --dataset-root`` for 2 epochs on the directory, on the
+     .drec and with --predownscale, ``multi_eval --dataset-root`` with
+     --write-results --instance-eval (8 result PNGs of 1024x2048), without,
+     and on the .drec; each run's counts checked (matcher launches = steps,
+     NMS = eval batches, nvJPEG images = images read, plain JPEG decodes 0)
+     and its time and peak memory printed; the loader alone on the JPEGs
+     against a PNG copy of the same scenes; loader-fed against resident
+     ``fit``;
+  9. a JSON line with the decoder's record, one of kernel results (each
+     kernel's device, host, event and bound times at the main path's shapes,
+     beside the baseline kernels' times from this run), then the result
+     line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
+
+    python3 chip_smoke.py --real-data-only   # phases 1, 2 and 8 alone, no JSON lines
+
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -481,7 +499,7 @@ def cli_phase(dev, label, resident_ips):
 
     from dspnet_torch.api import create_model
     from dspnet_torch.cli import multi_eval, multi_train
-    from dspnet_torch.data import synthetic
+    from dspnet_torch.data import jpeg_cuda, synthetic
     from dspnet_torch.data.device_pipeline import DeviceAugIterator, device_augment_batch
     from dspnet_torch.evaluate import cityscapes_eval
     from dspnet_torch.evaluate.loop import evaluate_model
@@ -522,24 +540,40 @@ def cli_phase(dev, label, resident_ips):
         synthetic.build_dataset(str(synth / "val"), n_val, (H, W), seed=91)
         write_s = time.perf_counter() - t0
         size = sum(f.stat().st_size for f in synth.rglob("*") if f.is_file())
-        print(f"dataset write: {n_train}+{n_val} images {H}x{W} (PNG image, seg, disparity) in "
+        print(f"dataset write: {n_train}+{n_val} images {H}x{W} (JPEG image, PNG seg and disparity) in "
               f"{write_s:.3f} s, {size / 2**20:.1f} MiB [{label}]")
 
-        # one augmented batch on the card against the same batch on the CPU
-        batches = {}
-        for d in (dev, "cpu"):
-            it = DeviceAugIterator(train_index, B, (H, W), device=d, seed=233, enable_aug=True)
-            batches[str(d)], _ = next(it.epoch())
-        card, cpu = batches[str(dev)], batches["cpu"]
+        # one augmented batch on the card against the same batch on the CPU:
+        # the augmentation on the same raw batch (nvJPEG's decode, copied to
+        # the host), then the loaders end to end (nvJPEG against the plain
+        # decoder, within the decode gate)
+        loader = DeviceAugIterator(train_index, B, (H, W), device=dev, seed=233, enable_aug=True)
+        loader.reset()
+        gen = loader._raw_batches()
+        raw = next(gen)
+        gen.close()
+        card_raw = raw["raw"].place_on(dev)
+        torch.cuda.synchronize()
+        args = [raw["segs"], raw["labels"], raw["params"]]
+        card = device_augment_batch(card_raw, *[torch.from_numpy(a).to(dev) for a in args], loader.lut, (H, W))
+        cpu = device_augment_batch(card_raw.cpu(), *[torch.from_numpy(a) for a in args], loader.lut.cpu(), (H, W))
         check(card["images"].device.type == "cuda", "the pipeline's batch is not on the card")
         box_err = float((card["label_det"].cpu() - cpu["label_det"]).abs().max())
         img_err = float((card["images"].cpu() - cpu["images"]).abs().max())
         seg_diff = int((card["seg_label"].cpu() != cpu["seg_label"]).sum())
-        print(f"DeviceAugIterator b{B} {H}x{W} with augmentation, card vs cpu: boxes max abs err "
-              f"{box_err:.3e} (tolerance 1e-5), seg maps {seg_diff} differing pixels of "
+        print(f"device_augment_batch b{B} {H}x{W} with augmentation on the same raw batch, card vs cpu: boxes "
+              f"max abs err {box_err:.3e} (tolerance 1e-5), seg maps {seg_diff} differing pixels of "
               f"{cpu['seg_label'].numel()} (bound 0), images max abs err {img_err:.3e} (tolerance 1e-3)")
         check(box_err <= 1e-5 and seg_diff == 0 and img_err <= 1e-3, "pipeline card batch != cpu batch")
-        del batches, card, cpu
+        batches = {}
+        for d in (dev, "cpu"):
+            it = DeviceAugIterator(train_index, B, (H, W), device=d, seed=233, enable_aug=True)
+            batches[str(d)], _ = next(it.epoch())
+        gap = float((batches[str(dev)]["images"].cpu() - batches["cpu"]["images"]).abs().mean())
+        print(f"DeviceAugIterator b{B} end to end, card (nvJPEG) vs cpu (plain decoder): images mean abs "
+              f"difference {gap:.4f} (gate {jpeg_cuda.GATES['420']})")
+        check(gap <= jpeg_cuda.GATES["420"], "card loader batch differs from the cpu loader's beyond the gate")
+        del batches, card, cpu, card_raw, loader
 
         # train 2 epochs with a validation pass and a checkpoint after each
         steps = n_train // B
@@ -651,8 +685,9 @@ def cli_phase(dev, label, resident_ips):
         # the loader's raw batches decoded once, held pinned on the host: each
         # pass copies and augments them on the consumer's thread, with no
         # decode thread (splits decode from the copy + augmentation)
-        pinned = [{k: torch.from_numpy(r[k]).pin_memory() for k in ("raw", "segs", "labels", "params")}
-                  for r in loader._raw_batches()]
+        loader.reset()
+        pinned = [{k: (r[k].place_on(dev).cpu() if k == "raw" else torch.from_numpy(r[k])).pin_memory()
+                   for k in ("raw", "segs", "labels", "params")} for r in loader._raw_batches()]
 
         class Decoded:
             def __iter__(self):
@@ -730,6 +765,239 @@ def cli_phase(dev, label, resident_ips):
         torch.cuda.empty_cache()
     sys.stdout.flush()
     return launches
+
+
+def decode_times(jpeg_cuda, data, dev, backend, n=20):
+    """nvJPEG on a batch: the wrapper's host ms per call (it returns once the
+    decode has finished), and device us per call by torch.profiler (every
+    kernel and copy on the card in the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        jpeg_cuda.decode_batch(data, dev, backend=backend)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        jpeg_cuda.decode_batch(data, dev, backend=backend)
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            jpeg_cuda.decode_batch(data, dev, backend=backend)
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return host_ms, sum(e.device_time for e in cuda) / 5
+
+
+def real_data_phase(dev, label):
+    """Phase 8: a prepared Cityscapes dataset at raw 1024x2048 (JPEG) through
+    the CLIs. Returns ({kernel: launches}, the decoder's record)."""
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_eval, multi_train
+    from dspnet_torch.data import image_io, imdb, iterator, jpeg, jpeg_cuda, record
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from tests.torch_parity import write_cityscapes_layout
+
+    raw_hw, B, n_train, n_val = (1024, 2048), 4, 16, 8
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_real_", dir=ROOT / "build"))
+    root, drec = work / "cityscapes", work / "drec"
+    launches = {"nms_keep_mask": 0, "bipartite_match": 0}
+    decoder = {}
+
+    def counted(run, steps, eval_batches, images, what):
+        nms_cuda.launches = matching_cuda.launches = jpeg_cuda.images = jpeg.decodes = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
+               "nvjpeg_images": jpeg_cuda.images, "plain_jpeg_decodes": jpeg.decodes}
+        want = {"bipartite_match": steps, "nms_keep_mask": eval_batches, "nvjpeg_images": images,
+                "plain_jpeg_decodes": 0}
+        check(got == want, f"{what}: counts {got}, expected {want}")
+        print(f"{what}: {secs:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; matcher "
+              f"{got['bipartite_match']} launches in {steps} train steps, NMS {got['nms_keep_mask']} in "
+              f"{eval_batches} eval batches, nvJPEG {got['nvjpeg_images']} images of {images} read, plain "
+              f"JPEG decodes {got['plain_jpeg_decodes']} [{label}]")
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        write_cityscapes_layout(str(root), {"train": n_train, "val": n_val}, hw=raw_hw, seed=5, workers=8)
+        for split in ("train", "val"):
+            record.pack_records(imdb.load_index(str(root), split), str(drec / split), quiet=True)
+        size = sum(f.stat().st_size for f in root.rglob("*.jpg"))
+        print(f"prepared Cityscapes layout: {n_train} train + {n_val} val images {raw_hw[0]}x{raw_hw[1]} "
+              f"(JPEG q95 4:2:0 from the port's encoder, XML with <distance>, ImageSets, trainId, "
+              f"instanceIds and disparity PNGs; {size / (n_train + n_val) / 2**10:.1f} KiB per JPEG) and "
+              f"its .drec copy written in {time.perf_counter() - t0:.3f} s [{label}]")
+
+        # decode gate: nvJPEG against the plain decoder (libjpeg's pixels)
+        train = imdb.load_index(str(root), "train")
+        data = [iterator.load_sample_bytes(s, with_seg=False)[0] for s in train.samples[:B]]
+        t0 = time.perf_counter()
+        plain = [jpeg.decode(d) for d in data[:2]]
+        plain_ms = (time.perf_counter() - t0) / 2 * 1e3
+        gates = {}
+        for sub, batch in (("420", data[:2]), ("444", [jpeg.encode(p, 95, "444") for p in plain])):
+            got = jpeg_cuda.decode_batch(batch, dev).cpu().numpy()
+            want = plain if sub == "420" else [jpeg.decode(b) for b in batch]
+            gates[sub] = jpeg_cuda.difference(got, np.stack(want))
+            print(f"nvJPEG vs plain decoder, 2 images {raw_hw[0]}x{raw_hw[1]} q95 {sub}: mean abs "
+                  f"{gates[sub]['mean']:.4f} (gate {jpeg_cuda.GATES[sub]}), max {gates[sub]['max']}, "
+                  f"{gates[sub]['over2']:.4%} of values more than 2 levels apart")
+            check(gates[sub]["mean"] <= jpeg_cuda.GATES[sub], f"nvJPEG {sub} outside its gate")
+            if sub == "420":
+                box = [jpeg.decode(b, fancy_upsampling=False) for b in batch]
+                gates["420_box"] = jpeg_cuda.difference(got, np.stack(box))
+                print(f"  against the plain decoder with replicated chroma: mean abs "
+                      f"{gates['420_box']['mean']:.4f} (gate {jpeg_cuda.GATES['420_box']}), max "
+                      f"{gates['420_box']['max']}, {gates['420_box']['over2']:.4%} more than 2 levels apart")
+                check(gates["420_box"]["mean"] <= jpeg_cuda.GATES["420_box"], "nvJPEG 420 outside its box gate")
+        decoder.update(plain_ms=plain_ms, gates=gates, backends={})
+        for name, backend in (("default", jpeg_cuda.BACKEND_DEFAULT), ("hardware", jpeg_cuda.BACKEND_HARDWARE)):
+            if not jpeg_cuda.backend_available(backend, dev):
+                decoder["backends"][name] = "not available (nvjpegCreateEx: architecture mismatch)"
+                print(f"nvJPEG {name} backend: not available on this card (architecture mismatch)")
+                continue
+            host_ms, dev_us = decode_times(jpeg_cuda, data, dev, backend)
+            decoder["backends"][name] = {"host_ms_per_batch": host_ms, "device_us_per_batch": dev_us}
+            print(f"nvJPEG {name} backend, b{B} {raw_hw[0]}x{raw_hw[1]} q95 4:2:0: wrapper host "
+                  f"{host_ms * 1e3 / B:.1f} us per image ({host_ms:.3f} ms per batch, decode finished), device "
+                  f"{dev_us / B:.1f} us per image (torch.profiler); plain decoder {plain_ms:.1f} ms per image "
+                  f"on the host [{label}]")
+        del plain
+
+        # the CLIs on the directory, on the .drec store, with --predownscale
+        net = ["--network", "resnet-50_multi", "--data-shape", f"3,{H},{W}", "--num-classes", str(NUM_CLASSES),
+               "--batch-size", str(B), "--device", "cuda"]
+        train_args = net + ["--compute-dtype", "bfloat16", "--seg-normalize", "valid", "--lr", "5e-4",
+                            "--end-epoch", "2", "--eval-every", "1", "--checkpoint-every", "2", "--log-every", "1"]
+        steps, val_batches = 2 * n_train // B, 2 * -(-n_val // B)
+        images = 2 * (n_train + n_val)
+        for what, data_root, extra in (("dir", root, []), ("drec", drec / "train.drec", []),
+                                       ("predownscale", root, ["--predownscale"])):
+            jsonl = work / f"{what}.jsonl"
+            state = counted(lambda: multi_train.main(train_args + [
+                "--dataset-root", str(data_root), "--model-dir", str(work / f"model_{what}"),
+                "--metrics-jsonl", str(jsonl)] + extra), steps, val_batches, images,
+                f"multi_train --dataset-root ({what}) b{B} bf16 {H}x{W}, 2 epochs")
+            check(state.step == steps, f"{what}: step {state.step}")
+            val = [json.loads(line) for line in jsonl.read_text().splitlines()]
+            val = [r for r in val if r["split"] == "val"]
+            check([r["epoch"] for r in val] == [0, 1], f"{what}: val rows {val}")
+            for r in val:
+                for k in ("mAP", "mIoU", "accuracy"):
+                    check(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0, f"{what} val epoch {r['epoch']} {k}")
+            print(f"  val epoch 1: mAP {val[-1]['mAP']:.6f}, mIoU {val[-1]['mIoU']:.6f}, accuracy "
+                  f"{val[-1]['accuracy']:.6f}, ms_per_batch {val[-1]['ms_per_batch']:.3f}")
+            del state
+
+        results = work / "results"
+        eval_ms = {}
+        for what, data_root, extra in (
+                ("dir --write-results --instance-eval", root, ["--write-results", str(results), "--instance-eval"]),
+                ("dir --write-results", root, ["--write-results", str(work / "results2")]),
+                ("dir --instance-eval", root, ["--instance-eval"]),
+                ("dir", root, []), ("drec", drec / "val.drec", [])):
+            res = counted(lambda: multi_eval.main(net + ["--dataset-root", str(data_root), "--model-dir",
+                                                         str(work / "model_dir")] + extra),
+                          0, -(-n_val // B), n_val, f"multi_eval --dataset-root ({what})")
+            for k in ("mAP", "mIoU", "accuracy"):
+                check(np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0, f"multi_eval ({what}) {k} = {res[k]}")
+            eval_ms[what] = res["ms_per_batch"]
+            print(f"  mAP {res['mAP']:.6f}, mIoU {res['mIoU']:.6f}, accuracy {res['accuracy']:.6f}"
+                  + (f", instAP {res['instAP']:.6f}, instAP50 {res['instAP50']:.6f}" if "instAP" in res else "")
+                  + f", ms_per_batch {res['ms_per_batch']:.3f} [{label}]")
+            if "--instance-eval" in extra:
+                check(np.isfinite(res.get("instAP", np.nan)), "instance AP missing or not finite")
+        pngs = sorted(results.iterdir())
+        check(len(pngs) == n_val, f"{len(pngs)} result PNGs, expected {n_val}")
+        for p in pngs:
+            img = image_io.imread(str(p), image_io.IMREAD_UNCHANGED)
+            check(img.shape == raw_hw and img.dtype == np.uint8, f"{p.name}: {img.shape} {img.dtype}")
+        print(f"multi_eval ms per b{B} batch (the second of two): {eval_ms['dir']:.3f} plain, "
+              f"{eval_ms['dir --write-results']:.3f} with --write-results ({B} result PNGs of "
+              f"{raw_hw[0]}x{raw_hw[1]} a batch), {eval_ms['dir --instance-eval']:.3f} with --instance-eval, "
+              f"{eval_ms['dir --write-results --instance-eval']:.3f} with both [{label}]")
+
+        # the loader alone: nvJPEG on the JPEG set against the host PNG decode
+        # of the same scenes (nvJPEG's pixels written losslessly)
+        png_root = work / "png"
+        png_root.mkdir()
+        png_samples = []
+        for s in train.samples:
+            path = str(png_root / (Path(s.image_path).stem + ".png"))
+            image_io.imwrite(path, jpeg_cuda.decode_batch([iterator.load_sample_bytes(s, False)[0]], dev)[0]
+                             .cpu().numpy())
+            png_samples.append(iterator.Sample(path, s.label, s.seg_path))
+        png = iterator.SampleIndex(png_samples)
+
+        def loader_ips(index):
+            it = DeviceAugIterator(index, B, (H, W), device=dev, seed=233, enable_aug=True, num_threads=8)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                for _ in it:
+                    pass
+            torch.cuda.synchronize()
+            return 4 * len(index) / (time.perf_counter() - t0)
+
+        loader_ips(train)  # warm-up
+        j1, p1, p2, j2 = (loader_ips(x) for x in (train, png, png, train))
+        print(f"the loader alone, b{B} {raw_hw[0]}x{raw_hw[1]} -> {H}x{W} with augmentation, 4 epochs of "
+              f"{n_train}: JPEG decoded by nvJPEG {j1:.2f} / {j2:.2f} img/s, PNG decoded on the host "
+              f"{p1:.2f} / {p2:.2f} img/s (order JPEG, PNG, PNG, JPEG) [{label}]")
+
+        # loader-fed against resident fit from the same weights
+        bundle = create_model("resnet-50_multi", (H, W), num_classes=NUM_CLASSES, device=dev,
+                              generator=torch.Generator().manual_seed(233))
+        solver = MultiTaskSolver(bundle.model, bundle.anchors, learning_rate=5e-4, batch_size=B,
+                                 seg_normalize="valid", compute_dtype="bfloat16", device=dev)
+        st = solver.init_state()
+        init = {g: {k: v.detach().clone() for k, v in getattr(st, g).items()}
+                for g in ("params", "buffers", "momentum")}
+        loader = DeviceAugIterator(train, B, (H, W), device=dev, seed=233, enable_aug=True, num_threads=8)
+        resident = [b for b, _ in loader.epoch()]
+        epochs = 4
+
+        def fit_ips(batches):
+            st.step = 0
+            with torch.no_grad():
+                for g, vals in init.items():
+                    for k, v in getattr(st, g).items():
+                        v.copy_(vals[k])
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.fit(st, batches, num_epochs=epochs, eval_every=0, log_every=10**9, log_fn=lambda *_: None)
+            torch.cuda.synchronize()
+            return n_train * epochs / (time.perf_counter() - t0), torch.cuda.max_memory_allocated() / 2**30
+
+        png_loader = DeviceAugIterator(png, B, (H, W), device=dev, seed=233, enable_aug=True, num_threads=8)
+        fit_ips(resident)  # warm-up
+        (r1, m1), (l1, m2), (q1, _), (q2, _), (l2, _), (r2, _) = (
+            fit_ips(x) for x in (resident, loader, png_loader, png_loader, loader, resident))
+        print(f"train b{B} bf16 {H}x{W} through fit from {raw_hw[0]}x{raw_hw[1]} images, {epochs} epochs of "
+              f"{n_train // B} steps from the same weights: loader-fed on the JPEGs (nvJPEG + on-device "
+              f"augmentation) {l1:.2f} / {l2:.2f} img/s, on the PNG copy (host decode) {q1:.2f} / {q2:.2f} "
+              f"img/s, resident batches {r1:.2f} / {r2:.2f} img/s (order resident, JPEG, PNG, PNG, JPEG, "
+              f"resident); JPEG-fed / resident {(l1 + l2) / (r1 + r2):.3f}, PNG-fed / resident "
+              f"{(q1 + q2) / (r1 + r2):.3f}; peak {m1:.3f} GiB resident, {m2:.3f} GiB loader-fed [{label}]")
+        decoder.update(loader_jpeg_ips=[j1, j2], loader_png_ips=[p1, p2], fit_ratio=(l1 + l2) / (r1 + r2),
+                       fit_png_ratio=(q1 + q2) / (r1 + r2), eval_ms=eval_ms)
+        del solver, st, bundle, resident, loader, png_loader, init
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    sys.stdout.flush()
+    return launches, decoder
 
 
 KERNEL_KINDS = (  # first match wins, on the lower-cased kernel name
@@ -812,13 +1080,17 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", *BASELINE_SOURCES])
+    libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
+                                   *BASELINE_SOURCES])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip())
     nms_cuda.load_library()
     matching_cuda.load_library()
+    if "--real-data-only" in sys.argv[1:]:
+        real_data_phase(dev, label)
+        return 0
     base_nms, base_match = baseline_kernels(dev)
     sys.stdout.flush()
 
@@ -1001,10 +1273,13 @@ def main():
     match_err, match_times = matcher_phase(dev, bundle.anchors, label, base_match)
     match_launches, train_ips = training_phase(dev, label)
     cli_launches = cli_phase(dev, label, train_ips[4])
+    real_launches, decoder = real_data_phase(dev, label)
 
-    # ---- 8. results: launches summed over the paths, each counted from 0
-    by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"]},
-               "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"]}}
+    # ---- 9. results: launches summed over the paths, each counted from 0
+    by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
+                                 "real_data": real_launches["nms_keep_mask"]},
+               "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
+                                   "real_data": real_launches["bipartite_match"]}}
 
     shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "before_device_us", "before_host_us",
                   "before_event_ms", "refills")
@@ -1022,6 +1297,12 @@ def main():
                              for s, v in times.items() if s != main},
         }
 
+    # nvJPEG is the counterpart of the JAX package's host decode (cv2 on
+    # libjpeg), not of a TPU kernel: its record stands on a line of its own
+    print(json.dumps({"decoders": [{"name": "jpeg_decode_batch", "route": "nvjpeg",
+                                    "source": "dspnet_torch/csrc/jpeg.cu",
+                                    "replaces": "dspnet_tpu/data/iterator.py:73 (cv2.imdecode on the host)",
+                                    **decoder}]}))
     print(json.dumps({"kernels": [
         entry("nms_keep_mask", "dspnet_torch/csrc/nms.cu", "dspnet_tpu/ops/nms_pallas.py:30",
               by_path["nms_keep_mask"], max_err, nms_times, "B=1 K=400"),

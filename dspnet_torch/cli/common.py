@@ -38,27 +38,41 @@ def default_synthetic_dir() -> str:
 
 
 def resolve_dataset(args, split: str):
-    """The SampleIndex of ``split`` for the --synthetic options: the train
-    split from seed 233, the val split from seed 91 (--synthetic-val images
-    when set, else --synthetic), at the data shape, written under
-    ``{--synthetic-dir}/{split}``."""
-    from dspnet_torch.data import synthetic
+    """The SampleIndex of ``split``.
 
-    if getattr(args, "dataset_root", ""):
-        raise NotImplementedError(
-            "--dataset-root needs the dataset indexers (dspnet_tpu/data/imdb.py::load_index), "
-            "which are not ported yet: ROADMAP Queue A item 19. Use --synthetic N")
-    if not getattr(args, "synthetic", 0):
-        raise ValueError("no dataset: pass --synthetic N")
-    n = int(args.synthetic)
-    if split != "train" and getattr(args, "synthetic_val", 0):
-        n = int(args.synthetic_val)
-    return synthetic.build_dataset(
-        os.path.join(args.synthetic_dir, split),
-        num_samples=n,
-        hw=(args.data_shape[0], args.data_shape[1]),
-        seed=233 if split == "train" else 91,
-    )
+    --synthetic N: the train split from seed 233, the val split from seed 91
+    (--synthetic-val images when set, else N), at the data shape, written
+    under ``{--synthetic-dir}/{split}`` (with instance ids under
+    --instance-eval). --dataset-root: ``imdb.load_index`` on the prepared
+    directory or ``.drec`` store, with the --class-names table (else the
+    Cityscapes 8 or VOC 20 names when --num-classes is 8 or 20) threaded
+    into the XML layouts, as the JAX CLI does; a missing split raises
+    FileNotFoundError."""
+    from dspnet_torch.data import imdb, synthetic
+
+    if getattr(args, "synthetic", 0):
+        n = int(args.synthetic)
+        if split != "train" and getattr(args, "synthetic_val", 0):
+            n = int(args.synthetic_val)
+        return synthetic.build_dataset(
+            os.path.join(args.synthetic_dir, split),
+            num_samples=n,
+            hw=(args.data_shape[0], args.data_shape[1]),
+            seed=233 if split == "train" else 91,
+            with_instances=getattr(args, "instance_eval", False),
+        )
+    if not getattr(args, "dataset_root", ""):
+        raise ValueError("no dataset: pass --dataset-root DIR (or a .drec store) or --synthetic N")
+    classes = None
+    if getattr(args, "class_names", ""):
+        classes = resolve_class_names(args.class_names, None)
+    else:
+        nc = int(getattr(args, "num_classes", 0) or 0)
+        if nc == len(imdb.CITYSCAPES_DET_CLASSES):
+            classes = list(imdb.CITYSCAPES_DET_CLASSES)
+        elif nc == len(imdb.VOC_CLASSES):
+            classes = list(imdb.VOC_CLASSES)
+    return imdb.load_index(args.dataset_root, split, classes=classes)
 
 
 def resolve_class_names(spec: str, default):

@@ -4,13 +4,19 @@ accuracy, depth relative error and ms/batch in one pass over the
 validation split, from a checkpoint of ``multi_train``.
 
     python -m dspnet_torch.cli.multi_eval --network resnet-50_multi \\
-        --data-shape 3,512,1024 --batch-size 4 --synthetic 8
+        --data-shape 3,512,1024 --batch-size 4 --dataset-root data/cityscapes \\
+        --write-results results --instance-eval
 
 The detector is float32 with NMS ``--nms-thresh`` and score threshold 0.01,
-as in the JAX CLI; the val split goes through the on-device pipeline
-without augmentation, its last partial batch padded. ``--write-results``,
-``--instance-eval``, ``--seg-fast`` and the other loaders are not ported
-(ROADMAP Queue A items 22, 15b, 20), so argparse rejects them.
+as in the JAX CLI; the ``val`` split of ``--dataset-root`` (or of
+``--synthetic``) goes through the on-device pipeline without augmentation
+(nvJPEG decode on the card, ``--predownscale`` as in training), its last
+partial batch padded. ``--write-results DIR`` writes the 1024x2048
+Cityscapes result PNGs from the seg probabilities (the detector then
+returns them); ``--instance-eval`` scores instance AP against
+``SegmentationInstance/*_instanceIds.png``. ``--seg-fast`` and the other
+loaders are not ported (ROADMAP Queue A items 15b, 20), so argparse rejects
+them.
 """
 
 from __future__ import annotations
@@ -47,12 +53,18 @@ def parse_args(argv=None):
     p.add_argument("--epoch", type=int, default=-1, help="checkpoint epoch (-1 latest)")
     p.add_argument("--model-dir", default="model")
     p.add_argument("--dataset-root", default="",
-                   help="a prepared dataset (not ported yet: ROADMAP Queue A item 19)")
+                   help="a prepared dataset directory or .drec record store (split val)")
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--synthetic-dir", default=default_synthetic_dir())
     p.add_argument("--overlap-thresh", type=float, default=0.5)
     p.add_argument("--nms-thresh", type=float, default=0.45)
     p.add_argument("--det-score-thresh", type=float, default=0.1)
+    p.add_argument("--write-results", default="", help="dir for Cityscapes result PNGs")
+    p.add_argument("--instance-eval", action="store_true",
+                   help="Cityscapes-style instance-level AP/AP50 from det boxes x seg map vs "
+                        "SegmentationInstance/*_instanceIds.png ground truth")
+    p.add_argument("--predownscale", action="store_true",
+                   help="resize each image to the data shape right after its decode")
     p.add_argument("--dist-errors", default="",
                    help="write per-box depth relative errors here (dist_errors.txt)")
     p.add_argument("--seg-class-names", default="",
@@ -86,9 +98,13 @@ def main(argv=None):
         log.info("loaded checkpoint epoch %d (step %d)", epoch, state.step)
 
     class_names = resolve_class_names(args.class_names, DET_CLASSES)
-    detector = solver.make_detector(state, (H, W), nms_thresh=args.nms_thresh, score_threshold=0.01)
+    # the PNG writer wants probabilities (bilinear probability upsampling,
+    # multi_eval.py:28-34); otherwise they are not computed
+    detector = solver.make_detector(state, (H, W), nms_thresh=args.nms_thresh, score_threshold=0.01,
+                                    seg_probabilities=bool(args.write_results))
     it = DeviceAugIterator(resolve_dataset(args, "val"), args.batch_size, (H, W), device=device,
-                           seed=233, enable_aug=False, shuffle=False, pad_last=True)
+                           seed=233, enable_aug=False, shuffle=False, pad_last=True,
+                           predownscale=args.predownscale)
     return evaluate_model(
         detector,
         it,
@@ -96,7 +112,9 @@ def main(argv=None):
         overlap_thresh=args.overlap_thresh,
         class_names=class_names,
         seg_class_names=resolve_class_names(args.seg_class_names, SEG_CLASSES),
+        write_results=args.write_results or None,
         dist_errors_path=args.dist_errors or None,
+        instance_eval=args.instance_eval,
         log_fn=log.info,
         pipeline_depth=args.pipeline_depth,
     )

@@ -3,15 +3,21 @@ multi_train.py:20-100, 188-536): build the dataset, train with a validation
 pass after each epoch, checkpoint, resume.
 
     python -m dspnet_torch.cli.multi_train --network resnet-50_multi \\
-        --data-shape 3,512,1024 --batch-size 4 --synthetic 16 --end-epoch 2 \\
-        --seg-normalize valid --compute-dtype bfloat16
+        --data-shape 3,512,1024 --batch-size 4 --dataset-root data/cityscapes \\
+        --end-epoch 2 --seg-normalize valid --compute-dtype bfloat16
 
-It takes the JAX CLI's flags that this port honours and no others: argparse
-rejects the rest (multi-process and mesh flags, ``--monitor``,
-``--remat``, ``--seg-fast``, ``--input-s2d``, the other loaders,
-``--predownscale``; ROADMAP Queue A). The only loader is ``device``: host
-threads decode, augmentation runs on the device (``data/device_pipeline.py``).
-``--device`` defaults to ``cuda`` and fails without a CUDA device.
+The data is ``--dataset-root`` (a prepared directory, VOC / Cityscapes /
+record store, through ``data/imdb.py::load_index``; the train split is
+``train``, the val split ``val``, and a missing val split skips the
+validation pass, as in the JAX CLI) or ``--synthetic N``. It takes the JAX
+CLI's flags that this port honours and no others: argparse rejects the rest
+(multi-process and mesh flags, ``--monitor``, ``--remat``, ``--seg-fast``,
+``--input-s2d``, the other loaders; ROADMAP Queue A). The only loader is
+``device``: on the card the host threads read bytes and decode masks, nvJPEG
+decodes the images and the augmentation runs there
+(``data/device_pipeline.py``); ``--predownscale`` resizes each image to the
+data shape right after its decode. ``--device`` defaults to ``cuda`` and
+fails without a CUDA device.
 
 One deliberate difference from the JAX CLI: ``--checkpoint-every N`` saves
 when the **absolute** epoch satisfies ``(epoch + 1) % N == 0`` (and always
@@ -69,7 +75,7 @@ def parse_args(argv=None):
     p.add_argument("--freeze", default="", help="regex of flax param paths to freeze")
     p.add_argument("--model-dir", default="model")
     p.add_argument("--dataset-root", default="",
-                   help="a prepared dataset (not ported yet: ROADMAP Queue A item 19)")
+                   help="a prepared dataset directory or .drec record store (splits train, val)")
     p.add_argument("--synthetic", type=int, default=0, help="use N synthetic samples")
     p.add_argument("--synthetic-val", type=int, default=0,
                    help="synthetic validation-set size (0 = same as --synthetic)")
@@ -88,6 +94,9 @@ def parse_args(argv=None):
     p.add_argument("--loader", default="device", choices=["device"],
                    help="input pipeline: host decode, augmentation on the device")
     p.add_argument("--loader-threads", type=int, default=8)
+    p.add_argument("--predownscale", action="store_true",
+                   help="resize each image to the data shape right after its decode (on the "
+                        "device on cuda) and each mask nearest; allows mixed raw resolutions")
     p.add_argument("--target-backend", default="auto", choices=["auto", "kernel", "plain"],
                    help="bipartite matcher of target assignment (auto: the CUDA "
                         "kernel on a CUDA device, the plain rounds elsewhere)")
@@ -123,7 +132,8 @@ def main(argv=None):
             f"dataset labels carry class id {max_cid} but --num-classes is {args.num_classes}; "
             "pass --class-names matching the annotation names (or fix --num-classes)")
     train_iter = DeviceAugIterator(train_index, args.batch_size, (H, W), device=device, seed=SEED,
-                                   enable_aug=True, num_threads=args.loader_threads)
+                                   enable_aug=True, num_threads=args.loader_threads,
+                                   predownscale=args.predownscale)
 
     _, schedule = lr_scheduler_from_epochs(
         args.lr, args.lr_steps, args.lr_factor, len(train_index),
@@ -162,9 +172,15 @@ def main(argv=None):
 
     eval_iter = None
     if args.eval_every > 0:
-        eval_iter = DeviceAugIterator(resolve_dataset(args, "val"), args.batch_size, (H, W),
-                                      device=device, seed=SEED, enable_aug=False, shuffle=False,
-                                      pad_last=True, num_threads=args.loader_threads)
+        try:
+            val_index = resolve_dataset(args, "val")
+        except FileNotFoundError:
+            val_index = None
+            log.info("no validation split found; skipping per-epoch eval")
+        if val_index is not None:
+            eval_iter = DeviceAugIterator(val_index, args.batch_size, (H, W), device=device, seed=SEED,
+                                          enable_aug=False, shuffle=False, pad_last=True,
+                                          num_threads=args.loader_threads, predownscale=args.predownscale)
 
     metrics_sink = None
     if args.metrics_jsonl:

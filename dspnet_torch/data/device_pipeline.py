@@ -1,10 +1,14 @@
 """On-device augmentation pipeline (counterpart of
 ``dspnet_tpu/data/device_pipeline.py``).
 
-Host threads only decode (PNG -> raw uint8, path- or span-backed). Each raw
-uint8 batch crosses to the device through pinned memory with a
-non-blocking copy on a side stream (``data/prefetch.py``), and one call
-does the whole augmentation there, batched: affine warp (bilinear, border
+The device picks where images decode. On ``cuda`` the host threads only read
+each sample's encoded bytes (path- or span-backed) and decode its PNG mask;
+``prefetch_to_device``'s thread decodes the batch's JPEGs with nvJPEG
+(``data/jpeg_cuda.py``) on its side stream into the raw uint8 batch (an image
+in another format decodes on the host). On ``cpu`` the host threads decode
+everything with the plain codecs (``data/image_io.py``). Either way the raw
+uint8 batch lands on the device, and one call does the whole augmentation
+there, batched: affine warp (bilinear, border
 128) + horizontal flip + BGR->RGB mean-sub for the image; nearest warp
 (border 255) + flip + 1/4 nearest downsample + LUT for the seg mask; and the box-corner transform, distance rescale,
 area and out-of-image filters and top-compaction of the reference
@@ -13,9 +17,16 @@ area and out-of-image filters and top-compaction of the reference
 The seed-233 parameter table, its order, the batch contract (``pad_last``,
 maskless samples filled with 255) and the matrix math are the JAX
 package's. The rotation's cosine and sine are taken in float64 and rounded
-to float32, so the card and the CPU build the same matrices. The JAX
-package's ``predownscale`` (a host ``cv2.resize``) and ``s2d`` (a TPU input
-layout) are not ported (ROADMAP Queue A items 21 and 17).
+to float32, so the card and the CPU build the same matrices.
+
+``predownscale`` resizes each image to ``data_shape`` right after its decode
+(:func:`resize_area`, on the device on ``cuda``, the same torch ops on the
+host on ``cpu``) and each mask with nearest sampling on the host
+(``image_io.resize_nearest``), so raw resolutions may differ within a batch. The
+JAX package does this with cv2 (``INTER_AREA`` / ``INTER_NEAREST``): the
+masks equal cv2's bit for bit, the images too at factor 2 (cv2's rounding,
+(sum + 2) >> 2), and within a level of cv2's elsewhere. The JAX package's ``s2d`` (a
+TPU input layout) is not ported (ROADMAP Queue A item 17).
 """
 
 from __future__ import annotations
@@ -28,9 +39,82 @@ import numpy as np
 import torch
 
 from dspnet_torch.data import augment as aug
+from dspnet_torch.data import image_io, jpeg, jpeg_cuda
 from dspnet_torch.data.cs_labels import seg_label_lut
-from dspnet_torch.data.iterator import SampleIndex, load_sample_arrays, shard_positions
+from dspnet_torch.data.iterator import SampleIndex, load_sample_arrays, load_sample_bytes, shard_positions
 from dspnet_torch.data.prefetch import prefetch_to_device
+
+
+def _area_weights(src: int, dst: int) -> np.ndarray:
+    """(dst, src) weights of cv2's ``INTER_AREA`` along one axis
+    (``computeResizeAreaTab``): each output averages the source cells its
+    interval [d * s, (d + 1) * s) covers, partial cells by their covered
+    fraction, s = src / dst."""
+    scale = src / dst
+    out = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        width = min(scale, src - f1)
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            out[d, s1 - 1] = (s1 - f1) / width
+        out[d, s1:s2] = 1.0 / width
+        if f2 - s2 > 1e-3:
+            out[d, s2] = min(f2 - s2, 1.0, width) / width
+    return out.astype(np.float32)
+
+
+def resize_area(images: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., h, w, C) uint8 -> (..., H, W, C) uint8 downscale by area on the
+    tensor's device, cv2 ``INTER_AREA``'s counterpart. At integer factors
+    each output is its fy x fx box's sum, rounded half up ((sum + 2) >> 2 at
+    factor 2, as cv2); elsewhere cv2's fractional-area weights, summed in
+    float32 as two matrix products and rounded half to even, within a level
+    of cv2."""
+    H, W = hw
+    x = images if images.ndim == 4 else images[None]
+    B, h, w, C = x.shape
+    if (h, w) == (H, W):
+        return images
+    if h % H == 0 and w % W == 0:
+        fy, fx = h // H, w // W
+        s = x.reshape(B, H, fy, W, fx, C).sum(dim=(2, 4), dtype=torch.int32)
+        out = ((s + (fy * fx) // 2) // (fy * fx)).to(torch.uint8)
+    else:
+        wy = torch.from_numpy(_area_weights(h, H)).to(x.device)
+        wx = torch.from_numpy(_area_weights(w, W)).to(x.device)
+        t = torch.einsum("Hh,bhwc->bHwc", wy, x.float())
+        out = torch.einsum("Ww,bHwc->bHWc", wx, t).round().clamp(0, 255).to(torch.uint8)
+    return out if images.ndim == 4 else out[0]
+
+
+class EncodedImages:
+    """A batch's images as the host threads left them: JPEG bytes, decoded
+    on the device by nvJPEG when the batch is placed there (on
+    ``prefetch_to_device``'s side stream), or uint8 arrays the host decoded.
+    ``resize_to``: the predownscale target, applied after the decode."""
+
+    def __init__(self, items, resize_to: Optional[Tuple[int, int]] = None):
+        self.items = list(items)
+        self.resize_to = resize_to
+
+    def place_on(self, device) -> torch.Tensor:
+        """(B, H, W, 3) uint8 BGR on ``device``."""
+        device = torch.device(device)
+        out = [None] * len(self.items)
+        encoded = [i for i, x in enumerate(self.items) if isinstance(x, bytes)]
+        if encoded:
+            for i, t in zip(encoded, jpeg_cuda.decode_images([self.items[i] for i in encoded], device)):
+                out[i] = t
+        for i, x in enumerate(self.items):
+            if out[i] is None:
+                t = torch.from_numpy(x)
+                out[i] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+        if self.resize_to is not None:
+            out = [resize_area(t, self.resize_to) for t in out]
+        return torch.stack(out)
 
 
 def _filter_and_compact(label: torch.Tensor, data_shape, out_of_image: bool) -> torch.Tensor:
@@ -139,12 +223,16 @@ class DeviceAugIterator:
     """Batches of ``{'images', 'label_det', 'seg_label'}`` (+ filenames),
     augmented on ``device``.
 
-    Host worker threads decode raw images and masks, ``prefetch_to_device``
-    copies each raw batch to ``device``, and the consumer's thread runs
-    :func:`device_augment_batch`. All images must share one raw
-    resolution, checked at decode. ``device`` and ``seed`` are explicit: the
-    batches land where the caller computes, and the seed fixes the epoch's
-    order and augmentation table (233 in the reference).
+    Host worker threads read the samples (on ``cuda`` the JPEG bytes and the
+    decoded masks, on ``cpu`` decoded images and masks),
+    ``prefetch_to_device`` makes each raw batch on ``device`` (decoding its
+    JPEGs there on ``cuda``), and the consumer's thread runs
+    :func:`device_augment_batch`. All images must share one raw resolution,
+    checked on the host from each JPEG's frame header, unless
+    ``predownscale`` resizes them to ``data_shape`` first. ``device`` and
+    ``seed`` are explicit: the batches land where the caller computes, and
+    the seed fixes the epoch's order and augmentation table (233 in the
+    reference).
     """
 
     def __init__(
@@ -160,12 +248,16 @@ class DeviceAugIterator:
         shard: Tuple[int, int] = (0, 1),
         num_threads: int = 4,
         pad_last: bool = False,
+        predownscale: bool = False,
     ):
         """``pad_last``: also yield a final partial batch, padded to
         ``batch_size`` by repeating its last sample, with ``fnames`` listing
         only the real samples (consumers slice outputs by ``len(fnames)``);
-        eval passes True, training False."""
+        eval passes True, training False. ``predownscale``: resize every
+        image and mask to ``data_shape`` right after its decode (see the
+        module docstring)."""
         self.index = index
+        self.predownscale = predownscale
         self.batch_size = batch_size
         self.data_shape = tuple(data_shape)
         self.device = torch.device(device)
@@ -200,15 +292,30 @@ class DeviceAugIterator:
     # ------------------------------------------------------------- host side
 
     def _load_raw(self, pos: int):
+        """(image, label, mask, name) of one sample: the image as JPEG bytes
+        when the device decodes it, else a uint8 BGR array."""
         sample = self.index[int(self.order[pos])]
-        img, seg = load_sample_arrays(sample)
+        if self.device.type == "cuda":
+            img, seg = load_sample_bytes(sample)
+            if img[:3] == image_io.JPEG_MAGIC:
+                hw = jpeg.read_header(img)[:2]
+            else:
+                img = image_io.imdecode(img, image_io.IMREAD_COLOR)
+                hw = img.shape[:2]
+        else:
+            img, seg = load_sample_arrays(sample)
+            hw = img.shape[:2]
+        if self.predownscale:
+            if seg is not None and seg.shape[:2] != self.data_shape:
+                seg = image_io.resize_nearest(seg, self.data_shape)
+            hw = self.data_shape  # every image is resized after its decode
         with self._hw_lock:
             if self.raw_hw is None:
-                self.raw_hw = img.shape[:2]
-        if img.shape[:2] != self.raw_hw:
+                self.raw_hw = tuple(hw)
+        if tuple(hw) != self.raw_hw:
             raise ValueError(
-                f"mixed raw resolutions {img.shape[:2]} vs {self.raw_hw}; on-device "
-                "augmentation batches raw images — resize the dataset offline")
+                f"mixed raw resolutions {tuple(hw)} vs {self.raw_hw}; on-device augmentation "
+                "batches raw images: resize the dataset offline or pass predownscale=True")
         return img, sample.label, seg, sample.image_path
 
     def _raw_batches(self) -> Iterator:
@@ -237,8 +344,13 @@ class DeviceAugIterator:
                     # maskless samples fill with 255 (ignore), not 0 (road)
                     seg_arr = np.stack([s if s is not None else np.full(hw, 255, np.uint8)
                                         for s in segs]).astype(np.uint8)
+                imgs = [d[0] for d in decoded]
+                if self.predownscale or any(isinstance(x, bytes) for x in imgs):
+                    raw = EncodedImages(imgs, self.data_shape if self.predownscale else None)
+                else:
+                    raw = np.stack(imgs)
                 yield {
-                    "raw": np.stack([d[0] for d in decoded]),
+                    "raw": raw,
                     "segs": seg_arr,
                     "labels": np.stack([d[1] for d in decoded]).astype(np.float32),
                     "params": params.astype(np.float32),

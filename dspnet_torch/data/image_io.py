@@ -1,20 +1,24 @@
-"""Image files without cv2: a PNG codec on numpy and ``zlib``.
+"""Image files without cv2: PNG on numpy and ``zlib``, JPEG through the
+plain codec of ``data/jpeg.py``.
 
 The JAX package reads and writes its data through ``cv2.imread`` /
 ``cv2.imwrite``; the port runs where OpenCV (and PIL) are not installed, so
-it carries the one codec its data path needs. PNG is lossless, so an image
-written here and read back (here or by cv2) is the same array.
+it carries the codecs its data path needs.
 
 * :func:`imread` / :func:`imdecode` pick the format from the magic bytes,
-  as ``cv2.imread`` does, never from the file name. PNG decodes here; JPEG
-  raises, naming the decoder it would need (decoding JPEG on the card is
-  ROADMAP Queue A item 18); anything else raises.
-* The reader takes 8-bit gray, RGB and RGBA and 16-bit gray (and 16-bit
+  as ``cv2.imread`` does, never from the file name. PNG and baseline JPEG
+  decode here (JPEG to libjpeg-turbo's pixels, as cv2 gives them); anything
+  else raises. On the card the loader decodes JPEG with nvJPEG instead
+  (``data/jpeg_cuda.py``); this module is the CPU path and the host tools'.
+* The PNG reader takes 8-bit gray, RGB and RGBA and 16-bit gray (and 16-bit
   colour), non-interlaced, with all five row filters, so it reads the PNGs
   cv2 writes (libpng picks a filter per row). Sub and Up are vectorised;
   Average and Paeth depend on the pixel to their left and loop over the row.
-* :func:`imwrite` writes PNG bytes with filter 0 (None), whatever the
-  extension of the path.
+* :func:`imwrite` picks the format by extension, as ``cv2.imwrite`` does:
+  ``.jpg`` / ``.jpeg`` write baseline JPEG at quality 95 with 4:2:0 chroma
+  (cv2's defaults), any other name PNG with filter 0 (None). PNG is
+  lossless, so a PNG written here and read back (here or by cv2) is the same
+  array.
 
 Channel order follows cv2: colour arrays are BGR (BGRA) in and out.
 """
@@ -26,6 +30,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from dspnet_torch.data import jpeg
 
 # cv2's flag values, so call sites read like the JAX package's
 IMREAD_UNCHANGED = -1
@@ -132,22 +138,19 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """Encoded bytes -> array, like ``cv2.imdecode``. ``IMREAD_COLOR``: (H, W,
-    3) uint8 BGR (gray replicated, alpha dropped, 16-bit reduced to its high
-    byte as libpng's strip_16 does); ``IMREAD_UNCHANGED``: the stored array,
-    colour as BGR / BGRA."""
+    """Encoded PNG or JPEG bytes -> array, like ``cv2.imdecode``.
+    ``IMREAD_COLOR``: (H, W, 3) uint8 BGR (gray replicated, alpha dropped,
+    16-bit reduced to its high byte as libpng's strip_16 does);
+    ``IMREAD_UNCHANGED``: the stored array, colour as BGR / BGRA."""
     data = bytes(buf)
     if data[:8] == PNG_MAGIC:
         img = decode_png(data)
+        if img.ndim == 3:
+            img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # RGB(A) -> BGR(A)
     elif data[:3] == JPEG_MAGIC:
-        raise NotImplementedError(
-            "JPEG bytes: dspnet_torch has no JPEG decoder (no cv2 or PIL on the card's "
-            "machine; decoding on the card through nvJPEG is ROADMAP Queue A item 18). "
-            "Write the dataset as PNG (dspnet_torch.data.synthetic does)")
+        img = jpeg.decode(data)  # gray, or BGR already
     else:
         raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
-    if img.ndim == 3:
-        img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # RGB(A) -> BGR(A)
     if flags == IMREAD_UNCHANGED:
         return img
     if flags != IMREAD_COLOR:
@@ -194,14 +197,29 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def imwrite(path: str, img: np.ndarray) -> str:
-    """Write ``img`` (gray, BGR or BGRA, like ``cv2.imwrite``) as PNG bytes,
-    whatever the extension of ``path``; the file appears whole (written to a
-    temporary name, then renamed)."""
+    """Write ``img`` (gray, BGR or BGRA, like ``cv2.imwrite``) in the format
+    of the extension of ``path``: JPEG (quality 95, 4:2:0, cv2's defaults)
+    for ``.jpg`` / ``.jpeg``, PNG otherwise. The file appears whole (written
+    to a temporary name, then renamed)."""
     img = np.asarray(img)
-    if img.ndim == 3 and img.shape[-1] in (3, 4):
-        img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # BGR(A) -> RGB(A)
+    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
+        data = jpeg.encode(img, 95)
+    else:
+        if img.ndim == 3 and img.shape[-1] in (3, 4):
+            img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # BGR(A) -> RGB(A)
+        data = encode_png(img)
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:
-        f.write(encode_png(img))
+        f.write(data)
     os.replace(tmp, path)
     return path
+
+
+def resize_nearest(img: np.ndarray, hw) -> np.ndarray:
+    """(h, w, ...) -> (H, W, ...) nearest resize: source index floor(dst * h
+    / H), in integers (the rule of cv2's ``INTER_NEAREST``)."""
+    H, W = int(hw[0]), int(hw[1])
+    h, w = img.shape[:2]
+    ys = (np.arange(H) * h) // H
+    xs = (np.arange(W) * w) // W
+    return img[ys[:, None], xs[None, :]]

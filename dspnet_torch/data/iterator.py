@@ -2,10 +2,20 @@
 ``dspnet_tpu/data/iterator.py``).
 
 A dataset is a plain **sample index**: a list of (image path, label matrix,
-seg path) triples, path- or span-backed (:class:`Sample`). Decoding goes
-through :mod:`dspnet_torch.data.image_io` (PNG; no cv2). The JAX package's
-``MultiTaskIterator`` augments on the host with ``cv2.warpAffine`` and is
-not ported; the port's loader is ``data/device_pipeline.py``.
+seg path) triples, path- or span-backed (:class:`Sample`), built by the
+indexers of ``data/imdb.py``, the record stores of ``data/record.py`` or
+``data/synthetic.py``. Two ways to read a sample:
+
+* :func:`load_sample_arrays` decodes the image (PNG or JPEG, through
+  ``data/image_io.py``'s plain codecs) and the mask on the host: the CPU
+  path and host-side tools;
+* :func:`load_sample_bytes` returns the image's encoded bytes and the
+  decoded mask: the card's loader decodes the JPEG with nvJPEG
+  (``data/device_pipeline.py``).
+
+The JAX package's ``MultiTaskIterator`` augments on the host with
+``cv2.warpAffine`` and is not ported; the port's loader is
+``data/device_pipeline.py``.
 """
 
 from __future__ import annotations
@@ -53,21 +63,29 @@ def shard_positions(num_samples: int, shard: Tuple[int, int]) -> np.ndarray:
     return np.arange(num_samples)[rank::world][: num_samples // world]
 
 
+def read_encoded(path: str, span: Optional[Tuple[str, int, int]]) -> bytes:
+    """The encoded bytes of a file, or of a record span when one is given."""
+    if span is not None:
+        return read_span(span).tobytes()
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def load_sample_bytes(sample: Sample, with_seg: bool = True):
+    """A sample's encoded image bytes (from its file or its record span) and
+    its decoded seg mask (PNG, decoded here) or None."""
+    data = read_encoded(sample.image_path, sample.image_span)
+    seg = None
+    if with_seg and (sample.seg_span is not None or sample.seg_path is not None):
+        seg = image_io.imdecode(read_encoded(sample.seg_path, sample.seg_span), image_io.IMREAD_UNCHANGED)
+    return data, seg
+
+
 def load_sample_arrays(sample: Sample, with_seg: bool = True):
     """Decode a sample's image (BGR uint8) and optional seg mask, path- or
     span-backed. ``with_seg=False`` skips the mask decode."""
-    if sample.image_span is not None:
-        img = image_io.imdecode(read_span(sample.image_span), image_io.IMREAD_COLOR)
-    else:
-        img = image_io.imread(sample.image_path, image_io.IMREAD_COLOR)
-    seg = None
-    if not with_seg:
-        return img, seg
-    if sample.seg_span is not None:
-        seg = image_io.imdecode(read_span(sample.seg_span), image_io.IMREAD_UNCHANGED)
-    elif sample.seg_path is not None:
-        seg = image_io.imread(sample.seg_path, image_io.IMREAD_UNCHANGED)
-    return img, seg
+    data, seg = load_sample_bytes(sample, with_seg)
+    return image_io.imdecode(data, image_io.IMREAD_COLOR), seg
 
 
 class SampleIndex:

@@ -6,7 +6,10 @@ memory on a side ``torch.cuda.Stream``; the consumer's stream waits on that
 copy's event before it uses the batch, and each copied tensor is recorded
 on the consumer's stream so the allocator keeps its memory until the
 consumer's work on it is done. Tensors already on the device pass through.
-On the CPU it is the thread alone.
+A leaf with a ``place_on(device)`` method makes its own tensor there, on
+the same side stream and under the same event (the loader's JPEG batches
+decode on the card this way, ``data/device_pipeline.py``). On the CPU it is
+the thread alone.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ def _place(item, device: torch.device, moved: List[torch.Tensor]):
         return {k: _place(v, device, moved) for k, v in item.items()}
     if isinstance(item, (list, tuple)):
         return type(item)(_place(v, device, moved) for v in item)
+    if hasattr(item, "place_on"):
+        out = item.place_on(device)
+        if device.type == "cuda":
+            moved.append(out)
+        return out
     if isinstance(item, np.ndarray):
         item = torch.from_numpy(item)
     if isinstance(item, torch.Tensor) and item.device != device:

@@ -3,19 +3,17 @@
 
 A tiny dataset in the on-disk contract of the JAX package: street-like
 images, trainId segmentation PNGs, disparity PNGs (for the depth-eval
-oracle) and the (cls, corners, distance) label matrix, all from one numpy
-seed. ``make_example`` equals the JAX one bit for bit on the same seed.
+oracle), optional instanceIds PNGs (for the instance-level evaluator) and
+the (cls, corners, distance) label matrix, all from one numpy seed.
+``make_example`` equals the JAX one bit for bit on the same seed.
 
-``build_dataset`` writes the same file names as the JAX package
+``build_dataset`` writes the JAX package's file names
 (``JPEGImages/…_leftImg8bit.jpg``, ``SegmentationClass/…_labelTrainIds.png``,
-``Disparity/…_disparity.png``), but the image files hold **PNG bytes**: the
-card's machine has no JPEG encoder or decoder, and PNG is lossless, so the
-images read back exactly. The names stay because the eval loop finds a
-sample's disparity file from its image name (``evaluate/loop.py``), and
-because readers that sniff content (``cv2.imread``, ``image_io.imread``)
-read the files whatever their extension, so the JAX package reads this
-dataset too. Instance-id PNGs and the VOC tree are not ported yet (ROADMAP
-Queue A items 22 and 24).
+``Disparity/…_disparity.png``, ``SegmentationInstance/…_instanceIds.png``)
+and formats: the images are baseline JPEG at quality 95 with 4:2:0 chroma,
+as ``cv2.imwrite`` writes them there, from the port's own encoder
+(``data/jpeg.py``); the bytes differ from cv2's, the format does not. The
+VOC tree (``build_voc_dataset``) is not ported.
 """
 
 from __future__ import annotations
@@ -133,15 +131,21 @@ def build_dataset(
     max_objects: int = 6,
     seed: int = 233,
     with_disparity: bool = True,
+    with_instances: bool = False,
 ) -> SampleIndex:
-    """Write a synthetic dataset under ``root`` (PNG bytes under the JAX
-    package's file names, see the module docstring) and return its
-    SampleIndex."""
+    """Write a synthetic dataset under ``root`` and return its SampleIndex.
+
+    ``with_instances`` also writes gtFine-style ``*_instanceIds.png``
+    (labelId * 1000 + instance index per box, in draw order, so later boxes
+    occlude earlier ones) under SegmentationInstance/, for the
+    instance-level evaluator."""
     rng = np.random.RandomState(seed)
     os.makedirs(os.path.join(root, "JPEGImages"), exist_ok=True)
     os.makedirs(os.path.join(root, "SegmentationClass"), exist_ok=True)
     if with_disparity:
         os.makedirs(os.path.join(root, "Disparity"), exist_ok=True)
+    if with_instances:
+        os.makedirs(os.path.join(root, "SegmentationInstance"), exist_ok=True)
     samples = []
     for i in range(num_samples):
         img, label, seg, disp = make_example(rng, hw, rng.randint(1, max_objects + 1))
@@ -151,5 +155,24 @@ def build_dataset(
         image_io.imwrite(spath, seg)
         if with_disparity:
             image_io.imwrite(os.path.join(root, "Disparity", f"synth_{i:04d}_disparity.png"), disp)
+        if with_instances:
+            image_io.imwrite(os.path.join(root, "SegmentationInstance", f"synth_{i:04d}_gtFine_instanceIds.png"),
+                             instance_ids(label, seg.shape))
         samples.append(Sample(ipath, SampleIndex.pad_label(label), spath))
     return SampleIndex(samples)
+
+
+def instance_ids(label: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """(H, W) uint16 gtFine instanceIds of a label's boxes: labelId * 1000 +
+    the box's index among its class, painted in row order over 0."""
+    H, W = hw
+    inst = np.zeros((H, W), np.uint16)
+    counts = [0] * len(DET_CLASSES)
+    for row in label:
+        cid = int(row[0])
+        lid = name2label[DET_CLASSES[cid]].id
+        x1, y1 = int(round(row[1] * W)), int(round(row[2] * H))
+        x2, y2 = int(round(row[3] * W)), int(round(row[4] * H))
+        inst[y1:y2, x1:x2] = lid * 1000 + counts[cid]
+        counts[cid] += 1
+    return inst

@@ -48,10 +48,13 @@ class Detector:
         force_suppress: bool = False,
         nms_topk: int = 400,
         score_threshold: float = 0.01,
+        seg_probabilities: bool = False,
     ):
         """Serves a copy of ``model`` cast to ``dtype`` on ``device`` (the
         card unless the caller asks for ``"cpu"``); ``model`` itself is left
-        as it was."""
+        as it was. ``seg_probabilities``: also return the (B, H/4, W/4, C)
+        float32 softmax of the seg head as ``seg_prob``, for the Cityscapes
+        result-PNG writer (JAX ``detector.py:67-84,139-140``)."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = torch.device(device)
@@ -66,6 +69,7 @@ class Detector:
         self.force_suppress = force_suppress
         self.nms_topk = nms_topk
         self.score_threshold = score_threshold
+        self.seg_probabilities = seg_probabilities
 
     @torch.no_grad()
     def update_weights(self, weights: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> None:
@@ -95,6 +99,8 @@ class Detector:
         if "seg_logits" in out:
             # uint8 trainId map: 4x fewer device->host bytes than int64
             results["seg"] = out["seg_logits"].argmax(dim=-1).to(torch.uint8)
+            if self.seg_probabilities:
+                results["seg_prob"] = torch.softmax(out["seg_logits"].float(), dim=-1)
         return results
 
     @torch.inference_mode()

@@ -11,11 +11,13 @@ import time
 from collections import deque
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from dspnet_torch.data import image_io
-from dspnet_torch.data.cs_labels import DET_CLASSES, SEG_CLASSES
+from dspnet_torch.data.cs_labels import DET_CLASSES, SEG_CLASSES, name2label
 from dspnet_torch.evaluate import cityscapes_eval
+from dspnet_torch.evaluate.instance_eval import InstanceEvalAccumulator, boxes_and_seg_to_instances
 from dspnet_torch.evaluate.eval_metric import (
     CustomAccuracyMetric,
     DistanceAccuracyMetric,
@@ -28,6 +30,14 @@ def disparity_path_for(image_path: str) -> str:
     """Image path -> sibling disparity PNG (the synthetic/prepared layout)."""
     return image_path.replace("JPEGImages", "Disparity").replace(
         "_leftImg8bit.jpg", "_disparity.png"
+    )
+
+
+def instance_path_for(image_path: str) -> str:
+    """Image path -> sibling instanceIds PNG (the prepared layout's
+    SegmentationInstance/)."""
+    return image_path.replace("JPEGImages", "SegmentationInstance").replace(
+        "_leftImg8bit.jpg", "_gtFine_instanceIds.png"
     )
 
 
@@ -69,31 +79,48 @@ def evaluate_model(
       host per batch, through non-blocking copies into pinned memory that
       start when the batch is queued.
 
+    * ``write_results``: a directory for the Cityscapes result PNGs, one
+      ``{image name}_pred.png`` per real image at 1024x2048, from the
+      detector's ``seg_prob`` when it returns them (bilinear probability
+      upsampling, on the device) and from the argmax map otherwise.
+    * ``instance_eval``: instance AP / AP50 (``instAP``, ``instAP50``,
+      ``inst_{class}``) from the det rows and the seg map against each
+      image's ``SegmentationInstance/*_instanceIds.png``; the seg maps then
+      come to the host too.
+
     ``ms_per_batch`` is the wall clock per batch over the loop, the first
-    batch excluded (it pays the warm-up). ``write_results`` and
-    ``instance_eval`` are not ported yet.
+    batch excluded (it pays the warm-up).
     """
-    if write_results:
-        raise NotImplementedError(
-            "evaluate_model(write_results=...) needs the Cityscapes result-PNG writer: "
-            "ROADMAP Queue A item 22")
-    if instance_eval:
-        raise NotImplementedError(
-            "evaluate_model(instance_eval=True) needs the instance evaluator: ROADMAP Queue A item 22")
     map_metric = MApMetric(overlap_thresh, class_names=list(class_names))
     iou_metric = IoUMetric(list(seg_class_names))
     acc_metric = CustomAccuracyMetric()
     dist_metric = DistanceAccuracyMetric(list(class_names))
     device = torch.device(detector.device)
     conf = None  # (NUM_IDS, NUM_IDS) int64 on the device, from the first seg batch
+    inst_acc = None
+    if instance_eval:
+        inst_acc = InstanceEvalAccumulator(list(class_names))
+        det_to_trainid = {i: name2label[n].trainId for i, n in enumerate(class_names) if n in name2label}
+    if write_results:
+        os.makedirs(write_results, exist_ok=True)
 
-    def process(det_host, label_host, event, fnames):
+    def write_pngs(res, fnames):
+        for b in range(len(fnames)):
+            name = os.path.splitext(os.path.basename(fnames[b]))[0] + "_pred.png"
+            path = os.path.join(write_results, name)
+            if "seg_prob" in res:
+                cityscapes_eval.write_result_png_from_probs(res["seg_prob"][b], path)
+            else:
+                cityscapes_eval.write_result_png(res["seg"][b], path)
+
+    def process(det_host, label_host, seg_host, event, fnames):
         """Host-side metric math for one (older) batch."""
         if event is not None:
             event.synchronize()
         if det_host is None:
             return
         n_real = len(fnames)
+        inst_seg = seg_host.numpy() if seg_host is not None else None
         det = det_host.numpy()
         label_det = label_host.numpy() if label_host is not None else None
         labels, preds = [], []
@@ -107,6 +134,15 @@ def evaluate_model(
             dpath = disparity_path_for(fnames[b])
             if os.path.exists(dpath):
                 dist_metric.update(image_io.imread(dpath, image_io.IMREAD_UNCHANGED), rows)
+            if inst_seg is not None:
+                # the rows that feed mAP feed instance AP; the accumulator
+                # matches an image's masks and lets them go
+                ipath = instance_path_for(fnames[b])
+                if ipath != fnames[b] and os.path.exists(ipath):
+                    inst_img = image_io.imread(ipath, image_io.IMREAD_UNCHANGED)
+                    inst_acc.update(boxes_and_seg_to_instances(rows, inst_seg[b], det_to_trainid,
+                                                               list(class_names), inst_img.shape[:2]),
+                                    inst_img.astype(np.int64))
         map_metric.update(labels, preds)
 
     pending = deque()
@@ -125,14 +161,18 @@ def evaluate_model(
                 if conf is None:
                     conf = torch.zeros((cityscapes_eval.NUM_IDS,) * 2, dtype=torch.int64, device=device)
                 conf = cityscapes_eval.add_to_confusion_matrix_torch(res["seg"][:n_real], gt, conf)
-            det_host = label_host = event = None
+            if write_results and "seg" in res:
+                write_pngs(res, fnames)
+            det_host = label_host = seg_host = event = None
             if "det" in res:
                 det_host = _start_d2h(res["det"])
                 label_host = _start_d2h(torch.as_tensor(batch["label_det"]))
+                if inst_acc is not None and "seg" in res:
+                    seg_host = _start_d2h(res["seg"])
             if device.type == "cuda":
                 event = torch.cuda.Event()
                 event.record()
-            pending.append((det_host, label_host, event, fnames))
+            pending.append((det_host, label_host, seg_host, event, fnames))
             if len(pending) > pipeline_depth:
                 process(*pending.popleft())
             if n_batches == 0:
@@ -170,9 +210,19 @@ def evaluate_model(
             logging.getLogger(__name__).exception(
                 "metric %s failed; its keys are missing from the results",
                 type(metric).__name__)
+    if inst_acc is not None:
+        if inst_acc.num_images == 0:
+            logging.getLogger(__name__).warning(
+                "instance_eval: no *_instanceIds.png ground truth found (expected "
+                "SegmentationInstance/ beside JPEGImages/); instAP not computed")
+        else:
+            inst = inst_acc.get()
+            results["instAP"] = inst.pop("AP")
+            results["instAP50"] = inst.pop("AP50")
+            results.update({f"inst_{c}": v for c, v in inst.items()})
     results["ms_per_batch"] = total_ms / max(timed, 1)
     if log_fn:
-        for k in ("mAP", "mIoU", "accuracy", "derror", "ms_per_batch"):
+        for k in ("mAP", "mIoU", "accuracy", "derror", "instAP", "instAP50", "ms_per_batch"):
             if k in results:
                 log_fn(f"{k}: {results[k]}")
         # LaTeX-ready &-joined row (multi_solver.py:500-517)

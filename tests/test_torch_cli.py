@@ -10,8 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from dspnet_torch.cli import multi_eval, multi_train
+import cv2
+
+from dspnet_tpu.cli.common import resolve_dataset as jax_resolve_dataset
+from dspnet_torch.cli import common, multi_eval, multi_train
+from dspnet_torch.data import imdb, record
 from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+from tests.torch_parity import write_cityscapes_layout
 
 torch.set_num_threads(2)  # tier-1 runs six workers on eight cores
 
@@ -106,18 +111,85 @@ def test_refusals(workdir):
     """JAX flags the port does not honour are argparse errors; a dataset root,
     a label space wider than the head and a missing card fail loudly."""
     for extra in (["--remat"], ["--loader", "python"], ["--target-backend", "pallas"], ["--monitor", "1"],
-                  ["--num-devices", "2"], ["--predownscale"]):
+                  ["--num-devices", "2"], ["--seg-fast"]):
         with pytest.raises(SystemExit) as err:
             multi_train.parse_args(NET + extra)
         assert err.value.code == 2, extra
-    for extra in (["--write-results", "out"], ["--instance-eval"], ["--seg-fast"]):
+    for extra in (["--seg-fast"], ["--loader", "native"]):
         with pytest.raises(SystemExit):
             multi_eval.parse_args(NET + extra)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        multi_train.main(NET + ["--dataset-root", str(workdir)])
+    with pytest.raises(FileNotFoundError, match="no recognizable dataset"):
+        multi_train.main(NET + ["--dataset-root", str(workdir / "nothing_here")])
+    with pytest.raises(ValueError, match="no dataset"):
+        multi_train.main(NET)
     with pytest.raises(ValueError, match="--num-classes"):
         multi_train.main(NET + _data(workdir) + ["--num-classes", "2", "--model-dir", str(workdir / "m2")])
     if not torch.cuda.is_available():
         for cli in (multi_train, multi_eval):
             with pytest.raises(SystemExit, match="no CUDA device"):
                 cli.main(["--network", "resnet-18_multi", "--data-shape", "3,128,256", "--synthetic", "2"])
+
+
+# ------------------------------------------------------------- prepared data
+
+
+@pytest.fixture(scope="module")
+def prepared(workdir):
+    """A prepared-Cityscapes directory (4 train, 3 val JPEGs at 256x512,
+    twice the data shape) and the same splits packed into .drec stores."""
+    root = workdir / "cs"
+    write_cityscapes_layout(str(root), {"train": 4, "val": 3}, hw=(256, 512), seed=1)
+    for split in ("train", "val"):
+        record.pack_records(imdb.load_index(str(root), split), str(workdir / "drec" / split), quiet=True)
+    return str(root), str(workdir / "drec" / "train.drec")
+
+
+@pytest.mark.parametrize("store", ["dir", "drec"])
+def test_dataset_root_train_then_evaluate(workdir, prepared, store):
+    """multi_train --dataset-root for 2 epochs (validation each epoch; the
+    .drec run with --predownscale), then multi_eval --write-results
+    --instance-eval on the val split: 3 result PNGs at 1024x2048, finite
+    metrics, finite instance AP. The train index equals the JAX CLI's
+    resolve_dataset on the same flags."""
+    root = prepared[0] if store == "dir" else prepared[1]
+    model, out = workdir / f"model_{store}", workdir / f"results_{store}"
+    jsonl = str(workdir / f"m_{store}.jsonl")
+    extra = ["--predownscale"] if store == "drec" else []
+    args = NET + ["--dataset-root", root, "--model-dir", str(model), "--seg-normalize", "valid",
+                  "--end-epoch", "2", "--metrics-jsonl", jsonl] + extra
+    ns = multi_train.parse_args(args)
+    ours, theirs = common.resolve_dataset(ns, "train"), jax_resolve_dataset(ns, "train")
+    assert len(ours) == len(theirs) == 4
+    for a, b in zip(ours.samples, theirs.samples):
+        assert (a.image_path, a.seg_path, a.image_span, a.seg_span) == \
+            (b.image_path, b.seg_path, b.image_span, b.seg_span)
+        np.testing.assert_array_equal(a.label, b.label)
+    st = multi_train.main(args)
+    assert st.step == 4 and _epochs(model) == [0, 1]
+    val = [r for r in _rows(jsonl) if r["split"] == "val"]
+    assert [r["epoch"] for r in val] == [0, 1]
+    for r in val:
+        for k in ("mAP", "mIoU", "accuracy"):
+            assert np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0, (k, r[k])
+    res = multi_eval.main(NET + ["--dataset-root", root, "--model-dir", str(model), "--write-results", str(out),
+                                 "--instance-eval"] + extra)
+    for k in ("mAP", "mIoU", "accuracy"):
+        assert np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0, (k, res[k])
+    assert np.isfinite(res["instAP"]) and np.isfinite(res["instAP50"])
+    pngs = sorted(os.listdir(out))
+    assert pngs == [f"valcity_{i:06d}_000019_leftImg8bit_pred.png" for i in range(3)]
+    for name in pngs:
+        img = cv2.imread(str(out / name), cv2.IMREAD_UNCHANGED)
+        assert img.shape == (1024, 2048) and img.dtype == np.uint8
+
+
+def test_dataset_root_without_a_val_split(workdir, caplog):
+    """A prepared root with no val split trains and logs that it skips the
+    validation pass, as the JAX CLI does."""
+    root = workdir / "cs_train_only"
+    write_cityscapes_layout(str(root), {"train": 2}, hw=(128, 256), seed=2)
+    with caplog.at_level("INFO"):
+        st = multi_train.main(NET + ["--dataset-root", str(root), "--model-dir", str(workdir / "model_noval"),
+                                     "--end-epoch", "1", "--seg-normalize", "valid"])
+    assert st.step == 1
+    assert "no validation split found; skipping per-epoch eval" in caplog.text

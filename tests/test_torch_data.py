@@ -22,7 +22,7 @@ from dspnet_tpu.data import cs_labels as jlabels
 from dspnet_tpu.data import device_pipeline as jdp
 from dspnet_tpu.data import iterator as jiter
 from dspnet_tpu.data import synthetic as jsyn
-from dspnet_torch.data import augment, cs_labels, device_pipeline, image_io, iterator, synthetic
+from dspnet_torch.data import augment, cs_labels, device_pipeline, image_io, iterator, jpeg, synthetic
 from dspnet_torch.data.device_pipeline import DeviceAugIterator
 from dspnet_torch.data.prefetch import prefetch_to_device
 
@@ -69,10 +69,14 @@ def test_make_example_matches_jax(seed, hw, n):
 
 def test_build_dataset_names_and_png_bytes(tmp_path):
     """Same file names and labels as the JAX build_dataset on the same seed; the
-    image files hold PNG bytes, which cv2 (and so the JAX package) reads to
-    the same arrays as image_io."""
-    index = synthetic.build_dataset(str(tmp_path / "t"), num_samples=3, hw=(64, 128), seed=233)
-    jindex = jsyn.build_dataset(str(tmp_path / "j"), num_samples=3, hw=(64, 128), seed=233)
+    image files hold baseline JPEG bytes at quality 95 and 4:2:0, as the JAX
+    package's do, which image_io and cv2 decode to the same pixels, as close
+    to the scene as cv2's own JPEG of it; masks, disparity and instance ids
+    are lossless PNG equal to the JAX package's."""
+    index = synthetic.build_dataset(str(tmp_path / "t"), num_samples=3, hw=(64, 128), seed=233,
+                                    with_instances=True)
+    jindex = jsyn.build_dataset(str(tmp_path / "j"), num_samples=3, hw=(64, 128), seed=233,
+                                with_instances=True)
     rng = np.random.RandomState(233)
     for s, js in zip(index.samples, jindex.samples):
         assert os.path.relpath(s.image_path, tmp_path / "t") == os.path.relpath(js.image_path, tmp_path / "j")
@@ -80,13 +84,26 @@ def test_build_dataset_names_and_png_bytes(tmp_path):
         np.testing.assert_array_equal(s.label, js.label)
         img, _, seg, disp = synthetic.make_example(rng, (64, 128), rng.randint(1, 7))
         with open(s.image_path, "rb") as f:
-            assert f.read(8) == image_io.PNG_MAGIC
-        dpath = os.path.join(str(tmp_path / "t"), "Disparity", os.path.basename(s.image_path).replace(
-            "_leftImg8bit.jpg", "_disparity.png"))
-        for path, want, flag in ((s.image_path, img, cv2.IMREAD_COLOR), (s.seg_path, seg, cv2.IMREAD_UNCHANGED),
-                                 (dpath, disp, cv2.IMREAD_UNCHANGED)):
+            data = f.read()
+        assert data[:3] == image_io.JPEG_MAGIC
+        assert jpeg.read_header(data) == (64, 128, 3)
+        ours = image_io.imread(s.image_path)
+        np.testing.assert_array_equal(ours, cv2.imread(s.image_path, cv2.IMREAD_COLOR))
+        theirs = cv2.imread(js.image_path, cv2.IMREAD_COLOR)
+        assert _psnr(ours, img) >= _psnr(theirs, img) - 1.0
+        name = os.path.basename(s.image_path)
+        for sub, old, new in (("Disparity", "_leftImg8bit.jpg", "_disparity.png"),
+                              ("SegmentationInstance", "_leftImg8bit.jpg", "_gtFine_instanceIds.png")):
+            path = os.path.join(str(tmp_path / "t"), sub, name.replace(old, new))
+            want = cv2.imread(os.path.join(str(tmp_path / "j"), sub, name.replace(old, new)), cv2.IMREAD_UNCHANGED)
+            np.testing.assert_array_equal(image_io.imread(path, image_io.IMREAD_UNCHANGED), want)
+        for path, want, flag in ((s.seg_path, seg, cv2.IMREAD_UNCHANGED),):
             np.testing.assert_array_equal(image_io.imread(path, flag), want)
             np.testing.assert_array_equal(cv2.imread(path, flag), want)
+
+
+def _psnr(a, b):
+    return 10 * np.log10(255.0 ** 2 / np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
 
 
 # ------------------------------------------------------------- PNG codec
@@ -164,10 +181,10 @@ def test_png_adaptive_filters_cover_all_kinds(tmp_path):
 
 @pytest.mark.parametrize("mode", list(_images()))
 def test_png_write_round_trip(tmp_path, mode):
-    """image_io writes filter-0 PNG bytes (whatever the extension) that it
-    and cv2 read back to the same array."""
+    """image_io writes filter-0 PNG bytes under a name that is not .jpg /
+    .jpeg, which it and cv2 read back to the same array."""
     img = _images()[mode]
-    path = str(tmp_path / "x_leftImg8bit.jpg")
+    path = str(tmp_path / "x_gtFine_labelTrainIds.png")
     image_io.imwrite(path, img)
     assert _filter_bytes(path) == {0}
     np.testing.assert_array_equal(image_io.imread(path, image_io.IMREAD_UNCHANGED), img)
@@ -178,12 +195,22 @@ def test_png_write_round_trip(tmp_path, mode):
 
 
 def test_imread_sniffs_content_and_refuses_jpeg(tmp_path):
+    """JPEG bytes under a .png name decode as JPEG (to cv2's pixels), gray
+    replicated under IMREAD_COLOR; a progressive JPEG, unknown bytes and a
+    broken PNG raise."""
     img = _images()["bgr8"]
     jpg = str(tmp_path / "a.png")  # JPEG bytes under a .png name
     assert cv2.imwrite(str(tmp_path / "a.jpg"), img)
     os.replace(str(tmp_path / "a.jpg"), jpg)
-    with pytest.raises(NotImplementedError, match="nvJPEG"):
-        image_io.imread(jpg)
+    np.testing.assert_array_equal(image_io.imread(jpg), cv2.imread(jpg, cv2.IMREAD_COLOR))
+    gray = str(tmp_path / "g.jpg")
+    assert cv2.imwrite(gray, img[..., 0])
+    np.testing.assert_array_equal(image_io.imread(gray), cv2.imread(gray, cv2.IMREAD_COLOR))
+    np.testing.assert_array_equal(image_io.imread(gray, image_io.IMREAD_UNCHANGED),
+                                  cv2.imread(gray, cv2.IMREAD_UNCHANGED))
+    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(jpeg.JpegError, match="progressive"):
+        image_io.imdecode(prog)
     junk = str(tmp_path / "b.png")
     with open(junk, "wb") as f:
         f.write(b"GIF89a" + bytes(20))
@@ -372,6 +399,49 @@ def test_device_aug_iterator_rejects_mixed_sizes(tmp_path):
     it = DeviceAugIterator(idx, 2, (32, 64), device="cpu", seed=233, shuffle=False)
     with pytest.raises(ValueError, match="mixed raw resolutions"):
         next(it.epoch())
+
+
+@pytest.mark.parametrize("raw,shape", [((96, 192), (48, 96)), ((128, 256), (32, 64)), ((90, 150), (48, 96))])
+def test_predownscale_resizes_match_cv2(rng, raw, shape):
+    """The predownscale resizes against the JAX package's cv2 calls: masks
+    (nearest) equal cv2's INTER_NEAREST; images equal cv2's INTER_AREA at an
+    integer factor (2 and 4 here; the bound stated is one level), within one
+    level of it elsewhere."""
+    img = cv2.GaussianBlur(rng.randint(0, 256, raw + (3,)).astype(np.uint8), (3, 3), 1.0)
+    mask = rng.randint(0, 34, (raw[0] // 3 + 1, raw[1] // 3 + 1)).astype(np.uint8)
+    mask = cv2.resize(mask, raw[::-1], interpolation=cv2.INTER_NEAREST)
+    np.testing.assert_array_equal(image_io.resize_nearest(mask, shape),
+                                  cv2.resize(mask, shape[::-1], interpolation=cv2.INTER_NEAREST))
+    got = device_pipeline.resize_area(torch.from_numpy(img), shape).numpy()
+    want = cv2.resize(img, shape[::-1], interpolation=cv2.INTER_AREA)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert got.shape == want.shape and d.max() <= 1, d.max()
+    if raw[0] % shape[0] == 0 and raw[1] % shape[1] == 0:
+        assert raw[0] // shape[0] == 4 or d.max() == 0  # factor 2: cv2's (sum + 2) >> 2
+    batch = device_pipeline.resize_area(torch.from_numpy(np.stack([img, img[::-1]])), shape)
+    np.testing.assert_array_equal(batch[0].numpy(), got)
+
+
+def test_device_aug_iterator_predownscale_matches_jax(tmp_path):
+    """predownscale=True in both packages over a dataset at twice the data
+    shape, with one image at another raw size: the same batches (the one
+    place the JAX package resizes with cv2 and the port with its own ops)."""
+    index = synthetic.build_dataset(str(tmp_path / "big"), num_samples=3, hw=(96, 192), seed=4)
+    other = synthetic.build_dataset(str(tmp_path / "odd"), num_samples=1, hw=(144, 288), seed=6)
+    samples = index.samples + other.samples
+    jindex = jiter.SampleIndex([jiter.Sample(s.image_path, s.label, s.seg_path) for s in samples])
+    for enable_aug in (True, False):
+        kw = dict(enable_aug=enable_aug, shuffle=enable_aug, num_threads=2, predownscale=True)
+        got = list(DeviceAugIterator(iterator.SampleIndex(samples), 2, (48, 96), device="cpu", seed=233,
+                                     **kw).epoch())
+        want = list(jdp.DeviceAugIterator(jindex, 2, (48, 96), seed=233, **kw).epoch())
+        assert len(got) == len(want) == 2
+        for (gb, gn), (wb, wn) in zip(got, want):
+            assert gn == wn
+            _assert_batches_close(gb, wb)
+    with pytest.raises(ValueError, match="mixed raw resolutions"):
+        list(DeviceAugIterator(iterator.SampleIndex(samples), 4, (48, 96), device="cpu", seed=233,
+                               shuffle=False).epoch())
 
 
 def test_load_sample_arrays_spans_and_paths(dataset, tmp_path):

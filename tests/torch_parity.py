@@ -94,3 +94,62 @@ def near_threshold_rows(rng, B, K, thr):
     boxes = np.stack([z, z, w, h], -1)
     boxes[:, 0] = (0.0, 0.0, 1.0, 1.0)
     return boxes, np.zeros((B, K), np.float32), np.ones((B, K), bool)
+
+
+def write_cityscapes_layout(root, splits, hw=(64, 128), seed=0, max_objects=6, encode=None, workers=1):
+    """Write a prepared-Cityscapes directory under ``root``, the layout of
+    ``dspnet_tpu/tools/prepare_cityscapes.py``: ``JPEGImages/{id}.jpg`` (id =
+    ``{stem}_leftImg8bit``), PASCAL-style ``Annotations/{id}.xml`` with
+    ``<distance>`` in metres, ``SegmentationClass/{stem}_gtFine_labelTrainIds.png``,
+    ``SegmentationInstance/{stem}_gtFine_instanceIds.png``,
+    ``Disparity/{stem}_disparity.png`` and ``ImageSets/Main/{split}.txt``.
+
+    ``splits``: {split: number of images}. The scenes are the port's
+    ``synthetic.make_example`` from ``seed``; ``encode`` turns a BGR image
+    into JPEG bytes (default: the port's encoder at quality 95, 4:2:0);
+    ``workers`` threads write the files. Returns {split: [ids]}."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dspnet_torch.data import image_io, jpeg, synthetic
+    from dspnet_torch.data.cs_labels import DET_CLASSES
+
+    encode = encode or (lambda img: jpeg.encode(img, 95))
+    H, W = hw
+    for d in ("JPEGImages", "Annotations", "SegmentationClass", "SegmentationInstance", "Disparity",
+              os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    out, jobs = {}, []
+    for split, n in splits.items():
+        ids = []
+        for i in range(n):
+            stem = f"{split}city_{i:06d}_000019"
+            ids.append(stem + "_leftImg8bit")
+            jobs.append((stem, synthetic.make_example(rng, hw, rng.randint(1, max_objects + 1))))
+        with open(os.path.join(root, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+        out[split] = ids
+
+    def write(job):
+        stem, (img, label, seg, disp) = job
+        iid = stem + "_leftImg8bit"
+        with open(os.path.join(root, "JPEGImages", iid + ".jpg"), "wb") as f:
+            f.write(encode(img))
+        image_io.imwrite(os.path.join(root, "SegmentationClass", stem + "_gtFine_labelTrainIds.png"), seg)
+        image_io.imwrite(os.path.join(root, "SegmentationInstance", stem + "_gtFine_instanceIds.png"),
+                         synthetic.instance_ids(label, (H, W)))
+        image_io.imwrite(os.path.join(root, "Disparity", stem + "_disparity.png"), disp)
+        objs = "".join(
+            "<object><name>{}</name><difficult>0</difficult><bndbox><xmin>{}</xmin><ymin>{}</ymin>"
+            "<xmax>{}</xmax><ymax>{}</ymax></bndbox><distance>{}</distance></object>".format(
+                DET_CLASSES[int(r[0])], int(round(r[1] * W)), int(round(r[2] * H)),
+                int(round(r[3] * W)), int(round(r[4] * H)), int(round(r[5] * 255.0)))
+            for r in label)
+        with open(os.path.join(root, "Annotations", iid + ".xml"), "w") as f:
+            f.write(f"<annotation><filename>{iid}.jpg</filename><size><width>{W}</width>"
+                    f"<height>{H}</height><depth>3</depth></size>{objs}</annotation>")
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(write, jobs))
+    return out
