@@ -56,23 +56,43 @@ Phases (any failure ends the run with a non-zero exit):
   8. real data: a prepared Cityscapes layout at raw 1024x2048 (16 train, 8
      val JPEGs at q95 4:2:0 from the port's encoder, XML with <distance>,
      ImageSets, trainId, instanceIds and disparity PNGs) and its .drec copy;
-     nvJPEG against the plain decoder at 4:2:0 and 4:4:4 within the gates of
-     ``jpeg_cuda.GATES``, and timed per backend it offers on this card;
+     the decoder at 4:2:0, 4:2:2, 4:4:4 and gray at 1024x2048, 256x512,
+     64x128 and 37x53: the colour kernel (csrc/jpeg.cu) on nvJPEG's planes
+     against its plain PyTorch version bit for bit, and the card's pixels
+     against the plain decoder's within ``jpeg_cuda.GATES``; a progressive
+     file (nvJPEG's single-image route) and an Exif orientation; the colour
+     kernel's device us beside its bound; nvJPEG per image on the planar
+     route against its own interleaved output (before the repair), in turns,
+     and per backend it offers on this card; the per-route counts;
      ``multi_train --dataset-root`` for 2 epochs on the directory, on the
      .drec and with --predownscale, ``multi_eval --dataset-root`` with
      --write-results --instance-eval (8 result PNGs of 1024x2048), without,
      and on the .drec; each run's counts checked (matcher launches = steps,
-     NMS = eval batches, nvJPEG images = images read, plain JPEG decodes 0)
-     and its time and peak memory printed; the loader alone on the JPEGs
-     against a PNG copy of the same scenes; loader-fed against resident
-     ``fit``;
-  9. a JSON line with the decoder's record, one of kernel results (each
-     kernel's device, host, event and bound times at the main path's shapes,
-     beside the baseline kernels' times from this run), then the result
-     line, last.
+     NMS = eval batches, nvJPEG images = colour launches = images read, plain
+     JPEG decodes and plain colour calls 0) and its time and peak memory
+     printed; the loader alone on the JPEGs against a PNG copy of the same
+     scenes; loader-fed against resident ``fit``;
+  9. reference weights at resnet-50_multi 512x1024: a reference-layout
+     .params (220 args, 118 auxs) written from seeded weights,
+     ``tools.import_mxnet`` (the checkpoint equal to them bit for bit),
+     ``multi_demo`` (bf16) on 4 of phase 8's JPEGs and 2 images of other
+     sizes (NMS launches = nvJPEG images = colour launches = images; each
+     _out.jpg the input's size), the demo timed by stage per image,
+     ``ServingPipeline`` (a CUDA graph per slot) over 64 b1 frames at depths
+     1, 2 and 4 against the synchronous path (results equal and in order in
+     every run; frames/s of each, the card's busy share; depth 4 faster per
+     frame than depth 1; under the profiler one NMS kernel per replayed frame
+     and no wrapper call; ``update_weights`` between submits reaching the
+     frames after it and not those before), ``multi_train --resume`` from the imported epoch with
+     ``--monitor 2`` (matcher launches = steps, the monitor lines, the
+     monitor's cost per step);
+ 10. JSON lines with the decoders' records (nvJPEG, the colour kernel),
+     phase 9's numbers and the kernel results (each kernel's device, host,
+     event and bound times at the main path's shapes, beside the baseline
+     kernels' times from this run), then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
-    python3 chip_smoke.py --real-data-only   # phases 1, 2 and 8 alone, no JSON lines
+    python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no JSON lines
 
 """
 
@@ -767,30 +787,431 @@ def cli_phase(dev, label, resident_ips):
     return launches
 
 
-def decode_times(jpeg_cuda, data, dev, backend, n=20):
-    """nvJPEG on a batch: the wrapper's host ms per call (it returns once the
-    decode has finished), and device us per call by torch.profiler (every
-    kernel and copy on the card in the window)."""
+def decode_times(fn, n=20):
+    """A decode call: host ms per call (the wrapper returns once the decode
+    has finished), and device us per call by torch.profiler (every kernel
+    and copy on the card in the window)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        jpeg_cuda.decode_batch(data, dev, backend=backend)
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        jpeg_cuda.decode_batch(data, dev, backend=backend)
+        fn()
     host_ms = (time.perf_counter() - t0) / n * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            jpeg_cuda.decode_batch(data, dev, backend=backend)
+            fn()
         torch.cuda.synchronize()
     cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     return host_ms, sum(e.device_time for e in cuda) / 5
 
 
+GATE_SIZES = ((1024, 2048), (256, 512), (64, 128), (37, 53))
+COLOR_KERNELS = ("ycc_to_bgr_kernel",)
+
+
+def exif_app1(orientation):
+    """An APP1 Exif segment whose IFD0 holds one Orientation entry."""
+    tiff = (b"MM\x00\x2a" + (8).to_bytes(4, "big") + (1).to_bytes(2, "big") + bytes.fromhex("0112000300000001")
+            + orientation.to_bytes(2, "big") + bytes(6))
+    body = b"Exif\x00\x00" + tiff
+    return b"\xff\xe1" + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def decode_checks(jpeg_cuda, jpeg, data, dev, raw_hw, B, label):
+    """Phase 8's decoder checks on every gate case (4:2:0, 4:2:2, 4:4:4 and
+    gray at each of GATE_SIZES): the colour kernel on nvJPEG's planes
+    against its plain version, bit for bit, and the card's pixels against
+    the plain decoder's within ``jpeg_cuda.GATES``; a progressive file and
+    an Exif orientation; the kernel's device us beside its bound; nvJPEG's
+    planar route against its interleaved output (before the repair), timed
+    in turns; the per-route counts. Returns the decoder's record."""
+    from dspnet_torch.data import synthetic
+
+    record = {"gates": {}, "colour_max_abs_err": 0}
+    t0 = time.perf_counter()
+    plain = [jpeg.decode(d) for d in data[:2]]
+    record["plain_ms"] = (time.perf_counter() - t0) / 2 * 1e3
+    rng = np.random.RandomState(8)
+    cases = 0
+    for hw in GATE_SIZES:
+        scenes = plain[:1] if hw == raw_hw else [synthetic.make_example(rng, hw, 4)[0] for _ in range(2)]
+        for sub in ("420", "422", "444", "gray"):
+            if hw == raw_hw and sub == "420":
+                batch, want = data[:2], plain
+            else:
+                batch = [jpeg.encode(im[..., 1] if sub == "gray" else im, 95, "444" if sub == "gray" else sub)
+                         for im in scenes]
+                want = [jpeg.decode(x) for x in batch]
+            want = np.stack([np.repeat(w[..., None], 3, -1) if w.ndim == 2 else w for w in want])
+            for planes, info in jpeg_cuda.decode_planes(batch, dev):
+                got = jpeg_cuda.ycc_to_bgr(*planes, factors=info.factors)
+                ref = jpeg_cuda.ycc_to_bgr_reference(*planes, factors=info.factors)
+                torch.cuda.synchronize()
+                err = (got.int() - ref.int()).abs().max().item()
+                record["colour_max_abs_err"] = max(record["colour_max_abs_err"], err)
+                check(err == 0, f"colour kernel != its plain version at {sub} {hw}: max |difference| {err}")
+                cases += 1
+            diff = jpeg_cuda.difference(jpeg_cuda.decode_batch(batch, dev).cpu().numpy(), want)
+            record["gates"][f"{sub} {hw[0]}x{hw[1]}"] = diff
+            print(f"card (nvJPEG planes + colour kernel) vs plain decoder, {len(batch)} q95 {sub} {hw[0]}x{hw[1]}: "
+                  f"mean abs {diff['mean']:.4f} (gate {jpeg_cuda.GATES[sub]}), max {diff['max']}, "
+                  f"{diff['over2']:.4%} of values more than 2 levels apart")
+            check(diff["mean"] <= jpeg_cuda.GATES[sub], f"card decode {sub} {hw} outside its gate")
+    print(f"colour kernel vs plain colour function on nvJPEG's planes: {cases} images, max |difference| "
+          f"{record['colour_max_abs_err']}, 4:2:0 / 4:2:2 / 4:4:4 / gray at {', '.join(f'{h}x{w}' for h, w in GATE_SIZES)}")
+
+    # a progressive file (the single-image route) with the same coefficients
+    # as a baseline one; an Exif orientation turns the card's image
+    same, prog = jpeg.encode(plain[0], 95), jpeg.encode(plain[0], 95, progressive=True)
+    before = dict(jpeg_cuda.routes)
+    got_base, got_prog = jpeg_cuda.decode_images([same, prog], dev)
+    check(jpeg_cuda.routes["single_progressive"] == before["single_progressive"] + 1, "progressive route count")
+    diff = jpeg_cuda.difference(got_prog.cpu().numpy(), jpeg.decode(same))
+    print(f"progressive {raw_hw[0]}x{raw_hw[1]} 4:2:0 (nvjpegDecode, one image): equal to the baseline file's "
+          f"card decode: {torch.equal(got_base, got_prog)}; vs plain decoder of the baseline file mean "
+          f"{diff['mean']:.4f} max {diff['max']}")
+    check(diff["mean"] <= jpeg_cuda.GATES["420"], "progressive decode outside the 4:2:0 gate")
+    turned = jpeg_cuda.decode_images([data[0][:2] + exif_app1(6) + data[0][2:]], dev)[0]
+    check(turned.shape == (raw_hw[1], raw_hw[0], 3), f"Exif 6: shape {tuple(turned.shape)}")
+    upright = jpeg_cuda.decode_images([data[0]], dev)[0]
+    check(torch.equal(turned, jpeg.orient(upright, 6)), "Exif 6 on the card != the upright image turned")
+    print(f"Exif orientation 6 on the card: {tuple(turned.shape)}, equal to the upright decode transposed and "
+          "flipped left-right (cv2's rule)")
+    record["progressive_equal_baseline"] = bool(torch.equal(got_base, got_prog))
+
+    # the colour kernel alone at 1024x2048 4:2:0, beside its bound
+    (planes, info), = jpeg_cuda.decode_planes(data[:1], dev)
+    out = torch.empty((*raw_hw, 3), dtype=torch.uint8, device=dev)
+    t = kernel_times(lambda: jpeg_cuda.ycc_to_bgr(*planes, factors=info.factors, out=out), COLOR_KERNELS)
+    p_ms = cuda_ms(lambda: jpeg_cuda.ycc_to_bgr_reference(*planes, factors=info.factors), 10)
+    Hh, Ww = raw_hw
+    # Y and the two chroma planes read once, BGR written once; about 20
+    # int32 operations a pixel, at half the float32 rate
+    bound = bound_us(Hh * Ww + 2 * planes[1].numel() + 3 * Hh * Ww, 2 * 20 * Hh * Ww)
+    print_times(f"ycc_to_bgr (colour kernel) {Hh}x{Ww} 4:2:0", t, p_ms, bound, label)
+    record["colour_kernel"] = dict(t, plain_ms=p_ms, bound_us=bound[0], bound_by=bound[1], cases=cases)
+
+    # nvJPEG per image: the planar route + colour kernel (the path) against
+    # nvJPEG's interleaved output (before the repair; on no path), in turns
+    planar = lambda: jpeg_cuda.decode_batch(data, dev)  # noqa: E731
+    interleaved = lambda: jpeg_cuda.decode_batch_interleaved(data, dev)  # noqa: E731
+    (a1, d1), (b1, e1), (b2, e2), (a2, d2) = (decode_times(f) for f in (planar, interleaved, interleaved, planar))
+    print(f"decode b{B} {Hh}x{Ww} q95 4:2:0 per image: planar + colour kernel host {a1 * 1e3 / B:.1f} / "
+          f"{a2 * 1e3 / B:.1f} us, device {d1 / B:.1f} / {d2 / B:.1f} us; nvJPEG interleaved (before) host "
+          f"{b1 * 1e3 / B:.1f} / {b2 * 1e3 / B:.1f} us, device {e1 / B:.1f} / {e2 / B:.1f} us (order planar, "
+          f"interleaved, interleaved, planar); plain decoder {record['plain_ms']:.1f} ms per image on the host "
+          f"[{label}]")
+    record["per_image"] = {"after_host_us": [a1 * 1e3 / B, a2 * 1e3 / B], "after_device_us": [d1 / B, d2 / B],
+                           "before_host_us": [b1 * 1e3 / B, b2 * 1e3 / B], "before_device_us": [e1 / B, e2 / B]}
+    record["backends"] = {}
+    for name, backend in (("default", jpeg_cuda.BACKEND_DEFAULT), ("hardware", jpeg_cuda.BACKEND_HARDWARE)):
+        if not jpeg_cuda.backend_available(backend, dev):
+            record["backends"][name] = "not available (nvjpegCreateEx: architecture mismatch)"
+            print(f"nvJPEG {name} backend: not available on this card (architecture mismatch)")
+            continue
+        host_ms, dev_us = decode_times(lambda: jpeg_cuda.decode_batch(data, dev, backend=backend))
+        record["backends"][name] = {"host_ms_per_batch": host_ms, "device_us_per_batch": dev_us}
+        print(f"nvJPEG {name} backend, b{B} {Hh}x{Ww} q95 4:2:0 (planar + colour kernel): wrapper host "
+              f"{host_ms * 1e3 / B:.1f} us per image, device {dev_us / B:.1f} us per image [{label}]")
+    record["routes"] = dict(jpeg_cuda.routes)
+    print(f"nvJPEG routes so far (images): {record['routes']}; batched call refusing planar output: "
+          f"{jpeg_cuda._refuses_planar or 'never'}")
+    sys.stdout.flush()
+    return record
+
+
+def reference_weights_phase(dev, label, root, work, jpegs):
+    """Phase 9: the reference's own weights in, served and fine-tuned, at
+    resnet-50_multi 512x1024, full width: a reference-layout .params from
+    seeded weights -> ``tools.import_mxnet`` (the state equal bit for bit) ->
+    ``multi_demo`` (bf16) on 4 of phase 8's 1024x2048 JPEGs (the 2x area
+    resize) and 2 images of other sizes (the fixed-point bilinear resize),
+    timed by stage -> ``ServingPipeline`` (a CUDA graph per slot) at depths
+    1, 2 and 4 against the synchronous ``predict_raw`` over 64 b1 frames,
+    and ``update_weights`` between submits -> ``multi_train --resume``
+    from the imported epoch with ``--monitor 2``. Returns {kernel: {path:
+    launches}}."""
+    import logging
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo, multi_train
+    from dspnet_torch.data import jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data.device_pipeline import resize_linear
+    from dspnet_torch.detect.pipeline import ServingPipeline
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.tools import import_mxnet
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+    from dspnet_torch.utils.convert import to_flax_variables
+    from dspnet_torch.utils.mxnet_import import export_multitask, save_params
+    from dspnet_torch.utils.profiler import StatMonitor
+
+    net = "resnet-50_multi"
+    ref = work / "reference"
+    ref.mkdir()
+    launches = {"nms_keep_mask": {}, "bipartite_match": {}, "jpeg_ycc_to_bgr": {}}
+
+    def reset():
+        nms_cuda.launches = matching_cuda.launches = jpeg_cuda.images = jpeg.decodes = 0
+        jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = 0
+
+    # 1. the reference's full inventory from seeded weights, as MXNet writes it
+    t0 = time.perf_counter()
+    src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev, generator=torch.Generator().manual_seed(9))
+    variables = to_flax_variables(src.model)
+    args, auxs = export_multitask(variables["params"], variables["batch_stats"], net, H)
+    check(len(args) == 220 and len(auxs) == 118, f"{len(args)} args, {len(auxs)} auxs (220 and 118 expected)")
+    params_file = ref / "dspnet-0000.params"
+    save_params(str(params_file), args, auxs)
+    export_s = time.perf_counter() - t0
+
+    # 2. the import tool; the checkpoint holds the source weights bit for bit
+    model_dir = ref / "model"
+    t0 = time.perf_counter()
+    import_mxnet.main(["--params", str(params_file), "--network", net, "--data-shape", f"3,{H},{W}",
+                       "--model-dir", str(model_dir), "--epoch", "0", "--device", "cuda"])
+    import_s = time.perf_counter() - t0
+    payload = torch.load(CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).path(0), map_location="cpu",
+                         weights_only=True)
+    got = {**payload["params"], **payload["buffers"]}
+    want = {k: v.detach().cpu() for k, v in src.model.state_dict().items()}
+    check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+          "the imported checkpoint differs from the weights the .params was written from")
+    print(f"reference weights: {len(args)} args + {len(auxs)} auxs ({params_file.stat().st_size / 2**20:.1f} MiB) "
+          f"written in {export_s:.2f} s; import_mxnet --device cuda {import_s:.2f} s; the checkpoint's "
+          f"{len(want)} tensors equal the source weights bit for bit [{label}]")
+    del src, variables, args, auxs, payload, got, want
+
+    # 3. multi_demo on 4 phase-8 JPEGs (2x: area) and 2 other sizes (bilinear)
+    demo_in = ref / "demo_in"
+    demo_in.mkdir()
+    paths = []
+    for i, d in enumerate(jpegs[:4]):
+        paths.append(demo_in / f"cityscapes_{i}.jpg")
+        paths[-1].write_bytes(d)
+    rng = np.random.RandomState(19)
+    for name, hw, sub in (("street_720x1280.jpg", (720, 1280), "422"), ("street_600x900.jpg", (600, 900), "420")):
+        paths.append(demo_in / name)
+        paths[-1].write_bytes(jpeg.encode(synthetic.make_example(rng, hw, 4)[0], 95, sub))
+    demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                 "--dtype", "bfloat16", "--device", "cuda", "--vis-thresh", "0.3", "--out-dir", str(ref / "out"),
+                 "--images", ",".join(str(x) for x in paths)]
+    reset()
+    t0 = time.perf_counter()
+    written = multi_demo.main(demo_args)
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    n = len(paths)
+    counts = {"nms": nms_cuda.launches, "nvjpeg_images": jpeg_cuda.images, "colour": jpeg_cuda.color_launches,
+              "plain_decodes": jpeg.decodes, "plain_colour": jpeg_cuda.color_plain_calls}
+    check(counts == {"nms": n, "nvjpeg_images": n, "colour": n, "plain_decodes": 0, "plain_colour": 0},
+          f"multi_demo counts {counts}, expected {n} NMS launches, nvJPEG images and colour launches, 0 plain")
+    launches["nms_keep_mask"]["reference_demo"] = counts["nms"]
+    launches["jpeg_ycc_to_bgr"]["reference_demo"] = counts["colour"]
+    check([Path(w).name for w in written] == [x.stem + "_out.jpg" for x in paths], f"written {written}")
+    for w, x in zip(written, paths):
+        check(jpeg.read_header(Path(w).read_bytes())[:2] == jpeg.read_header(x.read_bytes())[:2],
+              f"{w}: not the input's size")
+    print(f"multi_demo {net} {H}x{W} bf16 on {n} images (4 of 1024x2048, 720x1280, 600x900): {demo_s:.2f} s "
+          f"including the model build and checkpoint restore; counts {counts}; each _out.jpg the input's size "
+          f"[{label}]")
+
+    # 4. the demo by stage, per image (synchronised between stages)
+    detector = multi_demo.get_detector(multi_demo.parse_args(demo_args))
+    stage_ms = {"area": [], "bilinear": []}
+    for rep, todo in enumerate((paths[3:5], paths)):  # a warm-up of each resize, then every image
+        for x in todo:
+            t = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = detector.read_image(str(x))
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            raw = resize_linear(img, (H, W))
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            res = detector.predict_raw(raw[None])
+            dets = detector._filter_rows(res["det"][0].cpu().numpy(), 0.0)
+            seg = res["seg"][0].cpu().numpy()
+            t.append(time.perf_counter())
+            vis = detector.visualize_detection(img.cpu().numpy(), dets, seg, 0.3)
+            t.append(time.perf_counter())
+            jpeg.encode(vis, 95)
+            t.append(time.perf_counter())
+            check(np.isfinite(dets).all() and seg.shape == (H // 4, W // 4), f"{x.name}: dets or seg")
+            if rep:
+                kind = "area" if tuple(img.shape[:2]) == (2 * H, 2 * W) else "bilinear"
+                stage_ms[kind].append(np.diff([t0] + t) * 1e3)
+    names = ("read+decode", "resize", "predict", "draw", "encode")
+    demo_split = {}
+    for kind, rows in stage_ms.items():
+        mean = np.mean(rows, axis=0)
+        demo_split[kind] = dict(zip(names, mean.tolist()), total=float(mean.sum()))
+        print(f"demo per image ({kind} resize, {len(rows)} images, after a warm-up): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in zip(names, mean)) + f"; total {mean.sum():.3f} ms "
+              f"[{label}]")
+
+    # 5. ServingPipeline against the synchronous path, 64 b1 frames
+    bases = [resize_linear(detector.read_image(str(x)), (H, W)).cpu().numpy() for x in paths]
+    frames = [np.roll(bases[i % n], 7 * i, axis=1) for i in range(64)]
+
+    def sync_run(waits):
+        out = []
+        for f in frames:
+            res = detector.predict_raw(f[None])
+            t0 = time.perf_counter()
+            out.append({k: v.cpu().numpy() for k, v in res.items()})  # blocks until the card is done
+            waits.append(time.perf_counter() - t0)
+        return out
+
+    def pipe_run(pipe, waits):
+        out, pipe.wait_s = [], 0.0
+        for i, f in enumerate(frames):
+            done = pipe.submit(f, tag=i)
+            if done is not None:
+                out.append(done)
+        out += list(pipe.drain())
+        waits.append(pipe.wait_s)
+        return out
+
+    def check_equal(what, out):
+        check([t for t, _ in out] == list(range(len(frames))), f"pipeline {what}: results out of order")
+        check(all(np.array_equal(r[k], w[k]) for (_, r), w in zip(out, want) for k in w),
+              f"pipeline {what}: results differ from the synchronous predict_raw")
+
+    want = sync_run([])
+    # each slot replays its CUDA graph (the eager window lost to the
+    # synchronous path at every depth: PERF.md, PR 6)
+    pipes = {d: ServingPipeline(detector, depth=d) for d in (1, 2, 4)}
+    reset()
+    for what, pipe in pipes.items():  # first pass: each slot warms up and captures its graph
+        check_equal(what, pipe_run(pipe, []))
+    slots = sum(len(p._slots) for p in pipes.values())
+    check(nms_cuda.launches == 2 * slots,
+          f"{nms_cuda.launches} NMS wrapper launches in the first pass, expected 2 per graph slot ({slots} "
+          f"slots: warm-up and capture)")
+    first_pass = nms_cuda.launches
+    timed, waited = {}, {}
+    order = ("sync", *pipes) * 3
+    for what in order:
+        waits = waited.setdefault(what, [])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sync_run(waits) if what == "sync" else pipe_run(pipes[what], waits)
+        timed.setdefault(what, []).append((time.perf_counter() - t0) * 1e3 / len(frames))
+        if what != "sync":
+            check_equal(what, out)
+    sync_frames = order.count("sync") * len(frames)
+    check(nms_cuda.launches - first_pass == sync_frames,
+          f"{nms_cuda.launches - first_pass} NMS wrapper launches for {sync_frames} synchronous frames")
+    name = {"sync": "sync", **{k: f"depth {k}" for k in pipes}}
+    ms = {name[k]: float(np.mean(v)) for k, v in timed.items()}
+    wait_ms = {name[k]: float(np.sum(v)) * 1e3 / (len(v) * len(frames)) for k, v in waited.items()}
+    from torch.profiler import ProfilerActivity, profile
+
+    # the card's busy time per frame on the synchronous path
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for f in frames[:10]:
+            {k: v.cpu() for k, v in detector.predict_raw(f[None]).items()}
+    busy_ms = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) / 10e3
+    # a replayed graph calls no wrapper: the profiler counts its NMS kernels
+    before = nms_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe_run(pipes[4], [])
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    replayed_nms = sum(any(n in k for n in NMS_KERNELS) for k in kernels)
+    graph_kernels_per_frame = len(kernels) / len(frames)
+    check(replayed_nms == len(frames) and nms_cuda.launches == before,
+          f"graph depth 4: {replayed_nms} NMS kernels ran for {len(frames)} frames, "
+          f"{nms_cuda.launches - before} wrapper calls")
+    print(f"ServingPipeline b1 {H}x{W} bf16, {len(frames)} frames (host uint8 in, numpy out), results equal to "
+          f"the synchronous predict_raw and in order in every run: " + ", ".join(
+              f"{k} {v:.3f} ms/frame ({1e3 / v:.2f} frames/s)" for k, v in ms.items())
+          + " (means of 3 runs in turns " + ", ".join(ms) + "; runs " + "; ".join(
+              f"{name[k]}: " + ", ".join(f"{x:.3f}" for x in v) for k, v in timed.items())
+          + "); host blocked waiting for results " + ", ".join(f"{k} {v:.3f}" for k, v in wait_ms.items())
+          + f" ms/frame; card busy {busy_ms:.3f} ms per frame on the sync path (torch.profiler, 10 frames; idle "
+          f"share {max(0.0, 1 - busy_ms / ms['sync']):.1%}); depth 4 under the profiler: {len(kernels)} "
+          f"kernels for {len(frames)} frames, {replayed_nms} of them NMS, no wrapper call [{label}]")
+    check(ms["depth 4"] < ms["depth 1"],
+          f"depth 4 does not overlap: {ms['depth 4']:.3f} ms/frame against {ms['depth 1']:.3f} at depth 1")
+
+    # new weights while frames are in flight: those before keep the old
+    # weights, those after get the new ones
+    other = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                         generator=torch.Generator().manual_seed(10)).model
+    pipe, swap = pipes[4], frames[:8]
+    old = want[:8]
+    for f in swap[:4]:
+        check(pipe.submit(f) is None, "depth 4 returned a result before its window filled")
+    pipe.update_weights(other)
+    out = [pipe.submit(f) for f in swap[4:]] + list(pipe.drain())
+    new = [{k: v.cpu().numpy() for k, v in detector.predict_raw(f[None]).items()} for f in swap]
+    check(not all(np.array_equal(a["seg"], b["seg"]) for a, b in zip(old, new)), "the new weights change nothing")
+    check(all(np.array_equal(r[k], w[k]) for (_, r), w in zip(out, old[:4] + new[4:]) for k in w),
+          "update_weights in flight: results differ from the synchronous path on the old / new weights")
+    print("ServingPipeline depth 4 update_weights with 4 frames in flight: those 4 equal the synchronous path on "
+          "the old weights, the next 4 on the new ones")
+    launches["nms_keep_mask"]["reference_pipeline"] = nms_cuda.launches
+    del detector, bases, frames, want, pipes, pipe, other
+
+    # 6. fine-tune from the imported epoch with the monitor on
+    resume_dir = ref / "resume"
+    shutil.copytree(model_dir, resume_dir)
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logging.getLogger().addHandler(handler)
+    train_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--num-classes", str(NUM_CLASSES),
+                  "--batch-size", "4", "--device", "cuda", "--dataset-root", str(root), "--model-dir",
+                  str(resume_dir), "--resume", "0", "--end-epoch", "2", "--eval-every", "0", "--compute-dtype",
+                  "bfloat16", "--seg-normalize", "valid", "--lr", "5e-4", "--log-every", "1", "--monitor", "2",
+                  "--pattern", "backbone/stage1"]
+    reset()
+    try:
+        t0 = time.perf_counter()
+        state = multi_train.main(train_args)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        logging.getLogger().removeHandler(handler)
+    steps = 16 // 4
+    check(matching_cuda.launches == steps and state.step == steps,
+          f"resume: {matching_cuda.launches} matcher launches, step {state.step}, expected {steps}")
+    check(jpeg_cuda.images == 16 and jpeg_cuda.color_launches == 16 and jpeg.decodes == 0,
+          f"resume: nvJPEG {jpeg_cuda.images}, colour {jpeg_cuda.color_launches}, plain {jpeg.decodes}")
+    check(any(m.startswith("resumed from epoch 0 (step 0)") for m in seen), "did not resume from the imported epoch")
+    mon = [m for m in seen if m.startswith("monitor ")]
+    names = {m.split()[1] for m in mon}
+    check(mon and all(x.startswith("backbone/stage1") for x in names) and len(mon) == 2 * len(names),
+          f"monitor lines: {len(mon)} for {len(names)} names")
+    launches["bipartite_match"]["reference_resume"] = matching_cuda.launches
+    launches["jpeg_ycc_to_bgr"]["reference_resume"] = jpeg_cuda.color_launches
+    probe = StatMonitor(interval=1, pattern="backbone/stage1", logger=logging.getLogger("chip_smoke_monitor"))
+    probe.tic_toc(state.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        probe.tic_toc(state.params)
+    call_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"multi_train --resume 0 (the imported epoch) --monitor 2 --pattern backbone/stage1, 1 epoch of "
+          f"{steps} b4 steps on phase 8's 1024x2048 JPEGs: {train_s:.2f} s including the build; matcher "
+          f"{steps} launches; {len(mon)} monitor lines ({len(names)} tensors x 2); one monitor pass "
+          f"{call_ms:.3f} ms, so {call_ms / 2:.3f} ms added per step at --monitor 2 [{label}]")
+    del state
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    return launches, {"demo_split_ms": demo_split, "pipeline_ms_per_frame": ms, "pipeline_wait_ms": wait_ms,
+                      "pipeline_graph_kernels_per_frame": graph_kernels_per_frame,
+                      "serving_busy_ms": busy_ms, "monitor_call_ms": call_ms, "import_s": import_s}
+
+
 def real_data_phase(dev, label):
     """Phase 8: a prepared Cityscapes dataset at raw 1024x2048 (JPEG) through
-    the CLIs. Returns ({kernel: launches}, the decoder's record)."""
+    the CLIs, then phase 9 on it. Returns ({kernel: launches}, the decoder's
+    record, phase 9's ({kernel: {path: launches}}, record))."""
     import tempfile
 
     from dspnet_torch.api import create_model
@@ -804,25 +1225,28 @@ def real_data_phase(dev, label):
     raw_hw, B, n_train, n_val = (1024, 2048), 4, 16, 8
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_real_", dir=ROOT / "build"))
     root, drec = work / "cityscapes", work / "drec"
-    launches = {"nms_keep_mask": 0, "bipartite_match": 0}
+    launches = {"nms_keep_mask": 0, "bipartite_match": 0, "jpeg_ycc_to_bgr": 0}
     decoder = {}
 
     def counted(run, steps, eval_batches, images, what):
         nms_cuda.launches = matching_cuda.launches = jpeg_cuda.images = jpeg.decodes = 0
+        jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
-               "nvjpeg_images": jpeg_cuda.images, "plain_jpeg_decodes": jpeg.decodes}
+               "nvjpeg_images": jpeg_cuda.images, "plain_jpeg_decodes": jpeg.decodes,
+               "jpeg_ycc_to_bgr": jpeg_cuda.color_launches, "plain_colour_calls": jpeg_cuda.color_plain_calls}
         want = {"bipartite_match": steps, "nms_keep_mask": eval_batches, "nvjpeg_images": images,
-                "plain_jpeg_decodes": 0}
+                "plain_jpeg_decodes": 0, "jpeg_ycc_to_bgr": images, "plain_colour_calls": 0}
         check(got == want, f"{what}: counts {got}, expected {want}")
         print(f"{what}: {secs:.2f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; matcher "
               f"{got['bipartite_match']} launches in {steps} train steps, NMS {got['nms_keep_mask']} in "
-              f"{eval_batches} eval batches, nvJPEG {got['nvjpeg_images']} images of {images} read, plain "
-              f"JPEG decodes {got['plain_jpeg_decodes']} [{label}]")
+              f"{eval_batches} eval batches, nvJPEG {got['nvjpeg_images']} images of {images} read, colour "
+              f"kernel {got['jpeg_ycc_to_bgr']} launches, plain JPEG decodes {got['plain_jpeg_decodes']}, plain "
+              f"colour calls {got['plain_colour_calls']} [{label}]")
         for k in launches:
             launches[k] += got[k]
         return out
@@ -838,41 +1262,10 @@ def real_data_phase(dev, label):
               f"instanceIds and disparity PNGs; {size / (n_train + n_val) / 2**10:.1f} KiB per JPEG) and "
               f"its .drec copy written in {time.perf_counter() - t0:.3f} s [{label}]")
 
-        # decode gate: nvJPEG against the plain decoder (libjpeg's pixels)
         train = imdb.load_index(str(root), "train")
         data = [iterator.load_sample_bytes(s, with_seg=False)[0] for s in train.samples[:B]]
-        t0 = time.perf_counter()
-        plain = [jpeg.decode(d) for d in data[:2]]
-        plain_ms = (time.perf_counter() - t0) / 2 * 1e3
-        gates = {}
-        for sub, batch in (("420", data[:2]), ("444", [jpeg.encode(p, 95, "444") for p in plain])):
-            got = jpeg_cuda.decode_batch(batch, dev).cpu().numpy()
-            want = plain if sub == "420" else [jpeg.decode(b) for b in batch]
-            gates[sub] = jpeg_cuda.difference(got, np.stack(want))
-            print(f"nvJPEG vs plain decoder, 2 images {raw_hw[0]}x{raw_hw[1]} q95 {sub}: mean abs "
-                  f"{gates[sub]['mean']:.4f} (gate {jpeg_cuda.GATES[sub]}), max {gates[sub]['max']}, "
-                  f"{gates[sub]['over2']:.4%} of values more than 2 levels apart")
-            check(gates[sub]["mean"] <= jpeg_cuda.GATES[sub], f"nvJPEG {sub} outside its gate")
-            if sub == "420":
-                box = [jpeg.decode(b, fancy_upsampling=False) for b in batch]
-                gates["420_box"] = jpeg_cuda.difference(got, np.stack(box))
-                print(f"  against the plain decoder with replicated chroma: mean abs "
-                      f"{gates['420_box']['mean']:.4f} (gate {jpeg_cuda.GATES['420_box']}), max "
-                      f"{gates['420_box']['max']}, {gates['420_box']['over2']:.4%} more than 2 levels apart")
-                check(gates["420_box"]["mean"] <= jpeg_cuda.GATES["420_box"], "nvJPEG 420 outside its box gate")
-        decoder.update(plain_ms=plain_ms, gates=gates, backends={})
-        for name, backend in (("default", jpeg_cuda.BACKEND_DEFAULT), ("hardware", jpeg_cuda.BACKEND_HARDWARE)):
-            if not jpeg_cuda.backend_available(backend, dev):
-                decoder["backends"][name] = "not available (nvjpegCreateEx: architecture mismatch)"
-                print(f"nvJPEG {name} backend: not available on this card (architecture mismatch)")
-                continue
-            host_ms, dev_us = decode_times(jpeg_cuda, data, dev, backend)
-            decoder["backends"][name] = {"host_ms_per_batch": host_ms, "device_us_per_batch": dev_us}
-            print(f"nvJPEG {name} backend, b{B} {raw_hw[0]}x{raw_hw[1]} q95 4:2:0: wrapper host "
-                  f"{host_ms * 1e3 / B:.1f} us per image ({host_ms:.3f} ms per batch, decode finished), device "
-                  f"{dev_us / B:.1f} us per image (torch.profiler); plain decoder {plain_ms:.1f} ms per image "
-                  f"on the host [{label}]")
-        del plain
+        decoder.update(decode_checks(jpeg_cuda, jpeg, data, dev, raw_hw, B, label))
+        demo_jpegs = data  # phase 9's demo inputs: 1024x2048 q95 4:2:0 from the layout
 
         # the CLIs on the directory, on the .drec store, with --predownscale
         net = ["--network", "resnet-50_multi", "--data-shape", f"3,{H},{W}", "--num-classes", str(NUM_CLASSES),
@@ -993,11 +1386,13 @@ def real_data_phase(dev, label):
         decoder.update(loader_jpeg_ips=[j1, j2], loader_png_ips=[p1, p2], fit_ratio=(l1 + l2) / (r1 + r2),
                        fit_png_ratio=(q1 + q2) / (r1 + r2), eval_ms=eval_ms)
         del solver, st, bundle, resident, loader, png_loader, init
+        torch.cuda.empty_cache()
+        reference = reference_weights_phase(dev, label, root, work, demo_jpegs)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
     sys.stdout.flush()
-    return launches, decoder
+    return launches, decoder, reference
 
 
 KERNEL_KINDS = (  # first match wins, on the lower-cased kernel name
@@ -1273,13 +1668,17 @@ def main():
     match_err, match_times = matcher_phase(dev, bundle.anchors, label, base_match)
     match_launches, train_ips = training_phase(dev, label)
     cli_launches = cli_phase(dev, label, train_ips[4])
-    real_launches, decoder = real_data_phase(dev, label)
+    real_launches, decoder, (ref_launches, reference) = real_data_phase(dev, label)
 
-    # ---- 9. results: launches summed over the paths, each counted from 0
+    # ---- 10. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
-                                 "real_data": real_launches["nms_keep_mask"]},
+                                 "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
-                                   "real_data": real_launches["bipartite_match"]}}
+                                   "real_data": real_launches["bipartite_match"],
+                                   **ref_launches["bipartite_match"]},
+               "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
+                                   **ref_launches["jpeg_ycc_to_bgr"]}}
+    colour = decoder.pop("colour_kernel")
 
     shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "before_device_us", "before_host_us",
                   "before_event_ms", "refills")
@@ -1297,12 +1696,21 @@ def main():
                              for s, v in times.items() if s != main},
         }
 
-    # nvJPEG is the counterpart of the JAX package's host decode (cv2 on
-    # libjpeg), not of a TPU kernel: its record stands on a line of its own
-    print(json.dumps({"decoders": [{"name": "jpeg_decode_batch", "route": "nvjpeg",
-                                    "source": "dspnet_torch/csrc/jpeg.cu",
-                                    "replaces": "dspnet_tpu/data/iterator.py:73 (cv2.imdecode on the host)",
-                                    **decoder}]}))
+    # nvJPEG and the colour kernel are the counterpart of the JAX package's
+    # host decode (cv2 on libjpeg), not of a TPU kernel: their records stand
+    # on a line of their own
+    print(json.dumps({"decoders": [
+        {"name": "jpeg_decode_batch", "route": "nvjpeg", "source": "dspnet_torch/csrc/jpeg.cu",
+         "replaces": "dspnet_tpu/data/iterator.py:73 (cv2.imdecode on the host)", **decoder},
+        {"name": "jpeg_ycc_to_bgr", "route": "cuda", "source": "dspnet_torch/csrc/jpeg.cu",
+         "replaces": "libjpeg-turbo's h2v1/h2v2_fancy_upsample + ycc_rgb_convert behind cv2.imdecode "
+                     "(dspnet_tpu/data/iterator.py:73)",
+         "launches": sum(by_path["jpeg_ycc_to_bgr"].values()), "launches_by_path": by_path["jpeg_ycc_to_bgr"],
+         "max_abs_err": float(decoder["colour_max_abs_err"]), "ms": colour["device_us"] / 1e3, "plain_ms": colour["plain_ms"],
+         "bound_ms": colour["bound_us"] / 1e3, "bound_by": colour["bound_by"], "library_ms": None,
+         "at": "1024x2048 4:2:0", "host_us": colour["host_us"], "event_ms": colour["event_ms"],
+         "cases_equal": colour["cases"]}]}))
+    print(json.dumps({"reference_weights": reference}))
     print(json.dumps({"kernels": [
         entry("nms_keep_mask", "dspnet_torch/csrc/nms.cu", "dspnet_tpu/ops/nms_pallas.py:30",
               by_path["nms_keep_mask"], max_err, nms_times, "B=1 K=400"),

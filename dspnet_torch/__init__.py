@@ -14,6 +14,7 @@ _LAZY = {
     "create_model": ("dspnet_torch.api", "create_model"),
     "ModelBundle": ("dspnet_torch.api", "ModelBundle"),
     "Detector": ("dspnet_torch.detect.detector", "Detector"),
+    "ServingPipeline": ("dspnet_torch.detect.pipeline", "ServingPipeline"),
 }
 
 

@@ -11,8 +11,11 @@ record store, through ``data/imdb.py::load_index``; the train split is
 ``train``, the val split ``val``, and a missing val split skips the
 validation pass, as in the JAX CLI) or ``--synthetic N``. It takes the JAX
 CLI's flags that this port honours and no others: argparse rejects the rest
-(multi-process and mesh flags, ``--monitor``, ``--remat``, ``--seg-fast``,
-``--input-s2d``, the other loaders; ROADMAP Queue A). The only loader is
+(multi-process and mesh flags, ``--remat``, ``--seg-fast``, ``--input-s2d``,
+the other loaders; ROADMAP Queue A). ``--monitor N --pattern RX`` logs the
+shape, mean and std of every parameter whose flax path matches RX after
+every N-th batch (``utils/profiler.py::StatMonitor``; the JAX CLI's paths,
+so one pattern serves both), copying two numbers per matching tensor. The only loader is
 ``device``: on the card the host threads read bytes and decode masks, nvJPEG
 decodes the images and the augmentation runs there
 (``data/device_pipeline.py``); ``--predownscale`` resizes each image to the
@@ -50,6 +53,7 @@ from dspnet_torch.data.device_pipeline import DeviceAugIterator
 from dspnet_torch.train.lr import lr_scheduler_from_epochs
 from dspnet_torch.train.solver import MultiTaskSolver, TrainingDiverged
 from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+from dspnet_torch.utils.profiler import StatMonitor
 
 SEED = 233  # the reference's seed: weights, shuffle and augmentation table
 
@@ -81,6 +85,10 @@ def parse_args(argv=None):
                    help="synthetic validation-set size (0 = same as --synthetic)")
     p.add_argument("--synthetic-dir", default=default_synthetic_dir())
     p.add_argument("--log-every", type=int, default=20)
+    p.add_argument("--monitor", type=int, default=0,
+                   help="log param stats every N batches (reference mx.mon.Monitor, "
+                        "multi_train.py:76-79,379)")
+    p.add_argument("--pattern", default=".*", help="with --monitor: regex of flax param paths to log")
     p.add_argument("--metrics-jsonl", default="",
                    help="append per-epoch train/val metrics as JSON lines "
                         "({epoch, split, time, ...metrics})")
@@ -188,12 +196,19 @@ def main(argv=None):
             with open(args.metrics_jsonl, "a") as f:
                 f.write(json.dumps({"epoch": ep, "split": split, "time": time.time(), **metrics}) + "\n")
 
+    batch_cb = None
+    if args.monitor > 0:
+        mon = StatMonitor(interval=args.monitor, pattern=args.pattern, logger=log)
+
+        def batch_cb(st, n):
+            mon.tic_toc(st.params)
+
     try:
         state = solver.fit(
             state, train_iter, num_epochs=args.end_epoch - begin, eval_iter=eval_iter,
             eval_every=args.eval_every, data_shape=(H, W), log_fn=log.info,
             epoch_end_callback=epoch_cb, log_every=args.log_every, epoch_offset=begin,
-            metrics_sink=metrics_sink)
+            metrics_sink=metrics_sink, batch_end_callback=batch_cb)
     except TrainingDiverged as e:
         # exit 3 = deterministic failure: a restart script must not retry (a
         # resume replays the same seeded epoch and diverges again)

@@ -148,7 +148,9 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
         if img.ndim == 3:
             img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # RGB(A) -> BGR(A)
     elif data[:3] == JPEG_MAGIC:
-        img = jpeg.decode(data)  # gray, or BGR already
+        # gray, or BGR already; the Exif orientation applied as cv2 does it,
+        # under IMREAD_COLOR only
+        img = jpeg.decode(data, apply_orientation=flags == IMREAD_COLOR)
     else:
         raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
     if flags == IMREAD_UNCHANGED:

@@ -25,11 +25,18 @@ So the pixels equal cv2's bit for bit (``tests/test_torch_jpeg.py``). The
 Huffman stage is a Python loop over 16-bit lookup tables: fine at test sizes
 and for checks, slow (about a second) at 1024x2048. Progressive,
 arithmetic-coded, lossless, 12-bit and CMYK files raise :class:`JpegError`.
-EXIF orientation is ignored, where ``cv2.imread(IMREAD_COLOR)`` applies it.
+The APP1 Exif ``Orientation`` tag (values 2-8) is applied after the colour
+conversion, a flip or a transpose, as ``cv2.imread`` and ``cv2.imdecode``
+do under ``IMREAD_COLOR``. :func:`decode_planes` stops before the upsampling
+and returns the cropped component planes, which is what the card's colour
+kernel (``csrc/jpeg.cu``) takes from nvJPEG.
 
 **Encoder.** Baseline JFIF, the Annex K quantisation tables scaled by the IJG
-quality rule, 4:2:0 (cv2's default) or 4:4:4 or gray, the standard Huffman
-tables, no restart markers. The DCT is an exact float DCT rounded to the
+quality rule, 4:2:0 (cv2's default), 4:2:2, 4:4:4 or gray, the standard
+Huffman tables, no restart markers; ``progressive=True`` writes the same
+quantised coefficients as a progressive file (spectral selection only: one
+DC scan, then one AC scan per component), which the plain decoder does not
+read and nvJPEG and libjpeg do. The DCT is an exact float DCT rounded to the
 nearest step, so the bytes are not cv2's, but any decoder reads them. The
 Huffman bit packing is vectorised (symbol arrays, cumulative bit offsets,
 ``np.packbits``, 0xFF stuffing).
@@ -40,7 +47,7 @@ Channel order follows cv2: colour arrays are BGR in and out.
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -359,10 +366,10 @@ def _fancy_h2v2(c: np.ndarray) -> np.ndarray:
     return out
 
 
-def _upsample(c: np.ndarray, fh: int, fv: int, fancy: bool = True) -> np.ndarray:
+def _upsample(c: np.ndarray, fh: int, fv: int) -> np.ndarray:
     if (fh, fv) == (1, 1):
         return c
-    if not fancy or c.shape[1] <= 2:  # libjpeg-turbo replicates a component this narrow
+    if c.shape[1] <= 2:  # libjpeg-turbo replicates a component this narrow
         return np.repeat(np.repeat(c, fv, axis=0), fh, axis=1)
     if (fh, fv) == (2, 1):
         return _fancy_h2v1(c)
@@ -392,15 +399,146 @@ def ycc_to_bgr(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)
 
 
+# ------------------------------------------------------------------ Exif
+
+
+def _exif_orientation(body: bytes) -> int:
+    """The ``Orientation`` tag (0x0112) of an APP1 Exif body, 1 when it is
+    absent, unreadable or outside 1..8."""
+    tiff = body[6:]
+    if body[:6] != b"Exif\x00\x00" or len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
+        return 1
+    e = "<" if tiff[:2] == b"II" else ">"
+    try:
+        (ifd,) = struct.unpack_from(e + "I", tiff, 4)
+        (n,) = struct.unpack_from(e + "H", tiff, ifd)
+        for k in range(n):
+            tag, kind, count = struct.unpack_from(e + "HHI", tiff, ifd + 2 + 12 * k)
+            if tag == 0x0112 and kind == 3 and count >= 1:
+                (value,) = struct.unpack_from(e + "H", tiff, ifd + 2 + 12 * k + 8)
+                return value if 1 <= value <= 8 else 1
+    except struct.error:
+        return 1
+    return 1
+
+
+def orient(img, orientation: int):
+    """Apply an Exif orientation (1..8) to an (H, W, ...) numpy array or
+    torch tensor, as cv2's ``ExifTransform``: 2 flips left-right, 3 turns
+    180 degrees, 4 flips up-down, 5 transposes, 6 transposes and flips
+    left-right, 7 transposes and turns 180 degrees, 8 transposes and flips
+    up-down."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(0, 1) if hasattr(img, "flip") else np.swapaxes(img, 0, 1)
+    axes = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    if not axes:
+        return img
+    return img.flip(axes) if hasattr(img, "flip") else np.flip(img, axes)
+
+
 # ------------------------------------------------------------------ decode
 
 
-def decode(data, fancy_upsampling: bool = True) -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 BGR, or (H, W) uint8 for a gray image.
+class Info(NamedTuple):
+    """What the marker segments before the first scan say of an image."""
 
-    ``fancy_upsampling=False`` replicates each chroma sample over its 2x1 or
-    2x2 pixels instead (libjpeg's ``do_fancy_upsampling = FALSE``, whose
-    merged upsampler gives the same pixels); cv2 never asks for it."""
+    height: int
+    width: int
+    components: int
+    #: chroma upsampling factors (horizontal, vertical): (1, 1) for 4:4:4
+    #: and gray, (2, 1) for 4:2:2, (2, 2) for 4:2:0
+    factors: Tuple[int, int]
+    progressive: bool
+    #: the three components are R, G, B (Adobe transform 0, or no JFIF and
+    #: component ids 'R', 'G', 'B'), not YCbCr
+    rgb: bool
+    #: the Exif orientation, 1..8
+    orientation: int
+
+
+def _frame(body: bytes) -> dict:
+    """A frame header's fields; raises on a precision, component count or
+    sampling layout that neither decoder here reads."""
+    precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
+    if precision != 8:
+        raise JpegError(f"{precision}-bit JPEG is not supported (8-bit is)")
+    if ncomp not in (1, 3):
+        raise JpegError(f"JPEG with {ncomp} components is not supported (gray and "
+                        "YCbCr are; CMYK is not)")
+    if height == 0 or width == 0:
+        raise JpegError("JPEG frame has a zero dimension")
+    comps, order = {}, []
+    for k in range(ncomp):
+        cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
+        comps[cid] = {"h": hv >> 4, "v": hv & 15, "tq": tq}
+        order.append(cid)
+    hmax = max(c["h"] for c in comps.values())
+    vmax = max(c["v"] for c in comps.values())
+    frame = {"height": height, "width": width, "comps": comps, "order": order,
+             "hmax": hmax, "vmax": vmax,
+             "mcux": _ceil_div(width, 8 * hmax), "mcuy": _ceil_div(height, 8 * vmax)}
+    if ncomp == 1:
+        comps[order[0]].update(h=1, v=1)
+        frame.update(hmax=1, vmax=1, mcux=_ceil_div(width, 8), mcuy=_ceil_div(height, 8))
+    else:
+        luma, cb, cr = (comps[c] for c in order)
+        if (cb["h"], cb["v"], cr["h"], cr["v"]) != (1, 1, 1, 1) or \
+                (luma["h"], luma["v"]) not in ((1, 1), (2, 1), (2, 2)):
+            raise JpegError("JPEG sampling factors " + ", ".join(
+                f"{c['h']}x{c['v']}" for c in (luma, cb, cr))
+                            + " are not supported (luma 1x1, 2x1 or 2x2 over 1x1 chroma are)")
+    return frame
+
+
+def _is_rgb(frame: dict, jfif: bool, adobe_transform) -> bool:
+    if len(frame["order"]) != 3:
+        return False
+    return (adobe_transform == 0 if adobe_transform is not None
+            else (not jfif and frame["order"] == [ord("R"), ord("G"), ord("B")]))
+
+
+def read_info(data) -> Info:
+    """The header of a JPEG stream without decoding it: sizes, chroma
+    factors, progressive or not, the colour space and the Exif orientation.
+    Raises :class:`JpegError` on a form neither the plain decoder nor the
+    card reads (arithmetic coding, lossless, 12-bit, CMYK, other sampling
+    factors); a progressive file passes (the card decodes it)."""
+    data = bytes(data)
+    _check_soi(data)
+    jfif, adobe, orientation, frame, sof = False, None, 1, None, None
+    for marker, body, _ in _segments(data, 2):
+        if marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xE1 and body[:6] == b"Exif\x00\x00" and orientation == 1:
+            orientation = _exif_orientation(body)
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif marker in _SOF_UNSUPPORTED and marker != 0xC2:
+            raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported")
+        elif marker in (0xC0, 0xC1, 0xC2):
+            frame, sof = _frame(body), marker
+        elif marker == 0xDA:
+            break
+    if frame is None:
+        raise JpegError("JPEG stream has no frame header before its first scan")
+    return Info(frame["height"], frame["width"], len(frame["order"]),
+                (frame["hmax"], frame["vmax"]), sof == 0xC2,
+                _is_rgb(frame, jfif, adobe), orientation)
+
+
+class Planes(NamedTuple):
+    """A decoded image before chroma upsampling: its component planes, each
+    cropped to the component's own size (``ceil(H * v / vmax)`` by
+    ``ceil(W * h / hmax)``), and the image's :class:`Info`."""
+
+    planes: List[np.ndarray]
+    info: Info
+
+
+def decode_planes(data) -> Planes:
+    """JPEG bytes -> the component planes after the IDCT, before chroma
+    upsampling, colour conversion and orientation (counted in
+    :data:`decodes`)."""
     global decodes
     decodes += 1
     data = bytes(data)
@@ -411,6 +549,7 @@ def decode(data, fancy_upsampling: bool = True) -> np.ndarray:
     restart = 0
     adobe_transform = None
     jfif = False
+    orientation = 1
     coefs: Dict[int, np.ndarray] = {}
     comp_q: Dict[int, np.ndarray] = {}
     _check_soi(data)
@@ -444,42 +583,17 @@ def decode(data, fancy_upsampling: bool = True) -> np.ndarray:
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
+        elif marker == 0xE1 and body[:6] == b"Exif\x00\x00" and orientation == 1:
+            orientation = _exif_orientation(body)
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe_transform = body[11]
         elif marker in _SOF_UNSUPPORTED:
             raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported (baseline and "
                             "extended sequential Huffman are)")
         elif marker in (0xC0, 0xC1):  # baseline / extended sequential Huffman
-            precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
-            if precision != 8:
-                raise JpegError(f"{precision}-bit JPEG is not supported (8-bit is)")
-            if ncomp not in (1, 3):
-                raise JpegError(f"JPEG with {ncomp} components is not supported (gray and "
-                                "YCbCr are; CMYK is not)")
-            if height == 0 or width == 0:
-                raise JpegError("JPEG frame has a zero dimension")
-            comps, order = {}, []
-            for k in range(ncomp):
-                cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
-                comps[cid] = {"h": hv >> 4, "v": hv & 15, "tq": tq}
-                order.append(cid)
-            hmax = max(c["h"] for c in comps.values())
-            vmax = max(c["v"] for c in comps.values())
-            frame = {"height": height, "width": width, "comps": comps, "order": order,
-                     "hmax": hmax, "vmax": vmax,
-                     "mcux": _ceil_div(width, 8 * hmax), "mcuy": _ceil_div(height, 8 * vmax)}
-            if ncomp == 1:
-                comps[order[0]].update(h=1, v=1)
-                frame.update(hmax=1, vmax=1, mcux=_ceil_div(width, 8), mcuy=_ceil_div(height, 8))
-            else:
-                luma, cb, cr = (comps[c] for c in order)
-                if (cb["h"], cb["v"], cr["h"], cr["v"]) != (1, 1, 1, 1) or \
-                        (luma["h"], luma["v"]) not in ((1, 1), (2, 1), (2, 2)):
-                    raise JpegError("JPEG sampling factors " + ", ".join(
-                        f"{c['h']}x{c['v']}" for c in (luma, cb, cr))
-                                    + " are not supported (luma 1x1, 2x1 or 2x2 over 1x1 chroma are)")
-            for cid in order:
-                c = comps[cid]
+            frame = _frame(body)
+            for cid in frame["order"]:
+                c = frame["comps"][cid]
                 coefs[cid] = np.zeros((frame["mcuy"] * c["v"], frame["mcux"] * c["h"], 64), np.int32)
         elif marker == 0xDA:  # SOS
             if frame is None:
@@ -517,17 +631,29 @@ def decode(data, fancy_upsampling: bool = True) -> np.ndarray:
         plane = pix.transpose(0, 2, 1, 3).reshape(nbh * 8, nbw * 8)
         dh = _ceil_div(frame["height"] * c["v"], frame["vmax"])
         dw = _ceil_div(frame["width"] * c["h"], frame["hmax"])
-        plane = _upsample(plane[:dh, :dw], frame["hmax"] // c["h"], frame["vmax"] // c["v"],
-                          fancy_upsampling)
-        planes.append(plane[:frame["height"], :frame["width"]])
-    if len(planes) == 1:
-        return np.ascontiguousarray(planes[0])
-    ids = frame["order"]
-    rgb = (adobe_transform == 0 if adobe_transform is not None
-           else (not jfif and ids == [ord("R"), ord("G"), ord("B")]))
-    if rgb:
-        return np.ascontiguousarray(np.stack(planes[::-1], axis=-1))
-    return ycc_to_bgr(*planes)
+        planes.append(np.ascontiguousarray(plane[:dh, :dw]))
+    info = Info(frame["height"], frame["width"], len(planes), (frame["hmax"], frame["vmax"]), False,
+                _is_rgb(frame, jfif, adobe_transform), orientation)
+    return Planes(planes, info)
+
+
+def decode(data, apply_orientation: bool = True) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 BGR, or (H, W) uint8 for a gray image,
+    turned by its Exif orientation unless ``apply_orientation`` is False (as
+    ``cv2.imdecode`` under ``IMREAD_UNCHANGED``)."""
+    planes, info = decode_planes(data)
+    fh, fv = info.factors
+    full = [planes[0]] + [_upsample(p, fh, fv)[:info.height, :info.width]
+                          for p in planes[1:]]
+    if len(full) == 1:
+        img = full[0]
+    elif info.rgb:
+        img = np.stack(full[::-1], axis=-1)
+    else:
+        img = ycc_to_bgr(*full)
+    if apply_orientation:
+        img = orient(img, info.orientation)
+    return np.ascontiguousarray(img)
 
 
 # ------------------------------------------------------------------ encode
@@ -626,42 +752,55 @@ def _pack(vals: np.ndarray, lens: np.ndarray) -> bytes:
     return np.insert(out, ff + 1, 0).tobytes()
 
 
-def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420") -> bytes:
-    """(H, W, 3) uint8 BGR or (H, W) gray -> baseline JFIF JPEG bytes.
-    ``subsampling``: "420" (cv2's default) or "444" for colour."""
+#: luma sampling factors (horizontal, vertical) over 1x1 chroma
+_SUBSAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}
+
+
+def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420", progressive: bool = False) -> bytes:
+    """(H, W, 3) uint8 BGR or (H, W) gray -> JFIF JPEG bytes.
+    ``subsampling``: "420" (cv2's default), "422" or "444" for colour.
+    ``progressive``: the same quantised coefficients in a progressive file
+    (SOF2): one interleaved DC scan, then one AC scan (1..63) per component,
+    no successive approximation."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[-1] != 3):
         raise ValueError(f"JPEG holds (H, W) or (H, W, 3) uint8 arrays, got {img.shape} {img.dtype}")
-    if subsampling not in ("420", "444"):
-        raise ValueError(f"subsampling must be '420' or '444', got {subsampling!r}")
+    if subsampling not in _SUBSAMPLING:
+        raise ValueError(f"subsampling must be one of {sorted(_SUBSAMPLING)}, got {subsampling!r}")
     H, W = img.shape[:2]
     if not (0 < H < 65536 and 0 < W < 65536):
         raise ValueError(f"JPEG dimensions must lie in 1..65535, got {H}x{W}")
     gray = img.ndim == 2
-    f = 1 if gray or subsampling == "444" else 2
-    mcuy, mcux = _ceil_div(H, 8 * f), _ceil_div(W, 8 * f)
-    pad = lambda p: np.pad(p, ((0, mcuy * 8 * f - H), (0, mcux * 8 * f - W)), mode="edge")  # noqa: E731
+    fh, fv = (1, 1) if gray else _SUBSAMPLING[subsampling]
+    mcuy, mcux = _ceil_div(H, 8 * fv), _ceil_div(W, 8 * fh)
+    pad = lambda p: np.pad(p, ((0, mcuy * 8 * fv - H), (0, mcux * 8 * fh - W)), mode="edge")  # noqa: E731
     qt = [quality_table(_STD_LUMA_Q, quality), quality_table(_STD_CHROMA_Q, quality)]
     if gray:
         planes = [pad(img.astype(np.int64))]
     else:
         b, g, r = (img[..., k].astype(np.int32) for k in range(3))
         planes = [pad(p) for p in _rgb_to_ycc(b, g, r)]
-        if f == 2:  # h2v2_downsample: 2x2 sums, biases 1, 2, 1, 2 along a row
+        if (fh, fv) == (2, 2):  # h2v2_downsample: 2x2 sums, biases 1, 2, 1, 2 along a row
             bias = np.tile([1, 2], mcux * 4)
             for k in (1, 2):
                 p = planes[k]
                 planes[k] = (p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2] + bias) >> 2
+        elif (fh, fv) == (2, 1):  # h2v1_downsample: pair sums, biases 0, 1 along a row
+            bias = np.tile([0, 1], mcux * 4)
+            for k in (1, 2):
+                p = planes[k]
+                planes[k] = (p[:, 0::2] + p[:, 1::2] + bias) >> 1
 
     def quantize(plane, q, nbh, nbw):
         coef = _blocks(plane, nbh, nbw)
         step = q[NATURAL_ORDER].astype(np.float64)
         return (np.sign(coef) * np.floor(np.abs(coef) / step + 0.5)).astype(np.int64)
 
-    luma = quantize(planes[0], qt[0], mcuy * f, mcux * f)
+    per_mcu = fh * fv
+    luma = quantize(planes[0], qt[0], mcuy * fv, mcux * fh)
     # blocks in scan order: per MCU, the luma blocks row by row, then Cb, Cr
-    luma = luma.reshape(mcuy, f, mcux, f, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, f * f, 64)
-    parts, comp = [luma], [0] * (f * f)
+    luma = luma.reshape(mcuy, fv, mcux, fh, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, per_mcu, 64)
+    parts, comp = [luma], [0] * per_mcu
     if not gray:
         for k in (1, 2):
             parts.append(quantize(planes[k], qt[1], mcuy, mcux).reshape(mcuy * mcux, 1, 64))
@@ -689,11 +828,11 @@ def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420") -> byte
     s = _bit_size(diff)
     code, clen = lookup(dc_code, chroma, s)
     extra = np.where(diff < 0, diff - 1, diff) & ((1 << s) - 1)
-    keys = [np.arange(nb, dtype=np.int64) * 1024]
-    vals = [(code << s) | extra]
-    lens = [clen + s]
+    dc_events = (np.arange(nb, dtype=np.int64) * 1024, (code << s) | extra, clen + s)
 
-    # AC: nonzero coefficients with their zero runs (ZRL for each 16 zeros)
+    # AC: nonzero coefficients with their zero runs (ZRL for each 16 zeros);
+    # event keys are block * 1024 + position in the block
+    keys, vals, lens = [], [], []
     blocks[:, 1:] = np.clip(blocks[:, 1:], -1023, 1023)  # baseline AC sizes stop at 10 bits
     bi, ki = np.nonzero(blocks[:, 1:])
     ki = ki + 1
@@ -715,7 +854,8 @@ def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420") -> byte
         keys.append(bi[has] * 1024 + ki[has] * 8 + j)
         vals.append(code)
         lens.append(clen)
-    # EOB after the last nonzero coefficient unless it is the 63rd
+    # EOB after the last nonzero coefficient unless it is the 63rd (in a
+    # progressive AC scan the same symbol is EOB0: a run of one block)
     last = np.zeros(nb, np.int64)
     last[bi] = ki  # the last write per block wins: ki ascends within a block
     eob = last < 63
@@ -723,9 +863,11 @@ def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420") -> byte
     keys.append(np.flatnonzero(eob) * 1024 + 1023)
     vals.append(code)
     lens.append(clen)
+    ac_events = tuple(np.concatenate(x) for x in (keys, vals, lens))
 
-    order = np.argsort(np.concatenate(keys), kind="stable")
-    scan = _pack(np.concatenate(vals)[order], np.concatenate(lens)[order])
+    def packed(events):
+        order = np.argsort(events[0], kind="stable")
+        return _pack(events[1][order], events[2][order])
 
     def segment(marker, body):
         return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
@@ -735,16 +877,36 @@ def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420") -> byte
     for t in range(ntab):
         out.append(segment(0xDB, bytes([t]) + qt[t][NATURAL_ORDER].astype(np.uint8).tobytes()))
     ncomp = 1 if gray else 3
-    sof = struct.pack(">BHHB", 8, H, W, ncomp) + bytes([1, (f << 4) | f, 0])
+    sof = struct.pack(">BHHB", 8, H, W, ncomp) + bytes([1, (fh << 4) | fv, 0])
     if not gray:
         sof += bytes([2, 0x11, 1, 3, 0x11, 1])
-    out.append(segment(0xC0, sof))
+    out.append(segment(0xC2 if progressive else 0xC0, sof))
     names = [("dc_luma", 0x00), ("ac_luma", 0x10)] + ([] if gray else [("dc_chroma", 0x01), ("ac_chroma", 0x11)])
     for name, tc_th in names:
         bits, values = STD_HUFFMAN[name]
         out.append(segment(0xC4, bytes([tc_th] + bits + values)))
-    sos = bytes([ncomp, 1, 0x00]) + (b"" if gray else bytes([2, 0x11, 3, 0x11])) + bytes([0, 63, 0])
-    out.append(segment(0xDA, sos))
-    out.append(scan)
+    tables = [(1, 0x00)] + ([] if gray else [(2, 0x11), (3, 0x11)])
+    if not progressive:
+        sos = bytes([ncomp]) + b"".join(bytes(t) for t in tables) + bytes([0, 63, 0])
+        out += [segment(0xDA, sos), packed(tuple(np.concatenate(x) for x in zip(dc_events, ac_events)))]
+    else:
+        out += [segment(0xDA, bytes([ncomp]) + b"".join(bytes(t) for t in tables) + bytes([0, 0, 0])),
+                packed(dc_events)]
+        # a component's own AC scan covers its own block grid (ceil of its
+        # size over 8), in raster order: the MCU padding is not in it
+        mcu_index, j = np.divmod(np.arange(nb, dtype=np.int64), per_mcu + (0 if gray else 2))
+        my, mx = np.divmod(mcu_index, mcux)
+        for k, (cid, tab) in enumerate(tables):
+            f = (fh, fv) if k == 0 else (1, 1)
+            rows = _ceil_div(_ceil_div(H * f[1], fv), 8)
+            cols = _ceil_div(_ceil_div(W * f[0], fh), 8)
+            by = my * f[1] + (j // fh if k == 0 else 0)
+            bx = mx * f[0] + (j % fh if k == 0 else 0)
+            inside = (comp == k) & (by < rows) & (bx < cols)
+            rank = np.where(inside, by * cols + bx, -1)
+            sel = inside[ac_events[0] >> 10]
+            events = (rank[ac_events[0][sel] >> 10] * 1024 + (ac_events[0][sel] & 1023),
+                      ac_events[1][sel], ac_events[2][sel])
+            out += [segment(0xDA, bytes([1, cid, tab & 0x0F]) + bytes([1, 63, 0])), packed(events)]
     out.append(b"\xff\xd9")
     return b"".join(out)

@@ -8,6 +8,18 @@ argmax path:
                                BGR->RGB flip and mean subtraction on the device
   * ``detect(images)``       — per-image det rows with id >= 0 + seg maps,
                                as numpy (reference multitask_detector.py:166-272)
+  * ``im_detect_single``     — one image file (JPEG or PNG) or BGR array: a
+                               JPEG decodes on the card (nvJPEG and the colour
+                               kernel, ``data/jpeg_cuda.py``; the plain decoder
+                               on the CPU), then ``resize_linear`` (cv2's
+                               INTER_LINEAR, bit for bit) on the device, then
+                               ``predict_raw`` (multitask_detector.py:307-334)
+  * ``visualize_detection``  — boxes in per-class colours, nearest drawn last,
+                               the "NNm" distance text and the seg overlay,
+                               drawn by ``utils/draw.py`` (no cv2; its text is
+                               a raster font of its own) (:336-399)
+  * ``detect_and_visualize`` — image paths -> ``<stem>_out.jpg`` through the
+                               port's JPEG encoder (q95 4:2:0, as cv2.imwrite)
 
 The network runs in ``dtype``; the class softmax, box decode and NMS run in
 float32 whatever that dtype is. On a CUDA device NMS is always the
@@ -17,19 +29,26 @@ The detector never mutates the module it is given: it serves its own copy,
 cast to ``dtype`` on ``device`` and in eval mode, and ``update_weights``
 copies new weights into that copy (the JAX Detector's
 ``update_variables``), so a training loop can hand it its weights as they
-move. Visualisation, video, single-image file input and the pipelined
-server are not ported yet.
+move. Video files and webcams are not read: the card's machine has no cv2
+``VideoCapture`` / ``VideoWriter`` (ROADMAP Queue A); ``detect/pipeline.py``
+holds the pipelined server a stream would go through.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import List, Mapping, Optional, Tuple, Union
+import os
+import random
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from dspnet_torch.data import image_io, jpeg_cuda
+from dspnet_torch.data.cs_labels import train_id_palette
+from dspnet_torch.data.device_pipeline import resize_linear
 from dspnet_torch.ops.detection import multibox_detection
+from dspnet_torch.utils import draw
 from dspnet_torch.utils.precision import cast_floating
 
 #: RGB mean pixel (reference iterator.py:340; dspnet_tpu/data/augment.py)
@@ -49,12 +68,15 @@ class Detector:
         nms_topk: int = 400,
         score_threshold: float = 0.01,
         seg_probabilities: bool = False,
+        mean_pixels: Sequence[float] = MEAN_PIXELS,
+        classes: Optional[Sequence[str]] = None,
     ):
         """Serves a copy of ``model`` cast to ``dtype`` on ``device`` (the
         card unless the caller asks for ``"cpu"``); ``model`` itself is left
         as it was. ``seg_probabilities``: also return the (B, H/4, W/4, C)
         float32 softmax of the seg head as ``seg_prob``, for the Cityscapes
-        result-PNG writer (JAX ``detector.py:67-84,139-140``)."""
+        result-PNG writer (JAX ``detector.py:67-84,139-140``). ``classes``:
+        the names ``visualize_detection`` writes (class ids without)."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = torch.device(device)
@@ -64,7 +86,10 @@ class Detector:
         self.anchors = (None if anchors is None  # seg-only model
                         else torch.as_tensor(np.asarray(anchors, np.float32), device=self.device))
         self.data_shape = tuple(data_shape)
-        self.mean = torch.tensor(MEAN_PIXELS, dtype=torch.float32, device=self.device)
+        self.mean_pixels = tuple(mean_pixels)
+        self.mean = torch.tensor(self.mean_pixels, dtype=torch.float32, device=self.device)
+        self.classes = list(classes) if classes else None
+        self.palette = train_id_palette()
         self.nms_thresh = nms_thresh
         self.force_suppress = force_suppress
         self.nms_topk = nms_topk
@@ -138,3 +163,87 @@ class Detector:
                 dets_out.append(self._filter_rows(det[b], det_threshold))
         seg = res["seg"].cpu().numpy() if "seg" in res else None
         return dets_out, seg
+
+    # ------------------------------------------------------------ images
+
+    def transform(self, img_bgr) -> np.ndarray:
+        """Resize (cv2 ``INTER_LINEAR``'s pixels) + mean-sub RGB float32
+        (reference multitask_detector.py:65-76), on the host."""
+        img = resize_linear(torch.as_tensor(np.asarray(img_bgr)), self.data_shape).numpy()
+        return img[:, :, ::-1].astype(np.float32) - np.asarray(self.mean_pixels, np.float32)
+
+    def read_image(self, image) -> torch.Tensor:
+        """A path (JPEG or PNG, by content) or an (H, W, 3) uint8 BGR array
+        -> that image as a uint8 BGR tensor on the detector's device. A JPEG
+        decodes there: on the card by nvJPEG and the colour kernel, on the
+        CPU by the plain decoder; a PNG decodes on the host."""
+        if isinstance(image, torch.Tensor):
+            return image.to(self.device)
+        if isinstance(image, (str, os.PathLike)):
+            with open(image, "rb") as f:
+                data = f.read()
+            if data[:3] == image_io.JPEG_MAGIC:
+                return jpeg_cuda.decode_images([data], self.device)[0]
+            image = image_io.imdecode(data)
+        image = np.asarray(image)
+        if image.dtype != np.uint8 or image.ndim != 3 or image.shape[-1] != 3:
+            raise ValueError(f"expected an (H, W, 3) uint8 BGR image, got {image.shape} {image.dtype}")
+        t = torch.from_numpy(np.ascontiguousarray(image))
+        return t.pin_memory().to(self.device, non_blocking=True) if self.device.type == "cuda" else t
+
+    def im_detect_single(self, image, det_threshold: float = 0.0):
+        """image: a path, an (H, W, 3) uint8 BGR array or such a tensor.
+        Returns ((n, 7) dets with id >= 0 and score >= det_threshold, the
+        (H/4, W/4) seg map or None), as numpy."""
+        raw = resize_linear(self.read_image(image), self.data_shape)
+        res = self.predict_raw(raw[None])
+        dets_out = np.zeros((0, 7), np.float32)
+        if "det" in res:
+            dets_out = self._filter_rows(res["det"][0].cpu().numpy(), det_threshold)
+        seg = res["seg"][0].cpu().numpy() if "seg" in res else None
+        return dets_out, seg
+
+    # --------------------------------------------------------- visualize
+
+    def visualize_detection(self, img_bgr: np.ndarray, dets: np.ndarray, seg: Optional[np.ndarray] = None,
+                            thresh: float = 0.6, seg_alpha: float = 0.5) -> np.ndarray:
+        """Boxes in class colours (``random.Random(1)``, as the JAX one),
+        farthest first so the nearest lands on top, each with its "name NNm"
+        text, over the seg overlay. Returns a BGR image."""
+        img = np.array(img_bgr, np.uint8, copy=True)
+        height, width = img.shape[:2]
+        if seg is not None:
+            img = draw.seg_overlay(img, seg, self.palette, seg_alpha)
+        rng = random.Random(1)
+        colors = {}
+        rows = [r for r in np.asarray(dets) if r[0] >= 0 and r[1] >= thresh]
+        rows.sort(key=lambda r: -r[6])  # farthest first, nearest on top (:365)
+        for r in rows:
+            cid = int(r[0])
+            if cid not in colors:
+                colors[cid] = (rng.randint(0, 255), rng.randint(0, 255), rng.randint(0, 255))
+            xmin, ymin = int(r[2] * width), int(r[3] * height)
+            xmax, ymax = int(r[4] * width), int(r[5] * height)
+            draw.rectangle(img, (xmin, ymin), (xmax, ymax), colors[cid], 2)
+            cname = self.classes[cid] if self.classes else str(cid)
+            draw.put_text(img, f"{cname} {r[6] * 255.0:.0f}m", (xmin, max(12, ymin - 4)), colors[cid])
+        return img
+
+    def detect_and_visualize(self, inputs, out_dir: str = ".", thresh: float = 0.6) -> List[str]:
+        """Image path(s) -> ``<stem>_out.jpg`` under ``out_dir`` each (JPEG
+        q95 4:2:0 by ``data/jpeg.py``); returns the written paths. A video
+        file or a webcam id raises: there is no cv2 ``VideoCapture`` on the
+        card's machine."""
+        if isinstance(inputs, int) or (isinstance(inputs, str) and inputs.lower().endswith((".mp4", ".avi"))):
+            raise NotImplementedError(
+                f"video input ({inputs!r}) is not ported: the port reads no video without cv2's "
+                "VideoCapture (ROADMAP Queue A); pass image paths")
+        os.makedirs(out_dir, exist_ok=True)
+        written = []
+        for path in [inputs] if isinstance(inputs, str) else list(inputs):
+            img = self.read_image(path)
+            dets, seg = self.im_detect_single(img)
+            vis = self.visualize_detection(img.cpu().numpy(), dets, seg, thresh)
+            out = os.path.join(out_dir, os.path.splitext(os.path.basename(path))[0] + "_out.jpg")
+            written.append(image_io.imwrite(out, vis))
+        return written

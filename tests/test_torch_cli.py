@@ -110,7 +110,7 @@ def test_divergence_exits_3(workdir):
 def test_refusals(workdir):
     """JAX flags the port does not honour are argparse errors; a dataset root,
     a label space wider than the head and a missing card fail loudly."""
-    for extra in (["--remat"], ["--loader", "python"], ["--target-backend", "pallas"], ["--monitor", "1"],
+    for extra in (["--remat"], ["--loader", "python"], ["--target-backend", "pallas"],
                   ["--num-devices", "2"], ["--seg-fast"]):
         with pytest.raises(SystemExit) as err:
             multi_train.parse_args(NET + extra)

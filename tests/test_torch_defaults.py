@@ -78,3 +78,35 @@ def test_cpu_on_request():
     assert MultiTaskSolver(bundle.model, bundle.anchors, device="cpu").anchors.device.type == "cpu"
     out = next(prefetch_to_device(iter([np.zeros(2, np.float32)]), device="cpu"))
     assert out.device.type == "cpu"
+
+
+def _pipeline():
+    from dspnet_torch.detect.pipeline import ServingPipeline
+
+    bundle = _bundle()
+    return ServingPipeline(Detector(bundle.model, bundle.anchors, (H, W)), depth=1).detector.device
+
+
+@pytest.mark.parametrize("tool", ["multi_demo", "import_mxnet"])
+def test_demo_and_import_tool_default_to_the_card(tool, tmp_path):
+    """The demo CLI and the MXNet import tool take ``--device cuda`` unless
+    told otherwise, and without a card they stop with a clear message."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"dspnet_torch.cli.{tool}" if tool == "multi_demo" else f"dspnet_torch.tools.{tool}")
+    argv = ["--params", str(tmp_path / "none.params")] if tool == "import_mxnet" else []
+    argv += ["--network", "resnet-18_multi", "--data-shape", f"3,{H},{W}"]
+    assert mod.parse_args(argv).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            mod.main(argv + ["--model-dir", str(tmp_path)])
+
+
+def test_serving_pipeline_serves_on_the_card_or_raises():
+    """ServingPipeline serves on its detector's device, the card by default."""
+    if torch.cuda.is_available():
+        assert _pipeline().type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            _pipeline()

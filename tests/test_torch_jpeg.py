@@ -175,3 +175,85 @@ def test_decode_counter():
     jpeg.decode(data)
     image_io.imdecode(data)
     assert jpeg.decodes == before + 2
+
+
+# ------------------------------------------------- planes, colour, orientation
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (37, 53), (3, 3), (17, 33), (9, 2), (2, 5), (1, 1)])
+@pytest.mark.parametrize("sub", ["444", "422", "420"])
+def test_plain_colour_function_equals_the_plain_decoder(rng, hw, sub):
+    """``jpeg_cuda.ycc_to_bgr_reference`` (integer tensor ops, the colour
+    kernel's plain version) on ``jpeg.decode_planes``' planes gives
+    ``jpeg.decode``'s pixels bit for bit (and so cv2's), at odd sizes and at
+    chroma planes 1 and 2 samples wide."""
+    import torch
+
+    from dspnet_torch.data import jpeg_cuda
+
+    img = rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                         SAMPLING[sub]])
+    planes, info = jpeg.decode_planes(buf.tobytes())
+    fh, fv = info.factors
+    assert info.factors == {"444": (1, 1), "422": (2, 1), "420": (2, 2)}[sub]
+    assert [p.shape for p in planes] == [hw] + [(-(-hw[0] // fv), -(-hw[1] // fh))] * 2
+    before = jpeg_cuda.color_plain_calls
+    got = jpeg_cuda.ycc_to_bgr(*[torch.from_numpy(p) for p in planes], factors=info.factors)
+    assert jpeg_cuda.color_plain_calls == before + 1
+    np.testing.assert_array_equal(got.numpy(), cv2.imdecode(buf, cv2.IMREAD_COLOR))
+    gray = jpeg_cuda.ycc_to_bgr(torch.from_numpy(planes[0]))
+    assert torch.equal(gray, torch.from_numpy(planes[0])[..., None].expand(*hw, 3))
+
+
+def _exif(orientation: int, endian: str = "MM") -> bytes:
+    """An APP1 Exif segment whose IFD0 holds one Orientation entry."""
+    import struct
+
+    e = ">" if endian == "MM" else "<"
+    tiff = (endian.encode() + struct.pack(e + "HI", 42, 8) + struct.pack(e + "H", 1)
+            + struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(e + "I", 0))
+    body = b"Exif\x00\x00" + tiff
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("endian", ["MM", "II"])
+def test_exif_orientation_equals_cv2(rng, tmp_path, orientation, endian):
+    """An Exif Orientation tag spliced into an encoded JPEG: the plain
+    decoder turns the image as ``cv2.imdecode`` and ``cv2.imread`` do
+    (both apply it under IMREAD_COLOR), colour and gray; IMREAD_UNCHANGED
+    leaves it as stored, as cv2 does."""
+    img = rng.randint(0, 256, (24, 40, 3)).astype(np.uint8)
+    for src in (img, img[..., 0]):
+        data = jpeg.encode(src, 90)
+        data = data[:2] + _exif(orientation, endian) + data[2:]
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        path = tmp_path / "o.jpg"
+        path.write_bytes(data)
+        np.testing.assert_array_equal(cv2.imread(str(path), cv2.IMREAD_COLOR), want)
+        np.testing.assert_array_equal(image_io.imread(str(path)), want)
+        assert jpeg.read_info(data).orientation == orientation
+        stored = image_io.imdecode(data, image_io.IMREAD_UNCHANGED)
+        np.testing.assert_array_equal(stored, cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED))
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (37, 53), (3, 3), (1, 1)])
+@pytest.mark.parametrize("sub", ["444", "422", "420", "gray"])
+def test_encoder_422_and_progressive(rng, hw, sub):
+    """4:2:2 and progressive files from the port's encoder: cv2 decodes the
+    baseline file to the plain decoder's pixels, and the progressive file
+    (the same coefficients) to the same pixels; the plain decoder refuses
+    the progressive one, and ``read_info`` reads its header."""
+    img = cv2.GaussianBlur(rng.randint(0, 256, hw + (3,)).astype(np.uint8), (5, 5), 1.5)
+    src = img[..., 0].copy() if sub == "gray" else img
+    kw = {} if sub == "gray" else {"subsampling": sub}
+    base, prog = jpeg.encode(src, 90, **kw), jpeg.encode(src, 90, progressive=True, **kw)
+    want = cv2.imdecode(np.frombuffer(base, np.uint8), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(jpeg.decode(base), want)
+    np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(prog, np.uint8), cv2.IMREAD_UNCHANGED), want)
+    info = jpeg.read_info(prog)
+    assert info.progressive and not jpeg.read_info(base).progressive
+    assert (info.height, info.width, info.components) == (*hw, 1 if sub == "gray" else 3)
+    with pytest.raises(jpeg.JpegError, match="progressive"):
+        jpeg.decode(prog)
