@@ -86,13 +86,33 @@ Phases (any failure ends the run with a non-zero exit):
      frames after it and not those before), ``multi_train --resume`` from the imported epoch with
      ``--monitor 2`` (matcher launches = steps, the monitor lines, the
      monitor's cost per step);
- 10. JSON lines with the decoders' records (nvJPEG, the colour kernel),
+ 10. the plain-SSD VOC path at full width (vgg16_reduced, 21 classes, seeded
+     weights, bf16 over float32 masters): ``Detector.predict`` at 300x300 b1
+     and b32 and at 512x512 b8 (NMS 0.45 across classes; det rows checked;
+     kernel-NMS det == plain-NMS det), float32 heads card vs CPU; the two
+     kernels at this path's shapes against their plain versions bit for bit
+     and timed (NMS at B = 1 and 32, K = 400, 20 foreground classes, with
+     and without force_suppress; the matcher at A = 8,732 (B = 8, 32) and
+     24,576 (B = 8), L = 100, random and crowded GTs); a synthetic VOC
+     devkit (32 + 32 JPEGs of 375x500), one ``DetIterator`` batch on the
+     card against the same draws on the CPU; ``train_step`` at b8 and b32
+     300x300 and b8 512x512 (ms/step, img/s, peak memory, a profiled step
+     with the idle share, first-step targets through kernel and plain
+     matcher), the loss falling over 8 steps; ``multi_train --loader det``
+     for 2 epochs, a ``--resume``, ``eval_voc --voc07`` with the devkit
+     files; the DetIterator alone beside loader-fed and resident ``fit``.
+     Every run's counts are checked: matcher launches = train steps, NMS =
+     eval batches, nvJPEG images = images read, plain JPEG decodes and
+     plain NMS / matcher calls 0;
+ 11. JSON lines with the decoders' records (nvJPEG, the colour kernel),
      phase 9's numbers and the kernel results (each kernel's device, host,
      event and bound times at the main path's shapes, beside the baseline
-     kernels' times from this run), then the result line, last.
+     kernels' times from this run, and at phase 10's shapes), then the
+     result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no JSON lines
+    python3 chip_smoke.py --ssd-only         # phases 1, 2 and 10 alone, no JSON lines
 
 """
 
@@ -1395,6 +1415,371 @@ def real_data_phase(dev, label):
     return launches, decoder, reference
 
 
+SSD_CLASSES = 20  # VOC: 21 with the background
+
+
+def ssd_rows(rng, B, K):
+    """Top-K rows as the SSD detector emits them: 20 foreground classes."""
+    cx, cy = rng.uniform(0.1, 0.9, (2, B, K))
+    w, h = rng.uniform(0.05, 0.4, (2, B, K))
+    boxes = np.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1).astype(np.float32)
+    valid = rng.rand(B, K) > 0.2
+    ids = np.where(valid, rng.randint(0, SSD_CLASSES, (B, K)), -1).astype(np.float32)
+    return boxes, ids, valid
+
+
+def ssd_phase(dev, label):
+    """Phase 10: the plain-SSD VOC path at full width (vgg16_reduced, 21
+    classes, seeded weights, bf16 over float32 masters). Returns ({kernel:
+    launches on the path}, {kernel: {shape: times}}, {kernel: max abs
+    difference against the plain version})."""
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import eval_voc, multi_train
+    from dspnet_torch.data import augment, jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data.det_iterator import DetIterator, PlannedImages
+    from dspnet_torch.data.imdb import PascalVoc
+    from dspnet_torch.detect.detector import Detector
+    from dspnet_torch.models import factory
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.ops.boxes import iou_matrix
+    from dspnet_torch.ops.detection import multibox_detection
+    from dspnet_torch.ops.target import multibox_target
+    from dspnet_torch.train.solver import MultiTaskSolver
+
+    launches = {"nms_keep_mask": 0, "bipartite_match": 0}
+    times = {"nms_keep_mask": {}, "bipartite_match": {}}
+    errs = {"nms_keep_mask": 0.0, "bipartite_match": 0.0}
+
+    def zero_counts():
+        nms_cuda.launches = matching_cuda.launches = nms_cuda.plain_calls = matching_cuda.plain_calls = 0
+        jpeg_cuda.images = jpeg.decodes = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
+                "nvjpeg_images": jpeg_cuda.images, "plain_jpeg_decodes": jpeg.decodes,
+                "plain_nms_calls": nms_cuda.plain_calls, "plain_match_calls": matching_cuda.plain_calls}
+
+    def expect(got, what, steps=0, eval_batches=0, images=0):
+        want = {"bipartite_match": steps, "nms_keep_mask": eval_batches, "nvjpeg_images": images,
+                "plain_jpeg_decodes": 0, "plain_nms_calls": 0, "plain_match_calls": 0}
+        check(got == want, f"{what}: counts {got}, expected {want}")
+        print(f"{what}: matcher {steps} launches = train steps, NMS {eval_batches} = eval batches, nvJPEG "
+              f"{images} images = images read, plain decodes / plain NMS / plain matcher calls 0")
+        for k in launches:
+            launches[k] += got[k]
+
+    def det_checks(d, b, what):
+        check(d.shape == (b, 400, 7) and d.dtype == torch.float32, f"{what}: det {tuple(d.shape)} {d.dtype}")
+        check(bool(torch.isfinite(d).all()), f"{what}: non-finite det")
+        ids = d[..., 0]
+        check(bool(((ids == ids.round()) & (ids >= -1) & (ids <= SSD_CLASSES - 1)).all()),
+              f"{what}: class ids outside -1..{SSD_CLASSES - 1}")
+        scored = d[..., 1] >= 0
+        check(bool(((d[..., 2:6] >= 0) & (d[..., 2:6] <= 1)).all(-1)[scored].all()), f"{what}: boxes outside [0, 1]")
+        check(bool((d[..., 6][scored] == 0).all()), f"{what}: 4-channel head with a non-zero distance")
+        check(bool((d[~scored] == -1).all()), f"{what}: sentinel rows not all -1")
+
+    # ---- 10a. serving: vgg16_reduced@300 b1 and b32, @512 b8; NMS 0.45 across classes
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bundle = create_model("vgg16_reduced", 300, SSD_CLASSES, device=dev, generator=torch.Generator().manual_seed(0))
+    check(bundle.num_anchors == 8732, f"vgg16_reduced@300 anchors {bundle.num_anchors}")
+    det = Detector(bundle.model, bundle.anchors, (300, 300), device=dev, dtype=torch.bfloat16, nms_thresh=0.45,
+                   force_suppress=True)
+    imgs = {b: torch.randn(b, 300, 300, 3, device=dev, generator=gen) * 50 for b in (1, 32)}
+    for b in (1, 32):
+        det.predict(imgs[b])
+    zero_counts()
+    res = {b: det.predict(imgs[b])["det"] for b in (1, 32)}
+    expect(read_counts(), "serving vgg16_reduced@300 (b1, b32 predict)", eval_batches=2)
+    for b, d in res.items():
+        det_checks(d, b, f"b{b} 300x300")
+    with torch.inference_mode():  # the detection stage: kernel NMS vs plain, same heads
+        out = det.model(imgs[32].bfloat16())
+        cls_prob = torch.softmax(out["cls_logits"].float(), dim=-1).transpose(1, 2)
+        for force in (False, True):
+            pair = [multibox_detection(cls_prob, out["loc_preds"], det.anchors, nms_threshold=0.45,
+                                       force_suppress=force, nms_backend=be) for be in ("kernel", "plain")]
+            check(torch.equal(*pair), f"b32 SSD det through the kernel != plain (force_suppress={force})")
+    print(f"b32 SSD det through the kernel NMS == through the plain NMS, with and without force_suppress; "
+          f"{int((res[32][..., 0] >= 0).sum())} kept rows at b32")
+
+    def serve_ms(d, x, n):
+        for _ in range(2):
+            d.predict(x)["det"].cpu()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            d.predict(x)["det"].cpu()  # the D2H ends the call
+        return (time.perf_counter() - t0) / n * 1e3, torch.cuda.max_memory_allocated() / 2**30
+
+    ms1, mem1 = serve_ms(det, imgs[1], 30)
+    ms32, mem32 = serve_ms(det, imgs[32], 10)
+    print(f"vgg16_reduced@300 bf16 predict (device-resident input, det to the host): b1 {ms1:.3f} ms/call "
+          f"(peak {mem1:.3f} GiB), b32 {32e3 / ms32:.2f} img/s ({ms32:.3f} ms/call, peak {mem32:.3f} GiB) [{label}]")
+
+    # float32 heads on the card against the CPU (L2Normalize, fc6, pool3 on both)
+    x = np.random.RandomState(2).normal(0, 50, (1, 300, 300, 3)).astype(np.float32)
+    heads = {}
+    for device in ("cpu", dev):
+        m = create_model("vgg16_reduced", 300, SSD_CLASSES, device=device,
+                         generator=torch.Generator().manual_seed(3)).model
+        with torch.inference_mode():
+            heads[str(device)] = {k: v.float().cpu() for k, v in m(torch.from_numpy(x).to(device)).items()}
+    for k, ref in heads["cpu"].items():
+        err = float((heads[str(dev)][k] - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        print(f"f32 vgg16_reduced@300 {k}: card vs cpu max abs err {err:.3e} (tolerance {tol:.3e})")
+        check(err <= tol, f"f32 SSD {k} card vs cpu error {err} > {tol}")
+
+    bundle512 = create_model("vgg16_reduced", 512, SSD_CLASSES, device=dev, generator=torch.Generator().manual_seed(0))
+    check(bundle512.num_anchors == 24576, f"vgg16_reduced@512 anchors {bundle512.num_anchors}")
+    det512 = Detector(bundle512.model, bundle512.anchors, (512, 512), device=dev, dtype=torch.bfloat16,
+                      nms_thresh=0.45, force_suppress=True)
+    x512 = torch.randn(8, 512, 512, 3, device=dev, generator=gen) * 50
+    det512.predict(x512)
+    zero_counts()
+    det_checks(det512.predict(x512)["det"], 8, "b8 512x512")
+    expect(read_counts(), "serving vgg16_reduced@512 (b8 predict)", eval_batches=1)
+    ms8, mem8 = serve_ms(det512, x512, 10)
+    print(f"vgg16_reduced@512 bf16 predict b8: {8e3 / ms8:.2f} img/s ({ms8:.3f} ms/call, peak {mem8:.3f} GiB) "
+          f"[{label}]")
+    del det, det512, out, cls_prob, x512, imgs
+    torch.cuda.empty_cache()
+
+    # ---- 10b. the kernels at this path's shapes against their plain versions
+    rng = np.random.RandomState(10)
+    for B in (1, 32):
+        rows = [torch.from_numpy(a).to(dev) for a in ssd_rows(rng, B, 400)]
+        for force in (False, True):
+            got = nms_cuda.nms_keep_mask(*rows, 0.45, force)
+            want = nms_cuda.nms_keep_mask_reference(*rows, 0.45, force)
+            torch.cuda.synchronize()
+            errs["nms_keep_mask"] = max(errs["nms_keep_mask"], float((got.int() - want.int()).abs().max()))
+            check(torch.equal(got, want), f"NMS kernel != plain at B={B} K=400 21 classes force={force}")
+        for force in (False, True):
+            t = kernel_times(lambda: nms_cuda.nms_keep_mask(*rows, 0.45, force), NMS_KERNELS)
+            p_ms = cuda_ms(lambda: nms_cuda.nms_keep_mask_reference(*rows, 0.45, force), 20)
+            v = rows[2].sum(dim=1).cpu().numpy().astype(np.int64)
+            bound = bound_us(B * 400 * (16 + 4 + 1 + 1), 13 * int((v * (v - 1) // 2).sum()))
+            key = f"SSD B={B} K=400 21 classes{' force' if force else ''}"
+            times["nms_keep_mask"][key] = dict(t, plain_ms=p_ms, bound_us=bound[0], bound_by=bound[1])
+            print_times(f"nms_keep_mask {key}", t, p_ms, bound, label)
+    L = 100  # DetIterator.max_objects label rows
+    for network, size, B in (("vgg16_reduced", 300, 8), ("vgg16_reduced", 300, 32), ("vgg16_reduced", 512, 8)):
+        anchors = torch.from_numpy(factory.build_anchors(factory.get_config(network, size), (size, size))).to(dev)
+        A = anchors.shape[0]
+        for what, n_gt in (("random", 12), ("crowded", 60)):
+            if what == "random":
+                boxes = torch.from_numpy(corners(rng, B, L, lo=0.1, hi=0.4)).to(dev)
+            else:
+                c = rng.uniform(0.35, 0.65, (B, 1, 2)) + rng.normal(0.0, 0.02, (B, L, 2))
+                wh = rng.uniform(0.15, 0.3, (B, L, 2))
+                boxes = torch.from_numpy(np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)).to(dev)
+            iou = iou_matrix(anchors[None].expand(B, -1, -1), boxes).contiguous()
+            col_valid = torch.zeros(B, L, dtype=torch.bool, device=dev)
+            col_valid[:, :n_gt] = True
+            refills = torch.zeros(B, dtype=torch.int32, device=dev)
+            got = matching_cuda.bipartite_match(iou, col_valid, refills=refills)
+            want = matching_cuda.bipartite_match_reference(iou, col_valid)
+            torch.cuda.synchronize()
+            errs["bipartite_match"] = max(errs["bipartite_match"], max(
+                float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"matcher kernel != plain at B={B} A={A} L={L} {what}")
+            check(int(got[0].sum()) == B * n_gt, f"{int(got[0].sum())} matches for {B}x{n_gt} GTs")
+            key = f"SSD B={B} A={A} L={L} {what} num_gt={n_gt}"
+            n = 100 if what == "random" else 20
+            t = kernel_times(lambda: matching_cuda.bipartite_match(iou, col_valid), MATCH_KERNELS, n=n, n_prof=n)
+            p_ms = cuda_ms(lambda: matching_cuda.bipartite_match_reference(iou, col_valid), 5)
+            bound = bound_us(B * A * n_gt * 4 + B * L + B * A * (1 + 4 + 4), 0)
+            times["bipartite_match"][key] = dict(t, plain_ms=p_ms, bound_us=bound[0], bound_by=bound[1],
+                                                 refills=refills.tolist())
+            all_cols = bound_us(B * A * L * 4 + B * L + B * A * 9, 0)[0]
+            print_times(f"bipartite_match {key} (refills {refills.tolist()}; bound over all {L} columns "
+                        f"{all_cols:.3f} us)", t, p_ms, bound, label)
+        del anchors, iou
+    torch.cuda.empty_cache()
+    print(f"SSD shapes: NMS {2 * 2} cases and the matcher {3 * 2} cases equal bit for bit (torch.equal); "
+          f"plans {nms_cuda.launch_plan(32, 400)} at NMS B=32 K=400, "
+          f"{matching_cuda.launch_plan(32, 8732, L)} at matcher B=32 A=8732 L={L}")
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_ssd_", dir=ROOT / "build"))
+    try:
+        # ---- 10c. a synthetic VOC devkit of VOC-sized JPEGs (375x500)
+        n_img = 32
+        t0 = time.perf_counter()
+        root = synthetic.build_voc_dataset(str(work / "voc"), num_samples=n_img, hw=(375, 500), seed=233)
+        names = synthetic.class_names()
+        print(f"VOC devkit write: {n_img} train + {n_img} val JPEGs 375x500 (q95 4:2:0) in "
+              f"{time.perf_counter() - t0:.3f} s [{label}]")
+        train_index = PascalVoc("train", "", root, classes=names).index()
+
+        # one DetIterator batch on the card against the same draws on the CPU
+        cpu_it = DetIterator(train_index, 8, (300, 300), device="cpu")
+        planned = cpu_it.plan_batch()["images"]
+        arrays = [jpeg.decode(b) for b in planned.items]
+        want = PlannedImages(arrays, planned.plans, (300, 300), augment.MEAN_PIXELS).place_on("cpu")
+        got = PlannedImages(arrays, planned.plans, (300, 300),
+                            torch.tensor(augment.MEAN_PIXELS, device=dev)).place_on(dev).cpu()
+        check(torch.equal(got, want), "DetIterator's device work on the card != on the CPU (same pixels, same draws)")
+        card_it = DetIterator(train_index, 8, (300, 300), device=dev)
+        cpu_it = DetIterator(train_index, 8, (300, 300), device="cpu")
+        a, b = card_it.next_batch(), cpu_it.next_batch()
+        check(torch.equal(a["label_det"].cpu(), b["label_det"]), "DetIterator labels card != cpu")
+        d = (a["images"].cpu() - b["images"]).abs()
+        check(float(d.mean()) < 1.0, f"DetIterator images card vs cpu mean |diff| {float(d.mean())}")
+        interps = sorted({p.interp for p in planned.plans})
+        print(f"DetIterator batch (b8, 300x300, interpolations {interps}, "
+              f"{sum(p.pad for p in planned.plans)} pad canvases): the device work on the card == on the CPU "
+              f"bit for bit on the same decoded pixels; whole batch nvJPEG vs the plain decoder: labels equal, "
+              f"images mean |diff| {float(d.mean()):.4f}, max {float(d.max()):.1f} levels")
+
+        # ---- 10d. training steps at b8 and b32 300x300, b8 512x512
+        defaults = dict(learning_rate=1e-3, momentum=0.9, weight_decay=5e-4, overlap_threshold=0.5,
+                        negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+        for b, size, net in ((8, 300, bundle), (32, 300, bundle), (8, 512, bundle512)):
+            solver = MultiTaskSolver(net.model, net.anchors, batch_size=b, compute_dtype="bfloat16", device=dev,
+                                     **defaults)
+            state = solver.init_state()
+            batch = DetIterator(train_index, b, (size, size), device=dev).next_batch()
+            with torch.no_grad():
+                probe = dataclasses.replace(state, buffers=dict(state.buffers))
+                cls_preds = solver.forward(probe, batch, train=True)["cls_logits"].transpose(1, 2)
+                targets = [multibox_target(solver.anchors, batch["label_det"], cls_preds, overlap_threshold=0.5,
+                                           negative_mining_ratio=3.0, negative_mining_thresh=0.5,
+                                           bipartite_backend=be) for be in ("kernel", "plain")]
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(*targets)), f"SSD b{b} {size}: kernel-path targets != plain")
+            n_warm, n_timed = 3, 10
+            losses = []
+            for _ in range(n_warm):
+                state, m = solver.train_step(state, batch)
+                losses.append(float(m["loss"]))
+            prof, m = profile_step(solver, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            for _ in range(n_timed):
+                state, m = solver.train_step(state, batch)
+            losses.append(float(m["loss"]))
+            dt = (time.perf_counter() - t0) / n_timed
+            expect(read_counts(), f"SSD train b{b} {size}x{size} ({n_timed} steps)", steps=n_timed)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"train vgg16_reduced@{size} b{b} bf16 (f32 masters), device-resident DetIterator batch: "
+                  f"{dt * 1e3:.3f} ms/step, {b / dt:.2f} img/s, peak {peak:.3f} GiB; first-step targets kernel == "
+                  f"plain ({int((targets[0][2] > 0).sum())} positives); losses "
+                  + ", ".join(f"{x:.5g}" for x in losses) + f" [{label}]")
+            check(all(np.isfinite(losses)), f"SSD b{b} {size}: non-finite loss {losses}")
+            print_profile(b, prof, dt * 1e3, label)
+            del solver, state, batch, probe, cls_preds, targets
+            torch.cuda.empty_cache()
+        solver = MultiTaskSolver(bundle.model, bundle.anchors, batch_size=8, compute_dtype="bfloat16", device=dev,
+                                 **defaults)
+        state = solver.init_state()
+        batch = DetIterator(train_index, 8, (300, 300), device=dev, seed=1).next_batch()
+        traj = []
+        for _ in range(8):
+            state, m = solver.train_step(state, batch)
+            traj.append(float(m["loss"]))
+        print("8 SSD steps on one b8 batch, lr 1e-3: loss " + ", ".join(f"{x:.5f}" for x in traj))
+        check(all(np.isfinite(traj)) and traj[-1] < traj[0], f"SSD loss did not fall: {traj}")
+        del solver, state, batch
+        torch.cuda.empty_cache()
+
+        # ---- 10e. the CLIs: multi_train --loader det, --resume, eval_voc
+        B = 8
+        md = str(work / "model")
+        flags = ["--network", "vgg16_reduced", "--data-shape", "3,300,300", "--num-classes", str(len(names)),
+                 "--class-names", ",".join(names), "--batch-size", str(B)]
+        train_flags = flags + ["--dataset-root", root, "--loader", "det", "--model-dir", md, "--lr", "0.0005",
+                               "--compute-dtype", "bfloat16", "--log-every", "2"]
+        steps, val_batches = n_img // B, -(-n_img // B)
+        for what, extra, epochs in (("multi_train --loader det, 2 epochs", ["--end-epoch", "2"], 2),
+                                    ("multi_train --loader det --resume 0, 1 epoch", ["--end-epoch", "3", "--resume", "0"], 1)):
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = multi_train.main(train_flags + extra)
+            secs = time.perf_counter() - t0
+            expect(read_counts(), what, steps=epochs * steps, eval_batches=epochs * val_batches,
+                   images=epochs * 2 * n_img)
+            print(f"  {secs:.3f} s, step {state.step}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                  f"[{label}]")
+        check(state.step == 3 * steps, f"resumed run ended at step {state.step}")
+        del state
+        torch.cuda.empty_cache()
+        zero_counts()
+        res = eval_voc.main(flags + ["--voc-root", root, "--year", "", "--image-set", "val", "--voc07",
+                                     "--model-dir", md, "--result-dir", str(work / "results")])
+        expect(read_counts(), "eval_voc --voc07", eval_batches=val_batches, images=n_img)
+        for k in ("mAP", "devkit_mAP"):
+            check(np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0, f"eval_voc {k} = {res[k]}")
+        files = sorted(p.name for p in (work / "results").iterdir())
+        check(files == sorted(f"comp4_det_val_{c}.txt" for c in names), f"comp4 files {files}")
+        print(f"  eval_voc: mAP {res['mAP']:.6f}, devkit_mAP {res['devkit_mAP']:.6f}, ms_per_batch "
+              f"{res['ms_per_batch']:.3f} (b{B}), {len(files)} comp4 files [{label}]")
+
+        # ---- 10f. the loader alone against loader-fed and resident fit
+        loader = DetIterator(train_index, B, (300, 300), device=dev)
+        for _ in loader:  # warm-up epoch
+            pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(2):
+            for batch in loader:
+                n += batch["images"].shape[0]
+        torch.cuda.synchronize()
+        alone = n / (time.perf_counter() - t0)
+        # its two halves apart: the host's draws (plan_batch), then decode +
+        # device work on batches planned ahead (place_on)
+        planner = DetIterator(train_index, B, (300, 300), device=dev)
+        t0 = time.perf_counter()
+        planned = []
+        for _ in range(2):
+            planner.reset()
+            while planner.cursor < len(train_index):
+                planned.append(planner.plan_batch())
+        plan_ms = (time.perf_counter() - t0) / (len(planned) * B) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in planned:
+            p["images"].place_on(dev)
+        torch.cuda.synchronize()
+        place_ms = (time.perf_counter() - t0) / (len(planned) * B) * 1e3
+        print(f"DetIterator per image: host draws {plan_ms:.3f} ms, decode + device work {place_ms:.3f} ms "
+              f"(one thread each, serial) [{label}]")
+        del planned
+        solver = MultiTaskSolver(bundle.model, bundle.anchors, batch_size=B, compute_dtype="bfloat16", device=dev,
+                                 **defaults)
+        st = solver.init_state()
+        solver.fit(st, loader, num_epochs=1, log_fn=lambda *a: None)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = solver.fit(st, loader, num_epochs=2, log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        fed = 2 * steps * B / (time.perf_counter() - t0)
+        resident = [batch for batch in loader]
+        t0 = time.perf_counter()
+        st = solver.fit(st, resident * 2, num_epochs=1, log_fn=lambda *a: None)
+        torch.cuda.synchronize()
+        res_ips = 2 * steps * B / (time.perf_counter() - t0)
+        print(f"DetIterator alone (b{B} 300x300 from 375x500 JPEGs, nvJPEG + crop/pad/mirror/resize/jitter on the "
+              f"card): {alone:.2f} img/s; fit loader-fed {fed:.2f} img/s, on resident batches {res_ips:.2f} img/s "
+              f"(loader-fed / resident {fed / res_ips:.3f}) [{label}]")
+        del solver, st, resident, loader
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    sys.stdout.flush()
+    return launches, times, errs
+
+
 KERNEL_KINDS = (  # first match wins, on the lower-cased kernel name
     ("matcher", MATCH_KERNELS),
     ("nms", NMS_KERNELS),
@@ -1485,6 +1870,9 @@ def main():
     matching_cuda.load_library()
     if "--real-data-only" in sys.argv[1:]:
         real_data_phase(dev, label)
+        return 0
+    if "--ssd-only" in sys.argv[1:]:
+        ssd_phase(dev, label)
         return 0
     base_nms, base_match = baseline_kernels(dev)
     sys.stdout.flush()
@@ -1669,19 +2057,23 @@ def main():
     match_launches, train_ips = training_phase(dev, label)
     cli_launches = cli_phase(dev, label, train_ips[4])
     real_launches, decoder, (ref_launches, reference) = real_data_phase(dev, label)
+    ssd_launches, ssd_times, ssd_errs = ssd_phase(dev, label)
+    nms_times.update(ssd_times["nms_keep_mask"])
+    match_times.update(ssd_times["bipartite_match"])
 
-    # ---- 10. results: launches summed over the paths, each counted from 0
+    # ---- 11. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
-                                 "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"]},
+                                 "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
+                                 "ssd": ssd_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
-                                   **ref_launches["bipartite_match"]},
+                                   **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"]}}
     colour = decoder.pop("colour_kernel")
 
-    shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "before_device_us", "before_host_us",
-                  "before_event_ms", "refills")
+    shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "plain_ms", "before_device_us",
+                  "before_host_us", "before_event_ms", "refills")
 
     def entry(name, source, replaces, path_launches, err, times, main):
         t = times[main]
@@ -1713,9 +2105,10 @@ def main():
     print(json.dumps({"reference_weights": reference}))
     print(json.dumps({"kernels": [
         entry("nms_keep_mask", "dspnet_torch/csrc/nms.cu", "dspnet_tpu/ops/nms_pallas.py:30",
-              by_path["nms_keep_mask"], max_err, nms_times, "B=1 K=400"),
+              by_path["nms_keep_mask"], max(max_err, ssd_errs["nms_keep_mask"]), nms_times, "B=1 K=400"),
         entry("bipartite_match", "dspnet_torch/csrc/match.cu", "dspnet_tpu/ops/matching_pallas.py:42",
-              by_path["bipartite_match"], match_err, match_times, "B=8 A=12264 num_gt=8"),
+              by_path["bipartite_match"], max(match_err, ssd_errs["bipartite_match"]), match_times,
+              "B=8 A=12264 num_gt=8"),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

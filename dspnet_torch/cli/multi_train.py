@@ -12,14 +12,23 @@ record store, through ``data/imdb.py::load_index``; the train split is
 validation pass, as in the JAX CLI) or ``--synthetic N``. It takes the JAX
 CLI's flags that this port honours and no others: argparse rejects the rest
 (multi-process and mesh flags, ``--remat``, ``--seg-fast``, ``--input-s2d``,
-the other loaders; ROADMAP Queue A). ``--monitor N --pattern RX`` logs the
+the host loaders; ROADMAP Queue A). ``--monitor N --pattern RX`` logs the
 shape, mean and std of every parameter whose flax path matches RX after
 every N-th batch (``utils/profiler.py::StatMonitor``; the JAX CLI's paths,
-so one pattern serves both), copying two numbers per matching tensor. The only loader is
-``device``: on the card the host threads read bytes and decode masks, nvJPEG
-decodes the images and the augmentation runs there
-(``data/device_pipeline.py``); ``--predownscale`` resizes each image to the
-data shape right after its decode. ``--device`` defaults to ``cuda`` and
+so one pattern serves both), copying two numbers per matching tensor.
+
+Two loaders. ``device`` (the default): on the card the host threads read
+bytes and decode masks, nvJPEG decodes the images and the augmentation runs
+there (``data/device_pipeline.py``); ``--predownscale`` resizes each image
+to the data shape right after its decode. ``det``: the plain-SSD
+``DetIterator`` (``data/det_iterator.py``: IoU-constrained crop, pad,
+mirror, one of cv2's five resizes and the colour jitter, drawn on the host
+in the JAX order and applied on the device) for a plain SSD network
+(``vgg16_reduced``, ``legacy_vgg16_ssd_*``, ``resnet-18``, …) or a ``_det``
+one on a VOC devkit tree (``--dataset-root``); the validation pass then
+reads the val split through the ``device`` loader without augmentation, as
+the JAX CLI does. The JAX CLI's ``python`` and ``native`` loaders are not
+ported (ROADMAP Queue A item 20). ``--device`` defaults to ``cuda`` and
 fails without a CUDA device.
 
 One deliberate difference from the JAX CLI: ``--checkpoint-every N`` saves
@@ -49,6 +58,7 @@ from dspnet_torch.cli.common import (
     setup_logging,
 )
 from dspnet_torch.data.cs_labels import DET_CLASSES
+from dspnet_torch.data.det_iterator import DetIterator
 from dspnet_torch.data.device_pipeline import DeviceAugIterator
 from dspnet_torch.train.lr import lr_scheduler_from_epochs
 from dspnet_torch.train.solver import MultiTaskSolver, TrainingDiverged
@@ -99,8 +109,11 @@ def parse_args(argv=None):
     p.add_argument("--seg-normalize", default="null", choices=["null", "valid"])
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="model compute precision (float32 master weights either way)")
-    p.add_argument("--loader", default="device", choices=["device"],
-                   help="input pipeline: host decode, augmentation on the device")
+    p.add_argument("--loader", default="device", choices=["device", "det"],
+                   help="input pipeline: 'device' (host reads, nvJPEG decode and the multitask "
+                        "augmentation on the device) or 'det' (the plain-SSD DetIterator: "
+                        "IoU-constrained crop/pad/mirror, random interpolation and colour jitter, "
+                        "reference dataset/iterator.py DetIter)")
     p.add_argument("--loader-threads", type=int, default=8)
     p.add_argument("--predownscale", action="store_true",
                    help="resize each image to the data shape right after its decode (on the "
@@ -125,7 +138,7 @@ def main(argv=None):
     bundle = create_model(args.network, (H, W), args.num_classes, device=device,
                           generator=torch.Generator().manual_seed(SEED))
     log.info("network=%s task=%s anchors=%d data=%dx%d device=%s", bundle.name, bundle.task,
-             0 if bundle.anchors is None else len(bundle.anchors), H, W, device)
+             bundle.num_anchors, H, W, device)
 
     class_names = resolve_class_names(args.class_names, DET_CLASSES)
     if len(class_names) != args.num_classes:
@@ -139,9 +152,17 @@ def main(argv=None):
         raise ValueError(
             f"dataset labels carry class id {max_cid} but --num-classes is {args.num_classes}; "
             "pass --class-names matching the annotation names (or fix --num-classes)")
-    train_iter = DeviceAugIterator(train_index, args.batch_size, (H, W), device=device, seed=SEED,
-                                   enable_aug=True, num_threads=args.loader_threads,
-                                   predownscale=args.predownscale)
+    if args.loader == "det":
+        if bundle.task not in ("ssd", "det"):
+            raise ValueError("--loader det is the det-only SSD pipeline (no seg labels); "
+                             f"network task is '{bundle.task}'")
+        train_iter = DetIterator(train_index, args.batch_size, (H, W), is_train=True, seed=SEED,
+                                 device=device)
+        log.info("using plain-SSD DetIterator (crop/pad/mirror augmentation)")
+    else:
+        train_iter = DeviceAugIterator(train_index, args.batch_size, (H, W), device=device, seed=SEED,
+                                       enable_aug=True, num_threads=args.loader_threads,
+                                       predownscale=args.predownscale)
 
     _, schedule = lr_scheduler_from_epochs(
         args.lr, args.lr_steps, args.lr_factor, len(train_index),

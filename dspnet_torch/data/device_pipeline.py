@@ -23,17 +23,22 @@ to float32, so the card and the CPU build the same matrices.
 (:func:`resize_area`, on the device on ``cuda``, the same torch ops on the
 host on ``cpu``) and each mask with nearest sampling on the host
 (``image_io.resize_nearest``), so raw resolutions may differ within a batch. The
-JAX package does this with cv2 (``INTER_AREA`` / ``INTER_NEAREST``): the
-masks equal cv2's bit for bit, the images too at factor 2 (cv2's rounding,
-(sum + 2) >> 2), and within a level of cv2's elsewhere. The JAX package's ``s2d`` (a
-TPU input layout) is not ported (ROADMAP Queue A item 17).
+JAX package does this with cv2 (``INTER_AREA`` / ``INTER_NEAREST``): masks
+and images equal cv2's bit for bit. The JAX package's ``s2d`` (a TPU input
+layout) is not ported (ROADMAP Queue A item 17).
+
+:func:`resize` is ``cv2.resize`` for uint8 images with each of cv2's five
+interpolations (nearest, bilinear, bicubic, area, Lanczos4), on the
+tensor's device, cv2's fixed-point and float32 rules step by step; the
+plain-SSD loader (``data/det_iterator.py``) draws one per image.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,48 +50,87 @@ from dspnet_torch.data.iterator import SampleIndex, load_sample_arrays, load_sam
 from dspnet_torch.data.prefetch import prefetch_to_device
 
 
-def _area_weights(src: int, dst: int) -> np.ndarray:
-    """(dst, src) weights of cv2's ``INTER_AREA`` along one axis
-    (``computeResizeAreaTab``): each output averages the source cells its
-    interval [d * s, (d + 1) * s) covers, partial cells by their covered
-    fraction, s = src / dst."""
-    scale = src / dst
-    out = np.zeros((dst, src), np.float64)
+#: cv2's interpolation codes (``cv2.INTER_*``), the values DetIterator draws
+INTER_NEAREST, INTER_LINEAR, INTER_CUBIC, INTER_AREA, INTER_LANCZOS4 = 0, 1, 2, 3, 4
+#: cv2's fixed-point weight scale for 8-bit resizes (``INTER_RESIZE_COEF_SCALE``)
+_COEF = 2048
+#: uint8 lanes of the SSE vertical cubic pass of the cv2 build the tests hold
+#: this to; the last (W * C) % 8 values of each row take the integer rule
+_CUBIC_LANES = 8
+
+
+def _as_batch(images: torch.Tensor):
+    return images if images.ndim == 4 else images[None]
+
+
+def _area_tab(src: int, dst: int):
+    """cv2's ``computeResizeAreaTab``: for each output, the source cells its
+    interval [d * s, (d + 1) * s) covers (s = 1 / (dst / src)) and their
+    float32 weights, partial cells by their covered fraction, in source
+    order. Returns (dst, T) indices and weights, padded with weight 0."""
+    scale = 1.0 / (dst / src)
+    rows = []
     for d in range(dst):
         f1 = d * scale
         f2 = f1 + scale
         width = min(scale, src - f1)
         s2 = min(int(np.floor(f2)), src - 1)
         s1 = min(int(np.ceil(f1)), s2)
+        taps = []
         if s1 - f1 > 1e-3:
-            out[d, s1 - 1] = (s1 - f1) / width
-        out[d, s1:s2] = 1.0 / width
+            taps.append((s1 - 1, (s1 - f1) / width))
+        taps += [(s, 1.0 / width) for s in range(s1, s2)]
         if f2 - s2 > 1e-3:
-            out[d, s2] = min(f2 - s2, 1.0, width) / width
-    return out.astype(np.float32)
+            taps.append((s2, min(min(f2 - s2, 1.0), width) / width))
+        rows.append(taps)
+    T = max(len(t) for t in rows)
+    idx = np.zeros((dst, T), np.int64)
+    alpha = np.zeros((dst, T), np.float32)
+    for d, taps in enumerate(rows):
+        for t, (s, a) in enumerate(taps):
+            idx[d, t], alpha[d, t] = s, np.float32(a)
+    return idx, alpha
 
 
 def resize_area(images: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """(..., h, w, C) uint8 -> (..., H, W, C) uint8 downscale by area on the
-    tensor's device, cv2 ``INTER_AREA``'s counterpart. At integer factors
-    each output is its fy x fx box's sum, rounded half up ((sum + 2) >> 2 at
-    factor 2, as cv2); elsewhere cv2's fractional-area weights, summed in
-    float32 as two matrix products and rounded half to even, within a level
-    of cv2."""
-    H, W = hw
-    x = images if images.ndim == 4 else images[None]
+    """(..., h, w, C) uint8 -> (..., H, W, C) uint8, ``cv2.resize(...,
+    INTER_AREA)`` bit for bit, on the tensor's device.
+
+    cv2 has three rules. At integer factors on both axes each output is its
+    fy x fx box's integer sum, rounded as ``(sum + 2) >> 2`` at 2 x 2 and as
+    ``cvRound(float32(sum) * float32(1 / area))`` (half to even) at other
+    factors. Other downscales (both factors >= 1) take the fractional-area
+    table (:func:`_area_tab`): float32 sums in source order, one row at a
+    time (``buf += S * alpha``), then over rows (``sum += beta * buf``),
+    rounded half to even. Any upscale takes cv2's linear machinery with area
+    coefficients (:func:`_area_linear_taps`)."""
+    H, W = int(hw[0]), int(hw[1])
+    x = _as_batch(images)
     B, h, w, C = x.shape
     if (h, w) == (H, W):
         return images
-    if h % H == 0 and w % W == 0:
+    if h < H or w < W:
+        out = _two_tap_resize(x, _area_linear_taps(w, W, True), _area_linear_taps(h, H, False))
+    elif h % H == 0 and w % W == 0:
         fy, fx = h // H, w // W
         s = x.reshape(B, H, fy, W, fx, C).sum(dim=(2, 4), dtype=torch.int32)
-        out = ((s + (fy * fx) // 2) // (fy * fx)).to(torch.uint8)
+        if (fy, fx) == (2, 2):
+            out = ((s + 2) >> 2).to(torch.uint8)
+        else:
+            out = (s.float() * float(np.float32(1.0) / np.float32(fy * fx))).round().clamp(0, 255)
+            out = out.to(torch.uint8)
     else:
-        wy = torch.from_numpy(_area_weights(h, H)).to(x.device)
-        wx = torch.from_numpy(_area_weights(w, W)).to(x.device)
-        t = torch.einsum("Hh,bhwc->bHwc", wy, x.float())
-        out = torch.einsum("Ww,bHwc->bHWc", wx, t).round().clamp(0, 255).to(torch.uint8)
+        dev = x.device
+        xi, xa = (torch.from_numpy(t).to(dev) for t in _area_tab(w, W))
+        yi, ya = (torch.from_numpy(t).to(dev) for t in _area_tab(h, H))
+        xf = x.float()
+        buf = xf[:, :, xi[:, 0]] * xa[:, 0, None]  # (B, h, W, C)
+        for t in range(1, xi.shape[1]):
+            buf = buf + xf[:, :, xi[:, t]] * xa[:, t, None]
+        acc = buf[:, yi[:, 0]] * ya[:, 0, None, None]  # (B, H, W, C)
+        for t in range(1, yi.shape[1]):
+            acc = acc + buf[:, yi[:, t]] * ya[:, t, None, None]
+        out = acc.round().clamp(0, 255).to(torch.uint8)
     return out if images.ndim == 4 else out[0]
 
 
@@ -101,13 +145,42 @@ def _linear_taps(src: int, dst: int, clamp_weights: bool):
     f = ((np.arange(dst) + 0.5) * (np.float64(src) / dst) - 0.5).astype(np.float32)
     s0 = np.floor(f).astype(np.int64)
     frac = (f - s0.astype(np.float32)).astype(np.float32)
+    return _two_taps(s0, frac, src, clamp_weights)
+
+
+def _two_taps(s0, frac, src: int, clamp_weights: bool):
     if clamp_weights:
         out = (s0 < 0) | (s0 >= src - 1)
         frac = np.where(out, np.float32(0), frac)
         s0 = np.clip(s0, 0, src - 1)
-    w0 = np.rint((np.float32(1) - frac) * np.float32(2048)).astype(np.int32)
-    w1 = np.rint(frac * np.float32(2048)).astype(np.int32)
+    w0 = np.rint((np.float32(1) - frac) * np.float32(_COEF)).astype(np.int32)
+    w1 = np.rint(frac * np.float32(_COEF)).astype(np.int32)
     return np.clip(s0, 0, src - 1), np.clip(s0 + 1, 0, src - 1), w0, w1
+
+
+def _area_linear_taps(src: int, dst: int, clamp_weights: bool):
+    """The taps of cv2's ``INTER_AREA`` when it upscales an axis (its
+    linear machinery with area coefficients): s = floor(d * src / dst),
+    frac = float32((d + 1) - (s + 1) * dst / src), 0 if <= 0, else its
+    fractional part; then as :func:`_linear_taps`."""
+    inv = dst / src
+    s0 = np.floor(np.arange(dst) * (1.0 / inv)).astype(np.int64)
+    f = ((np.arange(dst) + 1) - (s0 + 1) * inv).astype(np.float32)
+    frac = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    return _two_taps(s0, frac, src, clamp_weights)
+
+
+def _two_tap_resize(x: torch.Tensor, xtaps, ytaps) -> torch.Tensor:
+    """cv2's 8-bit two-tap pass pair: a horizontal pass with 11-bit weights
+    into int32 sums, then a vertical pass ``((b0 * (S0 >> 4)) >> 16 + (b1 *
+    (S1 >> 4)) >> 16 + 2) >> 2`` (``VResizeLinearVec_32s8u``)."""
+    dev = x.device
+    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev) for t in xtaps)
+    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev) for t in ytaps)
+    xi = x.to(torch.int32)
+    rows = (xi[:, :, x0] * a0[:, None] + xi[:, :, x1] * a1[:, None]) >> 4  # (B, h, W, C)
+    out = (((b0[:, None, None] * rows[:, y0]) >> 16) + ((b1[:, None, None] * rows[:, y1]) >> 16) + 2) >> 2
+    return out.clamp(0, 255).to(torch.uint8)
 
 
 def resize_linear(images: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -120,20 +193,153 @@ def resize_linear(images: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     An exact 2x downscale is cv2's ``INTER_AREA`` (cv2 switches to it, and
     the two rules give the same pixels there): :func:`resize_area`."""
     H, W = int(hw[0]), int(hw[1])
-    x = images if images.ndim == 4 else images[None]
+    x = _as_batch(images)
     h, w = x.shape[1:3]
     if (h, w) == (H, W):
         return images
     if (h, w) == (2 * H, 2 * W):
         return resize_area(images, (H, W))
-    dev = x.device
-    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(w, W, True))
-    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(h, H, False))
-    xi = x.to(torch.int32)
-    rows = (xi[:, :, x0] * a0[:, None] + xi[:, :, x1] * a1[:, None]) >> 4  # (B, h, W, C)
-    out = (((b0[:, None, None] * rows[:, y0]) >> 16) + ((b1[:, None, None] * rows[:, y1]) >> 16) + 2) >> 2
-    out = out.clamp(0, 255).to(torch.uint8)
+    out = _two_tap_resize(x, _linear_taps(w, W, True), _linear_taps(h, H, False))
     return out if images.ndim == 4 else out[0]
+
+
+def resize_nearest(images: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., h, w, C) -> (..., H, W, C), ``cv2.resize(..., INTER_NEAREST)``
+    bit for bit (``image_io.nearest_index``), on the tensor's device."""
+    H, W = int(hw[0]), int(hw[1])
+    h, w = images.shape[-3:-1]
+    dev = images.device
+    ys = torch.from_numpy(image_io.nearest_index(h, H)).to(dev)
+    xs = torch.from_numpy(image_io.nearest_index(w, W)).to(dev)
+    return images[..., ys[:, None], xs[None, :], :]
+
+
+def _cubic_coefs(x: np.ndarray) -> np.ndarray:
+    """cv2's ``interpolateCubic`` (A = -0.75) in float32, (n, 4)."""
+    f = np.float32
+    x = x.astype(f)
+    A, one = f(-0.75), f(1)
+    c0 = ((A * (x + one) - f(5) * A) * (x + one) + f(8) * A) * (x + one) - f(4) * A
+    c1 = ((A + f(2)) * x - (A + f(3))) * x * x + one
+    y = one - x
+    c2 = ((A + f(2)) * y - (A + f(3))) * y * y + one
+    c3 = one - c0 - c1 - c2
+    return np.stack([c0, c1, c2, c3], -1).astype(f)
+
+
+_S45 = 0.70710678118654752440084436210485
+_LANCZOS_CS = ((1, 0), (-_S45, -_S45), (0, 1), (_S45, -_S45), (-1, 0), (_S45, _S45), (0, -1), (-_S45, _S45))
+
+
+def _lanczos4_coefs(x: np.ndarray) -> np.ndarray:
+    """cv2's ``interpolateLanczos4``, (n, 8): the windowed sinc in float64
+    (Python's libm sin/cos, as cv2's), each tap rounded to float32, summed
+    and normalised in float32."""
+    f = np.float32
+    out = np.zeros((len(x), 8), f)
+    for n, xv in enumerate(x.astype(f)):
+        x3 = f(xv + f(3))
+        y0 = -float(x3) * np.pi * 0.25
+        s0, c0 = math.sin(y0), math.cos(y0)
+        total = f(0)
+        for i in range(8):
+            yi = f(x3 - f(i))
+            if abs(yi) >= 1e-6:
+                y = -float(yi) * np.pi * 0.25
+                out[n, i] = f((_LANCZOS_CS[i][0] * s0 + _LANCZOS_CS[i][1] * c0) / (y * y))
+            else:
+                out[n, i] = f(1e30)
+            total = f(total + out[n, i])
+        out[n] = out[n] * (f(1) / total)
+    return out
+
+
+def _kernel_taps(src: int, dst: int, interp: int):
+    """(dst, k) clamped source indices and 11-bit weights of cv2's cubic
+    (k = 4) or Lanczos4 (k = 8) taps: f = float32((d + 0.5) / (dst / src) -
+    0.5), taps floor(f) - k/2 + 1 ... floor(f) + k/2 (the border replicated),
+    weights ``cvRound(coef * 2048)`` of the fraction."""
+    f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    frac = (f - s.astype(np.float32)).astype(np.float32)
+    coef = _cubic_coefs(frac) if interp == INTER_CUBIC else _lanczos4_coefs(frac)
+    k = coef.shape[1]
+    idx = np.clip(s[:, None] + np.arange(k)[None] - (k // 2 - 1), 0, src - 1)
+    return idx, np.rint(coef * np.float32(_COEF)).astype(np.int32)
+
+
+def _resize_kernel(x: torch.Tensor, H: int, W: int, interp: int) -> torch.Tensor:
+    """cv2's 8-bit cubic / Lanczos4 resize: a horizontal pass with 11-bit
+    weights into int32 sums, then the vertical pass. Lanczos4's vertical
+    pass is integer, ``(sum b * S + 2^21) >> 22``. Cubic's runs in float32
+    in cv2's SIMD order (``S3 * b3 + S2 * b2 + S1 * b1 + S0 * b0``, each
+    product and sum rounded, b = float32(beta / 2^22)) and rounds half to
+    even, except the last (W * C) % 8 values of each row, which take the
+    integer rule."""
+    B, h, w, C = x.shape
+    dev = x.device
+    xi, xw = (torch.from_numpy(t).to(dev) for t in _kernel_taps(w, W, interp))
+    yi, yw = (torch.from_numpy(t).to(dev) for t in _kernel_taps(h, H, interp))
+    xs = x.to(torch.int32)
+    rows = xs[:, :, xi[:, 0]] * xw[:, 0, None]
+    for k in range(1, xi.shape[1]):
+        rows = rows + xs[:, :, xi[:, k]] * xw[:, k, None]  # (B, h, W, C) int32
+    taps = [rows[:, yi[:, k]] for k in range(yi.shape[1])]  # (B, H, W, C) each
+    acc = taps[0].long() * yw[:, 0, None, None]
+    for k in range(1, len(taps)):
+        acc = acc + taps[k].long() * yw[:, k, None, None]
+    out = ((acc + (1 << 21)) >> 22).clamp(0, 255)
+    if interp == INTER_CUBIC:
+        b = yw.float() * float(np.float32(1.0 / (_COEF * _COEF)))  # (H, 4), exact
+        f = taps[3].float() * b[:, 3, None, None]
+        for k in (2, 1, 0):
+            f = f + taps[k].float() * b[:, k, None, None]
+        f = f.round().clamp(0, 255)
+        n = (W * C) // _CUBIC_LANES * _CUBIC_LANES
+        simd = (torch.arange(W * C, device=dev) < n).reshape(W, C)
+        out = torch.where(simd, f.long(), out)
+    return out.to(torch.uint8)
+
+
+def resize(images: torch.Tensor, hw: Tuple[int, int], interp: int = INTER_LINEAR) -> torch.Tensor:
+    """(..., h, w, C) uint8 -> (..., H, W, C) uint8 on the tensor's device,
+    ``cv2.resize(images, (W, H), interpolation=interp)`` for uint8 images:
+    bit for bit with cv2 for every code, except that cv2 on x86 hands
+    ``INTER_CUBIC`` to Intel IPP where it is built in (``cv2.ipp.useIPP()``),
+    whose pixels differ from cv2's own rule (this one) by at most one level
+    on about 1% of the values."""
+    H, W = int(hw[0]), int(hw[1])
+    if interp == INTER_LINEAR:
+        return resize_linear(images, (H, W))
+    if interp == INTER_AREA:
+        return resize_area(images, (H, W))
+    if interp == INTER_NEAREST:
+        return resize_nearest(images, (H, W))
+    if interp not in (INTER_CUBIC, INTER_LANCZOS4):
+        raise ValueError(f"unknown interpolation code {interp}")
+    x = _as_batch(images)
+    if tuple(x.shape[1:3]) == (H, W):
+        return images
+    out = _resize_kernel(x, H, W, interp)
+    return out if images.ndim == 4 else out[0]
+
+
+def place_images(items, device) -> List[torch.Tensor]:
+    """JPEG bytes or uint8 BGR arrays -> one (H_i, W_i, 3) uint8 tensor each
+    on ``device``: the JPEGs decoded there in one call (nvJPEG on CUDA, the
+    plain decoder on the CPU), the arrays copied (through pinned memory on
+    CUDA)."""
+    device = torch.device(device)
+    out: List[Optional[torch.Tensor]] = [None] * len(items)
+    encoded = [i for i, x in enumerate(items) if isinstance(x, bytes)]
+    if encoded:
+        for i, t in zip(encoded, jpeg_cuda.decode_images([items[i] for i in encoded], device)):
+            out[i] = t
+    for i, x in enumerate(items):
+        if out[i] is None:
+            t = torch.from_numpy(x)
+            out[i] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+    return out
 
 
 class EncodedImages:
@@ -148,16 +354,7 @@ class EncodedImages:
 
     def place_on(self, device) -> torch.Tensor:
         """(B, H, W, 3) uint8 BGR on ``device``."""
-        device = torch.device(device)
-        out = [None] * len(self.items)
-        encoded = [i for i, x in enumerate(self.items) if isinstance(x, bytes)]
-        if encoded:
-            for i, t in zip(encoded, jpeg_cuda.decode_images([self.items[i] for i in encoded], device)):
-                out[i] = t
-        for i, x in enumerate(self.items):
-            if out[i] is None:
-                t = torch.from_numpy(x)
-                out[i] = t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+        out = place_images(self.items, device)
         if self.resize_to is not None:
             out = [resize_area(t, self.resize_to) for t in out]
         return torch.stack(out)

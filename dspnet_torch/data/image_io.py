@@ -217,11 +217,16 @@ def imwrite(path: str, img: np.ndarray) -> str:
     return path
 
 
+def nearest_index(src: int, dst: int) -> np.ndarray:
+    """cv2's ``INTER_NEAREST`` source indices along one axis (``resizeNN``):
+    floor(d * (1 / (dst / src))) in float64, capped at src - 1. The exact
+    rational floor(d * src / dst) differs from it at some sizes."""
+    return np.minimum(np.floor(np.arange(dst) * (1.0 / (dst / src))).astype(np.int64), src - 1)
+
+
 def resize_nearest(img: np.ndarray, hw) -> np.ndarray:
-    """(h, w, ...) -> (H, W, ...) nearest resize: source index floor(dst * h
-    / H), in integers (the rule of cv2's ``INTER_NEAREST``)."""
+    """(h, w, ...) -> (H, W, ...), ``cv2.resize(..., INTER_NEAREST)``'s
+    pixels (:func:`nearest_index` on each axis)."""
     H, W = int(hw[0]), int(hw[1])
     h, w = img.shape[:2]
-    ys = (np.arange(H) * h) // H
-    xs = (np.arange(W) * w) // W
-    return img[ys[:, None], xs[None, :]]
+    return img[nearest_index(h, H)[:, None], nearest_index(w, W)[None, :]]

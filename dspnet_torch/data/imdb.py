@@ -4,9 +4,9 @@ record stores -> a :class:`~dspnet_torch.data.iterator.SampleIndex`.
 
   * :class:`Imdb` base with list-file export, :func:`load_imglist`,
     :func:`find_seg_for`;
-  * :class:`PascalVoc` (XML boxes, difficult flag): its samples and split
-    ids; the devkit evaluation (``write_pascal_results`` / ``voc_eval``) is
-    not ported (ROADMAP Queue A item 24);
+  * :class:`PascalVoc` (XML boxes, difficult flag): its samples, split ids
+    and the offline devkit evaluation (``comp4_det_*`` result files written
+    and re-scored with ``evaluate/eval_voc.py::voc_eval``);
   * :class:`CityscapesDetSeg` (PASCAL-style XML with the extra <distance>
     tag normalised /255 and clipped to [0, 1]; trainId seg PNGs);
   * :class:`CocoDet`, :class:`YoloFormat`, :class:`ConcatDB`, :class:`TestDB`;
@@ -28,6 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from dspnet_torch.data.iterator import LABEL_WIDTH, Sample, SampleIndex
+from dspnet_torch.evaluate.eval_voc import voc_eval
 
 VOC_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -184,6 +185,100 @@ class PascalVoc(Imdb):
                 rows = rows[rows[:, 6] < 1]
             out.append(Sample(img, SampleIndex.pad_label(rows[:, :6])))
         return out
+
+    # --- offline file-based VOCdevkit evaluation -------------------------
+    # Capability of reference dataset/pascal_voc.py:170-259 (the
+    # Imdb.evaluate_detections entry consumed by evaluate/evaluate_net.py):
+    # write per-class devkit result files, then score them with voc_eval.
+
+    def _image_size(self, iid: str):
+        """(height, width) from the annotation XML <size> — the reference
+        decodes the JPEG for this (pascal_voc.py:258-267); the XML already
+        carries it."""
+        size = ET.parse(
+            os.path.join(self.root, "Annotations", iid + ".xml")).find("size")
+        return float(size.find("height").text), float(size.find("width").text)
+
+    def get_result_file_template(self, result_dir: str) -> str:
+        """VOCdevkit results/VOC{year}/Main/comp4_det_{set}_{cls}.txt
+        (pascal_voc.py:195-208, comp_id config default 'comp4')."""
+        return os.path.join(result_dir, f"comp4_det_{self.image_set}_" + "{}.txt")
+
+    def write_pascal_results(self, all_boxes, result_dir: str):
+        """Write one devkit result file per class (pascal_voc.py:210-236).
+
+        ``all_boxes``: one (n, 6) array per split image, rows
+        ``[cls_id, score, x1, y1, x2, y2]`` with coordinates normalized to
+        [0, 1] (the detector row contract). Written as 1-based pixel
+        coordinates, matching the devkit convention (pascal_voc.py:233).
+        """
+        ids = self.split_ids()
+        if len(all_boxes) != len(ids):
+            raise ValueError(f"{len(all_boxes)} detection lists for {len(ids)} split images")
+        os.makedirs(result_dir, exist_ok=True)
+        files = {c: open(self.get_result_file_template(result_dir).format(c), "w")
+                 for c in self.classes}
+        try:
+            for iid, dets in zip(ids, all_boxes):
+                dets = np.asarray(dets, np.float64)
+                if dets.size == 0:
+                    continue
+                h, w = self._image_size(iid)
+                for row in dets:
+                    cid = int(row[0])
+                    # detector padding rows are all -1 (pascal_voc.py:231
+                    # filters by class the same way)
+                    if not 0 <= cid < len(self.classes):
+                        continue
+                    cls = self.classes[cid]
+                    # 1-based integer pixel coords: the reference truncates
+                    # with int() before the +1 (pascal_voc.py:235-236), so
+                    # devkit result files match it bit-for-bit
+                    files[cls].write(
+                        "{:s} {:.3f} {:.1f} {:.1f} {:.1f} {:.1f}\n".format(
+                            iid, row[1],
+                            int(row[2] * w) + 1, int(row[3] * h) + 1,
+                            int(row[4] * w) + 1, int(row[5] * h) + 1))
+        finally:
+            for f in files.values():
+                f.close()
+
+    def do_python_eval(self, result_dir: str, ovthresh: float = 0.5,
+                       use_07_metric: Optional[bool] = None):
+        """Score previously written result files; returns {class: AP, 'mAP':
+        mean} (pascal_voc.py:238-256; 07 metric for year < 2010)."""
+        if use_07_metric is None:
+            # 07 metric for year < 2010 (pascal_voc.py:247-249); non-numeric
+            # years (e.g. the load_index VOC fallback) use the modern metric
+            use_07_metric = self.year.isdigit() and int(self.year) < 2010
+        anno_fmt = os.path.join(self.root, "Annotations", "{}.xml")
+        ids = self.split_ids()
+        aps = {}
+        for cls in self.classes:
+            lines = []
+            path = self.get_result_file_template(result_dir).format(cls)
+            if os.path.exists(path):
+                with open(path) as f:
+                    for line in f:
+                        p = line.split()
+                        if len(p) >= 6:
+                            lines.append((p[0], float(p[1]), *map(float, p[2:6])))
+            _, _, ap = voc_eval(lines, anno_fmt, ids, cls, ovthresh, use_07_metric)
+            aps[cls] = ap
+        aps["mAP"] = float(np.mean([aps[c] for c in self.classes]))
+        return aps
+
+    def evaluate_detections(self, detections, result_dir: Optional[str] = None,
+                            ovthresh: float = 0.5,
+                            use_07_metric: Optional[bool] = None):
+        """Top-level offline eval (pascal_voc.py:170-185): write devkit
+        result files under ``{devkit}/results/VOC{year}/Main`` (or
+        ``result_dir``) and score them. Returns the per-class AP dict."""
+        if result_dir is None:
+            result_dir = os.path.join(os.path.dirname(self.root), "results",
+                                      f"VOC{self.year}", "Main")
+        self.write_pascal_results(detections, result_dir)
+        return self.do_python_eval(result_dir, ovthresh, use_07_metric)
 
 
 class CityscapesDetSeg(Imdb):

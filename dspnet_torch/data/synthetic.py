@@ -12,8 +12,9 @@ the (cls, corners, distance) label matrix, all from one numpy seed.
 ``Disparity/…_disparity.png``, ``SegmentationInstance/…_instanceIds.png``)
 and formats: the images are baseline JPEG at quality 95 with 4:2:0 chroma,
 as ``cv2.imwrite`` writes them there, from the port's own encoder
-(``data/jpeg.py``); the bytes differ from cv2's, the format does not. The
-VOC tree (``build_voc_dataset``) is not ported.
+(``data/jpeg.py``); the bytes differ from cv2's, the format does not.
+``build_voc_dataset`` writes the JAX package's synthetic PASCAL-VOC devkit
+tree the same way (the same scenes, XML and split files from one seed).
 """
 
 from __future__ import annotations
@@ -176,3 +177,55 @@ def instance_ids(label: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
         inst[y1:y2, x1:x2] = lid * 1000 + counts[cid]
         counts[cid] += 1
     return inst
+
+
+def class_names():
+    return list(DET_CLASSES)
+
+
+def build_voc_dataset(
+    root: str,
+    num_samples: int = 8,
+    hw: Tuple[int, int] = (96, 96),
+    max_objects: int = 4,
+    seed: int = 233,
+    year: str = "",
+    splits=("train", "val"),
+    difficult_frac: float = 0.2,
+) -> str:
+    """Write a synthetic PASCAL-VOC devkit tree under ``root`` and return
+    the devkit root (``root``): ``{root}/VOC{year}/{JPEGImages, Annotations,
+    ImageSets/Main}``, what ``data.imdb.PascalVoc`` (and ``load_index``'s VOC
+    fallback at year '') reads. Scenes from :func:`make_example`; object
+    names are the 8 Cityscapes det classes (pass them as --class-names);
+    ``difficult_frac`` of the objects are marked difficult. The draws, the
+    XML and the split files are the JAX package's
+    (``dspnet_tpu/data/synthetic.py::build_voc_dataset``); the JPEGs come
+    from the port's encoder (q95 4:2:0)."""
+    H, W = hw
+    base = os.path.join(root, f"VOC{year}")
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for split in splits:
+        ids = []
+        for i in range(num_samples):
+            iid = f"{split}_{i:04d}"
+            ids.append(iid)
+            img, label, _, _ = make_example(rng, hw, rng.randint(1, max_objects + 1))
+            image_io.imwrite(os.path.join(base, "JPEGImages", iid + ".jpg"), img)
+            objs = []
+            for row in label:
+                difficult = int(rng.rand() < difficult_frac)
+                objs.append(
+                    "<object><name>{}</name><difficult>{}</difficult>"
+                    "<bndbox><xmin>{}</xmin><ymin>{}</ymin>"
+                    "<xmax>{}</xmax><ymax>{}</ymax></bndbox></object>".format(
+                        DET_CLASSES[int(row[0])], difficult,
+                        int(row[1] * W), int(row[2] * H), int(row[3] * W), int(row[4] * H)))
+            with open(os.path.join(base, "Annotations", iid + ".xml"), "w") as f:
+                f.write("<annotation><size><width>{}</width><height>{}"
+                        "</height><depth>3</depth></size>{}</annotation>".format(W, H, "".join(objs)))
+        with open(os.path.join(base, "ImageSets", "Main", split + ".txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    return root

@@ -7,7 +7,10 @@ Contracts (as ``dspnet_tpu/models/heads.py``):
   regressors and ``K * num_classes`` class logits, flattened in
   (h, w, anchor, channel) order — the reference's NCHW->NHWC transpose +
   Flatten (symbol/common.py:393-412). The anchor table is built in that
-  order, so the permute to NHWC must come before the reshape.
+  order, so the permute to NHWC must come before the reshape;
+* optional channel-L2 normalization with a learned scale (``norm_{k}``)
+  before the k-th layer's convs (common.py:366-373; vgg16_reduced's
+  relu4_3).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from dspnet_torch.models.layers import ConvAct, conv
+from dspnet_torch.models.layers import ConvAct, L2Normalize, conv
 
 
 def num_anchors_per_cell(sizes: Sequence[float], ratios: Sequence[float]) -> int:
@@ -64,11 +67,11 @@ class MultiBoxHead(nn.Module):
     def __init__(self, in_channels: Sequence[int], num_classes: int, sizes, ratios,
                  loc_channels: int = 5, normalizations=()):
         super().__init__()
-        if any(n > 0 for n in normalizations):
-            raise NotImplementedError(
-                "L2Normalize heads (vgg16_reduced presets) are ROADMAP Queue A item 16")
         self.num_classes = num_classes  # including background
         self.loc_channels = loc_channels
+        self.normalized = [k for k, n in enumerate(normalizations) if n > 0]
+        for k in self.normalized:
+            self.add_module(f"norm_{k}", L2Normalize(in_channels[k], float(normalizations[k])))
         for k, c in enumerate(in_channels):
             K = num_anchors_per_cell(sizes[k], ratios[k])
             self.add_module(f"loc_pred_{k}", conv(c, K * loc_channels, 3, 1, 1))
@@ -77,6 +80,8 @@ class MultiBoxHead(nn.Module):
     def forward(self, layers):
         loc_parts, cls_parts = [], []
         for k, x in enumerate(layers):
+            if k in self.normalized:
+                x = getattr(self, f"norm_{k}")(x)
             b = x.shape[0]
             loc = getattr(self, f"loc_pred_{k}")(x).permute(0, 2, 3, 1)
             cls = getattr(self, f"cls_pred_{k}")(x).permute(0, 2, 3, 1)

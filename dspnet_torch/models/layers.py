@@ -77,8 +77,9 @@ class BatchNorm(nn.Module):
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
-def conv(in_channels, features, kernel, stride=1, pad="same_explicit", use_bias=True):
-    """MXNet-style Convolution with explicit symmetric padding."""
+def conv(in_channels, features, kernel, stride=1, pad="same_explicit", use_bias=True, dilation=1):
+    """MXNet-style Convolution with explicit symmetric padding (VGG16's
+    ``fc6`` is the dilated one: 3x3, dilation 6, pad 6)."""
     if isinstance(kernel, int):
         kernel = (kernel, kernel)
     if isinstance(stride, int):
@@ -87,7 +88,8 @@ def conv(in_channels, features, kernel, stride=1, pad="same_explicit", use_bias=
         pad = ((kernel[0] - 1) // 2, (kernel[1] - 1) // 2)
     if isinstance(pad, int):
         pad = (pad, pad)
-    return nn.Conv2d(in_channels, features, tuple(kernel), tuple(stride), tuple(pad), bias=use_bias)
+    return nn.Conv2d(in_channels, features, tuple(kernel), tuple(stride), tuple(pad), dilation=dilation,
+                     bias=use_bias)
 
 
 class ConvAct(nn.Module):
@@ -105,6 +107,42 @@ class ConvAct(nn.Module):
 def max_pool(x, kernel, stride, pad=0):
     """MXNet 'valid'-convention max pool: floor output size, -inf padding."""
     return F.max_pool2d(x, kernel, stride, pad)
+
+
+def _full_out(size: int, k: int, s: int, p: int) -> int:
+    return -(-(size + 2 * p - k) // s) + 1  # ceil
+
+
+def max_pool_full(x, kernel: int, stride: int, pad: int = 0):
+    """MXNet 'full'-convention max pool (ceil output size, the extra cells
+    padded with -inf on the right/bottom): VGG16-reduced's pool3.
+
+    ``ceil_mode=True`` gives the same windows as long as no window starts
+    in the padding (torch drops such a window, MXNet keeps it); the output
+    size is checked against MXNet's."""
+    out = F.max_pool2d(x, kernel, stride, pad, ceil_mode=True)
+    want = tuple(_full_out(n, kernel, stride, pad) for n in x.shape[-2:])
+    if tuple(out.shape[-2:]) != want:
+        raise ValueError(f"max_pool_full on {tuple(x.shape[-2:])}: a window starts in the padding "
+                         f"(torch {tuple(out.shape[-2:])}, MXNet {want})")
+    return out
+
+
+class L2Normalize(nn.Module):
+    """Channel L2 normalization with a learned per-channel ``scale``
+    (reference symbol/common.py:366-373; ``dspnet_tpu/models/layers.py::
+    L2Normalize``): ``x / sqrt(sum_c x^2 + 1e-10) * scale``, NCHW. The sum
+    of squares and the division run in float32 whatever the input dtype."""
+
+    def __init__(self, channels: int, init_scale: float = 20.0):
+        super().__init__()
+        self.init_scale = float(init_scale)
+        self.scale = nn.Parameter(torch.full((channels,), self.init_scale))
+
+    def forward(self, x):
+        xf = x.float()
+        norm = torch.sqrt((xf * xf).sum(dim=1, keepdim=True) + 1e-10)
+        return (xf / norm * self.scale.float()[:, None, None]).to(x.dtype)
 
 
 def avg_pool(x, kernel, stride, pad=0):

@@ -32,6 +32,9 @@ from dspnet_torch.ops import _build
 #: calls of ``bipartite_match`` that launched the kernels (two CUDA launches
 #: each); a caller may reset it to 0
 launches = 0
+#: calls of the plain version (``bipartite_match_reference``), on any device; a path
+#: on the card makes none, a caller may reset it to 0
+plain_calls = 0
 
 #: keys per column list and threads per block, csrc/match.cu's compile-time
 #: kT and kThreads; the plan below owns every size derived from them
@@ -157,6 +160,8 @@ def bipartite_match_reference(iou, col_valid):
     Returns ``(matched (B, A) bool, match_gt (B, A) int32 (-1 unmatched),
     match_iou (B, A) f32 (-1 unmatched))``.
     """
+    global plain_calls
+    plain_calls += 1
     _check_shapes(iou, col_valid)
     B, A, L = iou.shape
     dev = iou.device

@@ -29,6 +29,9 @@ from dspnet_torch.ops.boxes import iou_matrix
 #: calls of ``nms_keep_mask`` that launched the kernel (one or two CUDA
 #: launches each); a caller may reset it to 0
 launches = 0
+#: calls of the plain version (``nms_keep_mask_reference``), on any device; a path
+#: on the card makes none, a caller may reset it to 0
+plain_calls = 0
 
 _TILE = 64  # rows per mask word (csrc/nms.cu kTile)
 _MAX_CLUSTER = 16  # the largest thread block cluster Hopper schedules (8 is portable)
@@ -139,6 +142,8 @@ def nms_keep_mask_reference(boxes, ids, valid, nms_threshold=0.5, force_suppress
     ``keep = valid & ~(keep @ S)``; iterating from ``keep = valid`` settles
     row i by step i + 1, so the loop ends.
     """
+    global plain_calls
+    plain_calls += 1
     _check_shapes(boxes, ids, valid)
     K = boxes.shape[1]
     iou = iou_matrix(boxes, boxes)

@@ -14,12 +14,14 @@ tensor:
 * ``…/BatchNorm_0/{scale,bias}``             -> ``….{weight,bias}``
 * ``batch_stats …/BatchNorm_0/{mean,var}``   -> ``….{running_mean,running_var}``
 * ``…/bias`` of a conv                      -> ``….bias``
+* ``multibox/norm_{k}/scale`` (L2Normalize)   -> ``multibox.norm_{k}.scale``
 
 ``to_flax_variables`` is the exact inverse, and ``flax_path`` names the flax
 leaf of one torch tensor. Both read the module kind from the port's naming
 contract: a BatchNorm's module name is ``bn_data``, ``bn<N>`` or ends in
-``_bn``; the one transposed conv is ``score4_conv``; every other module with
-a ``weight`` is a conv.
+``_bn``; the one transposed conv is ``score4_conv``; an L2Normalize is
+``norm_<k>``; every other module with a ``weight`` is a conv (VGG16's
+``conv1_1`` … ``fc7``, the dilated ``fc6`` included).
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ def flax_to_state_dict(variables_np: Mapping) -> dict:
             if leaf is None:
                 raise KeyError(f"no conversion for flax leaf {collection}/{'/'.join(path)}")
             modules = list(path[:-1])
+            if path[-1] == "scale" and modules and _NORM_MODULE.match(modules[-1]):
+                leaf = "scale"
             if modules and modules[-1] == "BatchNorm_0":
                 modules.pop()
             if path[-1] == "kernel" and modules and modules[-1] == "ConvTranspose_0":
@@ -89,6 +93,8 @@ def load_flax_variables(model: nn.Module, variables_np: Mapping) -> nn.Module:
 
 _BN_MODULE = re.compile(r"^(bn_data|bn\d+)$|_bn$")
 _DECONV_MODULE = "score4_conv"
+_NORM_MODULE = re.compile(r"^norm_\d+$")
+_NORM_LEAF = {"scale": ("params", "scale")}
 _BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
             "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
 _CONV_LEAF = {"weight": ("params", "kernel"), "bias": ("params", "bias")}
@@ -101,6 +107,8 @@ def _flax_leaf(name: str) -> Tuple[str, Tuple[str, ...]]:
         raise KeyError(f"no flax leaf for top-level tensor {name!r}")
     if _BN_MODULE.search(modules[-1]):
         table, extra = _BN_LEAF, ("BatchNorm_0",)
+    elif _NORM_MODULE.match(modules[-1]):
+        table, extra = _NORM_LEAF, ()
     elif modules[-1] == _DECONV_MODULE:
         table, extra = _CONV_LEAF, ("ConvTranspose_0",)
     else:

@@ -1,7 +1,7 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
-``create_model``, ``Detector``, ``MultiTaskSolver`` and ``prefetch_to_device``
-default to ``device="cuda"``. Without a card a default call raises torch's
+``create_model``, ``Detector``, ``MultiTaskSolver``, ``prefetch_to_device``
+and ``DetIterator`` default to ``device="cuda"``. Without a card a default call raises torch's
 own error; it never runs on the CPU silently. Whether a card is present is
 decided inside the test, never at import.
 """
@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from dspnet_torch.api import create_model
+from dspnet_torch.data.det_iterator import DetIterator
+from dspnet_torch.data.iterator import SampleIndex
 from dspnet_torch.data.prefetch import prefetch_to_device
 from dspnet_torch.detect.detector import Detector
 from dspnet_torch.train.solver import MultiTaskSolver
@@ -46,8 +48,13 @@ def _prefetch():
     return next(prefetch_to_device(iter([np.zeros(2, np.float32)]))).device
 
 
+def _det_iterator():
+    return DetIterator(SampleIndex([]), 2, (H, W)).mean_pixels.device
+
+
 ENTRY_POINTS = {
     "create_model": (create_model, _create_model),
+    "DetIterator": (DetIterator.__init__, _det_iterator),
     "Detector": (Detector.__init__, _detector),
     "MultiTaskSolver": (MultiTaskSolver.__init__, _solver),
     "prefetch_to_device": (prefetch_to_device, _prefetch),
@@ -78,6 +85,7 @@ def test_cpu_on_request():
     assert MultiTaskSolver(bundle.model, bundle.anchors, device="cpu").anchors.device.type == "cpu"
     out = next(prefetch_to_device(iter([np.zeros(2, np.float32)]), device="cpu"))
     assert out.device.type == "cpu"
+    assert DetIterator(SampleIndex([]), 2, (H, W), device="cpu").mean_pixels.device.type == "cpu"
 
 
 def _pipeline():
@@ -87,16 +95,18 @@ def _pipeline():
     return ServingPipeline(Detector(bundle.model, bundle.anchors, (H, W)), depth=1).detector.device
 
 
-@pytest.mark.parametrize("tool", ["multi_demo", "import_mxnet"])
+@pytest.mark.parametrize("tool", ["multi_demo", "import_mxnet", "eval_voc"])
 def test_demo_and_import_tool_default_to_the_card(tool, tmp_path):
-    """The demo CLI and the MXNet import tool take ``--device cuda`` unless
-    told otherwise, and without a card they stop with a clear message."""
+    """The demo CLI, the MXNet import tool and the VOC eval CLI take
+    ``--device cuda`` unless told otherwise, and without a card they stop
+    with a clear message."""
     import importlib
 
     mod = importlib.import_module(
-        f"dspnet_torch.cli.{tool}" if tool == "multi_demo" else f"dspnet_torch.tools.{tool}")
+        f"dspnet_torch.tools.{tool}" if tool == "import_mxnet" else f"dspnet_torch.cli.{tool}")
     argv = ["--params", str(tmp_path / "none.params")] if tool == "import_mxnet" else []
-    argv += ["--network", "resnet-18_multi", "--data-shape", f"3,{H},{W}"]
+    argv += ["--voc-root", str(tmp_path)] if tool == "eval_voc" else []
+    argv += ["--network", "resnet-18_multi" if tool != "eval_voc" else "resnet-18", "--data-shape", f"3,{H},{W}"]
     assert mod.parse_args(argv).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):

@@ -81,13 +81,13 @@ def test_create_model_seeded_init():
             assert m.running_mean.abs().max() == 0 and (m.running_var == 1).all()
 
 
-@pytest.mark.parametrize("network,error", [
-    ("vgg16_reduced", NotImplementedError),
-    ("resnet-50", NotImplementedError),  # plain SSDNet
-    ("inceptionv3_multi", NotImplementedError),
+@pytest.mark.parametrize("network,error,match", [
+    ("inceptionv3", NotImplementedError, "ROADMAP"),  # plain SSD on the unported backbone
+    ("vgg16_reduced_multi", NotImplementedError, "3-tap resnet"),  # no multitask VGG in the reference
+    ("inceptionv3_multi", NotImplementedError, "3-tap resnet"),
 ])
-def test_create_model_rejects_unported(network, error):
-    with pytest.raises(error, match="ROADMAP"):
+def test_create_model_rejects_unported(network, error, match):
+    with pytest.raises(error, match=match):
         create_model(network, (H, W), device="cpu")
 
 
