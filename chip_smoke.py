@@ -104,15 +104,42 @@ Phases (any failure ends the run with a non-zero exit):
      Every run's counts are checked: matcher launches = train steps, NMS =
      eval batches, nvJPEG images = images read, plain JPEG decodes and
      plain NMS / matcher calls 0;
- 11. JSON lines with the decoders' records (nvJPEG, the colour kernel),
-     phase 9's numbers and the kernel results (each kernel's device, host,
-     event and bound times at the main path's shapes, beside the baseline
-     kernels' times from this run, and at phase 10's shapes), then the
+ 11. the last backbone and the model and training options: the inceptionv3
+     SSD at full width (20 classes, seeded weights, bf16 over float32
+     masters) at 512x512 (A = 5,186) and 300x300 (A = 1,668): ``Detector``
+     at b1 and b32 (det == the plain-NMS path bit for bit), a float32
+     forward card vs CPU, the two kernels at its shapes bit for bit and
+     timed (NMS K = 400, 20 classes, B = 1 and 32; the matcher at A = 5,186,
+     L = 100, 12 and 60 crowded GTs at B = 8 and 32), ``train_step`` on
+     ``DetIterator`` batches at b8 and b32 @300 and @512 (ms/step, idle
+     share, peak memory), ``multi_train --network inceptionv3 --loader det``
+     for 2 epochs on a synthetic VOC devkit (phase 10's), ``--resume``,
+     ``eval_voc --voc07``; ``seg_fast`` at resnet-50_multi 512x1024 with and
+     without (b1 ``predict_raw``, the b8 bf16 step, the seg head's device
+     time forward and backward on the step's taps, a float32 forward card vs
+     CPU, one parameter tree); ``remat`` with and without (the b8 and b32
+     steps: ms/step and ``max_memory_allocated``; a float32 step equal to
+     the plain one bit for bit, each BatchNorm's running statistics moved
+     once); data parallelism on the one card: world 1 through the distributed path over
+     NCCL (a step equal to the plain step bit for bit, both timed), and
+     ``multi_train --coordinator --num-processes 2`` as two processes
+     sharing the card over gloo at resnet-18_multi 512x1024 (the depth cut
+     for time), against the one-process run on the same global batches:
+     each tensor's change from the seeded weights within 10% of the largest
+     change of its kind, the step losses within rtol 1e-3 (the first within
+     1e-4). Every run's counts are checked (NMS launches = predict
+     calls + eval batches, matcher = steps, plain calls 0);
+ 12. JSON lines with the decoders' records (nvJPEG, the colour kernel),
+     phase 9's numbers, phase 11's, the kernel results (each kernel's device,
+     host, event and bound times at the main path's shapes, beside the
+     baseline kernels' times from this run, and at phases 10 and 11's
+     shapes) and each phase's seconds with the script's total, then the
      result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
-    python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no JSON lines
-    python3 chip_smoke.py --ssd-only         # phases 1, 2 and 10 alone, no JSON lines
+    python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no result line
+    python3 chip_smoke.py --ssd-only         # phases 1, 2 and 10 alone, no result line
+    python3 chip_smoke.py --options-only     # phases 1, 2 and 11 alone, no result line
 
 """
 
@@ -120,6 +147,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -244,8 +272,9 @@ def bound_us(nbytes, ops):
 
 def kernel_times(fn, names, n=200, n_prof=100):
     """A wrapper's time per call, device and host apart:
-    device_us -- the summed device time of the kernels named ``names`` under
-      torch.profiler over ``n_prof`` calls after warm-up, per call (events
+    device_us -- the device time of the kernels named ``names`` under
+      torch.profiler over ``n_prof`` calls after warm-up, per call: each
+      kernel's mean over the launches the profiler recorded, summed (events
       around single launches queued behind a sleep kernel, so the host is
       ahead, where the profiler shows no device time);
     host_us  -- the wrapper's host time per call, host clock over ``n`` calls
@@ -271,7 +300,9 @@ def kernel_times(fn, names, n=200, n_prof=100):
         if evt.device_type == torch.autograd.DeviceType.CUDA and key is not None:
             us, c = seen.get(key, (0.0, 0))
             seen[key] = (us + evt.device_time, c + 1)
-    device_us = sum(us for us, _ in seen.values()) / n_prof
+    # each named kernel runs once per call: its mean over the launches the
+    # profiler kept (it can drop events from a long window)
+    device_us = sum(us / c for us, c in seen.values())
     how = "torch.profiler"
     if device_us <= 0.0:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -284,7 +315,7 @@ def kernel_times(fn, names, n=200, n_prof=100):
             end.synchronize()
             total += start.elapsed_time(end)
         device_us, how = total / n_prof * 1e3, "events around one launch behind a sleep"
-    per_kernel = ", ".join(f"{k} x{c / n_prof:g}: {us / n_prof:.3f} us" for k, (us, c) in seen.items())
+    per_kernel = ", ".join(f"{k} x{c / n_prof:g} recorded per call: {us / c:.3f} us" for k, (us, c) in seen.items())
     return {"device_us": device_us, "host_us": host_us, "event_ms": event_ms, "how": how,
             "per_kernel": per_kernel}
 
@@ -1418,6 +1449,42 @@ def real_data_phase(dev, label):
 SSD_CLASSES = 20  # VOC: 21 with the background
 
 
+class PathCounts:
+    """Phase 11's counters: each path is counted from 0 (``zero``) and read
+    just after (``expect``), which also sums the kernel launches."""
+
+    def __init__(self):
+        self.launches = {"nms_keep_mask": 0, "bipartite_match": 0}
+
+    @staticmethod
+    def zero():
+        from dspnet_torch.data import jpeg, jpeg_cuda
+        from dspnet_torch.ops import matching_cuda, nms_cuda
+
+        nms_cuda.launches = matching_cuda.launches = nms_cuda.plain_calls = matching_cuda.plain_calls = 0
+        jpeg_cuda.images = jpeg.decodes = 0
+
+    @staticmethod
+    def read():
+        from dspnet_torch.data import jpeg, jpeg_cuda
+        from dspnet_torch.ops import matching_cuda, nms_cuda
+
+        torch.cuda.synchronize()
+        return {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
+                "nvjpeg_images": jpeg_cuda.images, "plain_jpeg_decodes": jpeg.decodes,
+                "plain_nms_calls": nms_cuda.plain_calls, "plain_match_calls": matching_cuda.plain_calls}
+
+    def expect(self, what, steps=0, eval_batches=0, images=0):
+        got = self.read()
+        want = {"bipartite_match": steps, "nms_keep_mask": eval_batches, "nvjpeg_images": images,
+                "plain_jpeg_decodes": 0, "plain_nms_calls": 0, "plain_match_calls": 0}
+        check(got == want, f"{what}: counts {got}, expected {want}")
+        print(f"{what}: matcher {steps} launches = train steps, NMS {eval_batches} = predict calls + eval "
+              f"batches, nvJPEG {images} images, plain decodes / plain NMS / plain matcher calls 0")
+        for k in self.launches:
+            self.launches[k] += got[k]
+
+
 def ssd_rows(rng, B, K):
     """Top-K rows as the SSD detector emits them: 20 foreground classes."""
     cx, cy = rng.uniform(0.1, 0.9, (2, B, K))
@@ -1437,7 +1504,7 @@ def ssd_phase(dev, label):
 
     from dspnet_torch.api import create_model
     from dspnet_torch.cli import eval_voc, multi_train
-    from dspnet_torch.data import augment, jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data import augment, jpeg, synthetic
     from dspnet_torch.data.det_iterator import DetIterator, PlannedImages
     from dspnet_torch.data.imdb import PascalVoc
     from dspnet_torch.detect.detector import Detector
@@ -1448,28 +1515,9 @@ def ssd_phase(dev, label):
     from dspnet_torch.ops.target import multibox_target
     from dspnet_torch.train.solver import MultiTaskSolver
 
-    launches = {"nms_keep_mask": 0, "bipartite_match": 0}
+    counts = PathCounts()
     times = {"nms_keep_mask": {}, "bipartite_match": {}}
     errs = {"nms_keep_mask": 0.0, "bipartite_match": 0.0}
-
-    def zero_counts():
-        nms_cuda.launches = matching_cuda.launches = nms_cuda.plain_calls = matching_cuda.plain_calls = 0
-        jpeg_cuda.images = jpeg.decodes = 0
-
-    def read_counts():
-        torch.cuda.synchronize()
-        return {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
-                "nvjpeg_images": jpeg_cuda.images, "plain_jpeg_decodes": jpeg.decodes,
-                "plain_nms_calls": nms_cuda.plain_calls, "plain_match_calls": matching_cuda.plain_calls}
-
-    def expect(got, what, steps=0, eval_batches=0, images=0):
-        want = {"bipartite_match": steps, "nms_keep_mask": eval_batches, "nvjpeg_images": images,
-                "plain_jpeg_decodes": 0, "plain_nms_calls": 0, "plain_match_calls": 0}
-        check(got == want, f"{what}: counts {got}, expected {want}")
-        print(f"{what}: matcher {steps} launches = train steps, NMS {eval_batches} = eval batches, nvJPEG "
-              f"{images} images = images read, plain decodes / plain NMS / plain matcher calls 0")
-        for k in launches:
-            launches[k] += got[k]
 
     def det_checks(d, b, what):
         check(d.shape == (b, 400, 7) and d.dtype == torch.float32, f"{what}: det {tuple(d.shape)} {d.dtype}")
@@ -1491,9 +1539,9 @@ def ssd_phase(dev, label):
     imgs = {b: torch.randn(b, 300, 300, 3, device=dev, generator=gen) * 50 for b in (1, 32)}
     for b in (1, 32):
         det.predict(imgs[b])
-    zero_counts()
+    counts.zero()
     res = {b: det.predict(imgs[b])["det"] for b in (1, 32)}
-    expect(read_counts(), "serving vgg16_reduced@300 (b1, b32 predict)", eval_batches=2)
+    counts.expect("serving vgg16_reduced@300 (b1, b32 predict)", eval_batches=2)
     for b, d in res.items():
         det_checks(d, b, f"b{b} 300x300")
     with torch.inference_mode():  # the detection stage: kernel NMS vs plain, same heads
@@ -1541,9 +1589,9 @@ def ssd_phase(dev, label):
                       nms_thresh=0.45, force_suppress=True)
     x512 = torch.randn(8, 512, 512, 3, device=dev, generator=gen) * 50
     det512.predict(x512)
-    zero_counts()
+    counts.zero()
     det_checks(det512.predict(x512)["det"], 8, "b8 512x512")
-    expect(read_counts(), "serving vgg16_reduced@512 (b8 predict)", eval_batches=1)
+    counts.expect("serving vgg16_reduced@512 (b8 predict)", eval_batches=1)
     ms8, mem8 = serve_ms(det512, x512, 10)
     print(f"vgg16_reduced@512 bf16 predict b8: {8e3 / ms8:.2f} img/s ({ms8:.3f} ms/call, peak {mem8:.3f} GiB) "
           f"[{label}]")
@@ -1662,13 +1710,13 @@ def ssd_phase(dev, label):
             prof, m = profile_step(solver, state, batch)
             losses.append(float(m["loss"]))
             torch.cuda.reset_peak_memory_stats()
-            zero_counts()
+            counts.zero()
             t0 = time.perf_counter()
             for _ in range(n_timed):
                 state, m = solver.train_step(state, batch)
             losses.append(float(m["loss"]))
             dt = (time.perf_counter() - t0) / n_timed
-            expect(read_counts(), f"SSD train b{b} {size}x{size} ({n_timed} steps)", steps=n_timed)
+            counts.expect(f"SSD train b{b} {size}x{size} ({n_timed} steps)", steps=n_timed)
             peak = torch.cuda.max_memory_allocated() / 2**30
             print(f"train vgg16_reduced@{size} b{b} bf16 (f32 masters), device-resident DetIterator batch: "
                   f"{dt * 1e3:.3f} ms/step, {b / dt:.2f} img/s, peak {peak:.3f} GiB; first-step targets kernel == "
@@ -1701,22 +1749,22 @@ def ssd_phase(dev, label):
         steps, val_batches = n_img // B, -(-n_img // B)
         for what, extra, epochs in (("multi_train --loader det, 2 epochs", ["--end-epoch", "2"], 2),
                                     ("multi_train --loader det --resume 0, 1 epoch", ["--end-epoch", "3", "--resume", "0"], 1)):
-            zero_counts()
+            counts.zero()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             state = multi_train.main(train_flags + extra)
             secs = time.perf_counter() - t0
-            expect(read_counts(), what, steps=epochs * steps, eval_batches=epochs * val_batches,
+            counts.expect(what, steps=epochs * steps, eval_batches=epochs * val_batches,
                    images=epochs * 2 * n_img)
             print(f"  {secs:.3f} s, step {state.step}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
                   f"[{label}]")
         check(state.step == 3 * steps, f"resumed run ended at step {state.step}")
         del state
         torch.cuda.empty_cache()
-        zero_counts()
+        counts.zero()
         res = eval_voc.main(flags + ["--voc-root", root, "--year", "", "--image-set", "val", "--voc07",
                                      "--model-dir", md, "--result-dir", str(work / "results")])
-        expect(read_counts(), "eval_voc --voc07", eval_batches=val_batches, images=n_img)
+        counts.expect("eval_voc --voc07", eval_batches=val_batches, images=n_img)
         for k in ("mAP", "devkit_mAP"):
             check(np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0, f"eval_voc {k} = {res[k]}")
         files = sorted(p.name for p in (work / "results").iterdir())
@@ -1777,7 +1825,586 @@ def ssd_phase(dev, label):
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
     sys.stdout.flush()
-    return launches, times, errs
+    return counts.launches, times, errs
+
+
+def timed_steps(solver, state, batch, n_warm=3, n_timed=10, profile=True):
+    """(state, ms/step, peak GiB, {kernel: (us, n)} of one profiled step or
+    None, losses): warm-up steps, one profiled step, then ``n_timed`` steps
+    on the host clock ending in a synchronize."""
+    losses = []
+    for _ in range(n_warm):
+        state, m = solver.train_step(state, batch)
+        losses.append(float(m["loss"]))
+    prof = None
+    if profile:
+        prof, m = profile_step(solver, state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, m = solver.train_step(state, batch)
+    losses.append(float(m["loss"]))
+    dt = (time.perf_counter() - t0) / n_timed
+    return state, dt * 1e3, torch.cuda.max_memory_allocated() / 2**30, prof, losses
+
+
+def busy_ms(prof):
+    return sum(us for us, _ in prof.values()) / 1e3
+
+
+def seg_head_ms(solver, state, batch, n=5):
+    """Device ms of the seg head's forward and backward in train mode (bf16)
+    on the step's own taps: the backbone runs once outside the window, then
+    ``n`` passes of the head alone under torch.profiler, every CUDA kernel
+    summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = solver.model
+    params = {k: v.detach().to(solver.compute_dtype) for k, v in state.params.items()}
+    bufs = {k: v.clone() for k, v in state.buffers.items()}
+
+    def sub(prefix, d):
+        return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
+
+    images = batch["images"].to(solver.compute_dtype).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        plus = torch.func.functional_call(model.backbone, {**sub("backbone.", params), **sub("backbone.", bufs)},
+                                          (images,))
+    res3, res4, feat = (plus[i].detach() for i in model.taps)
+    feat.requires_grad_(True)
+    head = {k: v.requires_grad_(True) for k, v in sub("seg.", params).items()}
+    head_bufs = sub("seg.", bufs)
+    grid = (images.shape[2] // 8, images.shape[3] // 8)
+    was = model.seg.training
+    model.seg.train(True)
+
+    def run():
+        out = torch.func.functional_call(model.seg, {**head, **head_bufs}, (res3, res4, feat, grid))
+        torch.autograd.grad(out.float().square().mean(), [feat, *head.values()])
+
+    try:
+        for _ in range(2):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+    finally:
+        model.seg.train(was)
+    us = sum(e.device_time for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / n / 1e3
+
+
+def deterministic_det_step(dev, remat, distributed_ok=False):
+    """One float32 resnet-50_det 256x512 b2 step from seeded weights, with
+    cuDNN's deterministic algorithms (a det network: no bilinear backward,
+    whose atomics would make even two plain steps differ): (state, metrics,
+    every BatchNorm's running_updates)."""
+    from dspnet_torch.api import create_model
+    from dspnet_torch.models.layers import BatchNorm
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.benchmark import batch_to_device, canonical_train_batch
+
+    batch = canonical_train_batch(2, 256, 512, seed=3)
+    batch.pop("seg_label")
+    batch["images"] = batch["images"] * 100.0
+    bundle = create_model("resnet-50_det", (256, 512), NUM_CLASSES, device=dev,
+                          generator=torch.Generator().manual_seed(5), remat=remat)
+    bns = [m for m in bundle.model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.running_updates = 0
+    solver = MultiTaskSolver(bundle.model, bundle.anchors, batch_size=2, device=dev, learning_rate=1e-3)
+    check(solver.distributed == distributed_ok, f"solver.distributed is {solver.distributed}")
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        st, m = solver.train_step(solver.init_state(), batch_to_device(batch, dev))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return st, {k: float(v) for k, v in m.items()}, [m.running_updates for m in bns]
+
+
+def max_state_diff(a, b, parts=("params", "buffers", "momentum")):
+    return max(float((getattr(a, p)[k] - getattr(b, p)[k]).abs().max()) for p in parts for k in getattr(a, p))
+
+
+class _LogTimes(logging.Handler):
+    """Keeps (time, message) of every log record: the CLI's step lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, rec):
+        self.lines.append((rec.created, rec.getMessage()))
+
+
+def _step_ms(lines, epoch, steps):
+    """ms per step from the CLI's per-batch log lines of one epoch (``--log-
+    every 1``: each line ends in a host sync): batch 1 to batch ``steps``."""
+    at = {m.split(":")[0]: t for t, m in lines if m.startswith(f"epoch {epoch} batch ")}
+    return (at[f"epoch {epoch} batch {steps}"] - at[f"epoch {epoch} batch 1"]) / (steps - 1) * 1e3
+
+
+def _stderr_lines(text):
+    """(time, message) of the CLI's log lines in a child's output."""
+    import datetime as _dt
+
+    out = []
+    for line in text.splitlines():
+        parts = line.split(" ", 3)
+        if len(parts) == 4 and parts[2] == "INFO":
+            try:
+                stamp = _dt.datetime.strptime(f"{parts[0]} {parts[1]}", "%Y-%m-%d %H:%M:%S,%f")
+            except ValueError:
+                continue
+            out.append((stamp.timestamp(), parts[3]))
+    return out
+
+
+#: 2 ranks against one process: each change within this share of the
+#: largest change of its kind. The ranks change only the order of the sums,
+#: but a step amplifies that (a near-tie in the hard-negative mining flips):
+#: one process moves 1.6% of its largest change on the CPU after 2 steps
+#: when only the order of a batch's rows changes, and these 4 steps on the
+#: card differ by 3.2%; a mean of the ranks' gradients for their sum moves
+#: every change by half
+DP_SHARE = 0.1
+
+
+def _step_losses(lines):
+    """The total loss of every step, in order, from the CLI's per-batch log
+    lines (``--log-every 1``; 4 decimals)."""
+    return [float(m.rsplit("loss=", 1)[1].split(",")[0]) for _, m in lines
+            if m.startswith("epoch ") and " batch " in m and "loss=" in m]
+
+
+def data_parallel_checks(dev, label, work, counts, record):
+    """Phase 11g: world 1 through the distributed path over NCCL (one step
+    equal to the plain step bit for bit, both timed), then ``multi_train
+    --coordinator --num-processes 2`` as two processes sharing the card over
+    gloo (rank 0 in this process, rank 1 a child) against the one-process
+    run on the same global batches: each tensor's change from the seeded
+    weights (the checkpoint's) against the largest change of its kind, and
+    every step's loss."""
+    import logging as _logging
+    import os
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_train
+    from dspnet_torch.parallel import dist as pdist
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.benchmark import batch_to_device, canonical_train_batch
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    plain, plain_m, _ = deterministic_det_step(dev, remat=False)
+    bundle = create_model("resnet-50_multi", (H, W), NUM_CLASSES, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+    batch = batch_to_device(canonical_train_batch(8, H, W), dev)
+    kw = dict(batch_size=8, compute_dtype="bfloat16", device=dev, seg_normalize="valid", learning_rate=5e-4)
+    solver = MultiTaskSolver(bundle.model, bundle.anchors, **kw)
+    _, plain_ms, _, _, _ = timed_steps(solver, solver.init_state(), batch, n_warm=2, n_timed=8, profile=False)
+    del solver
+    info = pdist.distributed_init(f"127.0.0.1:{pdist.free_port()}", 1, 0, "cuda", timeout_s=120)
+    try:
+        check(info.backend == "nccl", f"world 1 on one card: backend {info.backend}, expected nccl")
+        dist_st, dist_m, _ = deterministic_det_step(dev, remat=False, distributed_ok=True)
+        diff = max_state_diff(plain, dist_st)
+        check(diff == 0.0 and dist_m == plain_m, f"world-1 NCCL step != the plain step (max diff {diff})")
+        solver = MultiTaskSolver(bundle.model, bundle.anchors, **kw)
+        counts.zero()
+        _, nccl_ms, _, _, _ = timed_steps(solver, solver.init_state(), batch, n_warm=2, n_timed=8, profile=False)
+        counts.expect("world 1 over NCCL: b8 train (10 steps)", steps=10)
+    finally:
+        pdist.destroy()
+    record["world 1 nccl"] = {"b8_step_ms": nccl_ms, "plain_b8_step_ms": plain_ms}
+    print(f"data parallel world 1 over NCCL (rank {info.rank}, {info.device}): the float32 resnet-50_det step equals "
+          f"the plain step bit for bit (parameters, running statistics, momentum, metrics); resnet-50_multi b8 bf16 "
+          f"step {nccl_ms:.3f} ms through the distributed path (BatchNorm statistics, counts, metrics and a bucketed "
+          f"gradient all-reduce) vs {plain_ms:.3f} ms plain [{label}]")
+    del solver, batch, bundle
+    torch.cuda.empty_cache()
+
+    # two processes sharing the card over gloo: resnet-18_multi 512x1024 (the depth cut for time),
+    # global b4 (2 rows a rank), 8 train and 4 val images, 2 epochs
+    flags = ["--network", "resnet-18_multi", "--data-shape", f"3,{H},{W}", "--num-classes", str(NUM_CLASSES),
+             "--batch-size", "4", "--synthetic", "8", "--synthetic-val", "4", "--synthetic-dir", str(work / "dp_synth"),
+             "--end-epoch", "2", "--seg-normalize", "valid", "--eval-every", "1", "--log-every", "1"]
+    root_logger = _logging.getLogger()
+    runs, losses = {}, {}
+    for what in ("one process", "rank 0 of 2"):
+        md = str(work / ("dp_m1" if what == "one process" else "dp_m2"))
+        extra = ["--model-dir", md]
+        child = None
+        if what != "one process":
+            port = pdist.free_port()
+            extra += ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+            child = subprocess.Popen([sys.executable, "-m", "dspnet_torch.cli.multi_train", *flags, *extra,
+                                      "--process-id", "1"], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+            extra += ["--process-id", "0"]
+        handler = _LogTimes()
+        counts.zero()
+        t0 = time.perf_counter()
+        try:
+            root_logger.addHandler(handler)
+            multi_train.main(flags + extra)
+        except BaseException:
+            if child is not None:
+                child.kill()
+            raise
+        finally:
+            root_logger.removeHandler(handler)
+            child_out = child.communicate(timeout=300)[0] if child is not None else ""
+        secs = time.perf_counter() - t0
+        if child is None:
+            counts.expect(f"multi_train one process (b4, 2 epochs)", steps=4, eval_batches=2, images=2 * (8 + 4))
+        else:
+            check(child.returncode == 0, f"rank 1 exited with {child.returncode}: {child_out[-3000:]}")
+            counts.expect("multi_train rank 0 of 2 (2 of the 4 rows, 2 epochs; its validation pass over the whole "
+                          "val split at its local batch 2)", steps=4, eval_batches=4, images=2 * 4 + 2 * 4)
+            backends = [m for _, m in handler.lines + _stderr_lines(child_out) if m.startswith("data parallel:")]
+            check(len(backends) == 2 and all("backend gloo" in m for m in backends), f"backends {backends}")
+        ms = [_step_ms(handler.lines, 1, 2)]
+        if child is not None:
+            ms.append(_step_ms(_stderr_lines(child_out), 1, 2))
+        runs[what] = CheckpointManager(checkpoint_prefix(md, "resnet-18_multi", H))
+        losses[what] = _step_losses(handler.lines)
+        record[f"multi_train {what}"] = {"seconds": secs, "step_ms": ms, "step_loss": losses[what]}
+        print(f"multi_train resnet-18_multi {H}x{W} {what}: {secs:.3f} s for 2 epochs; epoch-1 step "
+              + " / ".join(f"{x:.3f}" for x in ms) + " ms" + (" (rank 0 / rank 1), backend gloo, the card shared"
+                                                              if child is not None else "") + f" [{label}]")
+    a, b = (torch.load(runs[k].path(1), weights_only=True) for k in ("one process", "rank 0 of 2"))
+    init = create_model("resnet-18_multi", (H, W), NUM_CLASSES, device="cpu",
+                        generator=torch.Generator().manual_seed(multi_train.SEED)).model.state_dict()
+    start = {"params": init, "buffers": init, "momentum": {k: torch.zeros_like(v) for k, v in a["momentum"].items()}}
+    shares = {}
+    for part in ("params", "buffers", "momentum"):
+        # each kind (parameters, running means, running variances, momentum) against its largest change
+        kind = (lambda k: k.rsplit(".", 1)[-1]) if part == "buffers" else (lambda k: part)
+        d_one = {k: a[part][k].cpu().double() - start[part][k].double() for k in a[part]}
+        d_two = {k: b[part][k].cpu().double() - start[part][k].double() for k in a[part]}
+        largest, worst = {}, {}
+        for k, d in d_one.items():
+            largest[kind(k)] = max(largest.get(kind(k), 0.0), float(d.abs().max()))
+            worst[kind(k)] = max(worst.get(kind(k), 0.0), float((d_two[k] - d).abs().max()))
+        check(all(v > 0 for v in largest.values()), f"2 ranks vs one process: {part} did not move {largest}")
+        shares.update({k: worst[k] / largest[k] for k in largest})
+    check(all(v <= DP_SHARE for v in shares.values()),
+          f"2 ranks vs one process: a change differs by more than {DP_SHARE} of the largest of its kind: {shares}")
+    one, two = losses["one process"], losses["rank 0 of 2"]
+    check(len(one) == len(two) == 4, f"step losses {one} / {two}")
+    rel = [abs(x - y) / abs(x) for x, y in zip(one, two)]
+    check(rel[0] <= 1e-4 and max(rel) <= 1e-3, f"2 ranks vs one process: step losses {two} vs {one}")
+    record["2 ranks vs one process"] = {"change_share": shares, "loss_rel": rel}
+    print(f"2 ranks over gloo == one process on the same global batches: each tensor's change (checkpoint - seeded "
+          f"init) within {DP_SHARE} of the largest change of its kind, worst "
+          + ", ".join(f"{k} {v:.3e}" for k, v in shares.items()) + "; the 4 step losses "
+          + " / ".join(f"{y:.4f} vs {x:.4f}" for x, y in zip(one, two))
+          + f" (relative {max(rel):.2e}; the first within 1e-4, all within 1e-3)")
+
+
+def options_phase(dev, label):
+    """Phase 11: the last backbone and the model and training options:
+    the inceptionv3 SSD (serving, steps, the CLIs, the kernels at its
+    shapes), ``seg_fast`` and ``remat`` with and without, and data
+    parallelism on the one card (world 1 over NCCL; two processes sharing
+    the card over gloo). Returns ({kernel: launches on the path}, {kernel:
+    {shape: times}}, {kernel: max abs difference against the plain
+    version})."""
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import eval_voc, multi_train
+    from dspnet_torch.data import synthetic
+    from dspnet_torch.data.det_iterator import DetIterator
+    from dspnet_torch.data.imdb import PascalVoc
+    from dspnet_torch.detect.detector import Detector
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.ops.boxes import iou_matrix
+    from dspnet_torch.ops.detection import multibox_detection
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.benchmark import batch_to_device, canonical_train_batch
+
+    counts = PathCounts()
+    times = {"nms_keep_mask": {}, "bipartite_match": {}}
+    errs = {"nms_keep_mask": 0.0, "bipartite_match": 0.0}
+    record = {}
+
+    # ---- 11a. inceptionv3 SSD serving at 512 (A = 5,186) and 300 (A = 1,668), b1 and b32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    nets = {}
+    for size, A in ((512, 5186), (300, 1668)):
+        bundle = create_model("inceptionv3", size, SSD_CLASSES, device=dev, generator=torch.Generator().manual_seed(0))
+        check(bundle.num_anchors == A, f"inceptionv3@{size} anchors {bundle.num_anchors} != {A}")
+        nets[size] = bundle
+        det = Detector(bundle.model, bundle.anchors, (size, size), device=dev, dtype=torch.bfloat16,
+                       nms_thresh=0.45, force_suppress=True)
+        imgs = {b: torch.randn(b, size, size, 3, device=dev, generator=gen) * 50 for b in (1, 32)}
+        for b in (1, 32):
+            det.predict(imgs[b])
+        counts.zero()
+        res = {b: det.predict(imgs[b])["det"] for b in (1, 32)}
+        counts.expect(f"serving inceptionv3@{size} (b1, b32 predict)", eval_batches=2)
+        for b, d in res.items():
+            check(d.shape == (b, 400, 7) and bool(torch.isfinite(d).all()),
+                  f"inceptionv3@{size} b{b} det {tuple(d.shape)}")
+            ids = d[..., 0]
+            check(bool(((ids == ids.round()) & (ids >= -1) & (ids <= SSD_CLASSES - 1)).all()), "class ids")
+            scored = d[..., 1] >= 0
+            check(bool((d[~scored] == -1).all()), "sentinel rows not all -1")
+        with torch.inference_mode():
+            out = det.model(imgs[32].bfloat16())
+            cls_prob = torch.softmax(out["cls_logits"].float(), dim=-1).transpose(1, 2)
+            pair = [multibox_detection(cls_prob, out["loc_preds"], det.anchors, nms_threshold=0.45,
+                                       force_suppress=True, nms_backend=be) for be in ("kernel", "plain")]
+        check(torch.equal(*pair), f"inceptionv3@{size} b32 det through the kernel != plain")
+        check(torch.equal(pair[0], res[32]), f"inceptionv3@{size} b32 predict det != the kernel-path det")
+        ms = {}
+        for b, n in ((1, 30), (32, 10)):
+            for _ in range(2):
+                det.predict(imgs[b])["det"].cpu()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                det.predict(imgs[b])["det"].cpu()
+            ms[b] = ((time.perf_counter() - t0) / n * 1e3, torch.cuda.max_memory_allocated() / 2**30)
+        record[f"inceptionv3@{size} serving"] = {"b1_ms": ms[1][0], "b32_img_s": 32e3 / ms[32][0]}
+        print(f"inceptionv3@{size} bf16 predict: det equal bit for bit to the plain-NMS path at b32 "
+              f"({int((res[32][..., 0] >= 0).sum())} kept rows); b1 {ms[1][0]:.3f} ms/call (peak {ms[1][1]:.3f} "
+              f"GiB), b32 {32e3 / ms[32][0]:.2f} img/s ({ms[32][0]:.3f} ms/call, peak {ms[32][1]:.3f} GiB) [{label}]")
+        del det, imgs, res, out, cls_prob, pair
+        torch.cuda.empty_cache()
+
+    # float32 forward, card vs CPU (BatchNorm eps 1e-3, the pools, the factorised convs)
+    x = np.random.RandomState(2).normal(0, 50, (1, 300, 300, 3)).astype(np.float32)
+    heads = {}
+    for device in ("cpu", dev):
+        m = create_model("inceptionv3", 300, SSD_CLASSES, device=device,
+                         generator=torch.Generator().manual_seed(3)).model
+        with torch.inference_mode():
+            heads[str(device)] = {k: v.float().cpu() for k, v in m(torch.from_numpy(x).to(device)).items()}
+    for k, ref in heads["cpu"].items():
+        err = float((heads[str(dev)][k] - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        print(f"f32 inceptionv3@300 {k}: card vs cpu max abs err {err:.3e} (tolerance {tol:.3e})")
+        check(err <= tol, f"f32 inceptionv3 {k} card vs cpu error {err} > {tol}")
+
+    # ---- 11b. the kernels at the inceptionv3 shapes against their plain versions
+    rng = np.random.RandomState(11)
+    for B in (1, 32):
+        rows = [torch.from_numpy(a).to(dev) for a in ssd_rows(rng, B, 400)]
+        got = nms_cuda.nms_keep_mask(*rows, 0.45, True)
+        want = nms_cuda.nms_keep_mask_reference(*rows, 0.45, True)
+        torch.cuda.synchronize()
+        errs["nms_keep_mask"] = max(errs["nms_keep_mask"], float((got.int() - want.int()).abs().max()))
+        check(torch.equal(got, want), f"NMS kernel != plain at inceptionv3 B={B} K=400")
+        t = kernel_times(lambda: nms_cuda.nms_keep_mask(*rows, 0.45, True), NMS_KERNELS)
+        p_ms = cuda_ms(lambda: nms_cuda.nms_keep_mask_reference(*rows, 0.45, True), 20)
+        v = rows[2].sum(dim=1).cpu().numpy().astype(np.int64)
+        bound = bound_us(B * 400 * (16 + 4 + 1 + 1), 13 * int((v * (v - 1) // 2).sum()))
+        key = f"inceptionv3 B={B} K=400 21 classes force"
+        times["nms_keep_mask"][key] = dict(t, plain_ms=p_ms, bound_us=bound[0], bound_by=bound[1])
+        print_times(f"nms_keep_mask {key}", t, p_ms, bound, label)
+    L = 100
+    anchors = torch.from_numpy(nets[512].anchors).to(dev)
+    A = anchors.shape[0]
+    for B in (8, 32):
+        for what, n_gt in (("random", 12), ("crowded", 60)):
+            if what == "random":
+                boxes = torch.from_numpy(corners(rng, B, L, lo=0.1, hi=0.4)).to(dev)
+            else:
+                c = rng.uniform(0.35, 0.65, (B, 1, 2)) + rng.normal(0.0, 0.02, (B, L, 2))
+                wh = rng.uniform(0.15, 0.3, (B, L, 2))
+                boxes = torch.from_numpy(np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)).to(dev)
+            iou = iou_matrix(anchors[None].expand(B, -1, -1), boxes).contiguous()
+            col_valid = torch.zeros(B, L, dtype=torch.bool, device=dev)
+            col_valid[:, :n_gt] = True
+            refills = torch.zeros(B, dtype=torch.int32, device=dev)
+            got = matching_cuda.bipartite_match(iou, col_valid, refills=refills)
+            want = matching_cuda.bipartite_match_reference(iou, col_valid)
+            torch.cuda.synchronize()
+            errs["bipartite_match"] = max(errs["bipartite_match"], max(
+                float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)), f"matcher kernel != plain at B={B} A={A} {what}")
+            key = f"inceptionv3 B={B} A={A} L={L} {what} num_gt={n_gt}"
+            n = 100 if what == "random" else 20
+            t = kernel_times(lambda: matching_cuda.bipartite_match(iou, col_valid), MATCH_KERNELS, n=n, n_prof=n)
+            p_ms = cuda_ms(lambda: matching_cuda.bipartite_match_reference(iou, col_valid), 5)
+            bound = bound_us(B * A * n_gt * 4 + B * L + B * A * (1 + 4 + 4), 0)
+            times["bipartite_match"][key] = dict(t, plain_ms=p_ms, bound_us=bound[0], bound_by=bound[1],
+                                                 refills=refills.tolist())
+            print_times(f"bipartite_match {key} (refills {refills.tolist()})", t, p_ms, bound, label)
+    del anchors, iou
+    torch.cuda.empty_cache()
+    print("inceptionv3 shapes: NMS 2 cases and the matcher 4 cases equal bit for bit (torch.equal)")
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_options_", dir=ROOT / "build"))
+    try:
+        # ---- 11c. inceptionv3 steps on DetIterator batches: b8 and b32 @300 and @512
+        n_img = 32
+        root = synthetic.build_voc_dataset(str(work / "voc"), num_samples=n_img, hw=(375, 500), seed=233)
+        names = synthetic.class_names()
+        train_index = PascalVoc("train", "", root, classes=names).index()
+        defaults = dict(learning_rate=1e-3, momentum=0.9, weight_decay=5e-4, overlap_threshold=0.5,
+                        negative_mining_ratio=3.0, negative_mining_thresh=0.5)
+        for b, size in ((8, 300), (32, 300), (8, 512), (32, 512)):
+            net = nets[size]
+            solver = MultiTaskSolver(net.model, net.anchors, batch_size=b, compute_dtype="bfloat16", device=dev,
+                                     **defaults)
+            state = solver.init_state()
+            batch = DetIterator(train_index, b, (size, size), device=dev).next_batch()
+            counts.zero()
+            state, ms, peak, prof, losses = timed_steps(solver, state, batch)
+            counts.expect(f"inceptionv3 train b{b} {size}x{size} (14 steps)", steps=14)
+            # the JAX defaults from random weights on one repeated batch: the first step must be
+            # finite; a later divergence is reported, as phase 6 does, and the times hold
+            check(np.isfinite(losses[0]), f"inceptionv3 b{b} {size}: non-finite first step {losses}")
+            idle = max(0.0, 1 - busy_ms(prof) / ms)
+            record[f"inceptionv3@{size} b{b} step"] = {"ms": ms, "peak_gib": peak, "idle": idle}
+            print(f"train inceptionv3@{size} b{b} bf16 (f32 masters), device-resident DetIterator batch: "
+                  f"{ms:.3f} ms/step, {b / ms * 1e3:.2f} img/s, peak {peak:.3f} GiB, idle share {idle:.1%}; losses "
+                  + ", ".join(f"{x:.5g}" for x in losses) + f" [{label}]"
+                  + ("" if all(np.isfinite(losses)) else " (DIVERGED after the first step at lr 1e-3: no "
+                                                         "training result; the times hold)"))
+            print_profile(b, prof, ms, label)
+            del solver, state, batch
+            torch.cuda.empty_cache()
+
+        # ---- 11d. multi_train --network inceptionv3 --loader det, --resume, eval_voc --voc07
+        B = 8
+        md = str(work / "model")
+        flags = ["--network", "inceptionv3", "--data-shape", "3,300,300", "--num-classes", str(len(names)),
+                 "--class-names", ",".join(names), "--batch-size", str(B)]
+        train_flags = flags + ["--dataset-root", root, "--loader", "det", "--model-dir", md, "--lr", "0.0005",
+                               "--compute-dtype", "bfloat16", "--log-every", "2"]
+        steps, val_batches = n_img // B, -(-n_img // B)
+        for what, extra, epochs in (("multi_train --network inceptionv3 --loader det, 2 epochs",
+                                     ["--end-epoch", "2"], 2),
+                                    ("  --resume 0, 1 epoch", ["--end-epoch", "3", "--resume", "0"], 1)):
+            counts.zero()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = multi_train.main(train_flags + extra)
+            secs = time.perf_counter() - t0
+            counts.expect(what, steps=epochs * steps, eval_batches=epochs * val_batches,
+                   images=epochs * 2 * n_img)
+            print(f"  {secs:.3f} s, step {state.step}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                  f"[{label}]")
+        check(state.step == 3 * steps, f"resumed inceptionv3 run ended at step {state.step}")
+        del state
+        torch.cuda.empty_cache()
+        counts.zero()
+        res = eval_voc.main(flags + ["--voc-root", root, "--year", "", "--image-set", "val", "--voc07",
+                                     "--model-dir", md, "--result-dir", str(work / "results")])
+        counts.expect("eval_voc --network inceptionv3 --voc07", eval_batches=val_batches, images=n_img)
+        for k in ("mAP", "devkit_mAP"):
+            check(np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0, f"eval_voc {k} = {res[k]}")
+        print(f"  eval_voc: mAP {res['mAP']:.6f}, devkit_mAP {res['devkit_mAP']:.6f}, ms_per_batch "
+              f"{res['ms_per_batch']:.3f} (b{B}) [{label}]")
+        del nets
+        torch.cuda.empty_cache()
+
+        # ---- 11e. seg_fast: resnet-50_multi 512x1024, b1 predict_raw and the b8 bf16 step, with and without
+        frame = np.random.RandomState(0).randint(0, 256, (1, H, W, 3), np.uint8)
+        batch8 = batch_to_device(canonical_train_batch(8, H, W), dev)
+        for fast in (False, True):
+            tag = "seg_fast" if fast else "exact head"
+            bundle = create_model("resnet-50_multi", (H, W), NUM_CLASSES, device=dev,
+                                  generator=torch.Generator().manual_seed(0), seg_fast=fast)
+            det = Detector(bundle.model, bundle.anchors, (H, W), device=dev, dtype=torch.bfloat16)
+            for _ in range(3):
+                det.predict_raw(frame)["det"].cpu()
+            counts.zero()
+            t0 = time.perf_counter()
+            for _ in range(30):
+                out = det.predict_raw(frame)
+                out["det"].cpu(), out["seg"].cpu()
+            serve = (time.perf_counter() - t0) / 30 * 1e3
+            counts.expect(f"{tag}: 30 b1 predict_raw", eval_batches=30)
+            del det
+            solver = MultiTaskSolver(bundle.model, bundle.anchors, batch_size=8, compute_dtype="bfloat16",
+                                     device=dev, seg_normalize="valid", learning_rate=5e-4)
+            counts.zero()
+            state, ms, peak, prof, losses = timed_steps(solver, solver.init_state(), batch8)
+            counts.expect(f"{tag}: b8 train (14 steps)", steps=14)
+            check(all(np.isfinite(losses)), f"{tag}: non-finite loss {losses}")
+            # the seg head alone, forward and backward on the step's taps, under the profiler
+            seg_ms = seg_head_ms(solver, state, batch8)
+            record[f"resnet-50_multi {tag}"] = {"b1_predict_raw_ms": serve, "b8_step_ms": ms, "b8_peak_gib": peak,
+                                               "b8_busy_ms": busy_ms(prof), "seg_head_fwd_bwd_ms": seg_ms}
+            print(f"resnet-50_multi 512x1024 {tag}: b1 predict_raw {serve:.3f} ms/call; b8 bf16 step {ms:.3f} ms "
+                  f"(device busy {busy_ms(prof):.3f} ms in the profiled step), peak {peak:.3f} GiB; the seg head "
+                  f"alone on the step's taps, forward + backward: {seg_ms:.3f} ms of device time [{label}]")
+            del solver, state, bundle
+            torch.cuda.empty_cache()
+        # float32 forward on the card against the CPU; one parameter tree for both heads
+        small = np.random.RandomState(1).normal(0, 50, (1, 128, 256, 3)).astype(np.float32)
+        outs, trees = {}, {}
+        for device in ("cpu", dev):
+            for fast in (False, True):
+                m = create_model("resnet-50_multi", (128, 256), device=device,
+                                 generator=torch.Generator().manual_seed(1), seg_fast=fast).model
+                trees[(str(device), fast)] = [(k, tuple(v.shape)) for k, v in m.state_dict().items()]
+                with torch.inference_mode():
+                    outs[(str(device), fast)] = m(torch.from_numpy(small).to(device))["seg_logits"].float().cpu()
+        check(len({tuple(t) for t in trees.values()}) == 1, "seg_fast parameter tree != the exact head's")
+        ref = outs[("cpu", True)]
+        err = float((outs[(str(dev), True)] - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        gap = float((outs[("cpu", True)] - outs[("cpu", False)]).abs().max())
+        check(err <= tol and gap > 1e-3, f"f32 seg_fast card vs cpu error {err} > {tol} or no gap ({gap})")
+        print(f"f32 seg_fast seg_logits: card vs cpu max abs err {err:.3e} (tolerance {tol:.3e}); the parameter "
+              f"trees equal; the fast and exact heads differ by {gap:.3e} (other numerics by design)")
+
+        # ---- 11f. remat: the resnet-50_multi b8 and b32 steps with and without
+        for b in (8, 32):
+            batch = batch_to_device(canonical_train_batch(b, H, W), dev)
+            for remat in (False, True):
+                bundle = create_model("resnet-50_multi", (H, W), NUM_CLASSES, device=dev,
+                                      generator=torch.Generator().manual_seed(0), remat=remat)
+                solver = MultiTaskSolver(bundle.model, bundle.anchors, batch_size=b, compute_dtype="bfloat16",
+                                         device=dev, seg_normalize="valid", learning_rate=5e-4)
+                counts.zero()
+                state, ms, peak, _, losses = timed_steps(solver, solver.init_state(), batch, n_warm=2, n_timed=8,
+                                                       profile=False)
+                counts.expect(f"b{b} {'remat' if remat else 'plain'} train (10 steps)", steps=10)
+                check(all(np.isfinite(losses)), f"remat={remat} b{b}: non-finite loss {losses}")
+                record[f"resnet-50_multi b{b} {'remat' if remat else 'plain'}"] = {"ms": ms, "peak_gib": peak}
+                print(f"resnet-50_multi 512x1024 b{b} bf16 step {'with' if remat else 'without'} --remat: "
+                      f"{ms:.3f} ms/step, {b / ms * 1e3:.2f} img/s, max_memory_allocated {peak:.3f} GiB [{label}]")
+                del solver, state, bundle
+                torch.cuda.empty_cache()
+            del batch
+        # float32: the remat step against the plain step, which is run twice for its own spread
+        runs = [deterministic_det_step(dev, remat) for remat in (False, False, True)]
+        spread = max_state_diff(runs[0][0], runs[1][0])
+        diff = max_state_diff(runs[0][0], runs[2][0])
+        stats = max_state_diff(runs[0][0], runs[2][0], parts=("buffers",))
+        check(all(u == [1] * len(u) for _, _, u in runs), "a BatchNorm updated its running statistics twice")
+        check(spread == 0.0, f"the deterministic f32 plain step differs from itself by {spread}")
+        check(runs[2][1] == runs[0][1] and stats == 0.0 and diff == 0.0,
+              f"f32 remat step vs plain: metrics {runs[2][1]} vs {runs[0][1]}, running statistics {stats}, "
+              f"state {diff}")
+        print(f"f32 resnet-50_det 256x512 b2 (deterministic cuDNN): the remat step == the plain step bit for bit "
+              f"(metrics, parameters, running statistics, momentum: max difference {diff:.3e}; the plain step "
+              f"against itself {spread:.3e}); each of {len(runs[2][2])} BatchNorms updated its running statistics "
+              f"once")
+
+        # ---- 11g. data parallelism on the one card
+        data_parallel_checks(dev, label, work, counts, record)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(json.dumps({"options_phase": record}))
+    sys.stdout.flush()
+    return counts.launches, times, errs
 
 
 KERNEL_KINDS = (  # first match wins, on the lower-cased kernel name
@@ -1831,6 +2458,25 @@ def print_profile(b, names, step_ms, label):
     sys.stdout.flush()
 
 
+phase_s = {}  # seconds of each phase, in order
+T0 = time.perf_counter()
+
+
+def timed_phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    phase_s[name] = time.perf_counter() - t0
+    print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+    return out
+
+
+def print_phase_seconds():
+    """The seconds of each phase and the script's total (from its start,
+    imports included), on a line before the last."""
+    print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in phase_s.items()},
+                      "total_seconds": round(time.perf_counter() - T0, 1)}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check runs on a CUDA card",
@@ -1847,6 +2493,7 @@ def main():
     from dspnet_torch.ops.detection import multibox_detection
 
     # ---- 1. card
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     label = card_label()
@@ -1868,12 +2515,20 @@ def main():
         print(lib.with_suffix(".log").read_text().strip())
     nms_cuda.load_library()
     matching_cuda.load_library()
+    phase_s["1-2 card, build"] = time.perf_counter() - t_start
     if "--real-data-only" in sys.argv[1:]:
-        real_data_phase(dev, label)
+        timed_phase("8-9 real data, reference weights", real_data_phase, dev, label)
+        print_phase_seconds()
         return 0
     if "--ssd-only" in sys.argv[1:]:
-        ssd_phase(dev, label)
+        timed_phase("10 plain SSD", ssd_phase, dev, label)
+        print_phase_seconds()
         return 0
+    if "--options-only" in sys.argv[1:]:
+        timed_phase("11 inceptionv3, seg_fast, remat, data parallelism", options_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    t_phase3 = time.perf_counter()
     base_nms, base_match = baseline_kernels(dev)
     sys.stdout.flush()
 
@@ -2053,21 +2708,27 @@ def main():
     del det, det512, batch, res, results, out, images
     torch.cuda.empty_cache()
 
-    match_err, match_times = matcher_phase(dev, bundle.anchors, label, base_match)
-    match_launches, train_ips = training_phase(dev, label)
-    cli_launches = cli_phase(dev, label, train_ips[4])
-    real_launches, decoder, (ref_launches, reference) = real_data_phase(dev, label)
-    ssd_launches, ssd_times, ssd_errs = ssd_phase(dev, label)
-    nms_times.update(ssd_times["nms_keep_mask"])
-    match_times.update(ssd_times["bipartite_match"])
+    phase_s["3-4 NMS kernel, serving"] = time.perf_counter() - t_phase3
+    match_err, match_times = timed_phase("5 matcher kernel", matcher_phase, dev, bundle.anchors, label, base_match)
+    match_launches, train_ips = timed_phase("6 training", training_phase, dev, label)
+    cli_launches = timed_phase("7 CLIs", cli_phase, dev, label, train_ips[4])
+    real_launches, decoder, (ref_launches, reference) = timed_phase("8-9 real data, reference weights",
+                                                                    real_data_phase, dev, label)
+    ssd_launches, ssd_times, ssd_errs = timed_phase("10 plain SSD", ssd_phase, dev, label)
+    opt_launches, opt_times, opt_errs = timed_phase("11 inceptionv3, seg_fast, remat, data parallelism",
+                                                    options_phase, dev, label)
+    for times in (ssd_times, opt_times):
+        nms_times.update(times["nms_keep_mask"])
+        match_times.update(times["bipartite_match"])
 
     # ---- 11. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
-                                 "ssd": ssd_launches["nms_keep_mask"]},
+                                 "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
-                                   **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"]},
+                                   **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
+                                   "options": opt_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"]}}
     colour = decoder.pop("colour_kernel")
@@ -2105,11 +2766,13 @@ def main():
     print(json.dumps({"reference_weights": reference}))
     print(json.dumps({"kernels": [
         entry("nms_keep_mask", "dspnet_torch/csrc/nms.cu", "dspnet_tpu/ops/nms_pallas.py:30",
-              by_path["nms_keep_mask"], max(max_err, ssd_errs["nms_keep_mask"]), nms_times, "B=1 K=400"),
+              by_path["nms_keep_mask"], max(max_err, ssd_errs["nms_keep_mask"], opt_errs["nms_keep_mask"]),
+              nms_times, "B=1 K=400"),
         entry("bipartite_match", "dspnet_torch/csrc/match.cu", "dspnet_tpu/ops/matching_pallas.py:42",
-              by_path["bipartite_match"], max(match_err, ssd_errs["bipartite_match"]), match_times,
-              "B=8 A=12264 num_gt=8"),
+              by_path["bipartite_match"], max(match_err, ssd_errs["bipartite_match"], opt_errs["bipartite_match"]),
+              match_times, "B=8 A=12264 num_gt=8"),
     ]}))
+    print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

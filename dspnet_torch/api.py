@@ -91,6 +91,8 @@ def create_model(
     seg_classes: int = 19,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    remat: bool = False,
+    seg_fast: bool = False,
 ) -> ModelBundle:
     """Build an initialized model bundle on ``device``, in eval mode.
 
@@ -99,10 +101,15 @@ def create_model(
 
     Args:
       network: 'resnet-{18,50}_{multi,det,seg}', 'resnet101_{...}', or a
-        plain SSD: 'vgg16_reduced', 'legacy_vgg16_ssd_{300,512}', 'resnet-18'.
+        plain SSD: 'vgg16_reduced', 'legacy_vgg16_ssd_{300,512}', 'resnet-18',
+        'inceptionv3'.
       data_shape: (H, W) input resolution (int means square).
       generator: source of the initial weights; a CPU generator seeded with 0
         when None.
+      remat: rematerialise each residual unit of a resnet backbone in the
+        backward pass (no effect on the other backbones, as in JAX).
+      seg_fast: the score-then-upsample seg head (``SegHead(fast=True)``);
+        the parameters are the exact head's.
     """
     if isinstance(data_shape, int):
         data_shape = (data_shape, data_shape)
@@ -115,9 +122,10 @@ def create_model(
     cfg = factory.get_config(base, data_shape[0])
     with torch.device("meta"):
         if task == "ssd":
-            model = SSDNet(cfg, num_classes=num_classes)
+            model = SSDNet(cfg, num_classes=num_classes, remat=remat)
         else:
-            model = DSPNet(cfg, num_classes=num_classes, seg_classes=seg_classes, task=task)
+            model = DSPNet(cfg, num_classes=num_classes, seg_classes=seg_classes, task=task, remat=remat,
+                           seg_fast=seg_fast)
     model.to_empty(device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)

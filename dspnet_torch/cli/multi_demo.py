@@ -9,9 +9,10 @@ The checkpoint is the latest under ``--model-dir`` (``--epoch N`` for
 another; ``tools/import_mxnet.py`` writes one from a reference ``.params``),
 or the seeded initial weights with ``--random-init``. JPEG inputs decode on
 the card (nvJPEG and the colour kernel), the resize and the network run
-there; ``--device cpu`` runs everything on the CPU. ``--seg-fast`` is not
-ported (ROADMAP Queue A item 15b), and a video path raises: the card's
-machine has no cv2 to read one.
+there; ``--device cpu`` runs everything on the CPU. ``--seg-fast`` serves
+the score-then-upsample seg head (as trained with ``multi_train
+--seg-fast``). A video path raises: the card's machine has no cv2 to read
+one.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def parse_args(argv=None):
     p.add_argument("--random-init", action="store_true")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="the network's compute type (NMS and decode stay float32)")
+    p.add_argument("--seg-fast", action="store_true",
+                   help="the score-then-upsample seg head (as trained with multi_train --seg-fast)")
     p.add_argument("--device", default="cuda", help="torch device; 'cuda' fails without a CUDA device")
     args = p.parse_args(argv)
     args.data_shape = parse_data_shape(args.data_shape)
@@ -56,7 +59,7 @@ def parse_args(argv=None):
 def get_detector(args) -> Detector:
     device = resolve_device(args.device)
     H, W = args.data_shape
-    bundle = create_model(args.network, (H, W), args.num_classes, device=device)
+    bundle = create_model(args.network, (H, W), args.num_classes, device=device, seg_fast=args.seg_fast)
     solver = MultiTaskSolver(bundle.model, bundle.anchors if bundle.anchors is not None
                              else np.zeros((1, 4), np.float32), device=device)
     state = solver.init_state()

@@ -14,9 +14,10 @@ as in the JAX CLI; the ``val`` split of ``--dataset-root`` (or of
 partial batch padded. ``--write-results DIR`` writes the 1024x2048
 Cityscapes result PNGs from the seg probabilities (the detector then
 returns them); ``--instance-eval`` scores instance AP against
-``SegmentationInstance/*_instanceIds.png``. ``--seg-fast`` and the other
-loaders are not ported (ROADMAP Queue A items 15b, 20), so argparse rejects
-them.
+``SegmentationInstance/*_instanceIds.png``. ``--seg-fast`` evaluates the
+score-then-upsample seg head (pass it when the network was trained with
+it). The other loaders are not ported (ROADMAP Queue A item 20), so
+argparse rejects them.
 """
 
 from __future__ import annotations
@@ -75,6 +76,8 @@ def parse_args(argv=None):
                    help="batches in flight in evaluate_model")
     p.add_argument("--random-init", action="store_true",
                    help="skip the checkpoint load (pipeline smoke testing)")
+    p.add_argument("--seg-fast", action="store_true",
+                   help="the score-then-upsample seg head (as trained with multi_train --seg-fast)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a CUDA device")
     args = p.parse_args(argv)
@@ -87,7 +90,7 @@ def main(argv=None):
     log = setup_logging(log_file=time.strftime("eval_%Y%m%d_%H%M%S.log"))
     device = resolve_device(args.device)
     H, W = args.data_shape
-    bundle = create_model(args.network, (H, W), args.num_classes, device=device)
+    bundle = create_model(args.network, (H, W), args.num_classes, device=device, seg_fast=args.seg_fast)
     solver = MultiTaskSolver(
         bundle.model, bundle.anchors if bundle.anchors is not None else np.zeros((1, 4), np.float32),
         device=device)

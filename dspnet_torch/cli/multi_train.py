@@ -11,8 +11,11 @@ record store, through ``data/imdb.py::load_index``; the train split is
 ``train``, the val split ``val``, and a missing val split skips the
 validation pass, as in the JAX CLI) or ``--synthetic N``. It takes the JAX
 CLI's flags that this port honours and no others: argparse rejects the rest
-(multi-process and mesh flags, ``--remat``, ``--seg-fast``, ``--input-s2d``,
-the host loaders; ROADMAP Queue A). ``--monitor N --pattern RX`` logs the
+(the TPU's ``--input-s2d``, ``--native-u8``, ``--model-parallel``,
+``--target-backend pallas``, and the host loaders; ROADMAP Queue A).
+``--remat`` rematerialises each residual unit of a resnet backbone in the
+backward pass; ``--seg-fast`` trains the score-then-upsample seg head (use
+it at eval and demo time too). ``--monitor N --pattern RX`` logs the
 shape, mean and std of every parameter whose flax path matches RX after
 every N-th batch (``utils/profiler.py::StatMonitor``; the JAX CLI's paths,
 so one pattern serves both), copying two numbers per matching tensor.
@@ -31,7 +34,25 @@ the JAX CLI does. The JAX CLI's ``python`` and ``native`` loaders are not
 ported (ROADMAP Queue A item 20). ``--device`` defaults to ``cuda`` and
 fails without a CUDA device.
 
-One deliberate difference from the JAX CLI: ``--checkpoint-every N`` saves
+Data parallelism (the JAX CLI's ``--coordinator`` / ``--num-processes`` /
+``--process-id``, one process per rank, ``parallel/dist.py``): every rank
+runs this CLI with the same flags and its own ``--process-id``;
+``--batch-size`` is the global batch and divides by the world; each rank
+reads its ``rank::world`` rows of the global epoch and takes the card
+``local rank % device count`` (NCCL when each rank has a card of its own,
+else gloo; ``--device cpu`` is gloo). Rank 0 alone validates and writes
+checkpoints. ``--num-devices N`` keeps the JAX meaning, data parallelism
+over N local devices (0 = all): without ``--coordinator`` and with N > 1
+this process starts N - 1 more ranks of itself on a free loopback port and
+runs rank 0 (with ``--device cpu``, N gloo ranks on the CPU); on a machine
+with one card, 0 means 1 and the plain path runs. ``--loader det`` does not
+shard across processes (the JAX CLI refuses it across processes too), so
+with it 0 means 1 on any host, and an explicit N > 1 or a ``--coordinator``
+world above 1 is refused; the JAX CLI runs it over N local devices in one
+process, which this port's one process per card cannot. Every collective
+times out after ``parallel/dist.py::DEFAULT_TIMEOUT_S``.
+
+Deliberate differences from the JAX CLI: ``--checkpoint-every N`` saves
 when the **absolute** epoch satisfies ``(epoch + 1) % N == 0`` (and always
 at the last epoch). The JAX CLI gates on the epoch counted from the start of
 the run (``dspnet_tpu/cli/multi_train.py:267``), so a resumed run saves at
@@ -41,7 +62,10 @@ other epochs than an unbroken one; here both save at the same epochs.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
+import subprocess
 import sys
 import time
 
@@ -60,6 +84,7 @@ from dspnet_torch.cli.common import (
 from dspnet_torch.data.cs_labels import DET_CLASSES
 from dspnet_torch.data.det_iterator import DetIterator
 from dspnet_torch.data.device_pipeline import DeviceAugIterator
+from dspnet_torch.parallel import dist as pdist
 from dspnet_torch.train.lr import lr_scheduler_from_epochs
 from dspnet_torch.train.solver import MultiTaskSolver, TrainingDiverged
 from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
@@ -123,6 +148,20 @@ def parse_args(argv=None):
                         "kernel on a CUDA device, the plain rounds elsewhere)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="accumulate gradients over N batches before each update")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialise each residual unit in the backward pass (less activation "
+                        "memory, more arithmetic; resnet backbones)")
+    p.add_argument("--seg-fast", action="store_true",
+                   help="seg score conv at native stream resolutions (score then upsample): other "
+                        "numerics, same parameters; use the same flag at eval/demo time")
+    p.add_argument("--num-devices", type=int, default=0,
+                   help="data parallelism over N local devices, one process each (0 = all)")
+    p.add_argument("--coordinator", default="",
+                   help="multi-process data parallelism: host:port of rank 0's rendezvous; every "
+                        "process runs this CLI with the same flags and its own --process-id; "
+                        "--batch-size is the global batch")
+    p.add_argument("--num-processes", type=int, default=1, help="with --coordinator: the world size")
+    p.add_argument("--process-id", type=int, default=0, help="with --coordinator: this process's rank")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' fails without a CUDA device")
     args = p.parse_args(argv)
@@ -130,21 +169,96 @@ def parse_args(argv=None):
     return args
 
 
+def _local_world(args, device) -> int:
+    """--num-devices resolved: 0 means every local device (the cards on
+    cuda, one on the CPU), and one with ``--loader det``, which does not
+    shard."""
+    if args.num_devices < 0:
+        raise ValueError(f"--num-devices {args.num_devices}")
+    if args.num_devices:
+        world = args.num_devices
+    elif args.loader == "det":
+        world = 1
+    else:
+        world = torch.cuda.device_count() if device.type == "cuda" else 1
+    if args.loader == "det" and world > 1:
+        raise ValueError(f"--loader det does not shard across processes: --num-devices {world} starts "
+                         f"{world} (one per device)")
+    return world
+
+
+def _launch_local_ranks(argv, world: int, log):
+    """Run ``world`` ranks of this CLI on this host: ranks 1.. as child
+    processes, rank 0 in this process; returns rank 0's state. A failed rank
+    fails the run (the others are stopped)."""
+    port = pdist.free_port()
+    extra = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world)]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    if "--device" in argv and argv[argv.index("--device") + 1] == "cpu":
+        # CPU ranks share the host's cores: each child takes its share
+        env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // world)))
+    log.info("--num-devices %d: starting ranks 1..%d on 127.0.0.1:%d", world, world - 1, port)
+    children = [subprocess.Popen([sys.executable, "-m", "dspnet_torch.cli.multi_train", *argv, *extra,
+                                  "--process-id", str(r)], env=env) for r in range(1, world)]
+    try:
+        state = main(list(argv) + extra + ["--process-id", "0"])
+    except BaseException:
+        for c in children:
+            c.kill()
+        raise
+    finally:
+        codes = [c.wait() for c in children]
+    if any(codes):
+        raise RuntimeError(f"data-parallel ranks 1..{world - 1} exited with {codes}")
+    return state
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     log = setup_logging()
     device = resolve_device(args.device)
+    if not args.coordinator:
+        world = _local_world(args, device)
+        if world > 1:
+            return _launch_local_ranks(argv, world, log)
+        return _train(args, device, log, None)
+    if args.num_devices not in (0, args.num_processes):
+        raise ValueError(f"--num-devices {args.num_devices} with --coordinator: the world is "
+                         f"--num-processes {args.num_processes}")
+    info = pdist.distributed_init(args.coordinator, args.num_processes, args.process_id, device)
+    try:
+        return _train(args, info.device, log, info)
+    finally:
+        pdist.destroy()
+
+
+def _train(args, device, log, info):
     H, W = args.data_shape
+    rank, world = (info.rank, info.world) if info is not None else (0, 1)
+    if args.batch_size % world:
+        raise ValueError(f"--batch-size {args.batch_size} is the global batch and must divide by the "
+                         f"world size {world}")
+    if args.loader == "det" and world > 1:
+        raise ValueError("--loader det does not shard across processes (as the JAX CLI refuses it "
+                         "across processes)")
+    local_batch = args.batch_size // world
     bundle = create_model(args.network, (H, W), args.num_classes, device=device,
-                          generator=torch.Generator().manual_seed(SEED))
-    log.info("network=%s task=%s anchors=%d data=%dx%d device=%s", bundle.name, bundle.task,
-             bundle.num_anchors, H, W, device)
+                          generator=torch.Generator().manual_seed(SEED), remat=args.remat,
+                          seg_fast=args.seg_fast)
+    log.info("network=%s task=%s anchors=%d data=%dx%d device=%s%s%s", bundle.name, bundle.task,
+             bundle.num_anchors, H, W, device, " remat" if args.remat else "",
+             " seg-fast" if args.seg_fast else "")
+    if info is not None:
+        log.info("data parallel: rank %d of %d, backend %s, input shard %d/%d, local batch %d of %d",
+                 rank, world, info.backend, rank, world, local_batch, args.batch_size)
 
     class_names = resolve_class_names(args.class_names, DET_CLASSES)
     if len(class_names) != args.num_classes:
         raise ValueError(f"--class-names lists {len(class_names)} names but --num-classes is "
                          f"{args.num_classes}")
-    train_index = resolve_dataset(args, "train")
+    train_index = _resolve_train(args, rank, info is not None)
     # label-space invariant: every GT class id must fit the head being
     # trained; a dataset indexed with the wrong name table fails here
     max_cid = max((int(s.label[:, 0].max()) for s in train_index.samples if s.label.size), default=-1)
@@ -160,9 +274,9 @@ def main(argv=None):
                                  device=device)
         log.info("using plain-SSD DetIterator (crop/pad/mirror augmentation)")
     else:
-        train_iter = DeviceAugIterator(train_index, args.batch_size, (H, W), device=device, seed=SEED,
+        train_iter = DeviceAugIterator(train_index, local_batch, (H, W), device=device, seed=SEED,
                                        enable_aug=True, num_threads=args.loader_threads,
-                                       predownscale=args.predownscale)
+                                       predownscale=args.predownscale, shard=(rank, world))
 
     _, schedule = lr_scheduler_from_epochs(
         args.lr, args.lr_steps, args.lr_factor, len(train_index),
@@ -194,25 +308,26 @@ def main(argv=None):
         # cadence on the absolute epoch (see the module docstring); the final
         # save blocks so the run exits with its last checkpoint written
         ep = begin + epoch
-        if (ep + 1) % args.checkpoint_every == 0 or epoch == last_epoch:
+        if rank == 0 and ((ep + 1) % args.checkpoint_every == 0 or epoch == last_epoch):
             ckpt.save(ep, st, block=epoch == last_epoch)
             log.info("checkpoint save %s: %s epoch %d step %d",
                      "committed" if epoch == last_epoch else "started", prefix, ep, st.step)
 
     eval_iter = None
-    if args.eval_every > 0:
+    if args.eval_every > 0 and rank == 0:  # rank 0 evaluates the whole val split
+        # (its local batch, as the JAX CLI); the other ranks wait at fit's barrier
         try:
             val_index = resolve_dataset(args, "val")
         except FileNotFoundError:
             val_index = None
             log.info("no validation split found; skipping per-epoch eval")
         if val_index is not None:
-            eval_iter = DeviceAugIterator(val_index, args.batch_size, (H, W), device=device, seed=SEED,
+            eval_iter = DeviceAugIterator(val_index, local_batch, (H, W), device=device, seed=SEED,
                                           enable_aug=False, shuffle=False, pad_last=True,
                                           num_threads=args.loader_threads, predownscale=args.predownscale)
 
     metrics_sink = None
-    if args.metrics_jsonl:
+    if args.metrics_jsonl and rank == 0:
         def metrics_sink(ep, split, metrics):
             with open(args.metrics_jsonl, "a") as f:
                 f.write(json.dumps({"epoch": ep, "split": split, "time": time.time(), **metrics}) + "\n")
@@ -238,6 +353,23 @@ def main(argv=None):
     finally:
         ckpt.close()
     return state
+
+
+def _resolve_train(args, rank: int, distributed: bool):
+    """The train split, rank 0 first: the other ranks index it after a
+    barrier, so no rank reads a file another is writing (``--synthetic``
+    writes the set: every rank its own copy, the same files from the same
+    seed)."""
+    if not distributed:
+        return resolve_dataset(args, "train")
+    index = resolve_dataset(args, "train") if rank == 0 else None
+    pdist.barrier()
+    if rank:
+        if args.synthetic:
+            args = copy.copy(args)
+            args.synthetic_dir = os.path.join(args.synthetic_dir, f"rank{rank}")
+        index = resolve_dataset(args, "train")
+    return index
 
 
 if __name__ == "__main__":

@@ -21,6 +21,8 @@ from torch import nn
 
 from dspnet_torch.models.factory import NetConfig
 from dspnet_torch.models.heads import MultiBoxHead, MultiLayerFeature
+from dspnet_torch.models.inception import TAP_CHANNELS as INCEPTION_TAP_CHANNELS
+from dspnet_torch.models.inception import InceptionV3
 from dspnet_torch.models.resnet import ResNet, tap_channels, tap_index
 from dspnet_torch.models.seg_head import SegHead
 from dspnet_torch.models.vgg import TAP_CHANNELS as VGG_TAP_CHANNELS
@@ -34,7 +36,8 @@ class DSPNet(nn.Module):
     reference's network-name suffix dispatch (multi_train.py:309-317)."""
 
     def __init__(self, cfg: NetConfig, num_classes: int = 8, seg_classes: int = 19,
-                 task: str = "multi", loc_channels: int = 5):
+                 task: str = "multi", loc_channels: int = 5, remat: bool = False,
+                 seg_fast: bool = False):
         super().__init__()
         if cfg.network != "resnet":
             raise NotImplementedError(
@@ -46,7 +49,7 @@ class DSPNet(nn.Module):
         self.task = task
         self.taps = [tap_index(n) for n in cfg.from_layers[:3]]
         ch = [tap_channels(cfg.num_layers, n) for n in cfg.from_layers[:3]]
-        self.backbone = ResNet(cfg.num_layers)
+        self.backbone = ResNet(cfg.num_layers, remat=remat)
         if task in ("det", "multi"):
             det_cfg = cfg.drop_first_tap()
             self.multi_feat = MultiLayerFeature(
@@ -56,7 +59,7 @@ class DSPNet(nn.Module):
                 self.multi_feat.out_channels, num_classes + 1, det_cfg.sizes,
                 det_cfg.ratios, loc_channels, det_cfg.normalizations)
         if task in ("seg", "multi"):
-            self.seg = SegHead(ch[0], ch[1], ch[2], seg_classes)
+            self.seg = SegHead(ch[0], ch[1], ch[2], seg_classes, fast=seg_fast)
 
     def forward(self, images) -> Dict[str, torch.Tensor]:
         """images: (B, H, W, 3) NHWC, mean-subtracted RGB."""
@@ -77,25 +80,29 @@ class SSDNet(nn.Module):
     """Classic 4-coordinate SSD (reference symbol/symbol_builder.py:20-99;
     ``dspnet_tpu/models/dspnet.py::SSDNet``): every tap of the preset feeds
     the heads (no tap is dropped), no seg head, ``loc_channels=4``. The
-    backbones are resnet and vgg16_reduced; inceptionv3 is not ported
-    (ROADMAP Queue A item 16). Outputs ``loc_preds`` (B, A, 4) and
-    ``cls_logits`` (B, A, C+1)."""
+    backbones are resnet, vgg16_reduced and inceptionv3; ``remat`` reaches a
+    resnet backbone only, as in the JAX package. Outputs ``loc_preds``
+    (B, A, 4) and ``cls_logits`` (B, A, C+1)."""
 
-    def __init__(self, cfg: NetConfig, num_classes: int = 20, loc_channels: int = 4):
+    def __init__(self, cfg: NetConfig, num_classes: int = 20, loc_channels: int = 4,
+                 remat: bool = False):
         super().__init__()
         taps = [n for n in cfg.from_layers if n]
         self.network = cfg.network
         if cfg.network == "resnet":
-            self.backbone = ResNet(cfg.num_layers)
+            self.backbone = ResNet(cfg.num_layers, remat=remat)
             self.taps = [tap_index(n) for n in taps]
             ch = [tap_channels(cfg.num_layers, n) for n in taps]
         elif cfg.network == "vgg16_reduced":
             self.backbone = VGG16Reduced()
             self.taps = taps
             ch = [VGG_TAP_CHANNELS[n] for n in taps]
+        elif cfg.network == "inceptionv3":
+            self.backbone = InceptionV3()
+            self.taps = taps
+            ch = [INCEPTION_TAP_CHANNELS[n] for n in taps]
         else:
-            raise NotImplementedError(
-                f"{cfg.network}: backbone not ported (ROADMAP Queue A item 16, Other presets)")
+            raise NotImplementedError(cfg.network)
         self.multi_feat = MultiLayerFeature(ch, cfg.num_filters, cfg.strides, cfg.pads,
                                             cfg.min_filter, cfg.kernels)
         self.multibox = MultiBoxHead(self.multi_feat.out_channels, num_classes + 1, cfg.sizes,

@@ -3,8 +3,7 @@
 A copy of ``dspnet_tpu/models/factory.py`` (the reference preset table,
 symbol/multitask_symbol_factory.py:5-98): the resnet rows, the
 vgg16_reduced 300/512 rows, the legacy VGG16-SSD graphs and the
-inceptionv3 row (a preset only: its backbone is not ported, ROADMAP Queue A
-item 16, so ``SSDNet`` and ``feature_shapes`` refuse it).
+inceptionv3 row.
 
 ``feature_shapes`` computes each detection feature map's (h, w) from the
 backbone's conv/pool arithmetic, so the anchor table can be built without
@@ -190,9 +189,25 @@ def _vgg_tap_shape(tap: str, h: int, w: int):
     raise KeyError(tap)
 
 
+def _inception_tap_shape(tap: str, h: int, w: int):
+    h, w = _floor_out(h, 3, 2, 0), _floor_out(w, 3, 2, 0)  # conv 3x3/2
+    h, w = h - 2, w - 2  # conv_1 3x3 pad 0 (conv_2 pads 1 and keeps the size)
+    h, w = _floor_out(h, 3, 2, 0), _floor_out(w, 3, 2, 0)  # pool
+    h, w = h - 2, w - 2  # conv_4 3x3 pad 0
+    h, w = _floor_out(h, 3, 2, 0), _floor_out(w, 3, 2, 0)  # pool1
+    h, w = _floor_out(h, 3, 2, 0), _floor_out(w, 3, 2, 0)  # mixed_3 downsample
+    if tap == "ch_concat_mixed_7_chconcat":
+        return h, w
+    h, w = _floor_out(h, 3, 2, 0), _floor_out(w, 3, 2, 0)  # mixed_8 downsample
+    if tap == "ch_concat_mixed_10_chconcat":
+        return h, w
+    raise KeyError(tap)
+
+
 _TAP_SHAPE = {
     "resnet": lambda cfg, tap, h, w: _resnet_tap_shape(cfg.num_layers, tap, h, w),
     "vgg16_reduced": lambda cfg, tap, h, w: _vgg_tap_shape(tap, h, w),
+    "inceptionv3": lambda cfg, tap, h, w: _inception_tap_shape(tap, h, w),
 }
 
 
@@ -200,8 +215,7 @@ def feature_shapes(cfg: NetConfig, data_shape: Sequence[int]) -> list[tuple[int,
     """(h, w) of every detection feature map for input (H, W)."""
     H, W = int(data_shape[0]), int(data_shape[1])
     if cfg.network not in _TAP_SHAPE:
-        raise NotImplementedError(
-            f"{cfg.network}: backbone not ported (ROADMAP Queue A item 16, Other presets)")
+        raise NotImplementedError(cfg.network)
     shapes = []
     for k, name in enumerate(cfg.from_layers):
         if name:

@@ -9,6 +9,8 @@ its custom gradients in the JAX package are XLA workarounds for the same
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -18,6 +20,75 @@ from torch import nn
 
 BN_EPS = 2e-5
 BN_MOMENTUM = 0.9
+
+
+class _RematContext(threading.local):
+    #: inside a rematerialised unit: ("record" | "replay", {id(BatchNorm): (stats, stats_reduce)})
+    remat = None
+
+
+_CTX = _RematContext()
+
+
+@contextlib.contextmanager
+def _remat_mode(mode, store):
+    prev = _CTX.remat
+    _CTX.remat = (mode, store)
+    try:
+        yield
+    finally:
+        _CTX.remat = prev
+
+
+def _remat_contexts():
+    store = {}
+    return _remat_mode("record", store), _remat_mode("replay", store)
+
+
+class _Replayed(torch.autograd.Function):
+    """In a recompute: the reduced statistics as the first pass computed
+    them (no collective runs out of order). Its gradient is that of the
+    reduction, a sum over the ranks, whose adjoint is the same sum."""
+
+    @staticmethod
+    def forward(ctx, local, reduced, reduce):
+        ctx.reduce = reduce
+        return reduced.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.reduce(grad.clone()), None, None
+
+
+def checkpoint_module(module: nn.Module, x):
+    """``module(x)`` rematerialised in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant: the solver differentiates
+    with ``torch.autograd.grad``), the counterpart of the JAX package's
+    ``nn.remat`` of a residual unit. The recompute runs after the caller's
+    ``functional_call`` and train/eval flag are gone, so the unit's current
+    tensors and flag are captured here and restored for it. BatchNorms
+    update their running statistics in the first pass only, and a
+    BatchNorm with a ``stats_reduce`` reuses the first pass's reduced
+    statistics."""
+    from torch.utils.checkpoint import checkpoint
+
+    params = list(module.named_parameters())
+    # the running statistics are closed over, not inputs: the first pass
+    # updates them in place, which the checkpoint's saved inputs forbid
+    buffers = dict(module.named_buffers())
+    training = module.training
+
+    def run(inp, *tensors):
+        was = module.training
+        module.train(training)
+        try:
+            return torch.func.functional_call(module, {**dict(zip((n for n, _ in params), tensors)), **buffers},
+                                              (inp,))
+        finally:
+            module.train(was)
+
+    return checkpoint(run, x, *(t for _, t in params), use_reentrant=False, context_fn=_remat_contexts,
+                      preserve_rng_state=False)
 
 
 class BatchNorm(nn.Module):
@@ -38,6 +109,15 @@ class BatchNorm(nn.Module):
     old value, and it updates the running variance with the unbiased
     estimate.)
 
+    ``stats_reduce`` (None: the local batch's statistics) is set by the
+    solver's data-parallel step: a differentiable sum over the ranks, applied
+    to the stacked (mean, mean square, 1) of each channel, so the mean and
+    mean square are those of the global batch (the sums over the world
+    size), as a JAX step over a sharded batch computes them. Inside
+    :func:`checkpoint_module` the running statistics update in the first
+    pass only (``running_updates`` counts the updates, for the tests), and
+    the recompute reuses the first pass's reduced statistics.
+
     Eval mode is one ``F.batch_norm`` pass, which works in float32 and
     rounds once to the activation dtype; a weight cast to another dtype than
     the running statistics (the solver's bf16 compute over float32 stats)
@@ -54,6 +134,8 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.running_updates = 0
+        self.stats_reduce = None
 
     def forward(self, x):
         if not self.training:
@@ -65,11 +147,26 @@ class BatchNorm(nn.Module):
         dims = (0, 2, 3)
         mean = xf.mean(dims)
         mean2 = (xf * xf).mean(dims)
+        mode, store = _CTX.remat or (None, None)
+        recorded = store.get(id(self)) if mode == "replay" else None
+        reduce = recorded[1] if recorded is not None else self.stats_reduce
+        if reduce is not None:
+            # the third row sums to the world size
+            stats = torch.stack([mean, mean2, torch.ones_like(mean)])
+            if recorded is not None:
+                stats = _Replayed.apply(stats, recorded[0], reduce)
+            else:
+                stats = reduce(stats)
+                if mode == "record":
+                    store[id(self)] = (stats.detach(), reduce)
+            mean, mean2 = (stats[:2] / stats[2]).unbind(0)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        with torch.no_grad():
-            m = BN_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        if mode != "replay":
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            self.running_updates += 1
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight.float()

@@ -14,15 +14,20 @@ The SSD factory taps the residual-add outputs, which the reference names
 ``_plusN`` with N counting adds across the network; ``forward`` returns every
 add output in order so callers index the same way. Submodule names follow the
 flax parameter tree (``stage1_unit1/bn1`` ...), which utils/convert.py relies on.
+
+``remat=True`` rematerialises each residual unit in the backward pass, as
+the JAX package's ``nn.remat(ResidualUnit)`` does (``layers.checkpoint_module``):
+more arithmetic for less activation memory, the same step.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dspnet_torch.models.layers import BatchNorm, conv, max_pool
+from dspnet_torch.models.layers import BatchNorm, checkpoint_module, conv, max_pool
 
 UNITS = {
     18: [2, 2, 2, 2],
@@ -93,9 +98,10 @@ class ResNet(nn.Module):
     """Backbone; ``forward`` returns the list of residual-add outputs
     (``plus_outputs[N]`` == the reference's ``_plusN`` internal)."""
 
-    def __init__(self, num_layers: int = 50):
+    def __init__(self, num_layers: int = 50, remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         filter_list = filters_for(num_layers)
         bottle_neck = num_layers >= 50
         self.bn_data = BatchNorm(3, fix_gamma=True)
@@ -116,7 +122,9 @@ class ResNet(nn.Module):
         x = self.conv0(self.bn_data(x))
         x = max_pool(F.relu(self.bn0(x)), 3, 2, 1)
         plus_outputs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.unit_names:
-            x = getattr(self, name)(x)
+            unit = getattr(self, name)
+            x = checkpoint_module(unit, x) if remat else unit(x)
             plus_outputs.append(x)
         return plus_outputs

@@ -16,13 +16,23 @@ Contract (reference symbol/multitask_symbol_builder.py:541-589, as
 The JAX head computes the same linear map through a tap-split (1x1
 contractions at native resolution, resize, 9 shifted adds) to keep the
 concat out of HBM on the TPU; here the concat is materialized, so the two
-agree to float32 reassociation. The FCN-style ``seg_fast`` variant is not
-ported yet.
+agree to float32 reassociation.
+
+``fast=True`` is the JAX package's opt-in ``seg_fast`` head
+(``dspnet_tpu/models/seg_head.py``, ``_ConcatConv3x3.fast``): the one
+``score3_conv`` kernel is sliced per stream in the concat order, each slice
+runs as a 3x3 pad-1 conv at its stream's native resolution, each partial
+result is resized (align corners) to H/8 x W/8 unless it is already there,
+and the partial results are summed in float32 (FCN-style score then
+upsample). Conv and resize do not commute, so its numbers differ from the
+exact head's; train and evaluate with the same setting. The parameters are
+the exact head's, so a checkpoint loads into either.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dspnet_torch.models.layers import (
@@ -36,8 +46,9 @@ from dspnet_torch.models.layers import (
 
 class SegHead(nn.Module):
     def __init__(self, res3_channels: int, res4_channels: int, feat_channels: int,
-                 seg_classes: int = 19):
+                 seg_classes: int = 19, fast: bool = False):
         super().__init__()
+        self.fast = fast
         self.res3_reduced = conv(res3_channels, 128, 1, 1, 0, use_bias=False)
         self.res3_reduced_bn = BatchNorm(128, fix_gamma=True)
         self.res3_reduced2 = conv(128, 128, 3, 1, 1, use_bias=False)
@@ -70,6 +81,21 @@ class SegHead(nn.Module):
         s1 = self.score2_pool1_bn(self.score2_pool1(avg_pool(r5, 1, 1)))
 
         streams = [s4, s2, s1, r5, r4, r3]  # concat order: builder.py:582
-        x = torch.cat([resize_bilinear_align_corners(s, grid_hw) for s in streams], dim=1)
-        x = self.score3_conv_bn(self.score3_conv(x))
-        return self.score4_conv(x)
+        if self.fast:
+            x = self._score_then_upsample(streams, grid_hw)
+        else:
+            x = torch.cat([resize_bilinear_align_corners(s, grid_hw) for s in streams], dim=1)
+            x = self.score3_conv(x)
+        return self.score4_conv(self.score3_conv_bn(x))
+
+    def _score_then_upsample(self, streams, grid_hw):
+        weight = self.score3_conv.weight
+        out = None
+        off = 0
+        for s in streams:
+            c = s.shape[1]
+            y = F.conv2d(s, weight[:, off:off + c].to(s.dtype), padding=1)
+            off += c
+            y = resize_bilinear_align_corners(y, grid_hw).float()
+            out = y if out is None else out + y
+        return out.to(streams[0].dtype)

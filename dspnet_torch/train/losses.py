@@ -14,11 +14,16 @@ the scalar objective differentiated here:
 * segmentation — SoftmaxOutput(ignore_label=255, grad_scale=4,
   normalization 'null'): 4 x the unnormalized sum of per-pixel CE over
   non-ignored pixels; ``seg_normalize='valid'`` divides by the valid count.
+
+Under data parallelism every count is the global batch's: ``count_reduce``
+sums a rank's count over the ranks (None: the count as it is), so each rank's
+loss is its local sum over the global count and the ranks' losses, and
+gradients, add up to the global ones.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -33,7 +38,11 @@ def smooth_l1(x, scalar: float = 1.0):
     return torch.where(ax < 1.0 / s2, 0.5 * s2 * x * x, ax - 0.5 / s2)
 
 
-def cls_loss_valid(cls_logits, cls_target):
+def _reduced(count, count_reduce: Optional[Callable]):
+    return count if count_reduce is None else count_reduce(count)
+
+
+def cls_loss_valid(cls_logits, cls_target, count_reduce: Optional[Callable] = None):
     """(B, A, C) logits vs (B, A) targets, ignore -1, 'valid' normalization.
     Returns (loss, valid_count)."""
     valid = cls_target != CLS_IGNORE
@@ -41,21 +50,21 @@ def cls_loss_valid(cls_logits, cls_target):
     logp = torch.log_softmax(cls_logits, dim=-1)
     ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
     ce = torch.where(valid, ce, torch.zeros_like(ce))
-    count = valid.sum()
+    count = _reduced(valid.sum(), count_reduce)
     return ce.sum() / count.clamp_min(1), count
 
 
-def loc_loss_valid(loc_preds, loc_target, loc_mask):
+def loc_loss_valid(loc_preds, loc_target, loc_mask, count_reduce: Optional[Callable] = None):
     """Masked smooth-L1 with MakeLoss-'valid' normalization (non-zero count).
     Returns (loss, unnormalized sum)."""
     elems = smooth_l1(loc_mask * (loc_preds - loc_target), 1.0)
-    nonzero = (elems > 0.0).sum()
+    nonzero = _reduced((elems > 0.0).sum(), count_reduce)
     total = elems.sum()
     return total / nonzero.clamp_min(1), total
 
 
 def seg_loss_and_accuracy(seg_logits, seg_labels, grad_scale: float = 4.0,
-                          normalize: str = "null"):
+                          normalize: str = "null", count_reduce: Optional[Callable] = None):
     """(B, H, W, C) logits vs (B, H, W) int labels with ignore 255.
 
     Returns (loss, correct_count, valid_count). A pixel counts as correct
@@ -70,7 +79,7 @@ def seg_loss_and_accuracy(seg_logits, seg_labels, grad_scale: float = 4.0,
     picked = torch.gather(shifted, -1, tgt[..., None])[..., 0]
     ce = torch.where(valid, lse - picked, torch.zeros_like(lse))
     total = ce.sum()
-    valid_count = valid.sum()
+    valid_count = _reduced(valid.sum(), count_reduce)
     if normalize == "valid":
         total = total / valid_count.clamp_min(1)
     correct = (valid & (picked.detach() == 0.0)).sum()
@@ -89,22 +98,25 @@ def multitask_loss(
     seg_labels=None,
     seg_grad_scale: float = 4.0,
     seg_normalize: str = "null",
+    count_reduce: Optional[Callable] = None,
 ):
     """Combined objective and monitoring scalars: (total_loss, metrics), with
     the JAX package's metric keys. The detection losses are skipped when
-    ``cls_target`` is None, the seg loss when ``seg_labels`` is None."""
+    ``cls_target`` is None, the seg loss when ``seg_labels`` is None. With a
+    ``count_reduce`` that sums over the ranks, every metric is the rank's
+    share: the sum over the ranks is the global batch's value."""
     metrics = {}
     total = 0.0
     if "cls_logits" in outputs and cls_target is not None:
-        cls_l, valid_count = cls_loss_valid(outputs["cls_logits"], cls_target)
-        loc_l, loc_sum = loc_loss_valid(outputs["loc_preds"], loc_target, loc_mask)
+        cls_l, valid_count = cls_loss_valid(outputs["cls_logits"], cls_target, count_reduce)
+        loc_l, loc_sum = loc_loss_valid(outputs["loc_preds"], loc_target, loc_mask, count_reduce)
         total = total + cls_l + loc_l
         metrics["cross_entropy"] = cls_l
         metrics["smooth_l1"] = loc_sum / valid_count.clamp_min(1)
-        metrics["valid_anchors"] = valid_count
+        metrics["valid_anchors"] = (cls_target != CLS_IGNORE).sum()  # this rank's
     if seg_labels is not None and "seg_logits" in outputs:
         s, correct, valid_px = seg_loss_and_accuracy(
-            outputs["seg_logits"], seg_labels, seg_grad_scale, seg_normalize)
+            outputs["seg_logits"], seg_labels, seg_grad_scale, seg_normalize, count_reduce)
         total = total + s
         metrics["seg_loss"] = s
         metrics["seg_accuracy"] = correct / valid_px.clamp_min(1)

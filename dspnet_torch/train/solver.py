@@ -20,8 +20,23 @@ swapped in with ``torch.func.functional_call``; the module's own tensors and
 its train/eval flag are left as they were. ``fit`` takes its batches as the
 iterator gives them (``DeviceAugIterator`` decodes ahead and puts them on
 the device; host arrays are copied at the step) and validates with
-``evaluate/loop.py``. Data parallelism over a device mesh and spatial
-sharding are not ported (ROADMAP Queue A items 25 and 17).
+``evaluate/loop.py``.
+
+Data parallelism: when a default process group is initialised
+(``parallel/dist.py::distributed_init``; a group of one rank takes the same
+path, each collective the identity), each rank runs the
+step on its rows of the global batch and the step is the global one, as a
+JAX step over a sharded batch: BatchNorm normalises with the global batch
+statistics (each ``BatchNorm.stats_reduce`` set to the differentiable
+sum over the ranks for the step), every loss normaliser is the
+global count (``losses.multitask_loss(count_reduce=...)``), the gradients
+are summed over the ranks in a few bucketed all-reduces before the MXNet
+SGD (``rescale_grad`` 1/(global batch x grad_accum); a mean, as
+``DistributedDataParallel`` takes, would be wrong here), and the metrics
+are summed into the global batch's. The ranks then apply the same update
+and their parameters stay equal. ``batch_size`` is the global batch.
+Spatial sharding over the JAX mesh's ``model`` axis is not ported (ROADMAP
+Queue A item 17).
 """
 
 from __future__ import annotations
@@ -35,7 +50,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from dspnet_torch.models.layers import BatchNorm
 from dspnet_torch.ops.target import multibox_target
+from dspnet_torch.parallel import dist as pdist
 from dspnet_torch.train import losses as loss_mod
 from dspnet_torch.train.optim import MXNetSGD
 from dspnet_torch.utils.convert import flax_path
@@ -75,6 +92,11 @@ def freeze_mask(params: Mapping[str, Any], pattern: Optional[str]) -> Dict[str, 
     return {name: not rx.match(flax_path(name)) for name in params}
 
 
+def _global_count(count: torch.Tensor) -> torch.Tensor:
+    """A rank's count summed over the ranks (a loss normaliser)."""
+    return pdist.all_reduce_(count.clone())
+
+
 @contextlib.contextmanager
 def _mode(module: nn.Module, train: bool):
     was = module.training
@@ -83,6 +105,19 @@ def _mode(module: nn.Module, train: bool):
         yield
     finally:
         module.train(was)
+
+
+@contextlib.contextmanager
+def _stats_reduce(bns: List[BatchNorm], reduce):
+    """The BatchNorms normalise with ``reduce`` of their batch statistics
+    inside the block."""
+    for m in bns:
+        m.stats_reduce = reduce
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_reduce = None
 
 
 class MultiTaskSolver:
@@ -104,6 +139,10 @@ class MultiTaskSolver:
       grad_accum: microbatches summed before one update (``fit`` only).
       device: where the state and the batches live: the card unless the
         caller asks for ``"cpu"``.
+
+    The solver is data-parallel over the default process group when one is
+    initialised at construction (``distributed``); each rank then passes its
+    own rows and ``batch_size`` stays the global batch.
     """
 
     def __init__(
@@ -142,6 +181,8 @@ class MultiTaskSolver:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.tx = MXNetSGD(learning_rate, momentum, weight_decay,
                            rescale_grad=1.0 / (batch_size * self.grad_accum))
+        self.distributed = pdist.active()
+        self._bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
         self._val_detector = None  # built by the first validation pass of fit()
 
     # ---------------------------------------------------------------- init
@@ -180,7 +221,8 @@ class MultiTaskSolver:
             tensors = cast_tensors(tensors, self.compute_dtype)
             images = images.to(self.compute_dtype)
         tensors.update(state.buffers)
-        with _mode(self.model, train):
+        reduce = pdist.all_reduce_sum if train and self.distributed else None
+        with _mode(self.model, train), _stats_reduce(self._bns, reduce):
             outputs = torch.func.functional_call(self.model, tensors, (images,), strict=True)
         return {k: v.float() for k, v in outputs.items()}
 
@@ -200,19 +242,28 @@ class MultiTaskSolver:
             )
             lc = outputs["loc_preds"].shape[-1]  # 4-channel SSD heads drop the distance
             loc_t, loc_m = loc_t[..., :lc], loc_m[..., :lc]
+        count_reduce = _global_count if train and self.distributed else None
         return loss_mod.multitask_loss(
             outputs, loc_t, loc_m, cls_t, batch.get("seg_label"),
-            seg_grad_scale=self.seg_grad_scale, seg_normalize=self.seg_normalize)
+            seg_grad_scale=self.seg_grad_scale, seg_normalize=self.seg_normalize,
+            count_reduce=count_reduce)
 
     def _grads(self, state: TrainState, batch) -> Tuple[List[str], List[torch.Tensor], Dict]:
         """Gradients of the trainable parameters and the step's metrics; the
-        running statistics update on the way."""
+        running statistics update on the way. Under data parallelism both
+        are summed over the ranks (the global batch's)."""
         names = [n for n, p in state.params.items() if p.requires_grad]
         with torch.enable_grad():
             loss, metrics = self._loss_fn(state, batch, train=True)
             grads = torch.autograd.grad(loss, [state.params[n] for n in names],
                                         allow_unused=True, materialize_grads=True)
-        return names, list(grads), {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        if self.distributed:
+            grads = pdist.all_reduce_tensors_(grads)
+            keys = list(metrics)
+            summed = pdist.all_reduce_(torch.stack([metrics[k].double() for k in keys]))
+            metrics = dict(zip(keys, summed.unbind(0)))
+        return names, list(grads), metrics
 
     def _apply_updates(self, state: TrainState, names: List[str], grads: List[torch.Tensor]):
         """One SGD update of the trainable parameters, in place. Frozen
@@ -315,7 +366,9 @@ class MultiTaskSolver:
         the first pass and refreshed with the state's weights before each;
         it logs ``epoch {ep} validation: …`` and sends the finite numbers to
         ``metrics_sink(ep, "val", …)``. ``data_shape`` is the detector's
-        input shape.
+        input shape. Under data parallelism the ranks meet at a barrier after
+        each epoch's callback and validation pass, which the caller gives to
+        rank 0 alone (the JAX CLI evaluates on process 0).
         """
         if eval_iter is not None and data_shape is None and self._val_detector is None:
             raise ValueError("fit(eval_iter=...) needs data_shape")  # before an epoch is spent
@@ -357,6 +410,8 @@ class MultiTaskSolver:
                 epoch_end_callback(epoch, state)
             if eval_iter is not None and eval_every > 0 and (ep + 1) % eval_every == 0:
                 self._validate(state, eval_iter, data_shape, ep, log_fn, metrics_sink)
+            if self.distributed:
+                pdist.barrier()  # the other ranks wait while rank 0 validates and checkpoints
         if acc is not None:
             state = self._apply_accumulated(state, acc)
         return state

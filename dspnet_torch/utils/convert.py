@@ -18,8 +18,8 @@ tensor:
 
 ``to_flax_variables`` is the exact inverse, and ``flax_path`` names the flax
 leaf of one torch tensor. Both read the module kind from the port's naming
-contract: a BatchNorm's module name is ``bn_data``, ``bn<N>`` or ends in
-``_bn``; the one transposed conv is ``score4_conv``; an L2Normalize is
+contract: a BatchNorm's module name is ``bn_data``, ``bn<N>``, ``bn`` (an
+inception ``ConvBN``'s) or ends in ``_bn``; the one transposed conv is ``score4_conv``; an L2Normalize is
 ``norm_<k>``; every other module with a ``weight`` is a conv (VGG16's
 ``conv1_1`` … ``fc7``, the dilated ``fc6`` included).
 """
@@ -91,7 +91,7 @@ def load_flax_variables(model: nn.Module, variables_np: Mapping) -> nn.Module:
     return model
 
 
-_BN_MODULE = re.compile(r"^(bn_data|bn\d+)$|_bn$")
+_BN_MODULE = re.compile(r"^(bn_data|bn\d*)$|_bn$")
 _DECONV_MODULE = "score4_conv"
 _NORM_MODULE = re.compile(r"^norm_\d+$")
 _NORM_LEAF = {"scale": ("params", "scale")}

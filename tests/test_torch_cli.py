@@ -108,14 +108,15 @@ def test_divergence_exits_3(workdir):
 
 
 def test_refusals(workdir):
-    """JAX flags the port does not honour are argparse errors; a dataset root,
-    a label space wider than the head and a missing card fail loudly."""
-    for extra in (["--remat"], ["--loader", "python"], ["--target-backend", "pallas"],
-                  ["--num-devices", "2"], ["--seg-fast"]):
+    """JAX flags the port does not honour (the TPU-only ones and the host
+    loaders) are argparse errors; a dataset root, a label space wider than
+    the head and a missing card fail loudly."""
+    for extra in (["--loader", "python"], ["--loader", "native"], ["--target-backend", "pallas"],
+                  ["--input-s2d", "on"], ["--native-u8"], ["--model-parallel", "2"]):
         with pytest.raises(SystemExit) as err:
             multi_train.parse_args(NET + extra)
         assert err.value.code == 2, extra
-    for extra in (["--seg-fast"], ["--loader", "native"]):
+    for extra in (["--loader", "native"], ["--input-s2d", "on"]):
         with pytest.raises(SystemExit):
             multi_eval.parse_args(NET + extra)
     with pytest.raises(FileNotFoundError, match="no recognizable dataset"):
@@ -128,6 +129,29 @@ def test_refusals(workdir):
         for cli in (multi_train, multi_eval):
             with pytest.raises(SystemExit, match="no CUDA device"):
                 cli.main(["--network", "resnet-18_multi", "--data-shape", "3,128,256", "--synthetic", "2"])
+
+
+def test_remat_and_seg_fast_through_the_clis(workdir):
+    """``multi_train --remat --seg-fast`` trains the score-then-upsample seg
+    head with every residual unit rematerialised: its checkpoint equals the
+    one of ``--seg-fast`` alone bit for bit (remat changes memory, not the
+    step) and differs from the exact head's; ``multi_eval --seg-fast``
+    scores it."""
+    runs = {}
+    for name, extra in (("remat_fast", ["--remat", "--seg-fast"]), ("fast", ["--seg-fast"]), ("exact", [])):
+        model = workdir / f"model_{name}"
+        multi_train.main(NET + _data(workdir) + ["--model-dir", str(model), "--seg-normalize", "valid",
+                                                 "--end-epoch", "1", "--eval-every", "0"] + extra)
+        runs[name] = torch.load(CheckpointManager(checkpoint_prefix(str(model), "resnet-18_multi", 128)).path(0),
+                                weights_only=True)
+    a, b, c = runs["remat_fast"], runs["fast"], runs["exact"]
+    for part in ("params", "buffers", "momentum"):
+        assert a[part].keys() == b[part].keys() == c[part].keys()
+        for k in a[part]:
+            assert torch.equal(a[part][k], b[part][k]), (part, k)
+    assert not torch.equal(a["params"]["seg.score3_conv.weight"], c["params"]["seg.score3_conv.weight"])
+    res = multi_eval.main(NET + _data(workdir) + ["--model-dir", str(workdir / "model_remat_fast"), "--seg-fast"])
+    assert 0.0 <= res["mIoU"] <= 1.0 and np.isfinite(res["accuracy"])
 
 
 # ------------------------------------------------------------- prepared data

@@ -201,7 +201,8 @@ def test_detect_and_visualize_writes_each_image(served, tmp_path):
 def test_import_mxnet_then_multi_demo(served, tmp_path, monkeypatch):
     """A JAX-written .params -> the port's import tool -> ``multi_demo.main``
     (--device cpu): the written files decode to the inputs' sizes; bf16
-    serving writes the same files list; --seg-fast is refused."""
+    serving writes the same files list; --seg-fast serves the fast seg head
+    from the same checkpoint."""
     _, variables, _, _, paths = served
     monkeypatch.chdir(tmp_path)
     args, auxs = jmx.export_multitask(variables["params"], variables["batch_stats"], "resnet-18_multi", H)
@@ -216,8 +217,9 @@ def test_import_mxnet_then_multi_demo(served, tmp_path, monkeypatch):
         assert [os.path.basename(w) for w in written] == ["twice_out.jpg", "odd_out.jpg", "plain_out.jpg"]
         for w, p in zip(written, paths):
             assert jpeg.read_header(open(w, "rb").read())[:2] == cv2.imread(p).shape[:2]
-    with pytest.raises(SystemExit):
-        multi_demo.parse_args(net + ["--seg-fast"])
+    # --seg-fast serves the score-then-upsample head from the same checkpoint
+    written = multi_demo.main(net + ["--images", paths[0], "--out-dir", str(tmp_path / "fast"), "--seg-fast"])
+    assert [os.path.basename(w) for w in written] == ["twice_out.jpg"]
     with pytest.raises(NotImplementedError, match="video"):
         multi_demo.main(net + ["--images", "clip.avi"])
 

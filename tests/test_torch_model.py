@@ -82,13 +82,24 @@ def test_create_model_seeded_init():
 
 
 @pytest.mark.parametrize("network,error,match", [
-    ("inceptionv3", NotImplementedError, "ROADMAP"),  # plain SSD on the unported backbone
     ("vgg16_reduced_multi", NotImplementedError, "3-tap resnet"),  # no multitask VGG in the reference
     ("inceptionv3_multi", NotImplementedError, "3-tap resnet"),
 ])
 def test_create_model_rejects_unported(network, error, match):
     with pytest.raises(error, match=match):
         create_model(network, (H, W), device="cpu")
+
+
+def test_create_model_builds_inceptionv3():
+    """The plain SSD on the inceptionv3 backbone builds (its anchors at the
+    two presets' sizes: A = 1,668 at 300, 5,186 at 512) and runs."""
+    assert create_model("inceptionv3", 300, 20, device="meta").num_anchors == 1668
+    assert create_model("inceptionv3", 512, 20, device="meta").num_anchors == 5186
+    bundle = create_model("inceptionv3", (H, W), device="cpu")
+    with torch.inference_mode():
+        out = bundle.model(torch.zeros(1, H, W, 3))
+    assert out["loc_preds"].shape == (1, bundle.num_anchors, 4)
+    assert out["cls_logits"].shape == (1, bundle.num_anchors, 9)
 
 
 def test_create_model_rejects_non_multiple_of_8():

@@ -153,3 +153,69 @@ def write_cityscapes_layout(root, splits, hw=(64, 128), seed=0, max_objects=6, e
     with ThreadPoolExecutor(workers) as pool:
         list(pool.map(write, jobs))
     return out
+
+
+def flat_tree(tree) -> dict:
+    """{keystr path: numpy leaf} of a pytree."""
+    import jax
+
+    return {jax.tree_util.keystr(p): np.asarray(v) for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def jax_solver_state(js, variables, hw):
+    """A JAX ``MultiTaskSolver`` state holding the numpy ``variables``
+    (params and batch_stats) and a fresh optimizer state."""
+    import jax
+    import jax.numpy as jnp
+
+    st = js.init_state(jax.random.PRNGKey(0), jnp.zeros((1, *hw, 3)))
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    return st.replace(params=params, batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
+                      opt_state=js.tx.init(params))
+
+
+def assert_steps_match_jax(init_params, jax_state, jax_metrics, port_variables, port_metrics, valid_px=None,
+                           init_stats=None):
+    """The port's solver steps against the JAX solver's from the same
+    ``init_params`` on the same batches: every step's metrics within rtol
+    1e-4, each parameter's change within 4% of the largest change of the
+    JAX steps over the model (the ReLU-switch bound of
+    test_torch_train.py), every running statistic within 1e-3 * max|ref| of
+    its tensor. ``port_variables`` is the port's state as a flax tree
+    (``to_flax_variables``); the metrics are one dict per step.
+    ``valid_px``, each step's count of labelled seg pixels, lets the seg
+    accuracy (a count of argmax hits) differ by one pixel, where a batch
+    holds a near-tie that float32 rounding decides. With ``init_stats``
+    (the running statistics before the steps, as a flax tree) each running
+    statistic's change is held instead, within 1e-3 of the largest change
+    of its kind (mean, var) over the model, as the parameters are: from
+    fresh statistics (0 and 1) a channel's mean is the batch means alone,
+    and near zero its own scale says nothing."""
+    import jax
+
+    assert len(port_metrics) == len(jax_metrics)
+    for step, (got_m, want_m) in enumerate(zip(port_metrics, jax_metrics)):
+        assert set(got_m) == set(want_m)
+        for k in want_m:
+            atol = 1.0 / valid_px[step] if valid_px is not None and k == "seg_accuracy" else 0.0
+            np.testing.assert_allclose(float(got_m[k]), float(want_m[k]), rtol=1e-4, atol=atol, err_msg=k)
+    init = flat_tree(init_params)
+    after = flat_tree(jax.tree.map(np.asarray, jax_state.params))
+    got = flat_tree(port_variables["params"])
+    biggest = max(np.abs(after[k] - v).max() for k, v in init.items())
+    assert biggest > 0
+    for k, v in init.items():
+        np.testing.assert_allclose(got[k] - v, after[k] - v, rtol=0, atol=0.04 * biggest, err_msg=k)
+    stats = flat_tree(port_variables["batch_stats"])
+    want = flat_tree(jax.tree.map(np.asarray, jax_state.batch_stats))
+    if init_stats is None:
+        for k, w in want.items():
+            np.testing.assert_allclose(stats[k], w, rtol=0, atol=1e-3 * np.abs(w).max(), err_msg=k)
+        return
+    init = flat_tree(init_stats)
+    kind = lambda k: k.rsplit("[", 1)[-1]  # noqa: E731
+    largest = {}
+    for k, w in want.items():
+        largest[kind(k)] = max(largest.get(kind(k), 0.0), float(np.abs(w - init[k]).max()))
+    for k, w in want.items():
+        np.testing.assert_allclose(stats[k] - init[k], w - init[k], rtol=0, atol=1e-3 * largest[kind(k)], err_msg=k)
