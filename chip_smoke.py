@@ -129,17 +129,36 @@ Phases (any failure ends the run with a non-zero exit):
      change of its kind, the step losses within rtol 1e-3 (the first within
      1e-4). Every run's counts are checked (NMS launches = predict
      calls + eval batches, matcher = steps, plain calls 0);
- 12. JSON lines with the decoders' records (nvJPEG, the colour kernel),
-     phase 9's numbers, phase 11's, the kernel results (each kernel's device,
-     host, event and bound times at the main path's shapes, beside the
-     baseline kernels' times from this run, and at phases 10 and 11's
-     shapes) and each phase's seconds with the script's total, then the
-     result line, last.
+ 12. the data-preparation chain (the reference's Cityscapes configuration,
+     resnet-50_multi at 512x1024, bf16 over float32 masters; only the
+     number of scenes is cut, to 16 train and 8 val): a raw Cityscapes tree
+     at 2048x1024 (gtFine polygon JSONs of 100 polygons a scene: concave,
+     self-intersecting, degenerate, past the border, '...group' labels,
+     deleted objects; 16-bit disparity; the half-size q95 4:2:0 JPEGs of
+     convert_cityscapes.sh) -> ``tools.prepare_cityscapes --disparity
+     --instance-ids`` -> ``tools.prepare_dataset --pack``; the same samples
+     as a reference-format MXNet .rec (label vector ``2 6 <objects>``) ->
+     ``tools.im2rec --from-rec`` (both stores the same SampleIndex); the
+     matcher kernel and the NMS kernel against their plain versions on this
+     data; ``multi_train --dataset-root`` on the .rec-derived store for 2
+     epochs at b4, ``multi_eval --write-results --instance-eval`` on the
+     prepared directory (every count checked); the official scores of the
+     full-resolution result PNGs against the instanceIds' labelIds
+     (``evaluate_pairs``; each ground truth against itself scores 1.0);
+     ``tools.visualize_net`` (12,264 anchors at 512x1024, 4,822 at
+     320x640) and ``tools.voc_palette`` both ways; the seconds of each stage;
+ 13. JSON lines with the decoders' records (nvJPEG, the colour kernel),
+     phase 9's numbers, phase 11's, phase 12's, the kernel results (each
+     kernel's device, host, event and bound times at the main path's
+     shapes, beside the baseline kernels' times from this run, and at phases
+     10 and 11's shapes) and each phase's seconds with the script's total,
+     then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no result line
     python3 chip_smoke.py --ssd-only         # phases 1, 2 and 10 alone, no result line
     python3 chip_smoke.py --options-only     # phases 1, 2 and 11 alone, no result line
+    python3 chip_smoke.py --prepare-only     # phases 1, 2 and 12 alone, no result line
 
 """
 
@@ -2407,6 +2426,272 @@ def options_phase(dev, label):
     return counts.launches, times, errs
 
 
+def prepare_phase(dev, label, raw_hw=(1024, 2048), scenes=(16, 8)):
+    """Phase 12: the data-preparation chain from the raw Cityscapes release
+    (``scenes`` train and val scenes at ``raw_hw``) and from a
+    reference-format MXNet .rec, through the CLIs on the card, to the
+    official scores. Returns ({kernel: launches}, {kernel: max abs err},
+    the phase's record)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_eval, multi_train
+    from dspnet_torch.data import image_io, imdb, iterator, jpeg, jpeg_cuda, rec_import, record
+    from dspnet_torch.data.cs_labels import name2label
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator
+    from dspnet_torch.detect.detector import Detector
+    from dspnet_torch.evaluate import cityscapes_eval
+    from dspnet_torch.ops import boxes, matching_cuda, nms_cuda
+    from dspnet_torch.ops.detection import multibox_detection
+    from dspnet_torch.ops.target import _valid_columns
+    from dspnet_torch.tools import im2rec, prepare_cityscapes, prepare_dataset, visualize_net, voc_palette
+    from tests.torch_parity import make_png, write_gtfine_tree
+
+    (n_train, n_val), B, n_objects = scenes, 4, 100
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_prepare_", dir=ROOT / "build"))
+    raw, prep, packed, recs, from_rec = (work / d for d in ("raw", "cityscapes", "packed", "rec", "from_rec"))
+    launches = {"nms_keep_mask": 0, "bipartite_match": 0, "jpeg_ycc_to_bgr": 0}
+    errs = {"nms_keep_mask": 0, "bipartite_match": 0}
+    secs = {}
+    record_ = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def counted(run, steps, eval_batches, images, what):
+        nms_cuda.launches = matching_cuda.launches = nms_cuda.plain_calls = matching_cuda.plain_calls = 0
+        jpeg_cuda.images = jpeg.decodes = jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
+               "nvjpeg_images": jpeg_cuda.images, "jpeg_ycc_to_bgr": jpeg_cuda.color_launches,
+               "plain_jpeg_decodes": jpeg.decodes, "plain_colour_calls": jpeg_cuda.color_plain_calls,
+               "plain_nms_calls": nms_cuda.plain_calls, "plain_match_calls": matching_cuda.plain_calls}
+        want = {"bipartite_match": steps, "nms_keep_mask": eval_batches, "nvjpeg_images": images,
+                "jpeg_ycc_to_bgr": images, "plain_jpeg_decodes": 0, "plain_colour_calls": 0,
+                "plain_nms_calls": 0, "plain_match_calls": 0}
+        check(got == want, f"{what}: counts {got}, expected {want}")
+        print(f"{what}: matcher {steps} launches = train steps, NMS {eval_batches} = eval batches, nvJPEG and "
+              f"the colour kernel {images} images, plain JPEG decodes / colour / NMS / matcher calls 0")
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    try:
+        # 1. the raw release: gtFine polygons, 16-bit disparity, the half-size JPEGs
+        splits = {"train": n_train, "val": n_val}
+        stems = stage("raw tree", lambda: write_gtfine_tree(str(raw), str(prep / "JPEGImages"), splits,
+                                                            hw=raw_hw, seed=12, n_objects=n_objects, workers=8))
+        scenes = [json.loads(p.read_text()) for p in sorted((raw / "gtFine").rglob("*_polygons.json"))]
+        objs = [o for s in scenes for o in s["objects"]]
+        past = sum(any(not (0 <= x < raw_hw[1] and 0 <= y < raw_hw[0]) for x, y in o["polygon"]) for o in objs)
+        print(f"raw Cityscapes tree: {n_train} train + {n_val} val scenes at {raw_hw[0]}x{raw_hw[1]}, "
+              f"{len(objs)} polygons ({sum(o['label'].endswith('group') for o in objs)} '...group', "
+              f"{sum(bool(o.get('deleted')) for o in objs)} deleted, {past} past the border, "
+              f"{sum(len(o['polygon']) < 3 for o in objs)} of one or two points), 16-bit disparity, half-size "
+              f"JPEGs (q95 4:2:0) in {secs['raw tree']:.3f} s [{label}]")
+
+        # 2. prepare_cityscapes (scale 0.5) and prepare_dataset --pack
+        def prepare():
+            for split in splits:
+                prepare_cityscapes.main(["--gtfine", str(raw / "gtFine"), "--disparity", str(raw / "disparity"),
+                                         "--out", str(prep), "--split", split, "--instance-ids"])
+
+        stage("prepare_cityscapes", prepare)
+        half = (raw_hw[0] // 2, raw_hw[1] // 2)
+        for split, ss in stems.items():
+            ids = (prep / "ImageSets" / "Main" / f"{split}.txt").read_text().split()
+            check(sorted(ids) == sorted(s + "_leftImg8bit" for s in ss), f"{split}.txt lists {ids}")
+            for s in ss:
+                tid = image_io.imread(str(prep / "SegmentationClass" / f"{s}_gtFine_labelTrainIds.png"),
+                                      image_io.IMREAD_UNCHANGED)
+                inst = image_io.imread(str(prep / "SegmentationInstance" / f"{s}_gtFine_instanceIds.png"),
+                                       image_io.IMREAD_UNCHANGED)
+                disp = image_io.imread(str(prep / "Disparity" / f"{s}_disparity.png"), image_io.IMREAD_UNCHANGED)
+                check(tid.shape == inst.shape == disp.shape == half and tid.dtype == np.uint8
+                      and inst.dtype == disp.dtype == np.uint16, f"{s}: {tid.shape} {inst.dtype} {disp.dtype}")
+                check("<distance>" in (prep / "Annotations" / f"{s}_leftImg8bit.xml").read_text(),
+                      f"{s}: no <distance> in the XML")
+        print(f"prepare_cityscapes --disparity --instance-ids (scale 0.5): {n_train + n_val} scenes in "
+              f"{secs['prepare_cityscapes']:.3f} s, {secs['prepare_cityscapes'] / (n_train + n_val):.4f} s a scene "
+              f"(XML with <distance>, trainIds, 16-bit instanceIds and disparity at {half[0]}x{half[1]}) [{label}]")
+
+        def pack():
+            for split in splits:
+                prepare_dataset.main(["--dataset", "cityscapes", "--set", split, "--root", str(prep),
+                                      "--target", str(packed / f"{split}.lst"), "--pack"])
+
+        stage("prepare_dataset --pack", pack)
+
+        # 3. the same samples as a reference-format .rec, converted by im2rec --from-rec
+        def write_recs():
+            for split in splits:
+                payloads = []
+                for i, s in enumerate(imdb.CityscapesDetSeg(split, str(prep)).samples()):
+                    rows = s.label[s.label[:, 0] >= 0]
+                    vec = np.concatenate([[2.0, rows.shape[1]], rows.reshape(-1)]).astype(np.float32)
+                    payloads.append(rec_import.pack_payload(i, vec, Path(s.image_path).read_bytes()))
+                recs.mkdir(exist_ok=True)
+                rec_import.write_records(str(recs / f"{split}.rec"), payloads)
+
+        stage(".rec write", write_recs)
+
+        def convert():
+            for split in splits:
+                im2rec.main(["--from-rec", str(recs / f"{split}.rec"), "--lst", str(packed / f"{split}.lst"),
+                             "--out", str(from_rec / split)])
+
+        stage("im2rec --from-rec", convert)
+        n_rows = 0
+        for split in splits:
+            a = record.load_record_index(str(packed / split))
+            b = record.load_record_index(str(from_rec / split))
+            check(len(a) == len(b) == splits[split], f"{split}: {len(a)} and {len(b)} samples")
+            for x, y in zip(a.samples, b.samples):
+                check(x.image_path == y.image_path and np.array_equal(x.label, y.label)
+                      and iterator.read_encoded(x.image_path, x.image_span)
+                      == iterator.read_encoded(y.image_path, y.image_span)
+                      and iterator.read_encoded(x.seg_path, x.seg_span) == iterator.read_encoded(y.seg_path, y.seg_span),
+                      f"{split}: the .rec-derived store differs from prepare_dataset's at {x.image_path}")
+                n_rows += int((x.label[:, 0] >= 0).sum())
+        print(f"prepare_dataset --pack {secs['prepare_dataset --pack']:.3f} s; reference .rec (label vector "
+              f"2 6 <objects>) written in {secs['.rec write']:.3f} s; im2rec --from-rec {secs['im2rec --from-rec']:.3f}"
+              f" s; the two .drec stores give the same SampleIndex ({n_train + n_val} samples, {n_rows} labelled "
+              f"objects, labels, image and seg bytes equal) [{label}]")
+
+        # the two kernels against their plain versions on this data (not counted)
+        anchors = create_model("resnet-50_multi", (H, W), NUM_CLASSES, device="meta").anchors
+        train_index = record.load_record_index(str(from_rec / "train"))
+        loader = DeviceAugIterator(train_index, B, (H, W), device=dev, seed=233, enable_aug=True, num_threads=8)
+        batch, _ = next(iter(loader.epoch()))
+        labels = torch.as_tensor(batch["label_det"], device=dev).float()
+        iou = boxes.iou_matrix(torch.as_tensor(anchors, device=dev), labels[..., 1:5]).contiguous()
+        col_valid = _valid_columns(labels)
+        got = matching_cuda.bipartite_match(iou, col_valid)
+        want = matching_cuda.bipartite_match_reference(iou, col_valid)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)), "matcher kernel != plain on the .rec-derived batch")
+        errs["bipartite_match"] = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+        val_loader = DeviceAugIterator(record.load_record_index(str(from_rec / "val")), B, (H, W), device=dev,
+                                       seed=0, enable_aug=False, shuffle=False, num_threads=8)
+        vbatch, _ = next(iter(val_loader.epoch()))
+        bundle = create_model("resnet-50_multi", (H, W), NUM_CLASSES, device=dev,
+                              generator=torch.Generator().manual_seed(12))
+        det = Detector(bundle.model, bundle.anchors, (H, W), device=dev, dtype=torch.bfloat16)
+        with torch.inference_mode():
+            out = det.model(torch.as_tensor(vbatch["images"], device=dev).to(torch.bfloat16))
+            cls_prob = torch.softmax(out["cls_logits"].float(), dim=-1).transpose(1, 2)
+            dets = [multibox_detection(cls_prob, out["loc_preds"], det.anchors, nms_threshold=det.nms_thresh,
+                                       nms_backend=b) for b in ("kernel", "plain")]
+        check(torch.equal(*dets), "det through the NMS kernel != through the plain NMS on the prepared val batch")
+        errs["nms_keep_mask"] = float((dets[0] - dets[1]).abs().max())
+        print(f"on this data: the matcher kernel == plain (b{B}, A = {iou.shape[1]}, "
+              f"{int(col_valid.sum())} GT columns), the det through the NMS kernel == through the plain NMS "
+              f"(b{B}, {int((dets[0][..., 0] >= 0).sum())} kept rows)")
+        del bundle, det, out, cls_prob, dets, loader, val_loader, batch, vbatch, iou
+        torch.cuda.empty_cache()
+
+        # 4. multi_train on the .rec-derived store; 5. multi_eval on the prepared directory
+        net = ["--network", "resnet-50_multi", "--data-shape", f"3,{H},{W}", "--num-classes", str(NUM_CLASSES),
+               "--batch-size", str(B), "--device", dev.type]
+        steps, val_batches = 2 * n_train // B, -(-n_val // B)
+        jsonl = work / "train.jsonl"
+        state = stage("multi_train", lambda: counted(lambda: multi_train.main(net + [
+            "--compute-dtype", "bfloat16", "--seg-normalize", "valid", "--lr", "5e-4", "--end-epoch", "2",
+            "--eval-every", "1", "--checkpoint-every", "2", "--log-every", "1",
+            "--dataset-root", str(from_rec / "train.drec"), "--model-dir", str(work / "model"),
+            "--metrics-jsonl", str(jsonl)]), steps, 2 * val_batches, 2 * (n_train + n_val),
+            f"multi_train --dataset-root (the .rec-derived .drec) b{B} bf16 {H}x{W}, 2 epochs"))
+        check(state.step == steps, f"multi_train: step {state.step}")
+        rows = [json.loads(line) for line in jsonl.read_text().splitlines()]
+        for r in (r for r in rows if r["split"] == "val"):
+            for k in ("mAP", "mIoU", "accuracy"):
+                check(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0, f"multi_train val epoch {r['epoch']} {k}")
+        del state
+        results = work / "results"
+        res = stage("multi_eval", lambda: counted(lambda: multi_eval.main(net + [
+            "--dataset-root", str(prep), "--model-dir", str(work / "model"), "--write-results", str(results),
+            "--instance-eval"]), 0, val_batches, n_val, "multi_eval --dataset-root (the prepared directory) "
+                                                        "--write-results --instance-eval"))
+        for k in ("mAP", "mIoU", "accuracy", "instAP", "instAP50"):
+            check(np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0, f"multi_eval {k} = {res.get(k)}")
+        print(f"multi_train {secs['multi_train']:.3f} s ({steps} steps, {2 * val_batches} eval batches, checkpoint), "
+              f"multi_eval {secs['multi_eval']:.3f} s: mAP {res['mAP']:.6f}, mIoU {res['mIoU']:.6f}, instAP "
+              f"{res['instAP']:.6f}, instAP50 {res['instAP50']:.6f} [{label}]")
+
+        # 6. the official scores of the full-resolution result PNGs
+        def score():
+            pairs = []
+            for s in stems["val"]:
+                pred = image_io.imread(str(results / f"{s}_leftImg8bit_pred.png"), image_io.IMREAD_UNCHANGED)
+                inst = image_io.imread(str(prep / "SegmentationInstance" / f"{s}_gtFine_instanceIds.png"),
+                                       image_io.IMREAD_UNCHANGED).astype(np.int64)
+                check(pred.shape == raw_hw and pred.dtype == np.uint8, f"{s}: result PNG {pred.shape} {pred.dtype}")
+                gt = image_io.resize_nearest(np.where(inst >= 1000, inst // 1000, inst).astype(np.uint8), pred.shape)
+                pairs.append((pred, gt))
+            return pairs, cityscapes_eval.evaluate_pairs(pairs)
+
+        pairs, scores = stage("score", score)
+        cls = {k: v for k, v in scores["classScores"].items() if not np.isnan(v)}
+        check(cls and all(0.0 <= v <= 1.0 for v in cls.values()), f"class scores {scores['classScores']}")
+        for k in ("averageScoreClasses", "averageScoreCategories"):
+            check(np.isfinite(scores[k]) and 0.0 <= scores[k] <= 1.0, f"{k} = {scores[k]}")
+        self_scores = cityscapes_eval.evaluate_pairs([(gt, gt) for _, gt in pairs])
+        present = {int(v) for _, gt in pairs for v in np.unique(gt)}
+        want_names = {n for n in self_scores["classScores"] if name2label[n].id in present}
+        check(want_names and all(self_scores["classScores"][n] == 1.0 for n in want_names)
+              and self_scores["averageScoreClasses"] == 1.0, f"GT against itself: {self_scores['classScores']}")
+        print(f"official scores of {len(pairs)} full-resolution result PNGs ({raw_hw[0]}x{raw_hw[1]}) against the "
+              f"instanceIds' labelIds: averageScoreClasses {scores['averageScoreClasses']:.6f} over {len(cls)} "
+              f"classes, averageScoreCategories {scores['averageScoreCategories']:.6f}; each GT against itself 1.0 "
+              f"on its {len(want_names)} classes; {secs['score']:.3f} s [{label}]")
+
+        # 7. visualize_net at the two golden shapes; voc_palette both ways
+        def visualize():
+            lasts = {}
+            for shape in ((512, 1024), (320, 640)):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    visualize_net.main(["--network", "resnet-50_multi", "--data-shape", f"3,{shape[0]},{shape[1]}",
+                                        "--num-classes", str(NUM_CLASSES)])
+                lasts[shape] = buf.getvalue().splitlines()[-1]
+            return lasts
+
+        lasts = stage("visualize_net", visualize)
+        for shape, n in (((512, 1024), 12264), ((320, 640), 4822)):
+            check(lasts[shape] == f"task=multi anchors={n} input={shape[0]}x{shape[1]}", f"visualize_net: {lasts[shape]}")
+        rng = np.random.RandomState(12)
+        idx = rng.randint(0, 21, (H // 2, W // 2))
+        idx[:4] = 255
+        (work / "mask.png").write_bytes(make_png(idx, 3, 8, voc_palette.voc_palette()))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            voc_palette.main([str(work / "mask.png"), str(work / "index.png")])
+            voc_palette.main(["--colorize", str(work / "index.png"), str(work / "colour.png")])
+        check(np.array_equal(image_io.imread(str(work / "index.png"), image_io.IMREAD_UNCHANGED), idx),
+              "voc_palette: palette -> index lost the indices")
+        check(np.array_equal(image_io.imread(str(work / "colour.png")), image_io.imread(str(work / "mask.png"))),
+              "voc_palette: index -> palette is not the mask's colours")
+        print(f"visualize_net resnet-50_multi: '{lasts[(512, 1024)]}', '{lasts[(320, 640)]}' (meta device, "
+              f"{secs['visualize_net']:.3f} s for both); voc_palette palette -> index -> palette round trip equal")
+        record_ = {"seconds": {k: round(v, 3) for k, v in secs.items()},
+                   "seconds_per_scene_prepare": secs["prepare_cityscapes"] / (n_train + n_val),
+                   "polygons": len(objs), "scores": {k: scores[k] for k in ("averageScoreClasses",
+                                                                           "averageScoreCategories")},
+                   "eval": {k: res[k] for k in ("mAP", "mIoU", "accuracy", "instAP", "instAP50")}}
+        print(f"phase 12 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + f" [{label}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(json.dumps({"prepare_phase": record_}))
+    sys.stdout.flush()
+    return launches, errs, record_
+
+
 KERNEL_KINDS = (  # first match wins, on the lower-cased kernel name
     ("matcher", MATCH_KERNELS),
     ("nms", NMS_KERNELS),
@@ -2526,6 +2811,10 @@ def main():
         return 0
     if "--options-only" in sys.argv[1:]:
         timed_phase("11 inceptionv3, seg_fast, remat, data parallelism", options_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--prepare-only" in sys.argv[1:]:
+        timed_phase("12 data preparation", prepare_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -2717,20 +3006,23 @@ def main():
     ssd_launches, ssd_times, ssd_errs = timed_phase("10 plain SSD", ssd_phase, dev, label)
     opt_launches, opt_times, opt_errs = timed_phase("11 inceptionv3, seg_fast, remat, data parallelism",
                                                     options_phase, dev, label)
+    prep_launches, prep_errs, _ = timed_phase("12 data preparation", prepare_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 11. results: launches summed over the paths, each counted from 0
+    # ---- 13. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
-                                 "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"]},
+                                 "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
+                                 "prepare": prep_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
-                                   "options": opt_launches["bipartite_match"]},
+                                   "options": opt_launches["bipartite_match"],
+                                   "prepare": prep_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
-                                   **ref_launches["jpeg_ycc_to_bgr"]}}
+                                   **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"]}}
     colour = decoder.pop("colour_kernel")
 
     shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "plain_ms", "before_device_us",
@@ -2766,10 +3058,12 @@ def main():
     print(json.dumps({"reference_weights": reference}))
     print(json.dumps({"kernels": [
         entry("nms_keep_mask", "dspnet_torch/csrc/nms.cu", "dspnet_tpu/ops/nms_pallas.py:30",
-              by_path["nms_keep_mask"], max(max_err, ssd_errs["nms_keep_mask"], opt_errs["nms_keep_mask"]),
+              by_path["nms_keep_mask"], max(max_err, ssd_errs["nms_keep_mask"], opt_errs["nms_keep_mask"],
+                                            prep_errs["nms_keep_mask"]),
               nms_times, "B=1 K=400"),
         entry("bipartite_match", "dspnet_torch/csrc/match.cu", "dspnet_tpu/ops/matching_pallas.py:42",
-              by_path["bipartite_match"], max(match_err, ssd_errs["bipartite_match"], opt_errs["bipartite_match"]),
+              by_path["bipartite_match"], max(match_err, ssd_errs["bipartite_match"], opt_errs["bipartite_match"],
+                                              prep_errs["bipartite_match"]),
               match_times, "B=8 A=12264 num_gt=8"),
     ]}))
     print_phase_seconds()

@@ -10,10 +10,18 @@ it carries the codecs its data path needs.
   decode here (JPEG to libjpeg-turbo's pixels, as cv2 gives them); anything
   else raises. On the card the loader decodes JPEG with nvJPEG instead
   (``data/jpeg_cuda.py``); this module is the CPU path and the host tools'.
-* The PNG reader takes 8-bit gray, RGB and RGBA and 16-bit gray (and 16-bit
-  colour), non-interlaced, with all five row filters, so it reads the PNGs
-  cv2 writes (libpng picks a filter per row). Sub and Up are vectorised;
-  Average and Paeth depend on the pixel to their left and loop over the row.
+* The PNG reader takes every colour type at every bit depth PNG allows
+  (gray 1/2/4/8/16, RGB 8/16, palette 1/2/4/8 with ``PLTE`` and ``tRNS``,
+  gray+alpha and RGBA 8/16), non-interlaced, with all five row filters, so
+  it reads the PNGs cv2 writes (libpng picks a filter per row) and VOC's
+  palette masks. Sub and Up are vectorised; Average and Paeth depend on the
+  pixel to their left and loop over the row. What each flag returns is what
+  cv2 5.0.0's libpng reader returns (measured, ``tests/test_torch_tools.py``):
+  ``IMREAD_UNCHANGED`` keeps 16 bits, scales gray below 8 bits to 0..255,
+  expands a palette to BGR (BGRA with ``tRNS``), turns an RGB ``tRNS`` into
+  alpha and gray+alpha into BGRA; ``IMREAD_GRAYSCALE`` converts colour with
+  libpng's own ``rgb_to_gray`` (not ``cvtColor``'s weights), see
+  :func:`rgb_to_gray`.
 * :func:`imwrite` picks the format by extension, as ``cv2.imwrite`` does:
   ``.jpg`` / ``.jpeg`` write baseline JPEG at quality 95 with 4:2:0 chroma
   (cv2's defaults), any other name PNG with filter 0 (None). PNG is
@@ -35,13 +43,23 @@ from dspnet_torch.data import jpeg
 
 # cv2's flag values, so call sites read like the JAX package's
 IMREAD_UNCHANGED = -1
+IMREAD_GRAYSCALE = 0
 IMREAD_COLOR = 1
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 JPEG_MAGIC = b"\xff\xd8\xff"
 
-# PNG colour type -> channels (0 gray, 2 RGB, 6 RGBA)
-_CHANNELS = {0: 1, 2: 3, 6: 4}
+# PNG colour type -> (stored channels, bit depths the standard allows):
+# 0 gray, 2 RGB, 3 palette index, 4 gray+alpha, 6 RGBA
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)),
+                6: (4, (8, 16))}
+
+# libpng's rgb_to_gray weights as cv2 sets them (png_set_rgb_to_gray(png,
+# 1, 0.299, 0.587)): 0.299 and 0.587 in libpng's fixed point (x 100000),
+# scaled to 15 bits with truncation; blue takes what is left
+GRAY_RED = 29900 * 32768 // 100000
+GRAY_GREEN = 58700 * 32768 // 100000
+GRAY_BLUE = 32768 - GRAY_RED - GRAY_GREEN
 
 
 # ----------------------------------------------------------------- decode
@@ -97,12 +115,22 @@ def _unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> the stored array: (H, W) gray, (H, W, 3) RGB or (H, W, 4)
-    RGBA; uint8, or uint16 for 16-bit images."""
+def _unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """(H, stride) packed samples below 8 bits -> (H, width) uint8, most
+    significant bits first."""
+    per = 8 // depth
+    shifts = (np.arange(per)[::-1] * depth).astype(np.uint8)
+    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(rows.shape[0], -1)[:, :width]
+
+
+def read_png(data: bytes):
+    """PNG bytes -> the samples as stored, (H, W, channels) uint8 (any depth
+    up to 8, not scaled) or uint16, with the colour type, the bit depth and
+    the palette ((n, 3) uint8) and ``tRNS`` bytes, each None when absent."""
     if data[:8] != PNG_MAGIC:
         raise ValueError("not a PNG stream")
-    pos, header, idat = 8, None, []
+    pos, header, idat, palette, trns = 8, None, [], None, None
     while True:
         if pos + 8 > len(data):
             raise ValueError("PNG stream ends before IEND")
@@ -114,6 +142,12 @@ def decode_png(data: bytes) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            if length % 3 or not 0 < length <= 768:
+                raise ValueError(f"PNG palette of {length} bytes")
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -123,45 +157,111 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG stream has no IHDR")
     width, height, depth, color, _, _, interlace = header
-    if color not in _CHANNELS or depth not in (8, 16):
-        raise ValueError(f"PNG colour type {color} at bit depth {depth} is not supported "
-                         "(8/16-bit gray, RGB and RGBA are)")
+    if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
+        raise ValueError(f"PNG colour type {color} at bit depth {depth} is not valid PNG")
     if interlace:
         raise ValueError("interlaced PNG is not supported")
-    channels, nbytes = _CHANNELS[color], depth // 8
-    bpp = channels * nbytes
-    pix = _unfilter(zlib.decompress(b"".join(idat)), height, width * bpp, bpp)
-    if nbytes == 2:
+    if color == 3 and palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    channels = _COLOR_TYPES[color][0]
+    bits = channels * depth
+    stride = (width * bits + 7) // 8
+    pix = _unfilter(zlib.decompress(b"".join(idat)), height, stride, max(1, bits // 8))
+    if depth == 16:
         pix = pix.view(">u2").astype(np.uint16)
-    img = pix.reshape(height, width, channels)
-    return img[..., 0] if channels == 1 else img
+    elif depth < 8:
+        pix = _unpack_bits(pix, width, depth)
+    return pix.reshape(height, width, channels), color, depth, palette, trns
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> the array ``cv2.imdecode(..., IMREAD_UNCHANGED)`` gives,
+    in RGB(A) order: (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA; uint8, or
+    uint16 for 16-bit images. Gray below 8 bits is scaled to 0..255; a
+    palette is expanded (to RGBA with a ``tRNS`` chunk); an RGB ``tRNS``
+    colour becomes alpha 0 (elsewhere the maximum); gray+alpha becomes RGBA;
+    a gray ``tRNS`` is ignored."""
+    pix, color, depth, palette, trns = read_png(data)
+    if color == 0:
+        if depth < 8:
+            pix = pix * np.uint8(255 // ((1 << depth) - 1))
+        return pix[..., 0]
+    if color == 3:
+        idx = pix[..., 0]
+        if int(idx.max(initial=0)) >= len(palette):
+            raise ValueError(f"PNG index {int(idx.max())} past its {len(palette)}-entry palette")
+        rgb = palette[idx]
+        if trns is None:
+            return rgb
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:len(trns)] = np.frombuffer(trns[:256], np.uint8)
+        return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
+    if color == 2 and trns is not None and len(trns) == 6:
+        key = np.frombuffer(trns, ">u2").astype(pix.dtype)
+        top = np.iinfo(pix.dtype).max
+        alpha = np.where((pix == key).all(-1), 0, top).astype(pix.dtype)
+        return np.concatenate([pix, alpha[..., None]], axis=-1)
+    if color == 4:
+        return pix[..., [0, 0, 0, 1]]
+    return pix
+
+
+def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3) RGB uint8 or uint16 -> gray of the same dtype, libpng's
+    ``png_do_rgb_to_gray`` without gamma, as cv2's PNG reader runs it for
+    ``IMREAD_GRAYSCALE``: a pixel with R == G == B keeps its value; any other
+    is (rc R + gc G + bc B) >> 15 with the 15-bit weights above, truncated at
+    8 bits and rounded (+16384) at 16 bits."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half = 16384 if rgb.dtype == np.uint16 else 0
+    mixed = (GRAY_RED * r + GRAY_GREEN * g + GRAY_BLUE * b + half) >> 15
+    return np.where((r == g) & (g == b), r, mixed).astype(rgb.dtype)
 
 
 def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
     """Encoded PNG or JPEG bytes -> array, like ``cv2.imdecode``.
     ``IMREAD_COLOR``: (H, W, 3) uint8 BGR (gray replicated, alpha dropped,
     16-bit reduced to its high byte as libpng's strip_16 does);
+    ``IMREAD_GRAYSCALE``: (H, W) uint8 (colour PNGs through
+    :func:`rgb_to_gray` before the 16-bit reduction; a JPEG's luma plane);
     ``IMREAD_UNCHANGED``: the stored array, colour as BGR / BGRA."""
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE, IMREAD_UNCHANGED):
+        raise ValueError(f"flags must be IMREAD_COLOR, IMREAD_GRAYSCALE or IMREAD_UNCHANGED, got {flags}")
     data = bytes(buf)
     if data[:8] == PNG_MAGIC:
         img = decode_png(data)
-        if img.ndim == 3:
+        if flags == IMREAD_GRAYSCALE and img.ndim == 3:
+            img = rgb_to_gray(img[..., :3])
+        elif img.ndim == 3:
             img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # RGB(A) -> BGR(A)
     elif data[:3] == JPEG_MAGIC:
-        # gray, or BGR already; the Exif orientation applied as cv2 does it,
-        # under IMREAD_COLOR only
-        img = jpeg.decode(data, apply_orientation=flags == IMREAD_COLOR)
+        if flags == IMREAD_GRAYSCALE:
+            img = _jpeg_luma(data)
+        else:
+            # gray, or BGR already; the Exif orientation applied as cv2 does
+            # it, unless the image is read unchanged
+            img = jpeg.decode(data, apply_orientation=flags == IMREAD_COLOR)
     else:
         raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
     if flags == IMREAD_UNCHANGED:
         return img
-    if flags != IMREAD_COLOR:
-        raise ValueError(f"flags must be IMREAD_COLOR or IMREAD_UNCHANGED, got {flags}")
     if img.dtype == np.uint16:
         img = (img >> 8).astype(np.uint8)
+    if flags == IMREAD_GRAYSCALE:
+        return img
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _jpeg_luma(data: bytes) -> np.ndarray:
+    """A JPEG under ``IMREAD_GRAYSCALE``: libjpeg's gray output of a YCbCr
+    (or gray) stream is its luma plane as decoded, turned by the Exif
+    orientation."""
+    planes, info = jpeg.decode_planes(data)
+    if info.rgb:
+        raise ValueError("IMREAD_GRAYSCALE of an RGB-coded JPEG is not supported")
+    return np.ascontiguousarray(jpeg.orient(planes[0], info.orientation))
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:

@@ -7,23 +7,30 @@ of ``dspnet_tpu/evaluate/cityscapes_eval.py``).
   (``torch.bincount``) into an int64 accumulator, so a long stream cannot
   wrap it as the JAX package's int32 one can.
 
+* :func:`evaluate_pairs` — the official pixel-level scores
+  (evalPixelLevelSemanticLabeling.py, JAX ``:65-118``): the 34-id confusion
+  matrix of (prediction, ground truth) labelId images, per-class IoU
+  ``tp / (tp + fp + fn)`` over the evaluated ids (false positives counted
+  only on pixels whose ground truth is an evaluated class, false negatives
+  over every prediction), the category IoUs and their means;
+
 * :func:`write_result_png_from_probs` / :func:`write_result_png` — the
   Cityscapes result PNGs of ``--write-results`` (JAX ``:119-151``): the
   class probabilities upsampled to full resolution (bilinear, align
   corners) on their device, then argmax and the trainId -> labelId LUT; or,
   without probabilities, the argmax map upsampled nearest. The PNG is
   written by ``data/image_io.py``.
-
-The official pixel-level scoring script is not ported.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
 from dspnet_torch.data import image_io
-from dspnet_torch.data.cs_labels import TRAINID_TO_LABELID
+from dspnet_torch.data.cs_labels import TRAINID_TO_LABELID, id2label, labels
 from dspnet_torch.models.layers import resize_bilinear_align_corners
 
 NUM_IDS = 256  # label images are uint8
@@ -52,6 +59,63 @@ def add_to_confusion_matrix_torch(
     idx = groundtruth.reshape(-1).long() * NUM_IDS + prediction.reshape(-1).long()
     counts = torch.bincount(idx, minlength=NUM_IDS * NUM_IDS)
     return conf + counts.reshape(NUM_IDS, NUM_IDS)
+
+
+def _eval_label_ids():
+    return [l.id for l in labels if l.id >= 0 and not l.ignoreInEval]
+
+
+def class_iou_scores(conf: np.ndarray) -> Dict[str, float]:
+    """Official per-class IoU from a labelId confusion matrix (rows ground
+    truth, columns prediction); NaN for a class with no pixel either way."""
+    eval_ids = _eval_label_ids()
+    scores = {}
+    for i in eval_ids:
+        tp = float(conf[i, i])
+        fn = float(conf[i, :].sum()) - tp
+        # a prediction of class i on void ground truth is no false positive
+        fp = float(conf[eval_ids, i].sum()) - tp
+        denom = tp + fp + fn
+        scores[id2label[i].name] = tp / denom if denom > 0 else float("nan")
+    return scores
+
+
+def category_iou_scores(conf: np.ndarray) -> Dict[str, float]:
+    """Official per-category IoU: a category's evaluated ids pooled."""
+    eval_ids = _eval_label_ids()
+    scores = {}
+    for cat in sorted({id2label[i].category for i in eval_ids}):
+        ids = [i for i in eval_ids if id2label[i].category == cat]
+        tp = float(conf[np.ix_(ids, ids)].sum())
+        fn = float(conf[ids, :].sum()) - tp
+        fp = float(conf[np.ix_(eval_ids, ids)].sum()) - tp
+        denom = tp + fp + fn
+        scores[cat] = tp / denom if denom > 0 else float("nan")
+    return scores
+
+
+def evaluate_pairs(pairs: Iterable[Tuple[np.ndarray, np.ndarray]]) -> Dict:
+    """Official scores of (prediction labelId image, ground-truth labelId
+    image) pairs: ``classScores`` / ``categoryScores`` and their means over
+    the classes / categories that are not NaN, ``num_images`` and the
+    ``confusion`` matrix (int64, NUM_IDS x NUM_IDS)."""
+    conf = np.zeros((NUM_IDS, NUM_IDS), np.int64)
+    n = 0
+    for pred, gt in pairs:
+        add_to_confusion_matrix(pred, gt, conf)
+        n += 1
+    classes = class_iou_scores(conf)
+    cats = category_iou_scores(conf)
+    vals = [v for v in classes.values() if not np.isnan(v)]
+    cvals = [v for v in cats.values() if not np.isnan(v)]
+    return {
+        "num_images": n,
+        "classScores": classes,
+        "averageScoreClasses": float(np.mean(vals)) if vals else float("nan"),
+        "categoryScores": cats,
+        "averageScoreCategories": float(np.mean(cvals)) if cvals else float("nan"),
+        "confusion": conf,
+    }
 
 
 def _write_labelids(trainid: torch.Tensor, out_path: str) -> str:

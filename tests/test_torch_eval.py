@@ -308,6 +308,61 @@ def test_result_pngs_match_jax(rng, tmp_path, full_hw):
             assert not differ.any()
 
 
+def _same_scores(got, want):
+    assert got.keys() == want.keys()
+    assert got["num_images"] == want["num_images"]
+    np.testing.assert_array_equal(got["confusion"], want["confusion"])
+    for k in ("classScores", "categoryScores"):
+        assert got[k].keys() == want[k].keys()
+        np.testing.assert_array_equal(list(got[k].values()), list(want[k].values()))
+    for k in ("averageScoreClasses", "averageScoreCategories"):
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("n, hw", [(4, (64, 128)), (1, (17, 23)), (3, (256, 512))])
+def test_evaluate_pairs_matches_jax(n, hw):
+    """The official pixel-level scores of the port on the scenes of
+    ``tests/test_official_cityscapes.py`` (evaluated and ignored ids, void
+    ground truth) equal the JAX function's: the confusion matrix, every
+    class and category IoU (NaN where a class has no pixel), the means."""
+    from tests.test_official_cityscapes import _scenes
+
+    scenes = _scenes(np.random.RandomState(5), n=n, hw=hw)
+    _same_scores(cityscapes_eval.evaluate_pairs(scenes), jce.evaluate_pairs(scenes))
+
+
+def test_class_and_category_scores_match_jax(rng):
+    """``class_iou_scores`` / ``category_iou_scores`` on random confusion
+    matrices, one with absent classes (NaN), and ``_eval_label_ids``."""
+    assert cityscapes_eval._eval_label_ids() == jce._eval_label_ids()
+    for sparse in (False, True):
+        conf = rng.randint(0, 1000, (256, 256)).astype(np.int64)
+        if sparse:
+            conf[:, [7, 24, 26]] = 0
+            conf[[7, 24, 26], :] = 0
+        for ours, theirs in ((cityscapes_eval.class_iou_scores, jce.class_iou_scores),
+                             (cityscapes_eval.category_iou_scores, jce.category_iou_scores)):
+            got, want = ours(conf), theirs(conf)
+            assert got.keys() == want.keys()
+            np.testing.assert_array_equal(list(got.values()), list(want.values()))
+        assert np.isnan(cityscapes_eval.class_iou_scores(conf)["road"]) == sparse
+
+
+def test_evaluate_pairs_ground_truth_against_itself():
+    """Each ground truth scored against itself gives 1.0 on every evaluated
+    class present and NaN on the absent ones; an empty stream gives NaN means."""
+    from tests.test_official_cityscapes import _scenes
+
+    scenes = _scenes(np.random.RandomState(3), n=2)
+    res = cityscapes_eval.evaluate_pairs([(gt, gt) for _, gt in scenes])
+    present = {int(v) for _, gt in scenes for v in np.unique(gt)}
+    for name, v in res["classScores"].items():
+        assert v == 1.0 if name2label[name].id in present else np.isnan(v)
+    assert res["averageScoreClasses"] == 1.0 == res["averageScoreCategories"]
+    empty = cityscapes_eval.evaluate_pairs([])
+    assert empty["num_images"] == 0 and np.isnan(empty["averageScoreClasses"])
+
+
 def _instance_case(rng, H=48, W=96):
     """An instanceIds map (car / person / rider instances, a car group
     region, void pixels, a tiny instance under the region size) and

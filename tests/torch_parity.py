@@ -1,9 +1,14 @@
 """Shared helpers for the tests of the PyTorch port: seeded numpy weights for
-a flax module, handed to both packages, and seeded NMS rows. jax is imported
-only where a flax module is read, so the NMS helpers also serve the CUDA
-tests on a machine without jax."""
+a flax module, handed to both packages, seeded NMS rows, and seeded data on
+disk (a prepared Cityscapes layout, a raw gtFine tree, PNGs of any colour
+type). jax is imported only where a flax module is read, so the other
+helpers also serve the CUDA tests and ``chip_smoke.py`` on a machine
+without jax."""
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -153,6 +158,154 @@ def write_cityscapes_layout(root, splits, hw=(64, 128), seed=0, max_objects=6, e
     with ThreadPoolExecutor(workers) as pool:
         list(pool.map(write, jobs))
     return out
+
+
+#: a raw Cityscapes scene's labels: stuff first (large, drawn under the
+#: rest), then things, '...group' labels, an id -1 class (license plate),
+#: void classes and a label the table does not know
+GTFINE_STUFF = ("road", "sidewalk", "building", "vegetation", "sky", "terrain", "fence", "pole")
+GTFINE_THINGS = ("car", "car", "car", "person", "person", "rider", "bicycle", "truck", "bus", "motorcycle",
+                 "train", "traffic sign", "traffic light", "cargroup", "persongroup", "bicyclegroup",
+                 "license plate", "ego vehicle", "out of roi", "dynamic", "unknown thing")
+
+
+def random_polygon(rng, hw, kind):
+    """One polygon (list of [x, y] ints) in an (H, W) frame, reaching past
+    the border at times: ``star`` (concave), ``tangle`` (self-intersecting),
+    ``box``, or a degenerate ``point`` / ``hline`` / ``vline`` / ``pair``."""
+    H, W = hw
+    cx, cy = rng.uniform(-0.1 * W, 1.1 * W), rng.uniform(-0.1 * H, 1.1 * H)
+    r = rng.uniform(4, 0.15 * min(H, W))
+    if kind == "star":
+        n = rng.randint(5, 40)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+        rad = r * rng.uniform(0.3, 1.0, n)
+        pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], -1)
+    elif kind == "tangle":
+        pts = np.stack([cx, cy]) + rng.uniform(-r, r, (rng.randint(4, 10), 2))
+    elif kind == "box":
+        w, h = rng.uniform(2, r, 2)
+        pts = np.array([[cx - w, cy - h], [cx + w, cy - h], [cx + w, cy + h], [cx - w, cy + h]])
+    elif kind == "point":
+        pts = np.array([[cx, cy]])
+    elif kind == "hline":
+        pts = np.array([[cx - r, cy], [cx + r, cy], [cx, cy]])
+    elif kind == "vline":
+        pts = np.array([[cx, cy - r], [cx, cy + r]])
+    else:  # pair
+        pts = np.array([[cx, cy], [cx + rng.uniform(-r, r), cy + rng.uniform(-r, r)]])
+    return np.floor(pts).astype(int).tolist()
+
+
+def gtfine_scene(rng, hw, n_objects):
+    """The polygons JSON of one raw scene (the gtFine ``*_polygons.json``
+    schema): ``n_objects`` objects, the stuff first, about one in ten thing
+    marked ``deleted``."""
+    H, W = hw
+    objects = [{"label": "road", "polygon": [[-20, int(H * 0.55)], [W + 20, int(H * 0.5)],
+                                             [W + 20, H + 20], [-20, H + 20]]},
+               {"label": "sky", "polygon": [[0, 0], [W - 1, 0], [W - 1, int(H * 0.3)], [0, int(H * 0.35)]]}]
+    kinds = ("star",) * 6 + ("tangle", "box", "box", "point", "hline", "vline", "pair")
+    while len(objects) < n_objects:
+        stuff = len(objects) < 8
+        label = GTFINE_STUFF[rng.randint(len(GTFINE_STUFF))] if stuff else \
+            GTFINE_THINGS[rng.randint(len(GTFINE_THINGS))]
+        obj = {"label": label, "polygon": random_polygon(rng, hw, kinds[rng.randint(len(kinds))])}
+        if not stuff and rng.rand() < 0.1:
+            obj["deleted"] = 1
+        objects.append(obj)
+    return {"imgHeight": H, "imgWidth": W, "objects": objects}
+
+
+def write_gtfine_tree(root, jpeg_dir, splits, hw=(1024, 2048), seed=0, n_objects=100, jpeg_scale=0.5,
+                      workers=1):
+    """Write a raw Cityscapes release under ``root``:
+    ``gtFine/{split}/{city}/{stem}_gtFine_polygons.json`` and the 16-bit
+    ``disparity/{split}/{city}/{stem}_disparity.png``, both at ``hw`` (the
+    release's 1024x2048 by default), and into ``jpeg_dir`` the scene's image
+    at ``jpeg_scale`` as ``convert_cityscapes.sh`` makes it
+    (``{stem}_leftImg8bit.jpg``, the port's encoder at quality 95, 4:2:0):
+    the trainId colours of the polygons plus noise. ``splits``: {split:
+    number of scenes}. Returns {split: [stems]}."""
+    import json
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dspnet_torch.data import image_io, jpeg
+    from dspnet_torch.data.cs_labels import name2label, train_id_palette
+    from dspnet_torch.utils.raster import fill_poly
+
+    H, W = hw
+    h, w = int(round(H * jpeg_scale)), int(round(W * jpeg_scale))
+    rng = np.random.RandomState(seed)
+    os.makedirs(jpeg_dir, exist_ok=True)
+    out, jobs = {}, []
+    for split, n in splits.items():
+        out[split] = []
+        for i in range(n):
+            city = f"{split}city{i % 3}"
+            stem = f"{city}_{i:06d}_000019"
+            out[split].append(stem)
+            yy = np.linspace(0.0, 1.0, H)[:, None]
+            disp = 2000 + 18000 * yy ** 2 + rng.uniform(0, 400, (H, W))
+            jobs.append((split, city, stem, gtfine_scene(rng, hw, n_objects), disp.astype(np.uint16),
+                         rng.randint(0, 24, (h, w, 3))))
+
+    palette = train_id_palette()[:, ::-1].astype(np.int64)  # BGR
+
+    def write(job):
+        split, city, stem, scene, disp, noise = job
+        for kind, name, data in (("gtFine", "gtFine_polygons.json", None), ("disparity", "disparity.png", disp)):
+            d = os.path.join(root, kind, split, city)
+            os.makedirs(d, exist_ok=True)
+            if data is None:
+                with open(os.path.join(d, f"{stem}_{name}"), "w") as f:
+                    json.dump(scene, f)
+            else:
+                image_io.imwrite(os.path.join(d, f"{stem}_{name}"), data)
+        tid = np.full((h, w), 255, np.uint8)
+        for obj in scene["objects"]:
+            label = name2label.get(obj["label"].removesuffix("group"))
+            if label is not None and 0 <= label.trainId < 255 and not obj.get("deleted"):
+                pts = np.floor(np.asarray(obj["polygon"], np.float64) * jpeg_scale).astype(np.int32)
+                fill_poly(tid, pts, label.trainId)
+        img = np.clip(palette[tid] + noise, 0, 255).astype(np.uint8)
+        with open(os.path.join(jpeg_dir, f"{stem}_leftImg8bit.jpg"), "wb") as f:
+            f.write(jpeg.encode(img, 95))
+
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(write, jobs))
+    return out
+
+
+def _chunk(kind, body):
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def make_png(samples, color, depth, palette=None, trns=None):
+    """PNG bytes of ``samples`` (H, W) or (H, W, C) at any colour type and
+    bit depth, with an optional ``PLTE`` and ``tRNS``, every row with filter
+    0: the forms the port's encoder does not write (VOC's palette masks
+    among them)."""
+    s = np.asarray(samples)
+    s = s[..., None] if s.ndim == 2 else s
+    h, w, _ = s.shape
+    if depth == 16:
+        rows = s.astype(">u2").reshape(h, -1).view(np.uint8).reshape(h, -1)
+    elif depth == 8:
+        rows = s.astype(np.uint8).reshape(h, -1)
+    else:
+        per = 8 // depth
+        flat = s.reshape(h, -1).astype(np.uint8)
+        flat = np.concatenate([flat, np.zeros((h, (-flat.shape[1]) % per), np.uint8)], 1).reshape(h, -1, per)
+        rows = (flat << (np.arange(per)[::-1] * depth).astype(np.uint8)).sum(-1).astype(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
+    if palette is not None:
+        out += _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _chunk(b"tRNS", trns)
+    return out + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
 
 
 def flat_tree(tree) -> dict:
