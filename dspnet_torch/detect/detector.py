@@ -25,6 +25,14 @@ The network runs in ``dtype``; the class softmax, box decode and NMS run in
 float32 whatever that dtype is. On a CUDA device NMS is always the
 hand-written kernel (``ops/nms_cuda.py``).
 
+``devices=[...]`` (the JAX Detector's ``mesh=``) serves each batch over
+several devices: one replica of the served copy per device, the batch
+padded to a multiple of their number with copies of its last row, one
+contiguous block of rows per replica in order, each run under its own
+device and (on a card) its own stream, and the results gathered on
+``devices[0]`` with the padding sliced off, so b1 serves on any list. A
+list may name one card twice (two replicas sharing it on two streams).
+
 The detector never mutates the module it is given: it serves its own copy,
 cast to ``dtype`` on ``device`` and in eval mode, and ``update_weights``
 copies new weights into that copy (the JAX Detector's
@@ -55,6 +63,19 @@ from dspnet_torch.utils.precision import cast_floating
 MEAN_PIXELS = (123.68, 116.779, 103.939)
 
 
+class _Replica:
+    """One served copy of the network on one device, with its anchors, its
+    mean pixel and, when it shares the serving with others on a card, a
+    stream of its own."""
+
+    def __init__(self, model, anchors, mean_pixels, device, own_stream):
+        self.model = model
+        self.device = device
+        self.anchors = None if anchors is None else torch.as_tensor(anchors, device=device)
+        self.mean = torch.tensor(mean_pixels, dtype=torch.float32, device=device)
+        self.stream = torch.cuda.Stream(device) if own_stream and device.type == "cuda" else None
+
+
 class Detector:
     def __init__(
         self,
@@ -70,24 +91,34 @@ class Detector:
         seg_probabilities: bool = False,
         mean_pixels: Sequence[float] = MEAN_PIXELS,
         classes: Optional[Sequence[str]] = None,
+        devices: Optional[Sequence] = None,
     ):
         """Serves a copy of ``model`` cast to ``dtype`` on ``device`` (the
         card unless the caller asks for ``"cpu"``); ``model`` itself is left
         as it was. ``seg_probabilities``: also return the (B, H/4, W/4, C)
         float32 softmax of the seg head as ``seg_prob``, for the Cityscapes
         result-PNG writer (JAX ``detector.py:67-84,139-140``). ``classes``:
-        the names ``visualize_detection`` writes (class ids without)."""
+        the names ``visualize_detection`` writes (class ids without).
+        ``devices``: serve over these devices instead of ``device`` (one
+        replica each; results on ``devices[0]``)."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-        self.device = torch.device(device)
+        if devices is not None and not devices:
+            raise ValueError("devices must name at least one device")
+        self.devices = [torch.device(d) for d in devices] if devices else [torch.device(device)]
+        if len({d.type for d in self.devices}) > 1:
+            raise ValueError(f"devices must all be of one type, got {self.devices}")
+        self.device = self.devices[0]
         self.dtype = dtype
-        self.model = cast_floating(copy.deepcopy(model).to(self.device), dtype).eval()
-        self.model.requires_grad_(False)
-        self.anchors = (None if anchors is None  # seg-only model
-                        else torch.as_tensor(np.asarray(anchors, np.float32), device=self.device))
-        self.data_shape = tuple(data_shape)
         self.mean_pixels = tuple(mean_pixels)
-        self.mean = torch.tensor(self.mean_pixels, dtype=torch.float32, device=self.device)
+        served = cast_floating(copy.deepcopy(model).to(self.device), dtype).eval()
+        served.requires_grad_(False)
+        anchors = None if anchors is None else np.asarray(anchors, np.float32)  # None: seg-only
+        self._replicas = [_Replica(served if i == 0 else copy.deepcopy(served).to(d), anchors,
+                                   self.mean_pixels, d, len(self.devices) > 1)
+                          for i, d in enumerate(self.devices)]
+        self.model, self.anchors, self.mean = served, self._replicas[0].anchors, self._replicas[0].mean
+        self.data_shape = tuple(data_shape)
         self.classes = list(classes) if classes else None
         self.palette = train_id_palette()
         self.nms_thresh = nms_thresh
@@ -103,19 +134,24 @@ class Detector:
         its dtype and device; strict, like ``load_state_dict``."""
         if isinstance(weights, torch.nn.Module):
             weights = weights.state_dict()
-        self.model.load_state_dict(dict(weights), strict=True)
+        weights = dict(weights)
+        for rep in self._replicas:
+            if rep.stream is not None:  # the copy waits for the replica's frames in flight
+                torch.cuda.current_stream(rep.device).wait_stream(rep.stream)
+            rep.model.load_state_dict(weights, strict=True)
 
     # ------------------------------------------------------------- core
 
-    def _postprocess(self, out: dict) -> dict:
-        """Head outputs -> ``{"det": (B, K, 7) f32, "seg": (B, H/4, W/4) uint8}``."""
+    def _postprocess(self, out: dict, anchors) -> dict:
+        """Head outputs -> ``{"det": (B, K, 7) f32, "seg": (B, H/4, W/4) uint8}``,
+        decoded against ``anchors`` on the outputs' device."""
         results = {}
         if "cls_logits" in out:
             cls_prob = torch.softmax(out["cls_logits"].float(), dim=-1)  # (B, A, C)
             results["det"] = multibox_detection(
                 cls_prob.transpose(1, 2),
                 out["loc_preds"],
-                self.anchors,
+                anchors,
                 threshold=self.score_threshold,
                 nms_threshold=self.nms_thresh,
                 force_suppress=self.force_suppress,
@@ -132,7 +168,7 @@ class Detector:
     def predict(self, images) -> dict:
         """images (B, H, W, 3) preprocessed float (numpy or tensor)."""
         images = torch.as_tensor(images).to(self.device, self.dtype)
-        return self._postprocess(self.model(images))
+        return self._run_padded(lambda rep, x: self._postprocess(rep.model(x), rep.anchors), images)
 
     @torch.inference_mode()
     def predict_raw(self, raw_bgr) -> dict:
@@ -143,8 +179,47 @@ class Detector:
         if self.device.type == "cuda" and raw.device.type == "cpu":
             raw = raw.pin_memory()
         raw = raw.to(self.device, non_blocking=True)
-        images = raw.flip(-1).float() - self.mean
-        return self._postprocess(self.model(images.to(self.dtype)))
+
+        def run(rep, x):
+            images = x.flip(-1).float() - rep.mean
+            return self._postprocess(rep.model(images.to(self.dtype)), rep.anchors)
+
+        return self._run_padded(run, raw)
+
+    def _run_padded(self, fn, batch: torch.Tensor) -> dict:
+        """``fn(replica, rows)`` over the batch on ``self.device``: with one
+        replica a plain call; with n, the batch padded to a multiple of n with
+        copies of its last row (JAX ``_run_padded``), a contiguous block of
+        rows per replica, each under its device and stream, and the results
+        concatenated on ``self.device`` with the padding sliced off. Nothing
+        synchronises the host: each replica's stream waits for the batch on
+        the current stream, and the gather waits for each replica's stream."""
+        if len(self._replicas) == 1:
+            return fn(self._replicas[0], batch)
+        n, B = len(self._replicas), batch.shape[0]
+        pad = (-B) % n
+        if pad:
+            batch = torch.cat([batch, batch[-1:].expand(pad, *batch.shape[1:])])
+        parts = []
+        for rep, rows in zip(self._replicas, batch.chunk(n)):
+            if rep.stream is None:
+                parts.append(fn(rep, rows.to(rep.device)))
+                continue
+            home = torch.cuda.current_stream(rep.device)
+            with torch.cuda.device(rep.device):
+                # the batch was written on the current stream of devices[0],
+                # the replica's weights on its device's current stream
+                rep.stream.wait_stream(torch.cuda.current_stream(self.device))
+                rep.stream.wait_stream(home)
+                with torch.cuda.stream(rep.stream):
+                    if rep.device == self.device:
+                        rows.record_stream(rep.stream)  # read there after this call returns
+                    out = fn(rep, rows.to(rep.device, non_blocking=True))
+                home.wait_stream(rep.stream)
+                for v in out.values():
+                    v.record_stream(home)  # made on the replica's stream, read on its device's current
+            parts.append({k: v.to(self.device, non_blocking=True) for k, v in out.items()})
+        return {k: torch.cat([p[k] for p in parts])[:B] for k in parts[0]}
 
     @staticmethod
     def _filter_rows(rows: np.ndarray, det_threshold: float) -> np.ndarray:

@@ -82,13 +82,17 @@ class ServingPipeline:
     def __init__(self, detector, depth: int = 2, raw: bool = True):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
+        cuda = detector.device.type == "cuda"
+        if cuda and len(detector.devices) > 1:
+            # a slot's graph is captured on one stream of one device
+            raise ValueError("ServingPipeline serves a one-device Detector on a card; "
+                             f"this one has devices {detector.devices}")
         self.detector = detector
         self.depth = depth
         self.raw = raw
         self.wait_s = 0.0
         self._inflight: deque = deque()
         self._seq = 0
-        cuda = detector.device.type == "cuda"
         self._slots = [_Slot(detector.device) for _ in range(depth + 1)] if cuda else []
 
     def __len__(self) -> int:

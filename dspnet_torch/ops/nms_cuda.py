@@ -2,12 +2,19 @@
 
 ``nms_keep_mask`` replaces the TPU kernel
 ``dspnet_tpu/ops/nms_pallas.py::_nms_kernel`` (wrapper ``nms_keep_mask``).
-For a CUDA tensor it launches the hand-written kernel in ``csrc/nms.cu``
-(the suppression bitmask in shared memory, built by a thread block cluster
-per image, then a tile-by-tile greedy scan; the source note there says what
-bounds it on the card and what its design does about it). For a CPU tensor it
-runs ``nms_keep_mask_reference``, the plain PyTorch version. Any other
-device raises. There is no fallback between the two.
+It calls the registered operator ``dspnet::nms_keep_mask``
+(``torch.ops.dspnet.nms_keep_mask``): for a CUDA tensor the operator
+launches the hand-written kernel in ``csrc/nms.cu`` (the suppression bitmask
+in shared memory, built by a thread block cluster per image, then a
+tile-by-tile greedy scan; the source note there says what bounds it on the
+card and what its design does about it); for a CPU tensor it runs
+``nms_keep_mask_reference``, the plain PyTorch version. Any other device
+raises. There is no fallback between the two. Its fake implementation gives
+``torch.export`` and other tracers the (B, K) bool shape without running
+either, so an exported program (``tools/export_serving.py``) holds a call
+of the operator and launches the kernel when it runs on the card. Importing
+``dspnet_torch.ops`` registers the operator, which ``torch.export.load``
+needs before it reads such a program.
 
 The kernel is compiled with ``nvcc`` for sm_90a at first use, into
 ``build/`` at the repository root (``ops/_build.py``), and loaded with
@@ -26,8 +33,8 @@ import torch
 from dspnet_torch.ops import _build
 from dspnet_torch.ops.boxes import iou_matrix
 
-#: calls of ``nms_keep_mask`` that launched the kernel (one or two CUDA
-#: launches each); a caller may reset it to 0
+#: calls of the operator's CUDA implementation, each of which launched the
+#: kernel (one or two CUDA launches each); a caller may reset it to 0
 launches = 0
 #: calls of the plain version (``nms_keep_mask_reference``), on any device; a path
 #: on the card makes none, a caller may reset it to 0
@@ -162,16 +169,30 @@ def nms_keep_mask_reference(boxes, ids, valid, nms_threshold=0.5, force_suppress
         keep = new_keep
 
 
+@torch.library.custom_op("dspnet::nms_keep_mask", mutates_args=(), device_types="cpu")
+def _nms_op(boxes: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor, nms_threshold: float,
+            force_suppress: bool) -> torch.Tensor:
+    return nms_keep_mask_reference(boxes, ids, valid, nms_threshold, force_suppress)
+
+
+@_nms_op.register_kernel("cuda")
+def _nms_op_cuda(boxes, ids, valid, nms_threshold, force_suppress):
+    return _launch(boxes, ids, valid, nms_threshold, force_suppress)
+
+
+@_nms_op.register_fake
+def _nms_op_fake(boxes, ids, valid, nms_threshold, force_suppress):
+    return valid.new_empty(valid.shape, dtype=torch.bool)
+
+
 def nms_keep_mask(boxes, ids, valid, nms_threshold=0.5, force_suppress=False):
     """Batched keep mask. boxes (B, K, 4) f32, ids (B, K) f32 class ids,
-    valid (B, K) bool -> keep (B, K) bool.
+    valid (B, K) bool -> keep (B, K) bool, through ``dspnet::nms_keep_mask``.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version; any other device raises.
     """
     _check_shapes(boxes, ids, valid)
-    if boxes.device.type == "cuda":
-        return _launch(boxes, ids, valid, nms_threshold, force_suppress)
-    if boxes.device.type == "cpu":
-        return nms_keep_mask_reference(boxes, ids, valid, nms_threshold, force_suppress)
-    raise ValueError(f"nms_keep_mask runs on cuda or cpu tensors, got {boxes.device}")
+    if boxes.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"nms_keep_mask runs on cuda or cpu tensors, got {boxes.device}")
+    return _nms_op(boxes, ids, valid, float(nms_threshold), bool(force_suppress))

@@ -310,7 +310,9 @@ class MultiTaskSolver:
 
     def make_detector(self, state: TrainState, data_shape, **kwargs):
         """A ``Detector`` serving the state's current weights; refresh it with
-        ``detector.update_weights(solver.detector_variables(state))``."""
+        ``detector.update_weights(solver.detector_variables(state))``.
+        ``kwargs`` go to the Detector (``devices=[...]`` serves over several
+        devices, as the JAX solver passes ``mesh``)."""
         from dspnet_torch.detect.detector import Detector
 
         kwargs.setdefault("device", self.device)

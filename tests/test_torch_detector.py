@@ -91,7 +91,8 @@ def test_port_imports_no_jax():
                "dspnet_torch.models.dspnet", "dspnet_torch.utils.convert",
                "dspnet_torch.utils.precision", "dspnet_torch.utils.benchmark",
                "dspnet_torch.detect.detector", "dspnet_torch.train.losses",
-               "dspnet_torch.train.optim", "dspnet_torch.train.lr", "dspnet_torch.train.solver"]
+               "dspnet_torch.train.optim", "dspnet_torch.train.lr", "dspnet_torch.train.solver",
+               "dspnet_torch.tools.export_serving"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
