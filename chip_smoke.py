@@ -163,8 +163,23 @@ Phases (any failure ends the run with a non-zero exit):
      against the direct ctypes launch it wraps (B = 1 and 128, K = 400);
      ``Detector(devices=[cuda:0, cuda:0])`` at b1, b3 and b8 equal to the
      one-device Detector (float32, bit for bit) and its b8 ms;
- 14. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, the kernel results (the two TPU kernels' ports and
+ 14. the JAX CLIs' host loaders, the run scripts and the bench port
+     (resnet-50_multi 512x1024, seeded weights): ``ServingPipeline`` over
+     ``Detector(devices=[cuda:0, cuda:0])`` (a graph per replica per slot)
+     at b1, b3 and b8, depths 1 and 3, equal to the synchronous
+     device-list path bit for bit, and its b1 ms/frame beside the
+     one-device pipeline's; ``multi_train`` (2 b4 steps) and ``multi_eval``
+     with ``--loader python`` and ``--loader native --native-u8`` on 8 + 4
+     synthetic JPEGs (matcher, NMS, nvJPEG, colour kernel and plain-decode
+     counts per loader); ``dspnet_torch/scripts/run_multi.sh`` train, then
+     eval and demo side by side, with ``LOADER`` unset, in fresh processes
+     beside those runs; each loader's img/s alone and a native batch against a python
+     batch on the same samples within the JAX package's native-vs-python
+     bounds; ``dspnet_torch.bench``'s three modes (``bench.main``, in this
+     process), each JSON line printed; ``ops/nms.py``'s ``nms_keep`` on the
+     card against ``nms``;
+ 15. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, the kernel results (the two TPU kernels' ports and
      the colour kernel; each kernel's device, host, event and bound times at the main path's
      shapes, beside the baseline kernels' times from this run, and at phases
      10 and 11's shapes) and each phase's seconds with the script's total,
@@ -176,6 +191,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --options-only     # phases 1, 2 and 11 alone, no result line
     python3 chip_smoke.py --prepare-only     # phases 1, 2 and 12 alone, no result line
     python3 chip_smoke.py --export-only      # phases 1, 2 and 13 alone, no result line
+    python3 chip_smoke.py --host-loaders-only   # phases 1, 2 and 14 alone, no result line
 
 """
 
@@ -3008,6 +3024,335 @@ def deployment_phase(dev, label):
     return {"nms_keep_mask": parent_launches + child_launches}, record
 
 
+def host_loaders_phase(dev, label):
+    """Phase 14: the JAX CLIs' host loaders, the reference's run scripts, the
+    bench port and the standalone NMS at resnet-50_multi 512x1024 (seeded
+    weights, full width and depth), and first the device-list
+    ``ServingPipeline``. Returns ({kernel: {path: launches}}, record)."""
+    import os
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_eval, multi_train
+    from dspnet_torch.data import jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data.iterator import MultiTaskIterator
+    from dspnet_torch.data.native_loader import NativeMultiTaskIterator, native_available
+    from dspnet_torch.detect.detector import Detector
+    from dspnet_torch.detect.pipeline import ServingPipeline
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.ops.nms import nms, nms_keep
+
+    record, secs = {}, {}
+    by_path = {"nms_keep_mask": {}, "bipartite_match": {}, "jpeg_ycc_to_bgr": {}}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_host_", dir=ROOT / "build"))
+    rng = np.random.RandomState(14)
+
+    def run(pipe, frames):
+        out = [x for x in (pipe.submit(f, tag=i) for i, f in enumerate(frames)) if x is not None]
+        return out + list(pipe.drain())
+
+    try:
+        # ---- 14a. ServingPipeline over Detector(devices=[cuda:0, cuda:0]): one graph
+        # per replica per slot, against the synchronous device-list path, bf16
+        t0 = time.perf_counter()
+        bundle = create_model("resnet-50_multi", (H, W), NUM_CLASSES, device=dev,
+                              generator=torch.Generator().manual_seed(14))
+        backends = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        two = Detector(bundle.model, bundle.anchors, (H, W), devices=[dev, dev], dtype=torch.bfloat16)
+        one = Detector(bundle.model, bundle.anchors, (H, W), device=dev, dtype=torch.bfloat16)
+        nms_cuda.launches = nms_cuda.plain_calls = 0
+        sync_calls = graphs = 0
+        for depth in (1, 3):
+            pipe = ServingPipeline(two, depth=depth)
+            for b in (1, 3, 8):
+                frames = rng.randint(0, 256, (2 * (depth + 1) + 1, b, H, W, 3), np.uint8)
+                want = [{k: v.cpu().numpy() for k, v in two.predict_raw(f).items()} for f in frames]
+                sync_calls += len(frames)
+                got = run(pipe, frames)
+                graphs += 2 * (depth + 1)
+                ok = [t for t, _ in got] == list(range(len(frames))) and all(
+                    np.array_equal(r[k], w[k]) for (_, r), w in zip(got, want) for k in w)
+                record[f"device-list pipeline depth {depth} b{b} == sync"] = ok
+                check(ok, f"device-list ServingPipeline depth {depth} b{b} != the synchronous device-list path")
+            del pipe
+        expect = 2 * sync_calls + 2 * graphs  # a launch per replica a call; warm-up + capture a graph
+        check(nms_cuda.launches == expect and nms_cuda.plain_calls == 0,
+              f"device-list pipeline: {nms_cuda.launches} NMS launches (expected {expect}), "
+              f"{nms_cuda.plain_calls} plain")
+        print(f"ServingPipeline over Detector(devices=[cuda:0, cuda:0]) bf16 {H}x{W}: b1, b3, b8 at depths 1 and "
+              f"3 equal the synchronous device-list predict_raw bit for bit and in order; NMS launches "
+              f"{nms_cuda.launches} = 2 x {sync_calls} synchronous calls + 2 x {graphs} graph captures "
+              f"(one graph per replica per slot per shape), plain 0", flush=True)
+        pipes = {"one device": ServingPipeline(one, depth=3), "two replicas": ServingPipeline(two, depth=3)}
+        frames = rng.randint(0, 256, (40, 1, H, W, 3), np.uint8)
+        for p in pipes.values():
+            run(p, frames[:8])  # each slot captures
+        ms = {k: [] for k in pipes}
+        for _ in range(3):
+            for name, p in pipes.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run(p, frames[8:])
+                ms[name].append((time.perf_counter() - t1) / 32 * 1e3)
+        by_path["nms_keep_mask"]["device_list_pipeline"] = nms_cuda.launches
+        print("ServingPipeline depth 3, b1 frames (host uint8 in, numpy out), ms/frame in 3 turns: "
+              + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)}" for k, vs in ms.items()) + f" [{label}]")
+        record["pipeline_depth3_b1_ms_per_frame"] = ms
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = backends
+        del pipes, two, one, bundle
+        torch.cuda.empty_cache()
+        secs["device-list pipeline"] = time.perf_counter() - t0
+
+        # ---- 14b. multi_train / multi_eval --loader python and --loader native, with
+        # 14c, dspnet_torch/scripts/run_multi.sh train -> eval -> demo (LOADER unset: native),
+        # in fresh processes on a thread of its own meanwhile (the counters are this process's)
+        t0 = time.perf_counter()
+        B, n_train, n_val = 4, 8, 4
+        synth = work / "synth"
+        train_index = synthetic.build_dataset(str(synth / "train"), n_train, (H, W), seed=233)
+        env = dict(os.environ, PYTHON=sys.executable, MODEL_DIR=str(work / "run_multi"))
+        env.pop("LOADER", None)
+        script = str(ROOT / "dspnet_torch" / "scripts" / "run_multi.sh")
+        rdata = ["--synthetic", "4", "--synthetic-dir", str(work / "run_multi_data")]
+        runs = {"train": ["--end-epoch", "1", *rdata], "eval": rdata,
+                "demo": ["--images", ",".join(s_.image_path for s_ in train_index.samples[:2]),
+                         "--out-dir", str(work / "demo")]}
+        script_s, chain_err = {}, []
+
+        def run_chain():
+            # train, then eval and demo side by side (both read train's checkpoint)
+            for modes in (("train",), ("eval", "demo")):
+                t1 = time.perf_counter()
+                procs = {m: subprocess.Popen([script, m, "multi", *runs[m]], cwd=str(work), env=env, text=True,
+                                             stdout=subprocess.PIPE, stderr=subprocess.PIPE) for m in modes}
+                for m, proc in procs.items():
+                    _, err = proc.communicate(timeout=400)
+                    script_s[m] = time.perf_counter() - t1
+                    if proc.returncode != 0:
+                        chain_err.append(f"{m} exited {proc.returncode}: {err[-2000:]}")
+                    elif m == "train" and "using the native loader" not in err:
+                        chain_err.append("train did not use the native loader")
+                if chain_err:
+                    return
+
+        import threading
+
+        chain = threading.Thread(target=run_chain)
+        chain.start()
+        # meanwhile, on the host: a layout with a photograph's texture over the
+        # same kind of scenes, for the loaders alone and the native-vs-python gap
+        n_tex, textured = 16, {}
+
+        def build_textured():
+            t1 = time.perf_counter()
+            textured["index"] = synthetic.build_dataset(str(work / "textured"), n_tex, (H, W), seed=233,
+                                                        texture=True)
+            textured["s"] = time.perf_counter() - t1
+
+        tex_thread = threading.Thread(target=build_textured)
+        tex_thread.start()
+        check(native_available(dev), "native_available() is false on the card")
+        net = ["--network", "resnet-50_multi", "--data-shape", f"3,{H},{W}", "--num-classes", str(NUM_CLASSES),
+               "--batch-size", str(B), "--device", "cuda"]
+        train_data = ["--synthetic", str(n_train), "--synthetic-val", str(n_val), "--synthetic-dir", str(synth)]
+        val_data = ["--synthetic", str(n_val), "--synthetic-dir", str(synth)]
+        loaders = {}
+
+        def counted(fn, loader, what, steps, eval_batches, images):
+            nms_cuda.launches = matching_cuda.launches = nms_cuda.plain_calls = matching_cuda.plain_calls = 0
+            jpeg_cuda.images = jpeg.decodes = jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = 0
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t1
+            got = {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
+                   "plain_match": matching_cuda.plain_calls, "plain_nms": nms_cuda.plain_calls,
+                   "nvjpeg_images": jpeg_cuda.images, "plain_jpeg_decodes": jpeg.decodes,
+                   "jpeg_ycc_to_bgr": jpeg_cuda.color_launches, "plain_colour": jpeg_cuda.color_plain_calls}
+            python = loader == "python"
+            want = {"bipartite_match": steps, "nms_keep_mask": eval_batches, "plain_match": 0, "plain_nms": 0,
+                    "nvjpeg_images": 0 if python else images, "plain_jpeg_decodes": images if python else 0,
+                    "jpeg_ycc_to_bgr": 0 if python else images, "plain_colour": 0}
+            check(got == want, f"{what}: counts {got}, expected {want}")
+            print(f"{what}: {s:.2f} s; matcher {got['bipartite_match']} launches in {steps} train steps, NMS "
+                  f"{got['nms_keep_mask']} in {eval_batches} eval batches, plain 0 and 0; nvJPEG images "
+                  f"{got['nvjpeg_images']}, colour kernel {got['jpeg_ycc_to_bgr']}, plain JPEG decodes "
+                  f"{got['plain_jpeg_decodes']} (of {images} images read) [{label}]", flush=True)
+            for k in by_path:
+                path = f"{loader}_loader"
+                by_path[k][path] = by_path[k].get(path, 0) + got[k]
+            return out, s
+
+        for loader, extra in (("python", []), ("native", ["--native-u8"])):
+            md = str(work / f"model_{loader}")
+            st, _ = counted(lambda: multi_train.main(
+                net + train_data + ["--compute-dtype", "bfloat16", "--seg-normalize", "valid", "--lr", "5e-4",
+                                    "--end-epoch", "1", "--eval-every", "1", "--log-every", "1", "--model-dir", md,
+                                    "--loader", loader] + extra),
+                loader, f"multi_train --loader {loader} {' '.join(extra)}".strip(), n_train // B, 1, n_train + n_val)
+            check(st.step == n_train // B, f"--loader {loader}: step {st.step}")
+            res, _ = counted(lambda: multi_eval.main(net + val_data + ["--model-dir", md, "--loader", loader] + extra),
+                             loader, f"multi_eval --loader {loader} {' '.join(extra)}".strip(), 0, 1, n_val)
+            check(all(np.isfinite(res[k]) for k in ("mAP", "mIoU", "accuracy")), f"multi_eval {loader}: {res}")
+            loaders[loader] = {k: res[k] for k in ("mAP", "mIoU", "accuracy", "ms_per_batch")}
+
+        # still beside run_multi.sh (no timing here): a native batch against a
+        # python batch on the same samples, on the flat scenes and on the
+        # textured ones, with planted faults (the native batch moved by one
+        # pixel, and bilinear by half a pixel): flat colours hide such a shift
+        # from the JAX bounds, the texture does not
+        tex_thread.join()
+        check("index" in textured, "the textured layout was not written")
+        print(f"textured layout: {n_tex} images {H}x{W} (synthetic.texture_offsets over the scenes) written in "
+              f"{textured['s']:.2f} s on the host, beside 14b [{label}]", flush=True)
+        gaps = {}
+
+        def shifted(images, pixels):
+            one = np.concatenate([images[:, :, :1], images[:, :, :-1]], axis=2)
+            return one if pixels == 1 else 0.5 * (images + one)
+
+        for data, index in (("flat", train_index), ("textured", textured["index"])):
+            py = MultiTaskIterator(index, B, (H, W), enable_aug=True)
+            pb, pnames = py.next_batch()
+            nat = NativeMultiTaskIterator(index, B, (H, W), enable_aug=True, num_threads=8,
+                                          device_normalize=True, device=dev)
+            nb = nat.next_batch()
+            check(all(v.device.type == "cuda" for v in nb.values()) and nat.last_names == pnames,
+                  "native batch not on the card or not the python batch's samples")
+            nb = {k: v.cpu().numpy() for k, v in nb.items()}
+            nat.close()
+            gap = {}
+            for name, images in (("native", nb["images"]), ("native moved 1 px", shifted(nb["images"], 1)),
+                                 ("native moved 0.5 px", shifted(nb["images"], 0.5))):
+                diff = np.abs(images - pb["images"])
+                gap[name] = {"images_mean_abs": float(diff.mean()), "images_p99_abs": float(np.percentile(diff, 99))}
+            gap["native"].update(seg_mismatch=float(np.mean(nb["seg_label"] != pb["seg_label"])),
+                                 labels_max_abs=float(np.abs(nb["label_det"] - pb["label_det"]).max()))
+            gaps[data] = gap
+            g = gap["native"]
+            print(f"native (nvJPEG + the card's warp) vs python (plain decoder + cv2's warp in numpy), {data} "
+                  f"images, b{B} on the same samples and tables: images mean abs {g['images_mean_abs']:.4f} "
+                  f"(bound < 1.0), p99 {g['images_p99_abs']:.4f} (bound <= 16), seg mismatch "
+                  f"{g['seg_mismatch']:.5f} (bound < 0.02), labels max abs {g['labels_max_abs']:.3e} (bound "
+                  f"2e-4), the JAX package's native-vs-python bounds; planted faults: moved 1 px mean "
+                  f"{gap['native moved 1 px']['images_mean_abs']:.4f}, moved 0.5 px mean "
+                  f"{gap['native moved 0.5 px']['images_mean_abs']:.4f}", flush=True)
+            check(g["images_mean_abs"] < 1.0 and g["images_p99_abs"] <= 16.0 and g["seg_mismatch"] < 0.02
+                  and g["labels_max_abs"] <= 2e-4, f"native vs python outside the JAX bounds on {data}: {g}")
+        check(all(gaps["textured"][f]["images_mean_abs"] >= 1.0 for f in ("native moved 1 px", "native moved 0.5 px")),
+              f"a planted shift passes the JAX bounds on the textured images: {gaps['textured']}")
+
+        # ---- 14c. (joined) run_multi.sh train -> eval -> demo
+        chain.join()
+        check(not chain_err, f"run_multi.sh: {chain_err}")
+        check(len(os.listdir(work / "demo")) == 2, "run_multi.sh demo wrote no pictures")
+        print("dspnet_torch/scripts/run_multi.sh (LOADER unset: native) train -> eval and demo at resnet-50_multi "
+              f"{H}x{W}, exit 0 each: " + ", ".join(f"{k} {v:.1f} s" for k, v in script_s.items())
+              + f" (each a fresh process; eval and demo side by side after train, all beside 14b's CLI runs) "
+              f"[{label}]", flush=True)
+        record["run_multi_s"] = script_s
+        secs["CLIs and loader comparisons, run_multi.sh beside"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # each loader alone on the textured layout, after run_multi.sh:
+        # python two batches (nothing to warm up; the plain decoder and the
+        # numpy warp take about a second an image), native four epochs after a
+        # warm-up epoch
+        py = MultiTaskIterator(textured["index"], B, (H, W), enable_aug=True)
+        t1 = time.perf_counter()
+        n_py = sum(len(py.next_batch()[1]) for _ in range(2))
+        py_s = time.perf_counter() - t1
+        nat = NativeMultiTaskIterator(textured["index"], B, (H, W), enable_aug=True, num_threads=8, device=dev)
+        list(nat.epoch())  # warm: the first epoch's threads and buffers
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n_nat = sum(len(names) for _ in range(4) for batch, names in nat.epoch())
+        torch.cuda.synchronize()
+        nat_s = time.perf_counter() - t1
+        ips = {"python": n_py / py_s, "native": n_nat / nat_s}
+        print(f"loader alone at {H}x{W} with augmentation, textured JPEGs: python {ips['python']:.3f} img/s "
+              f"({n_py} images in {py_s:.3f} s, host decode + numpy warp, one thread), native "
+              f"{ips['native']:.3f} img/s ({n_nat} images in {nat_s:.3f} s, 4 epochs of {n_tex}, nvJPEG + warp on "
+              f"the card, 8 read threads) [{label}]", flush=True)
+        record["loaders"] = {"img_per_s_alone": ips, "images_timed": {"python": n_py, "native": n_nat},
+                             "native_vs_python": gaps, "eval": loaders}
+        secs["loaders alone"] = time.perf_counter() - t0
+
+        # ---- 14d. dspnet_torch.bench in its three modes: the default one as
+        # `python -m dspnet_torch.bench` in a fresh process (its launches are
+        # that process's, not counted here), then BENCH_TRAIN and BENCH_SERVE
+        # through bench.main, what that command runs, in this process (two
+        # process starts saved; their launches counted)
+        from dspnet_torch import bench
+
+        t0 = time.perf_counter()
+        bench_rows = {}
+        modes = ("BENCH_TRAIN", "BENCH_SERVE", "BENCH_SEG_FAST")
+        benv = {k: v for k, v in os.environ.items() if k not in modes}
+        proc = subprocess.run([sys.executable, "-m", "dspnet_torch.bench"], cwd=str(ROOT), env=benv,
+                              capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0, f"python -m dspnet_torch.bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+        check(len(lines) == 1, f"python -m dspnet_torch.bench printed {len(lines)} JSON lines")
+        print(lines[0], flush=True)
+        bench_rows["default"] = json.loads(lines[0])
+        secs["bench default, a fresh process"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        saved = {k: os.environ.pop(k) for k in modes if k in os.environ}
+        nms_cuda.launches = matching_cuda.launches = nms_cuda.plain_calls = matching_cuda.plain_calls = 0
+        try:
+            for mode in ("BENCH_TRAIN", "BENCH_SERVE"):
+                os.environ[mode] = "1"
+                try:
+                    bench_rows[mode] = bench.main([])  # prints its JSON line
+                finally:
+                    os.environ.pop(mode, None)
+                torch.cuda.empty_cache()
+        finally:
+            os.environ.update(saved)
+        check(bench_rows["default"]["metric"] == "multitask_inference_throughput_512x512"
+              and bench_rows["BENCH_TRAIN"]["metric"] == "multitask_train_step_512x1024_b8_bf16"
+              and bench_rows["BENCH_SERVE"]["metric"] == "serving_latency_512x1024_b1", "bench metric names")
+        check(nms_cuda.plain_calls == 0 and matching_cuda.plain_calls == 0, "plain calls in the bench")
+        by_path["nms_keep_mask"]["bench"] = nms_cuda.launches
+        by_path["bipartite_match"]["bench"] = matching_cuda.launches
+        secs["bench train and serve, in this process"] = time.perf_counter() - t1
+        print(f"bench: default as `python -m dspnet_torch.bench` in a fresh process "
+              f"({secs['bench default, a fresh process']:.1f} s); BENCH_TRAIN and BENCH_SERVE through bench.main in "
+              f"this process ({secs['bench train and serve, in this process']:.1f} s): NMS {nms_cuda.launches} "
+              f"launches, matcher {matching_cuda.launches}, plain 0 [{label}]", flush=True)
+        record["bench"] = bench_rows
+        secs["bench"] = time.perf_counter() - t0
+
+        # ---- 14e. the standalone NMS: nms (host) against nms_keep on the card
+        t0 = time.perf_counter()
+        cases = 0
+        for seed in (233, 1, 2):
+            r_ = np.random.RandomState(seed)
+            for n in (40, 400):
+                c = np.stack([r_.uniform(0.05, 0.95, n), r_.uniform(0.05, 0.95, n)], -1)
+                wh = np.stack([r_.uniform(0.02, 0.5, n), r_.uniform(0.02, 0.5, n)], -1)
+                dets = np.concatenate([np.concatenate([c - wh / 2, c + wh / 2], -1) * 100,
+                                       (r_.permutation(n) / n)[:, None]], -1).astype(np.float32)
+                for thresh in (0.3, 0.5, 0.7):
+                    keep = nms_keep(torch.from_numpy(dets).to(dev), thresh)
+                    check(keep.device.type == "cuda", "nms_keep left the card")
+                    want = np.zeros(n, bool)
+                    want[nms(dets, thresh)] = True
+                    check(np.array_equal(keep.cpu().numpy(), want), f"nms_keep != nms (seed {seed}, n {n}, {thresh})")
+                    cases += 1
+        print(f"ops/nms.py: nms_keep on the card == nms on the host in {cases} cases (N = 40 and 400, "
+              f"thresholds 0.3 / 0.5 / 0.7, tests/test_ops.py's boxes)", flush=True)
+        secs["nms"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["stage_seconds"] = {k: round(v, 3) for k, v in secs.items()}
+    print(f"phase 14 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + f" [{label}]")
+    print(json.dumps({"host_loaders_phase": record}), flush=True)
+    return by_path, record
+
+
 def probe_codec_libraries():
     """ROADMAP Queue A items 20 and 24: which of the Video Codec SDK's
     headers and libraries (NVDEC / NVENC), and libjpeg / libpng, this
@@ -3117,6 +3462,10 @@ def main():
         return 0
     if "--export-only" in sys.argv[1:]:
         timed_phase("13 serving deployment", deployment_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--host-loaders-only" in sys.argv[1:]:
+        timed_phase("14 host loaders, run scripts, bench", host_loaders_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -3310,23 +3659,25 @@ def main():
                                                     options_phase, dev, label)
     prep_launches, prep_errs, _ = timed_phase("12 data preparation", prepare_phase, dev, label)
     deploy_launches, _ = timed_phase("13 serving deployment", deployment_phase, dev, label)
+    host_launches, _ = timed_phase("14 host loaders, run scripts, bench", host_loaders_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 14. results: launches summed over the paths, each counted from 0
+    # ---- 15. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
                                  "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
                                  "prepare": prep_launches["nms_keep_mask"],
-                                 "deployment": deploy_launches["nms_keep_mask"]},
+                                 "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
                                    "options": opt_launches["bipartite_match"],
-                                   "prepare": prep_launches["bipartite_match"]},
+                                   "prepare": prep_launches["bipartite_match"], **host_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
-                                   **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"]}}
+                                   **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"],
+                                   **host_launches["jpeg_ycc_to_bgr"]}}
     colour = decoder.pop("colour_kernel")
 
     shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "plain_ms", "before_device_us",

@@ -1,5 +1,6 @@
 """Shared CLI plumbing (counterpart of ``dspnet_tpu/cli/common.py``):
-logging, dataset resolution, class names, data shapes, the device."""
+logging, dataset resolution, the multitask loaders and their flag rules,
+class names, data shapes, the device."""
 
 from __future__ import annotations
 
@@ -73,6 +74,37 @@ def resolve_dataset(args, split: str):
         elif nc == len(imdb.VOC_CLASSES):
             classes = list(imdb.VOC_CLASSES)
     return imdb.load_index(args.dataset_root, split, classes=classes)
+
+
+def check_loader_flags(parser, args) -> None:
+    """The JAX CLIs' loader flag rules: ``--predownscale`` with the device
+    loader, ``--native-u8`` with the native one."""
+    if args.predownscale and args.loader != "device":
+        parser.error(f"--predownscale is a --loader device option, not --loader {args.loader}")
+    if args.native_u8 and args.loader != "native":
+        parser.error(f"--native-u8 is a --loader native option, not --loader {args.loader}")
+
+
+def make_multitask_loader(args, index, batch_size, data_shape, device, train: bool, shard=(0, 1),
+                          num_threads=None):
+    """The ``python``, ``native`` or ``device`` loader over ``index``: with
+    augmentation and shuffled for training, else plain resizes in order with
+    the last batch padded (the JAX CLIs' eval settings); the order and the
+    augmentation table from the reference's seed, 233."""
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator
+    from dspnet_torch.data.iterator import MultiTaskIterator
+    from dspnet_torch.data.native_loader import NativeMultiTaskIterator
+    from dspnet_torch.data.prefetch import OnDevice
+
+    kw = dict(enable_aug=train, shuffle=train, shard=shard, pad_last=not train)
+    threads = args.loader_threads if num_threads is None else num_threads
+    if args.loader == "python":
+        return OnDevice(MultiTaskIterator(index, batch_size, data_shape, seed=233, **kw), device)
+    if args.loader == "native":
+        return NativeMultiTaskIterator(index, batch_size, data_shape, seed=233, num_threads=threads,
+                                       device_normalize=args.native_u8, device=device, **kw)
+    return DeviceAugIterator(index, batch_size, data_shape, device=device, seed=233,
+                             num_threads=threads, predownscale=args.predownscale, **kw)
 
 
 def resolve_class_names(spec: str, default):

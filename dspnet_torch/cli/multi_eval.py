@@ -9,15 +9,16 @@ validation split, from a checkpoint of ``multi_train``.
 
 The detector is float32 with NMS ``--nms-thresh`` and score threshold 0.01,
 as in the JAX CLI; the ``val`` split of ``--dataset-root`` (or of
-``--synthetic``) goes through the on-device pipeline without augmentation
-(nvJPEG decode on the card, ``--predownscale`` as in training), its last
-partial batch padded. ``--write-results DIR`` writes the 1024x2048
-Cityscapes result PNGs from the seg probabilities (the detector then
-returns them); ``--instance-eval`` scores instance AP against
+``--synthetic``) goes through ``--loader`` without augmentation, its last
+partial batch padded: ``device`` (the default; nvJPEG decode on the card,
+``--predownscale`` as in training), ``python`` (the JAX host loader, cv2's
+pixels in numpy) or ``native`` (the JAX native loader's arguments over the
+device loader; ``--native-u8`` accepted), as ``multi_train``'s.
+``--write-results DIR`` writes the 1024x2048 Cityscapes result PNGs from the
+seg probabilities (the detector then returns them); ``--instance-eval`` scores instance AP against
 ``SegmentationInstance/*_instanceIds.png``. ``--seg-fast`` evaluates the
 score-then-upsample seg head (pass it when the network was trained with
-it). The other loaders are not ported (ROADMAP Queue A item 20), so
-argparse rejects them.
+it).
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ import numpy as np
 
 from dspnet_torch.api import create_model
 from dspnet_torch.cli.common import (
+    check_loader_flags,
     default_synthetic_dir,
+    make_multitask_loader,
     parse_data_shape,
     resolve_class_names,
     resolve_dataset,
@@ -37,7 +40,6 @@ from dspnet_torch.cli.common import (
     setup_logging,
 )
 from dspnet_torch.data.cs_labels import DET_CLASSES, SEG_CLASSES
-from dspnet_torch.data.device_pipeline import DeviceAugIterator
 from dspnet_torch.evaluate.loop import evaluate_model
 from dspnet_torch.train.solver import MultiTaskSolver
 from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
@@ -65,13 +67,18 @@ def parse_args(argv=None):
                    help="Cityscapes-style instance-level AP/AP50 from det boxes x seg map vs "
                         "SegmentationInstance/*_instanceIds.png ground truth")
     p.add_argument("--predownscale", action="store_true",
-                   help="resize each image to the data shape right after its decode")
+                   help="with --loader device: resize each image to the data shape right after its "
+                        "decode")
+    p.add_argument("--native-u8", action="store_true",
+                   help="with --loader native: uint8 to the device, mean subtraction there")
     p.add_argument("--dist-errors", default="",
                    help="write per-box depth relative errors here (dist_errors.txt)")
     p.add_argument("--seg-class-names", default="",
                    help="seg names file or comma list; default Cityscapes 19")
-    p.add_argument("--loader", default="device", choices=["device"],
-                   help="val input pipeline: host decode, resize and normalize on the device")
+    p.add_argument("--loader", default="device", choices=["python", "native", "device"],
+                   help="val input pipeline: 'device' (host reads, decode, resize and normalize on "
+                        "the device), 'python' (the JAX host loader) or 'native' (its native "
+                        "loader's arguments over the device loader)")
     p.add_argument("--pipeline-depth", type=int, default=2,
                    help="batches in flight in evaluate_model")
     p.add_argument("--random-init", action="store_true",
@@ -82,6 +89,7 @@ def parse_args(argv=None):
                    help="torch device; 'cuda' fails without a CUDA device")
     args = p.parse_args(argv)
     args.data_shape = parse_data_shape(args.data_shape)
+    check_loader_flags(p, args)
     return args
 
 
@@ -105,9 +113,8 @@ def main(argv=None):
     # multi_eval.py:28-34); otherwise they are not computed
     detector = solver.make_detector(state, (H, W), nms_thresh=args.nms_thresh, score_threshold=0.01,
                                     seg_probabilities=bool(args.write_results))
-    it = DeviceAugIterator(resolve_dataset(args, "val"), args.batch_size, (H, W), device=device,
-                           seed=233, enable_aug=False, shuffle=False, pad_last=True,
-                           predownscale=args.predownscale)
+    it = make_multitask_loader(args, resolve_dataset(args, "val"), args.batch_size, (H, W), device, False,
+                               num_threads=4)
     return evaluate_model(
         detector,
         it,

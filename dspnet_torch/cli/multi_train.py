@@ -11,8 +11,8 @@ record store, through ``data/imdb.py::load_index``; the train split is
 ``train``, the val split ``val``, and a missing val split skips the
 validation pass, as in the JAX CLI) or ``--synthetic N``. It takes the JAX
 CLI's flags that this port honours and no others: argparse rejects the rest
-(the TPU's ``--input-s2d``, ``--native-u8``, ``--model-parallel``,
-``--target-backend pallas``, and the host loaders; ROADMAP Queue A).
+(the TPU's ``--input-s2d``, ``--model-parallel`` and ``--target-backend
+pallas``; ROADMAP item 17).
 ``--remat`` rematerialises each residual unit of a resnet backbone in the
 backward pass; ``--seg-fast`` trains the score-then-upsample seg head (use
 it at eval and demo time too). ``--monitor N --pattern RX`` logs the
@@ -20,18 +20,25 @@ shape, mean and std of every parameter whose flax path matches RX after
 every N-th batch (``utils/profiler.py::StatMonitor``; the JAX CLI's paths,
 so one pattern serves both), copying two numbers per matching tensor.
 
-Two loaders. ``device`` (the default): on the card the host threads read
-bytes and decode masks, nvJPEG decodes the images and the augmentation runs
-there (``data/device_pipeline.py``); ``--predownscale`` resizes each image
-to the data shape right after its decode. ``det``: the plain-SSD
+Four loaders, the JAX CLI's. ``device`` (the default here; the JAX CLI's
+is ``python``, which on the card decodes with the plain numpy JPEG decoder):
+on the card the host threads read bytes and decode masks, nvJPEG decodes the
+images and the augmentation runs there (``data/device_pipeline.py``);
+``--predownscale``, with this loader only, resizes each image to the data
+shape right after its decode. ``python``: the JAX package's host loader
+(``data/iterator.py::MultiTaskIterator``, cv2's warp rules in numpy, the
+JAX batches bit for bit), its batches copied to the device a few ahead on
+a thread of their own. ``native``: the JAX native loader's arguments over
+the device loader (``data/native_loader.py``; ``--native-u8`` is accepted,
+the device loader always ships uint8). Each of the three validates through
+itself without augmentation. ``det``: the plain-SSD
 ``DetIterator`` (``data/det_iterator.py``: IoU-constrained crop, pad,
 mirror, one of cv2's five resizes and the colour jitter, drawn on the host
 in the JAX order and applied on the device) for a plain SSD network
 (``vgg16_reduced``, ``legacy_vgg16_ssd_*``, ``resnet-18``, …) or a ``_det``
 one on a VOC devkit tree (``--dataset-root``); the validation pass then
 reads the val split through the ``device`` loader without augmentation, as
-the JAX CLI does. The JAX CLI's ``python`` and ``native`` loaders are not
-ported (ROADMAP Queue A item 20). ``--device`` defaults to ``cuda`` and
+the JAX CLI does. ``--device`` defaults to ``cuda`` and
 fails without a CUDA device.
 
 Data parallelism (the JAX CLI's ``--coordinator`` / ``--num-processes`` /
@@ -74,7 +81,9 @@ import torch
 
 from dspnet_torch.api import create_model
 from dspnet_torch.cli.common import (
+    check_loader_flags,
     default_synthetic_dir,
+    make_multitask_loader,
     parse_data_shape,
     resolve_class_names,
     resolve_dataset,
@@ -83,7 +92,6 @@ from dspnet_torch.cli.common import (
 )
 from dspnet_torch.data.cs_labels import DET_CLASSES
 from dspnet_torch.data.det_iterator import DetIterator
-from dspnet_torch.data.device_pipeline import DeviceAugIterator
 from dspnet_torch.parallel import dist as pdist
 from dspnet_torch.train.lr import lr_scheduler_from_epochs
 from dspnet_torch.train.solver import MultiTaskSolver, TrainingDiverged
@@ -134,15 +142,21 @@ def parse_args(argv=None):
     p.add_argument("--seg-normalize", default="null", choices=["null", "valid"])
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="model compute precision (float32 master weights either way)")
-    p.add_argument("--loader", default="device", choices=["device", "det"],
+    p.add_argument("--loader", default="device", choices=["python", "native", "device", "det"],
                    help="input pipeline: 'device' (host reads, nvJPEG decode and the multitask "
-                        "augmentation on the device) or 'det' (the plain-SSD DetIterator: "
+                        "augmentation on the device), 'python' (the JAX host loader: plain decode "
+                        "and cv2's warp rules in numpy), 'native' (the JAX native loader's "
+                        "arguments over the device loader) or 'det' (the plain-SSD DetIterator: "
                         "IoU-constrained crop/pad/mirror, random interpolation and colour jitter, "
                         "reference dataset/iterator.py DetIter)")
     p.add_argument("--loader-threads", type=int, default=8)
     p.add_argument("--predownscale", action="store_true",
-                   help="resize each image to the data shape right after its decode (on the "
-                        "device on cuda) and each mask nearest; allows mixed raw resolutions")
+                   help="with --loader device: resize each image to the data shape right after its "
+                        "decode (on the device on cuda) and each mask nearest; allows mixed raw "
+                        "resolutions")
+    p.add_argument("--native-u8", action="store_true",
+                   help="with --loader native: the uint8 batch to the device and the mean "
+                        "subtraction there (what the device loader always does)")
     p.add_argument("--target-backend", default="auto", choices=["auto", "kernel", "plain"],
                    help="bipartite matcher of target assignment (auto: the CUDA "
                         "kernel on a CUDA device, the plain rounds elsewhere)")
@@ -166,6 +180,7 @@ def parse_args(argv=None):
                    help="torch device; 'cuda' fails without a CUDA device")
     args = p.parse_args(argv)
     args.data_shape = parse_data_shape(args.data_shape)
+    check_loader_flags(p, args)
     return args
 
 
@@ -274,9 +289,8 @@ def _train(args, device, log, info):
                                  device=device)
         log.info("using plain-SSD DetIterator (crop/pad/mirror augmentation)")
     else:
-        train_iter = DeviceAugIterator(train_index, local_batch, (H, W), device=device, seed=SEED,
-                                       enable_aug=True, num_threads=args.loader_threads,
-                                       predownscale=args.predownscale, shard=(rank, world))
+        train_iter = make_multitask_loader(args, train_index, local_batch, (H, W), device, True, (rank, world))
+        log.info("using the %s loader%s", args.loader, " (uint8 to the device)" if args.native_u8 else "")
 
     _, schedule = lr_scheduler_from_epochs(
         args.lr, args.lr_steps, args.lr_factor, len(train_index),
@@ -322,9 +336,11 @@ def _train(args, device, log, info):
             val_index = None
             log.info("no validation split found; skipping per-epoch eval")
         if val_index is not None:
-            eval_iter = DeviceAugIterator(val_index, local_batch, (H, W), device=device, seed=SEED,
-                                          enable_aug=False, shuffle=False, pad_last=True,
-                                          num_threads=args.loader_threads, predownscale=args.predownscale)
+            # --loader det validates through the device loader, as the JAX CLI
+            # validates through its own host loader
+            val_args = copy.copy(args)
+            val_args.loader = "device" if args.loader == "det" else args.loader
+            eval_iter = make_multitask_loader(val_args, val_index, local_batch, (H, W), device, False)
 
     metrics_sink = None
     if args.metrics_jsonl and rank == 0:

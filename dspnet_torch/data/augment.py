@@ -9,8 +9,14 @@ translation that keeps the scaled image over the canvas.
 
 :func:`warp_affine_batch` is the torch form of ``warp_affine_batch_jax``:
 one inverse-mapped affine warp per image, bilinear or nearest, constant
-border, on the tensor's device. The host path of the JAX package
-(``cv2.warpAffine``) is not ported (ROADMAP Queue A item 20).
+border, on the tensor's device.
+
+The host half of the JAX loader, :func:`augment_example`,
+:func:`resize_example` and :func:`downsample_seg`, runs in numpy on uint8
+arrays with cv2's own pixels and no cv2: the warp is
+``data/cv_warp.py::warp_affine`` (cv2 5.0.0's ``warpAffine``, bit for bit),
+the 1/4 mask downsample ``image_io.resize_nearest`` (``cv2.resize``
+``INTER_NEAREST``) and the LUT an indexing.
 
 The plain-SSD loader's colour jitter (:func:`color_jitter`) and
 :func:`normalize_image` run on the tensor's device too, with cv2's 8-bit
@@ -23,8 +29,12 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import math
+
 import numpy as np
 import torch
+
+from dspnet_torch.data import cv_warp, image_io
 
 MEAN_PIXELS = (123.68, 116.779, 103.939)  # RGB (iterator.py:340)
 
@@ -58,6 +68,91 @@ def _filter_and_compact(label: np.ndarray, data_shape: Tuple[int, int], out_of_i
     label.fill(-1)
     label[: top.shape[0]] = top
     return label
+
+
+def _check_seg(img: np.ndarray, seg: Optional[np.ndarray]) -> None:
+    if seg is not None and seg.shape[:2] != img.shape[:2]:
+        raise ValueError(f"seg mask {seg.shape[:2]} != image {img.shape[:2]}: prepare the dataset with "
+                         "matching resolutions (prepare_cityscapes --scale)")
+
+
+def augment_example(img: np.ndarray, label: np.ndarray, seg: Optional[np.ndarray], params: np.ndarray,
+                    data_shape: Tuple[int, int]):
+    """Augment one example on the host (``dspnet_tpu/data/augment.py::
+    augment_example``). ``img`` (h, w, 3) uint8 BGR, ``label`` (L, 6)
+    normalized rows [cls, xmin, ymin, xmax, ymax, dist], ``seg`` (h, w)
+    uint8 or None at the image's resolution, ``params`` one row of
+    :func:`sample_aug_params`. One affine warps the image (bilinear, border
+    128) and the mask (nearest, border 255); the boxes go through the same
+    affine in normalized coordinates, their distance scaled by
+    1/sqrt(sx*sy), then the area and out-of-image filters; the flip comes
+    after the warp. Returns (img, label, seg) at ``data_shape``."""
+    H, W = data_shape
+    hh, ww = img.shape[:2]
+    _check_seg(img, seg)
+    label = label.copy()
+    flip, theta, sx, sy, tx, ty = tuple(params)
+    sx2, sy2 = sx * (W / float(ww)), sy * (H / float(hh))
+    M_img = np.array([[sx2 * math.cos(theta), -sy2 * math.sin(theta), tx],
+                      [sx2 * math.sin(theta), sy2 * math.cos(theta), ty]])
+    img = cv_warp.warp_affine(img, M_img, (W, H), border_value=128)
+    if seg is not None:
+        seg = cv_warp.warp_affine(seg, M_img, (W, H), nearest=True, border_value=255)
+
+    valid = np.where(label[:, 0] >= 0)[0]
+    if valid.shape[0] >= 1:
+        pts = label[valid, 1:5] * np.array([W, H, W, H])
+        dist = label[valid, 5].copy()
+        corners = np.vstack([pts[:, :2], pts[:, 2:]])  # (2n, 2)
+        M_box = np.array([[sx * math.cos(theta), -sy * math.sin(theta), tx],
+                          [sx * math.sin(theta), sy * math.cos(theta), ty]])
+        corners = corners @ M_box[:, :2].T + M_box[:, 2]
+        if flip > 0.5:
+            corners[:, 0] = W - corners[:, 0]
+        corners /= np.array([W, H])
+        n = valid.shape[0]
+        pts_new = np.hstack([corners[:n], corners[n:]])
+        if flip > 0.5:
+            pts_new[:, [0, 2]] = pts_new[:, [2, 0]]
+        pts_new[:, :4] = np.clip(pts_new[:, :4], 0, 1)
+        label[valid, 1:5] = pts_new
+        label[valid, 5] = dist / math.sqrt(sx * sy)
+        label = _filter_and_compact(label, data_shape, out_of_image=True)
+
+    if flip > 0.5:
+        img = cv_warp.flip_horizontal(img)
+        if seg is not None:
+            seg = cv_warp.flip_horizontal(seg)
+    return img, label, seg
+
+
+def resize_example(img: np.ndarray, label: np.ndarray, seg: Optional[np.ndarray], data_shape: Tuple[int, int]):
+    """The no-augmentation path on the host (``dspnet_tpu/data/augment.py::
+    resize_example``): a scale-only warp of the image (bilinear, cv2's
+    default border 0) and the mask (nearest, border 0), then the small-box
+    filter."""
+    H, W = data_shape
+    hh, ww = img.shape[:2]
+    _check_seg(img, seg)
+    label = label.copy()
+    M = np.array([[W / float(ww), 0.0, 0.0], [0.0, H / float(hh), 0.0]])
+    img = cv_warp.warp_affine(img, M, (W, H))
+    if seg is not None:
+        seg = cv_warp.warp_affine(seg, M, (W, H), nearest=True, border_value=0)
+    if np.any(label[:, 0] >= 0):
+        label = _filter_and_compact(label, data_shape, out_of_image=False)
+    return img, label, seg
+
+
+def downsample_seg(seg: np.ndarray, lut: Optional[np.ndarray] = None) -> np.ndarray:
+    """1/4-resolution nearest downsample (``cv2.resize`` ``INTER_NEAREST`` to
+    (h // 4, w // 4)) then the LUT (``cv2.LUT``), as int32 (reference
+    iterator.py:573-576)."""
+    hh, ww = seg.shape
+    out = image_io.resize_nearest(seg, (hh // 4, ww // 4))
+    if lut is not None:
+        out = np.asarray(lut)[out]
+    return out.astype(np.int32)
 
 
 def warp_affine_batch(images: torch.Tensor, matrices: torch.Tensor, out_hw: Tuple[int, int],

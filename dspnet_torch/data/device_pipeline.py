@@ -520,6 +520,7 @@ class DeviceAugIterator:
         self._resample_aug()
         self.cursor = 0
         self.num_threads = num_threads
+        self.prefetch = 3  # raw batches decoded and copied ahead of the augmentation
         self.raw_hw: Optional[Tuple[int, int]] = None
         self._hw_lock = threading.Lock()
 
@@ -607,8 +608,14 @@ class DeviceAugIterator:
         thread, which also copies each raw batch to the device (pinned memory,
         a side stream on CUDA); the augmentation runs on the consumer's stream."""
         self.reset()
+        yield from self.batches()
+
+    def batches(self) -> Iterator:
+        """(batch, fnames) pairs over the current epoch's tables, without
+        a :meth:`reset` (``data/native_loader.py`` starts its first epoch on
+        the tables drawn at construction, as the JAX native loader does)."""
         # closing: an abandoned epoch releases the decode thread at once
-        with contextlib.closing(prefetch_to_device(self._raw_batches(), size=3, device=self.device)) as raw:
+        with contextlib.closing(prefetch_to_device(self._raw_batches(), size=self.prefetch, device=self.device)) as raw:
             for item in raw:
                 batch = device_augment_batch(
                     item["raw"], item["segs"], item["labels"], item["params"], self.lut,

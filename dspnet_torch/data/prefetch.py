@@ -14,6 +14,7 @@ the thread alone.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Iterator, List
@@ -113,3 +114,25 @@ def prefetch_to_device(iterable, size: int = 2, device="cuda") -> Iterator:
     finally:
         stop.set()
         t.join(timeout=5.0)
+
+
+class OnDevice:
+    """A host iterator (``epoch()`` of (batch, fnames) with numpy batches,
+    as ``data/iterator.py::MultiTaskIterator``) whose batches reach the
+    caller on ``device``: the iterator runs on :func:`prefetch_to_device`'s
+    thread, ``size`` batches ahead of the consumer."""
+
+    def __init__(self, iterator, device, size: int = 2):
+        self.iterator = iterator
+        self.device = torch.device(device)
+        self.size = size
+
+    def epoch(self) -> Iterator:
+        # closing: an abandoned epoch releases the producer thread at once
+        with contextlib.closing(prefetch_to_device(self.iterator.epoch(), size=self.size,
+                                                   device=self.device)) as batches:
+            yield from batches
+
+    def __iter__(self) -> Iterator:
+        for batch, _ in self.epoch():
+            yield batch

@@ -133,14 +133,19 @@ def build_dataset(
     seed: int = 233,
     with_disparity: bool = True,
     with_instances: bool = False,
+    texture: bool = False,
 ) -> SampleIndex:
     """Write a synthetic dataset under ``root`` and return its SampleIndex.
 
     ``with_instances`` also writes gtFine-style ``*_instanceIds.png``
     (labelId * 1000 + instance index per box, in draw order, so later boxes
     occlude earlier ones) under SegmentationInstance/, for the
-    instance-level evaluator."""
+    instance-level evaluator. ``texture`` lays :func:`texture_offsets` over each
+    image, from a generator of its own (seed + 1), so that the scenes,
+    labels and masks stay those of ``seed``: flat colours hide a warp's
+    sub-pixel errors, which a textured image shows."""
     rng = np.random.RandomState(seed)
+    texture_rng = np.random.RandomState(seed + 1) if texture else None
     os.makedirs(os.path.join(root, "JPEGImages"), exist_ok=True)
     os.makedirs(os.path.join(root, "SegmentationClass"), exist_ok=True)
     if with_disparity:
@@ -150,6 +155,8 @@ def build_dataset(
     samples = []
     for i in range(num_samples):
         img, label, seg, disp = make_example(rng, hw, rng.randint(1, max_objects + 1))
+        if texture_rng is not None:
+            img = np.clip(img + texture_offsets(texture_rng, hw), 0, 255).astype(np.uint8)
         ipath = os.path.join(root, "JPEGImages", f"synth_{i:04d}_leftImg8bit.jpg")
         spath = os.path.join(root, "SegmentationClass", f"synth_{i:04d}_gtFine_labelTrainIds.png")
         image_io.imwrite(ipath, img)
@@ -161,6 +168,26 @@ def build_dataset(
                              instance_ids(label, seg.shape))
         samples.append(Sample(ipath, SampleIndex.pad_label(label), spath))
     return SampleIndex(samples)
+
+
+def texture_offsets(rng: np.random.RandomState, hw: Tuple[int, int]) -> np.ndarray:
+    """(H, W, 3) float32 offsets with the look of a photograph's texture:
+    value noise bilinear over cells of 64, 16 and 4 pixels (amplitudes 24, 20
+    and 16), shared by the channels, plus a grain of +-10 in each channel. Its
+    mean absolute step between neighbouring pixels is several grey levels,
+    as in street photographs, so a shift of half a pixel moves the image by
+    more than one level on average."""
+    H, W = hw
+    plane = np.zeros((H, W), np.float32)
+    for cell, amp in ((64, 24.0), (16, 20.0), (4, 16.0)):
+        grid = rng.uniform(-amp, amp, (H // cell + 2, W // cell + 2)).astype(np.float32)
+        y, x = np.arange(H, dtype=np.float32) / cell, np.arange(W, dtype=np.float32) / cell
+        y0, x0 = y.astype(np.int64), x.astype(np.int64)
+        fy, fx = (y - y0)[:, None], (x - x0)[None, :]
+        top = grid[y0][:, x0] * (1 - fx) + grid[y0][:, x0 + 1] * fx
+        bottom = grid[y0 + 1][:, x0] * (1 - fx) + grid[y0 + 1][:, x0 + 1] * fx
+        plane += top * (1 - fy) + bottom * fy
+    return plane[..., None] + rng.uniform(-10, 10, (H, W, 3)).astype(np.float32)
 
 
 def instance_ids(label: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:

@@ -63,6 +63,12 @@ from dspnet_torch.utils.precision import cast_floating
 MEAN_PIXELS = (123.68, 116.779, 103.939)
 
 
+def _check_raw(raw: torch.Tensor) -> torch.Tensor:
+    if raw.dtype != torch.uint8 or raw.ndim != 4 or raw.shape[-1] != 3:
+        raise ValueError(f"expected (B, H, W, 3) uint8, got {tuple(raw.shape)} {raw.dtype}")
+    return raw
+
+
 class _Replica:
     """One served copy of the network on one device, with its anchors, its
     mean pixel and, when it shares the serving with others on a card, a
@@ -168,54 +174,62 @@ class Detector:
     def predict(self, images) -> dict:
         """images (B, H, W, 3) preprocessed float (numpy or tensor)."""
         images = torch.as_tensor(images).to(self.device, self.dtype)
-        return self._run_padded(lambda rep, x: self._postprocess(rep.model(x), rep.anchors), images)
+        return self._run_padded(self.float_rows, images)
 
     @torch.inference_mode()
     def predict_raw(self, raw_bgr) -> dict:
         """raw (B, H, W, 3) uint8 BGR at data_shape (numpy or tensor)."""
-        raw = torch.as_tensor(raw_bgr)
-        if raw.dtype != torch.uint8 or raw.ndim != 4 or raw.shape[-1] != 3:
-            raise ValueError(f"expected (B, H, W, 3) uint8, got {tuple(raw.shape)} {raw.dtype}")
+        raw = _check_raw(torch.as_tensor(raw_bgr))
         if self.device.type == "cuda" and raw.device.type == "cpu":
             raw = raw.pin_memory()
         raw = raw.to(self.device, non_blocking=True)
+        return self._run_padded(self.raw_rows, raw)
 
-        def run(rep, x):
-            images = x.flip(-1).float() - rep.mean
-            return self._postprocess(rep.model(images.to(self.dtype)), rep.anchors)
+    def raw_rows(self, rep: _Replica, x: torch.Tensor) -> dict:
+        """``predict_raw``'s work on one replica's block of uint8 BGR rows,
+        on the replica's device (``detect/pipeline.py`` captures it in a CUDA
+        graph, so the check runs at each capture, for each new shape and
+        dtype)."""
+        images = _check_raw(x).flip(-1).float() - rep.mean
+        return self._postprocess(rep.model(images.to(self.dtype)), rep.anchors)
 
-        return self._run_padded(run, raw)
+    def float_rows(self, rep: _Replica, x: torch.Tensor) -> dict:
+        """``predict``'s work on one replica's block of preprocessed rows."""
+        return self._postprocess(rep.model(x.to(self.dtype)), rep.anchors)
 
-    def _run_padded(self, fn, batch: torch.Tensor) -> dict:
+    def _run_padded(self, fn, batch: torch.Tensor, streams: Optional[Sequence] = None) -> dict:
         """``fn(replica, rows)`` over the batch on ``self.device``: with one
         replica a plain call; with n, the batch padded to a multiple of n with
         copies of its last row (JAX ``_run_padded``), a contiguous block of
-        rows per replica, each under its device and stream, and the results
-        concatenated on ``self.device`` with the padding sliced off. Nothing
-        synchronises the host: each replica's stream waits for the batch on
-        the current stream, and the gather waits for each replica's stream."""
+        rows per replica, each under its device and on its stream (each
+        replica's own, or ``streams[i]``: ``detect/pipeline.py`` passes a
+        slot's), and the results concatenated on ``self.device`` with the
+        padding sliced off. Nothing synchronises the host: each replica's
+        stream waits for the batch on the current stream, and the gather
+        waits for each replica's stream."""
         if len(self._replicas) == 1:
             return fn(self._replicas[0], batch)
         n, B = len(self._replicas), batch.shape[0]
         pad = (-B) % n
         if pad:
             batch = torch.cat([batch, batch[-1:].expand(pad, *batch.shape[1:])])
+        streams = streams or [rep.stream for rep in self._replicas]
         parts = []
-        for rep, rows in zip(self._replicas, batch.chunk(n)):
-            if rep.stream is None:
+        for rep, stream, rows in zip(self._replicas, streams, batch.chunk(n)):
+            if stream is None:
                 parts.append(fn(rep, rows.to(rep.device)))
                 continue
             home = torch.cuda.current_stream(rep.device)
             with torch.cuda.device(rep.device):
                 # the batch was written on the current stream of devices[0],
                 # the replica's weights on its device's current stream
-                rep.stream.wait_stream(torch.cuda.current_stream(self.device))
-                rep.stream.wait_stream(home)
-                with torch.cuda.stream(rep.stream):
+                stream.wait_stream(torch.cuda.current_stream(self.device))
+                stream.wait_stream(home)
+                with torch.cuda.stream(stream):
                     if rep.device == self.device:
-                        rows.record_stream(rep.stream)  # read there after this call returns
+                        rows.record_stream(stream)  # read there after this call returns
                     out = fn(rep, rows.to(rep.device, non_blocking=True))
-                home.wait_stream(rep.stream)
+                home.wait_stream(stream)
                 for v in out.values():
                     v.record_stream(home)  # made on the replica's stream, read on its device's current
             parts.append({k: v.to(self.device, non_blocking=True) for k, v in out.items()})

@@ -17,6 +17,16 @@ run on the card at once (a b1 frame leaves most of its SMs idle). Nothing on
 ``predict_raw``'s path synchronises the host (the NMS wrapper does not), so
 the host stays up to ``depth`` frames ahead of the card.
 
+A detector over a device list (``Detector(devices=[...])``) gets one graph
+per replica per slot: a CUDA graph belongs to one device, so no single graph
+can hold the list. Each slot then has a stream on ``devices[0]``, which takes
+the frame, and one stream per replica; ``Detector._run_padded`` pads and
+splits the frame, runs each replica's block on that replica's stream of the
+slot (there the block is copied into the graph's static input and the graph
+captured from it is replayed) and gathers the results on ``devices[0]``, the
+same rule and the same stream order as the synchronous path, and nothing on
+the way synchronises the host.
+
 A replayed graph runs the kernels it captured without calling their
 wrappers: the wrappers' launch counters (``ops/nms_cuda.launches``) count
 each slot's warm-up and capture, not its replays; ``torch.profiler`` sees
@@ -60,11 +70,13 @@ def _start_d2h(res: dict) -> dict:
 
 
 class _Slot:
-    """One place in the window on the card: a stream, and per input (shape,
-    dtype) a captured graph with its static input and outputs."""
+    """One place in the window on the card: a stream on ``devices[0]``, with a
+    device list a stream per replica, and per input (shape, dtype) the
+    captured graph of each replica with its static input and outputs."""
 
-    def __init__(self, device):
-        self.stream = torch.cuda.Stream(device)
+    def __init__(self, devices):
+        self.stream = torch.cuda.Stream(devices[0])
+        self.rep_streams = [torch.cuda.Stream(d) for d in devices] if len(devices) > 1 else []
         self.graphs = {}
 
 
@@ -83,17 +95,13 @@ class ServingPipeline:
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         cuda = detector.device.type == "cuda"
-        if cuda and len(detector.devices) > 1:
-            # a slot's graph is captured on one stream of one device
-            raise ValueError("ServingPipeline serves a one-device Detector on a card; "
-                             f"this one has devices {detector.devices}")
         self.detector = detector
         self.depth = depth
         self.raw = raw
         self.wait_s = 0.0
         self._inflight: deque = deque()
         self._seq = 0
-        self._slots = [_Slot(detector.device) for _ in range(depth + 1)] if cuda else []
+        self._slots = [_Slot(detector.devices) for _ in range(depth + 1)] if cuda else []
 
     def __len__(self) -> int:
         return len(self._inflight)
@@ -106,13 +114,14 @@ class ServingPipeline:
             frame = frame[None]
         if tag is None:
             tag = self._seq
-        fn = self.detector.predict_raw if self.raw else self.detector.predict
+        det = self.detector
         if self._slots:
             # the slot's last frame was materialised before the window let
             # this one in (depth + 1 slots, at most depth frames in flight)
-            host, event = self._replay(self._slots[self._seq % len(self._slots)], fn, torch.as_tensor(frame))
+            slot = self._slots[self._seq % len(self._slots)]
+            host, event = self._replay(slot, det.raw_rows if self.raw else det.float_rows, torch.as_tensor(frame))
         else:
-            host, event = fn(frame), None
+            host, event = (det.predict_raw if self.raw else det.predict)(frame), None
         self._seq += 1
         self._inflight.append((tag, host, event))
         if len(self._inflight) > self.depth:
@@ -124,39 +133,56 @@ class ServingPipeline:
         waits for the replays in flight (their frames keep the old weights),
         and every later replay waits for the copy."""
         for slot in self._slots:
-            torch.cuda.current_stream().wait_stream(slot.stream)
+            for stream in (slot.stream, *slot.rep_streams):
+                torch.cuda.current_stream(stream.device).wait_stream(stream)
         self.detector.update_weights(weights)
 
-    def _replay(self, slot: _Slot, fn, frame: torch.Tensor):
-        key = (tuple(frame.shape), frame.dtype)
-        if key not in slot.graphs:
-            slot.graphs[key] = self._capture(slot, fn, frame)
-        graph, static_in, static_out = slot.graphs[key]
+    def _slot_input(self, slot: _Slot, frame: torch.Tensor) -> torch.Tensor:
+        """The frame ready for a copy on the slot's stream, which waits for
+        the caller's stream of ``devices[0]``."""
         if frame.device.type == "cpu":
             frame = frame.pin_memory()
         else:
             # the frame may still be written on the caller's stream, and
             # must outlive the slot stream's read of it
             frame.record_stream(slot.stream)
-        slot.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(slot.stream):
-            static_in.copy_(frame, non_blocking=True)
+        slot.stream.wait_stream(torch.cuda.current_stream(self.detector.device))
+        return frame
+
+    @torch.inference_mode()
+    def _replay(self, slot: _Slot, rows_fn, frame: torch.Tensor):
+        """One frame on the slot: copied in on the slot's stream, then
+        ``Detector._run_padded`` over the slot's replica streams with a
+        callable that copies each replica's block into its graph's static
+        input and replays the graph (captured at the shape's first frame)."""
+        graphs = slot.graphs.setdefault((tuple(frame.shape), frame.dtype), {})
+
+        def replay(rep, rows):
+            if rep not in graphs:
+                graphs[rep] = self._capture(lambda x: rows_fn(rep, x), rows)
+            graph, static_in, static_out = graphs[rep]
+            static_in.copy_(rows, non_blocking=True)
             graph.replay()
-            host = _start_d2h(static_out)
+            return static_out
+
+        frame = self._slot_input(slot, frame)
+        with torch.cuda.stream(slot.stream):
+            batch = frame.to(self.detector.device, non_blocking=True)
+            host = _start_d2h(self.detector._run_padded(replay, batch, slot.rep_streams or None))
             event = torch.cuda.Event()
             event.record(slot.stream)
         return host, event
 
-    def _capture(self, slot: _Slot, fn, frame: torch.Tensor):
-        """Warm ``fn`` up on the slot's stream (builds the kernels, picks the
-        cuDNN plans), then capture it on that stream from a static input."""
-        static_in = torch.empty(frame.shape, dtype=frame.dtype, device=self.detector.device)
-        static_in.copy_(frame)
-        slot.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(slot.stream):
-            fn(static_in)
+    @staticmethod
+    def _capture(fn, x: torch.Tensor):
+        """Warm ``fn`` up on the current stream (builds the kernels, picks the
+        cuDNN plans), then capture it on that stream from a static copy of
+        ``x``."""
+        stream = torch.cuda.current_stream(x.device)
+        static_in = x.clone()
+        fn(static_in)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=slot.stream, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
             static_out = fn(static_in)
         return graph, static_in, static_out
 

@@ -10,6 +10,8 @@ A copy of the JAX package's metric classes, which the port cannot import
 * :class:`IoUMetric` — evaluate/eval_metric.py:278-388 (per-class
   intersection/union accumulation, ignore-pixel predictions counted in the
   union as the reference does), also fed from a confusion matrix.
+* :class:`MultiBoxMetric` — train/metric.py:7-68 (the training monitors:
+  valid-normalized cross-entropy and smooth-L1).
 * :class:`CustomAccuracyMetric` — train/metric.py:71-132.
 * :class:`DistanceAccuracyMetric` — train/metric.py:135-260 (median-in-box
   disparity -> meters oracle, per-class relative error).
@@ -271,6 +273,47 @@ class IoUMetric(EvalMetric):
         names = [str(n) for n in self.name]
         values = [x / y if y != 0 else float("nan") for x, y in zip(self.sum_metric, self.num_inst)]
         return names, values
+
+
+class MultiBoxMetric(EvalMetric):
+    """Training monitors: valid-normalized cross-entropy + smooth-L1
+    (reference train/metric.py:7-68)."""
+
+    def __init__(self, eps=1e-8):
+        super().__init__("MultiBox")
+        self.eps = eps
+        self.num = 2
+        self.name = ["CrossEntropy", "SmoothL1"]
+        self.reset()
+
+    def reset(self):
+        self.num_inst = [0] * self.num
+        self.sum_metric = [0.0] * self.num
+
+    def update(self, cls_prob, loc_loss, cls_label):
+        """cls_prob (B, C, A), loc_loss (B, ...) elementwise smooth-l1 values,
+        cls_label (B, A); numpy arrays or tensors."""
+        cls_prob, loc_loss, cls_label = (np.asarray(_numpy(x)) for x in (cls_prob, loc_loss, cls_label))
+        valid_count = np.sum(cls_label >= 0)
+        label = cls_label.flatten()
+        mask = np.where(label >= 0)[0]
+        indices = np.int64(label[mask])
+        prob = cls_prob.transpose((0, 2, 1)).reshape((-1, cls_prob.shape[1]))
+        prob = prob[mask, indices]
+        self.sum_metric[0] += (-np.log(prob + self.eps)).sum()
+        self.num_inst[0] += valid_count
+        self.sum_metric[1] += np.sum(loc_loss)
+        self.num_inst[1] += valid_count
+
+    def get(self):
+        names = list(self.name)
+        values = [x / y if y != 0 else float("nan") for x, y in zip(self.sum_metric, self.num_inst)]
+        return names, values
+
+
+def _numpy(x):
+    """A tensor (on any device) as a numpy array; anything else as it is."""
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else x
 
 
 class CustomAccuracyMetric(EvalMetric):

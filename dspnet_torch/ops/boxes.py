@@ -21,6 +21,12 @@ DEFAULT_VARIANCES = (0.1, 0.1, 0.2, 0.2)
 DISTANCE_VARIANCE = 0.1
 
 
+def corner_to_center(boxes):
+    """(..., 4) corners -> (cx, cy, w, h)."""
+    xmin, ymin, xmax, ymax = boxes.unbind(-1)
+    return torch.stack([(xmin + xmax) * 0.5, (ymin + ymax) * 0.5, xmax - xmin, ymax - ymin], dim=-1)
+
+
 def iou_matrix(a, b):
     """Pairwise IoU between ``a`` (..., N, 4) and ``b`` (..., M, 4) corners."""
     a_ = a[..., :, None, :]

@@ -8,6 +8,11 @@ is one ``torch.save`` file ``{prefix}/{epoch:04d}.pt`` holding the float32
 parameters, the BatchNorm buffers, the SGD momentum and the step, as plain
 tensors and an int: ``torch.load(weights_only=True)`` reads it.
 
+:func:`save_params_only` / :func:`load_params_only` write and read the
+inference weights alone (a detector deployment): one ``torch.save`` file of
+the parameters and buffers, loaded strictly into a module of the same
+architecture.
+
 :func:`state_from_flax` turns a JAX package checkpoint (the numpy tree
 ``CheckpointManagerWrapper.restore_raw`` returns) into a port
 ``TrainState``, so the port scores a JAX-trained network; the port itself
@@ -144,3 +149,31 @@ def state_from_flax(tree: Mapping) -> TrainState:
     return TrainState(int(np.asarray(tree["step"])), f32,
                       {k: v.float() for k, v in buffers.items()},
                       {k: v.float() for k, v in momentum.items()})
+
+
+def save_params_only(path: str, params: Mapping[str, torch.Tensor],
+                     buffers: Optional[Mapping[str, torch.Tensor]] = None) -> str:
+    """One file of inference weights (the JAX ``save_params_only``'s params
+    and batch_stats): ``{"params": ..., "buffers": ...}`` as host tensors,
+    written to a temporary name and renamed. ``params`` may be a module, whose
+    state dict is taken, split into parameters and buffers; returns ``path``."""
+    if isinstance(params, torch.nn.Module):
+        state = params.state_dict()
+        names = {k for k, _ in params.named_parameters()}
+        params, buffers = ({k: v for k, v in state.items() if (k in names) == want} for want in (True, False))
+    payload = {"params": {k: v.detach().cpu().clone() for k, v in params.items()},
+               "buffers": {k: v.detach().cpu().clone() for k, v in (buffers or {}).items()}}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_params_only(path: str, template: torch.nn.Module) -> torch.nn.Module:
+    """Load a :func:`save_params_only` file into ``template`` (a module of the
+    same architecture) strictly, on the template's device and dtypes;
+    returns the template."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    template.load_state_dict({**payload["params"], **payload["buffers"]}, strict=True)
+    return template

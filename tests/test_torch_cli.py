@@ -108,17 +108,24 @@ def test_divergence_exits_3(workdir):
 
 
 def test_refusals(workdir):
-    """JAX flags the port does not honour (the TPU-only ones and the host
-    loaders) are argparse errors; a dataset root, a label space wider than
-    the head and a missing card fail loudly."""
-    for extra in (["--loader", "python"], ["--loader", "native"], ["--target-backend", "pallas"],
-                  ["--input-s2d", "on"], ["--native-u8"], ["--model-parallel", "2"]):
+    """JAX flags the port does not honour (the TPU-only ones) and the loader
+    options given to another loader than theirs (the JAX CLIs' rules:
+    ``--predownscale`` with ``device``, ``--native-u8`` with ``native``) are
+    argparse errors; a dataset root, a label space wider than the head and a
+    missing card fail loudly."""
+    for extra in (["--target-backend", "pallas"], ["--input-s2d", "on"], ["--native-u8"],
+                  ["--model-parallel", "2"], ["--loader", "python", "--predownscale"],
+                  ["--loader", "native", "--predownscale"], ["--loader", "python", "--native-u8"]):
         with pytest.raises(SystemExit) as err:
             multi_train.parse_args(NET + extra)
         assert err.value.code == 2, extra
-    for extra in (["--loader", "native"], ["--input-s2d", "on"]):
+    for extra in (["--loader", "det"], ["--input-s2d", "on"], ["--loader", "python", "--predownscale"]):
         with pytest.raises(SystemExit):
             multi_eval.parse_args(NET + extra)
+    for loader in ("python", "native", "device"):
+        assert multi_train.parse_args(NET + ["--loader", loader]).loader == loader
+        assert multi_eval.parse_args(NET + ["--loader", loader]).loader == loader
+    assert multi_train.parse_args(NET + ["--loader", "native", "--native-u8"]).native_u8
     with pytest.raises(FileNotFoundError, match="no recognizable dataset"):
         multi_train.main(NET + ["--dataset-root", str(workdir / "nothing_here")])
     with pytest.raises(ValueError, match="no dataset"):

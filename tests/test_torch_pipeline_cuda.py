@@ -2,7 +2,8 @@
 ``predict_raw``: results equal to the synchronous path bit for bit and in
 order at depths 1 and 3, a second capture when the batch size changes,
 frames that are already on the card, and ``update_weights`` between
-submits.
+submits; over a device list (one card named twice), one graph per replica
+per slot, equal to the synchronous device-list path at b1, b3 and b8.
 
 Skips without a CUDA device (CUDA graphs and the NMS kernel exist only
 there). The file imports no jax, so it also runs on a machine with the card
@@ -137,4 +138,37 @@ def test_graph_pipeline_update_weights_between_submits(detector):
     new = [_sync(detector, f) for f in frames]
     assert not all(np.array_equal(a["seg"], b["seg"]) for a, b in zip(old, new))
     for (_, got), w in zip(out, old[:3] + new[3:]):
+        _assert_equal(got, w)
+
+
+@pytest.fixture
+def pair(detector):
+    return Detector(detector.model, detector.anchors.cpu().numpy(), (H, W), devices=["cuda:0", "cuda:0"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_graph_pipeline_over_a_device_list(pair, depth, batch):
+    """Two replicas on one card: each slot captures one graph per replica on
+    that replica's stream (two wrapper calls each), results equal to the
+    synchronous device-list ``predict_raw`` bit for bit and in order, also
+    after ``update_weights`` with frames in flight."""
+    frames = _frames(2 * (depth + 1) + 1, 20 + depth, batch=batch)
+    want = [_sync(pair, f) for f in frames]
+    pipe = ServingPipeline(pair, depth=depth)
+    assert all(len(s.rep_streams) == 2 for s in pipe._slots)
+    before = nms_cuda.launches
+    out = _run(pipe, frames)
+    assert nms_cuda.launches - before == 2 * 2 * (depth + 1)
+    assert [t for t, _ in out] == list(range(len(frames)))
+    for (_, got), w in zip(out, want):
+        _assert_equal(got, w)
+    other = create_model("resnet-18_multi", (H, W), device="cuda", generator=torch.Generator().manual_seed(5))
+    first = [pipe.submit(f) for f in frames[:depth]]
+    assert first == [None] * depth
+    pipe.update_weights(other.model)
+    out = _run(pipe, frames[depth:])
+    new = [_sync(pair, f) for f in frames]
+    for (_, got), w in zip(out, want[:depth] + new[depth:]):
         _assert_equal(got, w)
