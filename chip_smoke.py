@@ -178,8 +178,19 @@ Phases (any failure ends the run with a non-zero exit):
      bounds; ``dspnet_torch.bench``'s three modes (``bench.main``, in this
      process), each JSON line printed; ``ops/nms.py``'s ``nms_keep`` on the
      card against ``nms``;
- 15. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, phase 14's, the kernel results (the two TPU kernels' ports and
+ 15. the JAX package's Orbax checkpoints without JAX: libzstd's path and
+     version; the committed resnet-50_multi 512x1024 checkpoint written by
+     the JAX package (tests/fixtures/jax_orbax/, epoch 3, step 1234) read
+     leaf for leaf (540 leaves, every sha256 equal to the JAX
+     ``restore_raw``'s), timed; restored into the card's ``TrainState`` (bit
+     for bit, the JAX step), timed; on a copy of its model dir
+     ``multi_eval`` (NMS launches = eval batches), ``multi_train --resume
+     0`` for 2 b4 bf16 steps (matcher launches = steps, the step going on
+     from the JAX step, epoch 4 written as 0004.pt beside the Orbax step)
+     and ``multi_eval`` on the latest (.pt) and with ``--epoch 3`` (Orbax);
+     nvJPEG and the colour kernel once an image, plain calls 0;
+ 16. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, phase 15's, the kernel results (the two TPU kernels' ports and
      the colour kernel; each kernel's device, host, event and bound times at the main path's
      shapes, beside the baseline kernels' times from this run, and at phases
      10 and 11's shapes) and each phase's seconds with the script's total,
@@ -192,6 +203,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --prepare-only     # phases 1, 2 and 12 alone, no result line
     python3 chip_smoke.py --export-only      # phases 1, 2 and 13 alone, no result line
     python3 chip_smoke.py --host-loaders-only   # phases 1, 2 and 14 alone, no result line
+    python3 chip_smoke.py --jax-checkpoints-only   # phases 1, 2 and 15 alone, no result line
 
 """
 
@@ -3353,10 +3365,184 @@ def host_loaders_phase(dev, label):
     return by_path, record
 
 
+def jax_checkpoints_phase(dev, label):
+    """Phase 15: the JAX package's Orbax checkpoints on the card, without
+    JAX: the committed resnet-50_multi 512x1024 fixture (written by the JAX
+    package's ``CheckpointManagerWrapper.save``, ``tests/fixtures/
+    jax_orbax/``) read leaf for leaf against its recorded sha256s, restored
+    into the card's state, then its model dir through ``multi_eval``,
+    ``multi_train --resume 0`` and ``multi_eval`` on each epoch. Returns
+    ({kernel: {path: launches}}, record)."""
+    import hashlib
+    import logging
+    import re
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_eval, multi_train
+    from dspnet_torch.data import jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils import orbax_read, zstd
+    from dspnet_torch.utils.checkpoint import CheckpointManager, state_from_flax
+
+    fixture = ROOT / "tests" / "fixtures" / "jax_orbax"
+    meta = json.loads((fixture / "leaves.json").read_text())
+    prefix, epoch, step = fixture / meta["prefix"], meta["epoch"], meta["step"]
+    record, secs = {}, {}
+    by_path = {"nms_keep_mask": {}, "bipartite_match": {}, "jpeg_ycc_to_bgr": {}}
+    B, n_train, n_val = 4, 8, 8
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_jax_ckpt_", dir=ROOT / "build"))
+    try:
+        # ---- 15a. libzstd, then every leaf read on the host, bit for bit
+        zstd.library()
+        with open("/proc/self/maps") as f:  # the file the loader resolved
+            path = sorted({line.split()[-1] for line in f if "libzstd" in line})
+        record["libzstd"] = {"path": path, "version": zstd.version()}
+        print(f"libzstd {zstd.version()} loaded from {', '.join(path)} (ctypes; no Python zstd module)", flush=True)
+        on_disk = sum(f.stat().st_size for f in (prefix / str(epoch)).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        tree, got_epoch = orbax_read.restore_raw(str(prefix))
+        read_s = time.perf_counter() - t0
+        leaves = {}
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, path + (k,))
+                else:
+                    leaves[".".join(path + (k,))] = v
+
+        walk(tree, ())
+        check(got_epoch == epoch and sorted(leaves) == sorted(meta["leaves"]),
+              f"read epoch {got_epoch}, {len(leaves)} leaves against {len(meta['leaves'])}")
+        bad = [k for k, rec in meta["leaves"].items()
+               if [leaves[k].dtype.name, list(leaves[k].shape)] != [rec["dtype"], rec["shape"]]
+               or hashlib.sha256(leaves[k].tobytes()).hexdigest() != rec["sha256"]]
+        check(not bad, f"{len(bad)} leaves differ from the JAX package's sha256s: {bad[:3]}")
+        mib = sum(v.nbytes for v in leaves.values()) / 2**20
+        record.update(leaves=len(leaves), values_mib=round(mib, 3), on_disk_bytes=on_disk, read_s=read_s,
+                      read_mib_per_s=mib / read_s)
+        print(f"{meta['network']} {meta['data_shape'][0]}x{meta['data_shape'][1]} JAX checkpoint (epoch {epoch}, "
+              f"{on_disk} bytes on disk): {len(leaves)} leaves, {mib:.3f} MiB, every sha256 equal to the JAX "
+              f"package's restore_raw; read in {read_s:.3f} s ({mib / read_s:.1f} MiB/s of values) [{label}]",
+              flush=True)
+        secs["read"] = read_s
+
+        # ---- 15b. restored into the card's state: names, shapes, values, the step
+        bundle = create_model(meta["network"], tuple(meta["data_shape"]), NUM_CLASSES, device=dev,
+                              generator=torch.Generator().manual_seed(15))
+        template = MultiTaskSolver(bundle.model, bundle.anchors, device=dev).init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, got_epoch = CheckpointManager(str(prefix)).restore(None, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want = state_from_flax(tree)
+        check(got_epoch == epoch and state.step == step, f"restored epoch {got_epoch} step {state.step}")
+        n = 0
+        for g in ("params", "buffers", "momentum"):
+            for k, t in getattr(state, g).items():
+                check(t.device.type == "cuda" and torch.equal(t.detach().cpu(), getattr(want, g)[k].detach()),
+                      f"restored {g} {k} != the checkpoint")
+                n += 1
+        record.update(restore_s=restore_s, tensors=n)
+        print(f"CheckpointManager.restore of the JAX epoch into the card's TrainState: {n} tensors equal bit "
+              f"for bit, step {state.step} (the JAX step), in {restore_s:.3f} s (the read, state_from_flax, the "
+              f"copies to the card) [{label}]", flush=True)
+        secs["restore"] = restore_s
+        del state, template, want, tree, leaves, bundle
+        torch.cuda.empty_cache()
+
+        # ---- 15c. the model dir through the CLIs, counted
+        model = work / "models"
+        shutil.copytree(fixture / "models", model)
+        synth = work / "synth"
+        t0 = time.perf_counter()
+        synthetic.build_dataset(str(synth / "train"), n_train, (H, W), seed=233)
+        synthetic.build_dataset(str(synth / "val"), n_val, (H, W), seed=91)
+        secs["dataset write"] = time.perf_counter() - t0
+        net = ["--network", meta["network"], "--data-shape", f"3,{H},{W}", "--num-classes", str(NUM_CLASSES),
+               "--batch-size", str(B), "--synthetic", str(n_val), "--synthetic-dir", str(synth),
+               "--model-dir", str(model)]
+        eval_batches, steps = -(-n_val // B), n_train // B
+
+        def counted(name, run, want_steps, want_batches, images):
+            nms_cuda.launches = matching_cuda.launches = nms_cuda.plain_calls = matching_cuda.plain_calls = 0
+            jpeg_cuda.images = jpeg.decodes = jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = 0
+            seen = []
+            handler = logging.Handler()
+            handler.emit = lambda r: seen.append(r.getMessage())
+            logging.getLogger().addHandler(handler)
+            t1 = time.perf_counter()
+            try:
+                out = run()
+            finally:
+                logging.getLogger().removeHandler(handler)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t1
+            got = {"bipartite_match": matching_cuda.launches, "nms_keep_mask": nms_cuda.launches,
+                   "jpeg_ycc_to_bgr": jpeg_cuda.color_launches, "nvjpeg_images": jpeg_cuda.images,
+                   "plain": nms_cuda.plain_calls + matching_cuda.plain_calls + jpeg.decodes
+                   + jpeg_cuda.color_plain_calls}
+            expect = {"bipartite_match": want_steps, "nms_keep_mask": want_batches, "jpeg_ycc_to_bgr": images,
+                      "nvjpeg_images": images, "plain": 0}
+            check(got == expect, f"{name}: counts {got}, expected {expect}")
+            for k in by_path:
+                by_path[k][name] = got[k]
+            print(f"{name}: matcher {got['bipartite_match']} launches in {want_steps} steps, NMS "
+                  f"{got['nms_keep_mask']} in {want_batches} eval batches, nvJPEG and the colour kernel "
+                  f"{images} images, plain calls 0; {secs[name]:.1f} s [{label}]", flush=True)
+            return out, seen
+
+        def finite(res, name):
+            check(all(np.isfinite(res[k]) for k in ("mAP", "mIoU", "accuracy", "derror")), f"{name}: {res}")
+            return {k: float(res[k]) for k in ("mAP", "mIoU", "accuracy", "derror", "ms_per_batch")}
+
+        res, seen = counted("multi_eval on the JAX model dir", lambda: multi_eval.main(net), 0, eval_batches, n_val)
+        check(f"loaded checkpoint epoch {epoch} (step {step})" in seen, "multi_eval did not load the JAX epoch")
+        record["eval_jax_epoch"] = finite(res, "multi_eval")
+        print(f"multi_eval on the JAX epoch {epoch}: {record['eval_jax_epoch']}", flush=True)
+
+        train = (net[:-4] + ["--synthetic", str(n_train), "--synthetic-val", str(n_val)] + net[-4:]
+                 + ["--compute-dtype", "bfloat16", "--seg-normalize", "valid", "--lr", "5e-4", "--eval-every", "0",
+                    "--log-every", "1", "--resume", "0", "--end-epoch", str(epoch + 2)])
+        st, seen = counted("multi_train --resume 0 on the JAX model dir", lambda: multi_train.main(train), steps, 0,
+                           n_train)
+        ckpt = CheckpointManager(str(model / Path(meta["prefix"]).name))
+        written = sorted(p.name for p in Path(ckpt.prefix).iterdir())
+        check(f"resumed from epoch {epoch} (step {step})" in seen and st.step == step + steps
+              and ckpt.epochs() == [epoch, epoch + 1] and written == sorted([str(epoch), f"{epoch + 1:04d}.pt"]),
+              f"resume: step {st.step}, epochs {ckpt.epochs()}, files {written}")
+        losses = [float(re.search(r"[:,] loss=([^,]+)", m).group(1)) for m in seen if " batch " in m]
+        check(len(losses) == steps and all(np.isfinite(losses)), f"resumed steps' losses {losses}")
+        record["resume"] = {"from_step": step, "to_step": st.step, "files": written, "loss_lines": losses}
+        print(f"multi_train --resume 0: resumed at epoch {epoch} from the JAX step {step}, ended at step {st.step}, "
+              f"epoch {epoch + 1} written as {epoch + 1:04d}.pt beside the Orbax step {epoch}/ ({written})", flush=True)
+        del st
+
+        res, seen = counted("multi_eval on the .pt epoch", lambda: multi_eval.main(net), 0, eval_batches, n_val)
+        check(f"loaded checkpoint epoch {epoch + 1} (step {step + steps})" in seen, "multi_eval did not pick the .pt")
+        record["eval_pt_epoch"] = finite(res, "multi_eval latest")
+        res, seen = counted("multi_eval --epoch on the Orbax epoch",
+                            lambda: multi_eval.main(net + ["--epoch", str(epoch)]), 0, eval_batches, n_val)
+        check(f"loaded checkpoint epoch {epoch} (step {step})" in seen, "multi_eval --epoch did not read Orbax")
+        record["eval_jax_epoch_again"] = finite(res, "multi_eval --epoch")
+        print(f"multi_eval on the latest (.pt, epoch {epoch + 1}): {record['eval_pt_epoch']}; with --epoch {epoch} "
+              f"(Orbax): {record['eval_jax_epoch_again']}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["stage_seconds"] = {k: round(v, 3) for k, v in secs.items()}
+    print("phase 15 stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + f" [{label}]")
+    print(json.dumps({"jax_checkpoints_phase": record}), flush=True)
+    return by_path, record
+
+
 def probe_codec_libraries():
     """ROADMAP Queue A items 20 and 24: which of the Video Codec SDK's
-    headers and libraries (NVDEC / NVENC), and libjpeg / libpng, this
-    machine has, under the toolkit's and the system's include directories
+    headers and libraries (NVDEC / NVENC), libjpeg / libpng and libzstd
+    (which ``utils/zstd.py`` loads to read the JAX package's checkpoints)
+    this machine has, under the toolkit's and the system's include directories
     and on the loader's path. Reports only; never fails the run."""
     import fnmatch
     import os
@@ -3373,7 +3559,7 @@ def probe_codec_libraries():
         found = {}
         for name in ("nvcuvid.h", "cuviddec.h", "nvEncodeAPI.h", "jpeglib.h", "png.h"):
             found[name] = sorted({str(d / name) for d in inc if (d / name).exists()})
-        for pattern in ("libnvcuvid.so*", "libnvidia-encode.so*", "libjpeg.so*", "libpng*.so*"):
+        for pattern in ("libnvcuvid.so*", "libnvidia-encode.so*", "libjpeg.so*", "libpng*.so*", "libzstd.so*"):
             hits = {str(p) for d in libdirs if d.is_dir() for p in d.glob(pattern)}
             hits |= {p for p in cached if fnmatch.fnmatch(os.path.basename(p), pattern)}
             found[pattern] = sorted(hits)
@@ -3466,6 +3652,10 @@ def main():
         return 0
     if "--host-loaders-only" in sys.argv[1:]:
         timed_phase("14 host loaders, run scripts, bench", host_loaders_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--jax-checkpoints-only" in sys.argv[1:]:
+        timed_phase("15 JAX checkpoints", jax_checkpoints_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -3660,24 +3850,27 @@ def main():
     prep_launches, prep_errs, _ = timed_phase("12 data preparation", prepare_phase, dev, label)
     deploy_launches, _ = timed_phase("13 serving deployment", deployment_phase, dev, label)
     host_launches, _ = timed_phase("14 host loaders, run scripts, bench", host_loaders_phase, dev, label)
+    jax_ckpt_launches, _ = timed_phase("15 JAX checkpoints", jax_checkpoints_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 15. results: launches summed over the paths, each counted from 0
+    # ---- 16. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
                                  "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
                                  "prepare": prep_launches["nms_keep_mask"],
-                                 "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"]},
+                                 "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"],
+                                 **jax_ckpt_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
                                    "options": opt_launches["bipartite_match"],
-                                   "prepare": prep_launches["bipartite_match"], **host_launches["bipartite_match"]},
+                                   "prepare": prep_launches["bipartite_match"], **host_launches["bipartite_match"],
+                                   **jax_ckpt_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"],
-                                   **host_launches["jpeg_ycc_to_bgr"]}}
+                                   **host_launches["jpeg_ycc_to_bgr"], **jax_ckpt_launches["jpeg_ycc_to_bgr"]}}
     colour = decoder.pop("colour_kernel")
 
     shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "plain_ms", "before_device_us",

@@ -13,6 +13,10 @@ import torch
 
 _HANDLER_MARK = "_dspnet_torch_cli"
 
+#: ``--model-dir``'s help in every entry point that reads a checkpoint
+MODEL_DIR_HELP = ("checkpoint directory: the port's {epoch:04d}.pt files, or a JAX run's model dir as it is "
+                  "(its Orbax steps are read without JAX, utils/orbax_read.py)")
+
 
 def setup_logging(log_dir: str = "log", log_file: str | None = None):
     """INFO to stderr and to a timestamped file under ``log_dir`` (reference

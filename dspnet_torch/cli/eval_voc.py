@@ -6,7 +6,8 @@ and dataset/pascal_voc.py:170-259).
         --data-shape 3,300,300 --voc-root VOCdevkit --year 2007 \\
         --image-set test --voc07 --model-dir model
 
-One pass scores the checkpoint two ways: the streaming ``MApMetric``
+The checkpoint is the port's or a JAX run's Orbax step under ``--model-dir``
+(``utils/orbax_read.py``). One pass scores it two ways: the streaming ``MApMetric``
 (``--voc07``: the 11-point VOC07 interpolation; ``--use-difficult`` counts
 difficult ground truth), and the devkit path, per-class
 ``comp4_det_{set}_{cls}.txt`` files written under
@@ -27,7 +28,7 @@ import argparse
 import time
 
 from dspnet_torch.api import create_model
-from dspnet_torch.cli.common import parse_data_shape, resolve_class_names, resolve_device, setup_logging
+from dspnet_torch.cli.common import MODEL_DIR_HELP, parse_data_shape, resolve_class_names, resolve_device, setup_logging
 from dspnet_torch.data.det_iterator import DetIterator
 from dspnet_torch.data.imdb import VOC_CLASSES, PascalVoc
 from dspnet_torch.evaluate.eval_metric import MApMetric, VOC07MApMetric
@@ -43,7 +44,7 @@ def parse_args(argv=None):
     p.add_argument("--class-names", default="", help="names file or comma list; default the VOC 20")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--epoch", type=int, default=-1, help="checkpoint epoch (-1 latest)")
-    p.add_argument("--model-dir", default="model")
+    p.add_argument("--model-dir", default="model", help=MODEL_DIR_HELP)
     p.add_argument("--voc-root", required=True, help="devkit root holding VOC{year}/")
     p.add_argument("--year", default="2007")
     p.add_argument("--image-set", default="val")

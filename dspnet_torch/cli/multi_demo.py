@@ -7,7 +7,8 @@ multi_demo.py:56-150): the detector on image files, each written back as
 
 The checkpoint is the latest under ``--model-dir`` (``--epoch N`` for
 another; ``tools/import_mxnet.py`` writes one from a reference ``.params``),
-or the seeded initial weights with ``--random-init``. JPEG inputs decode on
+or the seeded initial weights with ``--random-init``; a JAX run's model
+dir is read as it is (its Orbax steps, ``utils/orbax_read.py``). JPEG inputs decode on
 the card (nvJPEG and the colour kernel), the resize and the network run
 there; ``--device cpu`` runs everything on the CPU. ``--seg-fast`` serves
 the score-then-upsample seg head (as trained with ``multi_train
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from dspnet_torch.api import create_model
-from dspnet_torch.cli.common import parse_data_shape, resolve_class_names, resolve_device
+from dspnet_torch.cli.common import MODEL_DIR_HELP, parse_data_shape, resolve_class_names, resolve_device
 from dspnet_torch.data.cs_labels import DET_CLASSES
 from dspnet_torch.detect.detector import Detector
 from dspnet_torch.train.solver import MultiTaskSolver
@@ -40,7 +41,7 @@ def parse_args(argv=None):
     p.add_argument("--class-names", default="",
                    help="names file (one per line) or comma list; default Cityscapes 8")
     p.add_argument("--epoch", type=int, default=-1)
-    p.add_argument("--model-dir", default="model")
+    p.add_argument("--model-dir", default="model", help=MODEL_DIR_HELP)
     p.add_argument("--out-dir", default=".")
     p.add_argument("--nms-thresh", type=float, default=0.5)
     p.add_argument("--vis-thresh", type=float, default=0.6)

@@ -1,7 +1,8 @@
 """Evaluation CLI (counterpart of ``dspnet_tpu/cli/multi_eval.py``; reference
 multi_eval.py:106-465): detection mAP, segmentation mIoU and pixel
 accuracy, depth relative error and ms/batch in one pass over the
-validation split, from a checkpoint of ``multi_train``.
+validation split, from a checkpoint of ``multi_train``: the port's, or a
+JAX run's Orbax step under ``--model-dir`` as it is (``utils/orbax_read.py``).
 
     python -m dspnet_torch.cli.multi_eval --network resnet-50_multi \\
         --data-shape 3,512,1024 --batch-size 4 --dataset-root data/cityscapes \\
@@ -30,6 +31,7 @@ import numpy as np
 
 from dspnet_torch.api import create_model
 from dspnet_torch.cli.common import (
+    MODEL_DIR_HELP,
     check_loader_flags,
     default_synthetic_dir,
     make_multitask_loader,
@@ -54,7 +56,7 @@ def parse_args(argv=None):
                    help="names file (one per line) or comma list; default Cityscapes 8")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--epoch", type=int, default=-1, help="checkpoint epoch (-1 latest)")
-    p.add_argument("--model-dir", default="model")
+    p.add_argument("--model-dir", default="model", help=MODEL_DIR_HELP)
     p.add_argument("--dataset-root", default="",
                    help="a prepared dataset directory or .drec record store (split val)")
     p.add_argument("--synthetic", type=int, default=0)

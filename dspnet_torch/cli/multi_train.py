@@ -1,6 +1,8 @@
 """Training CLI (counterpart of ``dspnet_tpu/cli/multi_train.py``; reference
 multi_train.py:20-100, 188-536): build the dataset, train with a validation
-pass after each epoch, checkpoint, resume.
+pass after each epoch, checkpoint, resume. ``--resume`` also continues a
+JAX run: its model dir's Orbax steps are read as they are (the JAX step
+goes on), and the next epochs are written as ``.pt`` beside them.
 
     python -m dspnet_torch.cli.multi_train --network resnet-50_multi \\
         --data-shape 3,512,1024 --batch-size 4 --dataset-root data/cityscapes \\
@@ -81,6 +83,7 @@ import torch
 
 from dspnet_torch.api import create_model
 from dspnet_torch.cli.common import (
+    MODEL_DIR_HELP,
     check_loader_flags,
     default_synthetic_dir,
     make_multitask_loader,
@@ -120,7 +123,8 @@ def parse_args(argv=None):
     p.add_argument("--resume", type=int, default=-1,
                    help="resume from epoch N (0 = latest checkpoint, -1 off)")
     p.add_argument("--freeze", default="", help="regex of flax param paths to freeze")
-    p.add_argument("--model-dir", default="model")
+    p.add_argument("--model-dir", default="model",
+                   help=MODEL_DIR_HELP + "; epochs are written as .pt, beside a JAX run's steps on --resume")
     p.add_argument("--dataset-root", default="",
                    help="a prepared dataset directory or .drec record store (splits train, val)")
     p.add_argument("--synthetic", type=int, default=0, help="use N synthetic samples")

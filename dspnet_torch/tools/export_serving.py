@@ -27,6 +27,9 @@ Usage::
         --data-shape 3,512,1024 --batch-size 8 --model-dir model \\
         --out serving/dspnet.pt2 [--bf16] [--device cpu]
 
+``--model-dir`` takes the port's checkpoints or a JAX run's model dir as
+it is (its Orbax steps, read through ``utils/orbax_read.py``).
+
     # at the deployment site
     from dspnet_torch.tools.export_serving import load_bundle
     serve = load_bundle("serving/dspnet.pt2")
@@ -135,12 +138,14 @@ def load_bundle(path: str):
 
 
 def main(argv=None):
+    from dspnet_torch.cli.common import MODEL_DIR_HELP
+
     p = argparse.ArgumentParser(description="Export the serving pipeline (torch.export).")
     p.add_argument("--network", default="resnet-50_multi")
     p.add_argument("--data-shape", default="3,512,1024")
     p.add_argument("--num-classes", type=int, default=8)
     p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--model-dir", default="model")
+    p.add_argument("--model-dir", default="model", help=MODEL_DIR_HELP)
     p.add_argument("--epoch", type=int, default=-1)
     p.add_argument("--out", required=True)
     p.add_argument("--bf16", action="store_true", help="serve in bfloat16")

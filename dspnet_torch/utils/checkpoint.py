@@ -8,15 +8,20 @@ is one ``torch.save`` file ``{prefix}/{epoch:04d}.pt`` holding the float32
 parameters, the BatchNorm buffers, the SGD momentum and the step, as plain
 tensors and an int: ``torch.load(weights_only=True)`` reads it.
 
+``CheckpointManager`` also reads the JAX package's Orbax steps under the
+same prefix (``{prefix}/{epoch}/``, through ``utils/orbax_read.py``, with
+no JAX, Orbax or tensorstore): ``epochs()`` lists both forms, and
+``restore`` turns a JAX epoch into the port's state through
+:func:`state_from_flax`, with the JAX step. So every entry point that
+takes ``--model-dir`` takes a JAX run's model dir, and a resumed JAX run
+writes its next epochs as ``.pt`` beside the Orbax steps. The port never
+writes Orbax; an epoch present in both forms is refused.
+
 :func:`save_params_only` / :func:`load_params_only` write and read the
 inference weights alone (a detector deployment): one ``torch.save`` file of
 the parameters and buffers, loaded strictly into a module of the same
-architecture.
-
-:func:`state_from_flax` turns a JAX package checkpoint (the numpy tree
-``CheckpointManagerWrapper.restore_raw`` returns) into a port
-``TrainState``, so the port scores a JAX-trained network; the port itself
-never imports Orbax.
+architecture; ``load_params_only`` also reads a JAX ``save_params_only``
+directory.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from dspnet_torch.train.solver import TrainState
+from dspnet_torch.utils import orbax_read
 from dspnet_torch.utils.convert import flax_to_state_dict
 
 _FILE = re.compile(r"^(\d+)\.pt$")
@@ -98,32 +104,61 @@ class CheckpointManager:
         self._thread = threading.Thread(target=run, name=f"ckpt-save-{epoch}", daemon=True)
         self._thread.start()
 
+    def orbax_path(self, epoch: int) -> str:
+        """Where the JAX package keeps epoch ``epoch``: its Orbax step directory."""
+        return orbax_read.step_dir(self.prefix, epoch)
+
     def epochs(self):
+        """The epochs under the prefix: the port's ``.pt`` files and the JAX
+        package's committed Orbax steps."""
         self._join()
-        return sorted(int(m.group(1)) for m in map(_FILE.match, os.listdir(self.prefix)) if m)
+        pt = {int(m.group(1)) for m in map(_FILE.match, os.listdir(self.prefix)) if m}
+        return sorted(pt | set(orbax_read.orbax_epochs(self.prefix)))
 
     def latest_epoch(self) -> Optional[int]:
         epochs = self.epochs()
         return epochs[-1] if epochs else None
 
-    @torch.no_grad()
-    def restore(self, epoch: Optional[int], template: TrainState) -> Tuple[TrainState, int]:
-        """Copy epoch ``epoch`` (the latest when None) into ``template``'s
-        tensors (their device, dtype and ``requires_grad`` stay); returns
-        (state, epoch). The names must match exactly."""
+    def read(self, epoch: Optional[int] = None) -> Tuple[dict, int]:
+        """Epoch ``epoch`` (the latest when None) as ``({"params", "buffers",
+        "momentum": {name: tensor on the CPU}, "step": int}, epoch)``, from
+        its ``.pt`` file or from its Orbax step (``state_from_flax``)."""
         if epoch is None:
             epoch = self.latest_epoch()
         else:
             self._join()
         if epoch is None:
             raise FileNotFoundError(f"no checkpoints under {self.prefix}")
-        payload = torch.load(self.path(epoch), map_location="cpu", weights_only=True)
+        pt, jax_step = self.path(epoch), self.orbax_path(epoch)
+        in_pt, in_jax = os.path.exists(pt), os.path.isdir(jax_step)
+        if in_pt and in_jax:
+            raise ValueError(f"epoch {epoch} exists twice under {self.prefix}: {pt} and the JAX package's "
+                             f"Orbax step {jax_step}; move one of them away")
+        if in_jax:
+            state = state_from_flax(orbax_read.restore_raw(self.prefix, epoch)[0])
+            return {**{g: getattr(state, g) for g in _GROUPS}, "step": state.step}, epoch
+        if not in_pt:
+            raise FileNotFoundError(f"no checkpoint for epoch {epoch} under {self.prefix} "
+                                    f"(neither {pt} nor {jax_step})")
+        return torch.load(pt, map_location="cpu", weights_only=True), epoch
+
+    @torch.no_grad()
+    def restore(self, epoch: Optional[int], template: TrainState) -> Tuple[TrainState, int]:
+        """Copy epoch ``epoch`` (the latest when None; a ``.pt`` file or a
+        JAX Orbax step) into ``template``'s tensors (their device, dtype and
+        ``requires_grad`` stay); returns (state, epoch). The names and the
+        shapes must match exactly; the step is the checkpoint's."""
+        payload, epoch = self.read(epoch)
+        where = f"checkpoint {self.prefix} epoch {epoch}"
         for g in _GROUPS:
             want, got = getattr(template, g), payload[g]
             if set(want) != set(got):
-                raise KeyError(f"checkpoint {self.path(epoch)} {g}: missing "
+                raise KeyError(f"{where} {g}: missing "
                                f"{sorted(set(want) - set(got))[:5]}, unexpected {sorted(set(got) - set(want))[:5]}")
             for k, t in want.items():
+                if tuple(got[k].shape) != tuple(t.shape):
+                    raise ValueError(f"{where} {g}: {k} has shape {tuple(got[k].shape)}, the model's is "
+                                     f"{tuple(t.shape)}")
                 t.copy_(got[k])
         template.step = int(payload["step"])
         return template, epoch
@@ -171,9 +206,25 @@ def save_params_only(path: str, params: Mapping[str, torch.Tensor],
 
 
 def load_params_only(path: str, template: torch.nn.Module) -> torch.nn.Module:
-    """Load a :func:`save_params_only` file into ``template`` (a module of the
+    """Load a :func:`save_params_only` file, or a directory the JAX
+    package's ``save_params_only`` wrote, into ``template`` (a module of the
     same architecture) strictly, on the template's device and dtypes;
     returns the template."""
+    if os.path.isdir(path):
+        tree = orbax_read.read_item(path)
+        variables = {c: _float_leaves(tree[c]) for c in ("params", "batch_stats") if tree.get(c)}
+        template.load_state_dict(flax_to_state_dict(variables), strict=True)
+        return template
     payload = torch.load(path, map_location="cpu", weights_only=True)
     template.load_state_dict({**payload["params"], **payload["buffers"]}, strict=True)
     return template
+
+
+def _float_leaves(tree):
+    """``tree`` with its bfloat16 leaves (``torch.bfloat16`` tensors from
+    ``orbax_read``) as float32 numpy arrays, which hold them exactly."""
+    if isinstance(tree, dict):
+        return {k: _float_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree

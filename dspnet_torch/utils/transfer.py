@@ -93,18 +93,14 @@ def state_variables(state: TrainState) -> Dict[str, dict]:
 def init_from_checkpoint(state: TrainState, checkpoint_dir: str, subtree: str = "backbone",
                          epoch: Optional[int] = None) -> TrainState:
     """Load ``subtree``'s parameters (and matching batch statistics) from a
-    port checkpoint (``CheckpointManager`` directory) into ``state``, in
-    place. The read takes no template: the source may come from another
-    architecture (other head widths, class counts), which is the cross-model
-    transfer this exists for (multi_init.py:50-169)."""
+    checkpoint prefix (``CheckpointManager``: the port's ``.pt`` epochs or
+    a JAX run's Orbax steps) into ``state``, in place. The read takes no
+    template: the source may come from another architecture (other head
+    widths, class counts), which is the cross-model transfer this exists
+    for (multi_init.py:50-169)."""
     from dspnet_torch.utils.checkpoint import CheckpointManager
 
-    mgr = CheckpointManager(checkpoint_dir)
-    if epoch is None:
-        epoch = mgr.latest_epoch()
-    if epoch is None:
-        raise FileNotFoundError(f"no checkpoints under {checkpoint_dir}")
-    payload = torch.load(mgr.path(epoch), map_location="cpu", weights_only=True)
+    payload, _ = CheckpointManager(checkpoint_dir).read(epoch)
     source = to_flax_variables({**payload["params"], **payload["buffers"]})
     variables = state_variables(state)
     variables["params"] = merge_param_subtree(variables["params"], source.get("params", {}), subtree)

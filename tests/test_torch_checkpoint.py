@@ -17,7 +17,7 @@ from dspnet_tpu.utils.checkpoint import CheckpointManagerWrapper
 from dspnet_tpu.utils.checkpoint import checkpoint_prefix as jax_checkpoint_prefix
 from dspnet_torch.api import create_model
 from dspnet_torch.train.solver import MultiTaskSolver, TrainState
-from dspnet_torch.utils import checkpoint
+from dspnet_torch.utils import checkpoint, orbax_read
 from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix, state_from_flax
 from dspnet_torch.utils.convert import load_flax_variables, to_flax_variables
 from tests.torch_parity import random_flax_variables
@@ -80,6 +80,10 @@ def test_save_restore_round_trip(tmp_path):
     bad.params["extra"] = torch.zeros(1)
     with pytest.raises(KeyError, match="missing"):
         mgr.restore(0, bad)
+    bad = _state()
+    bad.params["a.bias"] = torch.zeros(1)  # broadcastable, yet not the saved shape
+    with pytest.raises(ValueError, match=r"a.bias has shape \(4,\), the model's is \(1,\)"):
+        mgr.restore(0, bad)
     assert sorted(os.listdir(mgr.prefix)) == ["0000.pt", "0004.pt"]  # no temporary files left
     mgr.close()
 
@@ -127,7 +131,9 @@ def test_state_from_flax_reads_a_jax_checkpoint(tmp_path):
     """A resnet-18_multi state saved by dspnet_tpu's CheckpointManagerWrapper
     (params, batch stats, a non-zero momentum trace, step) becomes a port
     TrainState whose tensors equal the JAX ones, and which loads into the
-    port's model."""
+    port's model. The port's own reader (``utils/orbax_read.py``) gives
+    orbax's tree leaf for leaf, bit for bit, and ``CheckpointManager``
+    restores the epoch into a port state equal to ``state_from_flax``'s."""
     H, W = 128, 256
     bundle = jax_create_model("resnet-18_multi", (H, W))
     variables = random_flax_variables(bundle.model, (1, H, W, 3), seed=3, train=False)
@@ -144,6 +150,13 @@ def test_state_from_flax_reads_a_jax_checkpoint(tmp_path):
     tree, epoch = mgr.restore_raw(None)
     mgr.close()
     assert epoch == 2
+    got, got_epoch = orbax_read.restore_raw(str(tmp_path / "ck"))
+    assert got_epoch == 2
+    want_leaves, want_def = jax.tree_util.tree_flatten_with_path(tree)
+    got_leaves, got_def = jax.tree_util.tree_flatten_with_path(got)
+    assert got_def == want_def and len(got_leaves) == len(want_leaves) > 100
+    for (path, a), (_, b) in zip(got_leaves, want_leaves):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == np.asarray(b).tobytes(), path
 
     state = state_from_flax(tree)
     assert state.step == 17
@@ -162,6 +175,12 @@ def test_state_from_flax_reads_a_jax_checkpoint(tmp_path):
     for path, leaf in jax.tree_util.tree_leaves_with_path(got_mom):
         np.testing.assert_array_equal(leaf, np.asarray(dict(jax.tree_util.tree_leaves_with_path(momentum))[path]))
     assert all(v.dtype == torch.float32 and v.requires_grad for v in state.params.values())
+    template = MultiTaskSolver(port.model, port.anchors, device="cpu").init_state()
+    restored, ep = CheckpointManager(str(tmp_path / "ck")).restore(None, template)
+    assert ep == 2 and restored.step == 17
+    for g in ("params", "buffers", "momentum"):
+        for k, t in getattr(restored, g).items():
+            assert torch.equal(t.detach(), getattr(state, g)[k].detach()), (g, k)
 
     # the converted state serves in the port as the JAX variables do
     solver = MultiTaskSolver(port.model, port.anchors, device="cpu")

@@ -5,6 +5,7 @@ the port refuses."""
 
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -224,3 +225,117 @@ def test_dataset_root_without_a_val_split(workdir, caplog):
                                      "--end-epoch", "1", "--seg-normalize", "valid"])
     assert st.step == 1
     assert "no validation split found; skipping per-epoch eval" in caplog.text
+
+
+# ------------------------------------------------------- a JAX run's model dir
+
+
+def test_a_jax_runs_model_dir(workdir, prepared):
+    """The JAX ``multi_train`` (resnet-18_multi 128x256, b2, one epoch, its
+    python loader, the prepared Cityscapes layout, whose files both CLIs
+    read as they are) writes Orbax epoch 0; then, on that model dir as it is:
+    the port's ``multi_eval --loader python`` agrees with the JAX
+    ``multi_eval`` (every key within 1e-6 absolute: the two float32
+    forwards differ by reassociation, which moves the depth errors by up to
+    1.7e-7 here and leaves the det and seg metrics equal); ``multi_train --resume 0 --loader python`` continues at the JAX
+    step and writes epoch 1 as ``.pt`` beside the Orbax step, its weights
+    within ``assert_steps_match_jax``'s tolerances of the JAX ``--resume 0``
+    (each parameter's change within 4% of the largest, each running
+    statistic's within 1e-3 of the largest of its kind); and
+    ``init_from_checkpoint`` from the JAX prefix equals the JAX
+    ``init_from_checkpoint`` bit for bit, moving the backbone only.
+    ``multi_demo``'s detector holds the JAX epoch's weights bit for bit and
+    its ``main`` writes an image (``eval_voc`` and ``export_serving`` restore
+    through the same ``CheckpointManager.restore``)."""
+    import dataclasses
+    import shutil
+
+    import jax
+
+    from dspnet_tpu.cli import multi_eval as jax_multi_eval
+    from dspnet_tpu.cli import multi_train as jax_multi_train
+    from dspnet_tpu.utils.checkpoint import CheckpointManagerWrapper
+    from dspnet_tpu.utils.transfer import init_from_checkpoint as jax_init_from_checkpoint
+    from dspnet_torch.api import create_model
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.convert import to_flax_variables
+    from dspnet_torch.utils.transfer import init_from_checkpoint
+    from tests.torch_parity import assert_steps_match_jax, flat_tree
+
+    jax_net = [a for a in NET if a not in ("--device", "cpu")]
+    data = ["--dataset-root", prepared[0], "--loader", "python"]
+    train = ["--lr", "0.001", "--seg-normalize", "valid", "--eval-every", "0"]
+    jax_dir = workdir / "jax_model"
+    jax_multi_train.main(jax_net + data + train + ["--end-epoch", "1", "--num-devices", "1",
+                                                   "--model-dir", str(jax_dir)])
+    prefix = checkpoint_prefix(str(jax_dir), "resnet-18_multi", 128)
+    assert sorted(os.listdir(prefix)) == ["0"] and CheckpointManager(prefix).epochs() == [0]
+    for name in ("jax_resumed", "port_resumed"):
+        shutil.copytree(jax_dir, workdir / name)
+
+    want = jax_multi_eval.main(jax_net + data + ["--model-dir", str(jax_dir)])
+    got = multi_eval.main(NET + data + ["--model-dir", str(jax_dir)])
+    assert set(got) == set(want)
+    for k in want:
+        if k == "ms_per_batch":
+            continue
+        assert abs(float(got[k]) - float(want[k])) <= 1e-6 or (np.isnan(got[k]) and np.isnan(want[k])), \
+            (k, got[k], want[k])
+
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.utils.checkpoint import state_from_flax
+
+    demo = ["--network", "resnet-18_multi", "--data-shape", "3,128,256", "--model-dir", str(jax_dir), "--device", "cpu"]
+    jmgr = CheckpointManagerWrapper(prefix)
+    want_state = state_from_flax(jmgr.restore_raw(0)[0])
+    jmgr.close()
+    detector = multi_demo.get_detector(multi_demo.parse_args(demo))
+    weights = detector.model.state_dict()
+    for k, v in {**want_state.params, **want_state.buffers}.items():
+        assert torch.equal(weights[k], v.detach()), k
+    image = sorted((Path(prepared[0]) / "JPEGImages").glob("*.jpg"))[0]
+    written = multi_demo.main(demo + ["--images", str(image), "--out-dir", str(workdir / "demo_jax")])
+    assert len(written) == 1 and os.path.getsize(written[0]) > 0
+
+    jax_multi_train.main(jax_net + data + train + ["--end-epoch", "2", "--num-devices", "1", "--resume", "0",
+                                                   "--model-dir", str(workdir / "jax_resumed")])
+    st = multi_train.main(NET + data + train + ["--end-epoch", "2", "--resume", "0",
+                                                "--model-dir", str(workdir / "port_resumed")])
+    assert st.step == 4
+    port_prefix = checkpoint_prefix(str(workdir / "port_resumed"), "resnet-18_multi", 128)
+    assert sorted(os.listdir(port_prefix)) == ["0", "0001.pt"]
+    jmgr = CheckpointManagerWrapper(prefix)
+    before, _ = jmgr.restore_raw(0)
+    jmgr.close()
+    jmgr = CheckpointManagerWrapper(checkpoint_prefix(str(workdir / "jax_resumed"), "resnet-18_multi", 128))
+    after, _ = jmgr.restore_raw(1)
+    jmgr.close()
+    assert int(before["step"]) == 2 and int(after["step"]) == 4
+
+    @dataclasses.dataclass(frozen=True)
+    class JaxState:  # what the JAX init_from_checkpoint reads and replaces
+        params: dict
+        batch_stats: dict
+
+        def replace(self, **kw):
+            return dataclasses.replace(self, **kw)
+
+    saved = torch.load(os.path.join(port_prefix, "0001.pt"), weights_only=True)
+    assert saved["step"] == 4
+    assert_steps_match_jax(before["params"], JaxState(after["params"], after["batch_stats"]), [],
+                           to_flax_variables({**saved["params"], **saved["buffers"]}), [],
+                           init_stats=before["batch_stats"])
+
+    fresh = create_model("resnet-18_multi", (128, 256), device="cpu", generator=torch.Generator().manual_seed(7))
+    state = MultiTaskSolver(fresh.model, fresh.anchors, device="cpu").init_state()
+    start = jax.tree.map(np.copy, to_flax_variables({**state.params, **state.buffers}))  # not views of the state
+    merged = jax_init_from_checkpoint(JaxState(start["params"], start["batch_stats"]), prefix)
+    init_from_checkpoint(state, prefix)
+    got_vars = to_flax_variables({**state.params, **state.buffers})
+    for coll, tree in (("params", merged.params), ("batch_stats", merged.batch_stats)):
+        want_flat, got_flat, old = (flat_tree(jax.tree.map(np.asarray, t))
+                                    for t in (tree, got_vars[coll], start[coll]))
+        assert want_flat.keys() == got_flat.keys()
+        for k, v in want_flat.items():
+            np.testing.assert_array_equal(got_flat[k], v, err_msg=k)
+            assert np.array_equal(v, old[k]) != ("backbone" in k), k

@@ -124,7 +124,9 @@ def test_det_train_then_eval_voc_matches_jax(tmp_path):
     the same lines, scores within one printed digit (0.001) and pixel
     corners within one (the two forwards differ by float32 reassociation,
     which can cross a rounding or ``int()`` boundary). A resume continues
-    from the saved epoch."""
+    from the saved epoch. The port's ``eval_voc`` on the JAX model dir
+    (its Orbax epoch read without JAX) equals the port's on its own
+    checkpoint, key for key."""
     root = synthetic.build_voc_dataset(str(tmp_path / "devkit"), num_samples=4, hw=(96, 96), seed=233)
     names = ",".join(NAMES)
     common = ["--network", "resnet-18", "--data-shape", "3,96,96", "--num-classes", "8", "--batch-size", "2"]
@@ -149,6 +151,10 @@ def test_det_train_then_eval_voc_matches_jax(tmp_path):
                                       "--result-dir", str(tmp_path / "jax")])
     assert set(got) == set(want)
     assert {"mAP", "devkit_mAP", "ms_per_batch"} <= set(got)
+    from_jax = eval_voc.main(flags + ["--model-dir", str(tmp_path / "jax_model"),
+                                      "--result-dir", str(tmp_path / "port_on_jax"), "--device", "cpu"])
+    assert all(from_jax[k] == got[k] or (np.isnan(got[k]) and np.isnan(from_jax[k]))
+               for k in got if k != "ms_per_batch")
     for k in want:
         if k != "ms_per_batch":
             assert abs(got[k] - want[k]) <= 1e-6 or (np.isnan(got[k]) and np.isnan(want[k])), k
