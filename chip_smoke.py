@@ -189,8 +189,24 @@ Phases (any failure ends the run with a non-zero exit):
      from the JAX step, epoch 4 written as 0004.pt beside the Orbax step)
      and ``multi_eval`` on the latest (.pt) and with ``--epoch 3`` (Orbax);
      nvJPEG and the colour kernel once an image, plain calls 0;
- 16. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, phase 14's, phase 15's, the kernel results (the two TPU kernels' ports and
+ 16. video through ``multi_demo`` (resnet-50_multi 512x1024 bf16, seeded
+     weights, seed 16): a Motion-JPEG AVI of 64 textured 1024x2048 frames
+     encoded by nvJPEG and written by ``data/avi.py``; ``multi_demo --images
+     clip.avi`` under the profiler (frames in = frames out, read back at 25
+     fps and 1024x2048; nvJPEG images, colour launches and card encodes =
+     64, NMS wrapper launches = the pipeline's warm-ups and captures and NMS
+     kernels run = 64 + warm-ups, plain decodes and encodes 0) and again
+     timed; the pipeline's rendered frames equal a synchronous
+     ``predict_raw`` replay with the same drawing bit for bit, the overlay on
+     the card equals numpy's, each output frame within the encoder's gate of
+     its rendered frame; the committed clips of cv2's two writers and a
+     DHT-less copy through ``detect_and_visualize``; the JPEG forms
+     (progressive, DHT-less, RGB-coded, CMYK, YCCK) on the card within the
+     gates or refused by name, the colour kernel equal to its plain version
+     in each mode; each stage's ms per frame and nvJPEG's encoder host and
+     device us;
+ 17. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, phase 15's, phase 16's, the kernel results (the two TPU kernels' ports and
      the colour kernel; each kernel's device, host, event and bound times at the main path's
      shapes, beside the baseline kernels' times from this run, and at phases
      10 and 11's shapes) and each phase's seconds with the script's total,
@@ -204,6 +220,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --export-only      # phases 1, 2 and 13 alone, no result line
     python3 chip_smoke.py --host-loaders-only   # phases 1, 2 and 14 alone, no result line
     python3 chip_smoke.py --jax-checkpoints-only   # phases 1, 2 and 15 alone, no result line
+    python3 chip_smoke.py --video-only       # phases 1, 2 and 16 alone, no result line
 
 """
 
@@ -3538,6 +3555,290 @@ def jax_checkpoints_phase(dev, label):
     return by_path, record
 
 
+def video_phase(dev, label):
+    """Phase 16: video through ``multi_demo`` at resnet-50_multi 512x1024
+    bf16 on seeded weights (seed 16): a Motion-JPEG AVI of 64 textured
+    1024x2048 frames written by the port (nvJPEG's encoder, ``data/avi.py``),
+    ``multi_demo --images clip.avi`` under the profiler and again timed, the
+    rendered frames against a synchronous replay, the output file against
+    the rendered frames, the overlay against numpy, the committed clips of
+    cv2's two writers and a DHT-less copy, the JPEG forms the decoders
+    learned, and the time of each stage per frame. Returns ({kernel: {path:
+    launches}}, record)."""
+    import hashlib
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.data import avi, jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data.device_pipeline import resize_linear
+    from dspnet_torch.detect import video
+    from dspnet_torch.detect.pipeline import ServingPipeline
+    from dspnet_torch.ops import nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils import draw
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    net, n_frames, FH, FW, thresh = "resnet-50_multi", 64, 1024, 2048, 0.3
+    fixture = ROOT / "tests" / "fixtures" / "video"
+    meta = json.loads((fixture / "frames.json").read_text())
+    launches = {"nms_keep_mask": {}, "jpeg_ycc_to_bgr": {}}
+    record, secs = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_video_", dir=ROOT / "build"))
+
+    def reset():
+        nms_cuda.launches = jpeg_cuda.launches = jpeg_cuda.images = jpeg_cuda.encodes = 0
+        jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = jpeg.decodes = jpeg.encodes = 0
+        jpeg_cuda.routes.update(dict.fromkeys(jpeg_cuda.routes, 0))
+
+    def counts():
+        return {"nms": nms_cuda.launches, "nvjpeg_images": jpeg_cuda.images, "colour": jpeg_cuda.color_launches,
+                "card_encodes": jpeg_cuda.encodes, "plain_decodes": jpeg.decodes, "plain_encodes": jpeg.encodes,
+                "plain_colour": jpeg_cuda.color_plain_calls}
+
+    def psnr(a, b):
+        mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+        return 10 * np.log10(255.0 ** 2 / mse)
+
+    try:
+        # ---- 16a. seeded weights as epoch 0; 64 textured frames to a clip by the card's encoder
+        t0 = time.perf_counter()
+        src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                           generator=torch.Generator().manual_seed(16))
+        model_dir = work / "model"
+        CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).save(
+            0, MultiTaskSolver(src.model, src.anchors, device=dev).init_state())
+        del src
+        rng = np.random.RandomState(16)
+        scene = synthetic.make_example(rng, (FH, FW + 4 * n_frames), 6)[0].astype(np.float32)
+        scene += synthetic.texture_offsets(rng, scene.shape[:2])
+        scene = torch.from_numpy(np.clip(np.rint(scene), 0, 255).astype(np.uint8)).to(dev)
+        clip = work / "clip.avi"
+        jpeg_cuda.encodes = 0
+        with avi.AviWriter(clip, FW, FH, 25) as writer:
+            for i in range(n_frames):
+                writer.write(jpeg_cuda.encode(scene[:, 4 * i:4 * i + FW].contiguous()))
+        check(jpeg_cuda.encodes == n_frames, f"{jpeg_cuda.encodes} card encodes for {n_frames} clip frames")
+        del scene
+        secs["clip written"] = time.perf_counter() - t0
+        print(f"phase 16 input: {n_frames} textured {FH}x{FW} frames encoded by nvJPEG (q95 4:2:0) into "
+              f"{clip.stat().st_size / 2**20:.2f} MiB of Motion-JPEG AVI in {secs['clip written']:.2f} s "
+              f"(with the seeded checkpoint) [{label}]", flush=True)
+
+        # ---- 16b. multi_demo on the clip under the profiler: the counts
+        out_dir = work / "out"
+        demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                     "--dtype", "bfloat16", "--vis-thresh", str(thresh), "--out-dir", str(out_dir),
+                     "--device", str(dev), "--images", str(clip)]
+        reset()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            written = multi_demo.main(demo_args)
+            torch.cuda.synchronize()
+        secs["multi_demo profiled"] = time.perf_counter() - t0
+        got = counts()
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ran_nms = sum(any(n in k for n in NMS_KERNELS) for k in kernels)
+        slots = 3  # ServingPipeline(depth=2): depth + 1 slots, each warmed up once and captured once
+        want = {"nms": 2 * slots, "nvjpeg_images": n_frames, "colour": n_frames, "card_encodes": n_frames,
+                "plain_decodes": 0, "plain_encodes": 0, "plain_colour": 0}
+        check(got == want, f"multi_demo on the clip: counts {got}, expected {want}")
+        check(ran_nms == n_frames + slots,
+              f"{ran_nms} NMS kernels ran for {n_frames} frames (+ {slots} warm-ups); expected {n_frames + slots}")
+        check(written == [str(out_dir / "detection_out.avi")], f"multi_demo wrote {written}")
+        with avi.open_video(written[0]) as reader:
+            out_frames = list(reader)
+            stream = reader.stream
+        check((len(out_frames), stream.fps, stream.width, stream.height) == (n_frames, 25.0, FW, FH),
+              f"detection_out.avi: {len(out_frames)} frames, {stream}")
+        launches["nms_keep_mask"]["video_demo"] = got["nms"]
+        launches["jpeg_ycc_to_bgr"]["video_demo"] = got["colour"]
+        record["counts"] = dict(got, nms_kernels_run=ran_nms, routes=dict(jpeg_cuda.routes))
+        print(f"multi_demo --images clip.avi ({n_frames} frames in, {len(out_frames)} out, 25 fps {FW}x{FH} read "
+              f"back): counts {got}; under the profiler {ran_nms} NMS kernels ran ({n_frames} replayed frames + "
+              f"{slots} warm-ups; the wrapper counts the warm-up and capture of each slot); routes "
+              f"{jpeg_cuda.routes} [{label}]", flush=True)
+
+        # ---- 16c. the same run timed, without the profiler
+        reset()
+        t0 = time.perf_counter()
+        multi_demo.main(demo_args)
+        torch.cuda.synchronize()
+        secs["multi_demo"] = time.perf_counter() - t0
+        check(counts() == want, f"timed multi_demo counts {counts()}")
+
+        # ---- 16d. pixels: pipeline == synchronous replay, file ~ rendered, overlay == numpy
+        detector = multi_demo.get_detector(multi_demo.parse_args(demo_args))
+        with avi.open_video(clip) as reader:
+            buffers = list(reader)
+        t0 = time.perf_counter()
+        rendered = list(video.render(detector, buffers, thresh, 0.95))
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        decoded = [f for i in range(0, n_frames, 8) for f in jpeg_cuda.decode_images(buffers[i:i + 8], dev)]
+        overlay_equal = 0
+        for i, frame in enumerate(decoded):
+            res = detector.predict_raw(resize_linear(frame, (H, W))[None])
+            dets = video.second_nms(detector._filter_rows(res["det"][0].cpu().numpy(), 0.0), (H, W), 0.95)
+            seg = res["seg"][0]
+            over = draw.seg_overlay_tensor(frame, seg, detector.palette).cpu().numpy()
+            if i in (0, n_frames - 1):
+                check(np.array_equal(over, draw.seg_overlay(frame.cpu().numpy(), seg.cpu().numpy(),
+                                                            detector.palette)),
+                      f"frame {i}: the overlay on the card != the numpy overlay")
+                overlay_equal += 1
+            if i == 0:
+                n_boxes = int((dets[:, 1] >= thresh).sum())
+            replay = detector.draw_boxes(over, dets, thresh)
+            check(np.array_equal(replay, rendered[i]), f"frame {i}: pipeline render != synchronous replay")
+        # each output frame against its rendered frame; every 8th also against
+        # the plain encoder's bytes of it (q95 4:2:0, both decoded by nvJPEG)
+        back = [f.cpu().numpy() for i in range(0, n_frames, 8)
+                for f in jpeg_cuda.decode_images(out_frames[i:i + 8], dev)]
+        card_db = [psnr(b, r) for b, r in zip(back, rendered)]
+        sampled = list(range(0, n_frames, 8))
+        plain_db = [psnr(jpeg_cuda.decode_images([jpeg.encode(rendered[i], 95)], dev)[0].cpu().numpy(), rendered[i])
+                    for i in sampled]
+        gap = max(p - card_db[i] for p, i in zip(plain_db, sampled))
+        check(gap <= jpeg_cuda.ENCODE_GATE_DB,
+              f"nvJPEG's output lies {gap:.2f} dB below the plain encoder's on a frame (gate "
+              f"{jpeg_cuda.ENCODE_GATE_DB} dB)")
+        record["pixels"] = {"replay_equal_frames": n_frames, "overlay_equal_frames": overlay_equal,
+                            "output_psnr_db": [min(card_db), max(card_db)],
+                            "plain_encoder_psnr_db": [min(plain_db), max(plain_db)],
+                            "largest_gap_db": gap, "boxes_drawn_frame0": n_boxes}
+        print(f"pixels: {n_frames} pipeline frames == the synchronous predict_raw replay bit for bit; the overlay on "
+              f"the card == numpy on frames 0 and {n_frames - 1}; the output frames decode (nvJPEG) to "
+              f"{min(card_db):.2f}-{max(card_db):.2f} dB PSNR of their rendered frames; on {len(sampled)} of them the "
+              f"plain encoder's bytes give {min(plain_db):.2f}-{max(plain_db):.2f} dB, nvJPEG's at most {gap:.3f} dB "
+              f"below (gate {jpeg_cuda.ENCODE_GATE_DB} dB); {n_boxes} boxes drawn on frame 0 at vis-thresh "
+              f"{thresh} [{label}]", flush=True)
+        del rendered, back
+
+        # ---- 16e. the committed clips (cv2's writers, a DHT-less copy) and the JPEG forms
+        first = {}
+        for name in ("cv2_mjpeg.avi", "ffmpeg_mjpeg.avi", "dht_less.avi"):
+            reset()
+            out = detector.detect_and_visualize(str(fixture / name), str(work / name))
+            with avi.open_video(fixture / name) as reader:
+                frames = list(reader)
+            check([hashlib.sha256(f).hexdigest() for f in frames] == meta[name]["sha256"], f"{name}: frames")
+            with avi.open_video(out[0]) as reader:
+                check(len(reader) == len(frames) == 4, f"{name}: {len(reader)} frames out")
+            check(counts()["plain_decodes"] == 0 and counts()["plain_encodes"] == 0, f"{name}: {counts()}")
+            card = jpeg_cuda.decode_images(frames, dev)
+            first[name] = card[0].cpu().numpy()
+            diffs = [jpeg_cuda.difference(c.cpu().numpy(), jpeg.decode(f)) for c, f in zip(card, frames)]
+            check(all(d["mean"] <= jpeg_cuda.GATES["420"] for d in diffs), f"{name}: {diffs}")
+            record[name] = max(d["mean"] for d in diffs)
+        check(np.array_equal(first["dht_less.avi"], first["cv2_mjpeg.avi"]),
+              "the DHT-less frame (Annex K's tables inserted) decodes otherwise than its original on the card")
+        forms = {}
+        for path in sorted((fixture / "jpeg_forms").glob("*.jpg")):
+            data = path.read_bytes()
+            info = jpeg.read_info(data)
+            try:
+                img = jpeg_cuda.decode_images([data], dev)[0].cpu().numpy()
+            except jpeg.JpegError as e:
+                check(info.color in str(e), f"{path.name}: the refusal does not name its form: {e}")
+                forms[path.name] = f"refused: {e}"
+                continue
+            want_img = jpeg.decode(data)
+            want_img = np.repeat(want_img[..., None], 3, -1) if want_img.ndim == 2 else want_img
+            d = jpeg_cuda.difference(img, want_img)
+            check(d["mean"] <= jpeg_cuda.GATES["420"], f"{path.name}: card vs plain {d}")
+            (planes, pinfo), = jpeg_cuda.decode_planes([data], dev)
+            k = planes[3] if len(planes) == 4 else None
+            check(torch.equal(
+                jpeg_cuda.ycc_to_bgr(*planes[:3], factors=pinfo.factors, color=pinfo.color, k=k),
+                jpeg_cuda.ycc_to_bgr_reference(*planes[:3], factors=pinfo.factors, color=pinfo.color, k=k)),
+                f"{path.name}: the colour kernel ({pinfo.color}) != its plain version")
+            forms[path.name] = f"{info.color}: mean {d['mean']:.4f} max {d['max']}"
+        record["forms"] = forms
+        record["colour_mode_launches"] = dict(jpeg_cuda.color_mode_launches)
+        print("committed clips on the card (4 frames each, written back): card vs plain mean "
+              + ", ".join(f"{k} {record[k]:.4f}" for k in ("cv2_mjpeg.avi", "ffmpeg_mjpeg.avi", "dht_less.avi"))
+              + "; the DHT-less frame == its original on the card; JPEG forms: "
+              + "; ".join(f"{k} {v}" for k, v in forms.items()) + f"; colour launches by mode (whole script so "
+              f"far) {jpeg_cuda.color_mode_launches} [{label}]", flush=True)
+
+        # ---- 16f. each stage per 1024x2048 frame (synchronised around each)
+        stage = dict.fromkeys(("read", "decode", "resize", "serve", "nms 0.95", "overlay", "draw", "encode",
+                               "write"), 0.0)
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stage[name] += time.perf_counter() - t
+            return out
+
+        with avi.open_video(clip) as reader:
+            buffers = timed("read", lambda: list(reader))
+        frames = []
+        for i in range(0, n_frames, 8):
+            frames += timed("decode", lambda: jpeg_cuda.decode_images(buffers[i:i + 8], dev))
+        raws = [timed("resize", lambda: resize_linear(f, (H, W))) for f in frames]
+        pipe = ServingPipeline(detector, depth=2, raw=True)
+        for r in raws[:3]:  # capture each slot's graph first
+            pipe.submit(r)
+        list(pipe.drain())
+
+        def serve_all():
+            res = [pipe.submit(r) for r in raws]
+            return [x for x in res if x is not None] + list(pipe.drain())
+
+        results = [x[1] for x in timed("serve", serve_all)]
+        rows = [detector._filter_rows(r["det"][0], 0.0) for r in results]
+        kept = [timed("nms 0.95", lambda: video.second_nms(d, (H, W), 0.95)) for d in rows]
+        segs = [torch.from_numpy(r["seg"][0]) for r in results]
+        overs = [timed("overlay", lambda: draw.seg_overlay_tensor(f, s, detector.palette)) for f, s in zip(frames, segs)]
+        drawn = [timed("draw", lambda: detector.draw_boxes(o.cpu().numpy(), d, thresh)) for o, d in zip(overs, kept)]
+        del overs
+        encoded = [timed("encode", lambda: video.encode_frame(img, dev)) for img in drawn]
+        with avi.AviWriter(work / "stages.avi", FW, FH, 25) as writer:
+            for e in encoded:
+                timed("write", lambda: writer.write(e))
+        per_frame = {k: v * 1e3 / n_frames for k, v in stage.items()}
+        t0 = time.perf_counter()
+        detector.detect_and_visualize(str(clip), str(work / "again"), thresh)
+        total_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+        # the encoder alone: host time per call, device time under the profiler
+        img = torch.from_numpy(drawn[0]).to(dev)
+        for _ in range(3):
+            jpeg_cuda.encode(img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            jpeg_cuda.encode(img)
+        enc_host_us = (time.perf_counter() - t0) / 20 * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                jpeg_cuda.encode(img)
+            torch.cuda.synchronize()
+        enc_dev_us = sum(e.device_time for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA) / 20
+        record["stage_ms"] = per_frame
+        record["total_ms_per_frame"] = total_ms
+        record["encoder_us"] = {"host": enc_host_us, "device": enc_dev_us}
+        record["render_s"] = render_s
+        print(f"video per {FH}x{FW} frame ({n_frames} frames, each stage synchronised): " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in per_frame.items()) + f"; stages summed {sum(per_frame.values()):.3f} ms; "
+            f"detect_and_visualize end to end {total_ms:.3f} ms/frame ({1e3 / total_ms:.2f} frames/s, the graphs "
+            f"captured in the call); multi_demo with the model build {secs['multi_demo'] * 1e3 / n_frames:.3f} "
+            f"ms/frame; nvJPEG encoder {enc_host_us:.1f} us host (a call, its wait included), {enc_dev_us:.1f} us "
+            f"device per frame [{label}]", flush=True)
+        launches["nms_keep_mask"]["video_checks"] = nms_cuda.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = secs
+    print(json.dumps({"video_phase": record}), flush=True)
+    return launches, record
+
+
 def probe_codec_libraries():
     """ROADMAP Queue A items 20 and 24: which of the Video Codec SDK's
     headers and libraries (NVDEC / NVENC), libjpeg / libpng and libzstd
@@ -3600,6 +3901,7 @@ def main():
     check(Path(dspnet_torch.__file__).resolve().parent == ROOT / "dspnet_torch",
           f"dspnet_torch imported from {dspnet_torch.__file__}, not from this checkout")
     from dspnet_torch.api import create_model
+    from dspnet_torch.data import jpeg_cuda
     from dspnet_torch.detect.detector import Detector
     from dspnet_torch.models import factory
     from dspnet_torch.ops import _build, matching_cuda, nms_cuda
@@ -3656,6 +3958,10 @@ def main():
         return 0
     if "--jax-checkpoints-only" in sys.argv[1:]:
         timed_phase("15 JAX checkpoints", jax_checkpoints_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--video-only" in sys.argv[1:]:
+        timed_phase("16 video", video_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -3851,17 +4157,18 @@ def main():
     deploy_launches, _ = timed_phase("13 serving deployment", deployment_phase, dev, label)
     host_launches, _ = timed_phase("14 host loaders, run scripts, bench", host_loaders_phase, dev, label)
     jax_ckpt_launches, _ = timed_phase("15 JAX checkpoints", jax_checkpoints_phase, dev, label)
+    video_launches, _ = timed_phase("16 video", video_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 16. results: launches summed over the paths, each counted from 0
+    # ---- 17. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
                                  "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
                                  "prepare": prep_launches["nms_keep_mask"],
                                  "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"],
-                                 **jax_ckpt_launches["nms_keep_mask"]},
+                                 **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
@@ -3870,7 +4177,8 @@ def main():
                                    **jax_ckpt_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"],
-                                   **host_launches["jpeg_ycc_to_bgr"], **jax_ckpt_launches["jpeg_ycc_to_bgr"]}}
+                                   **host_launches["jpeg_ycc_to_bgr"], **jax_ckpt_launches["jpeg_ycc_to_bgr"],
+                                   **video_launches["jpeg_ycc_to_bgr"]}}
     colour = decoder.pop("colour_kernel")
 
     shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "plain_ms", "before_device_us",
@@ -3913,7 +4221,7 @@ def main():
          "max_abs_err": float(decoder["colour_max_abs_err"]), "ms": colour["device_us"] / 1e3, "plain_ms": colour["plain_ms"],
          "bound_ms": colour["bound_us"] / 1e3, "bound_by": colour["bound_by"], "library_ms": None,
          "at": "1024x2048 4:2:0", "host_us": colour["host_us"], "event_ms": colour["event_ms"],
-         "cases_equal": colour["cases"]},
+         "cases_equal": colour["cases"], "launches_by_mode": dict(jpeg_cuda.color_mode_launches)},
     ]}))
     print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,8 +12,13 @@ dir is read as it is (its Orbax steps, ``utils/orbax_read.py``). JPEG inputs dec
 the card (nvJPEG and the colour kernel), the resize and the network run
 there; ``--device cpu`` runs everything on the CPU. ``--seg-fast`` serves
 the score-then-upsample seg head (as trained with ``multi_train
---seg-fast``). A video path raises: the card's machine has no cv2 to read
-one.
+--seg-fast``). One ``--images`` path ending in ``.avi`` or ``.mp4`` is a
+video: a Motion-JPEG AVI is decoded, served and encoded on the card into
+``detection_out.avi`` under ``--out-dir`` (``detect/video.py``); an MP4
+raises with its codec's name (H.264 and mp4v wait for NVDEC).
+
+    python -m dspnet_torch.cli.multi_demo --network resnet-50_multi \\
+        --data-shape 3,512,1024 --images clip.avi --out-dir out
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="DSPNet demo (PyTorch port).")
     p.add_argument("--network", default="resnet-50_multi")
-    p.add_argument("--images", default="", help="comma-separated image paths")
+    p.add_argument("--images", default="", help="comma-separated image paths, or one .avi / .mp4 video")
     p.add_argument("--data-shape", default="3,512,1024")
     p.add_argument("--num-classes", type=int, default=8)
     p.add_argument("--class-names", default="",
@@ -77,7 +82,7 @@ def main(argv=None):
     detector = get_detector(args)
     inputs = [s.strip() for s in args.images.split(",") if s.strip()]
     if len(inputs) == 1:
-        inputs = inputs[0]  # one path: a video path raises as such
+        inputs = inputs[0]  # one path: a video path goes to the video branch
     written = detector.detect_and_visualize(inputs, args.out_dir, thresh=args.vis_thresh)
     for w in written:
         print("wrote", os.path.abspath(w))

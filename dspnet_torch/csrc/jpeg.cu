@@ -14,9 +14,18 @@
 // 3 * near + far column sums and biases 8 and 7, edges replicated, a plane
 // at most 2 samples wide replicated instead) and the fixed-point YCbCr ->
 // RGB of jdcolor.c, writing BGR interleaved into the torch buffer the
-// wrapper (dspnet_torch/data/jpeg_cuda.py) allocated. nvJPEG's own
-// interleaved output (NVJPEG_OUTPUT_BGRI) replicates each chroma sample;
-// the wrapper keeps it only as a timed comparison.
+// wrapper (dspnet_torch/data/jpeg_cuda.py) allocated. Its other modes take
+// nvJPEG's unchanged planes (NVJPEG_OUTPUT_UNCHANGED, the single-image
+// call) of a file coded otherwise: RGB (Adobe transform 0: upsampled, only
+// reordered), CMYK (cv2's CMYK -> BGR rule) and YCCK (libjpeg's
+// ycck_cmyk_convert, then that rule). nvJPEG's own interleaved output
+// (NVJPEG_OUTPUT_BGRI) replicates each chroma sample; the wrapper keeps it
+// only as a timed comparison.
+//
+// The encoder (the counterpart of cv2.imencode / cv2.VideoWriter's JPEG on
+// the host): nvjpegEncodeImage from interleaved BGR on the card, baseline
+// JFIF at the caller's quality and chroma subsampling with the standard
+// Huffman tables, the bitstream copied back to the host.
 //
 // What bounds the kernel: bytes. It reads the planes once (1.5 H W bytes at
 // 4:2:0, through L1 for the 3x3 neighbourhoods) and writes 3 H W bytes: 9.4
@@ -65,18 +74,59 @@ const char* nvjpeg_status_name(int s) {
   }
 }
 
+// The colour kernel's modes: how the components are coded
+// (dspnet_torch/data/jpeg_cuda.py::MODES).
+constexpr int kYcc = 0, kGray = 1, kRgb = 2, kCmyk = 3, kYcck = 4;
+
 // jdcolor.c's fixed-point tables (16 fraction bits), as formulas:
 // FIX(1.40200) = 91881, FIX(1.77200) = 116130, FIX(0.71414) = 46802,
-// FIX(0.34414) = 22554 (FIX(x) = (int)(x * 65536 + 0.5)).
-__device__ __forceinline__ void put_bgr(unsigned char* p, int y, int cb, int cr) {
+// FIX(0.34414) = 22554 (FIX(x) = (int)(x * 65536 + 0.5)). r, g, b come back
+// before the range limit.
+__device__ __forceinline__ void ycc_rgb(int y, int cb, int cr, int& r, int& g, int& b) {
   cb -= 128;
   cr -= 128;
-  int r = y + ((91881 * cr + 32768) >> 16);
-  int g = y + ((-22554 * cb + 32768 - 46802 * cr) >> 16);
-  int b = y + ((116130 * cb + 32768) >> 16);
-  p[0] = static_cast<unsigned char>(min(max(b, 0), 255));
-  p[1] = static_cast<unsigned char>(min(max(g, 0), 255));
-  p[2] = static_cast<unsigned char>(min(max(r, 0), 255));
+  r = y + ((91881 * cr + 32768) >> 16);
+  g = y + ((-22554 * cb + 32768 - 46802 * cr) >> 16);
+  b = y + ((116130 * cb + 32768) >> 16);
+}
+
+__device__ __forceinline__ int clamp255(int v) { return min(max(v, 0), 255); }
+
+// cv2 5.0.0's CMYK -> BGR after libjpeg's CMYK output (icvCvt_CMYK2BGR):
+// each of C, M, Y becomes k - ((255 - v) * k >> 8), stored as R, G, B.
+__device__ __forceinline__ int cmyk_channel(int v, int k) { return k - (((255 - v) * k) >> 8); }
+
+// One output pixel from its (upsampled) component samples a, b, c, k in the
+// file's coding: YCbCr (jdcolor.c's ycc_rgb_convert), RGB (reordered only),
+// CMYK (cv2's rule) or YCCK (libjpeg's ycck_cmyk_convert: 255 - the YCbCr
+// colour, range-limited, then cv2's rule).
+__device__ __forceinline__ void put(unsigned char* p, int mode, int a, int b, int c, int k) {
+  if (mode == kRgb) {
+    p[0] = static_cast<unsigned char>(c);
+    p[1] = static_cast<unsigned char>(b);
+    p[2] = static_cast<unsigned char>(a);
+    return;
+  }
+  int r, g, bl;
+  if (mode == kCmyk) {
+    r = a;
+    g = b;
+    bl = c;
+  } else {
+    ycc_rgb(a, b, c, r, g, bl);
+    if (mode == kYcc) {
+      p[0] = static_cast<unsigned char>(clamp255(bl));
+      p[1] = static_cast<unsigned char>(clamp255(g));
+      p[2] = static_cast<unsigned char>(clamp255(r));
+      return;
+    }
+    r = clamp255(255 - r);  // YCCK -> CMYK
+    g = clamp255(255 - g);
+    bl = clamp255(255 - bl);
+  }
+  p[0] = static_cast<unsigned char>(cmyk_channel(bl, k));
+  p[1] = static_cast<unsigned char>(cmyk_channel(g, k));
+  p[2] = static_cast<unsigned char>(cmyk_channel(r, k));
 }
 
 // The (up to) 2x2 upsampled values of chroma sample (cx, cy) of plane p:
@@ -109,36 +159,45 @@ __device__ __forceinline__ void fancy(const unsigned char* p, int pitch, int cx,
 }
 
 // One thread per chroma sample (per pixel at 4:4:4 and for gray): its fh x
-// fv output pixels inside the H x W image.
+// fv output pixels inside the H x W image. Planes: y (the first component,
+// full size), cb and cr (the second and third, ch x cw at factors (fh, fv)),
+// k (the fourth, for CMYK / YCCK: full size when k_full, else at the
+// chroma's factors and pitch k_pitch).
 __global__ void ycc_to_bgr_kernel(const unsigned char* __restrict__ y, int y_pitch,
                                   const unsigned char* __restrict__ cb, const unsigned char* __restrict__ cr,
-                                  int c_pitch, int H, int W, int ch, int cw, int fh, int fv, int gray,
+                                  int c_pitch, const unsigned char* __restrict__ kp, int k_pitch, int k_full,
+                                  int H, int W, int ch, int cw, int fh, int fv, int mode,
                                   unsigned char* __restrict__ out) {
   int cx = blockIdx.x * blockDim.x + threadIdx.x;
   int cy = blockIdx.y * blockDim.y + threadIdx.y;
   if (cx >= cw || cy >= ch) return;
-  if (gray) {
+  if (mode == kGray) {
     unsigned char v = y[static_cast<size_t>(cy) * y_pitch + cx];
     unsigned char* p = out + (static_cast<size_t>(cy) * W + cx) * 3;
     p[0] = p[1] = p[2] = v;
     return;
   }
+  bool four = mode == kCmyk || mode == kYcck;
   if (fh == 1 && fv == 1) {
     size_t c = static_cast<size_t>(cy) * c_pitch + cx;
-    put_bgr(out + (static_cast<size_t>(cy) * W + cx) * 3, y[static_cast<size_t>(cy) * y_pitch + cx], cb[c], cr[c]);
+    int k = four ? kp[static_cast<size_t>(cy) * k_pitch + cx] : 0;
+    put(out + (static_cast<size_t>(cy) * W + cx) * 3, mode, y[static_cast<size_t>(cy) * y_pitch + cx], cb[c], cr[c],
+        k);
     return;
   }
-  int ub[2][2], ur[2][2];
+  int ub[2][2], ur[2][2], uk[2][2];
   fancy(cb, c_pitch, cx, cy, cw, ch, fv, ub);
   fancy(cr, c_pitch, cx, cy, cw, ch, fv, ur);
+  if (four && !k_full) fancy(kp, k_pitch, cx, cy, cw, ch, fv, uk);
   for (int r = 0; r < fv; ++r) {
     int oy = cy * fv + r;
     if (oy >= H) break;
     for (int k = 0; k < 2; ++k) {
       int ox = cx * 2 + k;
       if (ox >= W) break;
-      put_bgr(out + (static_cast<size_t>(oy) * W + ox) * 3, y[static_cast<size_t>(oy) * y_pitch + ox], ub[r][k],
-              ur[r][k]);
+      int kv = !four ? 0 : k_full ? kp[static_cast<size_t>(oy) * k_pitch + ox] : uk[r][k];
+      put(out + (static_cast<size_t>(oy) * W + ox) * 3, mode, y[static_cast<size_t>(oy) * y_pitch + ox], ub[r][k],
+          ur[r][k], kv);
     }
   }
 }
@@ -209,10 +268,10 @@ int dspnet_jpeg_batched_init(void* handle, void* state, int batch, int max_cpu_t
                                               static_cast<nvjpegOutputFormat_t>(output_format)));
 }
 
-static void fill_image(nvjpegImage_t* dst, unsigned char* const* outs, const size_t* pitches) {
+static void fill_image(nvjpegImage_t* dst, unsigned char* const* outs, const size_t* pitches, int n) {
   for (int c = 0; c < NVJPEG_MAX_COMPONENT; ++c) {
-    dst->channel[c] = c < 3 ? outs[c] : nullptr;
-    dst->pitch[c] = c < 3 ? pitches[c] : 0;
+    dst->channel[c] = c < n ? outs[c] : nullptr;
+    dst->pitch[c] = c < n ? pitches[c] : 0;
   }
 }
 
@@ -224,7 +283,7 @@ int dspnet_jpeg_decode_batched(void* handle, void* state, int batch, const unsig
                                const size_t* lengths, unsigned char* const* outs, const size_t* pitches,
                                void* stream) {
   std::vector<nvjpegImage_t> dst(batch);
-  for (int i = 0; i < batch; ++i) fill_image(&dst[i], outs + 3 * i, pitches + 3 * i);
+  for (int i = 0; i < batch; ++i) fill_image(&dst[i], outs + 3 * i, pitches + 3 * i, 3);
   int err = status(nvjpegDecodeBatched(static_cast<nvjpegHandle_t>(handle),
                                        static_cast<nvjpegJpegState_t>(state), data, lengths, dst.data(),
                                        static_cast<cudaStream_t>(stream)));
@@ -233,13 +292,14 @@ int dspnet_jpeg_decode_batched(void* handle, void* state, int batch, const unsig
 }
 
 // Decode one stream with nvJPEG's single-image call (nvjpegDecode, which
-// takes progressive files) into outs[c] / pitches[c], c < 3, in
+// takes progressive files) into outs[c] / pitches[c], c < 4 (NVJPEG_OUTPUT_UNCHANGED
+// writes a fourth component there; the other formats three), in
 // `output_format`, on `stream`.
 int dspnet_jpeg_decode_single(void* handle, void* state, const unsigned char* data, size_t length,
                               int output_format, unsigned char* const* outs, const size_t* pitches,
                               void* stream) {
   nvjpegImage_t dst;
-  fill_image(&dst, outs, pitches);
+  fill_image(&dst, outs, pitches, NVJPEG_MAX_COMPONENT);
   int err = status(nvjpegDecode(static_cast<nvjpegHandle_t>(handle), static_cast<nvjpegJpegState_t>(state),
                                 data, length, static_cast<nvjpegOutputFormat_t>(output_format), &dst,
                                 static_cast<cudaStream_t>(stream)));
@@ -250,21 +310,84 @@ int dspnet_jpeg_decode_single(void* handle, void* state, const unsigned char* da
 // libjpeg-turbo's upsampling + colour conversion on one image's planes (see
 // the file's head): y (H x W, pitch y_pitch), cb and cr (ch x cw, the
 // component's own cropped size, pitch c_pitch) with chroma factors (fh, fv)
-// in {(1, 1), (2, 1), (2, 2)}; gray != 0 reads y alone. Writes out (H x W x
-// 3, BGR, contiguous) on `stream`.
+// in {(1, 1), (2, 1), (2, 2)}, k (the fourth component, CMYK / YCCK only:
+// H x W when k_full, else ch x cw; pitch k_pitch); `mode` one of kYcc,
+// kGray (y alone), kRgb, kCmyk, kYcck. Writes out (H x W x 3, BGR,
+// contiguous) on `stream`.
 int dspnet_jpeg_ycc_to_bgr(const unsigned char* y, int y_pitch, const unsigned char* cb,
-                           const unsigned char* cr, int c_pitch, int H, int W, int ch, int cw, int fh, int fv,
-                           int gray, unsigned char* out, void* stream) {
-  if (gray) {
+                           const unsigned char* cr, int c_pitch, const unsigned char* k, int k_pitch, int k_full,
+                           int H, int W, int ch, int cw, int fh, int fv, int mode, unsigned char* out,
+                           void* stream) {
+  if (mode == kGray) {
     ch = H;
     cw = W;
   }
-  if (ch <= 0 || cw <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ch <= 0 || cw <= 0 || mode < kYcc || mode > kYcck) return static_cast<int>(cudaErrorInvalidValue);
   dim3 block(32, 8);
   dim3 grid((cw + block.x - 1) / block.x, (ch + block.y - 1) / block.y);
-  ycc_to_bgr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(y, y_pitch, cb, cr, c_pitch, H, W, ch,
-                                                                          cw, fh, fv, gray, out);
+  ycc_to_bgr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(y, y_pitch, cb, cr, c_pitch, k, k_pitch,
+                                                                          k_full, H, W, ch, cw, fh, fv, mode, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the encoder: nvJPEG's baseline JFIF from interleaved BGR on the card
+
+// An encoder state and parameters for the handle's device: `quality`
+// (1..100), chroma subsampling `css` (an nvjpegChromaSubsampling_t:
+// NVJPEG_CSS_420 for cv2's default), baseline Huffman coding with the
+// standard tables.
+int dspnet_jpeg_encoder_create(void* handle, int quality, int css, void** state, void** params, void* stream) {
+  auto h = static_cast<nvjpegHandle_t>(handle);
+  auto s = static_cast<cudaStream_t>(stream);
+  nvjpegEncoderState_t st = nullptr;
+  nvjpegEncoderParams_t pr = nullptr;
+  int err = status(nvjpegEncoderStateCreate(h, &st, s));
+  if (!err) err = status(nvjpegEncoderParamsCreate(h, &pr, s));
+  if (!err) err = status(nvjpegEncoderParamsSetQuality(pr, quality, s));
+  if (!err) err = status(nvjpegEncoderParamsSetSamplingFactors(pr, static_cast<nvjpegChromaSubsampling_t>(css), s));
+  if (!err) err = status(nvjpegEncoderParamsSetEncoding(pr, NVJPEG_ENCODING_BASELINE_DCT, s));
+  if (!err) err = status(nvjpegEncoderParamsSetOptimizedHuffman(pr, 0, s));
+  *state = st;
+  *params = pr;
+  return err;
+}
+
+int dspnet_jpeg_encoder_destroy(void* state, void* params) {
+  int err = status(nvjpegEncoderParamsDestroy(static_cast<nvjpegEncoderParams_t>(params)));
+  int err2 = status(nvjpegEncoderStateDestroy(static_cast<nvjpegEncoderState_t>(state)));
+  return err ? err : err2;
+}
+
+// Encode an H x W interleaved BGR image (device memory, `pitch` bytes a
+// row) on `stream`, then wait for it and give the bitstream's length in
+// *length.
+int dspnet_jpeg_encode_bgr(void* handle, void* state, void* params, const unsigned char* bgr, size_t pitch, int H,
+                           int W, size_t* length, void* stream) {
+  auto h = static_cast<nvjpegHandle_t>(handle);
+  auto st = static_cast<nvjpegEncoderState_t>(state);
+  auto s = static_cast<cudaStream_t>(stream);
+  nvjpegImage_t src;
+  for (int c = 0; c < NVJPEG_MAX_COMPONENT; ++c) {
+    src.channel[c] = nullptr;
+    src.pitch[c] = 0;
+  }
+  src.channel[0] = const_cast<unsigned char*>(bgr);
+  src.pitch[0] = pitch;
+  int err = status(nvjpegEncodeImage(h, st, static_cast<nvjpegEncoderParams_t>(params), &src, NVJPEG_INPUT_BGRI, W,
+                                     H, s));
+  if (!err) err = status(nvjpegEncodeRetrieveBitstream(h, st, nullptr, length, s));
+  if (!err) err = static_cast<int>(cudaStreamSynchronize(s));
+  return err;
+}
+
+// Copy the last encode's bitstream (*length bytes, from
+// dspnet_jpeg_encode_bgr) into host memory `data`.
+int dspnet_jpeg_encode_retrieve(void* handle, void* state, unsigned char* data, size_t* length, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  int err = status(nvjpegEncodeRetrieveBitstream(static_cast<nvjpegHandle_t>(handle),
+                                                 static_cast<nvjpegEncoderState_t>(state), data, length, s));
+  if (!err) err = static_cast<int>(cudaStreamSynchronize(s));
+  return err;
 }
 
 const char* dspnet_cuda_error_string(int err) {

@@ -259,8 +259,8 @@ def _jpeg_luma(data: bytes) -> np.ndarray:
     (or gray) stream is its luma plane as decoded, turned by the Exif
     orientation."""
     planes, info = jpeg.decode_planes(data)
-    if info.rgb:
-        raise ValueError("IMREAD_GRAYSCALE of an RGB-coded JPEG is not supported")
+    if info.color not in ("gray", "ycc"):
+        raise ValueError(f"IMREAD_GRAYSCALE of a JPEG coded as {info.color} is not supported")
     return np.ascontiguousarray(jpeg.orient(planes[0], info.orientation))
 
 

@@ -7,24 +7,42 @@ This is the plain codec: the CPU path and the host-side tools use it. On the
 card, images are decoded by nvJPEG (``data/jpeg_cuda.py``) and nothing on
 that path calls :func:`decode`.
 
-**Decoder.** Baseline and extended sequential Huffman JPEG, 8-bit, one or
-three components, sampling factors 1x1 (4:4:4), 2x1 (4:2:2) and 2x2 (4:2:0)
-for luma with 1x1 chroma, restart intervals, any image size. It follows what
-libjpeg-turbo does by default, which is how cv2 decodes:
+**Decoder.** Huffman JPEG, 8-bit: baseline and extended sequential (SOF0,
+SOF1) and progressive (SOF2: DC first and refinement scans, AC first scans
+with end-of-band runs, AC refinement scans with correction bits; the
+coefficients gather across scans, then go through the same IDCT); gray,
+three components (YCbCr, or RGB by an Adobe transform 0 or the component
+ids 'R', 'G', 'B' without JFIF, as ``jdapimin.c`` decides) and four (CMYK,
+or YCCK by an Adobe transform 2); per component an upsampling factor of 1x1,
+2x1 or 2x2; restart intervals, any image size. A scan that names a Huffman
+table no DHT segment defined gets the Annex K table of its number (0 luma,
+1 chroma), as libjpeg-turbo's ``jstdhuff.c`` does (Motion-JPEG frames often
+carry no DHT). It follows what libjpeg-turbo does by default, which is how
+cv2 decodes:
 
 * the ISLOW integer IDCT (``jidctint.c``), vectorised over all blocks, with
   its ``DESCALE`` rounding and its post-IDCT range-limit table;
-* "fancy" triangular chroma upsampling (``jdsample.c``): h2v1 with rounding
+* "fancy" triangular upsampling (``jdsample.c``): h2v1 with rounding
   biases 1 and 2, h2v2 with biases 8 and 7, the image edges replicated (the
   row above the first and below the last are copies of them); a component
   no wider than 2 samples is replicated instead, as libjpeg-turbo does;
 * the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (16 fraction bits);
+  RGB-coded planes are only reordered; YCCK becomes CMYK by
+  ``ycck_cmyk_convert``, and CMYK becomes BGR by cv2's own rule
+  (:func:`cmyk_to_bgr`, measured against cv2 5.0.0);
 * a gray image gives one plane (``imdecode`` replicates it for colour).
+
+libjpeg-turbo smooths the blocks of a progressive image only while some of
+their first coefficients still lack bits (``jdcoefct.c::smoothing_ok``); a
+file whose scans leave them so raises here, and a complete one is not
+smoothed, so no smoothing is done (measured against cv2 in the tests).
 
 So the pixels equal cv2's bit for bit (``tests/test_torch_jpeg.py``). The
 Huffman stage is a Python loop over 16-bit lookup tables: fine at test sizes
-and for checks, slow (about a second) at 1024x2048. Progressive,
-arithmetic-coded, lossless, 12-bit and CMYK files raise :class:`JpegError`.
+and for checks, slow (about a second) at 1024x2048, slower for progressive
+files. Arithmetic-coded, lossless, hierarchical and 12-bit files raise
+:class:`JpegError` (no writer here or on the card makes one, and nvJPEG
+refuses them too).
 The APP1 Exif ``Orientation`` tag (values 2-8) is applied after the colour
 conversion, a flip or a transpose, as ``cv2.imread`` and ``cv2.imdecode``
 do under ``IMREAD_COLOR``. :func:`decode_planes` stops before the upsampling
@@ -35,8 +53,7 @@ kernel (``csrc/jpeg.cu``) takes from nvJPEG.
 quality rule, 4:2:0 (cv2's default), 4:2:2, 4:4:4 or gray, the standard
 Huffman tables, no restart markers; ``progressive=True`` writes the same
 quantised coefficients as a progressive file (spectral selection only: one
-DC scan, then one AC scan per component), which the plain decoder does not
-read and nvJPEG and libjpeg do. The DCT is an exact float DCT rounded to the
+DC scan, then one AC scan per component). The DCT is an exact float DCT rounded to the
 nearest step, so the bytes are not cv2's, but any decoder reads them. The
 Huffman bit packing is vectorised (symbol arrays, cumulative bit offsets,
 ``np.packbits``, 0xFF stuffing).
@@ -56,9 +73,10 @@ class JpegError(ValueError):
     """A JPEG stream this codec does not read, or a broken one."""
 
 
-#: images :func:`decode` has decoded; a caller may reset it to 0 (the card's
-#: loader path must leave it there)
+#: images :func:`decode` has decoded, and images :func:`encode` has encoded;
+#: a caller may reset them to 0 (the card's paths must leave them there)
 decodes = 0
+encodes = 0
 
 
 #: zigzag index -> natural (row-major) index in an 8x8 block
@@ -69,7 +87,7 @@ NATURAL_ORDER = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
 _SOF_UNSUPPORTED = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+    0xC3: "lossless", 0xC5: "differential sequential",
     0xC6: "differential progressive", 0xC7: "differential lossless",
     0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "differential arithmetic sequential",
@@ -184,42 +202,52 @@ def _entropy_segments(data: bytes, pos: int) -> Tuple[List[bytes], int]:
         return segs, i
 
 
-def _decode_scan(segs, scan, frame, restart, coefs):
-    """Huffman-decode one sequential scan into the components' zigzag
-    coefficient arrays (``coefs[c]``: (nbh, nbw, 64) int32)."""
+def _scan_units(frame, ids) -> list:
+    """The scan's MCUs in order, each the (component, block row, block
+    column) of its blocks: a one-component scan walks the component's own
+    block grid (ceil of its size over 8), an interleaved one the frame's
+    MCUs."""
     comps = frame["comps"]
-    hmax, vmax = frame["hmax"], frame["vmax"]
-    mcux, mcuy = frame["mcux"], frame["mcuy"]
-    ids = [c for c, _, _ in scan]
     if len(ids) == 1:  # non-interleaved: the component's own block grid
         c = ids[0]
-        bw = _ceil_div(_ceil_div(frame["width"] * comps[c]["h"], hmax), 8)
-        bh = _ceil_div(_ceil_div(frame["height"] * comps[c]["v"], vmax), 8)
-        units = [[(c, by, bx)] for by in range(bh) for bx in range(bw)]
-    else:
-        units = []
-        for my in range(mcuy):
-            for mx in range(mcux):
-                unit = []
-                for c in ids:
-                    h, v = comps[c]["h"], comps[c]["v"]
-                    for yy in range(v):
-                        for xx in range(h):
-                            unit.append((c, my * v + yy, mx * h + xx))
-                units.append(unit)
-    tables = {c: (dc, ac) for c, dc, ac in scan}
+        bw = _ceil_div(_ceil_div(frame["width"] * comps[c]["h"], frame["hmax"]), 8)
+        bh = _ceil_div(_ceil_div(frame["height"] * comps[c]["v"], frame["vmax"]), 8)
+        return [[(c, by, bx)] for by in range(bh) for bx in range(bw)]
+    units = []
+    for my in range(frame["mcuy"]):
+        for mx in range(frame["mcux"]):
+            unit = []
+            for c in ids:
+                h, v = comps[c]["h"], comps[c]["v"]
+                for yy in range(v):
+                    for xx in range(h):
+                        unit.append((c, my * v + yy, mx * h + xx))
+            units.append(unit)
+    return units
+
+
+def _intervals(segs, units, restart):
+    """(units, bit windows, bytes) of each restart interval of a scan."""
     per_seg = restart if restart else len(units)
     nseg = _ceil_div(len(units), per_seg) if units else 0
     if len(segs) < nseg:
         segs = list(segs) + [b""] * (nseg - len(segs))
     for si in range(nseg):
+        yield units[si * per_seg:(si + 1) * per_seg], _windows(segs[si]), len(segs[si])
+
+
+def _decode_scan(segs, scan, frame, restart, coefs):
+    """Huffman-decode one sequential scan into the components' coefficient
+    arrays (``coefs[c]``: (nbh, nbw, 64) int32, natural order)."""
+    ids = [c for c, _, _ in scan]
+    tables = {c: (dc, ac) for c, dc, ac in scan}
+    for units, w, nbytes in _intervals(segs, _scan_units(frame, ids), restart):
         pos_l, val_l = [], []
         try:
-            nbits = _decode_units(units[si * per_seg:(si + 1) * per_seg], _windows(segs[si]), tables,
-                                  {c: coefs[c].shape[1] for c in ids}, pos_l, val_l)
+            nbits = _decode_units(units, w, tables, {c: coefs[c].shape[1] for c in ids}, pos_l, val_l)
         except IndexError:
             nbits = None
-        if nbits is None or nbits > 8 * len(segs[si]):
+        if nbits is None or nbits > 8 * nbytes:
             raise JpegError("corrupt JPEG data: the scan ends early")
         if pos_l:  # (component, flat index) pairs, scattered per component
             pos = np.asarray(pos_l, np.int64)
@@ -284,6 +312,139 @@ def _decode_units(units, w, tables, widths, pos_l, val_l) -> int:
                     k += 16
                 else:  # EOB
                     break
+    return p
+
+
+#: libjpeg's natural order with 16 entries of 63 past the end, where a
+#: corrupt run may index
+_NATURAL_PAD = _NATURAL + [63] * 16
+
+
+def _decode_progressive_scan(segs, scan, frame, restart, coefs, widths, band):
+    """Huffman-decode one progressive scan (``jdphuff.c``) into the
+    components' flat coefficient lists (``coefs[c]``, natural order), in
+    place. ``band`` is the scan's (Ss, Se, Ah, Al)."""
+    ids = [c for c, _, _ in scan]
+    tables = {c: (dc, ac) for c, dc, ac in scan}
+    for units, w, nbytes in _intervals(segs, _scan_units(frame, ids), restart):
+        try:
+            nbits = _progressive_units(units, w, tables, widths, coefs, *band)
+        except IndexError:
+            nbits = None
+        if nbits is None or nbits > 8 * nbytes:
+            raise JpegError("corrupt JPEG data: the scan ends early")
+
+
+def _progressive_units(units, w, tables, widths, coefs, ss, se, ah, al) -> int:
+    """One restart interval of a progressive scan: DC first (the difference
+    scaled by 2**Al), DC refinement (one bit), AC first (end-of-band runs
+    over blocks) or AC refinement (a correction bit for each coefficient
+    already nonzero, new coefficients of +-2**Al); returns the bits read."""
+    masks, natural = _MASKS, _NATURAL_PAD
+    p = 0
+    if ss == 0:  # DC scans, interleaved or not
+        pred = {}
+        for unit in units:
+            for c, by, bx in unit:
+                blk, i = coefs[c], (by * widths[c] + bx) * 64
+                if ah:
+                    if (w[p >> 3] >> (39 - (p & 7))) & 1:
+                        blk[i] |= 1 << al
+                    p += 1
+                    continue
+                t = tables[c][0][(w[p >> 3] >> (24 - (p & 7))) & 0xFFFF]
+                if not t:
+                    raise JpegError("corrupt JPEG data: bad DC Huffman code")
+                p += t >> 8
+                s = t & 255
+                v = 0
+                if s:
+                    v = (w[p >> 3] >> (40 - (p & 7) - s)) & masks[s]
+                    p += s
+                    if v < (1 << (s - 1)):
+                        v -= masks[s]
+                v += pred.get(c, 0)
+                pred[c] = v
+                blk[i] = v << al
+        return p
+    eobrun = 0
+    p1, m1 = 1 << al, -(1 << al)
+    for (c, by, bx), in units:  # an AC scan holds one component
+        ac_lut, blk = tables[c][1], coefs[c]
+        base = (by * widths[c] + bx) * 64
+        k = ss
+        if not ah:  # AC first
+            if eobrun:
+                eobrun -= 1
+                continue
+            while k <= se:
+                t = ac_lut[(w[p >> 3] >> (24 - (p & 7))) & 0xFFFF]
+                if not t:
+                    raise JpegError("corrupt JPEG data: bad AC Huffman code")
+                p += t >> 8
+                r, s = (t & 255) >> 4, t & 15
+                if s:
+                    k += r
+                    v = (w[p >> 3] >> (40 - (p & 7) - s)) & masks[s]
+                    p += s
+                    if v < (1 << (s - 1)):
+                        v -= masks[s]
+                    blk[base + natural[k]] = v << al
+                elif r == 15:
+                    k += 15
+                else:  # EOBr: this block and 2**r + r more bits - 1 after it
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (w[p >> 3] >> (40 - (p & 7) - r)) & masks[r]
+                        p += r
+                    eobrun -= 1
+                    break
+                k += 1
+            continue
+        # AC refinement
+        if not eobrun:
+            while k <= se:
+                t = ac_lut[(w[p >> 3] >> (24 - (p & 7))) & 0xFFFF]
+                if not t:
+                    raise JpegError("corrupt JPEG data: bad AC Huffman code")
+                p += t >> 8
+                r, s = (t & 255) >> 4, t & 15
+                if s:  # a newly nonzero coefficient, its sign in one bit
+                    s = p1 if (w[p >> 3] >> (39 - (p & 7))) & 1 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (w[p >> 3] >> (40 - (p & 7) - r)) & masks[r]
+                        p += r
+                    break  # the rest of the block goes with the run
+                # pass the nonzero coefficients (a correction bit each) and r
+                # zero ones
+                while k <= se:
+                    i = base + natural[k]
+                    cur = blk[i]
+                    if cur:
+                        if (w[p >> 3] >> (39 - (p & 7))) & 1 and not cur & p1:
+                            blk[i] = cur + p1 if cur >= 0 else cur + m1
+                        p += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s:
+                    blk[base + natural[k]] = s
+                k += 1
+        if eobrun:  # inside a run: correction bits for the nonzero ones left
+            while k <= se:
+                i = base + natural[k]
+                cur = blk[i]
+                if cur:
+                    if (w[p >> 3] >> (39 - (p & 7))) & 1 and not cur & p1:
+                        blk[i] = cur + p1 if cur >= 0 else cur + m1
+                    p += 1
+                k += 1
+            eobrun -= 1
     return p
 
 
@@ -446,14 +607,21 @@ class Info(NamedTuple):
     width: int
     components: int
     #: chroma upsampling factors (horizontal, vertical): (1, 1) for 4:4:4
-    #: and gray, (2, 1) for 4:2:2, (2, 2) for 4:2:0
+    #: and gray, (2, 1) for 4:2:2, (2, 2) for 4:2:0 (the largest sampling
+    #: factors of the frame)
     factors: Tuple[int, int]
     progressive: bool
-    #: the three components are R, G, B (Adobe transform 0, or no JFIF and
-    #: component ids 'R', 'G', 'B'), not YCbCr
-    rgb: bool
+    #: how the components are coded: "gray", "ycc" (YCbCr), "rgb" (Adobe
+    #: transform 0, or no JFIF and component ids 'R', 'G', 'B'), "cmyk" or
+    #: "ycck" (four components, by the Adobe transform), as ``jdapimin.c``
+    #: decides
+    color: str
     #: the Exif orientation, 1..8
     orientation: int
+    #: each component's upsampling factors (horizontal, vertical)
+    upsampling: Tuple[Tuple[int, int], ...] = ()
+    #: MCUs per restart interval before the first scan (0: none)
+    restart: int = 0
 
 
 def _frame(body: bytes) -> dict:
@@ -462,9 +630,8 @@ def _frame(body: bytes) -> dict:
     precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
     if precision != 8:
         raise JpegError(f"{precision}-bit JPEG is not supported (8-bit is)")
-    if ncomp not in (1, 3):
-        raise JpegError(f"JPEG with {ncomp} components is not supported (gray and "
-                        "YCbCr are; CMYK is not)")
+    if ncomp not in (1, 3, 4):
+        raise JpegError(f"JPEG with {ncomp} components is not supported (gray, three and four are)")
     if height == 0 or width == 0:
         raise JpegError("JPEG frame has a zero dimension")
     comps, order = {}, []
@@ -472,48 +639,64 @@ def _frame(body: bytes) -> dict:
         cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
         comps[cid] = {"h": hv >> 4, "v": hv & 15, "tq": tq}
         order.append(cid)
-    hmax = max(c["h"] for c in comps.values())
-    vmax = max(c["v"] for c in comps.values())
-    frame = {"height": height, "width": width, "comps": comps, "order": order,
-             "hmax": hmax, "vmax": vmax,
-             "mcux": _ceil_div(width, 8 * hmax), "mcuy": _ceil_div(height, 8 * vmax)}
     if ncomp == 1:
         comps[order[0]].update(h=1, v=1)
-        frame.update(hmax=1, vmax=1, mcux=_ceil_div(width, 8), mcuy=_ceil_div(height, 8))
-    else:
-        luma, cb, cr = (comps[c] for c in order)
-        if (cb["h"], cb["v"], cr["h"], cr["v"]) != (1, 1, 1, 1) or \
-                (luma["h"], luma["v"]) not in ((1, 1), (2, 1), (2, 2)):
-            raise JpegError("JPEG sampling factors " + ", ".join(
-                f"{c['h']}x{c['v']}" for c in (luma, cb, cr))
-                            + " are not supported (luma 1x1, 2x1 or 2x2 over 1x1 chroma are)")
-    return frame
+    hmax = max(c["h"] for c in comps.values())
+    vmax = max(c["v"] for c in comps.values())
+    for c in comps.values():
+        if c["h"] < 1 or c["v"] < 1 or hmax % c["h"] or vmax % c["v"] \
+                or (hmax // c["h"], vmax // c["v"]) not in ((1, 1), (2, 1), (2, 2)):
+            raise JpegError("JPEG sampling factors " + ", ".join(f"{comps[k]['h']}x{comps[k]['v']}" for k in order)
+                            + " are not supported (each component at the largest factors, or at half of "
+                            "them across or in both directions)")
+        c["up"] = (hmax // c["h"], vmax // c["v"])
+    if ncomp == 3 and comps[order[0]]["up"] != (1, 1):
+        raise JpegError("JPEG whose first of three components is subsampled is not supported")
+    return {"height": height, "width": width, "comps": comps, "order": order, "hmax": hmax, "vmax": vmax,
+            "mcux": _ceil_div(width, 8 * hmax), "mcuy": _ceil_div(height, 8 * vmax)}
 
 
-def _is_rgb(frame: dict, jfif: bool, adobe_transform) -> bool:
-    if len(frame["order"]) != 3:
-        return False
-    return (adobe_transform == 0 if adobe_transform is not None
-            else (not jfif and frame["order"] == [ord("R"), ord("G"), ord("B")]))
+def _color(frame: dict, jfif: bool, adobe_transform) -> str:
+    """libjpeg-turbo's ``default_decompress_parms``: JFIF means YCbCr; else an
+    Adobe transform decides (0 RGB, else YCbCr; for four components 0 CMYK,
+    else YCCK); else the component ids ('R', 'G', 'B' is RGB)."""
+    n = len(frame["order"])
+    if n == 1:
+        return "gray"
+    if n == 4:
+        return "cmyk" if adobe_transform in (None, 0) else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe_transform is not None:
+        return "rgb" if adobe_transform == 0 else "ycc"
+    return "rgb" if frame["order"] == [ord("R"), ord("G"), ord("B")] else "ycc"
+
+
+def _info(frame: dict, progressive: bool, jfif: bool, adobe, orientation: int, restart: int) -> Info:
+    return Info(frame["height"], frame["width"], len(frame["order"]), (frame["hmax"], frame["vmax"]),
+                progressive, _color(frame, jfif, adobe), orientation,
+                tuple(frame["comps"][c]["up"] for c in frame["order"]), restart)
 
 
 def read_info(data) -> Info:
     """The header of a JPEG stream without decoding it: sizes, chroma
     factors, progressive or not, the colour space and the Exif orientation.
     Raises :class:`JpegError` on a form neither the plain decoder nor the
-    card reads (arithmetic coding, lossless, 12-bit, CMYK, other sampling
-    factors); a progressive file passes (the card decodes it)."""
+    card reads (arithmetic coding, lossless, 12-bit, other sampling
+    factors)."""
     data = bytes(data)
     _check_soi(data)
-    jfif, adobe, orientation, frame, sof = False, None, 1, None, None
+    jfif, adobe, orientation, frame, sof, restart = False, None, 1, None, None, 0
     for marker, body, _ in _segments(data, 2):
         if marker == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
+        elif marker == 0xDD:
+            (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE1 and body[:6] == b"Exif\x00\x00" and orientation == 1:
             orientation = _exif_orientation(body)
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe = body[11]
-        elif marker in _SOF_UNSUPPORTED and marker != 0xC2:
+        elif marker in _SOF_UNSUPPORTED:
             raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported")
         elif marker in (0xC0, 0xC1, 0xC2):
             frame, sof = _frame(body), marker
@@ -521,13 +704,70 @@ def read_info(data) -> Info:
             break
     if frame is None:
         raise JpegError("JPEG stream has no frame header before its first scan")
-    return Info(frame["height"], frame["width"], len(frame["order"]),
-                (frame["hmax"], frame["vmax"]), sof == 0xC2,
-                _is_rgb(frame, jfif, adobe), orientation)
+    return _info(frame, sof == 0xC2, jfif, adobe, orientation, restart)
+
+
+def _dht_tables(body: bytes):
+    """(class, number, BITS, HUFFVAL) of each table in a DHT segment."""
+    i = 0
+    while i < len(body):
+        tc, th = body[i] >> 4, body[i] & 15
+        bits = list(body[i + 1:i + 17])
+        n = sum(bits)
+        yield tc, th, bits, list(body[i + 17:i + 17 + n])
+        i += 17 + n
+
+
+#: Annex K's table for each (class, number) a scan may use undefined
+#: (``jstdhuff.c``: number 0 the luma tables, 1 the chroma ones)
+_STD_BY_SLOT = {(0, 0): "dc_luma", (1, 0): "ac_luma", (0, 1): "dc_chroma", (1, 1): "ac_chroma"}
+
+
+def _std_table(tc: int, th: int):
+    if (tc, th) not in _STD_BY_SLOT:
+        raise JpegError(f"JPEG scan uses Huffman table {th}, which is not defined")
+    return STD_HUFFMAN[_STD_BY_SLOT[(tc, th)]]
+
+
+def with_default_huffman(data) -> bytes:
+    """``data`` with a DHT segment after SOI holding Annex K's table for
+    every (class, number) a scan uses before any DHT defines it, so a
+    decoder without libjpeg's fallback (nvJPEG) reads it; ``data`` itself
+    when no scan needs one (a later DHT still replaces a table, as in
+    libjpeg)."""
+    data = bytes(data)
+    _check_soi(data)
+    defined, missing, progressive, frame_components = set(), [], False, 0
+    gen = _segments(data, 2)
+    while True:
+        marker, body, pos = next(gen, (None, None, None))
+        if marker is None:
+            break
+        if marker == 0xC4:
+            defined |= {(tc, th) for tc, th, _, _ in _dht_tables(body)}
+        elif marker in (0xC0, 0xC1, 0xC2):
+            progressive, frame_components = marker == 0xC2, body[5]
+        elif marker == 0xDA:
+            ns = body[0]
+            ss, se, ah = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4
+            for k in range(ns):
+                t = body[2 + 2 * k]
+                used = [(0, t >> 4), (1, t & 15)]
+                if progressive:
+                    used = [] if (ss == 0 and ah) else [(0, t >> 4)] if ss == 0 else [(1, t & 15)]
+                missing += [u for u in used if u not in defined and u not in missing]
+            if not progressive and not missing and ns == frame_components:
+                return data  # one sequential scan of every component: nothing further is read
+            gen = _segments(data, _entropy_segments(data, pos)[1])
+    if not missing:
+        return data
+    body = b"".join(bytes([(tc << 4) | th]) + bytes(_std_table(tc, th)[0]) + bytes(_std_table(tc, th)[1])
+                    for tc, th in missing)
+    return data[:2] + struct.pack(">BBH", 0xFF, 0xC4, len(body) + 2) + body + data[2:]
 
 
 class Planes(NamedTuple):
-    """A decoded image before chroma upsampling: its component planes, each
+    """A decoded image before upsampling: its component planes, each
     cropped to the component's own size (``ceil(H * v / vmax)`` by
     ``ceil(W * h / hmax)``), and the image's :class:`Info`."""
 
@@ -535,8 +775,13 @@ class Planes(NamedTuple):
     info: Info
 
 
+#: coefficients whose missing bits make libjpeg-turbo smooth a progressive
+#: image's blocks (``jdcoefct.c``: the DC and the first 9 AC, SAVED_COEFS)
+_SMOOTHED = 10
+
+
 def decode_planes(data) -> Planes:
-    """JPEG bytes -> the component planes after the IDCT, before chroma
+    """JPEG bytes -> the component planes after the IDCT, before
     upsampling, colour conversion and orientation (counted in
     :data:`decodes`)."""
     global decodes
@@ -546,11 +791,14 @@ def decode_planes(data) -> Planes:
     dc_tables: Dict[int, list] = {}
     ac_tables: Dict[int, list] = {}
     frame = None
+    progressive = False
     restart = 0
     adobe_transform = None
     jfif = False
     orientation = 1
-    coefs: Dict[int, np.ndarray] = {}
+    coefs: Dict[int, object] = {}
+    coef_bits: Dict[int, list] = {}  # progressive: each coefficient's Al so far, -1 before its first scan
+    first_restart = None  # the interval at the first scan
     comp_q: Dict[int, np.ndarray] = {}
     _check_soi(data)
     gen = _segments(data, 2)
@@ -571,14 +819,8 @@ def decode_planes(data) -> Planes:
                 qtables[tq] = q
                 i += 1 + n
         elif marker == 0xC4:  # DHT
-            i = 0
-            while i < len(body):
-                tc, th = body[i] >> 4, body[i] & 15
-                bits = list(body[i + 1:i + 17])
-                n = sum(bits)
-                vals = list(body[i + 17:i + 17 + n])
+            for tc, th, bits, vals in _dht_tables(body):
                 (ac_tables if tc else dc_tables)[th] = _lookup_table(bits, vals)
-                i += 17 + n
         elif marker == 0xDD:  # DRI
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
@@ -588,53 +830,88 @@ def decode_planes(data) -> Planes:
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe_transform = body[11]
         elif marker in _SOF_UNSUPPORTED:
-            raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported (baseline and "
-                            "extended sequential Huffman are)")
-        elif marker in (0xC0, 0xC1):  # baseline / extended sequential Huffman
-            frame = _frame(body)
+            raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported (baseline, extended "
+                            "sequential and progressive Huffman are)")
+        elif marker in (0xC0, 0xC1, 0xC2):  # sequential / progressive Huffman
+            frame, progressive = _frame(body), marker == 0xC2
             for cid in frame["order"]:
                 c = frame["comps"][cid]
-                coefs[cid] = np.zeros((frame["mcuy"] * c["v"], frame["mcux"] * c["h"], 64), np.int32)
+                shape = (frame["mcuy"] * c["v"], frame["mcux"] * c["h"], 64)
+                coefs[cid] = [0] * (shape[0] * shape[1] * 64) if progressive else np.zeros(shape, np.int32)
+                coef_bits[cid] = [-1] * 64
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise JpegError("JPEG scan before its frame header")
+            first_restart = restart if first_restart is None else first_restart
             ns = body[0]
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+            ah, al = a >> 4, a & 15
+            if not progressive and (ss, se, a) != (0, 63, 0):
+                raise JpegError("sequential JPEG scan with a spectral band or successive approximation")
+            if progressive and ((se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
+                                or (ah and al != ah - 1) or al > 13):
+                raise JpegError(f"bad progressive JPEG scan (Ss {ss}, Se {se}, Ah {ah}, Al {al}, "
+                                f"{ns} components)")
+            # the Huffman tables this scan reads: an undefined one is Annex K's
+            need_dc, need_ac = (not progressive or (ss == 0 and not ah)), (not progressive or ss > 0)
             scan = []
             for k in range(ns):
                 cid, t = body[1 + 2 * k], body[2 + 2 * k]
                 if cid not in frame["comps"]:
                     raise JpegError(f"JPEG scan names unknown component {cid}")
-                if (t >> 4) not in dc_tables or (t & 15) not in ac_tables:
-                    raise JpegError("JPEG scan uses an undefined Huffman table")
-                scan.append((cid, dc_tables[t >> 4], ac_tables[t & 15]))
+                for need, tables, tc, th in ((need_dc, dc_tables, 0, t >> 4), (need_ac, ac_tables, 1, t & 15)):
+                    if need and th not in tables:
+                        tables[th] = _lookup_table(*_std_table(tc, th))
+                scan.append((cid, dc_tables.get(t >> 4), ac_tables.get(t & 15)))
                 if cid not in comp_q:
                     tq = frame["comps"][cid]["tq"]
                     if tq not in qtables:
                         raise JpegError(f"JPEG quantization table {tq} is not defined")
                     comp_q[cid] = qtables[tq]
-            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
-            if (ss, se, a) != (0, 63, 0):
-                raise JpegError("JPEG scan is not sequential (spectral selection or "
-                                "successive approximation)")
+                coef_bits[cid][ss:se + 1] = [al] * (se + 1 - ss)
             segs, end = _entropy_segments(data, pos)
-            _decode_scan(segs, scan, frame, restart, coefs)
+            if progressive:
+                widths = {cid: frame["mcux"] * frame["comps"][cid]["h"] for cid in frame["order"]}
+                _decode_progressive_scan(segs, scan, frame, restart, coefs, widths, (ss, se, ah, al))
+            else:
+                _decode_scan(segs, scan, frame, restart, coefs)
             gen = _segments(data, end)
     if frame is None or len(comp_q) != len(frame["order"]):
         raise JpegError("JPEG stream ends before every component was scanned")
+    if progressive and all(coef_bits[c][0] >= 0 for c in frame["order"]) and any(
+            b != 0 for c in frame["order"] for b in coef_bits[c][1:_SMOOTHED]):
+        raise JpegError("progressive JPEG whose scans leave low coefficients without all their bits: "
+                        "libjpeg smooths such blocks, which this decoder does not")
 
     planes = []
     for cid in frame["order"]:
         c = frame["comps"][cid]
-        blocks = coefs[cid].astype(np.int64) * comp_q[cid]
+        shape = (frame["mcuy"] * c["v"], frame["mcux"] * c["h"], 64)
+        blocks = np.asarray(coefs[cid], np.int64).reshape(shape) * comp_q[cid]
         nbh, nbw = blocks.shape[:2]
         pix = idct_islow(blocks.reshape(-1, 8, 8)).reshape(nbh, nbw, 8, 8)
         plane = pix.transpose(0, 2, 1, 3).reshape(nbh * 8, nbw * 8)
         dh = _ceil_div(frame["height"] * c["v"], frame["vmax"])
         dw = _ceil_div(frame["width"] * c["h"], frame["hmax"])
         planes.append(np.ascontiguousarray(plane[:dh, :dw]))
-    info = Info(frame["height"], frame["width"], len(planes), (frame["hmax"], frame["vmax"]), False,
-                _is_rgb(frame, jfif, adobe_transform), orientation)
-    return Planes(planes, info)
+    return Planes(planes, _info(frame, progressive, jfif, adobe_transform, orientation, first_restart or 0))
+
+
+def cmyk_to_bgr(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """cv2's CMYK -> BGR after libjpeg's CMYK output (``icvCvt_CMYK2BGR``,
+    as cv2 5.0.0 decodes, measured in ``tests/test_torch_jpeg.py``): each of
+    C, M, Y becomes ``k - ((255 - v) * k >> 8)``, stored as R, G, B."""
+    ki = k.astype(np.int32)
+    r, g, b = (ki - (((255 - v.astype(np.int32)) * ki) >> 8) for v in (c, m, y))
+    return np.stack([b, g, r], axis=-1).astype(np.uint8)
+
+
+def ycck_to_cmyk(y, cb, cr, k):
+    """libjpeg's ``ycck_cmyk_convert``: YCbCr to RGB by the colour tables,
+    then C, M, Y = 255 - R, G, B (clamped), K as it is."""
+    yi = y.astype(np.int64)
+    rgb = (yi + _CR_R[cr], yi + ((_CB_G[cb] + _CR_G[cr]) >> 16), yi + _CB_B[cb])
+    return [np.clip(255 - v, 0, 255).astype(np.uint8) for v in rgb] + [k]
 
 
 def decode(data, apply_orientation: bool = True) -> np.ndarray:
@@ -642,15 +919,15 @@ def decode(data, apply_orientation: bool = True) -> np.ndarray:
     turned by its Exif orientation unless ``apply_orientation`` is False (as
     ``cv2.imdecode`` under ``IMREAD_UNCHANGED``)."""
     planes, info = decode_planes(data)
-    fh, fv = info.factors
-    full = [planes[0]] + [_upsample(p, fh, fv)[:info.height, :info.width]
-                          for p in planes[1:]]
-    if len(full) == 1:
+    full = [_upsample(p, *f)[:info.height, :info.width] for p, f in zip(planes, info.upsampling)]
+    if info.color == "gray":
         img = full[0]
-    elif info.rgb:
+    elif info.color == "rgb":
         img = np.stack(full[::-1], axis=-1)
-    else:
+    elif info.color == "ycc":
         img = ycc_to_bgr(*full)
+    else:
+        img = cmyk_to_bgr(*(ycck_to_cmyk(*full) if info.color == "ycck" else full))
     if apply_orientation:
         img = orient(img, info.orientation)
     return np.ascontiguousarray(img)
@@ -762,6 +1039,8 @@ def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420", progres
     ``progressive``: the same quantised coefficients in a progressive file
     (SOF2): one interleaved DC scan, then one AC scan (1..63) per component,
     no successive approximation."""
+    global encodes
+    encodes += 1
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[-1] != 3):
         raise ValueError(f"JPEG holds (H, W) or (H, W, 3) uint8 arrays, got {img.shape} {img.dtype}")

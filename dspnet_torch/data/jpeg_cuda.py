@@ -14,12 +14,23 @@ the CPU they run the plain numpy decoder (``data/jpeg.py``), which equals
 cv2's pixels. Any other device raises, and a failure of nvJPEG, of the
 kernel or of their build raises: there is no fallback between the two.
 
-Routes, counted per image in :data:`routes`: a baseline file goes through
-nvJPEG's batched call; a progressive one through its single-image call
-(``nvjpegDecode``), which takes progressive streams on the default backend;
-and should the batched call refuse planar output on a card, its images go
-one at a time through the single-image call too, under their own count. A
-file coded as RGB rather than YCbCr raises on the card (cv2 writes none).
+Routes, counted per image in :data:`routes`: a baseline YCbCr or gray file
+goes through nvJPEG's batched call; a progressive one through its
+single-image call (``nvjpegDecode``), which takes progressive streams on the
+default backend; a file coded as RGB (Adobe transform 0), CMYK or YCCK
+through the single-image call with its planes unchanged
+(``NVJPEG_OUTPUT_UNCHANGED``), then the colour kernel's mode for that
+coding; and should the batched call refuse planar output on a card, its
+images go one at a time through the single-image call too, under their own
+count. A stream that uses a Huffman table it never defines (a Motion-JPEG
+frame) gets Annex K's tables inserted first (``jpeg.with_default_huffman``,
+libjpeg's own fallback). Whatever nvJPEG refuses raises, naming the form.
+
+:func:`encode` is the card's JPEG encoder: nvJPEG's ``nvjpegEncodeImage``
+from an interleaved BGR tensor on the card (baseline JFIF, quality 95 and
+4:2:0 by default, the standard Huffman tables), counted in
+:data:`encodes`; on a CPU tensor it runs the plain numpy encoder
+(``jpeg.encode``). A failure of nvJPEG raises.
 
 What remains between the card's pixels and libjpeg's is nvJPEG's IDCT
 against libjpeg's ISLOW (``GATES``; ``tests/test_torch_jpeg_cuda.py`` and
@@ -61,19 +72,31 @@ BACKEND = BACKEND_DEFAULT
 
 #: nvjpegOutputFormat_t values the wrapper asks for (nvjpeg.h: NVJPEG_OUTPUT_YUV
 #: is 1, the three planes at the stream's subsampling; 2 is Y alone)
+OUTPUT_UNCHANGED = 0
 OUTPUT_YUV = 1
 OUTPUT_BGRI = 6
+
+#: the colour kernel's mode for each coding of ``jpeg.Info.color``
+#: (``csrc/jpeg.cu``: kYcc, kGray, kRgb, kCmyk, kYcck)
+MODES = {"ycc": 0, "gray": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
+#: the encoder's chroma subsampling, nvjpegChromaSubsampling_t's 4:2:0 (cv2's
+#: default, the JAX demo's output)
+_CSS_420 = 2
 
 #: decode calls that ran nvJPEG, and the images they decoded; a caller may
 #: reset both to 0
 launches = 0
 images = 0
 #: images by nvJPEG route: "batched", "single_progressive" (a progressive
-#: file), "single_batched_refused" (the batched call refused planar output)
-routes = {"batched": 0, "single_progressive": 0, "single_batched_refused": 0}
-#: launches of the colour kernel, and calls of its plain version (0 on the
-#: card's path)
+#: file), "single_unchanged" (coded as RGB, CMYK or YCCK),
+#: "single_batched_refused" (the batched call refused planar output)
+routes = {"batched": 0, "single_progressive": 0, "single_unchanged": 0, "single_batched_refused": 0}
+#: images the card's encoder (nvJPEG) encoded; a caller may reset it to 0
+encodes = 0
+#: launches of the colour kernel (and by mode, ``MODES``), and calls of its
+#: plain version (0 on the card's path)
 color_launches = 0
+color_mode_launches = {"ycc": 0, "gray": 0, "rgb": 0, "cmyk": 0, "ycck": 0}
 color_plain_calls = 0
 
 _SOURCE = _build.CSRC / "jpeg.cu"
@@ -97,7 +120,11 @@ def load_library() -> ctypes.CDLL:
                                             ctypes.POINTER(vp), ctypes.POINTER(sz), vp]),
             ("dspnet_jpeg_decode_single", [vp, vp, ctypes.c_char_p, sz, i, ctypes.POINTER(vp),
                                            ctypes.POINTER(sz), vp]),
-            ("dspnet_jpeg_ycc_to_bgr", [vp, i, vp, vp, i, i, i, i, i, i, i, i, vp, vp])):
+            ("dspnet_jpeg_ycc_to_bgr", [vp, i, vp, vp, i, vp, i, i, i, i, i, i, i, i, i, vp, vp]),
+            ("dspnet_jpeg_encoder_create", [vp, i, i, ctypes.POINTER(vp), ctypes.POINTER(vp), vp]),
+            ("dspnet_jpeg_encoder_destroy", [vp, vp]),
+            ("dspnet_jpeg_encode_bgr", [vp, vp, vp, vp, sz, i, i, ctypes.POINTER(sz), vp]),
+            ("dspnet_jpeg_encode_retrieve", [vp, vp, ctypes.c_char_p, ctypes.POINTER(sz), vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
@@ -257,12 +284,16 @@ def _fancy(c: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
     return out[0] if fv == 1 else torch.stack(out, 1).reshape(-1, out[0].shape[1])
 
 
-def ycc_to_bgr_reference(y: torch.Tensor, cb=None, cr=None, factors=(1, 1)) -> torch.Tensor:
+def ycc_to_bgr_reference(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), color: str = "ycc",
+                         k=None) -> torch.Tensor:
     """The colour kernel's plain version, on any device, in integer tensor
     ops: (H, W) uint8 Y and the (h, w) uint8 Cb and Cr planes (cropped to the
     component's size, ``jpeg.decode_planes``) with chroma factors ``(fh,
     fv)`` -> (H, W, 3) uint8 BGR, ``jpeg._upsample`` then ``jpeg.ycc_to_bgr``
-    bit for bit. Without ``cb`` the image is gray: Y replicated."""
+    bit for bit. Without ``cb`` the image is gray: Y replicated. ``color``
+    "rgb": the three planes are R, G, B (upsampled, reordered); "cmyk" /
+    "ycck": ``k`` is the fourth plane (at full size, or at the chroma's),
+    and ``jpeg.cmyk_to_bgr`` (after ``jpeg.ycck_to_cmyk``) gives the pixels."""
     global color_plain_calls
     color_plain_calls += 1
     if cb is None:
@@ -270,14 +301,28 @@ def ycc_to_bgr_reference(y: torch.Tensor, cb=None, cr=None, factors=(1, 1)) -> t
     H, W = y.shape
     fh, fv = factors
     cb, cr = (_fancy(p.to(torch.int32), fh, fv)[:H, :W] for p in (cb, cr))
-    cr_r, cb_b, cr_g, cb_g = _tables(y.device)
     yi = y.to(torch.int32)
+    if color == "rgb":
+        return torch.stack([cr, cb, yi], -1).to(torch.uint8)
+    cr_r, cb_b, cr_g, cb_g = _tables(y.device)
     cbl, crl = cb.long(), cr.long()
     bgr = torch.stack([yi + cb_b[cbl], yi + ((cb_g[cbl] + cr_g[crl]) >> 16), yi + cr_r[crl]], -1)
-    return bgr.clamp(0, 255).to(torch.uint8)
+    if color == "ycc":
+        return bgr.clamp(0, 255).to(torch.uint8)
+    if k is None:
+        raise ValueError(f"a {color} image needs its fourth plane")
+    k = (k if k.shape == (H, W) else _fancy(k.to(torch.int32), fh, fv)[:H, :W]).to(torch.int32)
+    if color == "ycck":  # the YCbCr colour inverted and range-limited is the CMY
+        cmy = (255 - bgr).clamp(0, 255)
+    elif color == "cmyk":
+        cmy = torch.stack([cr, cb, yi], -1)
+    else:
+        raise ValueError(f"color must be one of {sorted(MODES)}, got {color!r}")
+    return (k[..., None] - (((255 - cmy) * k[..., None]) >> 8)).to(torch.uint8)
 
 
-def ycc_to_bgr(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), out=None) -> torch.Tensor:
+def ycc_to_bgr(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), out=None, color: str = "ycc",
+               k=None) -> torch.Tensor:
     """libjpeg's chroma upsampling and colour conversion (see
     :func:`ycc_to_bgr_reference` for the arguments). On a CUDA tensor the
     hand-written kernel of ``csrc/jpeg.cu`` runs on the current stream,
@@ -286,7 +331,7 @@ def ycc_to_bgr(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), out=None) -> t
     On a CPU tensor the plain version runs; any other device raises."""
     global color_launches
     if y.device.type == "cpu":
-        res = ycc_to_bgr_reference(y, cb, cr, factors)
+        res = ycc_to_bgr_reference(y, cb, cr, factors, color, k)
         return res if out is None else out.copy_(res)
     if y.device.type != "cuda":
         raise ValueError(f"the colour conversion runs on cuda or cpu, got {y.device}")
@@ -295,7 +340,13 @@ def ycc_to_bgr(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), out=None) -> t
     gray = cb is None
     if gray:
         cb = cr = y
-    planes = (y, cb, cr)
+        color = "gray"
+    if color not in MODES:
+        raise ValueError(f"color must be one of {sorted(MODES)}, got {color!r}")
+    four = color in ("cmyk", "ycck")
+    if four and k is None:
+        raise ValueError(f"a {color} image needs its fourth plane")
+    planes = (y, cb, cr) + ((k,) if four else ())
     if any(p.dtype != torch.uint8 or p.ndim != 2 or p.stride(1) != 1 or p.device != y.device for p in planes):
         raise ValueError("ycc_to_bgr takes 2-D uint8 planes on one device, rows contiguous")
     if cb.shape != cr.shape or cb.stride(0) != cr.stride(0):
@@ -303,17 +354,22 @@ def ycc_to_bgr(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), out=None) -> t
     if not gray and ((fh, fv) not in ((1, 1), (2, 1), (2, 2))
                      or cb.shape != (-(-H // fv), -(-W // fh))):
         raise ValueError(f"chroma {tuple(cb.shape)} with factors {(fh, fv)} does not fit a {H}x{W} image")
+    if four and k.shape not in ((H, W), tuple(cb.shape)):
+        raise ValueError(f"the fourth plane {tuple(k.shape)} is neither {H}x{W} nor the chroma's size")
     if out is None:
         out = torch.empty((H, W, 3), dtype=torch.uint8, device=y.device)
     elif out.shape != (H, W, 3) or out.dtype != torch.uint8 or not out.is_contiguous() or out.device != y.device:
         raise ValueError(f"out must be a contiguous ({H}, {W}, 3) uint8 tensor on {y.device}")
+    kp = k if four else y
     lib = load_library()
     with _on(y.device):
         err = lib.dspnet_jpeg_ycc_to_bgr(y.data_ptr(), y.stride(0), cb.data_ptr(), cr.data_ptr(), cb.stride(0),
-                                         H, W, cb.shape[0], cb.shape[1], fh, fv, int(gray), out.data_ptr(),
+                                         kp.data_ptr(), kp.stride(0), int(kp.shape == (H, W)), H, W,
+                                         cb.shape[0], cb.shape[1], fh, fv, MODES[color], out.data_ptr(),
                                          torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(lib, err, "ycc_to_bgr kernel launch")
     color_launches += 1
+    color_mode_launches[color] += 1
     return out
 
 
@@ -329,48 +385,46 @@ class _Planned:
     def __init__(self, data: bytes, info: jpeg.Info, sizes):
         self.data, self.info = data, info
         H, W = info.height, info.width
-        if info.components == 3:
-            fh, fv = info.factors
-            want = (-(-H // fv), -(-W // fh))
-            if any(h < want[0] or w < want[1] for h, w in sizes[1:3]):
-                raise jpeg.JpegError(f"nvJPEG's chroma planes {sizes[1:3]} are smaller than {want}")
-            self.shapes = [(H, W), sizes[1], sizes[2]]
+        fh, fv = info.factors
+        up = info.upsampling
+        if info.components > 1 and (up[0] != (1, 1) or up[1] != (fh, fv) or up[2] != (fh, fv)
+                                    or (info.components == 4 and up[3] not in ((1, 1), (fh, fv)))):
+            raise jpeg.JpegError(f"a {info.color} JPEG with upsampling {up} is not decoded on the card (the "
+                                 "first component at full size, the second and third at the frame's factors)")
+        if info.components > 1:
+            want = [(-(-H // v), -(-W // h)) for h, v in up]
+            if any(h < wh or w < ww for (h, w), (wh, ww) in zip(sizes, want)):
+                raise jpeg.JpegError(f"nvJPEG's planes {sizes[:len(want)]} are smaller than {want}")
+            self.shapes, self.crops = list(sizes[:len(want)]), want
         else:  # gray: room for whatever nvJPEG writes into the chroma channels
-            self.shapes = [(H, W)] * 3
+            self.shapes, self.crops = [(H, W)] * 3, [(H, W)]
         self.nbytes = sum(h * w for h, w in self.shapes)
 
 
 def _nvjpeg_planes(buffers: Sequence[bytes], device: torch.device, backend: int):
     """nvJPEG's planar decode of every buffer into one flat device buffer:
-    the plans, each with ``views`` (Y (H, W), Cb and Cr cropped to (ceil(H /
-    fv), ceil(W / fh)); Y alone for gray). Counted in :data:`launches`,
+    the plans, each with ``views`` (each component's plane cropped to its
+    size: Y (H, W), Cb and Cr (ceil(H / fv), ceil(W / fh)), a fourth one for
+    CMYK / YCCK; Y alone for gray). Counted in :data:`launches`,
     :data:`images` and :data:`routes`."""
     global launches, images
     lib = load_library()
-    data = [bytes(b) for b in buffers]
-    plans = []
-    for d in data:
-        info = jpeg.read_info(d)
-        if info.rgb:
-            raise jpeg.JpegError("a JPEG coded as RGB (not YCbCr) is not decoded on the card")
-        plans.append(_Planned(d, info, component_sizes(d, device, backend)))
+    data = [jpeg.with_default_huffman(b) for b in buffers]
+    plans = [_Planned(d, jpeg.read_info(d), component_sizes(d, device, backend)) for d in data]
     planes = torch.empty(sum(p.nbytes for p in plans), dtype=torch.uint8, device=device)
     offset = 0
     for p in plans:
-        H, W = p.info.height, p.info.width
-        fh, fv = p.info.factors
         p.ptrs, p.pitches, p.views = [], [], []
         for h, w in p.shapes:
             p.ptrs.append(planes.data_ptr() + offset)
             p.pitches.append(w)
             p.views.append(planes[offset:offset + h * w].view(h, w))
             offset += h * w
-        if p.info.components == 3:
-            p.views = [p.views[0]] + [v[:-(-H // fv), :-(-W // fh)] for v in p.views[1:]]
-        else:
-            p.views = p.views[:1]
-    batched = [p for p in plans if not p.info.progressive]
-    single = [(p, "single_progressive") for p in plans if p.info.progressive]
+        p.views = [v[:h, :w] for v, (h, w) in zip(p.views, p.crops)]
+    unchanged = [p for p in plans if p.info.color not in ("ycc", "gray")]
+    batched = [p for p in plans if not p.info.progressive and p not in unchanged]
+    single = [(p, "single_progressive", OUTPUT_YUV) for p in plans if p.info.progressive and p not in unchanged]
+    single += [(p, "single_unchanged", OUTPUT_UNCHANGED) for p in unchanged]
     with _on(device):
         stream = torch.cuda.current_stream(device)
         if batched and not _refuses_planar.get((device.index, backend)):
@@ -388,14 +442,21 @@ def _nvjpeg_planes(buffers: Sequence[bytes], device: torch.device, backend: int)
                     routes["batched"] += B
                     batched = []
                 stream.synchronize()  # the host buffers and the state are reused next call
-        single += [(p, "single_batched_refused") for p in batched]
+        single += [(p, "single_batched_refused", OUTPUT_YUV) for p in batched]
         if single:
             with _state(device, backend, 0) as (handle, state):
-                for p, route in single:
-                    err = lib.dspnet_jpeg_decode_single(handle, state, p.data, len(p.data), OUTPUT_YUV,
-                                                        (ctypes.c_void_p * 3)(*p.ptrs),
-                                                        (ctypes.c_size_t * 3)(*p.pitches), stream.cuda_stream)
-                    _build.check(lib, err, "nvjpegDecode")
+                for p, route, fmt in single:
+                    ptrs = (p.ptrs + [None] * 4)[:4]
+                    pitches = (p.pitches + [0] * 4)[:4]
+                    err = lib.dspnet_jpeg_decode_single(handle, state, p.data, len(p.data), fmt,
+                                                        (ctypes.c_void_p * 4)(*ptrs),
+                                                        (ctypes.c_size_t * 4)(*pitches), stream.cuda_stream)
+                    if err:
+                        info = p.info
+                        raise jpeg.JpegError(
+                            f"nvJPEG's single-image call refused a {info.components}-component {info.color} JPEG "
+                            f"({'progressive' if info.progressive else 'sequential'}, upsampling {info.upsampling}, "
+                            f"restart interval {info.restart or 'none'}): {lib.dspnet_cuda_error_string(err).decode()}")
                     routes[route] += 1
                     stream.synchronize()  # the state is reused by the next image
     with _lock:
@@ -428,7 +489,8 @@ def _decode_cuda(buffers: Sequence[bytes], device: torch.device, backend: int):
             H, W = p.info.height, p.info.width
             img = out[offset:offset + H * W * 3].view(H, W, 3)
             offset += H * W * 3
-            ycc_to_bgr(*p.views, factors=p.info.factors, out=img)
+            ycc_to_bgr(*p.views[:3], factors=p.info.factors, out=img, color=p.info.color,
+                       k=p.views[3] if p.info.components == 4 else None)
             if p.info.orientation != 1:
                 img = jpeg.orient(img, p.info.orientation).contiguous()
             result.append(img)
@@ -505,11 +567,70 @@ def decode_batch(buffers: Sequence[bytes], device="cuda", backend: int = None) -
     raise ValueError(f"JPEG decode runs on cuda or cpu, got {device}")
 
 
+# ------------------------------------------------------------------ encode
+
+_encoders = {}  # (device index, quality, css) -> (state, params, lock)
+
+
+def _encoder(device: torch.device, quality: int, css: int):
+    """The (state, params, lock) of an encoder for (device, quality, chroma
+    subsampling), made at first use."""
+    key = (device.index, quality, css)
+    handle = _handle(device, BACKEND_DEFAULT)  # takes _lock itself
+    with _lock:
+        if key not in _encoders:
+            lib = load_library()
+            state, params = ctypes.c_void_p(), ctypes.c_void_p()
+            with _on(device):
+                _build.check(lib, lib.dspnet_jpeg_encoder_create(
+                    handle, quality, css, ctypes.byref(state), ctypes.byref(params),
+                    torch.cuda.current_stream(device).cuda_stream), "nvjpegEncoder{State,Params}Create")
+            _encoders[key] = (state, params, threading.Lock())
+        return _encoders[key]
+
+
+def encode(img, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 BGR tensor -> baseline JFIF JPEG bytes at 4:2:0. On a
+    CUDA tensor nvJPEG encodes it on the card (``nvjpegEncodeImage`` on the
+    current stream, after the work queued there; counted in
+    :data:`encodes`); on a CPU tensor or a numpy array the plain encoder
+    (``jpeg.encode``) runs. Any other device raises, and so does a failure of
+    nvJPEG."""
+    global encodes
+    if isinstance(img, np.ndarray) or img.device.type == "cpu":
+        return jpeg.encode(np.asarray(img), quality)
+    if img.device.type != "cuda":
+        raise ValueError(f"JPEG encode runs on cuda or cpu, got {img.device}")
+    if img.dtype != torch.uint8 or img.ndim != 3 or img.shape[-1] != 3 or img.stride(1) != 3 or img.stride(2) != 1:
+        raise ValueError(f"encode takes an (H, W, 3) uint8 BGR tensor, pixels contiguous, got "
+                         f"{tuple(img.shape)} {img.dtype}")
+    device = _cuda_device(img.device)
+    H, W = img.shape[:2]
+    lib = load_library()
+    state, params, lock = _encoder(device, int(quality), _CSS_420)
+    handle = _handle(device, BACKEND_DEFAULT)
+    with lock, _on(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        length = ctypes.c_size_t()
+        _build.check(lib, lib.dspnet_jpeg_encode_bgr(handle, state, params, img.data_ptr(), img.stride(0), H, W,
+                                                      ctypes.byref(length), stream), "nvjpegEncodeImage")
+        out = ctypes.create_string_buffer(length.value)
+        _build.check(lib, lib.dspnet_jpeg_encode_retrieve(handle, state, out, ctypes.byref(length), stream),
+                     "nvjpegEncodeRetrieveBitstream")
+    with _lock:
+        encodes += 1
+    return out.raw[:length.value]
+
+
 #: how far the card's pixels may lie from libjpeg's (the plain decoder's):
 #: mean |difference| over uint8 values, per chroma subsampling, at any size.
 #: With libjpeg's upsampling and colour conversion done by the colour kernel,
 #: what is left is nvJPEG's IDCT against libjpeg's ISLOW (PERF.md)
 GATES = {"444": 0.5, "422": 0.5, "420": 0.5, "gray": 0.5}
+#: how far below the plain encoder's PSNR (against the source, same quality
+#: and subsampling) the card encoder's may lie, in dB; the plain encoder is
+#: held within 1 dB of cv2's (``tests/test_torch_jpeg.py``)
+ENCODE_GATE_DB = 1.0
 
 
 def difference(got, want) -> dict:

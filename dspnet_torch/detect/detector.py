@@ -19,7 +19,11 @@ argmax path:
                                drawn by ``utils/draw.py`` (no cv2; its text is
                                a raster font of its own) (:336-399)
   * ``detect_and_visualize`` — image paths -> ``<stem>_out.jpg`` through the
-                               port's JPEG encoder (q95 4:2:0, as cv2.imwrite)
+                               port's JPEG encoder (q95 4:2:0, as cv2.imwrite);
+                               a Motion-JPEG AVI -> ``detection_out.avi``
+                               (``detect/video.py``: decode and encode on the
+                               card, ``ServingPipeline`` at depth 2, the 0.95
+                               host NMS)
 
 The network runs in ``dtype``; the class softmax, box decode and NMS run in
 float32 whatever that dtype is. On a CUDA device NMS is always the
@@ -37,9 +41,10 @@ The detector never mutates the module it is given: it serves its own copy,
 cast to ``dtype`` on ``device`` and in eval mode, and ``update_weights``
 copies new weights into that copy (the JAX Detector's
 ``update_variables``), so a training loop can hand it its weights as they
-move. Video files and webcams are not read: the card's machine has no cv2
-``VideoCapture`` / ``VideoWriter`` (ROADMAP Queue A); ``detect/pipeline.py``
-holds the pipelined server a stream would go through.
+move. A video is a Motion-JPEG AVI (``data/avi.py``); an MP4 raises with its
+codec's name (H.264 and mp4v wait for NVDEC), and a webcam id raises: neither
+machine has a camera, and the JAX CLI passes ``--images`` as a string, so it
+cannot reach that branch either.
 """
 
 from __future__ import annotations
@@ -300,9 +305,14 @@ class Detector:
         farthest first so the nearest lands on top, each with its "name NNm"
         text, over the seg overlay. Returns a BGR image."""
         img = np.array(img_bgr, np.uint8, copy=True)
-        height, width = img.shape[:2]
         if seg is not None:
             img = draw.seg_overlay(img, seg, self.palette, seg_alpha)
+        return self.draw_boxes(img, dets, thresh)
+
+    def draw_boxes(self, img: np.ndarray, dets: np.ndarray, thresh: float = 0.6) -> np.ndarray:
+        """``visualize_detection``'s boxes and texts, drawn into ``img`` (an
+        (H, W, 3) uint8 BGR array) in place; returns it."""
+        height, width = img.shape[:2]
         rng = random.Random(1)
         colors = {}
         rows = [r for r in np.asarray(dets) if r[0] >= 0 and r[1] >= thresh]
@@ -318,15 +328,23 @@ class Detector:
             draw.put_text(img, f"{cname} {r[6] * 255.0:.0f}m", (xmin, max(12, ymin - 4)), colors[cid])
         return img
 
-    def detect_and_visualize(self, inputs, out_dir: str = ".", thresh: float = 0.6) -> List[str]:
+    def detect_and_visualize(self, inputs, out_dir: str = ".", thresh: float = 0.6,
+                             video_nms: float = 0.95) -> List[str]:
         """Image path(s) -> ``<stem>_out.jpg`` under ``out_dir`` each (JPEG
-        q95 4:2:0 by ``data/jpeg.py``); returns the written paths. A video
-        file or a webcam id raises: there is no cv2 ``VideoCapture`` on the
-        card's machine."""
-        if isinstance(inputs, int) or (isinstance(inputs, str) and inputs.lower().endswith((".mp4", ".avi"))):
+        q95 4:2:0 by ``data/jpeg.py``), or one video path (``.avi`` /
+        ``.mp4``) -> ``detection_out.avi`` (``detect/video.py``, with the
+        reference's second host NMS at ``video_nms``); returns the written
+        paths. A Motion-JPEG AVI is read; an MP4 raises with its codec's name;
+        a webcam id raises."""
+        if isinstance(inputs, int):
             raise NotImplementedError(
-                f"video input ({inputs!r}) is not ported: the port reads no video without cv2's "
-                "VideoCapture (ROADMAP Queue A); pass image paths")
+                f"webcam {inputs} is not read: neither the card's machine nor the test machine has a camera, "
+                "and the JAX CLI passes --images as a string, so it cannot reach this branch either "
+                "(ROADMAP Queue A item 24); pass a Motion-JPEG AVI")
+        if isinstance(inputs, (str, os.PathLike)) and str(inputs).lower().endswith((".mp4", ".avi")):
+            from dspnet_torch.detect import video
+
+            return video.detect_video(self, inputs, out_dir, thresh, video_nms)
         os.makedirs(out_dir, exist_ok=True)
         written = []
         for path in [inputs] if isinstance(inputs, str) else list(inputs):

@@ -11,7 +11,9 @@ has none): the counterparts of ``cv2.rectangle``, ``cv2.addWeighted``,
   multiply-adds in float32, rounded half to even, saturated;
 * :func:`seg_overlay` is the demo's overlay: palette lookup, nearest resize
   to the image (``data/image_io.py::resize_nearest``), then
-  ``add_weighted`` with 1 - alpha and alpha;
+  ``add_weighted`` with 1 - alpha and alpha; :func:`seg_overlay_tensor` and
+  :func:`add_weighted_tensor` are the same rules as torch ops on the
+  tensors' device (the video demo overlays on the card), bit for bit;
 * :func:`put_text` draws a raster font of this module (3x5 glyphs on a
   4-pixel advance, capitals for letters), because cv2's Hershey glyphs are
   not in the repository. Its pixels differ from ``cv2.putText``'s, and only
@@ -27,8 +29,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
-from dspnet_torch.data import image_io
+from dspnet_torch.data import device_pipeline, image_io
 
 _GLYPH_ROWS = {
     "0": "### #.# #.# #.# ###", "1": ".#. ##. .#. .#. ###", "2": "### ..# ### #.. ###",
@@ -129,6 +132,28 @@ def seg_overlay(img: np.ndarray, seg: np.ndarray, palette: np.ndarray, alpha: fl
     seg_bgr = palette[np.clip(seg, 0, 255)][:, :, ::-1]
     seg_bgr = image_io.resize_nearest(seg_bgr, img.shape[:2])
     return add_weighted(img, 1.0 - alpha, seg_bgr, alpha, 0)
+
+
+def add_weighted_tensor(a: torch.Tensor, alpha: float, b: torch.Tensor, beta: float,
+                        gamma: float = 0.0) -> torch.Tensor:
+    """:func:`add_weighted` on uint8 tensors, on their device: each product
+    of a uint8 value and a float32 weight is exact in float64, so the two
+    float64 sums, each rounded to float32, are cv2's fused multiply-adds."""
+    f32 = np.float32
+    t = (b.double() * float(f32(beta)) + float(f32(gamma))).float()
+    s = (a.double() * float(f32(alpha)) + t.double()).float()
+    return torch.round(s).clamp(0, 255).to(torch.uint8)  # half to even, as np.rint
+
+
+def seg_overlay_tensor(img: torch.Tensor, seg: torch.Tensor, palette, alpha: float = 0.5) -> torch.Tensor:
+    """:func:`seg_overlay` as torch ops on ``img``'s device: (H, W, 3) uint8
+    BGR and an (h, w) trainId map -> the blended (H, W, 3) uint8, bit for bit
+    equal to the numpy overlay (the palette gather, ``resize_nearest``,
+    :func:`add_weighted_tensor`)."""
+    pal = torch.as_tensor(np.asarray(palette)).to(img.device)
+    seg_bgr = pal[seg.to(img.device).long().clamp(0, 255)].flip(-1)
+    seg_bgr = device_pipeline.resize_nearest(seg_bgr, img.shape[:2])
+    return add_weighted_tensor(img, 1.0 - alpha, seg_bgr, alpha, 0)
 
 
 def label_box(img: np.ndarray, text: str, bbox, box_color=(0, 255, 0)) -> np.ndarray:

@@ -196,8 +196,9 @@ def test_png_write_round_trip(tmp_path, mode):
 
 def test_imread_sniffs_content_and_refuses_jpeg(tmp_path):
     """JPEG bytes under a .png name decode as JPEG (to cv2's pixels), gray
-    replicated under IMREAD_COLOR; a progressive JPEG, unknown bytes and a
-    broken PNG raise."""
+    replicated under IMREAD_COLOR; a progressive JPEG decodes to cv2's
+    pixels too; a lossless-coded JPEG, unknown bytes and a broken PNG
+    raise."""
     img = _images()["bgr8"]
     jpg = str(tmp_path / "a.png")  # JPEG bytes under a .png name
     assert cv2.imwrite(str(tmp_path / "a.jpg"), img)
@@ -209,8 +210,10 @@ def test_imread_sniffs_content_and_refuses_jpeg(tmp_path):
     np.testing.assert_array_equal(image_io.imread(gray, image_io.IMREAD_UNCHANGED),
                                   cv2.imread(gray, cv2.IMREAD_UNCHANGED))
     ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(jpeg.JpegError, match="progressive"):
-        image_io.imdecode(prog)
+    np.testing.assert_array_equal(image_io.imdecode(prog), cv2.imdecode(prog, cv2.IMREAD_COLOR))
+    base = cv2.imencode(".jpg", img)[1].tobytes()
+    with pytest.raises(jpeg.JpegError, match="lossless"):
+        image_io.imdecode(base.replace(b"\xff\xc0", b"\xff\xc3", 1))
     junk = str(tmp_path / "b.png")
     with open(junk, "wb") as f:
         f.write(b"GIF89a" + bytes(20))

@@ -9,6 +9,8 @@ at other factors cv2's uint8 bilinear is fixed point (11-bit weights), which
 ``resize_linear`` reproduces bit for bit."""
 
 import os
+import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ from dspnet_tpu.detect.detector import Detector as JaxDetector
 from dspnet_tpu.utils import mxnet_import as jmx
 from dspnet_torch.api import create_model
 from dspnet_torch.cli import multi_demo
-from dspnet_torch.data import image_io, jpeg
+from dspnet_torch.data import avi, image_io, jpeg
 from dspnet_torch.data.cs_labels import DET_CLASSES
 from dspnet_torch.data.device_pipeline import resize_area, resize_linear
 from dspnet_torch.detect.detector import Detector
@@ -33,6 +35,7 @@ from tests.torch_parity import random_flax_variables
 torch.set_num_threads(2)  # tier-1 runs six workers on eight cores
 
 H, W = 128, 256
+VIDEO_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "video"
 
 
 @pytest.mark.parametrize("src,dst", [((1024, 2048), (512, 1024)), ((256, 512), (128, 256)),
@@ -181,8 +184,9 @@ def test_im_detect_single_matches_jax(served):
 def test_detect_and_visualize_writes_each_image(served, tmp_path):
     """One ``<stem>_out.jpg`` per input (the JAX demo's names): the bytes of
     the port's encoder (q95 4:2:0) on ``visualize_detection`` of
-    ``im_detect_single``'s results, at the input's size; a video path or a
-    webcam id raises."""
+    ``im_detect_single``'s results, at the input's size; an MP4 (mp4v, the
+    committed clip) raises naming its codec, and a webcam id raises saying
+    why (``tests/test_torch_video.py`` holds the Motion-JPEG AVI branch)."""
     _, _, jdet, pdet, paths = served
     written = pdet.detect_and_visualize(paths, str(tmp_path / "port"), thresh=0.3)
     want = jdet.detect_and_visualize(paths, str(tmp_path / "jax"), thresh=0.3)
@@ -192,9 +196,10 @@ def test_detect_and_visualize_writes_each_image(served, tmp_path):
         vis = pdet.visualize_detection(img, *pdet.im_detect_single(p), thresh=0.3)
         assert open(w, "rb").read() == jpeg.encode(vis, 95)
         assert image_io.imread(w).shape == img.shape
-    with pytest.raises(NotImplementedError, match="video"):
-        pdet.detect_and_visualize("clip.mp4", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="video"):
+    shutil.copy(VIDEO_FIXTURES / "mp4v.mp4", tmp_path / "clip.mp4")
+    with pytest.raises(avi.VideoError, match="video coded as MPEG-4 Part 2 .*NVDEC"):
+        pdet.detect_and_visualize(str(tmp_path / "clip.mp4"), str(tmp_path))
+    with pytest.raises(NotImplementedError, match="webcam 0 .*camera"):
         pdet.detect_and_visualize(0, str(tmp_path))
 
 
@@ -202,7 +207,9 @@ def test_import_mxnet_then_multi_demo(served, tmp_path, monkeypatch):
     """A JAX-written .params -> the port's import tool -> ``multi_demo.main``
     (--device cpu): the written files decode to the inputs' sizes; bf16
     serving writes the same files list; --seg-fast serves the fast seg head
-    from the same checkpoint."""
+    from the same checkpoint; ``--images clip.avi`` (the committed cv2-written
+    Motion-JPEG clip) writes ``detection_out.avi``, its 4 frames at the
+    clip's size and 25 fps."""
     _, variables, _, _, paths = served
     monkeypatch.chdir(tmp_path)
     args, auxs = jmx.export_multitask(variables["params"], variables["batch_stats"], "resnet-18_multi", H)
@@ -220,8 +227,12 @@ def test_import_mxnet_then_multi_demo(served, tmp_path, monkeypatch):
     # --seg-fast serves the score-then-upsample head from the same checkpoint
     written = multi_demo.main(net + ["--images", paths[0], "--out-dir", str(tmp_path / "fast"), "--seg-fast"])
     assert [os.path.basename(w) for w in written] == ["twice_out.jpg"]
-    with pytest.raises(NotImplementedError, match="video"):
-        multi_demo.main(net + ["--images", "clip.avi"])
+    shutil.copy(VIDEO_FIXTURES / "cv2_mjpeg.avi", tmp_path / "clip.avi")
+    written = multi_demo.main(net + ["--images", "clip.avi", "--out-dir", str(tmp_path / "video")])
+    assert written == [str(tmp_path / "video" / "detection_out.avi")]
+    with avi.open_video(written[0]) as reader:
+        assert (len(reader), reader.stream.width, reader.stream.height, reader.stream.fps) == (4, 256, 128, 25.0)
+        assert all(jpeg.read_header(f) == (128, 256, 3) for f in reader)
 
 
 def test_slice_modules_import_no_jax_cv2_or_pil():
@@ -233,7 +244,8 @@ def test_slice_modules_import_no_jax_cv2_or_pil():
     modules = ["dspnet_torch.utils.mxnet_import", "dspnet_torch.utils.transfer", "dspnet_torch.tools.import_mxnet",
                "dspnet_torch.utils.draw", "dspnet_torch.utils.profiler", "dspnet_torch.detect.pipeline",
                "dspnet_torch.detect.detector", "dspnet_torch.cli.multi_demo", "dspnet_torch.cli.multi_train",
-               "dspnet_torch.data.jpeg_cuda", "dspnet_torch.data.device_pipeline"]
+               "dspnet_torch.data.jpeg_cuda", "dspnet_torch.data.device_pipeline", "dspnet_torch.data.avi",
+               "dspnet_torch.detect.video"]
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

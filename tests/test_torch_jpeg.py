@@ -85,19 +85,22 @@ def _patched(data: bytes, offset_from_sof: int, value: int) -> bytes:
 
 
 def test_decoder_refuses_what_it_does_not_read(rng):
-    """Progressive, arithmetic-coded, 12-bit and 4-component streams, and
-    damaged data, raise JpegError with a reason."""
+    """Arithmetic-coded, lossless, 12-bit and 5-component streams, a
+    progressive file whose scans stop short (libjpeg would smooth it), and
+    damaged data, raise JpegError with a reason (no writer here makes the
+    first three forms, so their frame markers are patched in)."""
     img = _scene(rng, (32, 48), "smooth")
-    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(jpeg.JpegError, match="progressive"):
-        jpeg.decode(prog.tobytes())
     base = jpeg.encode(img)
     with pytest.raises(jpeg.JpegError, match="arithmetic"):
         jpeg.decode(_patched(base, 1, 0xC9))
+    with pytest.raises(jpeg.JpegError, match="arithmetic"):
+        jpeg.read_info(_patched(base, 1, 0xCA))
+    with pytest.raises(jpeg.JpegError, match="lossless"):
+        jpeg.decode(_patched(base, 1, 0xC3))
     with pytest.raises(jpeg.JpegError, match="12-bit"):
         jpeg.decode(_patched(base, 4, 12))
-    with pytest.raises(jpeg.JpegError, match="4 components"):
-        jpeg.decode(_patched(base, 9, 4))
+    with pytest.raises(jpeg.JpegError, match="5 components"):
+        jpeg.decode(_patched(base, 9, 5))
     with pytest.raises(jpeg.JpegError, match="SOI"):
         jpeg.decode(b"GIF89a")
     sos = base.index(b"\xff\xda")
@@ -107,6 +110,11 @@ def test_decoder_refuses_what_it_does_not_read(rng):
         ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                                              cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
         jpeg.decode(buf.tobytes())
+    # the DC scan alone: every AC coefficient still unsent, which libjpeg smooths
+    prog = jpeg.encode(img, progressive=True)
+    first_ac = prog.index(b"\xff\xda", prog.index(b"\xff\xda") + 2)
+    with pytest.raises(jpeg.JpegError, match="smooth"):
+        jpeg.decode(prog[:first_ac] + b"\xff\xd9")
 
 
 @pytest.mark.parametrize("hw", [(64, 128), (37, 53), (3, 3)])
@@ -243,8 +251,8 @@ def test_exif_orientation_equals_cv2(rng, tmp_path, orientation, endian):
 def test_encoder_422_and_progressive(rng, hw, sub):
     """4:2:2 and progressive files from the port's encoder: cv2 decodes the
     baseline file to the plain decoder's pixels, and the progressive file
-    (the same coefficients) to the same pixels; the plain decoder refuses
-    the progressive one, and ``read_info`` reads its header."""
+    (the same coefficients) to the same pixels; the plain decoder reads the
+    progressive one back to them too, and ``read_info`` reads its header."""
     img = cv2.GaussianBlur(rng.randint(0, 256, hw + (3,)).astype(np.uint8), (5, 5), 1.5)
     src = img[..., 0].copy() if sub == "gray" else img
     kw = {} if sub == "gray" else {"subsampling": sub}
@@ -255,5 +263,147 @@ def test_encoder_422_and_progressive(rng, hw, sub):
     info = jpeg.read_info(prog)
     assert info.progressive and not jpeg.read_info(base).progressive
     assert (info.height, info.width, info.components) == (*hw, 1 if sub == "gray" else 3)
-    with pytest.raises(jpeg.JpegError, match="progressive"):
-        jpeg.decode(prog)
+    np.testing.assert_array_equal(jpeg.decode(prog), want)
+
+
+# ------------------------------------------------- progressive, DHT-less, RGB, CMYK
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (37, 53), (17, 33), (3, 3), (9, 2), (1, 1)])
+@pytest.mark.parametrize("quality", [75, 95])
+@pytest.mark.parametrize("sub", ["444", "422", "420", "gray"])
+def test_progressive_equals_cv2(rng, hw, quality, sub):
+    """cv2's progressive files (libjpeg's scan script: DC first and
+    refinement, AC first with end-of-band runs and AC refinement with
+    correction bits) decode to ``cv2.imdecode``'s pixels bit for bit, noise
+    and smooth scenes, with and without restart intervals; no case needs
+    libjpeg's block smoothing (a complete file is not smoothed)."""
+    for kind, extra in (("noise", []), ("smooth", [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]),
+                        ("smooth", [cv2.IMWRITE_JPEG_RST_INTERVAL, 1])):
+        img = _scene(rng, hw, kind)
+        src = img[..., 0].copy() if sub == "gray" else img
+        params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1, *extra]
+        if sub != "gray":
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sub]]
+        ok, buf = cv2.imencode(".jpg", src, params)
+        assert jpeg.read_info(buf.tobytes()).progressive
+        np.testing.assert_array_equal(jpeg.decode(buf.tobytes()), cv2.imdecode(buf, cv2.IMREAD_UNCHANGED),
+                                      err_msg=f"{kind} {extra}")
+
+
+def _without_dht(data: bytes) -> bytes:
+    """A JPEG with every DHT segment before its first scan removed."""
+    import struct
+
+    out, pos = bytearray(data[:2]), 2
+    while True:
+        marker, (length,) = data[pos + 1], struct.unpack(">H", data[pos + 2:pos + 4])
+        if marker != 0xC4:
+            out += data[pos:pos + 2 + length]
+        pos += 2 + length
+        if marker == 0xDA:
+            return bytes(out) + data[pos:]
+
+
+@pytest.mark.parametrize("sub", ["444", "422", "420", "gray"])
+def test_dht_less_stream_equals_cv2(rng, sub):
+    """A baseline file with its DHT segments stripped (a Motion-JPEG frame's
+    form): libjpeg-turbo falls back to the Annex K tables, and so does the
+    plain decoder, to cv2's pixels; ``with_default_huffman`` writes those
+    tables back into the stream (what the card hands nvJPEG), leaves a
+    stream that has its tables as it was, and refuses a table number Annex
+    K has no table for."""
+    img = _scene(rng, (37, 53), "smooth")
+    src = img[..., 0].copy() if sub == "gray" else img
+    params = [] if sub == "gray" else [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sub]]
+    ok, buf = cv2.imencode(".jpg", src, [cv2.IMWRITE_JPEG_QUALITY, 90, *params])
+    bare = _without_dht(buf.tobytes())
+    assert b"\xff\xc4" not in bare[:bare.index(b"\xff\xda")]
+    want = cv2.imdecode(np.frombuffer(bare, np.uint8), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(want, cv2.imdecode(buf, cv2.IMREAD_UNCHANGED))
+    np.testing.assert_array_equal(jpeg.decode(bare), want)
+    fixed = jpeg.with_default_huffman(bare)
+    assert fixed != bare and b"\xff\xc4" in fixed[:fixed.index(b"\xff\xda")]
+    np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(fixed, np.uint8), cv2.IMREAD_UNCHANGED), want)
+    np.testing.assert_array_equal(jpeg.decode(fixed), want)
+    assert jpeg.with_default_huffman(buf.tobytes()) == buf.tobytes()
+    sos = bare.index(b"\xff\xda")
+    odd = bare[:sos + 6] + bytes([0x22]) + bare[sos + 7:]  # the first component asks for tables 2
+    with pytest.raises(jpeg.JpegError, match="Huffman table 2"):
+        jpeg.decode(odd)
+
+
+def _pillow(arr, mode, **kw) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("hw", [(64, 96), (37, 53), (1, 1)])
+def test_adobe_rgb_equals_cv2(rng, hw):
+    """Pillow's ``keep_rgb=True`` file (Adobe transform 0, components coded
+    as R, G, B): no colour conversion, BGR out, as cv2; a JFIF marker beside
+    an Adobe transform 0 means YCbCr (libjpeg's order of the two)."""
+    img = _scene(rng, hw, "smooth" if min(hw) > 1 else "noise")
+    data = _pillow(np.ascontiguousarray(img[..., ::-1]), "RGB", quality=90, keep_rgb=True)
+    assert jpeg.read_info(data).color == "rgb"
+    np.testing.assert_array_equal(jpeg.decode(data), cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+    base = jpeg.encode(img, 90)
+    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+    both = base[:20] + adobe + base[20:]
+    assert jpeg.read_info(both).color == "ycc"
+    np.testing.assert_array_equal(jpeg.decode(both), cv2.imdecode(np.frombuffer(both, np.uint8), cv2.IMREAD_COLOR))
+
+
+@pytest.mark.parametrize("subsampling", [0, 2])
+def test_cmyk_and_ycck_equal_cv2(rng, subsampling):
+    """Pillow's CMYK files (Adobe transform 0; 4:4:4, and with three planes
+    at half size): cv2 5.0.0's CMYK -> BGR rule (``jpeg.cmyk_to_bgr``,
+    measured here over 24,576 random CMYK pixels), bit for bit; the same
+    file marked YCCK (Adobe transform 2) goes through libjpeg's
+    ``ycck_cmyk_convert`` first, also bit for bit."""
+    cmyk = rng.randint(0, 256, (128, 192, 4)).astype(np.uint8)
+    data = _pillow(cmyk, "CMYK", quality=95, subsampling=subsampling)
+    info = jpeg.read_info(data)
+    assert info.color == "cmyk" and info.components == 4
+    assert info.upsampling == (((1, 1),) * 4 if subsampling == 0 else ((1, 1),) + ((2, 2),) * 3)
+    np.testing.assert_array_equal(jpeg.decode(data), cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+    i = data.index(b"Adobe") + 11
+    ycck = data[:i] + b"\x02" + data[i + 1:]
+    assert jpeg.read_info(ycck).color == "ycck"
+    np.testing.assert_array_equal(jpeg.decode(ycck), cv2.imdecode(np.frombuffer(ycck, np.uint8), cv2.IMREAD_COLOR))
+    planes = [rng.randint(0, 256, (64, 64)).astype(np.uint8) for _ in range(4)]
+    k = planes[3].astype(np.int32)
+    want = [k - ((255 - p.astype(np.int32)) * k >> 8) for p in planes[:3]][::-1]
+    np.testing.assert_array_equal(jpeg.cmyk_to_bgr(*planes), np.stack(want, -1))
+
+
+@pytest.mark.parametrize("form", ["rgb", "cmyk444", "cmyk420", "ycck444", "ycck420"])
+def test_plain_colour_function_on_other_codings(rng, form):
+    """The colour kernel's plain version in its other modes, on
+    ``jpeg.decode_planes``' planes: RGB-coded (Adobe transform 0), CMYK and
+    YCCK (4:4:4, and with three planes at half size) give ``jpeg.decode``'s
+    pixels, and so cv2's, bit for bit."""
+    import torch
+
+    from dspnet_torch.data import jpeg_cuda
+
+    if form == "rgb":
+        data = _pillow(np.ascontiguousarray(_scene(rng, (37, 53), "smooth")[..., ::-1]), "RGB", quality=90,
+                       keep_rgb=True)
+    else:
+        data = _pillow(rng.randint(0, 256, (37, 53, 4)).astype(np.uint8), "CMYK", quality=95,
+                       subsampling=0 if form.endswith("444") else 2)
+        if form.startswith("ycck"):
+            i = data.index(b"Adobe") + 11
+            data = data[:i] + b"\x02" + data[i + 1:]
+    planes, info = jpeg.decode_planes(data)
+    assert info.color == form[:4].rstrip("4")
+    t = [torch.from_numpy(p) for p in planes]
+    got = jpeg_cuda.ycc_to_bgr(*t[:3], factors=info.factors, color=info.color, k=t[3] if len(t) == 4 else None)
+    np.testing.assert_array_equal(got.numpy(), jpeg.decode(data))
+    np.testing.assert_array_equal(got.numpy(), cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))

@@ -9,6 +9,8 @@ machine with the card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_jpeg_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -184,3 +186,92 @@ def test_loader_on_the_card_refuses_mixed_raw_sizes(cuda_device, tmp_path):
     with pytest.raises(ValueError, match="mixed raw resolutions"):
         next(it.epoch())
     assert jpeg_cuda.images == 0
+
+
+FORMS = Path(__file__).resolve().parent / "fixtures" / "video" / "jpeg_forms"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color", ["ycc", "rgb", "cmyk", "ycck"])
+@pytest.mark.parametrize("factors", [(1, 1), (2, 1), (2, 2)])
+@pytest.mark.parametrize("hw", [(64, 96), (37, 53), (5, 2)])
+def test_color_kernel_modes_equal_their_plain_version(cuda_device, color, factors, hw):
+    """Every mode of the colour kernel (YCbCr, RGB-coded, CMYK, YCCK; the
+    fourth plane at full size and at the chroma's) on random planes, bit for
+    bit against the plain PyTorch colour function on the same planes."""
+    rng = np.random.RandomState(hw[0] + factors[0] + factors[1])
+    H, W = hw
+    fh, fv = factors
+    ch, cw = -(-H // fv), -(-W // fh)
+    y, cb, cr = (torch.from_numpy(rng.randint(0, 256, s).astype(np.uint8)).to(cuda_device)
+                 for s in ((H, W), (ch, cw), (ch, cw)))
+    ks = [None] if color in ("ycc", "rgb") else [
+        torch.from_numpy(rng.randint(0, 256, s).astype(np.uint8)).to(cuda_device) for s in {(H, W), (ch, cw)}]
+    for k in ks:
+        before = jpeg_cuda.color_launches
+        got = jpeg_cuda.ycc_to_bgr(y, cb, cr, factors=factors, color=color, k=k)
+        assert jpeg_cuda.color_launches == before + 1
+        want = jpeg_cuda.ycc_to_bgr_reference(y, cb, cr, factors=factors, color=color, k=k)
+        assert torch.equal(got, want), (color, factors, hw, None if k is None else tuple(k.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(p.name for p in FORMS.glob("*.jpg")))
+def test_nvjpeg_on_the_other_forms(cuda_device, name):
+    """cv2's progressive files, a DHT-less file (Annex K's tables inserted
+    before nvJPEG), Pillow's RGB-coded, CMYK and YCCK files: the card's
+    pixels within the gate of the plain decoder's (which equal cv2's,
+    ``tests/test_torch_jpeg.py``), the colour kernel equal to its plain
+    version on nvJPEG's planes; or, where nvJPEG refuses the form, a
+    ``JpegError`` that names it (there is no fallback to the plain decoder)."""
+    data = (FORMS / name).read_bytes()
+    info = jpeg.read_info(data)
+    jpeg.decodes = 0
+    try:
+        got = jpeg_cuda.decode_images([data], cuda_device)[0]
+    except jpeg.JpegError as e:
+        assert info.color in str(e) and "nvJPEG" in str(e), e
+        print(f"{name}: nvJPEG refuses it: {e}")
+        return
+    assert jpeg.decodes == 0
+    want = jpeg.decode(data)
+    want = np.repeat(want[..., None], 3, -1) if want.ndim == 2 else want
+    diff = jpeg_cuda.difference(got.cpu().numpy(), want)
+    print(f"{name} ({info.color}): card vs plain {diff}")
+    assert diff["mean"] <= jpeg_cuda.GATES["420"], diff
+    (planes, pinfo), = jpeg_cuda.decode_planes([data], cuda_device)
+    k = planes[3] if len(planes) == 4 else None
+    assert torch.equal(jpeg_cuda.ycc_to_bgr(*planes[:3], factors=pinfo.factors, color=pinfo.color, k=k),
+                       jpeg_cuda.ycc_to_bgr_reference(*planes[:3], factors=pinfo.factors, color=pinfo.color, k=k))
+
+
+def _psnr(a, b):
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return 10 * np.log10(255.0 ** 2 / mse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(256, 512), (37, 53)])
+def test_nvjpeg_encoder(cuda_device, hw):
+    """The card's encoder (nvjpegEncodeImage): baseline JFIF at q95 4:2:0
+    that the plain decoder and nvJPEG read, within ``jpeg_cuda.ENCODE_GATE_DB``
+    of the plain encoder's PSNR against the source; counted in ``encodes``,
+    the plain encoder not called; q75 writes fewer bytes; a CPU tensor takes
+    the plain encoder."""
+    img = _scenes(hw, 1, 11)[0]
+    t = torch.from_numpy(img).to(cuda_device)
+    jpeg.encodes = 0
+    before = jpeg_cuda.encodes
+    data = jpeg_cuda.encode(t)
+    assert jpeg_cuda.encodes == before + 1 and jpeg.encodes == 0
+    info = jpeg.read_info(data)
+    assert (info.height, info.width, info.components, info.progressive, info.factors) == (*hw, 3, False, (2, 2))
+    plain = jpeg.encode(img, 95)
+    got = jpeg.decode(data)
+    print(f"nvJPEG q95 {hw}: {len(data)} bytes, PSNR {_psnr(got, img):.2f} dB; plain encoder {len(plain)} bytes, "
+          f"{_psnr(jpeg.decode(plain), img):.2f} dB")
+    assert _psnr(got, img) >= _psnr(jpeg.decode(plain), img) - jpeg_cuda.ENCODE_GATE_DB
+    card = jpeg_cuda.decode_images([data], cuda_device)[0].cpu().numpy()
+    assert jpeg_cuda.difference(card, got)["mean"] <= jpeg_cuda.GATES["420"]
+    assert len(jpeg_cuda.encode(t, 75)) < len(data)
+    assert jpeg_cuda.encode(t.cpu()) == plain
