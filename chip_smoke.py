@@ -205,11 +205,28 @@ Phases (any failure ends the run with a non-zero exit):
      gates or refused by name, the colour kernel equal to its plain version
      in each mode; each stage's ms per frame and nvJPEG's encoder host and
      device us;
- 17. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, phase 14's, phase 15's, phase 16's, the kernel results (the two TPU kernels' ports and
-     the colour kernel; each kernel's device, host, event and bound times at the main path's
-     shapes, beside the baseline kernels' times from this run, and at phases
-     10 and 11's shapes) and each phase's seconds with the script's total,
+ 17. every JPEG form cv2 reads, on the card (the committed forms of
+     tests/fixtures/jpeg_forms/, written by python tests/make_jpeg_fixtures.py):
+     each decoded alone, its route chosen from the header and checked
+     (arithmetic-coded and progressive-with-restart files transcoded to
+     baseline for nvJPEG, lossless ones reconstructed on the host, plain
+     decodes 0), lossless pixels equal to cv2's sha256 in forms.json, DCT
+     forms within ``jpeg_cuda.GATES`` of the plain decoder, the colour
+     kernel equal to its plain version in every geometry, the forms cv2
+     returns None for refused by name; ``multi_demo --images`` at
+     resnet-50_multi 512x1024 bf16 (seed 17) over an arithmetic, a lossless,
+     a 4:1:1 and a progressive-with-restart file (NMS launches = images =
+     colour launches, the routes, plain decodes 0); one ``DeviceAugIterator``
+     batch of six forms at 37x53 against the per-image decodes; the host ms
+     of ``transcode_baseline`` and ``lossless_planes``; the colour kernel's
+     device us at 1024x2048 4:1:1 and 4:4:0, and at 4:2:0 in turns with its
+     baseline (baselines/jpeg_colour_per_sample.cu, the kernel before it
+     took every geometry);
+ 18. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, the kernel results (the two TPU
+     kernels' ports and the colour kernel; each kernel's device, host, event and bound times at the main
+     path's shapes, beside the baseline kernels' times from this run, and at phases
+     10, 11 and 17's shapes) and each phase's seconds with the script's total,
      then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
@@ -221,6 +238,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --host-loaders-only   # phases 1, 2 and 14 alone, no result line
     python3 chip_smoke.py --jax-checkpoints-only   # phases 1, 2 and 15 alone, no result line
     python3 chip_smoke.py --video-only       # phases 1, 2 and 16 alone, no result line
+    python3 chip_smoke.py --jpeg-forms-only  # phases 1, 2 and 17 alone, no result line
 
 """
 
@@ -306,6 +324,9 @@ F32_OPS_PER_S = 67e12
 # the two kernels as they stood before their redesign for Hopper, built and
 # timed beside the current ones on the same inputs (not on any path)
 BASELINE_SOURCES = (ROOT / "baselines" / "nms_two_launch.cu", ROOT / "baselines" / "match_one_block.cu")
+# the colour kernel before it took every sampling geometry, timed
+# beside the current one on the same 4:2:0 planes
+COLOUR_BASELINE = ROOT / "baselines" / "jpeg_colour_per_sample.cu"
 
 
 def baseline_kernels(dev):
@@ -343,6 +364,28 @@ def baseline_kernels(dev):
         return out
 
     return nms, match
+
+
+def colour_baseline(dev):
+    """Bind the colour kernel's baseline (``baselines/jpeg_colour_per_sample.cu``):
+    returns colour(y, cb, cr, out), 4:2:0 YCbCr planes to BGR."""
+    import ctypes
+
+    from dspnet_torch.ops import _build
+
+    lib = _build.load_library(COLOUR_BASELINE)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.dspnet_jpeg_ycc_to_bgr.argtypes = [vp, i, vp, vp, i, vp, i, i, i, i, i, i, i, i, i, vp, vp]
+
+    def colour(y, cb, cr, out):
+        H, W = y.shape
+        err = lib.dspnet_jpeg_ycc_to_bgr(y.data_ptr(), y.stride(0), cb.data_ptr(), cr.data_ptr(), cb.stride(0),
+                                         y.data_ptr(), y.stride(0), 1, H, W, cb.shape[0], cb.shape[1], 2, 2, 0,
+                                         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, err, "baseline colour kernel launch")
+        return out
+
+    return colour
 
 
 def bound_us(nbytes, ops):
@@ -3839,6 +3882,245 @@ def video_phase(dev, label):
     return launches, record
 
 
+def expected_route(info):
+    """The route ``jpeg_cuda`` must choose from a JPEG's header."""
+    if info.lossless:
+        return "host_lossless"
+    if info.coding == "arithmetic" or (info.progressive and info.restart):
+        return "transcoded"
+    if info.color not in ("ycc", "gray"):
+        return "single_unchanged"
+    return "single_progressive" if info.progressive else "batched"
+
+
+def jpeg_forms_phase(dev, label):
+    """Phase 17: every JPEG form cv2 reads, on the card. The committed forms
+    (``tests/fixtures/jpeg_forms/``: arithmetic-coded, lossless, every
+    integral sampling geometry, progressive with restarts, 12-bit and
+    fractional refusals) each decoded alone, its route chosen from the
+    header; the colour kernel against its plain version in each geometry;
+    ``multi_demo --images`` at resnet-50_multi 512x1024 bf16 over an
+    arithmetic, a lossless, a 4:1:1 and a progressive-with-restart file;
+    one ``DeviceAugIterator`` batch mixing the forms at one raw size against
+    the per-image decodes; the host stages' and the kernel's times. Returns
+    ({kernel: {path: launches}}, record)."""
+    import hashlib
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.data import jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator, device_augment_batch
+    from dspnet_torch.data.iterator import Sample, SampleIndex
+    from dspnet_torch.ops import nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    net = "resnet-50_multi"
+    forms_dir = ROOT / "tests" / "fixtures" / "jpeg_forms"
+    meta = json.loads((forms_dir / "forms.json").read_text())["files"]
+    launches = {"nms_keep_mask": {}, "jpeg_ycc_to_bgr": {}}
+    record, secs = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_forms_", dir=ROOT / "build"))
+
+    def reset():
+        nms_cuda.launches = jpeg_cuda.launches = jpeg_cuda.images = 0
+        jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = jpeg.decodes = 0
+        jpeg_cuda.routes.update(dict.fromkeys(jpeg_cuda.routes, 0))
+
+    def sha(img):
+        return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    try:
+        # ---- 17a. every committed form alone on the card
+        t0 = time.perf_counter()
+        reset()
+        cards, refused, routes_seen = {}, {}, {}
+        for name in sorted(meta):
+            data = (forms_dir / name).read_bytes()
+            before = dict(jpeg_cuda.routes)
+            if meta[name]["cv2"]["color"] is None:  # cv2 returns None: the card refuses by name
+                try:
+                    jpeg_cuda.decode_images([data], dev)
+                except jpeg.JpegError as e:
+                    check(any(w in str(e) for w in ("12-bit", "fractional", "lossless")),
+                          f"{name}: the refusal does not name the form: {e}")
+                    refused[name] = str(e)
+                    continue
+                check(False, f"{name}: cv2 returns None for it and the card decoded it")
+            info = jpeg.read_info(data)
+            route = expected_route(info)
+            cards[name] = jpeg_cuda.decode_images([data], dev)[0].cpu().numpy()
+            moved = {k: jpeg_cuda.routes[k] - before[k] for k in before if jpeg_cuda.routes[k] != before[k]}
+            check(moved == {route: 1}, f"{name}: routes moved {moved}, expected {route}")
+            routes_seen[route] = routes_seen.get(route, 0) + 1
+        check(jpeg.decodes == 0 and jpeg_cuda.color_plain_calls == 0,
+              f"plain decodes {jpeg.decodes}, plain colour calls {jpeg_cuda.color_plain_calls} on the card")
+        check(jpeg_cuda.color_launches == len(cards),
+              f"{jpeg_cuda.color_launches} colour launches for {len(cards)} images")
+        launches["jpeg_ycc_to_bgr"]["jpeg_forms"] = jpeg_cuda.color_launches
+        secs["forms on the card"] = time.perf_counter() - t0
+        # each against cv2 (lossless, by forms.json's sha256) or the plain decoder (DCT, within the gates)
+        worst, lossless_equal = 0.0, 0
+        for name, img in cards.items():
+            info = jpeg.read_info((forms_dir / name).read_bytes())
+            if info.lossless:
+                check(sha(img) == meta[name]["cv2"]["color"]["sha256"], f"{name}: the card's pixels are not cv2's")
+                lossless_equal += 1
+                continue
+            want = jpeg.decode((forms_dir / name).read_bytes())
+            want = np.repeat(want[..., None], 3, -1) if want.ndim == 2 else want
+            d = jpeg_cuda.difference(img, want)
+            check(d["mean"] <= jpeg_cuda.GATES["420"], f"{name}: card vs plain {d}")
+            worst = max(worst, d["mean"])
+        # the colour kernel against its plain version on each form's planes
+        geometries = {}
+        for name in cards:
+            (planes, pinfo), = jpeg_cuda.decode_planes([(forms_dir / name).read_bytes()], dev)
+            kw = dict(color=pinfo.color, k=planes[3] if len(planes) == 4 else None, fancy=not pinfo.lossless,
+                      upsampling=pinfo.upsampling, size=(pinfo.height, pinfo.width))
+            check(torch.equal(jpeg_cuda.ycc_to_bgr(*planes[:3], **kw),
+                              jpeg_cuda.ycc_to_bgr_reference(*planes[:3], **kw)),
+                  f"{name}: the colour kernel != its plain version ({pinfo.upsampling}, {pinfo.color})")
+            key = ",".join(f"{h}x{v}" for h, v in pinfo.upsampling) + ("" if kw["fancy"] else " replicated")
+            geometries[key] = geometries.get(key, 0) + 1
+        record["forms"] = {"decoded": len(cards), "refused_as_cv2": sorted(refused), "routes": routes_seen,
+                           "lossless_equal_cv2": lossless_equal, "dct_worst_mean_vs_plain": worst,
+                           "kernel_equal_plain_geometries": geometries}
+        print(f"JPEG forms on the card: {len(cards)} decoded (routes {routes_seen}), {lossless_equal} lossless "
+              f"equal to cv2's sha256, DCT forms within the gate of the plain decoder (worst mean {worst:.4f}); "
+              f"{len(refused)} refused by name where cv2 returns None ({', '.join(sorted(refused))}); the colour "
+              f"kernel == its plain version in {len(geometries)} geometries {geometries}; plain decodes 0 "
+              f"[{label}]", flush=True)
+
+        # ---- 17b. multi_demo over an arithmetic, a lossless, a 4:1:1 and a progressive-with-restart file
+        t0 = time.perf_counter()
+        src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                           generator=torch.Generator().manual_seed(17))
+        model_dir = work / "model"
+        CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).save(
+            0, MultiTaskSolver(src.model, src.anchors, device=dev).init_state())
+        del src
+        demo_names = ["big_arith_420.jpg", "big_lossless_rgb_p1.jpg", "big_411.jpg", "big_prog_rst_420.jpg"]
+        paths = []
+        for n in demo_names:
+            paths.append(work / n)
+            paths[-1].write_bytes((forms_dir / n).read_bytes())
+        demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                     "--dtype", "bfloat16", "--vis-thresh", "0.3", "--out-dir", str(work / "out"),
+                     "--device", str(dev), "--images", ",".join(str(x) for x in paths)]
+        reset()
+        t1 = time.perf_counter()
+        written = multi_demo.main(demo_args)
+        torch.cuda.synchronize()
+        secs["multi_demo"] = time.perf_counter() - t1
+        n = len(paths)
+        got = {"nms": nms_cuda.launches, "images": jpeg_cuda.images, "colour": jpeg_cuda.color_launches,
+               "plain_decodes": jpeg.decodes, "plain_colour": jpeg_cuda.color_plain_calls,
+               "transcoded": jpeg_cuda.routes["transcoded"], "host_lossless": jpeg_cuda.routes["host_lossless"],
+               "batched": jpeg_cuda.routes["batched"]}
+        want = {"nms": n, "images": n, "colour": n, "plain_decodes": 0, "plain_colour": 0, "transcoded": 2,
+                "host_lossless": 1, "batched": 1}
+        check(got == want, f"multi_demo on the forms: counts {got}, expected {want}")
+        check([Path(w).name for w in written] == [x.stem + "_out.jpg" for x in paths], f"written {written}")
+        for w, x in zip(written, paths):
+            check(jpeg.read_header(Path(w).read_bytes())[:2] == jpeg.read_header(x.read_bytes())[:2],
+                  f"{w}: not the input's size")
+        launches["nms_keep_mask"]["jpeg_forms_demo"] = got["nms"]
+        launches["jpeg_ycc_to_bgr"]["jpeg_forms_demo"] = got["colour"]
+        record["demo"] = {"counts": got, "seconds": secs["multi_demo"]}
+        print(f"multi_demo {net} {H}x{W} bf16 on {', '.join(demo_names)}: {secs['multi_demo']:.2f} s with the "
+              f"model build; counts {got}; each _out.jpg the input's size [{label}]", flush=True)
+        secs["demo with checkpoint"] = time.perf_counter() - t0
+
+        # ---- 17c. one DeviceAugIterator batch mixing the forms at one raw size (37x53)
+        batch_names = ["arith_seq_dac_rst.jpg", "arith_prog_rst1.jpg", "lossless_rgb_p7_pt2_rst.jpg",
+                       "samp_4x1_1x1.jpg", "samp_1x2_1x1.jpg", "prog_rstrows_gray.jpg"]
+        rng = np.random.RandomState(17)
+        samples = []
+        for n_ in batch_names:
+            path = work / n_
+            path.write_bytes((forms_dir / n_).read_bytes())
+            rows = synthetic.make_example(rng, (37, 53), 3)[1]
+            samples.append(Sample(str(path), SampleIndex.pad_label(rows), None))
+        B = len(samples)
+        reset()
+        it = DeviceAugIterator(SampleIndex(samples), B, (H, W), device=dev, seed=233, enable_aug=False, shuffle=False)
+        (batch, names), = list(it.epoch())
+        torch.cuda.synchronize()
+        loader_counts = {"images": jpeg_cuda.images, "colour": jpeg_cuda.color_launches, "plain": jpeg.decodes,
+                         "routes": {k: v for k, v in jpeg_cuda.routes.items() if v}}
+        check(jpeg.decodes == 0 and jpeg_cuda.images == B, f"the loader's counts {loader_counts}")
+        launches["jpeg_ycc_to_bgr"]["jpeg_forms_loader"] = jpeg_cuda.color_launches
+        raw = torch.stack([jpeg_cuda.decode_images([Path(s.image_path).read_bytes()], dev)[0] for s in samples])
+        labels = torch.from_numpy(np.stack([s.label for s in samples]).astype(np.float32))
+        ref = device_augment_batch(raw, None, labels, torch.zeros(B, 6), it.lut, (H, W), enable_aug=False,
+                                   mean_pixels=it.mean_pixels)
+        check(torch.equal(batch["images"], ref["images"]), "the loader's mixed-form batch != the per-image decodes")
+        record["loader"] = {"forms": batch_names, "counts": loader_counts}
+        print(f"DeviceAugIterator b{B} over {', '.join(batch_names)} (37x53 -> {H}x{W}): images == the "
+              f"per-image decodes through device_augment_batch bit for bit; counts {loader_counts} [{label}]",
+              flush=True)
+
+        # ---- 17d. the host stages and the colour kernel at full size
+        # each beside its bound: its bytes in and out once at the card's
+        # memory rate, were the stage on the card
+        host = {}
+        for name in ("big_arith_420.jpg", "big_prog_rst_420.jpg"):
+            data = (forms_dir / name).read_bytes()
+            t1 = time.perf_counter()
+            out = jpeg.transcode_baseline(data)
+            host[f"transcode_baseline {name} ms"] = (time.perf_counter() - t1) * 1e3
+            host[f"transcode_baseline {name} bound us"] = bound_us(len(data) + len(out), 0)[0]
+        data = (forms_dir / "big_lossless_rgb_p1.jpg").read_bytes()
+        t1 = time.perf_counter()
+        planes = jpeg.lossless_planes(data).planes
+        host["lossless_planes big_lossless_rgb_p1.jpg (512x1024) ms"] = (time.perf_counter() - t1) * 1e3
+        host["lossless_planes big_lossless_rgb_p1.jpg (512x1024) bound us"] = bound_us(
+            len(data) + sum(p.size for p in planes), 0)[0]
+        kernel = {}
+        for name in ("big_411.jpg", "big_440.jpg"):
+            (planes, info), = jpeg_cuda.decode_planes([(forms_dir / name).read_bytes()], dev)
+            out = torch.empty((info.height, info.width, 3), dtype=torch.uint8, device=dev)
+            kw = dict(upsampling=info.upsampling, size=(info.height, info.width))
+            t = kernel_times(lambda: jpeg_cuda.ycc_to_bgr(*planes, out=out, **kw), COLOR_KERNELS)
+            p_ms = cuda_ms(lambda: jpeg_cuda.ycc_to_bgr_reference(*planes, **kw), 10)
+            Hh, Ww = info.height, info.width
+            # the three planes read once, BGR written once; about 20 int32
+            # operations a pixel, at half the float32 rate
+            bound = bound_us(sum(p.numel() for p in planes) + 3 * Hh * Ww, 2 * 20 * Hh * Ww)
+            sub = "4:1:1" if info.factors == (4, 1) else "4:4:0"
+            print_times(f"ycc_to_bgr (colour kernel) {Hh}x{Ww} {sub}", t, p_ms, bound, label)
+            kernel[f"{Hh}x{Ww} {sub}"] = dict(t, plain_ms=p_ms, bound_us=bound[0], bound_by=bound[1])
+        # 4:2:0 (the arithmetic file's planes, after its transcode): the
+        # kernel against its baseline (one thread per chroma sample) on the
+        # same planes, in turns
+        (planes, info), = jpeg_cuda.decode_planes([(forms_dir / "big_arith_420.jpg").read_bytes()], dev)
+        old_colour = colour_baseline(dev)
+        Hh, Ww = info.height, info.width
+        out, out_old = (torch.empty((Hh, Ww, 3), dtype=torch.uint8, device=dev) for _ in range(2))
+        check(torch.equal(jpeg_cuda.ycc_to_bgr(*planes, factors=info.factors, out=out),
+                          old_colour(*planes, out_old)), "the colour kernel != its baseline at 4:2:0")
+        new_fn = lambda: jpeg_cuda.ycc_to_bgr(*planes, factors=info.factors, out=out)  # noqa: E731
+        old_fn = lambda: old_colour(*planes, out_old)  # noqa: E731
+        turns = [kernel_times(f, COLOR_KERNELS) for f in (new_fn, old_fn, old_fn, new_fn)]
+        p_ms = cuda_ms(lambda: jpeg_cuda.ycc_to_bgr_reference(*planes, factors=info.factors), 10)
+        bound = bound_us(sum(p.numel() for p in planes) + 3 * Hh * Ww, 2 * 20 * Hh * Ww)
+        kernel[f"{Hh}x{Ww} 4:2:0"] = dict(with_baseline(turns[0], turns[1]), plain_ms=p_ms, bound_us=bound[0],
+                                          bound_by=bound[1], turns_device_us=[t["device_us"] for t in turns])
+        print(f"ycc_to_bgr (colour kernel) {Hh}x{Ww} 4:2:0 against its baseline (one thread per chroma "
+              f"sample), in turns new, old, old, new: device " + " / ".join(f"{t['device_us']:.3f}" for t in turns)
+              + " us, events " + " / ".join(f"{t['event_ms'] * 1e3:.3f}" for t in turns) + f" us; bound "
+              f"{bound[0]:.4f} us ({bound[1]}), plain {p_ms:.4f} ms; outputs equal [{label}]", flush=True)
+        record["host_ms"], record["colour_kernel"] = host, kernel
+        print("host stages: " + ", ".join(f"{k} {v:.4f}" for k, v in host.items()) + f" [{label}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = secs
+    print(json.dumps({"jpeg_forms_phase": record}), flush=True)
+    return launches, record
+
+
 def probe_codec_libraries():
     """ROADMAP Queue A items 20 and 24: which of the Video Codec SDK's
     headers and libraries (NVDEC / NVENC), libjpeg / libpng and libzstd
@@ -3924,7 +4206,7 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
-                                   *BASELINE_SOURCES])
+                                   *BASELINE_SOURCES, COLOUR_BASELINE])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for lib in libs:
@@ -3962,6 +4244,10 @@ def main():
         return 0
     if "--video-only" in sys.argv[1:]:
         timed_phase("16 video", video_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--jpeg-forms-only" in sys.argv[1:]:
+        timed_phase("17 JPEG forms", jpeg_forms_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -4158,17 +4444,19 @@ def main():
     host_launches, _ = timed_phase("14 host loaders, run scripts, bench", host_loaders_phase, dev, label)
     jax_ckpt_launches, _ = timed_phase("15 JAX checkpoints", jax_checkpoints_phase, dev, label)
     video_launches, _ = timed_phase("16 video", video_phase, dev, label)
+    forms_launches, forms_record = timed_phase("17 JPEG forms", jpeg_forms_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 17. results: launches summed over the paths, each counted from 0
+    # ---- 18. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
                                  "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
                                  "prepare": prep_launches["nms_keep_mask"],
                                  "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"],
-                                 **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"]},
+                                 **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"],
+                                 **forms_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
@@ -4178,7 +4466,7 @@ def main():
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"],
                                    **host_launches["jpeg_ycc_to_bgr"], **jax_ckpt_launches["jpeg_ycc_to_bgr"],
-                                   **video_launches["jpeg_ycc_to_bgr"]}}
+                                   **video_launches["jpeg_ycc_to_bgr"], **forms_launches["jpeg_ycc_to_bgr"]}}
     colour = decoder.pop("colour_kernel")
 
     shape_keys = ("device_us", "host_us", "event_ms", "bound_us", "plain_ms", "before_device_us",
@@ -4215,13 +4503,17 @@ def main():
                                               prep_errs["bipartite_match"]),
               match_times, "B=8 A=12264 num_gt=8"),
         {"name": "jpeg_ycc_to_bgr", "route": "cuda", "source": "dspnet_torch/csrc/jpeg.cu",
-         "replaces": "libjpeg-turbo's h2v1/h2v2_fancy_upsample + ycc_rgb_convert behind cv2.imdecode "
+         "replaces": "libjpeg-turbo's jdsample.c upsamplers (h2v1/h2v2/h1v2 fancy, int_upsample) + jdcolor.c behind "
+                     "cv2.imdecode "
                      "(dspnet_tpu/data/iterator.py:73), not a TPU kernel",
          "launches": sum(by_path["jpeg_ycc_to_bgr"].values()), "launches_by_path": by_path["jpeg_ycc_to_bgr"],
          "max_abs_err": float(decoder["colour_max_abs_err"]), "ms": colour["device_us"] / 1e3, "plain_ms": colour["plain_ms"],
          "bound_ms": colour["bound_us"] / 1e3, "bound_by": colour["bound_by"], "library_ms": None,
          "at": "1024x2048 4:2:0", "host_us": colour["host_us"], "event_ms": colour["event_ms"],
-         "cases_equal": colour["cases"], "launches_by_mode": dict(jpeg_cuda.color_mode_launches)},
+         "cases_equal": colour["cases"], "launches_by_mode": dict(jpeg_cuda.color_mode_launches),
+         "launches_by_factors": dict(jpeg_cuda.color_factor_launches),
+         "other_shapes": {s: {k: v[k] for k in shape_keys if k in v}
+                          for s, v in forms_record["colour_kernel"].items()}},
     ]}))
     print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

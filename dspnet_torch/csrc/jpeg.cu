@@ -9,18 +9,22 @@
 // the stream's own subsampling (NVJPEG_OUTPUT_YUV), in a batch
 // (nvjpegDecodeBatched) or one image at a time (nvjpegDecode, for a
 // progressive file); then ycc_to_bgr_kernel below does what libjpeg-turbo
-// does after its IDCT and nvJPEG does not: the "fancy" triangular chroma
-// upsampling of jdsample.c (h2v1 with biases 1 and 2, h2v2 with the
-// 3 * near + far column sums and biases 8 and 7, edges replicated, a plane
-// at most 2 samples wide replicated instead) and the fixed-point YCbCr ->
-// RGB of jdcolor.c, writing BGR interleaved into the torch buffer the
-// wrapper (dspnet_torch/data/jpeg_cuda.py) allocated. Its other modes take
+// does after its IDCT and nvJPEG does not: the upsampling of jdsample.c as
+// jinit_upsampler picks it (the "fancy" triangular h2v1 with biases 1 and
+// 2, h2v2 with the 3 * near + far column sums and biases 8 and 7, h1v2 with
+// biases 1 and 2 for 4:4:0, edges replicated; a plane at most 2 samples wide
+// at h2v1 / h2v2, and every other integral factor up to 4 (4:1:1 among
+// them), replicated instead) and the fixed-point YCbCr -> RGB of
+// jdcolor.c, writing BGR interleaved into the torch buffer the wrapper
+// (dspnet_torch/data/jpeg_cuda.py) allocated. Its other modes take
 // nvJPEG's unchanged planes (NVJPEG_OUTPUT_UNCHANGED, the single-image
 // call) of a file coded otherwise: RGB (Adobe transform 0: upsampled, only
 // reordered), CMYK (cv2's CMYK -> BGR rule) and YCCK (libjpeg's
-// ycck_cmyk_convert, then that rule). nvJPEG's own interleaved output
-// (NVJPEG_OUTPUT_BGRI) replicates each chroma sample; the wrapper keeps it
-// only as a timed comparison.
+// ycck_cmyk_convert, then that rule). A lossless file's samples,
+// reconstructed on the host, come through the same kernel with every
+// factor replicated (libjpeg upsamples no lossless file fancily). nvJPEG's
+// own interleaved output (NVJPEG_OUTPUT_BGRI) replicates each chroma
+// sample; the wrapper keeps it only as a timed comparison.
 //
 // The encoder (the counterpart of cv2.imencode / cv2.VideoWriter's JPEG on
 // the host): nvjpegEncodeImage from interleaved BGR on the card, baseline
@@ -29,10 +33,15 @@
 //
 // What bounds the kernel: bytes. It reads the planes once (1.5 H W bytes at
 // 4:2:0, through L1 for the 3x3 neighbourhoods) and writes 3 H W bytes: 9.4
-// MB at 1024x2048, about 2.8 us at 3.35 TB/s. One thread per chroma sample
-// writes its 2x1 or 2x2 output pixels, so each neighbourhood is read once per
-// thread and the arithmetic is a few integer operations a pixel. A simple
-// kernel: the writes are 6 bytes a thread, not 16-byte vectors.
+// MB at 1024x2048, about 2.8 us at 3.35 TB/s. Each output pixel upsamples
+// each component to it by the component's own factors (so any geometry
+// libjpeg reads, the first component subsampled too), reading the few
+// neighbours it needs through L1, a few integer operations a plane. The
+// common geometries (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1) are compiled apart,
+// their factors known, and a thread converts the pixels over a chroma
+// sample where the fancy upsampling shares work among them; the rest takes
+// a run-time path, a pixel a thread. A simple kernel: the writes are 3
+// bytes a pixel, not 16-byte vectors.
 //
 // What bounds nvJPEG: on the default backend the Huffman stage runs on the
 // host (one thread per call here), then dequantisation and IDCT run as
@@ -129,77 +138,98 @@ __device__ __forceinline__ void put(unsigned char* p, int mode, int a, int b, in
   p[2] = static_cast<unsigned char>(cmyk_channel(r, k));
 }
 
-// The (up to) 2x2 upsampled values of chroma sample (cx, cy) of plane p:
-// o[row][column] for output rows cy * fv + row and columns 2 cx + column.
-__device__ __forceinline__ void fancy(const unsigned char* p, int pitch, int cx, int cy, int cw, int ch, int fv,
-                                      int o[2][2]) {
-  const unsigned char* row = p + static_cast<size_t>(cy) * pitch;
+// The largest upsampling factor (libjpeg's MAX_SAMP_FACTOR).
+constexpr int kMaxF = 4;
+
+// One component plane: its samples (h x w, row pitch `pitch`), its
+// upsampling factors to the image (fh, fv), each 1..kMaxF, and their log2
+// (hs, vs; unused for 3) so that the sample under an output pixel costs a
+// shift and not a division.
+struct Plane {
+  const unsigned char* p;
+  int pitch, h, w, fh, fv, hs, vs;
+};
+
+__device__ __forceinline__ int down(int x, int f, int shift) { return f == 3 ? x / 3 : x >> shift; }
+
+// Plane q's value at output pixel (ox, oy), upsampled as jinit_upsampler
+// picks the method: with `fancy`, h2v1 and h2v2 fancy on a plane wider than
+// 2 samples and h1v2 fancy; every other factor (and every factor without
+// `fancy`: a lossless file) replicates the sample (h2v1_upsample,
+// h2v2_upsample, int_upsample). Edges replicated. FH and FV are the
+// plane's factors where the launch knows them, so that the compiler drops
+// the other methods; 0 reads them from q.
+template <int FH, int FV>
+__device__ __forceinline__ int sample(const Plane& q, int ox, int oy, bool fancy) {
+  const int fh = FH ? FH : q.fh, fv = FV ? FV : q.fv;
+  int cx = FH ? ox / (FH ? FH : 1) : down(ox, fh, q.hs), cy = FV ? oy / (FV ? FV : 1) : down(oy, fv, q.vs);
+  const unsigned char* row = q.p + static_cast<size_t>(cy) * q.pitch;
   int c = row[cx];
-  if (cw <= 2) {  // libjpeg-turbo replicates a component this narrow
-    o[0][0] = o[0][1] = o[1][0] = o[1][1] = c;
-    return;
+  if (!fancy || (fh == 1 && fv == 1)) return c;
+  if (fh == 1 && fv == 2) {  // h1v2_fancy_upsample: 3/4 this row + 1/4 the nearer other, biases 1 and 2
+    int lower = oy & 1;
+    int other = q.p[static_cast<size_t>(lower ? min(cy + 1, q.h - 1) : max(cy - 1, 0)) * q.pitch + cx];
+    return (3 * c + other + 1 + lower) >> 2;
   }
-  int xl = max(cx - 1, 0), xr = min(cx + 1, cw - 1);
-  if (fv == 1) {  // h2v1_fancy_upsample
-    o[0][0] = (3 * c + row[xl] + 1) >> 2;
-    o[0][1] = (3 * c + row[xr] + 2) >> 2;
-    return;
-  }
+  if (fh != 2 || fv > 2 || q.w <= 2) return c;
+  int right = ox & 1;
+  int xn = right ? min(cx + 1, q.w - 1) : max(cx - 1, 0);
+  if (fv == 1) return (3 * c + row[xn] + 1 + right) >> 2;  // h2v1_fancy_upsample: biases 1 and 2
   // h2v2_fancy_upsample: column sums 3 * this row + the nearer other row
-  // (the row above for the upper output row, below for the lower one; edges
-  // replicated), then 3 * this column sum + the neighbour's
-  for (int k = 0; k < 2; ++k) {
-    const unsigned char* other = p + static_cast<size_t>(k == 0 ? max(cy - 1, 0) : min(cy + 1, ch - 1)) * pitch;
-    int col = 3 * c + other[cx];
-    int left = 3 * row[xl] + other[xl];
-    int right = 3 * row[xr] + other[xr];
-    o[k][0] = (3 * col + left + 8) >> 4;
-    o[k][1] = (3 * col + right + 7) >> 4;
+  // (above for the upper output row, below for the lower one), then 3 * this
+  // column sum + the nearer column's, biases 8 and 7
+  const unsigned char* other = q.p + static_cast<size_t>((oy & 1) ? min(cy + 1, q.h - 1) : max(cy - 1, 0)) * q.pitch;
+  int col = 3 * c + other[cx];
+  int ncol = 3 * row[xn] + other[xn];
+  return (3 * col + ncol + 8 - right) >> 4;
+}
+
+// The output pixels a thread converts across and down: the 2 pixels over a
+// chroma sample where the launch knows that factor is 2 (the compiler then
+// shares the sample's loads and column sums between them, as libjpeg's
+// fancy upsamplers do), else 1 (replication shares nothing worth the
+// threads it would take away: 4:1:1 measured faster so).
+__host__ __device__ constexpr int pixels(int f) { return f == 2 ? 2 : 1; }
+
+// A thread converts pixels(CH) x pixels(CV) output pixels when the launch
+// knows the chroma's factors (CH, CV), with the first component at full
+// size; with (0, 0), one pixel, every plane's factors read at run time (any
+// geometry). Each pixel: every component upsampled to it by its own factors
+// (y, cb, cr; k for CMYK / YCCK), then the pixel in the file's coding.
+template <int CH, int CV>
+__global__ void ycc_to_bgr_kernel(Plane y, Plane cb, Plane cr, Plane kp, int H, int W, int mode, int fancy,
+                                  unsigned char* __restrict__ out) {
+  constexpr int YH = CH ? 1 : 0, YV = CV ? 1 : 0, PH = pixels(CH), PV = pixels(CV);
+  int ox0 = (blockIdx.x * blockDim.x + threadIdx.x) * PH;
+  int oy0 = (blockIdx.y * blockDim.y + threadIdx.y) * PV;
+  if (ox0 >= W || oy0 >= H) return;
+  bool four = mode == kCmyk || mode == kYcck;
+#pragma unroll
+  for (int r = 0; r < PV; ++r) {
+    int oy = oy0 + r;
+    if (oy >= H) break;
+    unsigned char* p = out + (static_cast<size_t>(oy) * W + ox0) * 3;
+#pragma unroll
+    for (int j = 0; j < PH; ++j, p += 3) {
+      int ox = ox0 + j;
+      if (ox >= W) break;
+      int a = sample<YH, YV>(y, ox, oy, fancy);
+      if (mode == kGray) {
+        p[0] = p[1] = p[2] = static_cast<unsigned char>(a);
+        continue;
+      }
+      int k = four ? sample<0, 0>(kp, ox, oy, fancy) : 0;
+      put(p, mode, a, sample<CH, CV>(cb, ox, oy, fancy), sample<CH, CV>(cr, ox, oy, fancy), k);
+    }
   }
 }
 
-// One thread per chroma sample (per pixel at 4:4:4 and for gray): its fh x
-// fv output pixels inside the H x W image. Planes: y (the first component,
-// full size), cb and cr (the second and third, ch x cw at factors (fh, fv)),
-// k (the fourth, for CMYK / YCCK: full size when k_full, else at the
-// chroma's factors and pitch k_pitch).
-__global__ void ycc_to_bgr_kernel(const unsigned char* __restrict__ y, int y_pitch,
-                                  const unsigned char* __restrict__ cb, const unsigned char* __restrict__ cr,
-                                  int c_pitch, const unsigned char* __restrict__ kp, int k_pitch, int k_full,
-                                  int H, int W, int ch, int cw, int fh, int fv, int mode,
-                                  unsigned char* __restrict__ out) {
-  int cx = blockIdx.x * blockDim.x + threadIdx.x;
-  int cy = blockIdx.y * blockDim.y + threadIdx.y;
-  if (cx >= cw || cy >= ch) return;
-  if (mode == kGray) {
-    unsigned char v = y[static_cast<size_t>(cy) * y_pitch + cx];
-    unsigned char* p = out + (static_cast<size_t>(cy) * W + cx) * 3;
-    p[0] = p[1] = p[2] = v;
-    return;
-  }
-  bool four = mode == kCmyk || mode == kYcck;
-  if (fh == 1 && fv == 1) {
-    size_t c = static_cast<size_t>(cy) * c_pitch + cx;
-    int k = four ? kp[static_cast<size_t>(cy) * k_pitch + cx] : 0;
-    put(out + (static_cast<size_t>(cy) * W + cx) * 3, mode, y[static_cast<size_t>(cy) * y_pitch + cx], cb[c], cr[c],
-        k);
-    return;
-  }
-  int ub[2][2], ur[2][2], uk[2][2];
-  fancy(cb, c_pitch, cx, cy, cw, ch, fv, ub);
-  fancy(cr, c_pitch, cx, cy, cw, ch, fv, ur);
-  if (four && !k_full) fancy(kp, k_pitch, cx, cy, cw, ch, fv, uk);
-  for (int r = 0; r < fv; ++r) {
-    int oy = cy * fv + r;
-    if (oy >= H) break;
-    for (int k = 0; k < 2; ++k) {
-      int ox = cx * 2 + k;
-      if (ox >= W) break;
-      int kv = !four ? 0 : k_full ? kp[static_cast<size_t>(oy) * k_pitch + ox] : uk[r][k];
-      put(out + (static_cast<size_t>(oy) * W + ox) * 3, mode, y[static_cast<size_t>(oy) * y_pitch + ox], ub[r][k],
-          ur[r][k], kv);
-    }
-  }
+template <int CH, int CV>
+void launch(const Plane* q, int H, int W, int mode, int fancy, unsigned char* out, cudaStream_t stream) {
+  constexpr int PH = pixels(CH), PV = pixels(CV);
+  dim3 block(32, 8);
+  dim3 grid((W + block.x * PH - 1) / (block.x * PH), (H + block.y * PV - 1) / (block.y * PV));
+  ycc_to_bgr_kernel<CH, CV><<<grid, block, 0, stream>>>(q[0], q[1], q[2], q[3], H, W, mode, fancy, out);
 }
 
 }  // namespace
@@ -308,25 +338,35 @@ int dspnet_jpeg_decode_single(void* handle, void* state, const unsigned char* da
 }
 
 // libjpeg-turbo's upsampling + colour conversion on one image's planes (see
-// the file's head): y (H x W, pitch y_pitch), cb and cr (ch x cw, the
-// component's own cropped size, pitch c_pitch) with chroma factors (fh, fv)
-// in {(1, 1), (2, 1), (2, 2)}, k (the fourth component, CMYK / YCCK only:
-// H x W when k_full, else ch x cw; pitch k_pitch); `mode` one of kYcc,
-// kGray (y alone), kRgb, kCmyk, kYcck. Writes out (H x W x 3, BGR,
+// the file's head): `n` planes (1 for kGray, 3, or 4 for kCmyk / kYcck),
+// plane i at planes[i] with geometry[5 i ..] = (pitch, h, w, fh, fv): its
+// rows, its size and its upsampling factors to the H x W image (each
+// 1..4); `mode` one of kYcc, kGray, kRgb, kCmyk, kYcck; `fancy` 0
+// replicates at every factor (a lossless file). Writes out (H x W x 3, BGR,
 // contiguous) on `stream`.
-int dspnet_jpeg_ycc_to_bgr(const unsigned char* y, int y_pitch, const unsigned char* cb,
-                           const unsigned char* cr, int c_pitch, const unsigned char* k, int k_pitch, int k_full,
-                           int H, int W, int ch, int cw, int fh, int fv, int mode, unsigned char* out,
-                           void* stream) {
-  if (mode == kGray) {
-    ch = H;
-    cw = W;
+int dspnet_jpeg_ycc_to_bgr(const unsigned char* const* planes, const int* geometry, int n, int H, int W, int mode,
+                           int fancy, unsigned char* out, void* stream) {
+  int want = mode == kGray ? 1 : (mode == kCmyk || mode == kYcck) ? 4 : 3;
+  if (n != want || H <= 0 || W <= 0 || mode < kYcc || mode > kYcck) return static_cast<int>(cudaErrorInvalidValue);
+  Plane q[4];
+  for (int i = 0; i < 4; ++i) {
+    const int* g = geometry + 5 * (i < n ? i : 0);
+    q[i] = Plane{planes[i < n ? i : 0], g[0], g[1], g[2], g[3], g[4], g[3] / 2, g[4] / 2};
+    if (q[i].fh < 1 || q[i].fh > kMaxF || q[i].fv < 1 || q[i].fv > kMaxF || q[i].h * q[i].fv < H ||
+        q[i].w * q[i].fh < W || q[i].pitch < q[i].w)
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (ch <= 0 || cw <= 0 || mode < kYcc || mode > kYcck) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 block(32, 8);
-  dim3 grid((cw + block.x - 1) / block.x, (ch + block.y - 1) / block.y);
-  ycc_to_bgr_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(y, y_pitch, cb, cr, c_pitch, k, k_pitch,
-                                                                          k_full, H, W, ch, cw, fh, fv, mode, out);
+  auto s = static_cast<cudaStream_t>(stream);
+  // the common geometries (the first component at full size, Cb and Cr at
+  // one factor) compiled apart; any other through the run-time path
+  bool common = n >= 3 && q[0].fh == 1 && q[0].fv == 1 && q[1].fh == q[2].fh && q[1].fv == q[2].fv;
+  int f = common ? q[1].fh * 10 + q[1].fv : 0;
+  if (f == 11) launch<1, 1>(q, H, W, mode, fancy, out, s);
+  else if (f == 21) launch<2, 1>(q, H, W, mode, fancy, out, s);
+  else if (f == 22) launch<2, 2>(q, H, W, mode, fancy, out, s);
+  else if (f == 12) launch<1, 2>(q, H, W, mode, fancy, out, s);
+  else if (f == 41) launch<4, 1>(q, H, W, mode, fancy, out, s);
+  else launch<0, 0>(q, H, W, mode, fancy, out, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -124,6 +124,22 @@ def _unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], -1)[:, :width]
 
 
+#: Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(raw: bytes, width: int, height: int, channels: int, depth: int) -> np.ndarray:
+    """One image's (or one Adam7 pass's) filtered rows -> (height, width,
+    channels) samples as stored."""
+    bits = channels * depth
+    pix = _unfilter(raw, height, (width * bits + 7) // 8, max(1, bits // 8))
+    if depth == 16:
+        pix = pix.view(">u2").astype(np.uint16)
+    elif depth < 8:
+        pix = _unpack_bits(pix, width, depth)
+    return pix.reshape(height, width, channels)
+
+
 def read_png(data: bytes):
     """PNG bytes -> the samples as stored, (H, W, channels) uint8 (any depth
     up to 8, not scaled) or uint16, with the colour type, the bit depth and
@@ -159,19 +175,32 @@ def read_png(data: bytes):
     width, height, depth, color, _, _, interlace = header
     if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
         raise ValueError(f"PNG colour type {color} at bit depth {depth} is not valid PNG")
-    if interlace:
-        raise ValueError("interlaced PNG is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} does not exist (0 and 1, Adam7, do)")
     if color == 3 and palette is None:
         raise ValueError("palette PNG without a PLTE chunk")
     channels = _COLOR_TYPES[color][0]
-    bits = channels * depth
-    stride = (width * bits + 7) // 8
-    pix = _unfilter(zlib.decompress(b"".join(idat)), height, stride, max(1, bits // 8))
-    if depth == 16:
-        pix = pix.view(">u2").astype(np.uint16)
-    elif depth < 8:
-        pix = _unpack_bits(pix, width, depth)
-    return pix.reshape(height, width, channels), color, depth, palette, trns
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        return _samples(raw, width, height, channels, depth), color, depth, palette, trns
+    # Adam7: seven reduced images one after another, each filtered on its
+    # own (a pass with no columns or no rows has no bytes at all)
+    pix = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = _ceil_div(width - x0, dx), _ceil_div(height - y0, dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        n = ph * ((pw * channels * depth + 7) // 8 + 1)
+        pix[y0::dy, x0::dx] = _samples(raw[pos:pos + n], pw, ph, channels, depth)
+        pos += n
+    if pos != len(raw):
+        raise ValueError(f"interlaced PNG image data is {len(raw)} bytes, its passes {pos}")
+    return pix, color, depth, palette, trns
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -240,6 +269,8 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
         else:
             # gray, or BGR already; the Exif orientation applied as cv2 does
             # it, unless the image is read unchanged
+            if flags == IMREAD_COLOR:
+                jpeg.check_conversion(jpeg.read_info(data), "bgr")
             img = jpeg.decode(data, apply_orientation=flags == IMREAD_COLOR)
     else:
         raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
@@ -254,14 +285,39 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
+#: cv2's CMYK -> gray weights (``icvCvt_CMYK2Gray_8u_C4C1R``: 0.299,
+#: 0.587, 0.114 at 14 fraction bits, rounded)
+_CMYK_GRAY = (4899, 9617, 1868)
+
+
 def _jpeg_luma(data: bytes) -> np.ndarray:
-    """A JPEG under ``IMREAD_GRAYSCALE``: libjpeg's gray output of a YCbCr
-    (or gray) stream is its luma plane as decoded, turned by the Exif
-    orientation."""
+    """A JPEG under ``IMREAD_GRAYSCALE``, as cv2 5.0.0 reads it (measured in
+    ``tests/test_torch_jpeg.py``): a YCbCr (or gray) stream gives its luma
+    plane as decoded (upsampled where the luma is subsampled; the chroma is
+    not read, so a fractional chroma ratio does not matter); an RGB-coded one libjpeg's ``rgb_gray_convert`` of the
+    upsampled planes ((19595 R + 38470 G + 7471 B + 32768) >> 16); CMYK (and
+    YCCK, after ``ycck_cmyk_convert``) cv2's own CMYK -> gray: each of C, M,
+    Y through :func:`jpeg.cmyk_to_bgr`'s rule, then (4899 R + 9617 G + 1868
+    B + 8192) >> 14. Then the Exif orientation. A lossless file converts no
+    colour: only a gray one reads."""
     planes, info = jpeg.decode_planes(data)
-    if info.color not in ("gray", "ycc"):
-        raise ValueError(f"IMREAD_GRAYSCALE of a JPEG coded as {info.color} is not supported")
-    return np.ascontiguousarray(jpeg.orient(planes[0], info.orientation))
+    jpeg.check_conversion(info, "gray")
+    if info.color in ("gray", "ycc"):  # the first component alone, upsampled where it is subsampled
+        jpeg.check_sampling(info, [0])
+        gray = jpeg._upsample(planes[0], *info.upsampling[0], fancy=not info.lossless)[:info.height, :info.width]
+    else:
+        jpeg.check_sampling(info)
+        full = [jpeg._upsample(p, *f, fancy=not info.lossless)[:info.height, :info.width]
+                for p, f in zip(planes, info.upsampling)]
+        if info.color == "rgb":
+            r, g, b = (p.astype(np.int64) for p in full)
+            gray = (jpeg._fix(0.29900) * r + jpeg._fix(0.58700) * g + jpeg._fix(0.11400) * b + (1 << 15)) >> 16
+        else:
+            bgr = jpeg.cmyk_to_bgr(*(jpeg.ycck_to_cmyk(*full) if info.color == "ycck" else full)).astype(np.int64)
+            wr, wg, wb = _CMYK_GRAY
+            gray = (wb * bgr[..., 0] + wg * bgr[..., 1] + wr * bgr[..., 2] + (1 << 13)) >> 14
+        gray = gray.astype(np.uint8)
+    return np.ascontiguousarray(jpeg.orient(gray, info.orientation))
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Baseline JPEG on numpy: a decoder that gives libjpeg-turbo's pixels and an
+"""JPEG on numpy: a decoder that gives libjpeg-turbo's pixels and an
 encoder (the port's counterpart of ``cv2.imdecode`` / ``cv2.imwrite`` on
 JPEG, ``dspnet_tpu/data/iterator.py:73,76`` and
 ``dspnet_tpu/data/synthetic.py:153``).
@@ -7,47 +7,62 @@ This is the plain codec: the CPU path and the host-side tools use it. On the
 card, images are decoded by nvJPEG (``data/jpeg_cuda.py``) and nothing on
 that path calls :func:`decode`.
 
-**Decoder.** Huffman JPEG, 8-bit: baseline and extended sequential (SOF0,
-SOF1) and progressive (SOF2: DC first and refinement scans, AC first scans
-with end-of-band runs, AC refinement scans with correction bits; the
-coefficients gather across scans, then go through the same IDCT); gray,
-three components (YCbCr, or RGB by an Adobe transform 0 or the component
-ids 'R', 'G', 'B' without JFIF, as ``jdapimin.c`` decides) and four (CMYK,
-or YCCK by an Adobe transform 2); per component an upsampling factor of 1x1,
-2x1 or 2x2; restart intervals, any image size. A scan that names a Huffman
-table no DHT segment defined gets the Annex K table of its number (0 luma,
-1 chroma), as libjpeg-turbo's ``jstdhuff.c`` does (Motion-JPEG frames often
-carry no DHT). It follows what libjpeg-turbo does by default, which is how
-cv2 decodes:
+**Decoder.** Every 8-bit JPEG that cv2 5.0.0 (libjpeg-turbo 3.1.2) reads:
+sequential and progressive frames, Huffman-coded (SOF0, SOF1, SOF2) or
+arithmetic-coded (SOF9, SOF10: ``jdarith.c``'s decoder with the Qe table
+of ``jaricom.c``, DAC conditioning, statistics reset at each restart), and
+lossless frames (SOF3: ``jdlhuff.c``'s differences, predictors 1-7 and the
+point transform of ``jdlossls.c``); progressive scans of all four kinds (DC
+first and refinement, AC first with end-of-band runs, AC refinement with
+correction bits; the coefficients gather across scans, then go through the
+same IDCT); gray, three components (YCbCr, or RGB by an Adobe transform 0
+or the component ids 'R', 'G', 'B' without JFIF, as ``jdapimin.c``
+decides) and four (CMYK, or YCCK by an Adobe transform 2); any sampling
+factors 1..4 whose ratio to the largest is integral (4:1:1, 4:4:0 and the
+rest; a fractional ratio raises where an output needs the component, as
+libjpeg's ``jinit_upsampler`` does); restart intervals, any image size. A
+scan that names a Huffman table no DHT segment defined gets the Annex K
+table of its number (0 luma, 1 chroma), as libjpeg-turbo's ``jstdhuff.c``
+does (Motion-JPEG frames often carry no DHT). It follows what libjpeg-turbo
+does by default, which is how cv2 decodes:
 
 * the ISLOW integer IDCT (``jidctint.c``), vectorised over all blocks, with
   its ``DESCALE`` rounding and its post-IDCT range-limit table;
-* "fancy" triangular upsampling (``jdsample.c``): h2v1 with rounding
-  biases 1 and 2, h2v2 with biases 8 and 7, the image edges replicated (the
-  row above the first and below the last are copies of them); a component
-  no wider than 2 samples is replicated instead, as libjpeg-turbo does;
+* upsampling as ``jinit_upsampler`` picks it (``jdsample.c``): "fancy"
+  triangular h2v1 with rounding biases 1 and 2, h2v2 with biases 8 and 7,
+  h1v2 (4:4:0) with biases 1 and 2, the image edges replicated; a component
+  no wider than 2 samples at h2v1 / h2v2, and every other integral ratio
+  (4:1:1 among them), replicated; a lossless file replicated at every ratio
+  (libjpeg upsamples without an IDCT so);
 * the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (16 fraction bits);
   RGB-coded planes are only reordered; YCCK becomes CMYK by
   ``ycck_cmyk_convert``, and CMYK becomes BGR by cv2's own rule
   (:func:`cmyk_to_bgr`, measured against cv2 5.0.0);
-* a gray image gives one plane (``imdecode`` replicates it for colour).
+* a gray image gives one plane (``imdecode`` replicates it for colour);
+* a lossless file converts no colour (:func:`check_conversion`: cv2 returns
+  None for a YCbCr-coded one, and for a gray one under IMREAD_COLOR).
 
 libjpeg-turbo smooths the blocks of a progressive image only while some of
 their first coefficients still lack bits (``jdcoefct.c::smoothing_ok``); a
 file whose scans leave them so raises here, and a complete one is not
 smoothed, so no smoothing is done (measured against cv2 in the tests).
 
-So the pixels equal cv2's bit for bit (``tests/test_torch_jpeg.py``). The
-Huffman stage is a Python loop over 16-bit lookup tables: fine at test sizes
-and for checks, slow (about a second) at 1024x2048, slower for progressive
-files. Arithmetic-coded, lossless, hierarchical and 12-bit files raise
-:class:`JpegError` (no writer here or on the card makes one, and nvJPEG
-refuses them too).
+So the pixels equal cv2's bit for bit (``tests/test_torch_jpeg.py`` over
+the committed forms of ``tests/fixtures/jpeg_forms/``, written by
+libjpeg-turbo's and GDCM's IJG writers). The entropy stages are Python
+loops: Huffman over 16-bit lookup tables, arithmetic decision by decision;
+fine at test sizes and for checks, slow at 1024x2048 (about a second;
+progressive and arithmetic files more). 12-bit, arithmetic-coded lossless
+and hierarchical files raise :class:`JpegError` (cv2 returns None for
+12-bit; no writer here makes the other two).
 The APP1 Exif ``Orientation`` tag (values 2-8) is applied after the colour
 conversion, a flip or a transpose, as ``cv2.imread`` and ``cv2.imdecode``
 do under ``IMREAD_COLOR``. :func:`decode_planes` stops before the upsampling
 and returns the cropped component planes, which is what the card's colour
-kernel (``csrc/jpeg.cu``) takes from nvJPEG.
+kernel (``csrc/jpeg.cu``) takes from nvJPEG; :func:`lossless_planes` is the
+card's host stage for lossless files and :func:`transcode_baseline` its
+rewrite of arithmetic-coded and progressive-with-restart files as one
+baseline Huffman scan for nvJPEG.
 
 **Encoder.** Baseline JFIF, the Annex K quantisation tables scaled by the IJG
 quality rule, 4:2:0 (cv2's default), 4:2:2, 4:4:4 or gray, the standard
@@ -86,13 +101,21 @@ NATURAL_ORDER = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
+#: frame markers neither decoder here reads: hierarchical (differential)
+#: frames and arithmetic-coded lossless ones
 _SOF_UNSUPPORTED = {
-    0xC3: "lossless", 0xC5: "differential sequential",
-    0xC6: "differential progressive", 0xC7: "differential lossless",
-    0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
+    0xC5: "differential sequential", 0xC6: "differential progressive", 0xC7: "differential lossless",
     0xCB: "arithmetic-coded lossless", 0xCD: "differential arithmetic sequential",
     0xCE: "differential arithmetic progressive", 0xCF: "differential arithmetic lossless",
 }
+#: frame markers read here: (coding, process)
+_SOF = {0xC0: ("huffman", "sequential"), 0xC1: ("huffman", "sequential"), 0xC2: ("huffman", "progressive"),
+        0xC3: ("huffman", "lossless"), 0xC9: ("arithmetic", "sequential"),
+        0xCA: ("arithmetic", "progressive")}
+#: libjpeg's largest sampling factor (MAX_SAMP_FACTOR) and blocks in an
+#: interleaved MCU (D_MAX_BLOCKS_IN_MCU)
+_MAX_SAMP = 4
+_MAX_MCU_BLOCKS = 10
 
 
 # ------------------------------------------------------------------ header
@@ -448,6 +471,382 @@ def _progressive_units(units, w, tables, widths, coefs, ss, se, ah, al) -> int:
     return p
 
 
+# ------------------------------------------------------------------ arithmetic
+
+#: jaricom.c's ``jpeg_aritab`` (Table D.2 of T.81): (Qe, next index after
+#: an LPS, next index after an MPS, switch the MPS sense); the last entry is
+#: the fixed 0.5 bin of T.851 that libjpeg codes signs and refinements with
+_ARITAB = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0), (0x03d8, 20, 5, 0),
+    (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0), (0x0036, 30, 9, 0), (0x001a, 33, 10, 0),
+    (0x000d, 35, 11, 0), (0x0006, 9, 12, 0), (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1),
+    (0x3f25, 36, 16, 0), (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0), (0x0406, 49, 25, 0),
+    (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0),
+    (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0), (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0),
+    (0x002c, 33, 9, 0), (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0), (0x0861, 78, 49, 0), (0x0706, 79, 50, 0),
+    (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0), (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0),
+    (0x025c, 53, 56, 0), (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0), (0x5b12, 65, 65, 1),
+    (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0), (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0),
+    (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0), (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119c, 74, 76, 0), (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0), (0x34ee, 91, 85, 0),
+    (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0),
+    (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0), (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0),
+    (0x56a8, 95, 96, 1), (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0), (0x415e, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0), (0x5597, 110, 109, 0), (0x504f, 111, 107, 0),
+    (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0), (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+_QE = [q for q, _, _, _ in _ARITAB]
+_NEXT_LPS = [(switch << 7) | lps for _, lps, _, switch in _ARITAB]  # the sense switch in bit 7
+_NEXT_MPS = [mps for _, _, mps, _ in _ARITAB]
+#: statistics bins per DC and per AC conditioning table (jdarith.c)
+_DC_BINS, _AC_BINS = 64, 256
+#: the default conditioning (L, U) of a DC table and Kx of an AC table
+_DAC_DEFAULT = (0, 1, 5)
+
+
+class _Arith:
+    """``jdarith.c``'s decoder over one restart interval's bytes (stuffing
+    removed): the C register holds the interval's base and the bits not yet
+    used, ``ct`` counts those bits. Past the interval's last byte it reads
+    zeros, as libjpeg does once it meets a marker."""
+
+    __slots__ = ("data", "n", "pos", "c", "a", "ct")
+
+    def __init__(self, data: bytes):
+        self.data, self.n, self.pos, self.c, self.a, self.ct = data, len(data), 0, 0, 0, -16
+
+    def __call__(self, st, i: int) -> int:
+        """One binary decision with the statistics bin ``st[i]`` (updated)."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:  # renormalise, reading a byte when the bits run out (D.2.6)
+            ct -= 1
+            if ct < 0:
+                if self.pos < self.n:
+                    c = (c << 8) | self.data[self.pos]
+                    self.pos += 1
+                else:
+                    c <<= 8
+                ct += 8
+                if ct < 0:  # the first two bytes
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        k = sv & 0x7F
+        qe = _QE[k]
+        a -= qe
+        temp = a << ct
+        if c >= temp:  # the LPS interval, or an MPS after a conditional exchange (D.2.4, D.2.5)
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ _NEXT_MPS[k]
+            else:
+                st[i] = (sv & 0x80) ^ _NEXT_LPS[k]
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ _NEXT_LPS[k]
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ _NEXT_MPS[k]
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_corrupt():
+    return JpegError("corrupt JPEG data: an arithmetic-coded magnitude or run overflows")
+
+
+def _arith_dc(dec, st, ctx, cond):
+    """A DC difference (F.1.4.4.1): (difference, the next conditioning
+    context). ``st`` is the table's bins, ``ctx`` the component's context,
+    ``cond`` the table's (L, U)."""
+    if not dec(st, ctx):
+        return 0, 0
+    sign = dec(st, ctx + 1)
+    i = ctx + 2 + sign
+    m = dec(st, i)
+    if m:
+        i = 20
+        while dec(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise _arith_corrupt()
+            i += 1
+    if m < (1 << cond[0]) >> 1:
+        nxt = 0
+    elif m > (1 << cond[1]) >> 1:
+        nxt = 12 + 4 * sign
+    else:
+        nxt = 4 + 4 * sign
+    v = m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if dec(st, i):
+            v |= m
+    v += 1
+    return (-v if sign else v), nxt
+
+
+def _arith_ac(dec, st, fixed, blk, base, ss, se, kx, al, natural):
+    """AC coefficients ss..se of one block (F.1.4.4.2), each written as
+    ``v << al`` at its natural index."""
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if dec(st, i):  # end of block
+            return
+        while not dec(st, i + 1):
+            i += 3
+            k += 1
+            if k > se:
+                raise _arith_corrupt()
+        sign = dec(fixed, 0)
+        i += 2
+        m = dec(st, i)
+        if m and dec(st, i):
+            m <<= 1
+            i = 189 if k <= kx else 217
+            while dec(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise _arith_corrupt()
+                i += 1
+        v = m
+        i += 14
+        while m > 1:
+            m >>= 1
+            if dec(st, i):
+                v |= m
+        v += 1
+        blk[base + natural[k]] = (-v if sign else v) << al
+        k += 1
+
+
+def _arith_ac_refine(dec, st, fixed, blk, base, ss, se, al, natural):
+    """An AC refinement of one block: a correction bit for each coefficient
+    already nonzero, new coefficients of +-2**al, the end-of-block flag
+    tested only past the previous stage's last nonzero one (EOBx)."""
+    p1, m1 = 1 << al, -(1 << al)
+    kex = se
+    while kex > 0 and not blk[base + natural[kex]]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if k > kex and dec(st, i):
+            return
+        while True:
+            j = base + natural[k]
+            cur = blk[j]
+            if cur:
+                if dec(st, i + 2):
+                    blk[j] = cur + (m1 if cur < 0 else p1)
+                break
+            if dec(st, i + 1):
+                blk[j] = m1 if dec(fixed, 0) else p1
+                break
+            i += 3
+            k += 1
+            if k > se:
+                raise _arith_corrupt()
+        k += 1
+
+
+def _wrap16(v: int) -> int:
+    """A JCOEF (int16) cast."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _decode_arith_scan(segs, scan, frame, restart, coefs, widths, band, progressive, conditioning):
+    """One arithmetic-coded scan (``jdarith.c``), sequential or any of the
+    four progressive kinds, into the components' flat coefficient lists.
+    ``scan`` is [(component, DC table, AC table)]; statistics live per
+    table, the DC context and last value per component; each restart
+    interval starts them afresh."""
+    ss, se, ah, al = band
+    natural = _NATURAL_PAD
+    ids = [c for c, _, _ in scan]
+    dc_tab = {c: d for c, d, _ in scan}
+    ac_tab = {c: a for c, _, a in scan}
+    dc_first = not progressive or (ss == 0 and ah == 0)
+    ac_used = not progressive or ss > 0
+    fixed = bytearray([113])
+    units_all = _scan_units(frame, ids)
+    per = restart if restart else len(units_all)
+    nseg = _ceil_div(len(units_all), per) if units_all else 0
+    for si in range(nseg):
+        dec = _Arith(segs[si] if si < len(segs) else b"")
+        dc_stats = {t: bytearray(_DC_BINS) for t in set(dc_tab.values())} if dc_first else {}
+        ac_stats = {t: bytearray(_AC_BINS) for t in set(ac_tab.values())} if ac_used else {}
+        last = dict.fromkeys(ids, 0)
+        ctx = dict.fromkeys(ids, 0)
+        for unit in units_all[si * per:(si + 1) * per]:
+            for c, by, bx in unit:
+                blk, base = coefs[c], (by * widths[c] + bx) * 64
+                if progressive and ss == 0 and ah:  # DC refinement: the next bit, fixed bin
+                    if dec(fixed, 0):
+                        blk[base] |= 1 << al
+                    continue
+                if dc_first and ss == 0:
+                    t = dc_tab[c]
+                    v, ctx[c] = _arith_dc(dec, dc_stats[t], ctx[c], conditioning["dc"].get(t, _DAC_DEFAULT[:2]))
+                    if v:
+                        last[c] = _wrap16(last[c] + v)
+                    blk[base] = _wrap16(last[c] << al) if progressive else last[c]
+                    if progressive:
+                        continue
+                t = ac_tab[c]
+                if progressive and ah:
+                    _arith_ac_refine(dec, ac_stats[t], fixed, blk, base, ss, se, al, natural)
+                else:
+                    _arith_ac(dec, ac_stats[t], fixed, blk, base, max(ss, 1), se if progressive else 63,
+                              conditioning["ac"].get(t, _DAC_DEFAULT[2]), al if progressive else 0, natural)
+
+
+# ------------------------------------------------------------------ lossless
+
+
+def _lossless_differences(w, n_units, luts) -> Tuple[list, int]:
+    """Huffman-decode ``n_units`` MCUs of a lossless scan (``jdlhuff.c``),
+    one difference per entry of ``luts`` (the DC table of each sample of the
+    MCU, in order): SSSS 0-15 with that many extra bits, 16 meaning 32768
+    with none. Returns the differences and the bits read."""
+    masks = _MASKS
+    out = []
+    p = 0
+    for _ in range(n_units):
+        for lut in luts:
+            t = lut[(w[p >> 3] >> (24 - (p & 7))) & 0xFFFF]
+            if not t:
+                raise JpegError("corrupt JPEG data: bad lossless Huffman code")
+            p += t >> 8
+            s = t & 255
+            if s == 0:
+                out.append(0)
+            elif s == 16:
+                out.append(32768)
+            else:
+                v = (w[p >> 3] >> (40 - (p & 7) - s)) & masks[s]
+                p += s
+                out.append(v - masks[s] if v < (1 << (s - 1)) else v)
+    return out, p
+
+
+def _decode_lossless_scan(segs, scan, frame, restart, diffs):
+    """One lossless scan's differences into each component's (rows, cols)
+    grid ``diffs[c]`` (MCU padding included): an interleaved scan walks the
+    frame's MCUs (h x v samples of each component), a one-component scan the
+    component's own sample grid. Returns the grid rows at which a restart
+    interval starts, per component (each must start an MCU row, as libjpeg's
+    lossless coder requires)."""
+    ids = [c for c, _, _ in scan]
+    comps = frame["comps"]
+    luts = {c: dc for c, dc, _ in scan}
+    if len(ids) == 1:
+        c = ids[0]
+        ch = _ceil_div(frame["height"] * comps[c]["v"], frame["vmax"])
+        cw = _ceil_div(frame["width"] * comps[c]["h"], frame["hmax"])
+        grid, row_units, per_unit = (ch, cw), cw, [luts[c]]
+        shape = {c: (1, 1)}
+    else:
+        grid, row_units = (frame["mcuy"], frame["mcux"]), frame["mcux"]
+        per_unit = [luts[c] for c in ids for _ in range(comps[c]["h"] * comps[c]["v"])]
+        shape = {c: (comps[c]["v"], comps[c]["h"]) for c in ids}
+    n = grid[0] * grid[1]
+    per = restart or n
+    if restart and restart % row_units:
+        raise JpegError(f"lossless JPEG with a restart interval of {restart} samples, not a whole number of "
+                        f"rows of {row_units}, is not supported")
+    flat, starts = [], []
+    for si in range(_ceil_div(n, per)):
+        seg = segs[si] if si < len(segs) else b""
+        count = min(per, n - si * per)
+        try:
+            vals, nbits = _lossless_differences(_windows(seg), count, per_unit)
+        except IndexError:
+            nbits = None
+        if nbits is None or nbits > 8 * len(seg):
+            raise JpegError("corrupt JPEG data: the scan ends early")
+        flat += vals
+        starts.append(si * per // row_units)
+    a = np.asarray(flat, np.int64).reshape(grid[0], grid[1], -1)
+    k = 0
+    rows = {}
+    for c in ids:
+        v, h = shape[c]
+        part = a[:, :, k:k + v * h].reshape(grid[0], grid[1], v, h).transpose(0, 2, 1, 3)
+        full = part.reshape(grid[0] * v, grid[1] * h)
+        diffs[c][:full.shape[0], :full.shape[1]] = full
+        k += v * h
+        rows[c] = [r * v for r in starts]
+    return rows
+
+
+def _undifference(d: np.ndarray, predictor: int, pt: int, first_rows) -> np.ndarray:
+    """``jdlossls.c``'s undifferencing of one component's (rows, cols)
+    differences, modulo 2**16: the first row of the scan and of each restart
+    interval predicts its first sample as 2**(P - Pt - 1) and the rest from
+    the left (predictor 1); every other row predicts its first sample from
+    above (predictor 2) and the rest by ``predictor`` (1 Ra, 2 Rb, 3 Rc, 4
+    Ra + Rb - Rc, 5 Ra + ((Rb - Rc) >> 1), 6 Rb + ((Ra - Rc) >> 1), 7 (Ra +
+    Rb) >> 1). Predictors 1 and 2 are cumulative sums over the whole grid,
+    3, 4 and 5 one vector step a row, 6 and 7 a loop over the samples."""
+    mask = 0xFFFF
+    rows, cols = d.shape
+    x = np.empty_like(d)
+    bounds = sorted(set(first_rows) | {0}) + [rows]
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        if r0 >= rows:
+            break
+        x[r0] = ((1 << (8 - pt - 1)) + np.cumsum(d[r0])) & mask
+        if r1 - r0 == 1:
+            continue
+        blk = d[r0 + 1:r1]
+        if predictor == 1:
+            col0 = x[r0, 0] + np.cumsum(blk[:, 0])
+            rest = np.cumsum(blk[:, 1:], axis=1)
+            x[r0 + 1:r1, 0] = col0 & mask
+            x[r0 + 1:r1, 1:] = (col0[:, None] + rest) & mask
+        elif predictor == 2:
+            x[r0 + 1:r1] = (x[r0] + np.cumsum(blk, axis=0)) & mask
+        elif predictor in (3, 4, 5):
+            for y in range(r0 + 1, r1):
+                up = x[y - 1]
+                first = (d[y, 0] + up[0]) & mask
+                x[y, 0] = first
+                if predictor == 3:
+                    x[y, 1:] = (d[y, 1:] + up[:-1]) & mask
+                else:
+                    step = up[1:] - up[:-1] if predictor == 4 else (up[1:] - up[:-1]) >> 1
+                    x[y, 1:] = (first + np.cumsum(d[y, 1:] + step)) & mask
+        elif predictor in (6, 7):
+            for y in range(r0 + 1, r1):
+                up, dy = x[y - 1].tolist(), d[y].tolist()
+                ra = (dy[0] + up[0]) & mask
+                row = [ra]
+                if predictor == 6:
+                    for j in range(1, cols):
+                        ra = (dy[j] + up[j] + ((ra - up[j - 1]) >> 1)) & mask
+                        row.append(ra)
+                else:
+                    for j in range(1, cols):
+                        ra = (dy[j] + ((ra + up[j]) >> 1)) & mask
+                        row.append(ra)
+                x[y] = row
+        else:
+            raise JpegError(f"lossless JPEG predictor {predictor} does not exist (1-7 do)")
+    return x
+
+
 # ------------------------------------------------------------------ IDCT
 
 _CONST_BITS, _PASS1_BITS = 13, 2
@@ -527,14 +926,35 @@ def _fancy_h2v2(c: np.ndarray) -> np.ndarray:
     return out
 
 
-def _upsample(c: np.ndarray, fh: int, fv: int) -> np.ndarray:
+def _fancy_h1v2(c: np.ndarray) -> np.ndarray:
+    """(h, w) uint8 -> (2h, w): 3/4 this row + 1/4 the nearer other one,
+    biases 1 (upper) and 2 (lower), edges replicated
+    (``h1v2_fancy_upsample``)."""
+    x = c.astype(np.int32)
+    up = np.concatenate([x[:1], x[:-1]], axis=0)
+    down = np.concatenate([x[1:], x[-1:]], axis=0)
+    out = np.empty((2 * x.shape[0], x.shape[1]), np.uint8)
+    out[0::2] = (3 * x + up + 1) >> 2
+    out[1::2] = (3 * x + down + 2) >> 2
+    return out
+
+
+def _upsample(c: np.ndarray, fh: int, fv: int, fancy: bool = True) -> np.ndarray:
+    """A component plane up by integral factors (fh, fv), as
+    ``jinit_upsampler`` picks the method: h2v1 and h2v2 fancy on a plane
+    wider than 2 samples, h1v2 fancy, and replication for every other
+    ratio (``h2v1_upsample``, ``h2v2_upsample``, ``int_upsample``) and for
+    all of them when ``fancy`` is False (a lossless file: libjpeg does no
+    fancy upsampling without an IDCT)."""
     if (fh, fv) == (1, 1):
         return c
-    if c.shape[1] <= 2:  # libjpeg-turbo replicates a component this narrow
-        return np.repeat(np.repeat(c, fv, axis=0), fh, axis=1)
-    if (fh, fv) == (2, 1):
+    if fancy and (fh, fv) == (1, 2):
+        return _fancy_h1v2(c)
+    if fancy and c.shape[1] > 2 and (fh, fv) == (2, 1):
         return _fancy_h2v1(c)
-    return _fancy_h2v2(c)
+    if fancy and c.shape[1] > 2 and (fh, fv) == (2, 2):
+        return _fancy_h2v2(c)
+    return np.repeat(np.repeat(c, fv, axis=0), fh, axis=1)
 
 
 # ------------------------------------------------------------------ colour
@@ -606,9 +1026,9 @@ class Info(NamedTuple):
     height: int
     width: int
     components: int
-    #: chroma upsampling factors (horizontal, vertical): (1, 1) for 4:4:4
-    #: and gray, (2, 1) for 4:2:2, (2, 2) for 4:2:0 (the largest sampling
-    #: factors of the frame)
+    #: the chroma's upsampling factors (horizontal, vertical): the second
+    #: component's, (1, 1) for 4:4:4 and gray, (2, 1) for 4:2:2, (2, 2) for
+    #: 4:2:0, (4, 1) for 4:1:1, (1, 2) for 4:4:0
     factors: Tuple[int, int]
     progressive: bool
     #: how the components are coded: "gray", "ycc" (YCbCr), "rgb" (Adobe
@@ -618,18 +1038,26 @@ class Info(NamedTuple):
     color: str
     #: the Exif orientation, 1..8
     orientation: int
-    #: each component's upsampling factors (horizontal, vertical)
+    #: each component's upsampling factors (horizontal, vertical); None for
+    #: a fractional ratio (:func:`check_sampling`)
     upsampling: Tuple[Tuple[int, int], ...] = ()
     #: MCUs per restart interval before the first scan (0: none)
     restart: int = 0
+    #: the entropy coding: "huffman" or "arithmetic"
+    coding: str = "huffman"
+    #: a lossless (SOF3) frame: predicted samples, no DCT
+    lossless: bool = False
 
 
-def _frame(body: bytes) -> dict:
+def _frame(body: bytes, lossless: bool = False) -> dict:
     """A frame header's fields; raises on a precision, component count or
-    sampling layout that neither decoder here reads."""
+    sampling factor that libjpeg (and so cv2) does not read as 8-bit
+    samples (every factor 1..4). A component whose ratio to the largest
+    factors is fractional gets upsampling None: libjpeg refuses it only
+    when an output needs that component (:func:`check_sampling`)."""
     precision, height, width, ncomp = struct.unpack(">BHHB", body[:6])
     if precision != 8:
-        raise JpegError(f"{precision}-bit JPEG is not supported (8-bit is)")
+        raise JpegError(f"{precision}-bit JPEG is not supported (8-bit is; cv2 reads no other)")
     if ncomp not in (1, 3, 4):
         raise JpegError(f"JPEG with {ncomp} components is not supported (gray, three and four are)")
     if height == 0 or width == 0:
@@ -639,21 +1067,18 @@ def _frame(body: bytes) -> dict:
         cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
         comps[cid] = {"h": hv >> 4, "v": hv & 15, "tq": tq}
         order.append(cid)
+    factors = ", ".join(f"{comps[k]['h']}x{comps[k]['v']}" for k in order)
+    if any(not (1 <= c["h"] <= _MAX_SAMP and 1 <= c["v"] <= _MAX_SAMP) for c in comps.values()):
+        raise JpegError(f"JPEG sampling factors {factors} are not supported (each lies in 1..{_MAX_SAMP})")
     if ncomp == 1:
         comps[order[0]].update(h=1, v=1)
     hmax = max(c["h"] for c in comps.values())
     vmax = max(c["v"] for c in comps.values())
-    for c in comps.values():
-        if c["h"] < 1 or c["v"] < 1 or hmax % c["h"] or vmax % c["v"] \
-                or (hmax // c["h"], vmax // c["v"]) not in ((1, 1), (2, 1), (2, 2)):
-            raise JpegError("JPEG sampling factors " + ", ".join(f"{comps[k]['h']}x{comps[k]['v']}" for k in order)
-                            + " are not supported (each component at the largest factors, or at half of "
-                            "them across or in both directions)")
-        c["up"] = (hmax // c["h"], vmax // c["v"])
-    if ncomp == 3 and comps[order[0]]["up"] != (1, 1):
-        raise JpegError("JPEG whose first of three components is subsampled is not supported")
+    for c in comps.values():  # a fractional ratio: None (see check_sampling)
+        c["up"] = None if hmax % c["h"] or vmax % c["v"] else (hmax // c["h"], vmax // c["v"])
+    unit = 1 if lossless else 8
     return {"height": height, "width": width, "comps": comps, "order": order, "hmax": hmax, "vmax": vmax,
-            "mcux": _ceil_div(width, 8 * hmax), "mcuy": _ceil_div(height, 8 * vmax)}
+            "mcux": _ceil_div(width, unit * hmax), "mcuy": _ceil_div(height, unit * vmax)}
 
 
 def _color(frame: dict, jfif: bool, adobe_transform) -> str:
@@ -672,18 +1097,20 @@ def _color(frame: dict, jfif: bool, adobe_transform) -> str:
     return "rgb" if frame["order"] == [ord("R"), ord("G"), ord("B")] else "ycc"
 
 
-def _info(frame: dict, progressive: bool, jfif: bool, adobe, orientation: int, restart: int) -> Info:
-    return Info(frame["height"], frame["width"], len(frame["order"]), (frame["hmax"], frame["vmax"]),
-                progressive, _color(frame, jfif, adobe), orientation,
-                tuple(frame["comps"][c]["up"] for c in frame["order"]), restart)
+def _info(frame: dict, sof: int, jfif: bool, adobe, orientation: int, restart: int) -> Info:
+    coding, process = _SOF[sof]
+    up = tuple(frame["comps"][c]["up"] for c in frame["order"])
+    return Info(frame["height"], frame["width"], len(frame["order"]), (up[1] if len(up) > 1 else None) or (1, 1),
+                process == "progressive", _color(frame, jfif, adobe), orientation, up, restart, coding,
+                process == "lossless")
 
 
 def read_info(data) -> Info:
     """The header of a JPEG stream without decoding it: sizes, chroma
-    factors, progressive or not, the colour space and the Exif orientation.
-    Raises :class:`JpegError` on a form neither the plain decoder nor the
-    card reads (arithmetic coding, lossless, 12-bit, other sampling
-    factors)."""
+    factors, progressive or not, the coding, lossless or not, the colour
+    space and the Exif orientation. Raises :class:`JpegError` on a form the
+    decoders do not read (hierarchical, arithmetic-coded lossless, 12-bit,
+    fractional sampling factors)."""
     data = bytes(data)
     _check_soi(data)
     jfif, adobe, orientation, frame, sof, restart = False, None, 1, None, None, 0
@@ -698,13 +1125,13 @@ def read_info(data) -> Info:
             adobe = body[11]
         elif marker in _SOF_UNSUPPORTED:
             raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported")
-        elif marker in (0xC0, 0xC1, 0xC2):
-            frame, sof = _frame(body), marker
+        elif marker in _SOF:
+            frame, sof = _frame(body, marker == 0xC3), marker
         elif marker == 0xDA:
             break
     if frame is None:
         raise JpegError("JPEG stream has no frame header before its first scan")
-    return _info(frame, sof == 0xC2, jfif, adobe, orientation, restart)
+    return _info(frame, sof, jfif, adobe, orientation, restart)
 
 
 def _dht_tables(body: bytes):
@@ -780,18 +1207,34 @@ class Planes(NamedTuple):
 _SMOOTHED = 10
 
 
-def decode_planes(data) -> Planes:
-    """JPEG bytes -> the component planes after the IDCT, before
-    upsampling, colour conversion and orientation (counted in
-    :data:`decodes`)."""
-    global decodes
-    decodes += 1
+class _Parsed(NamedTuple):
+    """A stream read up to its coefficients (or, lossless, its samples)."""
+
+    frame: dict
+    info: Info
+    #: per component id: quantised coefficients in natural order (a flat
+    #: list or an (nbh, nbw, 64) array), or the lossless sample grid
+    coefs: dict
+    #: per component id: its quantisation table (natural order)
+    q: dict
+    #: per table number: its precision as written (0 8-bit, 1 16-bit)
+    q_precision: dict
+    #: every APPn segment before the first scan, marker and length included
+    app: list
+
+
+def _parse(data) -> _Parsed:
+    """Read every marker segment and scan of a stream: Huffman or arithmetic
+    entropy decoding into quantised coefficients, or a lossless stream into
+    its samples."""
     data = bytes(data)
     qtables: Dict[int, np.ndarray] = {}
+    q_precision: Dict[int, int] = {}
     dc_tables: Dict[int, list] = {}
     ac_tables: Dict[int, list] = {}
+    conditioning = {"dc": {}, "ac": {}}  # DAC: DC table -> (L, U), AC table -> Kx
     frame = None
-    progressive = False
+    sof = None
     restart = 0
     adobe_transform = None
     jfif = False
@@ -800,6 +1243,7 @@ def decode_planes(data) -> Planes:
     coef_bits: Dict[int, list] = {}  # progressive: each coefficient's Al so far, -1 before its first scan
     first_restart = None  # the interval at the first scan
     comp_q: Dict[int, np.ndarray] = {}
+    app = []
     _check_soi(data)
     gen = _segments(data, 2)
     while True:
@@ -807,6 +1251,8 @@ def decode_planes(data) -> Planes:
             marker, body, pos = next(gen)
         except StopIteration:
             break
+        if 0xE0 <= marker <= 0xEF and first_restart is None:
+            app.append(data[pos - len(body) - 4:pos])
         if marker == 0xDB:  # DQT
             i = 0
             while i < len(body):
@@ -816,11 +1262,22 @@ def decode_planes(data) -> Planes:
                         else np.frombuffer(body[i + 1:i + 1 + n], np.uint8)).astype(np.int64)
                 q = np.zeros(64, np.int64)
                 q[NATURAL_ORDER] = vals
-                qtables[tq] = q
+                qtables[tq], q_precision[tq] = q, pq
                 i += 1 + n
         elif marker == 0xC4:  # DHT
             for tc, th, bits, vals in _dht_tables(body):
                 (ac_tables if tc else dc_tables)[th] = _lookup_table(bits, vals)
+        elif marker == 0xCC:  # DAC: arithmetic conditioning (jdmarker.c's get_dac)
+            for i in range(0, len(body) - 1, 2):
+                index, val = body[i], body[i + 1]
+                if index >= 32:
+                    raise JpegError(f"JPEG DAC names table {index}")
+                if index >= 16:
+                    conditioning["ac"][index - 16] = val
+                elif (val & 15) > (val >> 4):
+                    raise JpegError(f"JPEG DAC conditioning {val:#04x}: L above U")
+                else:
+                    conditioning["dc"][index] = (val & 15, val >> 4)
         elif marker == 0xDD:  # DRI
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
@@ -830,71 +1287,152 @@ def decode_planes(data) -> Planes:
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe_transform = body[11]
         elif marker in _SOF_UNSUPPORTED:
-            raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported (baseline, extended "
-                            "sequential and progressive Huffman are)")
-        elif marker in (0xC0, 0xC1, 0xC2):  # sequential / progressive Huffman
-            frame, progressive = _frame(body), marker == 0xC2
+            raise JpegError(f"{_SOF_UNSUPPORTED[marker]} JPEG is not supported (sequential, progressive and "
+                            "lossless, Huffman or arithmetic-coded, are)")
+        elif marker in _SOF:
+            sof = marker
+            lossless = marker == 0xC3
+            frame = _frame(body, lossless)
+            flat = _SOF[marker][0] == "arithmetic" or _SOF[marker][1] == "progressive"
+            unit = 1 if lossless else 64
             for cid in frame["order"]:
                 c = frame["comps"][cid]
-                shape = (frame["mcuy"] * c["v"], frame["mcux"] * c["h"], 64)
-                coefs[cid] = [0] * (shape[0] * shape[1] * 64) if progressive else np.zeros(shape, np.int32)
+                shape = (frame["mcuy"] * c["v"], frame["mcux"] * c["h"])
+                coefs[cid] = (np.zeros(shape, np.int64) if lossless
+                              else [0] * (shape[0] * shape[1] * unit) if flat else np.zeros(shape + (64,), np.int32))
                 coef_bits[cid] = [-1] * 64
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise JpegError("JPEG scan before its frame header")
+            coding, process = _SOF[sof]
+            progressive, lossless = process == "progressive", process == "lossless"
             first_restart = restart if first_restart is None else first_restart
             ns = body[0]
             ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
             ah, al = a >> 4, a & 15
-            if not progressive and (ss, se, a) != (0, 63, 0):
+            if lossless and not (1 <= ss <= 7 and ah == 0 and al < 8):
+                raise JpegError(f"bad lossless JPEG scan (predictor {ss}, point transform {al})")
+            if process == "sequential" and (ss, se, a) != (0, 63, 0):
                 raise JpegError("sequential JPEG scan with a spectral band or successive approximation")
             if progressive and ((se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
                                 or (ah and al != ah - 1) or al > 13):
                 raise JpegError(f"bad progressive JPEG scan (Ss {ss}, Se {se}, Ah {ah}, Al {al}, "
                                 f"{ns} components)")
+            ids = [body[1 + 2 * k] for k in range(ns)]
+            if any(cid not in frame["comps"] for cid in ids):
+                raise JpegError(f"JPEG scan names unknown components {ids}")
+            blocks = sum(frame["comps"][c]["h"] * frame["comps"][c]["v"] for c in ids)
+            if ns > 1 and blocks > _MAX_MCU_BLOCKS:
+                raise JpegError(f"JPEG scan with {blocks} blocks in an MCU is not supported (libjpeg takes "
+                                f"{_MAX_MCU_BLOCKS})")
             # the Huffman tables this scan reads: an undefined one is Annex K's
-            need_dc, need_ac = (not progressive or (ss == 0 and not ah)), (not progressive or ss > 0)
+            need_dc = lossless or not progressive or (ss == 0 and not ah)
+            need_ac = not lossless and (not progressive or ss > 0)
             scan = []
-            for k in range(ns):
-                cid, t = body[1 + 2 * k], body[2 + 2 * k]
-                if cid not in frame["comps"]:
-                    raise JpegError(f"JPEG scan names unknown component {cid}")
-                for need, tables, tc, th in ((need_dc, dc_tables, 0, t >> 4), (need_ac, ac_tables, 1, t & 15)):
-                    if need and th not in tables:
-                        tables[th] = _lookup_table(*_std_table(tc, th))
-                scan.append((cid, dc_tables.get(t >> 4), ac_tables.get(t & 15)))
+            for k, cid in enumerate(ids):
+                t = body[2 + 2 * k]
+                if coding == "arithmetic":
+                    scan.append((cid, t >> 4, t & 15))
+                else:
+                    for need, tables, tc, th in ((need_dc, dc_tables, 0, t >> 4),
+                                                 (need_ac, ac_tables, 1, t & 15)):
+                        if need and th not in tables:
+                            tables[th] = _lookup_table(*_std_table(tc, th))
+                    scan.append((cid, dc_tables.get(t >> 4), ac_tables.get(t & 15)))
                 if cid not in comp_q:
                     tq = frame["comps"][cid]["tq"]
-                    if tq not in qtables:
+                    if tq not in qtables and not lossless:
                         raise JpegError(f"JPEG quantization table {tq} is not defined")
-                    comp_q[cid] = qtables[tq]
+                    comp_q[cid] = qtables.get(tq)
                 coef_bits[cid][ss:se + 1] = [al] * (se + 1 - ss)
             segs, end = _entropy_segments(data, pos)
-            if progressive:
-                widths = {cid: frame["mcux"] * frame["comps"][cid]["h"] for cid in frame["order"]}
+            widths = {cid: frame["mcux"] * frame["comps"][cid]["h"] for cid in frame["order"]}
+            if lossless:
+                diffs = {cid: np.zeros_like(coefs[cid]) for cid in ids}
+                starts = _decode_lossless_scan(segs, scan, frame, restart, diffs)
+                for cid in ids:
+                    coefs[cid] = (_undifference(diffs[cid], ss, al, starts[cid]) << al) & 0xFF
+            elif coding == "arithmetic":
+                _decode_arith_scan(segs, scan, frame, restart, coefs, widths, (ss, se, ah, al), progressive,
+                                   conditioning)
+            elif progressive:
                 _decode_progressive_scan(segs, scan, frame, restart, coefs, widths, (ss, se, ah, al))
             else:
                 _decode_scan(segs, scan, frame, restart, coefs)
             gen = _segments(data, end)
     if frame is None or len(comp_q) != len(frame["order"]):
         raise JpegError("JPEG stream ends before every component was scanned")
-    if progressive and all(coef_bits[c][0] >= 0 for c in frame["order"]) and any(
+    info = _info(frame, sof, jfif, adobe_transform, orientation, first_restart or 0)
+    if info.progressive and all(coef_bits[c][0] >= 0 for c in frame["order"]) and any(
             b != 0 for c in frame["order"] for b in coef_bits[c][1:_SMOOTHED]):
         raise JpegError("progressive JPEG whose scans leave low coefficients without all their bits: "
                         "libjpeg smooths such blocks, which this decoder does not")
+    return _Parsed(frame, info, coefs, comp_q, q_precision, app)
 
-    planes = []
+
+def _planes(p: _Parsed) -> List[np.ndarray]:
+    """Each component's plane, cropped: the lossless samples, or the
+    dequantised coefficients through the ISLOW IDCT."""
+    frame, planes = p.frame, []
     for cid in frame["order"]:
         c = frame["comps"][cid]
-        shape = (frame["mcuy"] * c["v"], frame["mcux"] * c["h"], 64)
-        blocks = np.asarray(coefs[cid], np.int64).reshape(shape) * comp_q[cid]
-        nbh, nbw = blocks.shape[:2]
-        pix = idct_islow(blocks.reshape(-1, 8, 8)).reshape(nbh, nbw, 8, 8)
-        plane = pix.transpose(0, 2, 1, 3).reshape(nbh * 8, nbw * 8)
+        if p.info.lossless:
+            plane = p.coefs[cid].astype(np.uint8)
+        else:
+            shape = (frame["mcuy"] * c["v"], frame["mcux"] * c["h"], 64)
+            blocks = np.asarray(p.coefs[cid], np.int64).reshape(shape) * p.q[cid]
+            nbh, nbw = blocks.shape[:2]
+            pix = idct_islow(blocks.reshape(-1, 8, 8)).reshape(nbh, nbw, 8, 8)
+            plane = pix.transpose(0, 2, 1, 3).reshape(nbh * 8, nbw * 8)
         dh = _ceil_div(frame["height"] * c["v"], frame["vmax"])
         dw = _ceil_div(frame["width"] * c["h"], frame["hmax"])
         planes.append(np.ascontiguousarray(plane[:dh, :dw]))
-    return Planes(planes, _info(frame, progressive, jfif, adobe_transform, orientation, first_restart or 0))
+    return planes
+
+
+def decode_planes(data) -> Planes:
+    """JPEG bytes -> the component planes after the IDCT (a lossless file's
+    samples), before upsampling, colour conversion and orientation (counted
+    in :data:`decodes`)."""
+    global decodes
+    decodes += 1
+    p = _parse(data)
+    return Planes(_planes(p), p.info)
+
+
+def lossless_planes(data) -> Planes:
+    """A lossless JPEG's component planes as :func:`decode_planes` gives
+    them, not counted in :data:`decodes`: the card's route for lossless
+    files (no DCT for nvJPEG to run) reconstructs them on the host. Raises
+    on any other file."""
+    p = _parse(data)
+    if not p.info.lossless:
+        raise JpegError("lossless_planes reads lossless JPEG only")
+    return Planes(_planes(p), p.info)
+
+
+def check_sampling(info: Info, components=None):
+    """Raise where a component an output needs (``components``: indices,
+    all by default) has a fractional ratio to the largest sampling factors:
+    libjpeg's ``jinit_upsampler`` refuses it and cv2 returns None. (A gray
+    read of a YCbCr file needs the first component alone.)"""
+    needed = range(info.components) if components is None else components
+    if any(info.upsampling[k] is None for k in needed):
+        raise JpegError(f"JPEG sampling factors with a fractional ratio ({info.upsampling}, None where it is "
+                        "fractional) are not upsampled by libjpeg, and cv2 returns None")
+
+
+def check_conversion(info: Info, output: str):
+    """Raise where libjpeg-turbo refuses the colour conversion ``output``
+    ("bgr" or "gray") asks of this file, so ``cv2.imdecode`` returns None:
+    a lossless file converts no colour (measured against cv2 5.0.0: gray
+    only to gray, RGB only to BGR, YCbCr and YCCK to nothing)."""
+    if not info.lossless:
+        return
+    same = {"gray": "gray", "rgb": "bgr", "cmyk": "bgr"}.get(info.color)
+    if same != output:
+        raise JpegError(f"a lossless JPEG coded as {info.color} does not convert to {output} (libjpeg converts "
+                        "no colour in a lossless file, and cv2 returns None)")
 
 
 def cmyk_to_bgr(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray) -> np.ndarray:
@@ -919,7 +1457,11 @@ def decode(data, apply_orientation: bool = True) -> np.ndarray:
     turned by its Exif orientation unless ``apply_orientation`` is False (as
     ``cv2.imdecode`` under ``IMREAD_UNCHANGED``)."""
     planes, info = decode_planes(data)
-    full = [_upsample(p, *f)[:info.height, :info.width] for p, f in zip(planes, info.upsampling)]
+    check_sampling(info)
+    if info.lossless and info.color != "gray":
+        check_conversion(info, "bgr")
+    full = [_upsample(p, *f, fancy=not info.lossless)[:info.height, :info.width]
+            for p, f in zip(planes, info.upsampling)]
     if info.color == "gray":
         img = full[0]
     elif info.color == "rgb":
@@ -1029,6 +1571,83 @@ def _pack(vals: np.ndarray, lens: np.ndarray) -> bytes:
     return np.insert(out, ff + 1, 0).tobytes()
 
 
+def _scan_events(blocks: np.ndarray, comp: np.ndarray, chroma: np.ndarray):
+    """The Huffman events of blocks in scan order (``blocks`` (N, 64)
+    zigzag-ordered quantised coefficients, ``comp`` each block's component
+    index, ``chroma`` whether it takes Annex K's chroma tables): (sort keys,
+    code bits, lengths) of the DC differences and of the AC run/size
+    symbols, keyed block * 1024 + position, so that sorting them by key
+    gives the scan's bit order."""
+    nb = len(blocks)
+    dc_code = [_code_arrays("dc_luma"), _code_arrays("dc_chroma")]
+    ac_code = [_code_arrays("ac_luma"), _code_arrays("ac_chroma")]
+
+    def lookup(tables, which, sym):
+        code = np.where(which, tables[1][0][sym], tables[0][0][sym])
+        size = np.where(which, tables[1][1][sym], tables[0][1][sym])
+        return code, size
+
+    # DC: differences from the previous block of the same component
+    dc = blocks[:, 0]
+    diff = np.empty(nb, np.int64)
+    for k in range(int(comp.max()) + 1):
+        idx = np.flatnonzero(comp == k)
+        diff[idx] = np.diff(dc[idx], prepend=0)
+    s = _bit_size(diff)
+    if int(s.max(initial=0)) > 11 or int(np.abs(blocks[:, 1:]).max(initial=0)) > 1023:
+        raise JpegError("JPEG coefficients past 8-bit baseline's sizes (DC differences of 11 bits, AC of 10) "
+                        "have no code in Annex K's tables")
+    code, clen = lookup(dc_code, chroma, s)
+    extra = np.where(diff < 0, diff - 1, diff) & ((1 << s) - 1)
+    dc_events = (np.arange(nb, dtype=np.int64) * 1024, (code << s) | extra, clen + s)
+
+    # AC: nonzero coefficients with their zero runs (ZRL for each 16 zeros);
+    # event keys are block * 1024 + position in the block
+    keys, vals, lens = [], [], []
+    bi, ki = np.nonzero(blocks[:, 1:])
+    ki = ki + 1
+    v = blocks[bi, ki]
+    prev = np.concatenate([[0], ki[:-1]])
+    first = np.concatenate([[True], bi[1:] != bi[:-1]])
+    run = ki - np.where(first, 0, prev) - 1
+    s = _bit_size(v)
+    sym = ((run & 15) << 4) | s
+    code, clen = lookup(ac_code, chroma[bi], sym)
+    extra = np.where(v < 0, v - 1, v) & ((1 << s) - 1)
+    keys.append(bi * 1024 + ki * 8 + 7)
+    vals.append((code << s) | extra)
+    lens.append(clen + s)
+    nzrl = run >> 4
+    for j in range(3):
+        has = nzrl > j
+        code, clen = lookup(ac_code, chroma[bi[has]], np.full(int(has.sum()), 0xF0))
+        keys.append(bi[has] * 1024 + ki[has] * 8 + j)
+        vals.append(code)
+        lens.append(clen)
+    # EOB after the last nonzero coefficient unless it is the 63rd (in a
+    # progressive AC scan the same symbol is EOB0: a run of one block)
+    last = np.zeros(nb, np.int64)
+    last[bi] = ki  # the last write per block wins: ki ascends within a block
+    eob = last < 63
+    code, clen = lookup(ac_code, chroma[eob], np.zeros(int(eob.sum()), np.int64))
+    keys.append(np.flatnonzero(eob) * 1024 + 1023)
+    vals.append(code)
+    lens.append(clen)
+    ac_events = tuple(np.concatenate(x) for x in (keys, vals, lens))
+    return dc_events, ac_events
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def _std_dht(chroma: bool) -> List[bytes]:
+    """DHT segments of Annex K's tables: luma as tables 0, and chroma as
+    tables 1 when ``chroma``."""
+    names = [("dc_luma", 0x00), ("ac_luma", 0x10)] + ([("dc_chroma", 0x01), ("ac_chroma", 0x11)] if chroma else [])
+    return [_segment(0xC4, bytes([tc_th] + STD_HUFFMAN[name][0] + STD_HUFFMAN[name][1])) for name, tc_th in names]
+
+
 #: luma sampling factors (horizontal, vertical) over 1x1 chroma
 _SUBSAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}
 
@@ -1090,86 +1709,29 @@ def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420", progres
     chroma = comp > 0
     nb = len(blocks)
 
-    dc_code = [_code_arrays("dc_luma"), _code_arrays("dc_chroma")]
-    ac_code = [_code_arrays("ac_luma"), _code_arrays("ac_chroma")]
-
-    def lookup(tables, which, sym):
-        code = np.where(which, tables[1][0][sym], tables[0][0][sym])
-        size = np.where(which, tables[1][1][sym], tables[0][1][sym])
-        return code, size
-
-    # DC: differences from the previous block of the same component
-    dc = blocks[:, 0]
-    diff = np.empty(nb, np.int64)
-    for k in range(3 if not gray else 1):
-        idx = np.flatnonzero(comp == k)
-        diff[idx] = np.diff(dc[idx], prepend=0)
-    s = _bit_size(diff)
-    code, clen = lookup(dc_code, chroma, s)
-    extra = np.where(diff < 0, diff - 1, diff) & ((1 << s) - 1)
-    dc_events = (np.arange(nb, dtype=np.int64) * 1024, (code << s) | extra, clen + s)
-
-    # AC: nonzero coefficients with their zero runs (ZRL for each 16 zeros);
-    # event keys are block * 1024 + position in the block
-    keys, vals, lens = [], [], []
     blocks[:, 1:] = np.clip(blocks[:, 1:], -1023, 1023)  # baseline AC sizes stop at 10 bits
-    bi, ki = np.nonzero(blocks[:, 1:])
-    ki = ki + 1
-    v = blocks[bi, ki]
-    prev = np.concatenate([[0], ki[:-1]])
-    first = np.concatenate([[True], bi[1:] != bi[:-1]])
-    run = ki - np.where(first, 0, prev) - 1
-    s = _bit_size(v)
-    sym = ((run & 15) << 4) | s
-    code, clen = lookup(ac_code, chroma[bi], sym)
-    extra = np.where(v < 0, v - 1, v) & ((1 << s) - 1)
-    keys.append(bi * 1024 + ki * 8 + 7)
-    vals.append((code << s) | extra)
-    lens.append(clen + s)
-    nzrl = run >> 4
-    for j in range(3):
-        has = nzrl > j
-        code, clen = lookup(ac_code, chroma[bi[has]], np.full(int(has.sum()), 0xF0))
-        keys.append(bi[has] * 1024 + ki[has] * 8 + j)
-        vals.append(code)
-        lens.append(clen)
-    # EOB after the last nonzero coefficient unless it is the 63rd (in a
-    # progressive AC scan the same symbol is EOB0: a run of one block)
-    last = np.zeros(nb, np.int64)
-    last[bi] = ki  # the last write per block wins: ki ascends within a block
-    eob = last < 63
-    code, clen = lookup(ac_code, chroma[eob], np.zeros(int(eob.sum()), np.int64))
-    keys.append(np.flatnonzero(eob) * 1024 + 1023)
-    vals.append(code)
-    lens.append(clen)
-    ac_events = tuple(np.concatenate(x) for x in (keys, vals, lens))
+    dc_events, ac_events = _scan_events(blocks, comp, chroma)
 
     def packed(events):
         order = np.argsort(events[0], kind="stable")
         return _pack(events[1][order], events[2][order])
 
-    def segment(marker, body):
-        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
-
-    out = [b"\xff\xd8", segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
     ntab = 1 if gray else 2
     for t in range(ntab):
-        out.append(segment(0xDB, bytes([t]) + qt[t][NATURAL_ORDER].astype(np.uint8).tobytes()))
+        out.append(_segment(0xDB, bytes([t]) + qt[t][NATURAL_ORDER].astype(np.uint8).tobytes()))
     ncomp = 1 if gray else 3
     sof = struct.pack(">BHHB", 8, H, W, ncomp) + bytes([1, (fh << 4) | fv, 0])
     if not gray:
         sof += bytes([2, 0x11, 1, 3, 0x11, 1])
-    out.append(segment(0xC2 if progressive else 0xC0, sof))
-    names = [("dc_luma", 0x00), ("ac_luma", 0x10)] + ([] if gray else [("dc_chroma", 0x01), ("ac_chroma", 0x11)])
-    for name, tc_th in names:
-        bits, values = STD_HUFFMAN[name]
-        out.append(segment(0xC4, bytes([tc_th] + bits + values)))
+    out.append(_segment(0xC2 if progressive else 0xC0, sof))
+    out += _std_dht(chroma=not gray)
     tables = [(1, 0x00)] + ([] if gray else [(2, 0x11), (3, 0x11)])
     if not progressive:
         sos = bytes([ncomp]) + b"".join(bytes(t) for t in tables) + bytes([0, 63, 0])
-        out += [segment(0xDA, sos), packed(tuple(np.concatenate(x) for x in zip(dc_events, ac_events)))]
+        out += [_segment(0xDA, sos), packed(tuple(np.concatenate(x) for x in zip(dc_events, ac_events)))]
     else:
-        out += [segment(0xDA, bytes([ncomp]) + b"".join(bytes(t) for t in tables) + bytes([0, 0, 0])),
+        out += [_segment(0xDA, bytes([ncomp]) + b"".join(bytes(t) for t in tables) + bytes([0, 0, 0])),
                 packed(dc_events)]
         # a component's own AC scan covers its own block grid (ceil of its
         # size over 8), in raster order: the MCU padding is not in it
@@ -1186,6 +1748,58 @@ def encode(img: np.ndarray, quality: int = 95, subsampling: str = "420", progres
             sel = inside[ac_events[0] >> 10]
             events = (rank[ac_events[0][sel] >> 10] * 1024 + (ac_events[0][sel] & 1023),
                       ac_events[1][sel], ac_events[2][sel])
-            out += [segment(0xDA, bytes([1, cid, tab & 0x0F]) + bytes([1, 63, 0])), packed(events)]
+            out += [_segment(0xDA, bytes([1, cid, tab & 0x0F]) + bytes([1, 63, 0])), packed(events)]
     out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+# ------------------------------------------------------------------ transcode
+
+
+def transcode_baseline(data) -> bytes:
+    """A DCT-based JPEG (arithmetic-coded, progressive, or any Huffman
+    form) rewritten as one interleaved sequential Huffman scan, as
+    ``jpegtran`` would: the quantised coefficients unchanged, the
+    quantisation tables as written (a 16-bit one makes the frame SOF1), the
+    component ids and sampling factors, every APPn segment before the first
+    scan (so JFIF, Exif orientation and the Adobe transform survive); Annex
+    K's Huffman tables (luma for the first component, chroma for the rest),
+    no restart intervals. The card sends the files nvJPEG refuses through
+    this; the bit packing is :func:`encode`'s."""
+    p = _parse(data)
+    if p.info.lossless:
+        raise JpegError("a lossless JPEG has no DCT coefficients to transcode")
+    frame, order = p.frame, p.frame["order"]
+    comps = frame["comps"]
+    mcuy, mcux = frame["mcuy"], frame["mcux"]
+    per_mcu = [comps[c]["h"] * comps[c]["v"] for c in order]
+    if len(order) > 1 and sum(per_mcu) > _MAX_MCU_BLOCKS:
+        raise JpegError(f"JPEG sampling factors with {sum(per_mcu)} blocks in an MCU do not fit one "
+                        f"interleaved baseline scan ({_MAX_MCU_BLOCKS} do)")
+    parts, comp = [], []
+    for k, cid in enumerate(order):
+        h, v = comps[cid]["h"], comps[cid]["v"]
+        zz = np.asarray(p.coefs[cid], np.int64).reshape(mcuy * v, mcux * h, 64)[..., NATURAL_ORDER]
+        parts.append(zz.reshape(mcuy, v, mcux, h, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, v * h, 64))
+        comp += [k] * (v * h)
+    blocks = np.concatenate(parts, axis=1).reshape(-1, 64)
+    comp = np.tile(np.asarray(comp, np.int64), mcuy * mcux)
+    dc_events, ac_events = _scan_events(blocks, comp, comp > 0)
+    events = tuple(np.concatenate(x) for x in zip(dc_events, ac_events))
+    ordered = np.argsort(events[0], kind="stable")
+    scan = _pack(events[1][ordered], events[2][ordered])
+
+    out = [b"\xff\xd8", *p.app]
+    wide = False
+    for tq in sorted({comps[c]["tq"] for c in order}):
+        q = p.q[next(c for c in order if comps[c]["tq"] == tq)][NATURAL_ORDER]
+        pq = p.q_precision.get(tq, 0)
+        wide |= bool(pq)
+        out.append(_segment(0xDB, bytes([(pq << 4) | tq]) + (q.astype(">u2") if pq else q.astype(np.uint8)).tobytes()))
+    sof = struct.pack(">BHHB", 8, frame["height"], frame["width"], len(order)) + b"".join(
+        bytes([c, (comps[c]["h"] << 4) | comps[c]["v"], comps[c]["tq"]]) for c in order)
+    out.append(_segment(0xC1 if wide else 0xC0, sof))
+    out += _std_dht(chroma=len(order) > 1)
+    sos = bytes([len(order)]) + b"".join(bytes([c, 0x00 if k == 0 else 0x11]) for k, c in enumerate(order))
+    out += [_segment(0xDA, sos + bytes([0, 63, 0])), scan, b"\xff\xd9"]
     return b"".join(out)

@@ -4,27 +4,37 @@ plain version.
 For a CUDA device, :func:`decode_batch` and :func:`decode_images` decode B
 encoded buffers with nvJPEG (``csrc/jpeg.cu``, a plain C interface bound
 with ctypes and built by ``ops/_build.py``, linked to the toolkit's
-libnvjpeg) into planar Y, Cb and Cr at each stream's own subsampling
+libnvjpeg) into planar components at each stream's own sampling
 (``NVJPEG_OUTPUT_YUV``), then :func:`ycc_to_bgr` runs the file's hand-written
-kernel: libjpeg-turbo's "fancy" chroma upsampling and fixed-point colour
-conversion, BGR interleaved into a torch-allocated uint8 device buffer, on
-the current stream of that device. Last, each image's Exif orientation is
-applied (a flip or a transpose of the tensor), as ``cv2.imread`` does. For
-the CPU they run the plain numpy decoder (``data/jpeg.py``), which equals
-cv2's pixels. Any other device raises, and a failure of nvJPEG, of the
-kernel or of their build raises: there is no fallback between the two.
+kernel: libjpeg-turbo's upsampling (each component by its own factors, the
+method ``jinit_upsampler`` picks) and fixed-point colour conversion, BGR
+interleaved into a torch-allocated uint8 device buffer, on the current
+stream of that device. Last, each image's Exif orientation is applied (a
+flip or a transpose of the tensor), as ``cv2.imread`` does. For the CPU
+they run the plain numpy decoder (``data/jpeg.py``), which equals cv2's
+pixels. Any other device raises, and a failure of nvJPEG, of the kernel or
+of their build raises: there is no fallback between the two.
 
-Routes, counted per image in :data:`routes`: a baseline YCbCr or gray file
-goes through nvJPEG's batched call; a progressive one through its
-single-image call (``nvjpegDecode``), which takes progressive streams on the
-default backend; a file coded as RGB (Adobe transform 0), CMYK or YCCK
-through the single-image call with its planes unchanged
-(``NVJPEG_OUTPUT_UNCHANGED``), then the colour kernel's mode for that
-coding; and should the batched call refuse planar output on a card, its
-images go one at a time through the single-image call too, under their own
-count. A stream that uses a Huffman table it never defines (a Motion-JPEG
-frame) gets Annex K's tables inserted first (``jpeg.with_default_huffman``,
-libjpeg's own fallback). Whatever nvJPEG refuses raises, naming the form.
+Routes, chosen per image from its header before any nvJPEG call and
+counted in :data:`routes`: a lossless file (no DCT for nvJPEG to run) has
+its samples reconstructed on the host (``jpeg.lossless_planes``), uploaded
+and passed through the colour kernel with every factor replicated; an
+arithmetic-coded file, and a progressive one with restart intervals (which
+nvJPEG's single-image call refuses), is rewritten as one baseline Huffman
+scan (``jpeg.transcode_baseline``: the quantised coefficients unchanged)
+and decoded by nvJPEG's batched call; a baseline YCbCr or gray file goes
+through nvJPEG's batched call; a progressive one through its single-image
+call (``nvjpegDecode``), which takes progressive streams on the default
+backend; a file coded as RGB (Adobe transform 0), CMYK or YCCK through the
+single-image call with its planes unchanged (``NVJPEG_OUTPUT_UNCHANGED``),
+then the colour kernel's mode for that coding; and should the batched call
+refuse planar output on a card, its images go one at a time through the
+single-image call too, under their own count. A stream that uses a Huffman
+table it never defines (a Motion-JPEG frame) gets Annex K's tables
+inserted first (``jpeg.with_default_huffman``, libjpeg's own fallback).
+What cv2 returns None for (12-bit, fractional sampling factors, a lossless
+file that would need a colour conversion) raises before nvJPEG, naming the
+form, and so does whatever nvJPEG refuses.
 
 :func:`encode` is the card's JPEG encoder: nvJPEG's ``nvjpegEncodeImage``
 from an interleaved BGR tensor on the card (baseline JFIF, quality 95 and
@@ -87,16 +97,23 @@ _CSS_420 = 2
 #: reset both to 0
 launches = 0
 images = 0
-#: images by nvJPEG route: "batched", "single_progressive" (a progressive
-#: file), "single_unchanged" (coded as RGB, CMYK or YCCK),
-#: "single_batched_refused" (the batched call refused planar output)
-routes = {"batched": 0, "single_progressive": 0, "single_unchanged": 0, "single_batched_refused": 0}
+#: images by route: "batched", "single_progressive" (a progressive file),
+#: "single_unchanged" (coded as RGB, CMYK or YCCK), "single_batched_refused"
+#: (the batched call refused planar output), "transcoded" (arithmetic-coded,
+#: or progressive with restart intervals: rewritten by
+#: ``jpeg.transcode_baseline``, then nvJPEG), "host_lossless" (lossless:
+#: samples reconstructed on the host, no nvJPEG)
+routes = {"batched": 0, "single_progressive": 0, "single_unchanged": 0, "single_batched_refused": 0,
+          "transcoded": 0, "host_lossless": 0}
 #: images the card's encoder (nvJPEG) encoded; a caller may reset it to 0
 encodes = 0
 #: launches of the colour kernel (and by mode, ``MODES``), and calls of its
 #: plain version (0 on the card's path)
 color_launches = 0
 color_mode_launches = {"ycc": 0, "gray": 0, "rgb": 0, "cmyk": 0, "ycck": 0}
+#: launches of the colour kernel by each plane's factors, "1x1,2x2,2x2"
+#: (" replicated" after them when ``fancy`` was off: a lossless file)
+color_factor_launches = {}
 color_plain_calls = 0
 
 _SOURCE = _build.CSRC / "jpeg.cu"
@@ -120,7 +137,7 @@ def load_library() -> ctypes.CDLL:
                                             ctypes.POINTER(vp), ctypes.POINTER(sz), vp]),
             ("dspnet_jpeg_decode_single", [vp, vp, ctypes.c_char_p, sz, i, ctypes.POINTER(vp),
                                            ctypes.POINTER(sz), vp]),
-            ("dspnet_jpeg_ycc_to_bgr", [vp, i, vp, vp, i, vp, i, i, i, i, i, i, i, i, i, vp, vp]),
+            ("dspnet_jpeg_ycc_to_bgr", [ctypes.POINTER(vp), pi, i, i, i, i, i, vp, vp]),
             ("dspnet_jpeg_encoder_create", [vp, i, i, ctypes.POINTER(vp), ctypes.POINTER(vp), vp]),
             ("dspnet_jpeg_encoder_destroy", [vp, vp]),
             ("dspnet_jpeg_encode_bgr", [vp, vp, vp, vp, sz, i, i, ctypes.POINTER(sz), vp]),
@@ -264,12 +281,16 @@ def _tables(device):
             for t in (jpeg._CR_R, jpeg._CB_B, jpeg._CR_G, jpeg._CB_G)]
 
 
-def _fancy(c: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
-    """``jpeg._upsample`` on an int32 (h, w) tensor: h2v1 / h2v2 fancy
-    upsampling, edges replicated, a plane at most 2 wide replicated."""
+def _upsample(c: torch.Tensor, fh: int, fv: int, fancy: bool = True) -> torch.Tensor:
+    """``jpeg._upsample`` on an int32 (h, w) tensor: h2v1 / h2v2 fancy on a
+    plane wider than 2 samples, h1v2 fancy, replication at every other
+    factor (and at all of them without ``fancy``)."""
     if (fh, fv) == (1, 1):
         return c
-    if c.shape[1] <= 2:
+    if fancy and (fh, fv) == (1, 2):  # h1v2: 3/4 this row + 1/4 the nearer other, biases 1 and 2
+        up, down = torch.cat([c[:1], c[:-1]]), torch.cat([c[1:], c[-1:]])
+        return torch.stack([(3 * c + up + 1) >> 2, (3 * c + down + 2) >> 2], 1).reshape(-1, c.shape[1])
+    if not fancy or c.shape[1] <= 2 or (fh, fv) not in ((2, 1), (2, 2)):
         return c.repeat_interleave(fv, 0).repeat_interleave(fh, 1)
     if fv == 1:  # h2v1: 3/4 the nearer + 1/4 the further sample, biases 1 and 2
         cols, (b1, b2), shift = [c], (1, 2), 2
@@ -284,24 +305,42 @@ def _fancy(c: torch.Tensor, fh: int, fv: int) -> torch.Tensor:
     return out[0] if fv == 1 else torch.stack(out, 1).reshape(-1, out[0].shape[1])
 
 
+def _geometry(y, cb, k, factors, upsampling, size, out=None):
+    """((H, W), each plane's factors) of a call: ``upsampling`` when given
+    (``jpeg.Info.upsampling``), else Y at full size, Cb and Cr at
+    ``factors``, K at full size or at the chroma's."""
+    if size is None:
+        size = tuple(out.shape[:2]) if out is not None else tuple(y.shape)
+    if upsampling is None:
+        upsampling = [(1, 1)] + ([] if cb is None else [tuple(factors)] * 2)
+        if k is not None:
+            upsampling.append((1, 1) if tuple(k.shape) == tuple(size) else tuple(factors))
+    return tuple(size), [tuple(f) for f in upsampling]
+
+
 def ycc_to_bgr_reference(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), color: str = "ycc",
-                         k=None) -> torch.Tensor:
+                         k=None, fancy: bool = True, upsampling=None, size=None) -> torch.Tensor:
     """The colour kernel's plain version, on any device, in integer tensor
     ops: (H, W) uint8 Y and the (h, w) uint8 Cb and Cr planes (cropped to the
     component's size, ``jpeg.decode_planes``) with chroma factors ``(fh,
-    fv)`` -> (H, W, 3) uint8 BGR, ``jpeg._upsample`` then ``jpeg.ycc_to_bgr``
-    bit for bit. Without ``cb`` the image is gray: Y replicated. ``color``
-    "rgb": the three planes are R, G, B (upsampled, reordered); "cmyk" /
-    "ycck": ``k`` is the fourth plane (at full size, or at the chroma's),
-    and ``jpeg.cmyk_to_bgr`` (after ``jpeg.ycck_to_cmyk``) gives the pixels."""
+    fv)`` (each 1..4) -> (H, W, 3) uint8 BGR, ``jpeg._upsample`` then
+    ``jpeg.ycc_to_bgr`` bit for bit. Without ``cb`` the image is gray: Y
+    replicated. ``color`` "rgb": the three planes are R, G, B (upsampled,
+    reordered); "cmyk" / "ycck": ``k`` is the fourth plane (at full size, or
+    at the chroma's), and ``jpeg.cmyk_to_bgr`` (after ``jpeg.ycck_to_cmyk``)
+    gives the pixels. ``fancy`` False replicates at every factor (a lossless
+    file, as libjpeg upsamples it). ``upsampling``: every plane's factors
+    (``jpeg.Info.upsampling``) for a geometry where Y is subsampled too,
+    with the image's ``size`` (H, W)."""
     global color_plain_calls
     color_plain_calls += 1
+    (H, W), up = _geometry(y, cb, k, factors, upsampling, size)
+    planes = [_upsample(p.to(torch.int32), fh, fv, fancy)[:H, :W]
+              for p, (fh, fv) in zip([y, cb, cr, k][:len(up)], up)]
+    yi = planes[0]
     if cb is None:
-        return y.unsqueeze(-1).expand(*y.shape, 3).contiguous()
-    H, W = y.shape
-    fh, fv = factors
-    cb, cr = (_fancy(p.to(torch.int32), fh, fv)[:H, :W] for p in (cb, cr))
-    yi = y.to(torch.int32)
+        return yi.to(torch.uint8).unsqueeze(-1).expand(H, W, 3).contiguous()
+    cb, cr = planes[1:3]
     if color == "rgb":
         return torch.stack([cr, cb, yi], -1).to(torch.uint8)
     cr_r, cb_b, cr_g, cb_g = _tables(y.device)
@@ -311,7 +350,7 @@ def ycc_to_bgr_reference(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), colo
         return bgr.clamp(0, 255).to(torch.uint8)
     if k is None:
         raise ValueError(f"a {color} image needs its fourth plane")
-    k = (k if k.shape == (H, W) else _fancy(k.to(torch.int32), fh, fv)[:H, :W]).to(torch.int32)
+    k = planes[3]
     if color == "ycck":  # the YCbCr colour inverted and range-limited is the CMY
         cmy = (255 - bgr).clamp(0, 255)
     elif color == "cmyk":
@@ -322,8 +361,8 @@ def ycc_to_bgr_reference(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), colo
 
 
 def ycc_to_bgr(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), out=None, color: str = "ycc",
-               k=None) -> torch.Tensor:
-    """libjpeg's chroma upsampling and colour conversion (see
+               k=None, fancy: bool = True, upsampling=None, size=None) -> torch.Tensor:
+    """libjpeg's upsampling and colour conversion (see
     :func:`ycc_to_bgr_reference` for the arguments). On a CUDA tensor the
     hand-written kernel of ``csrc/jpeg.cu`` runs on the current stream,
     into ``out`` when given (a contiguous (H, W, 3) uint8 tensor), and
@@ -331,45 +370,43 @@ def ycc_to_bgr(y: torch.Tensor, cb=None, cr=None, factors=(1, 1), out=None, colo
     On a CPU tensor the plain version runs; any other device raises."""
     global color_launches
     if y.device.type == "cpu":
-        res = ycc_to_bgr_reference(y, cb, cr, factors, color, k)
+        res = ycc_to_bgr_reference(y, cb, cr, factors, color, k, fancy, upsampling,
+                                   size if size is not None or out is None else tuple(out.shape[:2]))
         return res if out is None else out.copy_(res)
     if y.device.type != "cuda":
         raise ValueError(f"the colour conversion runs on cuda or cpu, got {y.device}")
-    H, W = y.shape
-    fh, fv = factors
-    gray = cb is None
-    if gray:
-        cb = cr = y
+    if cb is None:
         color = "gray"
     if color not in MODES:
         raise ValueError(f"color must be one of {sorted(MODES)}, got {color!r}")
     four = color in ("cmyk", "ycck")
     if four and k is None:
         raise ValueError(f"a {color} image needs its fourth plane")
-    planes = (y, cb, cr) + ((k,) if four else ())
+    (H, W), up = _geometry(y, cb, k if four else None, factors, upsampling, size, out)
+    planes = [y] if cb is None else [y, cb, cr] + ([k] if four else [])
+    if len(up) != len(planes):
+        raise ValueError(f"{len(up)} upsampling factors for {len(planes)} planes")
     if any(p.dtype != torch.uint8 or p.ndim != 2 or p.stride(1) != 1 or p.device != y.device for p in planes):
         raise ValueError("ycc_to_bgr takes 2-D uint8 planes on one device, rows contiguous")
-    if cb.shape != cr.shape or cb.stride(0) != cr.stride(0):
-        raise ValueError(f"Cb {tuple(cb.shape)} and Cr {tuple(cr.shape)} planes differ in shape or pitch")
-    if not gray and ((fh, fv) not in ((1, 1), (2, 1), (2, 2))
-                     or cb.shape != (-(-H // fv), -(-W // fh))):
-        raise ValueError(f"chroma {tuple(cb.shape)} with factors {(fh, fv)} does not fit a {H}x{W} image")
-    if four and k.shape not in ((H, W), tuple(cb.shape)):
-        raise ValueError(f"the fourth plane {tuple(k.shape)} is neither {H}x{W} nor the chroma's size")
+    for p, (fh, fv) in zip(planes, up):
+        if not (1 <= fh <= 4 and 1 <= fv <= 4) or tuple(p.shape) != (-(-H // fv), -(-W // fh)):
+            raise ValueError(f"a plane {tuple(p.shape)} with factors {(fh, fv)} does not fit a {H}x{W} image")
     if out is None:
         out = torch.empty((H, W, 3), dtype=torch.uint8, device=y.device)
     elif out.shape != (H, W, 3) or out.dtype != torch.uint8 or not out.is_contiguous() or out.device != y.device:
         raise ValueError(f"out must be a contiguous ({H}, {W}, 3) uint8 tensor on {y.device}")
-    kp = k if four else y
+    n = len(planes)
+    geometry = [v for p, (fh, fv) in zip(planes, up) for v in (p.stride(0), p.shape[0], p.shape[1], fh, fv)]
     lib = load_library()
     with _on(y.device):
-        err = lib.dspnet_jpeg_ycc_to_bgr(y.data_ptr(), y.stride(0), cb.data_ptr(), cr.data_ptr(), cb.stride(0),
-                                         kp.data_ptr(), kp.stride(0), int(kp.shape == (H, W)), H, W,
-                                         cb.shape[0], cb.shape[1], fh, fv, MODES[color], out.data_ptr(),
-                                         torch.cuda.current_stream(y.device).cuda_stream)
+        err = lib.dspnet_jpeg_ycc_to_bgr((ctypes.c_void_p * n)(*[p.data_ptr() for p in planes]),
+                                         (ctypes.c_int * (5 * n))(*geometry), n, H, W, MODES[color], int(fancy),
+                                         out.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
     _build.check(lib, err, "ycc_to_bgr kernel launch")
     color_launches += 1
     color_mode_launches[color] += 1
+    key = ",".join(f"{fh}x{fv}" for fh, fv in up) + ("" if fancy else " replicated")
+    color_factor_launches[key] = color_factor_launches.get(key, 0) + 1
     return out
 
 
@@ -380,25 +417,44 @@ _REFUSED = {1002, 1004, 1009}
 
 
 class _Planned:
-    """One image's planes in a flat device buffer, and where its BGR goes."""
+    """One image's planes in a flat device buffer, and where its BGR goes.
+    ``host`` holds a lossless file's planes, reconstructed on the host (no
+    nvJPEG); ``route`` names a route chosen from the header ("transcoded",
+    "host_lossless"), else None."""
 
-    def __init__(self, data: bytes, info: jpeg.Info, sizes):
-        self.data, self.info = data, info
+    def __init__(self, data: bytes, info: jpeg.Info, sizes, route=None, host=None):
+        self.data, self.info, self.route, self.host = data, info, route, host
         H, W = info.height, info.width
-        fh, fv = info.factors
-        up = info.upsampling
-        if info.components > 1 and (up[0] != (1, 1) or up[1] != (fh, fv) or up[2] != (fh, fv)
-                                    or (info.components == 4 and up[3] not in ((1, 1), (fh, fv)))):
-            raise jpeg.JpegError(f"a {info.color} JPEG with upsampling {up} is not decoded on the card (the "
-                                 "first component at full size, the second and third at the frame's factors)")
+        want = [(-(-H // v), -(-W // h)) for h, v in info.upsampling]
         if info.components > 1:
-            want = [(-(-H // v), -(-W // h)) for h, v in up]
             if any(h < wh or w < ww for (h, w), (wh, ww) in zip(sizes, want)):
                 raise jpeg.JpegError(f"nvJPEG's planes {sizes[:len(want)]} are smaller than {want}")
             self.shapes, self.crops = list(sizes[:len(want)]), want
         else:  # gray: room for whatever nvJPEG writes into the chroma channels
             self.shapes, self.crops = [(H, W)] * 3, [(H, W)]
         self.nbytes = sum(h * w for h, w in self.shapes)
+
+
+def _plan(data, device: torch.device, backend: int) -> _Planned:
+    """The route of one file, chosen from its header before any nvJPEG
+    call: a lossless file's samples are reconstructed on the host; an
+    arithmetic-coded file, and a progressive one with restart intervals
+    (which nvJPEG's single-image call refuses), are rewritten as baseline
+    (``jpeg.transcode_baseline``); a stream that uses a Huffman table it
+    never defines gets Annex K's tables (``jpeg.with_default_huffman``)."""
+    data = bytes(data)
+    info = jpeg.read_info(data)
+    jpeg.check_sampling(info)
+    if info.lossless:
+        jpeg.check_conversion(info, "bgr")
+        planes = jpeg.lossless_planes(data).planes
+        return _Planned(data, info, [p.shape for p in planes], "host_lossless", planes)
+    route = None
+    if info.coding == "arithmetic" or (info.progressive and info.restart):
+        data, route = jpeg.transcode_baseline(data), "transcoded"
+        info = jpeg.read_info(data)
+    data = jpeg.with_default_huffman(data)
+    return _Planned(data, info, component_sizes(data, device, backend), route)
 
 
 def _nvjpeg_planes(buffers: Sequence[bytes], device: torch.device, backend: int):
@@ -409,8 +465,7 @@ def _nvjpeg_planes(buffers: Sequence[bytes], device: torch.device, backend: int)
     :data:`images` and :data:`routes`."""
     global launches, images
     lib = load_library()
-    data = [jpeg.with_default_huffman(b) for b in buffers]
-    plans = [_Planned(d, jpeg.read_info(d), component_sizes(d, device, backend)) for d in data]
+    plans = [_plan(b, device, backend) for b in buffers]
     planes = torch.empty(sum(p.nbytes for p in plans), dtype=torch.uint8, device=device)
     offset = 0
     for p in plans:
@@ -421,12 +476,18 @@ def _nvjpeg_planes(buffers: Sequence[bytes], device: torch.device, backend: int)
             p.views.append(planes[offset:offset + h * w].view(h, w))
             offset += h * w
         p.views = [v[:h, :w] for v, (h, w) in zip(p.views, p.crops)]
-    unchanged = [p for p in plans if p.info.color not in ("ycc", "gray")]
-    batched = [p for p in plans if not p.info.progressive and p not in unchanged]
-    single = [(p, "single_progressive", OUTPUT_YUV) for p in plans if p.info.progressive and p not in unchanged]
+    host = [p for p in plans if p.host is not None]
+    card = [p for p in plans if p.host is None]
+    unchanged = [p for p in card if p.info.color not in ("ycc", "gray")]
+    batched = [p for p in card if not p.info.progressive and p not in unchanged]
+    single = [(p, "single_progressive", OUTPUT_YUV) for p in card if p.info.progressive and p not in unchanged]
     single += [(p, "single_unchanged", OUTPUT_UNCHANGED) for p in unchanged]
     with _on(device):
         stream = torch.cuda.current_stream(device)
+        for p in host:  # the host's samples into their planes
+            for view, plane in zip(p.views, p.host):
+                view.copy_(torch.from_numpy(plane))
+            routes["host_lossless"] += 1
         if batched and not _refuses_planar.get((device.index, backend)):
             B = len(batched)
             with _state(device, backend, B) as (handle, state):
@@ -439,7 +500,8 @@ def _nvjpeg_planes(buffers: Sequence[bytes], device: torch.device, backend: int)
                     _refuses_planar[(device.index, backend)] = lib.dspnet_cuda_error_string(err).decode()
                 else:
                     _build.check(lib, err, "nvjpegDecodeBatched")
-                    routes["batched"] += B
+                    for p in batched:
+                        routes[p.route or "batched"] += 1
                     batched = []
                 stream.synchronize()  # the host buffers and the state are reused next call
         single += [(p, "single_batched_refused", OUTPUT_YUV) for p in batched]
@@ -457,11 +519,11 @@ def _nvjpeg_planes(buffers: Sequence[bytes], device: torch.device, backend: int)
                             f"nvJPEG's single-image call refused a {info.components}-component {info.color} JPEG "
                             f"({'progressive' if info.progressive else 'sequential'}, upsampling {info.upsampling}, "
                             f"restart interval {info.restart or 'none'}): {lib.dspnet_cuda_error_string(err).decode()}")
-                    routes[route] += 1
+                    routes[p.route or route] += 1
                     stream.synchronize()  # the state is reused by the next image
     with _lock:
         launches += 1
-        images += len(data)
+        images += len(plans)
     return plans
 
 
@@ -489,8 +551,8 @@ def _decode_cuda(buffers: Sequence[bytes], device: torch.device, backend: int):
             H, W = p.info.height, p.info.width
             img = out[offset:offset + H * W * 3].view(H, W, 3)
             offset += H * W * 3
-            ycc_to_bgr(*p.views[:3], factors=p.info.factors, out=img, color=p.info.color,
-                       k=p.views[3] if p.info.components == 4 else None)
+            ycc_to_bgr(*p.views[:3], out=img, color=p.info.color, k=p.views[3] if p.info.components == 4 else None,
+                       fancy=not p.info.lossless, upsampling=p.info.upsampling)
             if p.info.orientation != 1:
                 img = jpeg.orient(img, p.info.orientation).contiguous()
             result.append(img)
@@ -532,6 +594,7 @@ def decode_batch_interleaved(buffers: Sequence[bytes], device="cuda", backend: i
 def _decode_plain(buffers: Sequence[bytes]) -> List[np.ndarray]:
     out = []
     for b in buffers:
+        jpeg.check_conversion(jpeg.read_info(b), "bgr")  # what cv2's IMREAD_COLOR refuses (decode checks the sampling)
         img = jpeg.decode(b)
         out.append(np.repeat(img[..., None], 3, axis=-1) if img.ndim == 2 else img)
     return out

@@ -181,6 +181,24 @@ def test_im_detect_single_matches_jax(served):
             np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["arith_seq_420_street.jpg", "arith_prog_rst1.jpg", "arith_seq_cmyk.jpg",
+                                  "lossless_rgb_p5.jpg", "samp_4x1_1x1.jpg", "samp_1x2_1x1.jpg",
+                                  "prog_rst2_420.jpg", "samp_2x2_1x1.jpg"])
+def test_im_detect_single_on_jpeg_forms_matches_jax(served, name):
+    """``im_detect_single`` on the committed arithmetic-coded, lossless,
+    4:1:1, 4:4:0 and progressive-with-restart files: the port reads cv2's
+    pixels, and its det rows and seg map match the JAX Detector's as on any
+    other file."""
+    _, _, jdet, pdet, _ = served
+    path = str(Path(__file__).resolve().parent / "fixtures" / "jpeg_forms" / name)
+    np.testing.assert_array_equal(pdet.read_image(path).numpy(), cv2.imread(path, cv2.IMREAD_COLOR))
+    want = jdet.im_detect_single(path)
+    got = pdet.im_detect_single(path)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0][:, 0], want[0][:, 0])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+
+
 def test_detect_and_visualize_writes_each_image(served, tmp_path):
     """One ``<stem>_out.jpg`` per input (the JAX demo's names): the bytes of
     the port's encoder (q95 4:2:0) on ``visualize_detection`` of

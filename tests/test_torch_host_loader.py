@@ -249,6 +249,38 @@ def test_multitask_iterator_epochs_equal_jax(dataset, case):
                 np.testing.assert_array_equal(gb[k], wb[k], err_msg=k)
 
 
+JPEG_FORMS = os.path.join(os.path.dirname(__file__), "fixtures", "jpeg_forms")
+
+
+@pytest.mark.parametrize("enable_aug", [False, True])
+def test_multitask_iterator_on_arithmetic_and_lossless_jpegs_equals_jax(dataset, tmp_path, enable_aug):
+    """Two epochs of the python loader over arithmetic-coded JPEGs
+    (sequential, progressive, with restarts and DAC conditioning, 4:1:1 and
+    4:4:0), a lossless one and a progressive one with restarts, each with
+    the labels of a synthetic sample and no mask: equal to the JAX
+    ``MultiTaskIterator`` (cv2.imread) bit for bit."""
+    jax_index, _ = dataset
+    names = ["arith_seq_420_street.jpg", "arith_prog_420.jpg", "arith_seq_dac_rst.jpg", "arith_prog_rst1.jpg",
+             "arith_seq_411.jpg", "arith_prog_440.jpg", "lossless_rgb_p7_pt2_rst.jpg", "prog_rst2_420.jpg"]
+    jax_samples, port_samples = [], []
+    for i, name in enumerate(names):
+        path = str(tmp_path / name)
+        with open(os.path.join(JPEG_FORMS, name), "rb") as src, open(path, "wb") as dst:
+            dst.write(src.read())
+        label = jax_index[i % len(jax_index.samples)].label
+        jax_samples.append(JaxSample(path, label, None))
+        port_samples.append(Sample(path, label, None))
+    kw = dict(batch_size=3, data_shape=SHAPE, enable_aug=enable_aug, pad_last=True)
+    want_it, got_it = JaxIterator(JaxIndex(jax_samples), **kw), MultiTaskIterator(SampleIndex(port_samples), **kw)
+    for _ in range(2):
+        want, got = list(want_it.epoch()), list(got_it.epoch())
+        assert len(got) == len(want) == 3
+        for (wb, wn), (gb, gn) in zip(want, got):
+            assert gn == wn
+            for k in wb:
+                np.testing.assert_array_equal(gb[k], wb[k], err_msg=k)
+
+
 def test_multitask_iterator_next_batch_and_s2d(dataset):
     """``next_batch`` before any ``epoch()`` reads the tables drawn at
     construction, as the JAX iterator's does; ``s2d`` is refused."""

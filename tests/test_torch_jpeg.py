@@ -11,6 +11,10 @@ pixels; the PSNR against the source is within 1 dB of cv2's at the same
 quality; the JAX loader reads a dataset the port wrote to the port's arrays.
 """
 
+import hashlib
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -85,18 +89,18 @@ def _patched(data: bytes, offset_from_sof: int, value: int) -> bytes:
 
 
 def test_decoder_refuses_what_it_does_not_read(rng):
-    """Arithmetic-coded, lossless, 12-bit and 5-component streams, a
-    progressive file whose scans stop short (libjpeg would smooth it), and
-    damaged data, raise JpegError with a reason (no writer here makes the
-    first three forms, so their frame markers are patched in)."""
+    """Arithmetic-coded lossless and hierarchical frames (no writer here
+    makes one, so their frame markers are patched in), 12-bit and
+    5-component streams, a progressive file whose scans stop short (libjpeg
+    would smooth it), and damaged data, raise JpegError with a reason.
+    Written 12-bit files and fractional sampling factors, which cv2 refuses
+    too, are among the committed forms (``test_forms_equal_cv2``)."""
     img = _scene(rng, (32, 48), "smooth")
     base = jpeg.encode(img)
-    with pytest.raises(jpeg.JpegError, match="arithmetic"):
-        jpeg.decode(_patched(base, 1, 0xC9))
-    with pytest.raises(jpeg.JpegError, match="arithmetic"):
-        jpeg.read_info(_patched(base, 1, 0xCA))
-    with pytest.raises(jpeg.JpegError, match="lossless"):
-        jpeg.decode(_patched(base, 1, 0xC3))
+    with pytest.raises(jpeg.JpegError, match="arithmetic-coded lossless"):
+        jpeg.decode(_patched(base, 1, 0xCB))
+    with pytest.raises(jpeg.JpegError, match="differential"):
+        jpeg.read_info(_patched(base, 1, 0xC5))
     with pytest.raises(jpeg.JpegError, match="12-bit"):
         jpeg.decode(_patched(base, 4, 12))
     with pytest.raises(jpeg.JpegError, match="5 components"):
@@ -106,10 +110,8 @@ def test_decoder_refuses_what_it_does_not_read(rng):
     sos = base.index(b"\xff\xda")
     with pytest.raises(jpeg.JpegError):
         jpeg.decode(base[:sos + 40] + b"\xff\xd9")
-    with pytest.raises(jpeg.JpegError, match="sampling"):
-        ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440])
-        jpeg.decode(buf.tobytes())
+    with pytest.raises(jpeg.JpegError, match="sampling factors 5x1"):
+        jpeg.read_info(_patched(base, 11, 0x51))
     # the DC scan alone: every AC coefficient still unsent, which libjpeg smooths
     prog = jpeg.encode(img, progressive=True)
     first_ac = prog.index(b"\xff\xda", prog.index(b"\xff\xda") + 2)
@@ -346,12 +348,16 @@ def _pillow(arr, mode, **kw) -> bytes:
 @pytest.mark.parametrize("hw", [(64, 96), (37, 53), (1, 1)])
 def test_adobe_rgb_equals_cv2(rng, hw):
     """Pillow's ``keep_rgb=True`` file (Adobe transform 0, components coded
-    as R, G, B): no colour conversion, BGR out, as cv2; a JFIF marker beside
+    as R, G, B): no colour conversion, BGR out, as cv2 (and cv2's gray of
+    it under IMREAD_GRAYSCALE); a JFIF marker beside
     an Adobe transform 0 means YCbCr (libjpeg's order of the two)."""
     img = _scene(rng, hw, "smooth" if min(hw) > 1 else "noise")
     data = _pillow(np.ascontiguousarray(img[..., ::-1]), "RGB", quality=90, keep_rgb=True)
     assert jpeg.read_info(data).color == "rgb"
     np.testing.assert_array_equal(jpeg.decode(data), cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+    # IMREAD_GRAYSCALE: libjpeg's rgb_gray_convert of the planes
+    np.testing.assert_array_equal(image_io.imdecode(data, image_io.IMREAD_GRAYSCALE),
+                                  cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
     base = jpeg.encode(img, 90)
     adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
     both = base[:20] + adobe + base[20:]
@@ -365,7 +371,8 @@ def test_cmyk_and_ycck_equal_cv2(rng, subsampling):
     at half size): cv2 5.0.0's CMYK -> BGR rule (``jpeg.cmyk_to_bgr``,
     measured here over 24,576 random CMYK pixels), bit for bit; the same
     file marked YCCK (Adobe transform 2) goes through libjpeg's
-    ``ycck_cmyk_convert`` first, also bit for bit."""
+    ``ycck_cmyk_convert`` first, also bit for bit; both under
+    IMREAD_GRAYSCALE as cv2 reads them."""
     cmyk = rng.randint(0, 256, (128, 192, 4)).astype(np.uint8)
     data = _pillow(cmyk, "CMYK", quality=95, subsampling=subsampling)
     info = jpeg.read_info(data)
@@ -376,6 +383,9 @@ def test_cmyk_and_ycck_equal_cv2(rng, subsampling):
     ycck = data[:i] + b"\x02" + data[i + 1:]
     assert jpeg.read_info(ycck).color == "ycck"
     np.testing.assert_array_equal(jpeg.decode(ycck), cv2.imdecode(np.frombuffer(ycck, np.uint8), cv2.IMREAD_COLOR))
+    for d in (data, ycck):  # IMREAD_GRAYSCALE: cv2's own CMYK -> gray after libjpeg's CMYK
+        np.testing.assert_array_equal(image_io.imdecode(d, image_io.IMREAD_GRAYSCALE),
+                                      cv2.imdecode(np.frombuffer(d, np.uint8), cv2.IMREAD_GRAYSCALE))
     planes = [rng.randint(0, 256, (64, 64)).astype(np.uint8) for _ in range(4)]
     k = planes[3].astype(np.int32)
     want = [k - ((255 - p.astype(np.int32)) * k >> 8) for p in planes[:3]][::-1]
@@ -407,3 +417,159 @@ def test_plain_colour_function_on_other_codings(rng, form):
     got = jpeg_cuda.ycc_to_bgr(*t[:3], factors=info.factors, color=info.color, k=t[3] if len(t) == 4 else None)
     np.testing.assert_array_equal(got.numpy(), jpeg.decode(data))
     np.testing.assert_array_equal(got.numpy(), cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+
+
+# ------------------------------------------------- arithmetic, lossless, every geometry
+
+FORMS = Path(__file__).resolve().parent / "fixtures" / "jpeg_forms"
+FORMS_META = json.loads((FORMS / "forms.json").read_text())["files"]
+FLAGS = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE, "unchanged": cv2.IMREAD_UNCHANGED}
+
+
+def _cv2(data: bytes, flag):
+    return cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+
+
+@pytest.mark.parametrize("name", sorted(FORMS_META))
+def test_forms_equal_cv2(name):
+    """Every committed form (``tests/make_jpeg_fixtures.py``: arithmetic
+    coding sequential and progressive with restarts and DAC conditioning,
+    lossless predictors 1-7 with point transforms and restarts, every
+    integral sampling geometry, progressive files with restarts, RGB-coded,
+    CMYK and YCCK): ``image_io.imdecode`` gives ``cv2.imdecode``'s pixels
+    bit for bit under IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_UNCHANGED,
+    and raises by name exactly where cv2 returns None (12-bit, fractional
+    sampling factors where the output needs the component, a lossless file
+    asked for a colour conversion). ``forms.json``'s sha256s are cv2's
+    (the card's check reads them)."""
+    data = (FORMS / name).read_bytes()
+    meta = FORMS_META[name]
+    for key, flag in FLAGS.items():
+        want = _cv2(data, flag)
+        if want is None:
+            assert meta["cv2"][key] is None
+            with pytest.raises(jpeg.JpegError, match="12-bit|fractional|lossless"):
+                image_io.imdecode(data, flag)
+            continue
+        assert meta["cv2"][key] == {"shape": list(want.shape), "sha256": hashlib.sha256(want.tobytes()).hexdigest()}
+        np.testing.assert_array_equal(image_io.imdecode(data, flag), want, err_msg=key)
+        if key == "unchanged":
+            np.testing.assert_array_equal(jpeg.decode(data, apply_orientation=False), want)
+
+
+def _dct_forms():
+    return sorted(n for n, m in FORMS_META.items()
+                  if m["cv2"]["color"] is not None and not m["info"].get("lossless") and not n.startswith("big_"))
+
+
+@pytest.mark.parametrize("name", _dct_forms())
+def test_transcode_baseline_keeps_the_coefficients(name):
+    """``transcode_baseline`` on every DCT form cv2 reads (1024x2048 ones in
+    ``test_transcode_and_lossless_at_full_size``): one interleaved baseline
+    Huffman scan (SOF0, Annex K's tables, no DAC, no restart) that cv2 and
+    the plain decoder read to the original's pixels bit for bit, the header
+    (sizes, component sampling, colour coding) unchanged."""
+    data = (FORMS / name).read_bytes()
+    out = jpeg.transcode_baseline(data)
+    before, after = jpeg.read_info(data), jpeg.read_info(out)
+    assert (after.coding, after.progressive, after.restart, after.lossless) == ("huffman", False, 0, False)
+    assert after._replace(coding=before.coding, progressive=before.progressive, restart=before.restart) == before
+    assert b"\xff\xc0" in out and b"\xff\xcc" not in out
+    want = _cv2(data, cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(_cv2(out, cv2.IMREAD_UNCHANGED), want)
+    np.testing.assert_array_equal(jpeg.decode(out, apply_orientation=False), want)
+
+
+def test_transcode_keeps_app_segments_and_wide_tables(rng):
+    """The APPn segments (Exif orientation, Adobe transform) survive; a
+    16-bit quantisation table makes the frame SOF1, read to the same pixels;
+    a lossless file has nothing to transcode."""
+    img = _scene(rng, (24, 40), "smooth")
+    data = jpeg.encode(img, 90)
+    data = data[:2] + _exif(6) + data[2:]
+    out = jpeg.transcode_baseline(data)
+    assert jpeg.read_info(out).orientation == 6
+    np.testing.assert_array_equal(jpeg.decode(out), jpeg.decode(data))
+    # table 0 rewritten with 16-bit precision, values unchanged
+    i = data.index(b"\xff\xdb")
+    n = data[i + 2] << 8 | data[i + 3]
+    q = np.frombuffer(data[i + 5:i + 69], np.uint8).astype(">u2").tobytes()
+    wide = data[:i] + b"\xff\xdb" + (n + 64).to_bytes(2, "big") + b"\x10" + q + data[i + 69:]
+    np.testing.assert_array_equal(jpeg.decode(wide), jpeg.decode(data))
+    out = jpeg.transcode_baseline(wide)
+    assert b"\xff\xc1" in out and b"\xff\xc0" not in out
+    np.testing.assert_array_equal(jpeg.decode(out), jpeg.decode(data))
+    np.testing.assert_array_equal(_cv2(out, cv2.IMREAD_COLOR), _cv2(wide, cv2.IMREAD_COLOR))
+    with pytest.raises(jpeg.JpegError, match="lossless"):
+        jpeg.transcode_baseline((FORMS / "lossless_rgb_p1.jpg").read_bytes())
+
+
+def test_transcode_and_lossless_at_full_size():
+    """The committed 1024x2048 arithmetic and progressive-with-restart files
+    transcode to baseline files cv2 reads to the same pixels; the 512x1024
+    lossless file's host planes (``lossless_planes``, not a counted plain
+    decode) equal cv2's samples."""
+    for name in ("big_arith_420.jpg", "big_prog_rst_420.jpg"):
+        data = (FORMS / name).read_bytes()
+        np.testing.assert_array_equal(_cv2(jpeg.transcode_baseline(data), cv2.IMREAD_COLOR),
+                                      _cv2(data, cv2.IMREAD_COLOR), err_msg=name)
+    data = (FORMS / "big_lossless_rgb_p1.jpg").read_bytes()
+    before = jpeg.decodes
+    planes, info = jpeg.lossless_planes(data)
+    assert jpeg.decodes == before and info.lossless and info.color == "rgb"
+    np.testing.assert_array_equal(np.stack(planes[::-1], -1), _cv2(data, cv2.IMREAD_COLOR))
+    with pytest.raises(jpeg.JpegError, match="lossless"):
+        jpeg.lossless_planes((FORMS / "big_411.jpg").read_bytes())
+
+
+def _colour_forms():
+    return sorted(n for n, m in FORMS_META.items() if m["cv2"]["color"] is not None and not n.startswith("big_"))
+
+
+@pytest.mark.parametrize("name", _colour_forms())
+def test_plain_colour_function_on_every_geometry(name):
+    """The colour kernel's plain version on ``jpeg.decode_planes``' planes,
+    each upsampled by its own factors (4:1:1 and 4:4:0 among them, the first
+    component subsampled too; a lossless file with ``fancy`` off), gives
+    cv2's IMREAD_COLOR pixels bit for bit."""
+    import torch
+
+    from dspnet_torch.data import jpeg_cuda
+
+    data = (FORMS / name).read_bytes()
+    planes, info = jpeg.decode_planes(data)
+    t = [torch.from_numpy(p) for p in planes]
+    got = jpeg_cuda.ycc_to_bgr(*t[:3], color=info.color, k=t[3] if len(t) == 4 else None, fancy=not info.lossless,
+                               upsampling=info.upsampling, size=(info.height, info.width))
+    np.testing.assert_array_equal(got.numpy(), _cv2(data, cv2.IMREAD_COLOR))
+
+
+@pytest.mark.parametrize("name", ["arith_seq_420_street.jpg", "lossless_rgb_p7_pt2_rst.jpg", "samp_4x1_1x1.jpg",
+                                  "big_prog_rst_420.jpg", "lossless_gray_p1.jpg", "fractional_3x1_2x1.jpg"])
+def test_card_decoder_cpu_path_on_the_forms(name):
+    """``jpeg_cuda.decode_images`` on CPU tensors (the loader's CPU path)
+    gives cv2's IMREAD_COLOR pixels, and refuses what cv2 returns None for
+    (a gray lossless file under IMREAD_COLOR, fractional sampling)."""
+    from dspnet_torch.data import jpeg_cuda
+
+    data = (FORMS / name).read_bytes()
+    want = _cv2(data, cv2.IMREAD_COLOR)
+    if want is None:
+        with pytest.raises(jpeg.JpegError, match="lossless|fractional"):
+            jpeg_cuda.decode_images([data], "cpu")
+        return
+    np.testing.assert_array_equal(jpeg_cuda.decode_images([data], "cpu")[0].numpy(), want)
+
+
+def test_arithmetic_decoder_against_corrupt_data():
+    """A truncated arithmetic scan reads zeros past its end (as libjpeg does
+    at a marker) and gives an image; a damaged DAC raises."""
+    data = (FORMS / "arith_seq_dac.jpg").read_bytes()
+    sos = data.index(b"\xff\xda")
+    cut = data[:sos + 60] + b"\xff\xd9"
+    assert jpeg.decode(cut).shape == _cv2(data, cv2.IMREAD_UNCHANGED).shape
+    i = data.index(b"\xff\xcc")
+    assert data[i + 4] < 16  # the first entry conditions a DC table
+    bad = data[:i + 5] + b"\x0f" + data[i + 6:]  # L 15 above U 0
+    with pytest.raises(jpeg.JpegError, match="DAC"):
+        jpeg.decode(bad)

@@ -9,6 +9,7 @@ machine with the card and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_jpeg_cuda.py
 """
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -275,3 +276,111 @@ def test_nvjpeg_encoder(cuda_device, hw):
     assert jpeg_cuda.difference(card, got)["mean"] <= jpeg_cuda.GATES["420"]
     assert len(jpeg_cuda.encode(t, 75)) < len(data)
     assert jpeg_cuda.encode(t.cpu()) == plain
+
+
+JPEG_FORMS = Path(__file__).resolve().parent / "fixtures" / "jpeg_forms"
+JPEG_FORMS_META = json.loads((JPEG_FORMS / "forms.json").read_text())["files"]
+
+
+def expected_route(info: jpeg.Info) -> str:
+    """The route ``jpeg_cuda`` must choose from a file's header."""
+    if info.lossless:
+        return "host_lossless"
+    if info.coding == "arithmetic" or (info.progressive and info.restart):
+        return "transcoded"
+    if info.color not in ("ycc", "gray"):
+        return "single_unchanged"
+    return "single_progressive" if info.progressive else "batched"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(JPEG_FORMS_META))
+def test_forms_on_the_card(cuda_device, name):
+    """Every committed form on the card, its route chosen from the header
+    (arithmetic-coded and progressive-with-restart files transcoded to
+    baseline for nvJPEG, lossless ones reconstructed on the host), never a
+    plain decode: a lossless file equal to cv2's pixels (forms.json's
+    sha256), a DCT form within the gate of the plain decoder, the colour
+    kernel equal to its plain version on the planes; what cv2 refuses
+    (12-bit, fractional sampling, a gray lossless file in colour) raises
+    by name, and so does a form nvJPEG refuses."""
+    import hashlib
+
+    data = (JPEG_FORMS / name).read_bytes()
+    meta = JPEG_FORMS_META[name]
+    jpeg.decodes = 0
+    jpeg_cuda.routes.update(dict.fromkeys(jpeg_cuda.routes, 0))
+    if meta["cv2"]["color"] is None:
+        with pytest.raises(jpeg.JpegError, match="12-bit|fractional|lossless"):
+            jpeg_cuda.decode_images([data], cuda_device)
+        return
+    info = jpeg.read_info(data)
+    route = expected_route(info)
+    try:
+        got = jpeg_cuda.decode_images([data], cuda_device)[0].cpu().numpy()
+    except jpeg.JpegError as e:  # nvJPEG refuses the form: by name, no fallback
+        assert route not in ("host_lossless",) and "nvJPEG" in str(e), e
+        print(f"{name}: refused on the card: {e}")
+        return
+    assert jpeg.decodes == 0
+    assert jpeg_cuda.routes[route] == 1 and sum(jpeg_cuda.routes.values()) == 1, jpeg_cuda.routes
+    if info.lossless:
+        assert hashlib.sha256(got.tobytes()).hexdigest() == meta["cv2"]["color"]["sha256"]
+    else:
+        want = jpeg.decode(data)
+        want = np.repeat(want[..., None], 3, -1) if want.ndim == 2 else want
+        diff = jpeg_cuda.difference(got, want)
+        print(f"{name} ({route}): card vs plain {diff}")
+        assert diff["mean"] <= jpeg_cuda.GATES["420"], diff
+    (planes, pinfo), = jpeg_cuda.decode_planes([data], cuda_device)
+    k = planes[3] if len(planes) == 4 else None
+    kw = dict(color=pinfo.color, k=k, fancy=not pinfo.lossless, upsampling=pinfo.upsampling,
+              size=(pinfo.height, pinfo.width))
+    assert torch.equal(jpeg_cuda.ycc_to_bgr(*planes[:3], **kw), jpeg_cuda.ycc_to_bgr_reference(*planes[:3], **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fancy", [True, False])
+@pytest.mark.parametrize("factors", [(1, 2), (4, 1), (4, 2), (1, 4), (3, 1), (1, 3), (2, 4), (4, 4), (2, 1), (2, 2)])
+@pytest.mark.parametrize("hw", [(64, 96), (37, 53), (5, 2)])
+def test_color_kernel_geometries_equal_their_plain_version(cuda_device, factors, fancy, hw):
+    """The colour kernel at every chroma factor up to 4 (h1v2 fancy for
+    4:4:0, replication for 4:1:1 and the rest, and everywhere without
+    ``fancy``), in the YCbCr, RGB and CMYK modes, and with the first
+    component subsampled too (each plane at its own factors), bit for bit
+    against its plain version on random planes."""
+    rng = np.random.RandomState(hw[0] + 7 * factors[0] + factors[1])
+    H, W = hw
+    fh, fv = factors
+    ch, cw = -(-H // fv), -(-W // fh)
+    y, cb, cr, k = (torch.from_numpy(rng.randint(0, 256, s).astype(np.uint8)).to(cuda_device)
+                    for s in ((H, W), (ch, cw), (ch, cw), (ch, cw)))
+    for color in ("ycc", "rgb", "cmyk"):
+        kk = k if color == "cmyk" else None
+        before = jpeg_cuda.color_launches
+        got = jpeg_cuda.ycc_to_bgr(y, cb, cr, factors=factors, color=color, k=kk, fancy=fancy)
+        assert jpeg_cuda.color_launches == before + 1
+        want = jpeg_cuda.ycc_to_bgr_reference(y, cb, cr, factors=factors, color=color, k=kk, fancy=fancy)
+        assert torch.equal(got, want), (color, factors, fancy, hw)
+    # the first component at these factors, the chroma at full size
+    up = [factors, (1, 1), (1, 1)]
+    full = [torch.from_numpy(rng.randint(0, 256, (H, W)).astype(np.uint8)).to(cuda_device) for _ in range(2)]
+    got = jpeg_cuda.ycc_to_bgr(cb, *full, upsampling=up, size=hw, fancy=fancy)
+    assert torch.equal(got, jpeg_cuda.ycc_to_bgr_reference(cb, *full, upsampling=up, size=hw, fancy=fancy))
+
+
+@pytest.mark.cuda
+def test_mixed_forms_in_one_call(cuda_device):
+    """One call over an arithmetic, a lossless, a 4:1:1, a progressive-with-
+    restart and a baseline file: each route counted once, each image as it
+    decodes alone."""
+    names = ["arith_seq_420_street.jpg", "lossless_rgb_p7_pt2_rst.jpg", "samp_4x1_1x1.jpg", "prog_rst2_420.jpg",
+             "samp_2x2_1x1.jpg"]
+    data = [(JPEG_FORMS / n).read_bytes() for n in names]
+    jpeg_cuda.routes.update(dict.fromkeys(jpeg_cuda.routes, 0))
+    jpeg.decodes = 0
+    got = jpeg_cuda.decode_images(data, cuda_device)
+    assert jpeg.decodes == 0
+    assert (jpeg_cuda.routes["transcoded"], jpeg_cuda.routes["host_lossless"], jpeg_cuda.routes["batched"]) == (2, 1, 2)
+    for g, d in zip(got, data):
+        assert torch.equal(g, jpeg_cuda.decode_images([d], cuda_device)[0])

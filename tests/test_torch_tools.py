@@ -12,6 +12,7 @@ import filecmp
 import json
 import os
 import struct
+import zlib
 from pathlib import Path
 
 import cv2
@@ -272,6 +273,82 @@ def test_jpeg_grayscale_equals_cv2(rng, sub, orientation):
         data = data[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body + data[2:]
     want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE)
     np.testing.assert_array_equal(image_io.imdecode(data, image_io.IMREAD_GRAYSCALE), want)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _adam7_png(samples, color, depth, palette=None):
+    """An interlaced (Adam7) PNG of ``samples`` at any colour type and bit
+    depth: each of the seven passes a reduced image of its own, its rows
+    filtered None, Sub and Up in turn (Up from the pass's previous row)."""
+    s = np.asarray(samples)
+    s = s[..., None] if s.ndim == 2 else s
+    h, w, ch = s.shape
+    bpp = max(1, ch * depth // 8)
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = s[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        rows = np.frombuffer(make_png(sub, color, depth, palette), np.uint8)  # the packing of make_png
+        packed = zlib.decompress(_idat(rows.tobytes()))
+        stride = len(packed) // sub.shape[0]
+        prev = np.zeros(stride - 1, np.uint8)
+        for y in range(sub.shape[0]):
+            line = np.frombuffer(packed[y * stride + 1:(y + 1) * stride], np.uint8)
+            kind = y % 3
+            if kind == 1:
+                out = line - np.concatenate([np.zeros(bpp, np.uint8), line[:-bpp]])
+            elif kind == 2:
+                out = line - prev
+            else:
+                out = line
+            raw += bytes([kind]) + out.astype(np.uint8).tobytes()
+            prev = line
+    header = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 1)
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+    if palette is not None:
+        out += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return out + _png_chunk(b"IDAT", zlib.compress(raw)) + _png_chunk(b"IEND", b"")
+
+
+def _png_chunk(kind, body):
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _idat(png: bytes) -> bytes:
+    pos, out = 8, b""
+    while pos < len(png):
+        (n,) = struct.unpack(">I", png[pos:pos + 4])
+        if png[pos + 4:pos + 8] == b"IDAT":
+            out += png[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    return out
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (37, 53)])
+@pytest.mark.parametrize("form", ["gray1", "gray2", "gray4", "gray8", "gray16", "palette1", "palette2", "palette4",
+                                  "palette8", "rgb8", "rgb16", "ga8", "ga16", "rgba8", "rgba16"])
+def test_adam7_pngs_equal_cv2(form, hw):
+    """Interlaced (Adam7) PNGs of every colour type and depth, at sizes
+    where some passes are empty: ``imdecode`` returns cv2's array under
+    IMREAD_UNCHANGED, IMREAD_COLOR and IMREAD_GRAYSCALE, and the samples
+    equal the non-interlaced file's."""
+    rng = np.random.RandomState(sum(hw) + len(form))
+    kind = form.rstrip("0123456789")
+    depth = int(form[len(kind):])
+    color, ch = {"gray": (0, 1), "palette": (3, 1), "rgb": (2, 3), "ga": (4, 2), "rgba": (6, 4)}[kind]
+    samples = rng.randint(0, 1 << depth, hw + (ch,))
+    palette = rng.randint(0, 256, (1 << depth, 3)) if kind == "palette" else None
+    data = _adam7_png(samples, color, depth, palette)
+    flat = make_png(samples, color, depth, palette)
+    for flag in ("IMREAD_UNCHANGED", "IMREAD_COLOR", "IMREAD_GRAYSCALE"):
+        want = cv2.imdecode(np.frombuffer(data, np.uint8), getattr(cv2, flag))
+        got = image_io.imdecode(data, getattr(image_io, flag))
+        assert (got.dtype, got.shape) == (want.dtype, want.shape), flag
+        np.testing.assert_array_equal(got, want, err_msg=flag)
+        np.testing.assert_array_equal(image_io.imdecode(flat, getattr(image_io, flag)), want, err_msg=flag)
 
 
 def test_sixteen_bit_pngs_both_ways(tmp_path):
