@@ -222,8 +222,23 @@ Phases (any failure ends the run with a non-zero exit):
      device us at 1024x2048 4:1:1 and 4:4:0, and at 4:2:0 in turns with its
      baseline (baselines/jpeg_colour_per_sample.cu, the kernel before it
      took every geometry);
- 18. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, the kernel results (the two TPU
+ 18. the still-image formats beside JPEG and PNG (the committed forms of
+     tests/fixtures/image_forms/, written by python tests/make_image_fixtures.py):
+     every form under IMREAD_COLOR / GRAYSCALE / UNCHANGED equal to the
+     sha256 of cv2's array in forms.json, the forms cv2 returns None for
+     refused by name; a 1024x2048 scene written by the port's BMP, PPM, PAM,
+     PFM, TIFF (LZW), Sun raster, WebP (VP8L) and GIF (its seg map) writers
+     and read back equal, each format's host encode and decode ms beside
+     its bound, and the committed 1024x2048 lossy WebP's and GIF's decode
+     ms; ``multi_demo --images`` at resnet-50_multi 512x1024 bf16 (seed 18)
+     over a BMP, an LZW TIFF, a PPM, a lossy WebP and a GIF at 1024x2048
+     (NMS launches = images; nvJPEG images, colour launches and plain JPEG
+     decodes 0); one ``DeviceAugIterator`` batch over a ``YoloFormat``
+     index of TIFF images and one of BMP images, each equal to the per-image
+     host decodes and fed to one ``train_step`` (one matcher launch each);
+     ``voc_palette`` into BMP, TIFF, PGM, PPM, WebP and GIF read back equal;
+ 19. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, the kernel results (the two TPU
      kernels' ports and the colour kernel; each kernel's device, host, event and bound times at the main
      path's shapes, beside the baseline kernels' times from this run, and at phases
      10, 11 and 17's shapes) and each phase's seconds with the script's total,
@@ -239,6 +254,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --jax-checkpoints-only   # phases 1, 2 and 15 alone, no result line
     python3 chip_smoke.py --video-only       # phases 1, 2 and 16 alone, no result line
     python3 chip_smoke.py --jpeg-forms-only  # phases 1, 2 and 17 alone, no result line
+    python3 chip_smoke.py --image-formats-only  # phases 1, 2 and 18 alone, no result line
 
 """
 
@@ -4121,6 +4137,233 @@ def jpeg_forms_phase(dev, label):
     return launches, record
 
 
+#: the formats phase 18 writes at full size with the port's writers, and the
+#: array each must read back to (IMREAD_UNCHANGED)
+ROUND_TRIPS = (".bmp", ".ppm", ".pam", ".pfm", ".tif", ".sr", ".webp", ".gif")
+
+
+def image_formats_phase(dev, label):
+    """Phase 18: the still-image formats beside JPEG and PNG on the card's
+    machine. Every committed form of ``tests/fixtures/image_forms/`` decoded
+    under each flag against the sha256 cv2 gave (``forms.json``; this
+    machine has no cv2), the refusals by name; a 1024x2048 scene written in
+    each lossless format by the port's writers and read back equal, with the
+    host decode ms of each and of the committed lossy WebP and GIF beside
+    their bound; ``multi_demo --images`` at resnet-50_multi 512x1024 bf16
+    over a BMP, an LZW TIFF, a lossy WebP, a GIF and a PPM (NMS launches =
+    images; nvJPEG images, colour launches and plain JPEG decodes 0); one
+    ``DeviceAugIterator`` batch over ``YoloFormat`` indexes of TIFF and of
+    BMP images equal to the per-image host decodes, each fed to one
+    ``train_step`` (matcher launches counted); ``voc_palette`` into BMP,
+    TIFF, PGM / PPM, WebP and GIF read back equal. Returns ({kernel: {path:
+    launches}}, record)."""
+    import hashlib
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.data import image_io, jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator, device_augment_batch
+    from dspnet_torch.data.imdb import YoloFormat
+    from dspnet_torch.data.iterator import SampleIndex
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.tools import voc_palette
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    net = "resnet-50_multi"
+    forms_dir = ROOT / "tests" / "fixtures" / "image_forms"
+    meta = json.loads((forms_dir / "forms.json").read_text())["files"]
+    flags = {"color": image_io.IMREAD_COLOR, "gray": image_io.IMREAD_GRAYSCALE,
+             "unchanged": image_io.IMREAD_UNCHANGED}
+    launches = {"nms_keep_mask": {}, "bipartite_match": {}}
+    record, secs = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_images_", dir=ROOT / "build"))
+
+    def reset():
+        nms_cuda.launches = matching_cuda.launches = 0
+        jpeg_cuda.launches = jpeg_cuda.images = jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = 0
+        jpeg.decodes = 0
+
+    def sha(img):
+        return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    try:
+        # ---- 18a. every committed form under each flag
+        t0 = time.perf_counter()
+        equal, refused, per_ext = 0, [], {}
+        for name in sorted(meta):
+            data = (forms_dir / name).read_bytes()
+            ext = Path(name).suffix
+            for key, flag in flags.items():
+                rec = meta[name]["cv2"][key]
+                if rec is None:
+                    try:
+                        image_io.imdecode(data, flag)
+                    except ValueError as e:
+                        check(str(e), f"{name} {key}: refused without a reason")
+                        refused.append(f"{name}:{key}")
+                        continue
+                    check(False, f"{name} {key}: cv2 returns None for it and the port decoded it")
+                img = image_io.imdecode(data, flag)
+                if "columns" in rec:
+                    img = img[:, :rec["columns"]]
+                check((str(img.dtype), list(img.shape), sha(img)) == (rec["dtype"], rec["shape"], rec["sha256"]),
+                      f"{name} {key}: not cv2's array")
+                equal += 1
+                per_ext[ext] = per_ext.get(ext, 0) + 1
+        secs["committed forms"] = time.perf_counter() - t0
+        record["forms"] = {"files": len(meta), "equal_cv2": equal, "refused_as_cv2": len(refused),
+                           "equal_by_extension": per_ext}
+        print(f"image forms on the card's machine: {len(meta)} files x 3 flags, {equal} arrays equal to cv2's "
+              f"sha256 ({per_ext}), {len(refused)} refused by name where cv2 returns None; "
+              f"{secs['committed forms']:.2f} s [{label}]", flush=True)
+
+        # ---- 18b. round trips at 1024x2048 and the host stages' times
+        scene, _, seg = synthetic.make_example(np.random.RandomState(18), (1024, 2048), 4)[:3]
+        host = {}
+        for ext in ROUND_TRIPS:
+            src = seg if ext == ".gif" else scene
+            t1 = time.perf_counter()
+            data = image_io.imencode(ext, src)
+            enc_ms = (time.perf_counter() - t1) * 1e3
+            t1 = time.perf_counter()
+            back = image_io.imdecode(data, image_io.IMREAD_UNCHANGED)
+            dec_ms = (time.perf_counter() - t1) * 1e3
+            want = (src.astype(np.float32) if ext == ".pfm"
+                    else np.repeat(src[..., None], 3, -1) if ext == ".gif" else src)
+            check(back.dtype == want.dtype and np.array_equal(back, want), f"{ext} 1024x2048 round trip differs")
+            host[ext] = {"bytes": len(data), "encode_ms": enc_ms, "decode_ms": dec_ms,
+                         "decode_bound_us": bound_us(len(data) + back.nbytes, 0)[0]}
+        for name in ("big_lossy.webp", "big.gif"):
+            data = (forms_dir / name).read_bytes()
+            t1 = time.perf_counter()
+            img = image_io.imdecode(data, image_io.IMREAD_COLOR)
+            dec_ms = (time.perf_counter() - t1) * 1e3
+            check(sha(img) == meta[name]["cv2"]["color"]["sha256"], f"{name}: not cv2's pixels")
+            host[name] = {"bytes": len(data), "decode_ms": dec_ms,
+                          "decode_bound_us": bound_us(len(data) + img.nbytes, 0)[0]}
+        record["host_ms_1024x2048"] = host
+        print("1024x2048 round trips equal (port writer -> port reader, IMREAD_UNCHANGED); host ms: "
+              + ", ".join(f"{k} {v['bytes']} B enc {v.get('encode_ms', float('nan')):.3f} dec "
+                          f"{v['decode_ms']:.3f} (bound {v['decode_bound_us']:.4f} us)" for k, v in host.items())
+              + f" [{label}]", flush=True)
+
+        # ---- 18c. multi_demo over a BMP, an LZW TIFF, a lossy WebP, a GIF and a PPM
+        t0 = time.perf_counter()
+        src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                           generator=torch.Generator().manual_seed(18))
+        model_dir = work / "model"
+        CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).save(
+            0, MultiTaskSolver(src.model, src.anchors, device=dev).init_state())
+        paths = []
+        for ext in (".bmp", ".tif", ".ppm"):
+            paths.append(Path(image_io.imwrite(str(work / f"scene_{ext[1:]}{ext}"), scene)))
+        for name in ("big_lossy.webp", "big.gif"):
+            paths.append(work / name)
+            paths[-1].write_bytes((forms_dir / name).read_bytes())
+        demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                     "--dtype", "bfloat16", "--vis-thresh", "0.3", "--out-dir", str(work / "out"),
+                     "--device", str(dev), "--images", ",".join(str(x) for x in paths)]
+        reset()
+        t1 = time.perf_counter()
+        written = multi_demo.main(demo_args)
+        torch.cuda.synchronize()
+        secs["multi_demo"] = time.perf_counter() - t1
+        got = {"nms": nms_cuda.launches, "nvjpeg_images": jpeg_cuda.images, "colour": jpeg_cuda.color_launches,
+               "plain_jpeg_decodes": jpeg.decodes}
+        want = {"nms": len(paths), "nvjpeg_images": 0, "colour": 0, "plain_jpeg_decodes": 0}
+        check(got == want, f"multi_demo on the image formats: counts {got}, expected {want}")
+        check([Path(w).name for w in written] == [x.stem + "_out.jpg" for x in paths], f"written {written}")
+        for w in written:
+            check(jpeg.read_header(Path(w).read_bytes())[:2] == (1024, 2048), f"{w}: not the input's size")
+        launches["nms_keep_mask"]["image_formats_demo"] = got["nms"]
+        record["demo"] = {"files": [x.name for x in paths], "counts": got, "seconds": secs["multi_demo"]}
+        print(f"multi_demo {net} {H}x{W} bf16 on {', '.join(x.name for x in paths)} (1024x2048): "
+              f"{secs['multi_demo']:.2f} s with the model build; counts {got} [{label}]", flush=True)
+        secs["demo with checkpoint"] = time.perf_counter() - t0
+
+        # ---- 18d. a loader batch over YoloFormat TIFF and BMP images, each into one train_step
+        B = 4
+        solver = MultiTaskSolver(src.model, src.anchors, batch_size=B, compute_dtype="bfloat16", device=dev,
+                                 seg_normalize="valid", learning_rate=5e-4)
+        state = solver.init_state()
+        classes = ["person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle"]
+        rng = np.random.RandomState(180)
+        loader_record = {}
+        for ext in (".tif", ".bmp"):
+            root = work / f"yolo{ext[1:]}"
+            (root / "images").mkdir(parents=True)
+            (root / "labels").mkdir()
+            ids = []
+            for i in range(B):
+                img, rows = synthetic.make_example(rng, (H, W), 4)[:2]
+                iid = f"im{i}"
+                ids.append(iid)
+                image_io.imwrite(str(root / "images" / (iid + ext)), img)
+                lines = [f"{int(r[0])} {(r[1] + r[3]) / 2:.6f} {(r[2] + r[4]) / 2:.6f} {r[3] - r[1]:.6f} "
+                         f"{r[4] - r[2]:.6f}" for r in np.asarray(rows) if r[0] >= 0]
+                (root / "labels" / (iid + ".txt")).write_text("\n".join(lines) + "\n")
+            (root / "list.txt").write_text("\n".join(ids) + "\n")
+            index = SampleIndex(YoloFormat(str(root / "list.txt"), str(root / "images"), str(root / "labels"),
+                                           classes, image_ext=ext).samples())
+            reset()
+            t1 = time.perf_counter()
+            it = DeviceAugIterator(index, B, (H, W), device=dev, seed=18, enable_aug=False, shuffle=False)
+            (batch, names), = list(it.epoch())
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t1
+            counts = {"nvjpeg_images": jpeg_cuda.images, "colour": jpeg_cuda.color_launches,
+                      "plain_jpeg_decodes": jpeg.decodes}
+            check(counts == {"nvjpeg_images": 0, "colour": 0, "plain_jpeg_decodes": 0}, f"{ext} loader {counts}")
+            raw = torch.stack([torch.from_numpy(image_io.imread(s.image_path)).to(dev) for s in index])
+            labels = torch.from_numpy(np.stack([s.label for s in index]).astype(np.float32))
+            ref = device_augment_batch(raw, None, labels, torch.zeros(B, 6), it.lut, (H, W), enable_aug=False,
+                                       mean_pixels=it.mean_pixels)
+            check(torch.equal(batch["images"], ref["images"]), f"{ext} loader batch != the per-image host decodes")
+            check(torch.equal(batch["label_det"], ref["label_det"].to(batch["label_det"].device)),
+                  f"{ext} loader labels != the per-image labels")
+            reset()
+            state, m = solver.train_step(state, batch)
+            loss = float(m["loss"])
+            check(np.isfinite(loss), f"{ext} train_step loss {loss}")
+            check(matching_cuda.launches == 1, f"{ext} train_step launched the matcher {matching_cuda.launches} times")
+            launches["bipartite_match"][f"image_formats_train{ext}"] = matching_cuda.launches
+            loader_record[ext] = {"images": names, "load_s": load_s, "loss": loss, "counts": counts}
+            print(f"DeviceAugIterator b{B} over YoloFormat(image_ext={ext!r}) {H}x{W}: equal to the per-image "
+                  f"host decodes through device_augment_batch; {load_s:.3f} s; one train_step loss {loss:.6g}, "
+                  f"matcher launches {launches['bipartite_match'][f'image_formats_train{ext}']}; counts {counts} [{label}]", flush=True)
+        record["loader"] = loader_record
+        del solver, state, src
+
+        # ---- 18e. voc_palette into each format and back
+        idx = seg.astype(np.uint8)
+        colour_png = work / "mask.png"
+        image_io.imwrite(str(colour_png), voc_palette.voc_palette()[idx][..., ::-1])
+        checked = []
+        for ext in (".bmp", ".tif", ".pgm", ".webp", ".gif"):
+            dst = work / f"index{ext}"
+            voc_palette.main([str(colour_png), str(dst)])
+            back = image_io.imread(str(dst), image_io.IMREAD_UNCHANGED)
+            back = back[..., 0] if back.ndim == 3 else back
+            check(np.array_equal(back, idx), f"voc_palette -> {ext}: the index map does not read back equal")
+            checked.append(f"index{ext}")
+        for ext in (".ppm", ".bmp", ".tif", ".webp", ".gif"):
+            dst = work / f"colour{ext}"
+            voc_palette.main(["--colorize", str(work / "index.bmp"), str(dst)])
+            back = image_io.imread(str(dst), image_io.IMREAD_UNCHANGED)
+            check(np.array_equal(back, voc_palette.voc_palette()[idx][..., ::-1]),
+                  f"voc_palette --colorize -> {ext}: the colours do not read back equal")
+            checked.append(f"colour{ext}")
+        record["voc_palette"] = checked
+        print(f"voc_palette 1024x2048 into {', '.join(checked)}: every file reads back equal [{label}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = secs
+    print(json.dumps({"image_formats_phase": record}), flush=True)
+    return launches, record
+
+
 def probe_codec_libraries():
     """ROADMAP Queue A items 20 and 24: which of the Video Codec SDK's
     headers and libraries (NVDEC / NVENC), libjpeg / libpng and libzstd
@@ -4248,6 +4491,10 @@ def main():
         return 0
     if "--jpeg-forms-only" in sys.argv[1:]:
         timed_phase("17 JPEG forms", jpeg_forms_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--image-formats-only" in sys.argv[1:]:
+        timed_phase("18 image formats", image_formats_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -4445,24 +4692,25 @@ def main():
     jax_ckpt_launches, _ = timed_phase("15 JAX checkpoints", jax_checkpoints_phase, dev, label)
     video_launches, _ = timed_phase("16 video", video_phase, dev, label)
     forms_launches, forms_record = timed_phase("17 JPEG forms", jpeg_forms_phase, dev, label)
+    image_launches, _ = timed_phase("18 image formats", image_formats_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 18. results: launches summed over the paths, each counted from 0
+    # ---- 19. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
                                  "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
                                  "prepare": prep_launches["nms_keep_mask"],
                                  "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"],
                                  **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"],
-                                 **forms_launches["nms_keep_mask"]},
+                                 **forms_launches["nms_keep_mask"], **image_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
                                    "options": opt_launches["bipartite_match"],
                                    "prepare": prep_launches["bipartite_match"], **host_launches["bipartite_match"],
-                                   **jax_ckpt_launches["bipartite_match"]},
+                                   **jax_ckpt_launches["bipartite_match"], **image_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"],
                                    **host_launches["jpeg_ycc_to_bgr"], **jax_ckpt_launches["jpeg_ycc_to_bgr"],

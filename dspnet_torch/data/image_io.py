@@ -1,32 +1,48 @@
-"""Image files without cv2: PNG on numpy and ``zlib``, JPEG through the
-plain codec of ``data/jpeg.py``.
+"""Image files without cv2: every still-image format cv2 5.0.0 reads
+beside JPEG 2000 and AVIF, decoded and encoded on numpy.
 
 The JAX package reads and writes its data through ``cv2.imread`` /
-``cv2.imwrite``; the port runs where OpenCV (and PIL) are not installed, so
-it carries the codecs its data path needs.
+``cv2.imdecode`` / ``cv2.imwrite``; the port runs where OpenCV (and PIL)
+are not installed, so it carries the codecs its data path needs, each held
+bit for bit to cv2 5.0.0 under ``IMREAD_COLOR``, ``IMREAD_GRAYSCALE`` and
+``IMREAD_UNCHANGED`` (``tests/test_torch_tools.py``,
+``tests/test_torch_jpeg.py``, ``tests/test_torch_image_formats.py`` over
+the committed forms of ``tests/fixtures/``).
 
-* :func:`imread` / :func:`imdecode` pick the format from the magic bytes,
-  as ``cv2.imread`` does, never from the file name. PNG and baseline JPEG
-  decode here (JPEG to libjpeg-turbo's pixels, as cv2 gives them); anything
-  else raises. On the card the loader decodes JPEG with nvJPEG instead
-  (``data/jpeg_cuda.py``); this module is the CPU path and the host tools'.
-* The PNG reader takes every colour type at every bit depth PNG allows
-  (gray 1/2/4/8/16, RGB 8/16, palette 1/2/4/8 with ``PLTE`` and ``tRNS``,
-  gray+alpha and RGBA 8/16), non-interlaced, with all five row filters, so
-  it reads the PNGs cv2 writes (libpng picks a filter per row) and VOC's
-  palette masks. Sub and Up are vectorised; Average and Paeth depend on the
-  pixel to their left and loop over the row. What each flag returns is what
-  cv2 5.0.0's libpng reader returns (measured, ``tests/test_torch_tools.py``):
-  ``IMREAD_UNCHANGED`` keeps 16 bits, scales gray below 8 bits to 0..255,
-  expands a palette to BGR (BGRA with ``tRNS``), turns an RGB ``tRNS`` into
-  alpha and gray+alpha into BGRA; ``IMREAD_GRAYSCALE`` converts colour with
-  libpng's own ``rgb_to_gray`` (not ``cvtColor``'s weights), see
-  :func:`rgb_to_gray`.
-* :func:`imwrite` picks the format by extension, as ``cv2.imwrite`` does:
-  ``.jpg`` / ``.jpeg`` write baseline JPEG at quality 95 with 4:2:0 chroma
-  (cv2's defaults), any other name PNG with filter 0 (None). PNG is
-  lossless, so a PNG written here and read back (here or by cv2) is the same
-  array.
+* :func:`imread` / :func:`imdecode` pick the decoder from the signature, as
+  cv2's ``findDecoder`` does, never from the file name: PNG and JPEG here
+  and in ``data/jpeg.py``; ``BM`` BMP (``data/bmp.py``); ``P1``-``P7`` and
+  ``PF`` / ``Pf`` PBM, PGM, PPM, PAM and PFM (``data/pxm.py``); Sun raster
+  (``data/sunras.py``); ``#?RADIANCE`` / ``#?RGBE`` HDR (``data/hdr.py``);
+  ``II*`` / ``MM*`` TIFF and BigTIFF (``data/tiff.py``, with
+  ``data/ccitt.py``); ``RIFF....WEBP`` (``data/webp.py``, lossy frames in
+  ``data/vp8.py``); ``GIF87a`` / ``GIF89a`` (``data/gif.py``). JPEG 2000
+  (``jP`` boxes and raw ``FF 4F FF 51`` codestreams) and AVIF (``ftypavif``)
+  raise by name; so does any form cv2 returns None for. On the card the
+  loader decodes JPEG files with nvJPEG (``data/jpeg_cuda.py``); every other
+  format decodes here, on the host, and its array is uploaded.
+* What each flag returns follows each of cv2's readers, which differ: gray
+  from colour is libpng's ``rgb_to_gray`` for PNG (:func:`rgb_to_gray`), the
+  codecs' 14-bit rule for BMP, PxM, Sun raster and TIFF, cv2 5's 15-bit
+  cvtColor for HDR, GIF and WebP (``data/cvt_color.py``); 16 bits become 8
+  by the high byte (PNG, PxM, PAM) or by libtiff's ``(v + 128) // 257``
+  (TIFF RGB); floats by ``saturate_cast`` of ``v`` (PFM) or of ``v * 255``
+  (HDR). The PNG reader takes every colour type at every bit depth PNG
+  allows (gray 1/2/4/8/16, RGB 8/16, palette 1/2/4/8 with ``PLTE`` and
+  ``tRNS``, gray+alpha and RGBA 8/16), interlaced or not, with all five row
+  filters; Average and Paeth depend on the pixel to their left and loop over
+  the row.
+* :func:`imwrite` / :func:`imencode` pick the format by extension, with
+  cv2's names: ``.jpg`` / ``.jpeg`` / ``.jpe`` baseline JPEG at quality 95
+  with 4:2:0 chroma (cv2's defaults, not its bytes), ``.png`` PNG with
+  filter 0, ``.bmp`` / ``.dib``, ``.pbm`` / ``.pgm`` / ``.ppm`` / ``.pnm``,
+  ``.pam``, ``.pfm``, ``.sr`` / ``.ras`` and ``.hdr`` / ``.pic`` as cv2's
+  own bytes, ``.tif`` / ``.tiff`` (LZW), ``.webp`` (lossless VP8L) and
+  ``.gif`` (an exact palette) as files cv2 reads back to the same array. An
+  extension with no writer here raises (``.avif``, which cv2 writes;
+  ``.jp2``, whose OpenJPEG writer fails in cv2 5.0.0 too; ``.pxm`` and
+  ``.exr``, which it has no writer for; and the rest): no format is
+  written under another's name.
 
 Channel order follows cv2: colour arrays are BGR (BGRA) in and out.
 """
@@ -39,7 +55,7 @@ import zlib
 
 import numpy as np
 
-from dspnet_torch.data import jpeg
+from dspnet_torch.data import bmp, cvt_color, gif, hdr, jpeg, pxm, sunras, tiff, webp
 
 # cv2's flag values, so call sites read like the JAX package's
 IMREAD_UNCHANGED = -1
@@ -115,15 +131,6 @@ def _unfilter(data: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def _unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
-    """(H, stride) packed samples below 8 bits -> (H, width) uint8, most
-    significant bits first."""
-    per = 8 // depth
-    shifts = (np.arange(per)[::-1] * depth).astype(np.uint8)
-    vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-    return vals.reshape(rows.shape[0], -1)[:, :width]
-
-
 #: Adam7's passes: (first column, first row, column step, row step)
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
@@ -136,7 +143,7 @@ def _samples(raw: bytes, width: int, height: int, channels: int, depth: int) -> 
     if depth == 16:
         pix = pix.view(">u2").astype(np.uint16)
     elif depth < 8:
-        pix = _unpack_bits(pix, width, depth)
+        pix = cvt_color.unpack_bits(pix, width, depth)
     return pix.reshape(height, width, channels)
 
 
@@ -248,12 +255,15 @@ def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
 
 
 def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """Encoded PNG or JPEG bytes -> array, like ``cv2.imdecode``.
-    ``IMREAD_COLOR``: (H, W, 3) uint8 BGR (gray replicated, alpha dropped,
-    16-bit reduced to its high byte as libpng's strip_16 does);
-    ``IMREAD_GRAYSCALE``: (H, W) uint8 (colour PNGs through
-    :func:`rgb_to_gray` before the 16-bit reduction; a JPEG's luma plane);
-    ``IMREAD_UNCHANGED``: the stored array, colour as BGR / BGRA."""
+    """Encoded image bytes -> array, like ``cv2.imdecode``: the format by
+    signature (see the module's text), the array under ``flags`` as cv2's
+    reader for that format makes it. For PNG and JPEG: ``IMREAD_COLOR``
+    (H, W, 3) uint8 BGR (gray replicated, alpha dropped, 16-bit reduced to
+    its high byte as libpng's strip_16 does); ``IMREAD_GRAYSCALE`` (H, W)
+    uint8 (colour PNGs through :func:`rgb_to_gray` before the 16-bit
+    reduction; a JPEG's luma plane); ``IMREAD_UNCHANGED`` the stored array,
+    colour as BGR / BGRA. Raises ``ValueError`` (naming the form) where cv2
+    returns None."""
     if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE, IMREAD_UNCHANGED):
         raise ValueError(f"flags must be IMREAD_COLOR, IMREAD_GRAYSCALE or IMREAD_UNCHANGED, got {flags}")
     data = bytes(buf)
@@ -273,7 +283,7 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
                 jpeg.check_conversion(jpeg.read_info(data), "bgr")
             img = jpeg.decode(data, apply_orientation=flags == IMREAD_COLOR)
     else:
-        raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
+        return _decoder(data)(data, flags)
     if flags == IMREAD_UNCHANGED:
         return img
     if img.dtype == np.uint16:
@@ -283,6 +293,30 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
     if img.ndim == 2:
         return np.repeat(img[..., None], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _decoder(data: bytes):
+    """The reader of a format other than PNG and JPEG, chosen from the
+    signature as cv2's ``findDecoder`` chooses it."""
+    if data[:2] == bmp.MAGIC:
+        return bmp.decode
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return webp.decode
+    if data[:4] in tiff.MAGICS:
+        return tiff.decode
+    if data[:6] in gif.MAGICS:
+        return gif.decode
+    if data.startswith(hdr.MAGICS):
+        return hdr.decode
+    if data[:4] == sunras.MAGIC:
+        return sunras.decode
+    if data[:1] == b"P" and data[1:2] and data[1:2] in b"1234567Ff":
+        return pxm.decode
+    if data[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
+        raise ValueError("JPEG 2000 is not read by the port yet (cv2 reads it through OpenJPEG; ROADMAP Queue C)")
+    if data[4:12] in (b"ftypavif", b"ftypavis"):
+        raise ValueError("AVIF is not read by the port (an AV1 decoder; ROADMAP Queue C)")
+    raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
 
 
 #: cv2's CMYK -> gray weights (``icvCvt_CMYK2Gray_8u_C4C1R``: 0.299,
@@ -354,18 +388,40 @@ def encode_png(img: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+def _encode_png_bgr(img: np.ndarray) -> bytes:
+    if img.ndim == 3 and img.shape[-1] in (3, 4):
+        img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # BGR(A) -> RGB(A)
+    return encode_png(img)
+
+
+#: extension -> encoder of an array, with cv2's names
+_WRITERS = {".jpg": lambda img: jpeg.encode(img, 95), ".png": _encode_png_bgr, ".bmp": bmp.encode,
+            ".pbm": pxm.encode_pbm, ".pgm": lambda img: pxm.encode_pnm(img, "pgm"),
+            ".ppm": lambda img: pxm.encode_pnm(img, "ppm"), ".pnm": pxm.encode_pnm, ".pam": pxm.encode_pam,
+            ".pfm": pxm.encode_pfm, ".tif": tiff.encode, ".webp": webp.encode, ".gif": gif.encode,
+            ".sr": sunras.encode, ".hdr": hdr.encode}
+_WRITERS.update({alias: _WRITERS[name] for alias, name in ((".jpeg", ".jpg"), (".jpe", ".jpg"), (".dib", ".bmp"),
+                                                            (".tiff", ".tif"), (".ras", ".sr"), (".pic", ".hdr"))})
+
+
+def imencode(ext: str, img: np.ndarray) -> bytes:
+    """``img`` (gray, BGR or BGRA, like ``cv2.imencode``) in the format of
+    ``ext`` (a file extension, ``.bmp`` or ``bmp``); raises on an extension
+    with no writer here."""
+    ext = ext.lower() if ext.startswith(".") else "." + ext.lower()
+    writer = _WRITERS.get(ext)
+    if writer is None:
+        raise ValueError(f"no image writer for the extension {ext!r} (the port writes "
+                         f"{' '.join(sorted(_WRITERS))}; it writes no format under another's name)")
+    return writer(np.asarray(img))
+
+
 def imwrite(path: str, img: np.ndarray) -> str:
     """Write ``img`` (gray, BGR or BGRA, like ``cv2.imwrite``) in the format
-    of the extension of ``path``: JPEG (quality 95, 4:2:0, cv2's defaults)
-    for ``.jpg`` / ``.jpeg``, PNG otherwise. The file appears whole (written
-    to a temporary name, then renamed)."""
-    img = np.asarray(img)
-    if os.path.splitext(path)[1].lower() in (".jpg", ".jpeg"):
-        data = jpeg.encode(img, 95)
-    else:
-        if img.ndim == 3 and img.shape[-1] in (3, 4):
-            img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # BGR(A) -> RGB(A)
-        data = encode_png(img)
+    of the extension of ``path`` (:func:`imencode`; the module's text lists
+    them); an extension with no writer raises before anything is written.
+    The file appears whole (written to a temporary name, then renamed)."""
+    data = imencode(os.path.splitext(path)[1], img)
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(data)

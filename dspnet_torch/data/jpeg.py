@@ -92,6 +92,9 @@ class JpegError(ValueError):
 #: a caller may reset them to 0 (the card's paths must leave them there)
 decodes = 0
 encodes = 0
+#: JPEG streams held by other containers (TIFF strips and tiles) that
+#: :func:`stream_planes` has decoded: counted apart from JPEG files
+stream_decodes = 0
 
 
 #: zigzag index -> natural (row-major) index in an 8x8 block
@@ -1396,6 +1399,17 @@ def decode_planes(data) -> Planes:
     in :data:`decodes`)."""
     global decodes
     decodes += 1
+    p = _parse(data)
+    return Planes(_planes(p), p.info)
+
+
+def stream_planes(data) -> Planes:
+    """A JPEG stream held by another container (a TIFF strip or tile with
+    its ``JPEGTables``) -> its component planes as :func:`decode_planes`
+    gives them, counted in :data:`stream_decodes`, not in :data:`decodes`
+    (which counts JPEG files)."""
+    global stream_decodes
+    stream_decodes += 1
     p = _parse(data)
     return Planes(_planes(p), p.info)
 

@@ -267,10 +267,12 @@ class Detector:
         return img[:, :, ::-1].astype(np.float32) - np.asarray(self.mean_pixels, np.float32)
 
     def read_image(self, image) -> torch.Tensor:
-        """A path (JPEG or PNG, by content) or an (H, W, 3) uint8 BGR array
-        -> that image as a uint8 BGR tensor on the detector's device. A JPEG
-        decodes there: on the card by nvJPEG and the colour kernel, on the
-        CPU by the plain decoder; a PNG decodes on the host."""
+        """A path (any format ``data/image_io.py`` reads, by content) or an
+        (H, W, 3) uint8 BGR array -> that image as a uint8 BGR tensor on the
+        detector's device. A JPEG decodes there: on the card by nvJPEG and
+        the colour kernel, on the CPU by the plain decoder; every other
+        format (PNG, BMP, PxM, TIFF, WebP, GIF, Sun raster, HDR) decodes on
+        the host to cv2's pixels and is uploaded."""
         if isinstance(image, torch.Tensor):
             return image.to(self.device)
         if isinstance(image, (str, os.PathLike)):

@@ -197,8 +197,8 @@ def test_png_write_round_trip(tmp_path, mode):
 def test_imread_sniffs_content_and_refuses_jpeg(tmp_path):
     """JPEG bytes under a .png name decode as JPEG (to cv2's pixels), gray
     replicated under IMREAD_COLOR; a progressive JPEG decodes to cv2's
-    pixels too; a lossless-coded JPEG, unknown bytes and a broken PNG
-    raise."""
+    pixels too; a lossless-coded JPEG, unknown bytes, a broken GIF and a
+    broken PNG raise."""
     img = _images()["bgr8"]
     jpg = str(tmp_path / "a.png")  # JPEG bytes under a .png name
     assert cv2.imwrite(str(tmp_path / "a.jpg"), img)
@@ -216,8 +216,12 @@ def test_imread_sniffs_content_and_refuses_jpeg(tmp_path):
         image_io.imdecode(base.replace(b"\xff\xc0", b"\xff\xc3", 1))
     junk = str(tmp_path / "b.png")
     with open(junk, "wb") as f:
-        f.write(b"GIF89a" + bytes(20))
+        f.write(b"XIF89a" + bytes(20))
     with pytest.raises(ValueError, match="unknown image format"):
+        image_io.imread(junk)
+    with open(junk, "wb") as f:  # GIF is read now: a broken one raises as a GIF
+        f.write(b"GIF89a" + bytes(20))
+    with pytest.raises(ValueError, match="GIF"):
         image_io.imread(junk)
     data = bytearray(image_io.encode_png(img[..., ::-1]))
     data[40] ^= 0xFF  # inside IDAT: the CRC check fails
