@@ -237,12 +237,22 @@ Phases (any failure ends the run with a non-zero exit):
      index of TIFF images and one of BMP images, each equal to the per-image
      host decodes and fed to one ``train_step`` (one matcher launch each);
      ``voc_palette`` into BMP, TIFF, PGM, PPM, WebP and GIF read back equal;
- 19. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, the kernel results (the two TPU
-     kernels' ports and the colour kernel; each kernel's device, host, event and bound times at the main
-     path's shapes, beside the baseline kernels' times from this run, and at phases
-     10, 11 and 17's shapes) and each phase's seconds with the script's total,
-     then the result line, last.
+ 19. JPEG 2000 through the three kernels of csrc/jpeg2000.cu: every committed
+     form of tests/fixtures/jpeg2000_forms/ (python tests/make_jpeg2000_fixtures.py)
+     under each flag equal to cv2's sha256 on the card, the refusals by name,
+     each kernel (t1_decode, idwt, mct_store) == its plain version bit for
+     bit on every form and on a 1024x2048 textured scene as the port's
+     lossless 5/3 file (equal to the scene) and the committed 9/7 file, with
+     host tier-2 ms, each kernel's device us, launches, host us, bound and
+     plain ms, one read end to end on each; ``multi_demo --images`` on both
+     and one ``DeviceAugIterator`` batch over ``YoloFormat(image_ext=".jp2")``
+     into one ``train_step`` (kernel launches counted; plain decodes 0);
+ 20. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, the kernel
+     results (the two TPU kernels' ports, the colour kernel and the three JPEG 2000 kernels; each kernel's
+     device, host, event and bound times at the main path's shapes, beside the baseline kernels' times
+     from this run, and at phases 10, 11, 17 and 19's shapes) and each phase's seconds with the script's
+     total, then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no result line
@@ -255,6 +265,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --video-only       # phases 1, 2 and 16 alone, no result line
     python3 chip_smoke.py --jpeg-forms-only  # phases 1, 2 and 17 alone, no result line
     python3 chip_smoke.py --image-formats-only  # phases 1, 2 and 18 alone, no result line
+    python3 chip_smoke.py --jpeg2000-only    # phases 1, 2 and 19 alone, no result line
 
 """
 
@@ -4364,11 +4375,345 @@ def image_formats_phase(dev, label):
     return launches, record
 
 
+#: the kernels of ``csrc/jpeg2000.cu`` by name, as the profiler shows them
+J2K_KERNELS = {"t1_decode": "t1_decode_kernel", "idwt": "idwt_kernel", "mct_store": "mct_store_kernel"}
+
+
+def j2k_device_us(fn, name, counter, key, n=20):
+    """Device us per call of ``fn`` (every launch of the kernel ``name`` in
+    one call summed), launches per call (the wrapper's ``counter[key]``),
+    and how it was timed: torch.profiler over ``n`` calls when it recorded
+    every launch, else CUDA events around ``n`` calls back to back (the
+    device runs behind the host there; a long run's profiler can drop
+    events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    event_us = cuda_ms(fn, n) * 1e3
+    before = counter[key]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    launched = counter[key] - before
+    evts = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    if len(evts) == launched:
+        return sum(e.device_time for e in evts) / n, launched / n, "torch.profiler"
+    return event_us, launched / n, f"CUDA events (the profiler recorded {len(evts)} of {launched} launches)"
+
+
+def j2k_host_us(fn, n=20):
+    """The wrapper's host time per call (no synchronize inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def jpeg2000_phase(dev, label):
+    """Phase 19: JPEG 2000 through the three kernels of ``csrc/jpeg2000.cu``
+    (``data/jpeg2000_cuda.py``). Every committed form of
+    ``tests/fixtures/jpeg2000_forms/`` under each flag decoded on the card
+    to the sha256 cv2 gave (``forms.json``; no cv2 here), the refusals by
+    name, a palette refused on the card and read on the host; each kernel
+    against its plain version bit for bit on every form; then a 1024x2048
+    textured street scene as the port's lossless 5/3 file (written here by
+    the port's encoder, its code-blocks coded by a process pool) and as the
+    committed 9/7 file of it: host tier-2 ms, each kernel bit for bit
+    against its plain version (the plain tier-1 over the pool), its device
+    us (torch.profiler, every launch of a call summed), launches, the
+    wrapper's host us, the bound (bytes once at 3.35 TB/s), the plain
+    version's ms, and one read end to end on each; the 5/3 read equals the
+    scene. Last, with every count set to 0 just before: ``multi_demo
+    --images`` on both 1024x2048 files, one ``DeviceAugIterator`` batch over
+    ``YoloFormat(image_ext=".jp2")`` into one ``train_step``; the plain
+    decoder runs 0 times there. Returns ({kernel: {path: launches}},
+    {kernel: timings at 1024x2048 5/3}, record)."""
+    import functools
+    import hashlib
+    import multiprocessing
+    import os
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.data import image_io, jpeg, jpeg2000, jpeg2000_cuda, jpeg_cuda, synthetic
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator, device_augment_batch
+    from dspnet_torch.data.imdb import YoloFormat
+    from dspnet_torch.data.iterator import SampleIndex
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    net = "resnet-50_multi"
+    forms_dir = ROOT / "tests" / "fixtures" / "jpeg2000_forms"
+    meta = json.loads((forms_dir / "forms.json").read_text())["files"]
+    flags = {"color": 1, "gray": 0, "unchanged": -1}
+    launches = {"nms_keep_mask": {}, "bipartite_match": {}, **{k: {} for k in J2K_KERNELS}}
+    record, secs = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_j2k_", dir=ROOT / "build"))
+
+    def reset():
+        nms_cuda.launches = matching_cuda.launches = 0
+        jpeg_cuda.launches = jpeg_cuda.images = jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = 0
+        jpeg.decodes = jpeg2000.decodes = 0
+        for d in (jpeg2000_cuda.launches, jpeg2000_cuda.plain_calls):
+            for k in d:
+                d[k] = 0
+
+    def sha(img):
+        return hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+
+    def equal_kernels(st, what, pool_map=map):
+        """Each kernel against its plain version on ``st``; returns the
+        kernels' output and the plain versions' seconds."""
+        coef = jpeg2000_cuda.t1_decode(st)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = jpeg2000_cuda.t1_decode_ref(st, map=pool_map)
+        plain = {"t1_decode": time.perf_counter() - t1}
+        check(torch.equal(coef, ref), f"{what}: t1_decode_kernel != t1_decode_ref "
+                                      f"({int((coef != ref).sum())} values differ)")
+        t1 = time.perf_counter()
+        samples_ref = jpeg2000_cuda.idwt_ref(st, ref)
+        plain["idwt"] = time.perf_counter() - t1
+        samples = jpeg2000_cuda.idwt(st, coef)
+        torch.cuda.synchronize()
+        check(torch.equal(samples, samples_ref), f"{what}: idwt_kernel != idwt_ref "
+                                                 f"({int((samples != samples_ref).sum())} values differ)")
+        img = jpeg2000_cuda.mct_store(st, samples)
+        t1 = time.perf_counter()
+        img_ref = jpeg2000_cuda.mct_store_ref(st, samples)
+        plain["mct_store"] = time.perf_counter() - t1
+        check(np.array_equal(img.cpu().numpy(), img_ref.cpu().numpy()), f"{what}: mct_store_kernel != mct_store_ref")
+        return img, samples, plain
+
+    try:
+        # ---- 19a. every committed form under each flag, on the card
+        t0 = time.perf_counter()
+        equal, refused, host_palette = 0, [], 0
+        for name in sorted(meta):
+            data = (forms_dir / name).read_bytes()
+            palette = jpeg2000.read_boxes(data).pclr is not None
+            for key, flag in flags.items():
+                rec = meta[name]["cv2"][key]
+                reset()
+                if rec is None or palette:
+                    try:
+                        jpeg2000_cuda.decode(data, flag, dev)
+                    except ValueError as e:
+                        check(str(e), f"{name} {key}: refused without a reason")
+                        refused.append(f"{name}:{key}")
+                    else:
+                        check(False, f"{name} {key}: decoded on the card where it must raise")
+                    if rec is not None:  # a palette: the plain decoder on the host reads it
+                        check(sha(jpeg2000.decode(data, flag)) == rec["sha256"], f"{name} {key}: host read differs")
+                        host_palette += 1
+                    continue
+                img = jpeg2000_cuda.decode(data, flag, dev)
+                check(img.device.type == "cuda" and (str(img.dtype).replace("torch.", ""), list(img.shape))
+                      == (rec["dtype"], rec["shape"]) and sha(img.cpu().numpy()) == rec["sha256"],
+                      f"{name} {key}: the card's array is not cv2's")
+                check(jpeg2000.decodes == 0 and sum(jpeg2000_cuda.plain_calls.values()) == 0,
+                      f"{name} {key}: a plain decode on the card's path")
+                equal += 1
+        secs["committed forms"] = time.perf_counter() - t0
+        record["forms"] = {"files": len(meta), "equal_cv2_on_card": equal, "refused": len(refused),
+                           "palette_on_host": host_palette}
+        print(f"JPEG 2000 forms on the card: {len(meta)} files x 3 flags, {equal} arrays equal to cv2's sha256 "
+              f"through the kernels, {len(refused)} refused by name (cv2 returns None, or a palette, "
+              f"{host_palette} of them read on the host to cv2's array); {secs['committed forms']:.2f} s [{label}]",
+              flush=True)
+
+        # ---- 19b. each kernel against its plain version on every form
+        t0 = time.perf_counter()
+        n = 0
+        for name in sorted(meta):
+            data = (forms_dir / name).read_bytes()
+            read = [k for k in ("unchanged", "gray", "color") if meta[name]["cv2"][k]]
+            if not read or jpeg2000.read_boxes(data).pclr is not None or name.startswith("big"):
+                continue
+            st = jpeg2000_cuda.stage(jpeg2000_cuda.pack(jpeg2000.prepare(data), flags[read[0]]), dev)
+            equal_kernels(st, name)
+            n += 1
+        secs["kernels vs plain, forms"] = time.perf_counter() - t0
+        print(f"t1_decode, idwt and mct_store == their plain versions bit for bit on {n} forms "
+              f"({secs['kernels vs plain, forms']:.2f} s) [{label}]", flush=True)
+
+        # ---- 19c. 1024x2048: the port's lossless 5/3 file and the committed 9/7 file
+        scene = np.clip(synthetic.make_example(np.random.RandomState(19), (1024, 2048), 4)[0]
+                        + synthetic.texture_offsets(np.random.RandomState(20), (1024, 2048)), 0, 255).astype(np.uint8)
+        workers = os.cpu_count() or 1
+        timings, big = {}, {}
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            pmap = functools.partial(pool.map, chunksize=8)
+            t1 = time.perf_counter()
+            lossless = jpeg2000.encode(scene, map=pmap)
+            secs["encode 5/3 (pool)"] = time.perf_counter() - t1
+            files = {"5/3": lossless, "9/7": (forms_dir / "big_97.jp2").read_bytes()}
+            for route, data in files.items():
+                t1 = time.perf_counter()
+                plan = jpeg2000.prepare(data)
+                tier2_ms = (time.perf_counter() - t1) * 1e3
+                t1 = time.perf_counter()
+                packed = jpeg2000_cuda.pack(plan, 1)
+                pack_ms = (time.perf_counter() - t1) * 1e3
+                st = jpeg2000_cuda.stage(packed, dev)
+                img, samples, plain = equal_kernels(st, f"1024x2048 {route}", pmap)
+                if route == "5/3":
+                    check(np.array_equal(img.cpu().numpy(), scene), "the lossless 1024x2048 read is not the scene")
+                else:
+                    check(sha(img.cpu().numpy()) == meta["big_97.jp2"]["cv2"]["color"]["sha256"],
+                          "the 9/7 1024x2048 read is not cv2's")
+                size = plan.size
+                coef_scratch = jpeg2000_cuda.t1_decode(st)
+                res_bytes = sum(int(r[0]) * int(r[1]) for t in packed.tcs for r in packed.res[t[5] + 1:t[5] + t[3] + 1])
+                work_bytes = {"t1_decode": packed.blob.nbytes + packed.blocks.nbytes + packed.segs.nbytes + 4 * size,
+                              "idwt": 8 * size, "mct_store": 4 * size + img.numel() * img.element_size()}
+                # 9/7: about 10 float32 operations a sample a pass (2 passes a level); 5/3 counted as bytes
+                ops = {"t1_decode": 0, "idwt": 0 if route == "5/3" else 20 * res_bytes,
+                       "mct_store": 0 if route == "5/3" else 10 * img.numel()}
+                calls = {"t1_decode": lambda: jpeg2000_cuda.t1_decode(st),
+                         "idwt": lambda: jpeg2000_cuda.idwt(st, coef_scratch),
+                         "mct_store": lambda: jpeg2000_cuda.mct_store(st, samples)}
+                per = {}
+                for k, fn in calls.items():
+                    dev_us, per_call, how = j2k_device_us(fn, J2K_KERNELS[k], jpeg2000_cuda.launches, k)
+                    bound = bound_us(work_bytes[k], ops[k])
+                    per[k] = {"device_us": dev_us, "launches_per_call": per_call, "how": how,
+                              "host_us": j2k_host_us(fn),
+                              "bound_us": bound[0], "bound_by": bound[1], "plain_ms": plain[k] * 1e3,
+                              "bytes": work_bytes[k]}
+                for _ in range(2):
+                    jpeg2000_cuda.decode(data, 1, dev)
+                reps = []
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    out = jpeg2000_cuda.decode(data, 1, dev)
+                    reps.append((time.perf_counter() - t1) * 1e3)
+                check(out.shape == (1024, 2048, 3), f"{route} read shape {tuple(out.shape)}")
+                big[route] = {"bytes": len(data), "tier2_ms": tier2_ms, "pack_ms": pack_ms,
+                              "blocks": int(len(packed.blocks)), "end_to_end_ms": sorted(reps)[2],
+                              "end_to_end_ms_all": reps, "kernels": per}
+                timings[route] = per
+                print(f"1024x2048 {route} ({len(data)} B, {len(packed.blocks)} code-blocks): host tier-2 "
+                      f"{tier2_ms:.3f} ms, pack {pack_ms:.3f} ms, one read end to end {sorted(reps)[2]:.3f} ms "
+                      f"(median of 5, host clock with the stream's synchronize) [{label}]", flush=True)
+                for k, v in per.items():
+                    print(f"  {J2K_KERNELS[k]}: device {v['device_us']:.3f} us/call ({v['launches_per_call']:g} "
+                          f"launches, {v['how']}), host {v['host_us']:.3f} us/call (wrapper), bound "
+                          f"{v['bound_us']:.4f} us ({v['bound_by']}), plain {v['plain_ms']:.3f} ms "
+                          f"({'over ' + str(workers) + ' processes' if k == 't1_decode' else 'one process'}) "
+                          f"[{label}]", flush=True)
+        record["1024x2048"] = big
+        print(f"1024x2048 kernels == their plain versions bit for bit on both files; the 5/3 read equals the "
+              f"scene; encode (port, {workers} processes) {secs['encode 5/3 (pool)']:.2f} s [{label}]", flush=True)
+
+        # ---- 19d. the main path: multi_demo, a loader batch and a train_step on .jp2 images
+        src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                           generator=torch.Generator().manual_seed(19))
+        model_dir = work / "model"
+        CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).save(
+            0, MultiTaskSolver(src.model, src.anchors, device=dev).init_state())
+        paths = [work / "scene_53.jp2", work / "scene_97.jp2"]
+        paths[0].write_bytes(lossless)
+        paths[1].write_bytes(files["9/7"])
+        demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                     "--dtype", "bfloat16", "--vis-thresh", "0.3", "--out-dir", str(work / "out"),
+                     "--device", str(dev), "--images", ",".join(str(x) for x in paths)]
+        reset()
+        t1 = time.perf_counter()
+        written = multi_demo.main(demo_args)
+        torch.cuda.synchronize()
+        secs["multi_demo"] = time.perf_counter() - t1
+        got = {"nms": nms_cuda.launches, "t1_decode": jpeg2000_cuda.launches["t1_decode"],
+               "mct_store": jpeg2000_cuda.launches["mct_store"], "plain_j2k_decodes": jpeg2000.decodes,
+               "plain_versions": sum(jpeg2000_cuda.plain_calls.values()), "nvjpeg_images": jpeg_cuda.images}
+        check(got == {"nms": 2, "t1_decode": 2, "mct_store": 2, "plain_j2k_decodes": 0, "plain_versions": 0,
+                      "nvjpeg_images": 0}, f"multi_demo on .jp2: counts {got}")
+        check(jpeg2000_cuda.launches["idwt"] >= 2, "multi_demo on .jp2 launched no idwt")
+        check([Path(w).name for w in written] == [x.stem + "_out.jpg" for x in paths], f"written {written}")
+        for k in J2K_KERNELS:
+            launches[k]["jpeg2000_demo"] = jpeg2000_cuda.launches[k]
+        launches["nms_keep_mask"]["jpeg2000_demo"] = got["nms"]
+        record["demo"] = {"counts": got, "idwt": jpeg2000_cuda.launches["idwt"], "seconds": secs["multi_demo"]}
+        print(f"multi_demo {net} {H}x{W} bf16 on the 1024x2048 5/3 and 9/7 files: {secs['multi_demo']:.2f} s; "
+              f"counts {got}, idwt launches {jpeg2000_cuda.launches['idwt']} [{label}]", flush=True)
+
+        B = 4
+        solver = MultiTaskSolver(src.model, src.anchors, batch_size=B, compute_dtype="bfloat16", device=dev,
+                                 seg_normalize="valid", learning_rate=5e-4)
+        state = solver.init_state()
+        classes = ["person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle"]
+        rng = np.random.RandomState(190)
+        root = work / "yolo"
+        (root / "images").mkdir(parents=True)
+        (root / "labels").mkdir()
+        ids = []
+        t1 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(workers) as pool:
+            pmap = functools.partial(pool.map, chunksize=8)
+            for i in range(B):
+                img, rows = synthetic.make_example(rng, (H, W), 4)[:2]
+                iid = f"im{i}"
+                ids.append(iid)
+                (root / "images" / (iid + ".jp2")).write_bytes(jpeg2000.encode(img, map=pmap))
+                lines = [f"{int(r[0])} {(r[1] + r[3]) / 2:.6f} {(r[2] + r[4]) / 2:.6f} {r[3] - r[1]:.6f} "
+                         f"{r[4] - r[2]:.6f}" for r in np.asarray(rows) if r[0] >= 0]
+                (root / "labels" / (iid + ".txt")).write_text("\n".join(lines) + "\n")
+        secs["write yolo .jp2"] = time.perf_counter() - t1
+        (root / "list.txt").write_text("\n".join(ids) + "\n")
+        index = SampleIndex(YoloFormat(str(root / "list.txt"), str(root / "images"), str(root / "labels"),
+                                       classes, image_ext=".jp2").samples())
+        reset()
+        t1 = time.perf_counter()
+        it = DeviceAugIterator(index, B, (H, W), device=dev, seed=19, enable_aug=False, shuffle=False)
+        (batch, names), = list(it.epoch())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        counts = {"t1_decode": jpeg2000_cuda.launches["t1_decode"], "mct_store": jpeg2000_cuda.launches["mct_store"],
+                  "plain_j2k_decodes": jpeg2000.decodes, "plain_versions": sum(jpeg2000_cuda.plain_calls.values()),
+                  "nvjpeg_images": jpeg_cuda.images}
+        check(counts == {"t1_decode": B, "mct_store": B, "plain_j2k_decodes": 0, "plain_versions": 0,
+                         "nvjpeg_images": 0}, f".jp2 loader counts {counts}")
+        for k in J2K_KERNELS:
+            launches[k]["jpeg2000_loader"] = jpeg2000_cuda.launches[k]
+        raw = torch.stack([torch.from_numpy(jpeg2000.decode((Path(s.image_path)).read_bytes())).to(dev)
+                           for s in index])
+        labels = torch.from_numpy(np.stack([s.label for s in index]).astype(np.float32))
+        ref = device_augment_batch(raw, None, labels, torch.zeros(B, 6), it.lut, (H, W), enable_aug=False,
+                                   mean_pixels=it.mean_pixels)
+        check(torch.equal(batch["images"], ref["images"]), ".jp2 loader batch != the plain decodes")
+        reset()
+        state, m = solver.train_step(state, batch)
+        loss = float(m["loss"])
+        check(np.isfinite(loss), f".jp2 train_step loss {loss}")
+        check(matching_cuda.launches == 1, f".jp2 train_step launched the matcher {matching_cuda.launches} times")
+        launches["bipartite_match"]["jpeg2000_train"] = matching_cuda.launches
+        record["loader"] = {"images": names, "load_s": load_s, "loss": loss, "counts": counts,
+                            "write_s": secs["write yolo .jp2"]}
+        print(f"DeviceAugIterator b{B} over YoloFormat(image_ext='.jp2') {H}x{W}: equal to the plain decodes "
+              f"through device_augment_batch; {load_s:.3f} s; one train_step loss {loss:.6g}; counts {counts} "
+              f"[{label}]", flush=True)
+        del solver, state, src
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = secs
+    print(json.dumps({"jpeg2000_phase": record}), flush=True)
+    return launches, timings, record
+
+
 def probe_codec_libraries():
-    """ROADMAP Queue A items 20 and 24: which of the Video Codec SDK's
-    headers and libraries (NVDEC / NVENC), libjpeg / libpng and libzstd
-    (which ``utils/zstd.py`` loads to read the JAX package's checkpoints)
-    this machine has, under the toolkit's and the system's include directories
+    """ROADMAP Queue A items 20 and 24 and Queue C item 4: which of the
+    Video Codec SDK's headers and libraries (NVDEC / NVENC), libjpeg /
+    libpng, libzstd (which ``utils/zstd.py`` loads to read the JAX
+    package's checkpoints), nvJPEG2000 and the JPEG 2000 / AV1 libraries
+    (OpenJPEG, dav1d, libaom) this machine has, under the toolkit's and the system's include directories
     and on the loader's path. Reports only; never fails the run."""
     import fnmatch
     import os
@@ -4383,13 +4728,14 @@ def probe_codec_libraries():
         ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True, timeout=30).stdout
         cached = [line.split("=>")[-1].strip() for line in ldconfig.splitlines() if "=>" in line]
         found = {}
-        for name in ("nvcuvid.h", "cuviddec.h", "nvEncodeAPI.h", "jpeglib.h", "png.h"):
+        for name in ("nvcuvid.h", "cuviddec.h", "nvEncodeAPI.h", "jpeglib.h", "png.h", "nvjpeg2k.h"):
             found[name] = sorted({str(d / name) for d in inc if (d / name).exists()})
-        for pattern in ("libnvcuvid.so*", "libnvidia-encode.so*", "libjpeg.so*", "libpng*.so*", "libzstd.so*"):
+        for pattern in ("libnvcuvid.so*", "libnvidia-encode.so*", "libjpeg.so*", "libpng*.so*", "libzstd.so*",
+                        "libnvjpeg2k.so*", "libopenjp2.so*", "libdav1d.so*", "libaom.so*"):
             hits = {str(p) for d in libdirs if d.is_dir() for p in d.glob(pattern)}
             hits |= {p for p in cached if fnmatch.fnmatch(os.path.basename(p), pattern)}
             found[pattern] = sorted(hits)
-        print("probe (ROADMAP Queue A items 20, 24): " + "; ".join(
+        print("probe (ROADMAP Queue A items 20, 24; Queue C item 4): " + "; ".join(
             f"{k} " + (f"yes ({', '.join(v[:3])})" if v else "no") for k, v in found.items()), flush=True)
         return found
     except Exception as e:  # the probe only reports
@@ -4449,7 +4795,7 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
-                                   *BASELINE_SOURCES, COLOUR_BASELINE])
+                                   _build.CSRC / "jpeg2000.cu", *BASELINE_SOURCES, COLOUR_BASELINE])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for lib in libs:
@@ -4495,6 +4841,10 @@ def main():
         return 0
     if "--image-formats-only" in sys.argv[1:]:
         timed_phase("18 image formats", image_formats_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--jpeg2000-only" in sys.argv[1:]:
+        timed_phase("19 JPEG 2000", jpeg2000_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -4693,24 +5043,27 @@ def main():
     video_launches, _ = timed_phase("16 video", video_phase, dev, label)
     forms_launches, forms_record = timed_phase("17 JPEG forms", jpeg_forms_phase, dev, label)
     image_launches, _ = timed_phase("18 image formats", image_formats_phase, dev, label)
+    j2k_launches, j2k_times, _ = timed_phase("19 JPEG 2000", jpeg2000_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 19. results: launches summed over the paths, each counted from 0
+    # ---- 20. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
                                  "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
                                  "prepare": prep_launches["nms_keep_mask"],
                                  "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"],
                                  **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"],
-                                 **forms_launches["nms_keep_mask"], **image_launches["nms_keep_mask"]},
+                                 **forms_launches["nms_keep_mask"], **image_launches["nms_keep_mask"],
+                                 **j2k_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
                                    "options": opt_launches["bipartite_match"],
                                    "prepare": prep_launches["bipartite_match"], **host_launches["bipartite_match"],
-                                   **jax_ckpt_launches["bipartite_match"], **image_launches["bipartite_match"]},
+                                   **jax_ckpt_launches["bipartite_match"], **image_launches["bipartite_match"],
+                                   **j2k_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"],
                                    **host_launches["jpeg_ycc_to_bgr"], **jax_ckpt_launches["jpeg_ycc_to_bgr"],
@@ -4762,6 +5115,20 @@ def main():
          "launches_by_factors": dict(jpeg_cuda.color_factor_launches),
          "other_shapes": {s: {k: v[k] for k in shape_keys if k in v}
                           for s, v in forms_record["colour_kernel"].items()}},
+        *[{"name": name, "route": "cuda", "source": "dspnet_torch/csrc/jpeg2000.cu",
+           "replaces": f"OpenJPEG's {lib} behind cv2.imdecode (dspnet_tpu/data/iterator.py:73), not a TPU kernel",
+           "launches": sum(j2k_launches[key].values()), "launches_by_path": j2k_launches[key], "max_abs_err": 0.0,
+           "ms": j2k_times["5/3"][key]["device_us"] / 1e3, "plain_ms": j2k_times["5/3"][key]["plain_ms"],
+           "bound_ms": j2k_times["5/3"][key]["bound_us"] / 1e3, "bound_by": j2k_times["5/3"][key]["bound_by"],
+           "library_ms": None, "at": "1024x2048 5/3 (lossless, textured)",
+           "host_us": j2k_times["5/3"][key]["host_us"], "how": j2k_times["5/3"][key]["how"],
+           "launches_per_call": j2k_times["5/3"][key]["launches_per_call"],
+           "other_shapes": {"1024x2048 9/7": {k: j2k_times["9/7"][key][k] for k in
+                                              ("device_us", "host_us", "bound_us", "plain_ms", "launches_per_call")}}}
+          for name, key, lib in (("t1_decode_kernel", "t1_decode", "t1.c (tier-1: EBCOT passes, MQ decoder)"),
+                                 ("idwt_kernel", "idwt", "dwt.c (inverse 5/3 and 9/7 wavelets, dequantisation)"),
+                                 ("mct_store_kernel", "mct_store",
+                                  "mct.c (inverse RCT / ICT) + tcd.c's DC shift and clipping + cv2's copy"))],
     ]}))
     print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from dspnet_torch.data import augment as aug
-from dspnet_torch.data import image_io, jpeg, jpeg_cuda
+from dspnet_torch.data import image_io, jpeg, jpeg2000, jpeg2000_cuda, jpeg_cuda
 from dspnet_torch.data.cs_labels import seg_label_lut
 from dspnet_torch.data.iterator import SampleIndex, load_sample_arrays, load_sample_bytes, shard_positions
 from dspnet_torch.data.prefetch import prefetch_to_device
@@ -325,16 +325,20 @@ def resize(images: torch.Tensor, hw: Tuple[int, int], interp: int = INTER_LINEAR
 
 
 def place_images(items, device) -> List[torch.Tensor]:
-    """JPEG bytes or uint8 BGR arrays -> one (H_i, W_i, 3) uint8 tensor each
-    on ``device``: the JPEGs decoded there in one call (nvJPEG on CUDA, the
-    plain decoder on the CPU), the arrays copied (through pinned memory on
-    CUDA)."""
+    """JPEG or JPEG 2000 bytes or uint8 BGR arrays -> one (H_i, W_i, 3)
+    uint8 tensor each on ``device``: the JPEGs decoded there in one call
+    (nvJPEG on CUDA, the plain decoder on the CPU), the JPEG 2000 files by
+    the kernels of ``data/jpeg2000_cuda.py`` (their plain versions on the
+    CPU), the arrays copied (through pinned memory on CUDA)."""
     device = torch.device(device)
     out: List[Optional[torch.Tensor]] = [None] * len(items)
-    encoded = [i for i, x in enumerate(items) if isinstance(x, bytes)]
+    encoded = [i for i, x in enumerate(items) if isinstance(x, bytes) and not jpeg2000.is_jpeg2000(x)]
     if encoded:
         for i, t in zip(encoded, jpeg_cuda.decode_images([items[i] for i in encoded], device)):
             out[i] = t
+    for i, x in enumerate(items):
+        if isinstance(x, bytes) and jpeg2000.is_jpeg2000(x):
+            out[i] = jpeg2000_cuda.decode(x, jpeg2000.IMREAD_COLOR, device)
     for i, x in enumerate(items):
         if out[i] is None:
             t = torch.from_numpy(x)
@@ -543,6 +547,8 @@ class DeviceAugIterator:
             img, seg = load_sample_bytes(sample)
             if img[:3] == image_io.JPEG_MAGIC:
                 hw = jpeg.read_header(img)[:2]
+            elif jpeg2000.is_jpeg2000(img):  # decoded on the card by jpeg2000_cuda
+                hw = jpeg2000.image_size(img)
             else:
                 img = image_io.imdecode(img, image_io.IMREAD_COLOR)
                 hw = img.shape[:2]

@@ -1,5 +1,5 @@
 """Image files without cv2: every still-image format cv2 5.0.0 reads
-beside JPEG 2000 and AVIF, decoded and encoded on numpy.
+beside AVIF, decoded and encoded on numpy.
 
 The JAX package reads and writes its data through ``cv2.imread`` /
 ``cv2.imdecode`` / ``cv2.imwrite``; the port runs where OpenCV (and PIL)
@@ -16,11 +16,13 @@ the committed forms of ``tests/fixtures/``).
   (``data/sunras.py``); ``#?RADIANCE`` / ``#?RGBE`` HDR (``data/hdr.py``);
   ``II*`` / ``MM*`` TIFF and BigTIFF (``data/tiff.py``, with
   ``data/ccitt.py``); ``RIFF....WEBP`` (``data/webp.py``, lossy frames in
-  ``data/vp8.py``); ``GIF87a`` / ``GIF89a`` (``data/gif.py``). JPEG 2000
-  (``jP`` boxes and raw ``FF 4F FF 51`` codestreams) and AVIF (``ftypavif``)
-  raise by name; so does any form cv2 returns None for. On the card the
-  loader decodes JPEG files with nvJPEG (``data/jpeg_cuda.py``); every other
-  format decodes here, on the host, and its array is uploaded.
+  ``data/vp8.py``); ``GIF87a`` / ``GIF89a`` (``data/gif.py``); JPEG 2000,
+  ``jP`` boxes and raw ``FF 4F FF 51`` codestreams (``data/jpeg2000.py``).
+  AVIF (``ftypavif``) raises by name; so does any form cv2 returns None for.
+  On the card the loader decodes JPEG files with nvJPEG
+  (``data/jpeg_cuda.py``) and JPEG 2000 files with the kernels of
+  ``data/jpeg2000_cuda.py``; every other format decodes here, on the host,
+  and its array is uploaded.
 * What each flag returns follows each of cv2's readers, which differ: gray
   from colour is libpng's ``rgb_to_gray`` for PNG (:func:`rgb_to_gray`), the
   codecs' 14-bit rule for BMP, PxM, Sun raster and TIFF, cv2 5's 15-bit
@@ -37,12 +39,14 @@ the committed forms of ``tests/fixtures/``).
   with 4:2:0 chroma (cv2's defaults, not its bytes), ``.png`` PNG with
   filter 0, ``.bmp`` / ``.dib``, ``.pbm`` / ``.pgm`` / ``.ppm`` / ``.pnm``,
   ``.pam``, ``.pfm``, ``.sr`` / ``.ras`` and ``.hdr`` / ``.pic`` as cv2's
-  own bytes, ``.tif`` / ``.tiff`` (LZW), ``.webp`` (lossless VP8L) and
-  ``.gif`` (an exact palette) as files cv2 reads back to the same array. An
-  extension with no writer here raises (``.avif``, which cv2 writes;
-  ``.jp2``, whose OpenJPEG writer fails in cv2 5.0.0 too; ``.pxm`` and
-  ``.exr``, which it has no writer for; and the rest): no format is
-  written under another's name.
+  own bytes, ``.tif`` / ``.tiff`` (LZW), ``.webp`` (lossless VP8L),
+  ``.gif`` (an exact palette) and ``.jp2`` (lossless 5/3, which cv2 writes
+  only at ``IMWRITE_JPEG2000_COMPRESSION_X1000`` 1000; below 32 pixels on
+  a side it raises, as cv2's OpenJPEG writer fails there) as files cv2 reads
+  back to the same array. An extension with no writer here raises
+  (``.avif``, which cv2 writes; ``.j2k``, ``.pxm`` and ``.exr``, which it
+  has no writer for; and the rest): no format is written under another's
+  name.
 
 Channel order follows cv2: colour arrays are BGR (BGRA) in and out.
 """
@@ -52,10 +56,11 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from dspnet_torch.data import bmp, cvt_color, gif, hdr, jpeg, pxm, sunras, tiff, webp
+from dspnet_torch.data import bmp, cvt_color, gif, hdr, jpeg, jpeg2000, pxm, sunras, tiff, webp
 
 # cv2's flag values, so call sites read like the JAX package's
 IMREAD_UNCHANGED = -1
@@ -147,13 +152,24 @@ def _samples(raw: bytes, width: int, height: int, channels: int, depth: int) -> 
     return pix.reshape(height, width, channels)
 
 
-def read_png(data: bytes):
-    """PNG bytes -> the samples as stored, (H, W, channels) uint8 (any depth
-    up to 8, not scaled) or uint16, with the colour type, the bit depth and
-    the palette ((n, 3) uint8) and ``tRNS`` bytes, each None when absent."""
+class PngChunks(NamedTuple):
+    """What :func:`png_chunks` keeps of a PNG stream."""
+
+    header: tuple  # IHDR: width, height, depth, colour type, compression, filter, interlace
+    idat: bytes
+    palette: Optional[np.ndarray]
+    trns: Optional[bytes]
+    exif: Optional[bytes]  # the eXIf body before the image data (a TIFF header)
+    animated: bool  # an acTL chunk
+    first_frame: Optional[tuple]  # (fcTL fields, fdAT data) where the IDAT is not a frame
+
+
+def png_chunks(data: bytes) -> PngChunks:
+    """Walk a PNG stream's chunks, each CRC checked."""
     if data[:8] != PNG_MAGIC:
         raise ValueError("not a PNG stream")
-    pos, header, idat, palette, trns = 8, None, [], None, None
+    pos, header, idat, palette, trns, exif = 8, None, [], None, None, None
+    animated, idat_is_frame, frame, fdat, collecting = False, False, None, [], False
     while True:
         if pos + 8 > len(data):
             raise ValueError("PNG stream ends before IEND")
@@ -171,6 +187,19 @@ def read_png(data: bytes):
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"tRNS":
             trns = body
+        elif kind == b"eXIf" and not idat:
+            exif = body
+        elif kind == b"acTL":
+            animated = True
+        elif kind == b"fcTL":
+            if not idat:
+                idat_is_frame = True
+            # the first frame's fdAT chunks run up to the next fcTL
+            collecting = frame is None and not idat_is_frame
+            if collecting:
+                frame = struct.unpack(">IIIIIHHBB", body)
+        elif kind == b"fdAT" and collecting:
+            fdat.append(body[4:])
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -179,17 +208,15 @@ def read_png(data: bytes):
             raise ValueError(f"PNG chunk {kind!r} is not supported")
     if header is None:
         raise ValueError("PNG stream has no IHDR")
-    width, height, depth, color, _, _, interlace = header
-    if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
-        raise ValueError(f"PNG colour type {color} at bit depth {depth} is not valid PNG")
-    if interlace not in (0, 1):
-        raise ValueError(f"PNG interlace method {interlace} does not exist (0 and 1, Adam7, do)")
-    if color == 3 and palette is None:
-        raise ValueError("palette PNG without a PLTE chunk")
-    channels = _COLOR_TYPES[color][0]
-    raw = zlib.decompress(b"".join(idat))
+    first = (frame, b"".join(fdat)) if animated and frame is not None else None
+    return PngChunks(header, b"".join(idat), palette, trns, exif, animated, first)
+
+
+def _image_samples(raw: bytes, width: int, height: int, channels: int, depth: int, interlace: int) -> np.ndarray:
+    """One image's zlib-inflated data -> (height, width, channels) samples
+    as stored, interlaced or not."""
     if not interlace:
-        return _samples(raw, width, height, channels, depth), color, depth, palette, trns
+        return _samples(raw, width, height, channels, depth)
     # Adam7: seven reduced images one after another, each filtered on its
     # own (a pass with no columns or no rows has no bytes at all)
     pix = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
@@ -203,7 +230,28 @@ def read_png(data: bytes):
         pos += n
     if pos != len(raw):
         raise ValueError(f"interlaced PNG image data is {len(raw)} bytes, its passes {pos}")
-    return pix, color, depth, palette, trns
+    return pix
+
+
+def _check_header(c: PngChunks):
+    width, height, depth, color, _, _, interlace = c.header
+    if color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]:
+        raise ValueError(f"PNG colour type {color} at bit depth {depth} is not valid PNG")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} does not exist (0 and 1, Adam7, do)")
+    if color == 3 and c.palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    return width, height, depth, color, interlace
+
+
+def read_png(data: bytes):
+    """PNG bytes -> the samples as stored, (H, W, channels) uint8 (any depth
+    up to 8, not scaled) or uint16, with the colour type, the bit depth and
+    the palette ((n, 3) uint8) and ``tRNS`` bytes, each None when absent."""
+    c = png_chunks(data)
+    width, height, depth, color, interlace = _check_header(c)
+    pix = _image_samples(zlib.decompress(c.idat), width, height, _COLOR_TYPES[color][0], depth, interlace)
+    return pix, color, depth, c.palette, c.trns
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -217,7 +265,12 @@ def decode_png(data: bytes) -> np.ndarray:
     palette is expanded (to RGBA with a ``tRNS`` chunk); an RGB ``tRNS``
     colour becomes alpha 0 (elsewhere the maximum); gray+alpha becomes RGBA;
     a gray ``tRNS`` is ignored."""
-    pix, color, depth, palette, trns = read_png(data)
+    return _expand(*read_png(data))
+
+
+def _expand(pix, color, depth, palette, trns) -> np.ndarray:
+    """Stored samples -> the array cv2 gives under IMREAD_UNCHANGED, in
+    RGB(A) order (see :func:`decode_png`)."""
     if color == 0:
         if depth < 8:
             pix = pix * np.uint8(255 // ((1 << depth) - 1))
@@ -240,6 +293,37 @@ def decode_png(data: bytes) -> np.ndarray:
     if color == 4:
         return pix[..., [0, 0, 0, 1]]
     return pix
+
+
+def decode_png_frame(data: bytes) -> Tuple[np.ndarray, PngChunks]:
+    """The image cv2 5.0.0 reads from PNG bytes (measured on PIL's APNGs,
+    ``tests/test_torch_image_formats.py``): an APNG whose ``IDAT`` is not
+    one of its frames (no ``fcTL`` before it) gives its first ``fdAT``
+    frame, placed at its offset on a canvas of zeros, where a source blend
+    and an over blend (onto nothing yet) both copy it; any other PNG its
+    ``IDAT`` image. RGB(A) order, as :func:`decode_png`."""
+    c = png_chunks(data)
+    width, height, depth, color, interlace = _check_header(c)
+    channels = _COLOR_TYPES[color][0]
+    if c.first_frame is None:
+        pix = _image_samples(zlib.decompress(c.idat), width, height, channels, depth, interlace)
+        return _expand(pix, color, depth, c.palette, c.trns), c
+    (_, fw, fh, fx, fy, _, _, _, _), raw = c.first_frame
+    if fx + fw > width or fy + fh > height or not fw or not fh:
+        raise ValueError(f"APNG frame {fw}x{fh} at ({fx}, {fy}) outside its {width}x{height} canvas")
+    frame = _expand(_image_samples(zlib.decompress(raw), fw, fh, channels, depth, interlace), color, depth,
+                    c.palette, c.trns)
+    canvas = np.zeros((height, width) + frame.shape[2:], frame.dtype)
+    canvas[fy:fy + fh, fx:fx + fw] = frame
+    return canvas, c
+
+
+def png_orientation(c: PngChunks) -> int:
+    """The Exif orientation of a PNG's ``eXIf`` chunk (a bare TIFF header),
+    1 without one."""
+    if c.exif is None:
+        return 1
+    return jpeg._exif_orientation(c.exif if c.exif.startswith(b"Exif\0\0") else b"Exif\0\0" + c.exif)
 
 
 def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
@@ -268,11 +352,18 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
         raise ValueError(f"flags must be IMREAD_COLOR, IMREAD_GRAYSCALE or IMREAD_UNCHANGED, got {flags}")
     data = bytes(buf)
     if data[:8] == PNG_MAGIC:
-        img = decode_png(data)
-        if flags == IMREAD_GRAYSCALE and img.ndim == 3:
-            img = rgb_to_gray(img[..., :3])
-        elif img.ndim == 3:
+        img, chunks = decode_png_frame(data)
+        if img.ndim == 3:
             img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # RGB(A) -> BGR(A)
+        if flags == IMREAD_GRAYSCALE and img.ndim == 3:
+            # an APNG goes through cvtColor (15 bits), any other PNG through
+            # libpng's rgb_to_gray; 16-bit APNGs keep libpng's rule
+            if chunks.animated and img.dtype == np.uint8:
+                img = cvt_color.cvtcolor_gray(img)
+            else:
+                img = rgb_to_gray(img[..., 2::-1])
+        if flags != IMREAD_UNCHANGED:
+            img = np.ascontiguousarray(jpeg.orient(img, png_orientation(chunks)))
     elif data[:3] == JPEG_MAGIC:
         if flags == IMREAD_GRAYSCALE:
             img = _jpeg_luma(data)
@@ -312,8 +403,8 @@ def _decoder(data: bytes):
         return sunras.decode
     if data[:1] == b"P" and data[1:2] and data[1:2] in b"1234567Ff":
         return pxm.decode
-    if data[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
-        raise ValueError("JPEG 2000 is not read by the port yet (cv2 reads it through OpenJPEG; ROADMAP Queue C)")
+    if jpeg2000.is_jpeg2000(data):
+        return jpeg2000.decode
     if data[4:12] in (b"ftypavif", b"ftypavis"):
         raise ValueError("AVIF is not read by the port (an AV1 decoder; ROADMAP Queue C)")
     raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
@@ -399,7 +490,7 @@ _WRITERS = {".jpg": lambda img: jpeg.encode(img, 95), ".png": _encode_png_bgr, "
             ".pbm": pxm.encode_pbm, ".pgm": lambda img: pxm.encode_pnm(img, "pgm"),
             ".ppm": lambda img: pxm.encode_pnm(img, "ppm"), ".pnm": pxm.encode_pnm, ".pam": pxm.encode_pam,
             ".pfm": pxm.encode_pfm, ".tif": tiff.encode, ".webp": webp.encode, ".gif": gif.encode,
-            ".sr": sunras.encode, ".hdr": hdr.encode}
+            ".sr": sunras.encode, ".hdr": hdr.encode, ".jp2": lambda img: jpeg2000.encode(img)}
 _WRITERS.update({alias: _WRITERS[name] for alias, name in ((".jpeg", ".jpg"), (".jpe", ".jpg"), (".dib", ".bmp"),
                                                             (".tiff", ".tif"), (".ras", ".sr"), (".pic", ".hdr"))})
 

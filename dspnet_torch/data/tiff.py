@@ -509,29 +509,70 @@ def _ycbcr_to_rgb(y, cb, cr, tables):
 
 
 def _raw_ycbcr(data: bytes, img: _Image) -> np.ndarray:
-    """Uncompressed YCbCr with its subsampling, as libtiff's
+    """YCbCr with its subsampling (not JPEG-coded), as libtiff's
     ``putcontig8bitYCbCr*tile`` read it: each block of h x v luma samples
-    then Cb and Cr, the chroma repeated over the block."""
+    then Cb and Cr, the chroma repeated over the block; a strip holds its
+    rows, a tile its whole width and height, cut at the image's edge. In a
+    4x4 tile cut at the right edge libtiff skips the blocks it does not
+    show at 10 bytes a block, not 18 (``fromskew / 4 * (4 * 2 + 2)`` in
+    ``putcontig8bitYCbCr44tile``), and so reads each later row of blocks
+    from there (measured against cv2 5.0.0)."""
     sh, sv = img.f.get(YCBCR_SUB, (2, 2))[:2]
-    if sh not in (1, 2, 4) or sv not in (1, 2, 4) or img.tiled:
-        raise TiffError(f"TIFF YCbCr subsampling {sh}x{sv} in {'tiles' if img.tiled else 'strips'}")
-    bw = -(-img.w // sh)
+    if (sh, sv) not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)):  # libtiff's put routines
+        raise TiffError(f"TIFF YCbCr subsampling {sh}x{sv}: libtiff's RGBA reader has no routine for it, "
+                        "and cv2 returns None")
     tables = _ycbcr_tables(img)
     out = np.zeros((img.h, img.w, 3), np.uint8)
     unit = sh * sv + 2
-    for k in range(-(-img.h // img.ch)):
-        y0 = k * img.ch
-        rows = min(img.ch, img.h - y0)
-        nbh = -(-rows // sv)
+    across = -(-img.w // img.cw) if img.tiled else 1
+    for k in range(-(-img.h // img.ch) * across):
+        y0, x0 = k // across * img.ch, k % across * img.cw
+        cols = img.cw if img.tiled else img.w
+        rows = img.ch if img.tiled else min(img.ch, img.h - y0)
+        nbh, bw = -(-rows // sv), -(-cols // sh)
         size = nbh * bw * unit
-        raw = _decompress(data, img, k, size)
-        blocks = np.frombuffer(raw, np.uint8, size).reshape(nbh, bw, unit)
+        raw = np.frombuffer(_decompress(data, img, k, size), np.uint8)
+        h, w = min(rows, img.h - y0), min(cols, img.w - x0)
+        if img.tiled and (sh, sv) == (4, 4) and w < cols:
+            used = -(-w // 4)
+            stride = used * unit + (cols - w) // 4 * 10
+            starts = np.arange(nbh)[:, None] * stride + np.arange(bw)[None, :] * unit
+            starts = np.where(np.arange(bw)[None, :] < used, starts, 0)
+            blocks = raw[np.minimum(starts[..., None] + np.arange(unit), size - 1)]
+        else:
+            blocks = raw[:size].reshape(nbh, bw, unit)
         ys = blocks[..., :sh * sv].reshape(nbh, bw, sv, sh).transpose(0, 2, 1, 3).reshape(nbh * sv, bw * sh)
         cb = np.repeat(np.repeat(blocks[..., -2], sv, 0), sh, 1)
         cr = np.repeat(np.repeat(blocks[..., -1], sv, 0), sh, 1)
         rgb = _ycbcr_to_rgb(ys, cb, cr, tables)
-        out[y0:y0 + rows] = rgb[:rows, :img.w]
+        out[y0:y0 + h, x0:x0 + w] = rgb[:h, :w]
     return out
+
+
+def _bw16_high_bytes(data: bytes, img: _Image, s: np.ndarray) -> np.ndarray:
+    """The high byte of each 16-bit gray sample as libtiff's
+    ``put16bitbwtile`` reads it. In a chunky tile cut at the right edge it
+    steps from row to row by the cut-off pixels counted as bytes
+    (``pp += fromskew``, not scaled by the 2 * samples bytes of a pixel), so
+    each row after the first is read from a shifted offset, a byte pair that
+    may straddle two samples (measured against cv2 5.0.0: the same array on
+    every run and whatever bytes follow the image)."""
+    g = (s[..., 0] >> 8).astype(np.uint8)
+    if not img.tiled or img.planar != 1 or img.w % img.cw == 0:
+        return g
+    spp, tw, th = img.spp, img.cw, img.ch
+    x0 = (img.w // tw) * tw
+    npix = img.w - x0
+    stride = npix * 2 * spp + (tw - npix)
+    across = -(-img.w // tw)
+    for ty in range(-(-img.h // th)):
+        raw = np.frombuffer(_chunk_bytes(data, img, ty * across + across - 1, th, tw, spp), np.uint8)
+        if img.e == ">":  # libtiff swabs 16-bit samples to the host's (little-endian) order
+            raw = raw.reshape(-1, 2)[:, ::-1].reshape(-1)
+        rows = min(th, img.h - ty * th)
+        at = np.arange(rows)[:, None] * stride + np.arange(npix)[None, :] * 2 * spp + 1
+        g[ty * th:ty * th + rows, x0:] = raw[np.minimum(at, len(raw) - 1)]
+    return g
 
 
 def _rgba(data: bytes, img: _Image) -> np.ndarray:
@@ -558,7 +599,7 @@ def _rgba(data: bytes, img: _Image) -> np.ndarray:
     alpha = _alpha(img)
     if ph in (0, 1):
         if img.bps == 16:
-            g = _gray_map(img)[s[..., 0] >> 8]
+            g = _gray_map(img)[_bw16_high_bytes(data, img, s)]
         else:
             g = _gray_map(img)[s[..., 0]]
         out[..., :3] = g[..., None]
@@ -614,6 +655,11 @@ def _cv2_type(img: _Image):
     if bps in (10, 12, 14, 16):
         if fmt not in (1, 2):
             raise TiffError(f"{bps}-bit float TIFF: cv2 returns None")
+        if bps == 16 and ncn == 2 and fmt == 1:  # gray + alpha: 8-bit gray through the RGBA reader (measured)
+            if img.planar == 2:
+                raise TiffError("16-bit planar gray + alpha TIFF: cv2's RGBA reader gives pixels the port does "
+                                "not follow yet (ROADMAP Queue C)")
+            return np.uint8, 1
         return (np.int16 if fmt == 2 else np.uint16), ncn
     if bps == 32:
         if fmt not in (2, 3):
@@ -669,6 +715,9 @@ def _decode(data: bytes, img: _Image, flags: int) -> np.ndarray:
         if rgba_refusal(img):
             raise TiffError(rgba_refusal(img) + ": cv2 returns None")
         tile_bytes = img.ch * ((img.cw * (1 if img.planar == 2 else img.spp) * img.bps + 7) // 8)
+        if _photometric(img) == 6 and img.compression != 7:  # subsampled YCbCr: blocks of h x v + 2
+            sh, sv = img.f.get(YCBCR_SUB, (2, 2))[:2]
+            tile_bytes = -(-img.ch // sv) * -(-img.cw // sh) * (sh * sv + 2)
         if img.tiled and img.compression == 1 and tile_bytes % 1024:
             raise TiffError(f"uncompressed TIFF tiles of {tile_bytes} bytes: libtiff 4.7.1's RGBA tile reader takes "
                             "them only in multiples of 1024 bytes, and cv2 returns None")

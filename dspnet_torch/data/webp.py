@@ -33,7 +33,7 @@ import struct
 
 import numpy as np
 
-from dspnet_torch.data import cvt_color, vp8
+from dspnet_torch.data import cvt_color, jpeg, vp8
 
 
 class WebPError(ValueError):
@@ -513,13 +513,25 @@ def decode_bgra(data: bytes):
     return _frame(data, chunks)
 
 
+def exif_orientation(data: bytes) -> int:
+    """The Exif orientation of an ``EXIF`` chunk (a TIFF header, or one
+    after ``Exif\\0\\0``), 1 without one."""
+    for tag, p, n in _chunks(data):
+        if tag == b"EXIF":
+            body = data[p:p + n]
+            return jpeg._exif_orientation(body if body.startswith(b"Exif\0\0") else b"Exif\0\0" + body)
+    return 1
+
+
 def decode(data: bytes, flags: int) -> np.ndarray:
+    """-> cv2's array under ``flags``; under IMREAD_COLOR and
+    IMREAD_GRAYSCALE the ``EXIF`` chunk's orientation applied, as cv2 5.0.0
+    does (``tests/test_torch_image_formats.py``)."""
     bgra, alpha = decode_bgra(data)
     if flags == -1:
         return np.ascontiguousarray(bgra if alpha else bgra[..., :3])
-    if flags == 1:
-        return np.ascontiguousarray(bgra[..., :3])
-    return cvt_color.cvtcolor_gray(bgra)
+    img = bgra[..., :3] if flags == 1 else cvt_color.cvtcolor_gray(bgra)
+    return np.ascontiguousarray(jpeg.orient(img, exif_orientation(data)))
 
 
 # ------------------------------------------------------------------ write

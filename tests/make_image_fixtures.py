@@ -1,6 +1,6 @@
 """Write the committed still-image forms under
 ``tests/fixtures/image_forms/``: BMP, PBM/PGM/PPM/PAM/PFM, Sun raster,
-Radiance HDR, TIFF, WebP and GIF files that ``cv2.imdecode`` reads (or
+Radiance HDR, TIFF, WebP, GIF and PNG files that ``cv2.imdecode`` reads (or
 refuses), for the port's readers to read the same way on a machine that has
 no cv2.
 
@@ -12,7 +12,9 @@ TIFF, CCITT TIFF, palette and animated GIF, WebP with alpha and animated
 WebP), and the small writers below for the forms neither writes (RLE BMP,
 OS/2 headers, 16-bit BMP, ASCII and low-maxval PxM, PAM tuple types,
 big-endian PFM, RLE and RGB-ordered Sun raster, old-style and flat HDR
-scanlines, planar, tiled, big-endian and predictor TIFFs). Sizes are small
+scanlines, planar, tiled, big-endian and predictor TIFFs, YCbCr tiles,
+16-bit gray + alpha). PNG and WebP files with an Exif orientation and
+APNGs (PIL's) hold cv2's orientation and first-frame rules. Sizes are small
 (37x53, 64x96, odd widths), except one 1024x2048 lossy WebP and one
 1024x2048 GIF of an untextured ``synthetic.make_example`` scene, which the
 card's smoke test times.
@@ -707,6 +709,68 @@ def tiff_forms(s: dict) -> dict:
     f["gray12.tif"] = (tiff_simple(np.frombuffer(np.random.RandomState(7).randint(0, 256, 37 * 80).astype(np.uint8),
                                                  np.uint8).reshape(37, 80, 1), 1, bps=12, more={256: (4, [53])}),
                        "12-bit gray")
+    # uncompressed / Deflate YCbCr tiles (libtiff's putcontig8bitYCbCr*tile)
+    for (sh, sv), (th, tw), comp in (((2, 2), (64, 64), None), ((2, 1), (32, 32), None), ((1, 1), (32, 32), None),
+                                     ((2, 2), (16, 16), "deflate"), ((4, 4), (16, 16), "deflate"),
+                                     ((2, 2), (32, 32), None), ((1, 4), (16, 16), "deflate")):
+        kind = "Deflate" if comp else "uncompressed"
+        f[f"ycbcr{sh}{sv}_tiles{th}x{tw}_{'deflate' if comp else 'raw'}.tif"] = (
+            ycbcr_tiles(np.random.RandomState(sh * 10 + sv + th), (20, 30), (sh, sv), (th, tw), comp),
+            f"YCbCr {sh}x{sv} in {th}x{tw} tiles, {kind}")
+    la16 = np.random.RandomState(16).randint(0, 65536, (19, 27, 2)).astype(np.uint16)
+    f["gray16_alpha.tif"] = (tiff_simple(la16, 1, extra=[2]), "16-bit gray + unassociated alpha, strips")
+    f["gray16_alpha_be_tiles.tif"] = (tiff_simple(la16, 1, extra=[2], order=">", tile=(16, 16)),
+                                      "16-bit gray + alpha, big-endian 16x16 tiles (cut at the right edge)")
+    f["gray16_alpha_white.tif"] = (tiff_simple(la16, 0, extra=[0], tile=(32, 64)),
+                                   "16-bit min-is-white + extra sample, a 32x64 tile")
+    return f
+
+
+def ycbcr_tiles(rng, hw, sub, tile, compress=None) -> bytes:
+    """A YCbCr TIFF in tiles of random blocks (any bytes are YCbCr samples):
+    each tile ceil(th / v) x ceil(tw / h) blocks of h x v luma samples, Cb
+    and Cr."""
+    (h, w), (sh, sv), (th, tw) = hw, sub, tile
+    chunks = []
+    for _ in range(-(-h // th) * -(-w // tw)):
+        raw = rng.randint(16, 240, -(-th // sv) * -(-tw // sh) * (sh * sv + 2)).astype(np.uint8).tobytes()
+        chunks.append(zlib.compress(raw) if compress else raw)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [8 if compress else 1]), 262: (3, [6]),
+            277: (3, [3]), 284: (3, [1]), 322: (4, [tw]), 323: (4, [th]), 530: (3, [sh, sv])}
+    return tiff_file(tags, chunks)
+
+
+# ------------------------------------------------------------------ PNG
+
+
+def png_forms(s: dict) -> dict:
+    """PIL's PNGs with an Exif orientation (``eXIf``) and PIL's APNGs, with
+    and without a default image, RGB and RGBA, with each dispose and blend
+    op (cv2 reads the first frame)."""
+    from PIL import Image
+
+    f = {}
+    street = s["street"][:20, :30]
+    for o in range(1, 9):
+        exif = Image.Exif()
+        exif[0x0112] = o
+        f[f"exif{o}.png"] = (pil(street, exif=exif.tobytes(), format="PNG"), f"PIL PNG, Exif orientation {o}")
+    rng = np.random.RandomState(17)
+    for mode in ("RGB", "RGBA"):
+        frames = []
+        for _ in range(3):
+            a = rng.randint(0, 256, (12, 16, len(mode))).astype(np.uint8)
+            if mode == "RGBA":
+                a[::3, ::2, 3] = 0
+            frames.append(Image.fromarray(a, mode))
+        for default in (False, True):
+            for dispose, blend in ((0, 0), (1, 0), (2, 0), (0, 1), (2, 1)):
+                buf = io.BytesIO()
+                frames[0].save(buf, format="PNG", save_all=True, append_images=frames[1:], default_image=default,
+                               disposal=dispose, blend=blend, duration=40)
+                name = f"apng_{mode.lower()}_{'default' if default else 'frame0'}_d{dispose}b{blend}.png"
+                f[name] = (buf.getvalue(), f"PIL APNG {mode}, {'a default image' if default else 'IDAT as frame 0'}"
+                                           f", dispose {dispose}, blend {blend}")
     return f
 
 
@@ -744,6 +808,11 @@ def webp_forms(s: dict) -> dict:
                                       "PIL VP8 + ALPH, alpha quality 40")
     f["pil_lossy_sharp.webp"] = (pil(street, format="WEBP", quality=90, method=4), "PIL VP8 quality 90")
     f["pil_lossy_odd.webp"] = (pil(noise[:35, :51], format="WEBP", quality=50), "PIL VP8 51x35")
+    for o in range(1, 9):
+        exif = Image.Exif()
+        exif[0x0112] = o
+        f[f"exif{o}.webp"] = (pil(street[:20, :30], format="WEBP", lossless=o % 2 == 1, exif=exif.tobytes()),
+                              f"PIL WebP ({'VP8L' if o % 2 else 'VP8'}), Exif orientation {o}")
     fr = [Image.fromarray(street[..., ::-1]), Image.fromarray(street[::-1, :, ::-1].copy())]
     for lossless in (True, False):
         buf = io.BytesIO()
@@ -774,7 +843,7 @@ def big_forms() -> dict:
 def all_forms() -> dict:
     s = scenes()
     forms = {}
-    for maker in (bmp_forms, pxm_forms, sun_forms, hdr_forms, gif_forms, tiff_forms, webp_forms):
+    for maker in (bmp_forms, pxm_forms, sun_forms, hdr_forms, gif_forms, tiff_forms, png_forms, webp_forms):
         forms.update(maker(s))
     forms.update(big_forms())
     return forms
