@@ -192,18 +192,19 @@ Phases (any failure ends the run with a non-zero exit):
  16. video through ``multi_demo`` (resnet-50_multi 512x1024 bf16, seeded
      weights, seed 16): a Motion-JPEG AVI of 64 textured 1024x2048 frames
      encoded by nvJPEG and written by ``data/avi.py``; ``multi_demo --images
-     clip.avi`` under the profiler (frames in = frames out, read back at 25
-     fps and 1024x2048; nvJPEG images, colour launches and card encodes =
-     64, NMS wrapper launches = the pipeline's warm-ups and captures and NMS
-     kernels run = 64 + warm-ups, plain decodes and encodes 0) and again
-     timed; the pipeline's rendered frames equal a synchronous
-     ``predict_raw`` replay with the same drawing bit for bit, the overlay on
-     the card equals numpy's, each output frame within the encoder's gate of
-     its rendered frame; the committed clips of cv2's two writers and a
+     clip.avi`` under the profiler (frames in = frames out in
+     ``detection_out.mp4``, read back at 25 fps and 1024x2048; nvJPEG images,
+     colour launches and mp4v encodes = 64, NMS wrapper launches = the
+     pipeline's warm-ups and captures and NMS kernels run = 64 + warm-ups,
+     plain decodes, JPEG encodes 0) and again timed; the pipeline's rendered
+     frames equal a synchronous ``predict_raw`` replay with the same drawing
+     bit for bit, the overlay on the card equals numpy's, the output's PSNR
+     against its rendered frames, and nvJPEG's encoder (called directly) on
+     sampled rendered frames within its gate of the plain encoder; the committed clips of cv2's two writers and a
      DHT-less copy through ``detect_and_visualize``; the JPEG forms
      (progressive, DHT-less, RGB-coded, CMYK, YCCK) on the card within the
      gates or refused by name, the colour kernel equal to its plain version
-     in each mode; each stage's ms per frame and nvJPEG's encoder host and
+     in each mode; each stage's ms per frame and the mp4v writer's host and
      device us;
  17. every JPEG form cv2 reads, on the card (the committed forms of
      tests/fixtures/jpeg_forms/, written by python tests/make_jpeg_fixtures.py):
@@ -247,12 +248,25 @@ Phases (any failure ends the run with a non-zero exit):
      plain ms, one read end to end on each; ``multi_demo --images`` on both
      and one ``DeviceAugIterator`` batch over ``YoloFormat(image_ext=".jp2")``
      into one ``train_step`` (kernel launches counted; plain decodes 0);
- 20. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, the kernel
-     results (the two TPU kernels' ports, the colour kernel and the three JPEG 2000 kernels; each kernel's
-     device, host, event and bound times at the main path's shapes, beside the baseline kernels' times
-     from this run, and at phases 10, 11, 17 and 19's shapes) and each phase's seconds with the script's
-     total, then the result line, last.
+ 20. MPEG-4 Part 2 (mp4v) through the three kernels of csrc/mpeg4.cu: every
+     committed form of tests/fixtures/mp4v_forms/ (python
+     tests/make_mp4v_fixtures.py) decoded on the card to cv2's sha256, the
+     refused tools raising by name, each kernel (mp4v_parse, mp4v_recon,
+     yuv420_to_bgr) == its plain version bit for bit on every form (cv2's
+     2048x1024 clip among them) and on a 1024x2048 textured clip of 24
+     frames (two GOPs) written by the port on the card, its largest
+     difference measured; host ms of the container and VOP headers, each
+     kernel's device us, launches, host us, bound and plain ms;
+     ``multi_demo --images clip.mp4`` at resnet-50_multi 512x1024 bf16 (seed 20) writing
+     ``detection_out.mp4``, read back by the port's decoder (NMS and the
+     three kernels launched, plain calls 0); each stage's ms per frame; the
+     writer's bytes and PSNR per frame;
+ 21. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's, the
+     kernel results (the two TPU kernels' ports, the colour kernel, the three JPEG 2000 kernels and the three
+     MPEG-4 kernels; each kernel's device, host, event and bound times at the main path's shapes, beside the
+     baseline kernels' times from this run, and at phases 10, 11, 17, 19 and 20's shapes) and each phase's
+     seconds with the script's total, then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no result line
@@ -266,6 +280,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --jpeg-forms-only  # phases 1, 2 and 17 alone, no result line
     python3 chip_smoke.py --image-formats-only  # phases 1, 2 and 18 alone, no result line
     python3 chip_smoke.py --jpeg2000-only    # phases 1, 2 and 19 alone, no result line
+    python3 chip_smoke.py --mp4v-only        # phases 1, 2 and 20 alone, no result line
 
 """
 
@@ -3642,7 +3657,7 @@ def video_phase(dev, label):
 
     from dspnet_torch.api import create_model
     from dspnet_torch.cli import multi_demo
-    from dspnet_torch.data import avi, jpeg, jpeg_cuda, synthetic
+    from dspnet_torch.data import avi, jpeg, jpeg_cuda, mp4, mpeg4, mpeg4_cuda, synthetic
     from dspnet_torch.data.device_pipeline import resize_linear
     from dspnet_torch.detect import video
     from dspnet_torch.detect.pipeline import ServingPipeline
@@ -3660,13 +3675,13 @@ def video_phase(dev, label):
 
     def reset():
         nms_cuda.launches = jpeg_cuda.launches = jpeg_cuda.images = jpeg_cuda.encodes = 0
-        jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = jpeg.decodes = jpeg.encodes = 0
+        jpeg_cuda.color_launches = jpeg_cuda.color_plain_calls = jpeg.decodes = jpeg.encodes = mpeg4.encodes = 0
         jpeg_cuda.routes.update(dict.fromkeys(jpeg_cuda.routes, 0))
 
     def counts():
         return {"nms": nms_cuda.launches, "nvjpeg_images": jpeg_cuda.images, "colour": jpeg_cuda.color_launches,
-                "card_encodes": jpeg_cuda.encodes, "plain_decodes": jpeg.decodes, "plain_encodes": jpeg.encodes,
-                "plain_colour": jpeg_cuda.color_plain_calls}
+                "card_encodes": jpeg_cuda.encodes, "mp4v_encodes": mpeg4.encodes, "plain_decodes": jpeg.decodes,
+                "plain_encodes": jpeg.encodes, "plain_colour": jpeg_cuda.color_plain_calls}
 
     def psnr(a, b):
         mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
@@ -3712,17 +3727,18 @@ def video_phase(dev, label):
         kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         ran_nms = sum(any(n in k for n in NMS_KERNELS) for k in kernels)
         slots = 3  # ServingPipeline(depth=2): depth + 1 slots, each warmed up once and captured once
-        want = {"nms": 2 * slots, "nvjpeg_images": n_frames, "colour": n_frames, "card_encodes": n_frames,
-                "plain_decodes": 0, "plain_encodes": 0, "plain_colour": 0}
+        want = {"nms": 2 * slots, "nvjpeg_images": n_frames, "colour": n_frames, "card_encodes": 0,
+                "mp4v_encodes": n_frames, "plain_decodes": 0, "plain_encodes": 0, "plain_colour": 0}
         check(got == want, f"multi_demo on the clip: counts {got}, expected {want}")
         check(ran_nms == n_frames + slots,
               f"{ran_nms} NMS kernels ran for {n_frames} frames (+ {slots} warm-ups); expected {n_frames + slots}")
-        check(written == [str(out_dir / "detection_out.avi")], f"multi_demo wrote {written}")
+        check(written == [str(out_dir / "detection_out.mp4")], f"multi_demo wrote {written}")
         with avi.open_video(written[0]) as reader:
             out_frames = list(reader)
             stream = reader.stream
-        check((len(out_frames), stream.fps, stream.width, stream.height) == (n_frames, 25.0, FW, FH),
-              f"detection_out.avi: {len(out_frames)} frames, {stream}")
+        check((len(out_frames), stream.fps, stream.width, stream.height, stream.fourcc) == (n_frames, 25.0, FW, FH,
+                                                                                            "mp4v"),
+              f"detection_out.mp4: {len(out_frames)} frames, {stream[:5]}")
         launches["nms_keep_mask"]["video_demo"] = got["nms"]
         launches["jpeg_ycc_to_bgr"]["video_demo"] = got["colour"]
         record["counts"] = dict(got, nms_kernels_run=ran_nms, routes=dict(jpeg_cuda.routes))
@@ -3740,6 +3756,7 @@ def video_phase(dev, label):
         check(counts() == want, f"timed multi_demo counts {counts()}")
 
         # ---- 16d. pixels: pipeline == synchronous replay, file ~ rendered, overlay == numpy
+        t_sub = time.perf_counter()
         detector = multi_demo.get_detector(multi_demo.parse_args(demo_args))
         with avi.open_video(clip) as reader:
             buffers = list(reader)
@@ -3763,12 +3780,16 @@ def video_phase(dev, label):
                 n_boxes = int((dets[:, 1] >= thresh).sum())
             replay = detector.draw_boxes(over, dets, thresh)
             check(np.array_equal(replay, rendered[i]), f"frame {i}: pipeline render != synchronous replay")
-        # each output frame against its rendered frame; every 8th also against
-        # the plain encoder's bytes of it (q95 4:2:0, both decoded by nvJPEG)
-        back = [f.cpu().numpy() for i in range(0, n_frames, 8)
-                for f in jpeg_cuda.decode_images(out_frames[i:i + 8], dev)]
-        card_db = [psnr(b, r) for b, r in zip(back, rendered)]
+        # each output frame (mp4v, decoded by the port's kernels) against its
+        # rendered frame; every 8th rendered frame through nvJPEG's encoder,
+        # called directly, against the plain encoder (q95 4:2:0, both decoded
+        # by nvJPEG)
+        out_dec = mpeg4_cuda.Decoder(dev, stream.extradata, stream.fourcc)
+        back = [f.cpu().numpy() for i in range(0, n_frames, 8) for f in out_dec.decode(out_frames[i:i + 8])]
+        out_db = [psnr(b, r) for b, r in zip(back, rendered)]
         sampled = list(range(0, n_frames, 8))
+        card_db = {i: psnr(jpeg_cuda.decode_images([jpeg_cuda.encode(torch.from_numpy(rendered[i]).to(dev))], dev)[0]
+                           .cpu().numpy(), rendered[i]) for i in sampled}
         plain_db = [psnr(jpeg_cuda.decode_images([jpeg.encode(rendered[i], 95)], dev)[0].cpu().numpy(), rendered[i])
                     for i in sampled]
         gap = max(p - card_db[i] for p, i in zip(plain_db, sampled))
@@ -3776,18 +3797,23 @@ def video_phase(dev, label):
               f"nvJPEG's output lies {gap:.2f} dB below the plain encoder's on a frame (gate "
               f"{jpeg_cuda.ENCODE_GATE_DB} dB)")
         record["pixels"] = {"replay_equal_frames": n_frames, "overlay_equal_frames": overlay_equal,
-                            "output_psnr_db": [min(card_db), max(card_db)],
+                            "output_psnr_db": [min(out_db), max(out_db)],
+                            "output_bytes": sum(len(f) for f in out_frames),
+                            "nvjpeg_psnr_db": [min(card_db.values()), max(card_db.values())],
                             "plain_encoder_psnr_db": [min(plain_db), max(plain_db)],
                             "largest_gap_db": gap, "boxes_drawn_frame0": n_boxes}
         print(f"pixels: {n_frames} pipeline frames == the synchronous predict_raw replay bit for bit; the overlay on "
-              f"the card == numpy on frames 0 and {n_frames - 1}; the output frames decode (nvJPEG) to "
-              f"{min(card_db):.2f}-{max(card_db):.2f} dB PSNR of their rendered frames; on {len(sampled)} of them the "
-              f"plain encoder's bytes give {min(plain_db):.2f}-{max(plain_db):.2f} dB, nvJPEG's at most {gap:.3f} dB "
-              f"below (gate {jpeg_cuda.ENCODE_GATE_DB} dB); {n_boxes} boxes drawn on frame 0 at vis-thresh "
-              f"{thresh} [{label}]", flush=True)
+              f"the card == numpy on frames 0 and {n_frames - 1}; detection_out.mp4 ({sum(len(f) for f in out_frames)} "
+              f"bytes of mp4v) decodes (the port's kernels) to {min(out_db):.2f}-{max(out_db):.2f} dB PSNR of the "
+              f"rendered frames; nvJPEG's encoder on {len(sampled)} of them {min(card_db.values()):.2f}-"
+              f"{max(card_db.values()):.2f} dB, the plain encoder {min(plain_db):.2f}-{max(plain_db):.2f} dB, "
+              f"nvJPEG at most {gap:.3f} dB below (gate {jpeg_cuda.ENCODE_GATE_DB} dB); {n_boxes} boxes drawn on "
+              f"frame 0 at vis-thresh {thresh} [{label}]", flush=True)
         del rendered, back
 
+        secs["pixels"] = time.perf_counter() - t_sub
         # ---- 16e. the committed clips (cv2's writers, a DHT-less copy) and the JPEG forms
+        t_sub = time.perf_counter()
         first = {}
         for name in ("cv2_mjpeg.avi", "ffmpeg_mjpeg.avi", "dht_less.avi"):
             reset()
@@ -3834,7 +3860,9 @@ def video_phase(dev, label):
               + "; ".join(f"{k} {v}" for k, v in forms.items()) + f"; colour launches by mode (whole script so "
               f"far) {jpeg_cuda.color_mode_launches} [{label}]", flush=True)
 
+        secs["committed clips, JPEG forms"] = time.perf_counter() - t_sub
         # ---- 16f. each stage per 1024x2048 frame (synchronised around each)
+        t_sub = time.perf_counter()
         stage = dict.fromkeys(("read", "decode", "resize", "serve", "nms 0.95", "overlay", "draw", "encode",
                                "write"), 0.0)
 
@@ -3868,26 +3896,29 @@ def video_phase(dev, label):
         overs = [timed("overlay", lambda: draw.seg_overlay_tensor(f, s, detector.palette)) for f, s in zip(frames, segs)]
         drawn = [timed("draw", lambda: detector.draw_boxes(o.cpu().numpy(), d, thresh)) for o, d in zip(overs, kept)]
         del overs
-        encoded = [timed("encode", lambda: video.encode_frame(img, dev)) for img in drawn]
-        with avi.AviWriter(work / "stages.avi", FW, FH, 25) as writer:
+        encoder = mpeg4.Encoder(FW, FH)
+        encoded = [timed("encode", lambda: encoder.encode(torch.from_numpy(img).to(dev))) for img in drawn]
+        with mp4.Mp4Writer(str(work / "stages.mp4"), FW, FH, encoder.config, 25) as writer:
             for e in encoded:
-                timed("write", lambda: writer.write(e))
+                timed("write", lambda: writer.write(*e))
         per_frame = {k: v * 1e3 / n_frames for k, v in stage.items()}
         t0 = time.perf_counter()
         detector.detect_and_visualize(str(clip), str(work / "again"), thresh)
         total_ms = (time.perf_counter() - t0) * 1e3 / n_frames
-        # the encoder alone: host time per call, device time under the profiler
+        # the mp4v writer alone (an I-VOP): host time per call (its bytes come
+        # back to the host, so the call waits for the card), device time
+        # under the profiler
         img = torch.from_numpy(drawn[0]).to(dev)
         for _ in range(3):
-            jpeg_cuda.encode(img)
+            mpeg4.encode_vop(img, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(20):
-            jpeg_cuda.encode(img)
+            mpeg4.encode_vop(img, 0)
         enc_host_us = (time.perf_counter() - t0) / 20 * 1e6
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
-                jpeg_cuda.encode(img)
+                mpeg4.encode_vop(img, 0)
             torch.cuda.synchronize()
         enc_dev_us = sum(e.device_time for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA) / 20
@@ -3899,9 +3930,10 @@ def video_phase(dev, label):
             f"{k} {v:.3f} ms" for k, v in per_frame.items()) + f"; stages summed {sum(per_frame.values()):.3f} ms; "
             f"detect_and_visualize end to end {total_ms:.3f} ms/frame ({1e3 / total_ms:.2f} frames/s, the graphs "
             f"captured in the call); multi_demo with the model build {secs['multi_demo'] * 1e3 / n_frames:.3f} "
-            f"ms/frame; nvJPEG encoder {enc_host_us:.1f} us host (a call, its wait included), {enc_dev_us:.1f} us "
-            f"device per frame [{label}]", flush=True)
+            f"ms/frame; mp4v writer (an I-VOP) {enc_host_us:.1f} us host (a call, its wait included), "
+            f"{enc_dev_us:.1f} us device per frame [{label}]", flush=True)
         launches["nms_keep_mask"]["video_checks"] = nms_cuda.launches
+        secs["stages, end to end, writer"] = time.perf_counter() - t_sub
     finally:
         shutil.rmtree(work, ignore_errors=True)
     record["seconds"] = secs
@@ -4708,6 +4740,342 @@ def jpeg2000_phase(dev, label):
     return launches, timings, record
 
 
+MP4V_KERNELS = {"mp4v_parse": "mp4v_parse_kernel", "mp4v_recon": "mp4v_recon_kernel",
+                "yuv420_to_bgr": "yuv420_to_bgr_kernel"}
+
+
+def _plain_parse(args):
+    """One VOP through the plain entropy stage (a pool worker's job)."""
+    from dspnet_torch.data import mpeg4
+
+    sample, config, bit, kind, qp, fcode, thr = args
+    vol = mpeg4.parse_config(config)
+    t0 = time.perf_counter()
+    mb, levels = mpeg4.parse_vop(sample, vol, mpeg4.VopHeader(kind, True, 0, thr, qp, fcode, 0, bit))
+    return mb, levels, time.perf_counter() - t0
+
+
+def mp4v_phase(dev, label):
+    """Phase 20: MPEG-4 Part 2 through the three kernels of ``csrc/mpeg4.cu``
+    (``data/mpeg4_cuda.py``). Every committed form of
+    ``tests/fixtures/mp4v_forms/`` decoded on the card against cv2's sha256
+    per frame (cv2's 2048x1024 clip among them: half-pel MVs with f_code up
+    to 6, both rounding types, intra macroblocks in P-VOPs, MVs off the
+    frame's edges), each kernel against its plain version bit for bit stage
+    by stage (the plain parse over a process pool), the refusals by name; a
+    1024x2048 textured clip of 24 frames (two GOPs) written by the port on
+    the card, its kernels against their plain versions and timed; ``multi_demo
+    --images clip.mp4`` at resnet-50_multi 512x1024 bf16 (seed 20) with the
+    launches counted, its ``detection_out.mp4`` read back by the port's
+    decoder, each stage's ms per frame, the writer's bytes and PSNR. Returns
+    ({kernel: {path: launches}}, {kernel: times and the largest difference
+    from its plain version}, record)."""
+    import hashlib
+    import multiprocessing
+    import os
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.data import avi, jpeg, jpeg_cuda, mp4, mpeg4, mpeg4_cuda
+    from dspnet_torch.data.device_pipeline import resize_linear
+    from dspnet_torch.detect import video
+    from dspnet_torch.detect.pipeline import ServingPipeline
+    from dspnet_torch.ops import nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils import draw
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    net, n_frames, FH, FW, thresh = "resnet-50_multi", 24, 1024, 2048, 0.3
+    fixture = ROOT / "tests" / "fixtures" / "mp4v_forms"
+    meta = json.loads((fixture / "forms.json").read_text())
+    launches = {"nms_keep_mask": {}, **{k: {} for k in MP4V_KERNELS}}
+    record, secs, timings = {}, {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mp4v_", dir=ROOT / "build"))
+    workers = min(8, os.cpu_count() or 1)
+
+    def reset():
+        for d in (mpeg4_cuda.launches, mpeg4_cuda.plain_calls):
+            d.update(dict.fromkeys(d, 0))
+        nms_cuda.launches = jpeg_cuda.images = jpeg.decodes = mpeg4.encodes = 0
+
+    def sha(t):
+        return hashlib.sha256(np.ascontiguousarray(t.cpu().numpy() if torch.is_tensor(t) else t).tobytes()).hexdigest()
+
+    def psnr(a, b):
+        mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+        return 10 * np.log10(255.0 ** 2 / mse)
+
+    err = dict.fromkeys(MP4V_KERNELS, 0)
+
+    def largest(a, b):
+        return int((torch.as_tensor(a).cpu().to(torch.int32) - torch.as_tensor(b).cpu().to(torch.int32)).abs().max())
+
+    def stagewise(samples, config, fourcc, pmap):
+        """Each batch of 8 through the kernels and their plain versions on
+        the same inputs, the largest difference of each kept in ``err``;
+        -> (frames, plain seconds by kernel)."""
+        dec = mpeg4_cuda.Decoder(dev, config, fourcc)
+        frames, plain = [], dict.fromkeys(MP4V_KERNELS, 0.0)
+        for i in range(0, len(samples), 8):
+            chunk = samples[i:i + 8]
+            headers = [mpeg4.read_vop_header(x, dec.vol) for x in chunk]
+            coded = [(x, h) for x, h in zip(chunk, headers) if h.coded]
+            if not coded:
+                continue
+            bits, vops = mpeg4_cuda.stage([c[0] for c in coded], [c[1] for c in coded], dev)
+            mb, levels = mpeg4_cuda.parse(bits, vops, dec.vol)
+            jobs = [(x, config if config else x, h.bitpos, h.kind, h.qp, h.fcode, h.dc_threshold) for x, h in coded]
+            if not config:  # the VOL is in band: parse it from the first sample of the stream
+                jobs = [(x, samples[0], *rest) for x, _, *rest in jobs]
+            for k, (mb_ref, lv_ref, s_ref) in enumerate(pmap(_plain_parse, jobs)):
+                plain["mp4v_parse"] += s_ref
+                err["mp4v_parse"] = max(err["mp4v_parse"], largest(mb[k], mb_ref), largest(levels[k], lv_ref))
+                check(np.array_equal(mb[k].cpu().numpy(), mb_ref) and np.array_equal(levels[k].cpu().numpy(), lv_ref),
+                      f"mp4v_parse_kernel != plain on VOP {i + k}")
+            for k, (_, hdr) in enumerate(coded):
+                ref = dec.ref if hdr.kind == "P" else None
+                planes = mpeg4_cuda.recon(mb[k], levels[k], dec.vol, hdr.rounding, ref)
+                t0 = time.perf_counter()
+                want = mpeg4_cuda.recon_ref(mb[k].cpu(), levels[k].cpu(), dec.vol, hdr.rounding,
+                                            None if ref is None else tuple(p.cpu() for p in ref))
+                plain["mp4v_recon"] += time.perf_counter() - t0
+                err["mp4v_recon"] = max(err["mp4v_recon"], *(largest(p, w) for p, w in zip(planes, want)))
+                check(all(torch.equal(p.cpu(), w) for p, w in zip(planes, want)), f"mp4v_recon_kernel != plain, VOP {i + k}")
+                dec.ref = planes
+                frame = mpeg4_cuda.yuv420_to_bgr(*planes, dec.vol.height, dec.vol.width)
+                t0 = time.perf_counter()
+                host = mpeg4.yuv420_to_bgr(*(p.cpu() for p in planes), dec.vol.height, dec.vol.width)
+                plain["yuv420_to_bgr"] += time.perf_counter() - t0
+                err["yuv420_to_bgr"] = max(err["yuv420_to_bgr"], largest(frame, host))
+                check(torch.equal(frame.cpu(), host), f"yuv420_to_bgr_kernel != plain, VOP {i + k}")
+                frames.append(frame)
+        return frames, plain
+
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        # ---- 20a. the committed forms: cv2's sha256, kernels == plain, refusals
+        t0 = time.perf_counter()
+        n_forms = n_vops = 0
+        for name, m in sorted(meta.items()):
+            with avi.open_video(fixture / name) as reader:
+                samples, stream = list(reader), reader.stream
+            if m["source"] == "refusal":
+                reset()
+                try:
+                    mpeg4_cuda.Decoder(dev, stream.extradata, stream.fourcc).decode(samples)
+                    check(False, f"{name}: decoded, expected a refusal naming {m['refused']!r}")
+                except avi.VideoError as e:
+                    check(m["refused"] in str(e), f"{name}: the refusal does not name {m['refused']!r}: {e}")
+                check(sum(mpeg4_cuda.launches.values()) == 0, f"{name}: launched before refusing")
+                continue
+            reset()
+            dec = mpeg4_cuda.Decoder(dev, stream.extradata, stream.fourcc)
+            frames = [f for i in range(0, len(samples), 8) for f in dec.decode(samples[i:i + 8])]
+            want = m.get("port_bgr_sha256", m["bgr_sha256"])  # an odd height: the port's own frames
+            check([sha(f) for f in frames] == want, f"{name}: frames != cv2's sha256")
+            check(mpeg4_cuda.plain_calls == dict.fromkeys(MP4V_KERNELS, 0) and
+                  mpeg4_cuda.launches["mp4v_recon"] == len(frames) == mpeg4_cuda.launches["yuv420_to_bgr"],
+                  f"{name}: launches {mpeg4_cuda.launches}, plain calls {mpeg4_cuda.plain_calls}")
+            again, _ = stagewise(samples, stream.extradata, stream.fourcc, pool.map)
+            check([sha(f) for f in again] == want, f"{name}: stagewise frames != cv2's sha256")
+            n_forms += 1
+            n_vops += len(frames)
+        secs["forms"] = time.perf_counter() - t0
+        n_refused = sum(m["source"] == "refusal" for m in meta.values())
+        record["forms"] = {"decoded": n_forms, "frames": n_vops, "refused": n_refused}
+        print(f"mp4v forms on the card: {n_forms} streams, {n_vops} frames == cv2's sha256 through the three kernels "
+              f"(plain calls 0), each kernel == its plain version on every VOP; {n_refused} refusals by name; "
+              f"{secs['forms']:.1f} s [{label}]", flush=True)
+
+        # ---- 20b. a 1024x2048 textured clip of 24 frames written by the port on the card
+        rng = np.random.default_rng(20)
+        base = torch.from_numpy(rng.integers(0, 256, (FH // 8 + 16, FW // 8 + 24, 3), dtype=np.uint8)).to(dev)
+        base = torch.nn.functional.interpolate(base.permute(2, 0, 1)[None].float(), scale_factor=8, mode="bilinear")
+        base = base[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
+        clip = work / "clip.mp4"
+        enc = mpeg4.Encoder(FW, FH)
+        src_frames = [base[2 * i:2 * i + FH, 3 * i:3 * i + FW].contiguous() for i in range(n_frames)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mp4.Mp4Writer(str(clip), FW, FH, enc.config) as writer:
+            for f in src_frames:
+                writer.write(*enc.encode(f))
+        secs["write clip"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with avi.open_video(clip) as reader:
+            samples, stream = list(reader), reader.stream
+        container_ms = (time.perf_counter() - t0) * 1e3
+        vol = mpeg4.parse_config(stream.extradata)
+        t0 = time.perf_counter()
+        headers = [mpeg4.read_vop_header(x, vol) for x in samples]
+        headers_ms = (time.perf_counter() - t0) * 1e3
+        check(len(samples) == n_frames and [h.kind for h in headers].count("I") == 2,
+              f"the clip: {len(samples)} VOPs, kinds {[h.kind for h in headers]}")
+        t0 = time.perf_counter()
+        frames, plain = stagewise(samples, stream.extradata, "mp4v", pool.map)
+        secs["stagewise 1024x2048"] = time.perf_counter() - t0
+        encoded_db = [psnr(f.cpu().numpy(), s.cpu().numpy()) for f, s in zip(frames, src_frames)]
+        # the kernels timed at the clip's shapes: the parse of the first batch
+        # (8 VOPs, one launch), the reconstruction of an I- and a P-VOP, the
+        # colour of one frame
+        bits, vops = mpeg4_cuda.stage(samples[:8], headers[:8], dev)
+        mb, levels = mpeg4_cuda.parse(bits, vops, vol)
+        i_planes = mpeg4_cuda.recon(mb[0], levels[0], vol, 0, None)
+        n_mb = vol.mb_num
+        plane_bytes = n_mb * 384  # Y, U and V of every macroblock
+        p_planes = mpeg4_cuda.recon(mb[1], levels[1], vol, headers[1].rounding, i_planes)
+        calls = {"mp4v_parse": lambda: mpeg4_cuda.parse(bits, vops, vol),
+                 "mp4v_recon": lambda: mpeg4_cuda.recon(mb[1], levels[1], vol, headers[1].rounding, i_planes),
+                 "yuv420_to_bgr": lambda: mpeg4_cuda.yuv420_to_bgr(*p_planes, FH, FW)}
+        # bytes each function must move (inputs read once, outputs written
+        # once) and its integer operations (counted at the float32 rate)
+        coded_bytes = int(sum(len(x) for x in samples[:8]))
+        nz = int((levels[1] != 0).sum())
+        work_bytes = {"mp4v_parse": coded_bytes + 8 * n_mb * (12 * 4 + 6 * 64 * 2),
+                      "mp4v_recon": n_mb * (12 * 4 + 6 * 64 * 2) + 2 * plane_bytes,
+                      "yuv420_to_bgr": FH * FW * 3 // 2 + FH * FW * 3}
+        ops = {"mp4v_parse": 0, "mp4v_recon": n_mb * 6 * (64 * 20 + 2 * 8 * 40) + 3 * nz,
+               "yuv420_to_bgr": FH * FW * 12}
+        plain_ms = {"mp4v_parse": plain["mp4v_parse"] / n_frames * 8e3, "mp4v_recon": plain["mp4v_recon"] / n_frames * 1e3,
+                    "yuv420_to_bgr": plain["yuv420_to_bgr"] / n_frames * 1e3}
+        per = {}
+        for k, fn in calls.items():
+            dev_us, per_call, how = j2k_device_us(fn, MP4V_KERNELS[k], mpeg4_cuda.launches, k,
+                                                  n=3 if k == "mp4v_parse" else 20)
+            bound = bound_us(work_bytes[k], ops[k])
+            per[k] = {"device_us": dev_us, "launches_per_call": per_call, "how": how,
+                      "host_us": j2k_host_us(fn, n=3 if k == "mp4v_parse" else 20), "max_abs_err": err[k],
+                      "bound_us": bound[0], "bound_by": bound[1], "plain_ms": plain_ms[k], "bytes": work_bytes[k]}
+        timings = per
+        record["1024x2048"] = {"bytes": int(sum(len(x) for x in samples)), "container_ms": container_ms,
+                               "vop_headers_ms": headers_ms, "writer_psnr_db": [min(encoded_db), max(encoded_db)],
+                               "stagewise_s": secs["stagewise 1024x2048"], "kernels": per}
+        print(f"1024x2048 mp4v clip, {n_frames} VOPs (2 GOPs) written by the port on the card in {secs['write clip']:.2f} "
+              f"s ({record['1024x2048']['bytes']} bytes, {min(encoded_db):.2f}-{max(encoded_db):.2f} dB against the "
+              f"source frames): each kernel == its plain version on every VOP; host: container {container_ms:.3f} ms, "
+              f"{n_frames} VOP headers {headers_ms:.3f} ms [{label}]", flush=True)
+        for k, v in per.items():
+            print(f"  {MP4V_KERNELS[k]}: device {v['device_us']:.3f} us/call ({v['launches_per_call']:g} launches, "
+                  f"{v['how']}{', 8 VOPs a launch' if k == 'mp4v_parse' else ''}), host {v['host_us']:.3f} us/call "
+                  f"(wrapper), bound {v['bound_us']:.4f} us ({v['bound_by']}), plain {v['plain_ms']:.3f} ms "
+                  f"({'8 VOPs, summed over ' + str(workers) + ' processes' if k == 'mp4v_parse' else 'one process'}) "
+                  f"[{label}]", flush=True)
+        del base, src_frames, frames
+
+        # ---- 20c. multi_demo on the clip: the counts, the written file
+        src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                           generator=torch.Generator().manual_seed(20))
+        model_dir = work / "model"
+        CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).save(
+            0, MultiTaskSolver(src.model, src.anchors, device=dev).init_state())
+        del src
+        out_dir = work / "out"
+        demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                     "--dtype", "bfloat16", "--vis-thresh", str(thresh), "--out-dir", str(out_dir),
+                     "--device", str(dev), "--images", str(clip)]
+        reset()
+        t0 = time.perf_counter()
+        written = multi_demo.main(demo_args)
+        torch.cuda.synchronize()
+        secs["multi_demo"] = time.perf_counter() - t0
+        slots = 3
+        got = {"nms": nms_cuda.launches, **mpeg4_cuda.launches, "plain_calls": sum(mpeg4_cuda.plain_calls.values()),
+               "mp4v_encodes": mpeg4.encodes, "nvjpeg_images": jpeg_cuda.images}
+        want = {"nms": 2 * slots, "mp4v_parse": n_frames // 8, "mp4v_recon": n_frames, "yuv420_to_bgr": n_frames,
+                "plain_calls": 0, "mp4v_encodes": n_frames, "nvjpeg_images": 0}
+        check(got == want, f"multi_demo on clip.mp4: counts {got}, expected {want}")
+        check(written == [str(out_dir / "detection_out.mp4")], f"multi_demo wrote {written}")
+        for k in MP4V_KERNELS:
+            launches[k]["mp4v_demo"] = got[k]
+        launches["nms_keep_mask"]["mp4v_demo"] = got["nms"]
+        nms_cuda.launches = 0  # the checks below count apart from the demo
+        with avi.open_video(written[0]) as reader:
+            out_samples, out_stream = list(reader), reader.stream
+        check((len(out_samples), out_stream.fps, out_stream.width, out_stream.height, out_stream.fourcc) ==
+              (n_frames, 25.0, FW, FH, "mp4v"), f"detection_out.mp4: {len(out_samples)} VOPs, {out_stream[:5]}")
+        out_dec = mpeg4_cuda.Decoder(dev, out_stream.extradata, out_stream.fourcc)
+        back = [f for i in range(0, n_frames, 8) for f in out_dec.decode(out_samples[i:i + 8])]
+        detector = multi_demo.get_detector(multi_demo.parse_args(demo_args))
+        with avi.open_video(clip) as reader:
+            rendered = list(video.render(detector, reader, thresh, 0.95))
+        out_db = [psnr(b.cpu().numpy(), r) for b, r in zip(back, rendered)]
+        record["demo"] = {"counts": got, "seconds": secs["multi_demo"], "out_bytes_per_frame":
+                          [len(x) for x in out_samples], "out_psnr_db": out_db}
+        print(f"multi_demo {net} {H}x{W} bf16 --images clip.mp4 ({n_frames} frames): {secs['multi_demo']:.2f} s with "
+              f"the model build; counts {got}; detection_out.mp4 read back by the port's decoder: {len(back)} frames, "
+              f"25 fps, {FW}x{FH}; writer bytes per frame {min(len(x) for x in out_samples)}-"
+              f"{max(len(x) for x in out_samples)}, PSNR per frame against the rendered frames {min(out_db):.2f}-"
+              f"{max(out_db):.2f} dB [{label}]", flush=True)
+
+        # ---- 20d. each stage per 1024x2048 frame (synchronised around each)
+        stage = dict.fromkeys(("read", "headers", "parse", "recon", "colour", "resize", "serve", "nms 0.95",
+                               "overlay", "draw", "encode", "write"), 0.0)
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stage[name] += time.perf_counter() - t
+            return out
+
+        with avi.open_video(clip) as reader:
+            samples = timed("read", lambda: list(reader))
+        dec = mpeg4_cuda.Decoder(dev, stream.extradata, "mp4v")
+        frames = []
+        for i in range(0, n_frames, 8):
+            chunk = samples[i:i + 8]
+            hdrs = timed("headers", lambda: [mpeg4.read_vop_header(x, dec.vol) for x in chunk])
+            b_, v_ = mpeg4_cuda.stage(chunk, hdrs, dev)
+            mb_, lv_ = timed("parse", lambda: mpeg4_cuda.parse(b_, v_, dec.vol))
+            for k, h in enumerate(hdrs):
+                dec.ref = timed("recon", lambda: mpeg4_cuda.recon(mb_[k], lv_[k], dec.vol, h.rounding,
+                                                                  dec.ref if h.kind == "P" else None))
+                frames.append(timed("colour", lambda: mpeg4_cuda.yuv420_to_bgr(*dec.ref, FH, FW)))
+        raws = [timed("resize", lambda: resize_linear(f, (H, W))) for f in frames]
+        pipe = ServingPipeline(detector, depth=2, raw=True)
+        for r in raws[:3]:
+            pipe.submit(r)
+        list(pipe.drain())
+
+        def serve_all():
+            res = [pipe.submit(r) for r in raws]
+            return [x for x in res if x is not None] + list(pipe.drain())
+
+        results = [x[1] for x in timed("serve", serve_all)]
+        rows = [detector._filter_rows(r["det"][0], 0.0) for r in results]
+        kept = [timed("nms 0.95", lambda: video.second_nms(d, (H, W), 0.95)) for d in rows]
+        segs = [torch.from_numpy(r["seg"][0]) for r in results]
+        overs = [timed("overlay", lambda: draw.seg_overlay_tensor(f, s_, detector.palette)) for f, s_ in zip(frames, segs)]
+        drawn = [timed("draw", lambda: detector.draw_boxes(o.cpu().numpy(), d, thresh)) for o, d in zip(overs, kept)]
+        del overs, frames, raws
+        encoder = mpeg4.Encoder(FW, FH)
+        encoded = [timed("encode", lambda: encoder.encode(torch.from_numpy(img).to(dev))) for img in drawn]
+        with mp4.Mp4Writer(str(work / "stages.mp4"), FW, FH, encoder.config, 25) as writer:
+            for e in encoded:
+                timed("write", lambda: writer.write(*e))
+        per_frame = {k: v * 1e3 / n_frames for k, v in stage.items()}
+        t0 = time.perf_counter()
+        detector.detect_and_visualize(str(clip), str(work / "again"), thresh)
+        total_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+        record["stage_ms"] = per_frame
+        record["total_ms_per_frame"] = total_ms
+        print(f"mp4v video per {FH}x{FW} frame ({n_frames} frames, each stage synchronised; parse per batch of 8 "
+              f"VOPs spread over its frames): " + ", ".join(f"{k} {v:.3f} ms" for k, v in per_frame.items())
+              + f"; stages summed {sum(per_frame.values()):.3f} ms; detect_and_visualize end to end {total_ms:.3f} "
+              f"ms/frame ({1e3 / total_ms:.2f} frames/s) [{label}]", flush=True)
+        launches["nms_keep_mask"]["mp4v_checks"] = nms_cuda.launches
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = secs
+    record["max_abs_err"] = err
+    print(json.dumps({"mp4v_phase": record}), flush=True)
+    return launches, timings, record
+
+
 def probe_codec_libraries():
     """ROADMAP Queue A items 20 and 24 and Queue C item 4: which of the
     Video Codec SDK's headers and libraries (NVDEC / NVENC), libjpeg /
@@ -4795,7 +5163,8 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
-                                   _build.CSRC / "jpeg2000.cu", *BASELINE_SOURCES, COLOUR_BASELINE])
+                                   _build.CSRC / "jpeg2000.cu", _build.CSRC / "mpeg4.cu", *BASELINE_SOURCES,
+                                   COLOUR_BASELINE])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for lib in libs:
@@ -4845,6 +5214,10 @@ def main():
         return 0
     if "--jpeg2000-only" in sys.argv[1:]:
         timed_phase("19 JPEG 2000", jpeg2000_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--mp4v-only" in sys.argv[1:]:
+        timed_phase("20 MPEG-4 Part 2", mp4v_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -5044,11 +5417,12 @@ def main():
     forms_launches, forms_record = timed_phase("17 JPEG forms", jpeg_forms_phase, dev, label)
     image_launches, _ = timed_phase("18 image formats", image_formats_phase, dev, label)
     j2k_launches, j2k_times, _ = timed_phase("19 JPEG 2000", jpeg2000_phase, dev, label)
+    mp4v_launches, mp4v_times, _ = timed_phase("20 MPEG-4 Part 2", mp4v_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
 
-    # ---- 20. results: launches summed over the paths, each counted from 0
+    # ---- 21. results: launches summed over the paths, each counted from 0
     by_path = {"nms_keep_mask": {"serving": launches, "cli": cli_launches["nms_keep_mask"],
                                  "real_data": real_launches["nms_keep_mask"], **ref_launches["nms_keep_mask"],
                                  "ssd": ssd_launches["nms_keep_mask"], "options": opt_launches["nms_keep_mask"],
@@ -5056,7 +5430,7 @@ def main():
                                  "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"],
                                  **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"],
                                  **forms_launches["nms_keep_mask"], **image_launches["nms_keep_mask"],
-                                 **j2k_launches["nms_keep_mask"]},
+                                 **j2k_launches["nms_keep_mask"], **mp4v_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
@@ -5129,6 +5503,20 @@ def main():
                                  ("idwt_kernel", "idwt", "dwt.c (inverse 5/3 and 9/7 wavelets, dequantisation)"),
                                  ("mct_store_kernel", "mct_store",
                                   "mct.c (inverse RCT / ICT) + tcd.c's DC shift and clipping + cv2's copy"))],
+        *[{"name": MP4V_KERNELS[key], "route": "cuda", "source": "dspnet_torch/csrc/mpeg4.cu",
+           "replaces": f"FFmpeg's {lib} behind cv2.VideoCapture (dspnet_tpu/detect/detector.py:289), not a TPU kernel",
+           "launches": sum(mp4v_launches[key].values()), "launches_by_path": mp4v_launches[key],
+           "max_abs_err": mp4v_times[key]["max_abs_err"],
+           "ms": mp4v_times[key]["device_us"] / 1e3, "plain_ms": mp4v_times[key]["plain_ms"],
+           "bound_ms": mp4v_times[key]["bound_us"] / 1e3, "bound_by": mp4v_times[key]["bound_by"],
+           "library_ms": None, "at": at, "host_us": mp4v_times[key]["host_us"], "how": mp4v_times[key]["how"],
+           "launches_per_call": mp4v_times[key]["launches_per_call"]}
+          for key, lib, at in (("mp4v_parse", "mpeg4videodec.c / h263dec.c macroblock layer (VLCs, MV and AC/DC "
+                                              "prediction, scans)", "8 VOPs of 1024x2048 in one launch"),
+                               ("mp4v_recon", "unquantize, x86 simple IDCT and hpeldsp motion compensation",
+                                "one 1024x2048 P-VOP"),
+                               ("yuv420_to_bgr", "swscale's unscaled YUV420P -> BGR24 (x86 SIMD rule)",
+                                "one 1024x2048 frame"))],
     ]}))
     print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,12 +13,14 @@ the card (nvJPEG and the colour kernel), the resize and the network run
 there; ``--device cpu`` runs everything on the CPU. ``--seg-fast`` serves
 the score-then-upsample seg head (as trained with ``multi_train
 --seg-fast``). One ``--images`` path ending in ``.avi`` or ``.mp4`` is a
-video: a Motion-JPEG AVI is decoded, served and encoded on the card into
-``detection_out.avi`` under ``--out-dir`` (``detect/video.py``); an MP4
-raises with its codec's name (H.264 and mp4v wait for NVDEC).
+video: a Motion-JPEG AVI, an MPEG-4 Part 2 AVI (XVID, DIVX, FMP4, ...) or
+an mp4v MP4 is decoded, served and encoded on the card into
+``detection_out.mp4`` (mp4v, 25 fps) under ``--out-dir``
+(``detect/video.py``); another codec (H.264, HEVC, AV1, VP9) raises with its
+name.
 
     python -m dspnet_torch.cli.multi_demo --network resnet-50_multi \\
-        --data-shape 3,512,1024 --images clip.avi --out-dir out
+        --data-shape 3,512,1024 --images clip.mp4 --out-dir out
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
-"""Motion-JPEG in AVI, read and written without cv2: the port's counterpart
-of ``cv2.VideoCapture`` / ``cv2.VideoWriter`` in the JAX demo's video branch
+"""Motion-JPEG and MPEG-4 Part 2 in AVI, read without cv2, and Motion-JPEG
+AVI written: the port's counterpart of ``cv2.VideoCapture`` /
+``cv2.VideoWriter`` in the JAX demo's video branch
 (``dspnet_tpu/detect/detector.py:289,313``).
 
-Each frame of such a file is one JPEG, so the frames' pixels come from the
+A stream's ``codec`` says which decoder its frames take. Each frame of a
+Motion-JPEG file is one JPEG, so the frames' pixels come from the
 port's JPEG decoders (nvJPEG and the colour kernel on the card, the plain
 decoder on the CPU: ``data/jpeg_cuda.py``), which follow libjpeg, cv2's own
 MJPEG backend (``CAP_OPENCV_MJPEG``). cv2's FFmpeg backend decodes the same
@@ -16,9 +18,13 @@ lists in file order, the first ``RIFF AVI`` one and the OpenDML ``RIFF
 AVIX`` continuations, taking the stream's ``NNdc`` / ``NNdb`` chunks and
 stepping over ``JUNK``, index chunks and the pad byte after an odd-sized
 chunk; it reads no index (``idx1``, ``indx``), so a file without one reads
-the same. A fourcc other than Motion-JPEG's (``MJPG``, ``mjpg``, ``AVDJ``,
-``jpeg``, ``JPEG``) raises and names it, and so does an interlaced frame (an
-``AVI1`` APP0 marking a field pair).
+the same. Motion-JPEG's fourccs (``MJPG``, ``mjpg``, ``AVDJ``, ``jpeg``,
+``JPEG``) give ``codec`` "mjpeg", and an interlaced frame (an ``AVI1`` APP0
+marking a field pair) raises. The MPEG-4 Part 2 fourccs that cv2's FFmpeg
+maps to its ``mpeg4`` decoder (:data:`MPEG4_FOURCCS`: ``XVID``, ``DIVX``,
+``DX50``, ``FMP4``, ``MP4V``, ``mp4v`` and the others measured) give
+"mpeg4": each frame chunk is one VOP, the VOL headers in band
+(``data/mpeg4_cuda.py`` decodes them). Every other fourcc raises and names it.
 
 :class:`AviWriter` writes AVI 1.0 with ``idx1`` (fourcc ``MJPG``, 25 frames
 per second by default as the JAX branch writes), the OpenDML header list
@@ -30,20 +36,29 @@ an ``idx1``) and stops at a continuation without them, so each ``AVIX``
 segment here also repeats the header list and ends with an ``idx1`` of its
 own frames; FFmpeg and this reader step over both.
 
-:func:`probe_mp4` reads an MP4's first video sample entry (``stsd``) and
-:func:`open_video` raises with its codec's name: H.264, HEVC and MPEG-4 Part
-2 decoding waits for the Video Codec SDK's declarations in the repository
-(NVDEC), and the port demuxes no MP4.
+:func:`open_video` opens an AVI as :class:`AviReader` and an MP4 as
+``data/mp4.py``'s ``Mp4Reader``, which reads an ``mp4v`` track and refuses
+every other codec by name (H.264, HEVC, AV1, VP9, ...). :func:`probe_mp4`
+lives in ``data/mp4.py`` now and is imported here for its callers.
 """
 
 from __future__ import annotations
 
 import os
 import struct
-from typing import BinaryIO, Iterator, List, NamedTuple, Optional, Tuple
+from typing import BinaryIO, Iterator, List, Optional, Tuple, Union
+
+from dspnet_torch.data import mp4
+from dspnet_torch.data.mp4 import Stream, VideoError, probe_mp4  # noqa: F401 (probe_mp4 moved to mp4.py)
 
 #: BITMAPINFOHEADER compression fourccs of Motion-JPEG
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVDJ", b"jpeg", b"JPEG")
+#: fourccs of MPEG-4 Part 2 that cv2's FFmpeg reads with its ``mpeg4``
+#: decoder (each checked here with a cv2-written clip whose header was
+#: given that fourcc)
+MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"MP4V", b"mp4v",
+                 b"MP4S", b"mp4s", b"M4S2", b"m4s2", b"DIV1", b"div1", b"BLZ0", b"FFDS", b"3IV2", b"SEDG",
+                 b"WV1F", b"DXGM", b"PM4V", b"SMP4", b"XVIX", b"SIPP", b"RMP4")
 #: the size at which the writer starts the next RIFF segment (OpenDML)
 RIFF_LIMIT = 1 << 30
 #: super index entries the writer reserves: one per RIFF segment
@@ -53,27 +68,13 @@ _AVIF_HASINDEX, _AVIF_ISINTERLEAVED, _AVIF_TRUSTCKTYPE = 0x10, 0x100, 0x800
 _AVIIF_KEYFRAME = 0x10
 
 
-class VideoError(ValueError):
-    """A video file the port does not read, or a broken one."""
-
-
-class Stream(NamedTuple):
-    """What the header list says of the first video stream."""
-
-    width: int
-    height: int
-    fps: float
-    fourcc: str
-    #: frames the header declares (the main header's, or OpenDML's total)
-    declared_frames: int
-
-
 def _fourcc(b: bytes) -> str:
     return b.decode("latin-1")
 
 
 class AviReader:
-    """The frames of a Motion-JPEG AVI, as JPEG bytes in file order.
+    """The frames of a Motion-JPEG or MPEG-4 Part 2 AVI, as each frame
+    chunk's bytes (a JPEG, or a VOP) in file order.
 
     ``stream`` holds the size, frames per second and fourcc; ``len()`` is the
     number of frame chunks found; iterating yields each frame's bytes."""
@@ -146,14 +147,17 @@ class AviReader:
         scale, rate = struct.unpack("<II", strh[20:28])
         width, height = struct.unpack("<ii", strf[4:12])
         compression = strf[16:20]
-        if compression not in MJPEG_FOURCCS:
+        if compression not in MJPEG_FOURCCS + MPEG4_FOURCCS:
             raise VideoError(f"{self.path}: the video stream is coded as {_fourcc(compression)!r} "
-                             f"(fourcc {compression!r}); the port reads Motion-JPEG AVI only "
-                             f"({', '.join(_fourcc(f) for f in MJPEG_FOURCCS)})")
+                             f"(fourcc {compression!r}); the port reads Motion-JPEG "
+                             f"({', '.join(_fourcc(f) for f in MJPEG_FOURCCS)}) and MPEG-4 Part 2 "
+                             f"({', '.join(_fourcc(f) for f in MPEG4_FOURCCS)}) AVI; write the clip as mp4v "
+                             "or Motion-JPEG")
         if scale == 0 or rate == 0:
             raise VideoError(f"{self.path}: the video stream's rate is {rate}/{scale}")
         (total,) = struct.unpack("<I", avih[16:20])
-        stream = Stream(width, abs(height), rate / scale, _fourcc(compression), dmlh if dmlh else total)
+        codec = "mjpeg" if compression in MJPEG_FOURCCS else "mpeg4"
+        stream = Stream(width, abs(height), rate / scale, _fourcc(compression), dmlh if dmlh else total, codec)
         ids = (f"{index:02d}dc".encode(), f"{index:02d}db".encode())
         return stream, ids
 
@@ -198,7 +202,8 @@ class AviReader:
     def __iter__(self) -> Iterator[bytes]:
         for pos, size in self._chunks:
             data = self._read(pos, size)
-            _check_frame(data, self.path)
+            if self.stream.codec == "mjpeg":
+                _check_frame(data, self.path)
             yield data
 
     def close(self):
@@ -379,69 +384,19 @@ def _rational(fps: float) -> Tuple[int, int]:
     return round(fps * 1000), 1000
 
 
-# ------------------------------------------------------------------ MP4
-
-#: what stops each MP4 video codec here
-_MP4_CODECS = {
-    "avc1": "H.264", "avc3": "H.264", "hvc1": "HEVC", "hev1": "HEVC", "mp4v": "MPEG-4 Part 2",
-    "av01": "AV1", "vp09": "VP9",
-}
+# ------------------------------------------------------------------ open
 
 
-def _boxes(data: bytes, pos: int, end: int):
-    while pos + 8 <= end:
-        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        head = 8
-        if size == 1:
-            (size,) = struct.unpack(">Q", data[pos + 8:pos + 16])
-            head = 16
-        elif size == 0:
-            size = end - pos
-        if size < head:
-            return
-        yield kind, pos + head, min(pos + size, end)
-        pos += size
-
-
-def probe_mp4(path: str) -> Optional[str]:
-    """The format fourcc of an MP4's first video sample entry (``moov`` /
-    ``trak`` with a ``vide`` handler / ``stsd``), or None when there is
-    none. Reads the boxes only (the whole file, which the port never
-    decodes)."""
-    with open(path, "rb") as f:
-        data = f.read()
-
-    def find(pos, end, kind):
-        return [(p, e) for k, p, e in _boxes(data, pos, end) if k == kind]
-
-    for moov in find(0, len(data), b"moov"):
-        for trak in find(*moov, b"trak"):
-            for mdia in find(*trak, b"mdia"):
-                hdlr = find(*mdia, b"hdlr")
-                if not hdlr or data[hdlr[0][0] + 8:hdlr[0][0] + 12] != b"vide":
-                    continue
-                for minf in find(*mdia, b"minf"):
-                    for stbl in find(*minf, b"stbl"):
-                        for p, e in find(*stbl, b"stsd"):
-                            for kind, _, _ in _boxes(data, p + 8, e):
-                                return _fourcc(kind)
-    return None
-
-
-def open_video(path) -> AviReader:
-    """A video file's frames: a Motion-JPEG AVI opens as :class:`AviReader`;
-    an MP4 raises with its video codec's name; anything else raises."""
+def open_video(path) -> Union[AviReader, mp4.Mp4Reader]:
+    """A video file's frames: an AVI opens as :class:`AviReader`, an MP4 as
+    ``mp4.Mp4Reader`` (an ``mp4v`` track; every other codec raises with its
+    name); anything else raises. Both readers' ``stream.codec`` says
+    "mjpeg" or "mpeg4"."""
     path = str(path)
     with open(path, "rb") as f:
         head = f.read(12)
     if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
         return AviReader(path)
     if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"wide"):
-        fourcc = probe_mp4(path)
-        if fourcc is None:
-            raise VideoError(f"{path}: an MP4 without a video track")
-        codec = _MP4_CODECS.get(fourcc, fourcc)
-        raise VideoError(f"{path}: MP4 video coded as {codec} ({fourcc!r}) is not read: decoding it on the "
-                         "card waits for NVDEC (the Video Codec SDK's declarations are not in the repository), "
-                         "and the port demuxes no MP4; write the clip as Motion-JPEG AVI")
-    raise VideoError(f"{path}: not a video file the port reads (Motion-JPEG AVI)")
+        return mp4.Mp4Reader(path)
+    raise VideoError(f"{path}: not a video file the port reads (Motion-JPEG or MPEG-4 Part 2 AVI, mp4v MP4)")

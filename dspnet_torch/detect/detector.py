@@ -20,7 +20,8 @@ argmax path:
                                a raster font of its own) (:336-399)
   * ``detect_and_visualize`` — image paths -> ``<stem>_out.jpg`` through the
                                port's JPEG encoder (q95 4:2:0, as cv2.imwrite);
-                               a Motion-JPEG AVI -> ``detection_out.avi``
+                               a Motion-JPEG or MPEG-4 Part 2 video ->
+                               ``detection_out.mp4`` as mp4v at 25 fps
                                (``detect/video.py``: decode and encode on the
                                card, ``ServingPipeline`` at depth 2, the 0.95
                                host NMS)
@@ -41,8 +42,9 @@ The detector never mutates the module it is given: it serves its own copy,
 cast to ``dtype`` on ``device`` and in eval mode, and ``update_weights``
 copies new weights into that copy (the JAX Detector's
 ``update_variables``), so a training loop can hand it its weights as they
-move. A video is a Motion-JPEG AVI (``data/avi.py``); an MP4 raises with its
-codec's name (H.264 and mp4v wait for NVDEC), and a webcam id raises: neither
+move. A video is a Motion-JPEG or MPEG-4 Part 2 AVI or an mp4v MP4
+(``data/avi.py``, ``data/mp4.py``); an MP4 of another codec (H.264, HEVC,
+AV1, VP9) raises with its codec's name, and a webcam id raises: neither
 machine has a camera, and the JAX CLI passes ``--images`` as a string, so it
 cannot reach that branch either.
 """
@@ -337,15 +339,15 @@ class Detector:
                              video_nms: float = 0.95) -> List[str]:
         """Image path(s) -> ``<stem>_out.jpg`` under ``out_dir`` each (JPEG
         q95 4:2:0 by ``data/jpeg.py``), or one video path (``.avi`` /
-        ``.mp4``) -> ``detection_out.avi`` (``detect/video.py``, with the
+        ``.mp4``) -> ``detection_out.mp4`` (``detect/video.py``, with the
         reference's second host NMS at ``video_nms``); returns the written
-        paths. A Motion-JPEG AVI is read; an MP4 raises with its codec's name;
-        a webcam id raises."""
+        paths. Motion-JPEG and MPEG-4 Part 2 are read; another codec raises
+        with its name; a webcam id raises."""
         if isinstance(inputs, int):
             raise NotImplementedError(
                 f"webcam {inputs} is not read: neither the card's machine nor the test machine has a camera, "
                 "and the JAX CLI passes --images as a string, so it cannot reach this branch either "
-                "(ROADMAP Queue A item 24); pass a Motion-JPEG AVI")
+                "(ROADMAP Queue A item 24); pass a clip written as mp4v or Motion-JPEG")
         if isinstance(inputs, (str, os.PathLike)) and str(inputs).lower().endswith((".mp4", ".avi")):
             from dspnet_torch.detect import video
 

@@ -1,14 +1,21 @@
 """The video branch of the demo (counterpart of the video branch of
 ``dspnet_tpu/detect/detector.py::Detector.detect_and_visualize``,
-``:284-333``; reference multitask_detector.py:401-458) for Motion-JPEG AVI.
+``:284-333``; reference multitask_detector.py:401-458) for Motion-JPEG AVI
+and MPEG-4 Part 2 (mp4v ``.mp4``; ``XVID``, ``DIVX``, ``FMP4`` and the other
+fourccs of ``data/avi.py`` in ``.avi``).
 
 For each frame, in order:
 
-1. its JPEG bytes come from the file (``data/avi.py``, in place of
-   ``cv2.VideoCapture``);
-2. frames decode in batches on the detector's device (``jpeg_cuda.
-   decode_images``: nvJPEG and the colour kernel on the card, a stream
-   without Huffman tables getting Annex K's; the plain decoder on the CPU);
+1. its bytes come from the file (``data/avi.py`` / ``data/mp4.py``, in
+   place of ``cv2.VideoCapture``), and the stream's ``codec`` picks the
+   decoder;
+2. frames decode in batches of ``DECODE_BATCH`` on the detector's device:
+   Motion-JPEG by ``jpeg_cuda.decode_images`` (nvJPEG and the colour kernel
+   on the card, a stream without Huffman tables getting Annex K's; the plain
+   decoder on the CPU); MPEG-4 Part 2 by ``mpeg4_cuda.Decoder`` on the card
+   (the parse kernel over the batch's VOPs, then the reconstruction and
+   colour kernels VOP by VOP) and on the CPU (those kernels' plain
+   versions); either gives cv2's frames;
 3. ``device_pipeline.resize_linear`` takes the frame to the data shape on
    the device (cv2's ``INTER_LINEAR``, its area rule at an exact 2x);
 4. ``ServingPipeline(depth=2, raw=True)`` serves it, the full frame as the
@@ -20,15 +27,15 @@ For each frame, in order:
    host NMS), then the seg overlay on the device
    (``draw.seg_overlay_tensor``), one copy to the host, the boxes and texts
    in numpy (``Detector.draw_boxes``);
-6. the rendered frame goes back to the device and is encoded there
-   (``jpeg_cuda.encode``: nvJPEG on the card, q95 4:2:0; the plain encoder
-   on the CPU) and appended to ``detection_out.avi`` (``avi.AviWriter``, 25
-   frames per second, the rendered frame's size).
+6. the rendered frame goes back to the device, is encoded there as MPEG-4
+   Part 2 (``mpeg4.Encoder``: torch ops on the frame's device) and appended
+   to ``detection_out.mp4`` (``mp4.Mp4Writer``, mp4v, 25 frames per second,
+   the rendered frame's size, an odd side cut to even as cv2's writer cuts
+   it), as the JAX branch writes it through ``cv2.VideoWriter(fourcc
+   "mp4v")``, whatever the input's codec.
 
-The JAX branch writes ``detection_out.mp4`` as mp4v through cv2; NVENC has
-no mp4v encoder and the port writes Motion-JPEG, so the name ends in
-``.avi``. :func:`render` yields the rendered frames (numpy BGR) without
-encoding them; :func:`detect_video` writes the file.
+:func:`render` yields the rendered frames (numpy BGR) without encoding them;
+:func:`detect_video` writes the file.
 """
 
 from __future__ import annotations
@@ -39,13 +46,13 @@ from typing import Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from dspnet_torch.data import avi, jpeg_cuda
+from dspnet_torch.data import avi, jpeg_cuda, mp4, mpeg4, mpeg4_cuda
 from dspnet_torch.data.device_pipeline import resize_linear
 from dspnet_torch.ops.nms import nms as host_nms
 from dspnet_torch.utils import draw
 
 #: the output file's name under ``out_dir``
-OUT_NAME = "detection_out.avi"
+OUT_NAME = "detection_out.mp4"
 #: frames per second written, as the JAX branch's ``cv2.VideoWriter``
 FPS = 25
 #: frames decoded together on the device
@@ -64,21 +71,34 @@ def second_nms(dets: np.ndarray, data_shape, video_nms: float) -> np.ndarray:
     return dets[host_nms(scaled, video_nms)]
 
 
-def _frames(detector, buffers: Iterable[bytes]) -> Iterator[torch.Tensor]:
-    """Each frame decoded on the detector's device, ``DECODE_BATCH`` at a time."""
+def _chunks(items: Iterable[bytes]) -> Iterator[List[bytes]]:
     chunk = []
-    for data in buffers:
+    for data in items:
         chunk.append(data)
         if len(chunk) == DECODE_BATCH:
-            yield from jpeg_cuda.decode_images(chunk, detector.device)
+            yield chunk
             chunk = []
     if chunk:
-        yield from jpeg_cuda.decode_images(chunk, detector.device)
+        yield chunk
 
 
-def render(detector, buffers: Iterable[bytes], thresh: float = 0.6, video_nms: float = 0.95) -> Iterator[np.ndarray]:
-    """The rendered frames, in order, of the JPEG frames ``buffers``
-    (steps 2-5 of the module's text): (H, W, 3) uint8 BGR numpy arrays."""
+def _frames(detector, reader) -> Iterator[torch.Tensor]:
+    """Each frame of ``reader`` (``avi.open_video``'s, or bare JPEG bytes)
+    decoded on the detector's device, ``DECODE_BATCH`` at a time."""
+    stream = getattr(reader, "stream", None)
+    if stream is None or stream.codec == "mjpeg":
+        for chunk in _chunks(reader):
+            yield from jpeg_cuda.decode_images(chunk, detector.device)
+        return
+    dec = mpeg4_cuda.Decoder(detector.device, stream.extradata, stream.fourcc)
+    for chunk in _chunks(reader):
+        yield from dec.decode(chunk)
+
+
+def render(detector, reader, thresh: float = 0.6, video_nms: float = 0.95) -> Iterator[np.ndarray]:
+    """The rendered frames, in order, of a reader's frames (``avi.open_video``;
+    bare bytes are Motion-JPEG frames), steps 2-5 of the module's text:
+    (H, W, 3) uint8 BGR numpy arrays."""
     from dspnet_torch.detect.pipeline import ServingPipeline
 
     pipe = ServingPipeline(detector, depth=2, raw=True)
@@ -92,7 +112,7 @@ def render(detector, buffers: Iterable[bytes], thresh: float = 0.6, video_nms: f
             img = frame.cpu().numpy().copy()
         return detector.draw_boxes(img, dets, thresh)
 
-    for frame in _frames(detector, buffers):
+    for frame in _frames(detector, reader):
         done = pipe.submit(resize_linear(frame, detector.data_shape), tag=frame)
         if done is not None:
             yield finish(*done)
@@ -100,29 +120,26 @@ def render(detector, buffers: Iterable[bytes], thresh: float = 0.6, video_nms: f
         yield finish(frame, res)
 
 
-def encode_frame(img: np.ndarray, device: torch.device) -> bytes:
-    """A rendered frame as JPEG bytes (q95 4:2:0): on a card uploaded and
-    encoded by nvJPEG, on the CPU by the plain encoder."""
-    t = torch.from_numpy(np.ascontiguousarray(img))
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
-    return jpeg_cuda.encode(t, 95)
-
-
 def detect_video(detector, path, out_dir: str = ".", thresh: float = 0.6, video_nms: float = 0.95) -> List[str]:
-    """A Motion-JPEG AVI through the detector into ``out_dir/detection_out.avi``;
-    returns ``[that path]``, or ``[]`` for a clip without frames (as the JAX
-    branch, which opens its writer at the first frame). An MP4 or any other
-    file raises ``avi.VideoError`` naming what it holds."""
+    """A Motion-JPEG or MPEG-4 Part 2 video through the detector into
+    ``out_dir/detection_out.mp4``; returns ``[that path]``, or ``[]`` for a
+    clip without frames (as the JAX branch, which opens its writer at the
+    first frame). Any other file raises ``avi.VideoError`` naming what it
+    holds."""
     os.makedirs(out_dir, exist_ok=True)
-    writer: Optional[avi.AviWriter] = None
+    writer: Optional[mp4.Mp4Writer] = None
+    encoder: Optional[mpeg4.Encoder] = None
     out = os.path.join(out_dir, OUT_NAME)
     with avi.open_video(path) as reader:
         try:
             for img in render(detector, reader, thresh, video_nms):
+                frame = torch.from_numpy(img)
+                if detector.device.type == "cuda":
+                    frame = frame.pin_memory().to(detector.device, non_blocking=True)
                 if writer is None:
-                    writer = avi.AviWriter(out, img.shape[1], img.shape[0], FPS)
-                writer.write(encode_frame(img, detector.device))
+                    encoder = mpeg4.Encoder(img.shape[1], img.shape[0])
+                    writer = mp4.Mp4Writer(out, encoder.width, encoder.height, encoder.config, FPS)
+                writer.write(*encoder.encode(frame))
         finally:
             if writer is not None:
                 writer.close()

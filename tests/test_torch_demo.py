@@ -23,7 +23,7 @@ from dspnet_tpu.detect.detector import Detector as JaxDetector
 from dspnet_tpu.utils import mxnet_import as jmx
 from dspnet_torch.api import create_model
 from dspnet_torch.cli import multi_demo
-from dspnet_torch.data import avi, image_io, jpeg
+from dspnet_torch.data import avi, image_io, jpeg, mpeg4_cuda
 from dspnet_torch.data.cs_labels import DET_CLASSES
 from dspnet_torch.data.device_pipeline import resize_area, resize_linear
 from dspnet_torch.detect.detector import Detector
@@ -203,8 +203,9 @@ def test_detect_and_visualize_writes_each_image(served, tmp_path):
     """One ``<stem>_out.jpg`` per input (the JAX demo's names): the bytes of
     the port's encoder (q95 4:2:0) on ``visualize_detection`` of
     ``im_detect_single``'s results, at the input's size; an MP4 (mp4v, the
-    committed clip) raises naming its codec, and a webcam id raises saying
-    why (``tests/test_torch_video.py`` holds the Motion-JPEG AVI branch)."""
+    committed clip) is read into ``detection_out.mp4``, an H.264 one raises
+    naming its codec, and a webcam id raises saying why
+    (``tests/test_torch_video.py`` holds the video branch against JAX)."""
     _, _, jdet, pdet, paths = served
     written = pdet.detect_and_visualize(paths, str(tmp_path / "port"), thresh=0.3)
     want = jdet.detect_and_visualize(paths, str(tmp_path / "jax"), thresh=0.3)
@@ -215,8 +216,12 @@ def test_detect_and_visualize_writes_each_image(served, tmp_path):
         assert open(w, "rb").read() == jpeg.encode(vis, 95)
         assert image_io.imread(w).shape == img.shape
     shutil.copy(VIDEO_FIXTURES / "mp4v.mp4", tmp_path / "clip.mp4")
-    with pytest.raises(avi.VideoError, match="video coded as MPEG-4 Part 2 .*NVDEC"):
-        pdet.detect_and_visualize(str(tmp_path / "clip.mp4"), str(tmp_path))
+    assert pdet.detect_and_visualize(str(tmp_path / "clip.mp4"), str(tmp_path)) == [
+        str(tmp_path / "detection_out.mp4")]
+    data = (tmp_path / "clip.mp4").read_bytes()
+    (tmp_path / "h264.mp4").write_bytes(data.replace(b"mp4v", b"avc1"))
+    with pytest.raises(avi.VideoError, match="video coded as H.264 .*mp4v or Motion-JPEG"):
+        pdet.detect_and_visualize(str(tmp_path / "h264.mp4"), str(tmp_path))
     with pytest.raises(NotImplementedError, match="webcam 0 .*camera"):
         pdet.detect_and_visualize(0, str(tmp_path))
 
@@ -226,7 +231,7 @@ def test_import_mxnet_then_multi_demo(served, tmp_path, monkeypatch):
     (--device cpu): the written files decode to the inputs' sizes; bf16
     serving writes the same files list; --seg-fast serves the fast seg head
     from the same checkpoint; ``--images clip.avi`` (the committed cv2-written
-    Motion-JPEG clip) writes ``detection_out.avi``, its 4 frames at the
+    Motion-JPEG clip) writes ``detection_out.mp4``, its 4 frames at the
     clip's size and 25 fps."""
     _, variables, _, _, paths = served
     monkeypatch.chdir(tmp_path)
@@ -247,10 +252,11 @@ def test_import_mxnet_then_multi_demo(served, tmp_path, monkeypatch):
     assert [os.path.basename(w) for w in written] == ["twice_out.jpg"]
     shutil.copy(VIDEO_FIXTURES / "cv2_mjpeg.avi", tmp_path / "clip.avi")
     written = multi_demo.main(net + ["--images", "clip.avi", "--out-dir", str(tmp_path / "video")])
-    assert written == [str(tmp_path / "video" / "detection_out.avi")]
+    assert written == [str(tmp_path / "video" / "detection_out.mp4")]
     with avi.open_video(written[0]) as reader:
         assert (len(reader), reader.stream.width, reader.stream.height, reader.stream.fps) == (4, 256, 128, 25.0)
-        assert all(jpeg.read_header(f) == (128, 256, 3) for f in reader)
+        dec = mpeg4_cuda.Decoder("cpu", reader.stream.extradata, reader.stream.fourcc)
+        assert [f.shape for f in dec.decode(list(reader))] == [(128, 256, 3)] * 4
 
 
 def test_slice_modules_import_no_jax_cv2_or_pil():

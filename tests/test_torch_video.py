@@ -1,16 +1,19 @@
 """The video branch of the port's demo on the CPU against cv2 and the JAX
 package: ``data/avi.py`` (Motion-JPEG AVI read and written) against cv2's
 two backends, the JAX ``detect_and_visualize`` video branch against
-``Detector.detect_and_visualize`` on a Motion-JPEG AVI (resnet-18_multi at
-128x256, 256x512 frames), the second host NMS at 0.95, the seg overlay as
-torch ops, and the refusals (MP4 by codec, a foreign fourcc, an interlaced
-field pair, a webcam).
+``Detector.detect_and_visualize`` on a Motion-JPEG AVI and on a cv2-written
+mp4v MP4 (resnet-18_multi at 128x256, 256x512 frames), the port's
+``detection_out.mp4`` read back by cv2, the second host NMS at 0.95, the seg
+overlay as torch ops, and the refusals (H.264, HEVC, AV1 and VP9 MP4s by
+codec, a foreign AVI fourcc, an interlaced field pair, a webcam).
 
 The JAX branch reads through ``cv2.VideoCapture``, whose backend cv2
-chooses; here it is pinned to cv2's own Motion-JPEG reader
-(``CAP_OPENCV_MJPEG``, libjpeg's pixels), which the port follows. cv2's
-FFmpeg backend decodes the same frames to other pixels: the gap is measured
-and bounded by ``test_ffmpeg_backend_gap``.
+chooses; for the Motion-JPEG clip it is pinned here to cv2's own Motion-JPEG
+reader (``CAP_OPENCV_MJPEG``, libjpeg's pixels), which the port follows.
+cv2's FFmpeg backend decodes the same frames to other pixels: the gap is
+measured and bounded by ``test_ffmpeg_backend_gap``. The mp4v clip goes
+through FFmpeg's ``mpeg4`` decoder (``CAP_FFMPEG``), which the port's
+MPEG-4 decoder follows bit for bit.
 """
 
 import hashlib
@@ -33,7 +36,7 @@ from dspnet_tpu.detect import detector as jax_detector_module
 from dspnet_tpu.detect.detector import Detector as JaxDetector
 from dspnet_tpu.ops.nms import nms as jax_nms
 from dspnet_torch.api import create_model
-from dspnet_torch.data import avi, jpeg, jpeg_cuda, synthetic
+from dspnet_torch.data import avi, jpeg, jpeg_cuda, mp4, mpeg4, mpeg4_cuda, synthetic
 from dspnet_torch.data.cs_labels import DET_CLASSES, train_id_palette
 from dspnet_torch.detect import video
 from dspnet_torch.detect.detector import Detector
@@ -108,20 +111,12 @@ def served(tmp_path_factory):
 # ------------------------------------------------------------ the JAX branch
 
 
-def test_jax_branch_equals_the_port_outside_the_text_boxes(served, tmp_path, monkeypatch):
-    """The JAX ``detect_and_visualize`` on a cv2-written MJPEG AVI, its
-    ``VideoCapture`` pinned to ``CAP_OPENCV_MJPEG`` and its ``VideoWriter``
-    replaced by a recorder of the frames handed to ``write``, against the
-    port's rendered frames on the same weights: as many, in the same order,
-    equal bit for bit outside the text boxes (cv2's Hershey text against the
-    port's raster font, the rule of ``test_visualize_detection_equals_jax_
-    outside_the_text_boxes``), and outside the bands of a box whose corner
-    lands a pixel apart (rows equal within 1e-4 on either side of a pixel
-    edge: at most 1 box in 100); the rows each side drew (after the 0.95
-    NMS) agree within 1e-4, ids equal; the port's ``detection_out.avi`` is
-    read by both cv2 backends with the same count, 25 fps and the frames'
-    size."""
-    _, jdet, pdet, clip = served
+def _jax_branch_vs_port(jdet, pdet, clip, api, tmp_path, monkeypatch):
+    """The JAX ``detect_and_visualize`` on ``clip``, its ``VideoCapture``
+    pinned to the cv2 backend ``api`` and its ``VideoWriter`` replaced by a
+    recorder of the frames handed to ``write``, against the port's rendered
+    frames on the same weights (the comparison of the test below); returns
+    the port's rendered frames."""
     real_capture = cv2.VideoCapture
     recorded, writers = [], []
 
@@ -148,8 +143,7 @@ def test_jax_branch_equals_the_port_outside_the_text_boxes(served, tmp_path, mon
         port_rows.append(np.array(dets, copy=True))
         return port_draw(self, img, dets, thresh)
 
-    monkeypatch.setattr(jax_detector_module.cv2, "VideoCapture",
-                        lambda src: real_capture(src, cv2.CAP_OPENCV_MJPEG))
+    monkeypatch.setattr(jax_detector_module.cv2, "VideoCapture", lambda src: real_capture(src, api))
     monkeypatch.setattr(jax_detector_module.cv2, "VideoWriter", Recorder)
     monkeypatch.setattr(JaxDetector, "visualize_detection", jax_visualize)
     monkeypatch.setattr(Detector, "draw_boxes", port_draw_boxes)
@@ -186,16 +180,78 @@ def test_jax_branch_equals_the_port_outside_the_text_boxes(served, tmp_path, mon
         np.testing.assert_array_equal(g[~inside], w[~inside], err_msg=f"frame {i}")
     print(f"{drawn} boxes drawn in 5 frames, {shifted} a pixel apart between the two packages' rows")
     assert drawn > 0 and shifted <= drawn // 100
-    # the file the port writes, through both cv2 backends
+    return got
+
+
+def test_jax_branch_equals_the_port_outside_the_text_boxes(served, tmp_path, monkeypatch):
+    """The JAX ``detect_and_visualize`` on a cv2-written MJPEG AVI, its
+    ``VideoCapture`` pinned to ``CAP_OPENCV_MJPEG`` and its ``VideoWriter``
+    replaced by a recorder of the frames handed to ``write``, against the
+    port's rendered frames on the same weights: as many, in the same order,
+    equal bit for bit outside the text boxes (cv2's Hershey text against the
+    port's raster font, the rule of ``test_visualize_detection_equals_jax_
+    outside_the_text_boxes``), and outside the bands of a box whose corner
+    lands a pixel apart (rows equal within 1e-4 on either side of a pixel
+    edge: at most 1 box in 100); the rows each side drew (after the 0.95
+    NMS) agree within 1e-4, ids equal; the port writes
+    ``detection_out.mp4`` as the JAX branch names it, mp4v that cv2 reads
+    with the same count, 25 fps and the frames' size (:func:`_check_written`)."""
+    _, jdet, pdet, clip = served
+    got = _jax_branch_vs_port(jdet, pdet, clip, cv2.CAP_OPENCV_MJPEG, tmp_path, monkeypatch)
     written = pdet.detect_and_visualize(clip, str(tmp_path / "port"), thresh=THRESH)
-    assert written == [str(tmp_path / "port" / "detection_out.avi")]
-    with avi.open_video(written[0]) as reader:
-        assert (len(reader), reader.stream.fps, reader.stream.width, reader.stream.height) == (5, 25.0, 512, 256)
-        for data, g in zip(reader, got):
-            assert data == jpeg.encode(g, 95)
-    for api in (cv2.CAP_OPENCV_MJPEG, cv2.CAP_FFMPEG):
-        frames, fps, count, size = _cv2_read(written[0], api)
-        assert (len(frames), fps, count, size) == (5, 25.0, 5, (512, 256)), api
+    assert written == [str(tmp_path / "port" / "detection_out.mp4")]
+    _check_written(written[0], got)
+
+
+def _check_written(path, rendered):
+    """The port's ``detection_out.mp4``: cv2 (FFmpeg) reads as many frames
+    as were rendered, at 25 fps and their size; the port's MPEG-4 decoder
+    returns exactly cv2's frames; their PSNR against the rendered frames is
+    no lower than that of cv2's own mp4v writer on the same frames less 1 dB
+    (both printed: chroma subsampling of the saturated scenes holds both
+    near 20 dB)."""
+    frames, fps, count, size = _cv2_read(path, cv2.CAP_FFMPEG)
+    h, w = rendered[0].shape[:2]
+    assert (len(frames), fps, count, size) == (len(rendered), 25.0, len(rendered), (w, h))
+    with avi.open_video(path) as reader:
+        assert (reader.stream.codec, reader.stream.fourcc) == ("mpeg4", "mp4v")
+        dec = mpeg4_cuda.Decoder("cpu", reader.stream.extradata, reader.stream.fourcc)
+        mine = [f.numpy() for f in dec.decode(list(reader))]
+    assert len(mine) == len(frames) and all(np.array_equal(a, b) for a, b in zip(mine, frames))
+    theirs = Path(path).with_name("cv2_writer.mp4")
+    writer = cv2.VideoWriter(str(theirs), cv2.VideoWriter_fourcc(*"mp4v"), 25, (w, h))
+    for r in rendered:
+        writer.write(r)
+    writer.release()
+
+    def psnr(decoded):
+        return float(np.mean([10 * np.log10(255.0 ** 2 / np.mean((f.astype(np.float64) - r) ** 2))
+                              for f, r in zip(decoded, rendered)]))
+
+    port_db, cv2_db = psnr(frames), psnr(_cv2_read(theirs, cv2.CAP_FFMPEG)[0])
+    print(f"detection_out.mp4: PSNR {port_db:.2f} dB ({os.path.getsize(path)} bytes); cv2's mp4v writer on the "
+          f"same frames {cv2_db:.2f} dB ({os.path.getsize(theirs)} bytes)")
+    assert port_db >= cv2_db - 1.0
+
+
+def test_jax_branch_equals_the_port_on_an_mp4v_clip(served, tmp_path, monkeypatch):
+    """The same comparison on a cv2-written mp4v MP4 (the codec the JAX
+    branch writes): the JAX branch reads it through cv2's FFmpeg backend
+    (``CAP_FFMPEG``, the backend cv2 picks for it), the port through its
+    plain MPEG-4 decoder; equal outside the text boxes; both name
+    ``detection_out.mp4``, and the port's is read back by cv2."""
+    _, jdet, pdet, _ = served
+    clip = tmp_path / "clip.mp4"
+    frames = _frames(3, 5)
+    writer = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"mp4v"), 25, (frames[0].shape[1], frames[0].shape[0]))
+    assert writer.isOpened()
+    for f in frames:
+        writer.write(f)
+    writer.release()
+    got = _jax_branch_vs_port(jdet, pdet, str(clip), cv2.CAP_FFMPEG, tmp_path, monkeypatch)
+    written = pdet.detect_and_visualize(str(clip), str(tmp_path / "port"), thresh=THRESH)
+    assert written == [str(tmp_path / "port" / "detection_out.mp4")]
+    _check_written(written[0], got)
 
 
 def test_ffmpeg_backend_gap(served):
@@ -338,47 +394,63 @@ def _mp4(fourcc: bytes) -> bytes:
 
 
 def test_refusals(served, tmp_path):
-    """An MP4 is refused by its codec's name (the committed mp4v clip from
-    cv2's FFmpeg writer, an avc1 sample entry) through ``avi.open_video`` and
-    ``detect_and_visualize``; an AVI coded otherwise than Motion-JPEG names
-    its fourcc; an interlaced AVI1 field pair is refused; a webcam id raises
-    and says why; no ``detection_out.avi`` is left behind."""
+    """MP4s of other codecs are refused by their codec's name (H.264, HEVC,
+    AV1 and VP9 sample entries) through ``avi.open_video`` and
+    ``detect_and_visualize``, the message saying to write mp4v or
+    Motion-JPEG; the committed mp4v clip and an XVID AVI are read; an AVI
+    coded otherwise than Motion-JPEG or MPEG-4 Part 2 names its fourcc; an
+    interlaced AVI1 field pair is refused; MPEG-4 tools outside Simple
+    Profile (a B-VOP, quarter-pel, a packed bitstream) raise by name through
+    ``detect_and_visualize``; a webcam id raises and says why; no
+    ``detection_out.mp4`` is left behind."""
     _, _, pdet, clip = served
     assert avi.probe_mp4(str(FIXTURE / "mp4v.mp4")) == "mp4v"
-    shutil.copy(FIXTURE / "mp4v.mp4", tmp_path / "clip.mp4")
-    (tmp_path / "h264.mp4").write_bytes(_mp4(b"avc1"))
-    assert avi.probe_mp4(str(tmp_path / "h264.mp4")) == "avc1"
-    for name, codec in (("clip.mp4", "MPEG-4 Part 2 \\('mp4v'\\)"), ("h264.mp4", "H.264 \\('avc1'\\)")):
-        with pytest.raises(avi.VideoError, match=codec + ".*NVDEC"):
+    with avi.open_video(FIXTURE / "mp4v.mp4") as reader:
+        dec = mpeg4_cuda.Decoder("cpu", reader.stream.extradata, reader.stream.fourcc)
+        assert reader.stream.codec == "mpeg4" and len(dec.decode(list(reader))) == len(reader) > 0
+    for fourcc, codec in ((b"avc1", "H.264"), (b"hev1", "HEVC"), (b"av01", "AV1"), (b"vp09", "VP9")):
+        name = f"{fourcc.decode()}.mp4"
+        (tmp_path / name).write_bytes(_mp4(fourcc))
+        assert avi.probe_mp4(str(tmp_path / name)) == fourcc.decode()
+        want = f"{codec} \\('{fourcc.decode()}'\\).*mp4v or Motion-JPEG"
+        with pytest.raises(avi.VideoError, match=want):
             avi.open_video(tmp_path / name)
-        with pytest.raises(avi.VideoError, match=codec):
+        with pytest.raises(avi.VideoError, match=want):
             pdet.detect_and_visualize(str(tmp_path / name), str(tmp_path / "out"))
     data = (FIXTURE / "cv2_mjpeg.avi").read_bytes()
     i = data.index(b"strf") + 8 + 16
     (tmp_path / "xvid.avi").write_bytes(data[:i] + b"XVID" + data[i + 4:])
-    with pytest.raises(avi.VideoError, match="XVID"):
-        avi.open_video(tmp_path / "xvid.avi")
+    with avi.open_video(tmp_path / "xvid.avi") as reader:
+        assert (reader.stream.codec, reader.stream.fourcc) == ("mpeg4", "XVID")
+    (tmp_path / "h264.avi").write_bytes(data[:i] + b"H264" + data[i + 4:])
+    with pytest.raises(avi.VideoError, match="H264.*write the clip as mp4v or Motion-JPEG"):
+        avi.open_video(tmp_path / "h264.avi")
     field = b"\xff\xd8\xff\xe0\x00\x10AVI1\x01" + bytes(9) + jpeg.encode(np.zeros((8, 16, 3), np.uint8))[2:]
     with avi.AviWriter(tmp_path / "fields.avi", 16, 16) as writer:
         writer.write(field)
     with pytest.raises(avi.VideoError, match="interlaced"):
         list(avi.open_video(tmp_path / "fields.avi"))
-    with pytest.raises(NotImplementedError, match="webcam 0 .*camera"):
+    forms = ROOT / "tests" / "fixtures" / "mp4v_forms"
+    for name, tool in (("r_bvop.mp4", "B-VOPs"), ("r_quarter_pel.mp4", "quarter-pel"), ("r_packed.mp4", "packed")):
+        with pytest.raises(avi.VideoError, match=tool):
+            pdet.detect_and_visualize(str(forms / name), str(tmp_path / "out"))
+    with pytest.raises(NotImplementedError, match="webcam 0 .*camera.*mp4v or Motion-JPEG"):
         pdet.detect_and_visualize(0, str(tmp_path / "out"))
     with pytest.raises(FileNotFoundError):
         pdet.detect_and_visualize(str(tmp_path / "missing.avi"), str(tmp_path / "out"))
-    assert not (tmp_path / "out" / "detection_out.avi").exists()
+    assert not (tmp_path / "out" / "detection_out.mp4").exists()
 
 
 def test_the_cpu_path_decodes_and_encodes_with_the_plain_codec(served, tmp_path):
     """On the CPU the video branch decodes with the plain decoder and
-    encodes with the plain encoder (their counts move by the frames; the
-    card's counts do not), and a DHT-less clip reads as its original."""
+    encodes with the MPEG-4 writer on the CPU (their counts move by the
+    frames; the card's counts do not), and a DHT-less clip reads as its
+    original."""
     _, _, pdet, _ = served
-    jpeg.decodes = jpeg.encodes = 0
+    jpeg.decodes = jpeg.encodes = mpeg4.encodes = 0
     launches, encodes = jpeg_cuda.launches, jpeg_cuda.encodes
     written = pdet.detect_and_visualize(str(FIXTURE / "dht_less.avi"), str(tmp_path), thresh=THRESH)
-    assert (jpeg.decodes, jpeg.encodes) == (4, 4)
+    assert (jpeg.decodes, jpeg.encodes, mpeg4.encodes) == (4, 0, 4)
     assert (jpeg_cuda.launches, jpeg_cuda.encodes) == (launches, encodes)
     with avi.open_video(FIXTURE / "dht_less.avi") as bare, avi.open_video(FIXTURE / "cv2_mjpeg.avi") as full:
         for a, b in zip(bare, full):
@@ -389,9 +461,11 @@ def test_the_cpu_path_decodes_and_encodes_with_the_plain_codec(served, tmp_path)
 
 
 def test_video_modules_import_no_jax_cv2_or_pil():
-    """``data/avi.py`` and ``detect/video.py`` (and the demo CLI that
+    """``data/avi.py``, ``data/mp4.py``, ``data/mpeg4.py``,
+    ``data/mpeg4_cuda.py`` and ``detect/video.py`` (and the demo CLI that
     reaches them) load none of jax, flax, cv2, PIL or dspnet_tpu."""
-    modules = ["dspnet_torch.data.avi", "dspnet_torch.detect.video", "dspnet_torch.cli.multi_demo"]
+    modules = ["dspnet_torch.data.avi", "dspnet_torch.data.mp4", "dspnet_torch.data.mpeg4",
+               "dspnet_torch.data.mpeg4_cuda", "dspnet_torch.detect.video", "dspnet_torch.cli.multi_demo"]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'cv2', 'PIL', 'dspnet_tpu')]\n"
