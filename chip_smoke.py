@@ -261,7 +261,15 @@ Phases (any failure ends the run with a non-zero exit):
      ``detection_out.mp4``, read back by the port's decoder (NMS and the
      three kernels launched, plain calls 0); each stage's ms per frame; the
      writer's bytes and PSNR per frame;
- 21. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+ 21. the demo's text as cv2 5.0.0 draws it (``utils/text.py``, no cv2 on the
+     card's machine): the font's sha256, every committed form of
+     tests/fixtures/text_forms/ (python tests/make_text_fixtures.py) drawn
+     on its seeded background equal to cv2's sha256 and its getTextSize to
+     cv2's, each refusal by name, host ms per form and per 1024x2048 frame
+     of 40 labels with the glyph and layout caches cold and warm (phases 16
+     and 20 print the draw stage's ms per frame and the cache's hits and
+     misses);
+ 22. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
      12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's, the
      kernel results (the two TPU kernels' ports, the colour kernel, the three JPEG 2000 kernels and the three
      MPEG-4 kernels; each kernel's device, host, event and bound times at the main path's shapes, beside the
@@ -281,6 +289,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --image-formats-only  # phases 1, 2 and 18 alone, no result line
     python3 chip_smoke.py --jpeg2000-only    # phases 1, 2 and 19 alone, no result line
     python3 chip_smoke.py --mp4v-only        # phases 1, 2 and 20 alone, no result line
+    python3 chip_smoke.py --text-only        # phases 1, 2 and 21 alone, no result line
 
 """
 
@@ -3663,7 +3672,7 @@ def video_phase(dev, label):
     from dspnet_torch.detect.pipeline import ServingPipeline
     from dspnet_torch.ops import nms_cuda
     from dspnet_torch.train.solver import MultiTaskSolver
-    from dspnet_torch.utils import draw
+    from dspnet_torch.utils import draw, text
     from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
 
     net, n_frames, FH, FW, thresh = "resnet-50_multi", 64, 1024, 2048, 0.3
@@ -3894,7 +3903,9 @@ def video_phase(dev, label):
         kept = [timed("nms 0.95", lambda: video.second_nms(d, (H, W), 0.95)) for d in rows]
         segs = [torch.from_numpy(r["seg"][0]) for r in results]
         overs = [timed("overlay", lambda: draw.seg_overlay_tensor(f, s, detector.palette)) for f, s in zip(frames, segs)]
+        text.STATS.update(hits=0, misses=0)
         drawn = [timed("draw", lambda: detector.draw_boxes(o.cpu().numpy(), d, thresh)) for o, d in zip(overs, kept)]
+        record["text_cache"] = dict(text.STATS, labels=sum(int((d[:, 1] >= thresh).sum()) for d in kept))
         del overs
         encoder = mpeg4.Encoder(FW, FH)
         encoded = [timed("encode", lambda: encoder.encode(torch.from_numpy(img).to(dev))) for img in drawn]
@@ -3932,6 +3943,9 @@ def video_phase(dev, label):
             f"captured in the call); multi_demo with the model build {secs['multi_demo'] * 1e3 / n_frames:.3f} "
             f"ms/frame; mp4v writer (an I-VOP) {enc_host_us:.1f} us host (a call, its wait included), "
             f"{enc_dev_us:.1f} us device per frame [{label}]", flush=True)
+        print(f"phase 16 draw stage {per_frame['draw']:.3f} ms per {FH}x{FW} frame, "
+              f"{record['text_cache']['labels']} labels: text layout cache {record['text_cache']['hits']} hits, "
+              f"{record['text_cache']['misses']} misses [{label}]", flush=True)
         launches["nms_keep_mask"]["video_checks"] = nms_cuda.launches
         secs["stages, end to end, writer"] = time.perf_counter() - t_sub
     finally:
@@ -4783,7 +4797,7 @@ def mp4v_phase(dev, label):
     from dspnet_torch.detect.pipeline import ServingPipeline
     from dspnet_torch.ops import nms_cuda
     from dspnet_torch.train.solver import MultiTaskSolver
-    from dspnet_torch.utils import draw
+    from dspnet_torch.utils import draw, text
     from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
 
     net, n_frames, FH, FW, thresh = "resnet-50_multi", 24, 1024, 2048, 0.3
@@ -5048,7 +5062,9 @@ def mp4v_phase(dev, label):
         kept = [timed("nms 0.95", lambda: video.second_nms(d, (H, W), 0.95)) for d in rows]
         segs = [torch.from_numpy(r["seg"][0]) for r in results]
         overs = [timed("overlay", lambda: draw.seg_overlay_tensor(f, s_, detector.palette)) for f, s_ in zip(frames, segs)]
+        text.STATS.update(hits=0, misses=0)
         drawn = [timed("draw", lambda: detector.draw_boxes(o.cpu().numpy(), d, thresh)) for o, d in zip(overs, kept)]
+        record["text_cache"] = dict(text.STATS, labels=sum(int((d[:, 1] >= thresh).sum()) for d in kept))
         del overs, frames, raws
         encoder = mpeg4.Encoder(FW, FH)
         encoded = [timed("encode", lambda: encoder.encode(torch.from_numpy(img).to(dev))) for img in drawn]
@@ -5065,6 +5081,9 @@ def mp4v_phase(dev, label):
               f"VOPs spread over its frames): " + ", ".join(f"{k} {v:.3f} ms" for k, v in per_frame.items())
               + f"; stages summed {sum(per_frame.values()):.3f} ms; detect_and_visualize end to end {total_ms:.3f} "
               f"ms/frame ({1e3 / total_ms:.2f} frames/s) [{label}]", flush=True)
+        print(f"phase 20 draw stage {per_frame['draw']:.3f} ms per {FH}x{FW} frame, "
+              f"{record['text_cache']['labels']} labels: text layout cache {record['text_cache']['hits']} hits, "
+              f"{record['text_cache']['misses']} misses [{label}]", flush=True)
         launches["nms_keep_mask"]["mp4v_checks"] = nms_cuda.launches
     finally:
         pool.terminate()
@@ -5074,6 +5093,73 @@ def mp4v_phase(dev, label):
     record["max_abs_err"] = err
     print(json.dumps({"mp4v_phase": record}), flush=True)
     return launches, timings, record
+
+
+def text_phase(dev, label):
+    """Phase 21: the demo's text as cv2 5.0.0 draws it, on the card's
+    machine, which has no cv2: the font's sha256, every committed form of
+    ``tests/fixtures/text_forms/`` drawn on its seeded background (numpy's
+    legacy ``RandomState``, as ``tests/make_text_fixtures.py`` draws it)
+    equal to cv2's sha256 and ``getTextSize`` to cv2's, the refusals by
+    name, then host ms per form, and per 1024x2048 frame of 40 demo labels
+    with the caches cold and warm."""
+    import hashlib
+
+    from dspnet_torch.data.cs_labels import DET_CLASSES
+    from dspnet_torch.utils import draw, text
+
+    record = {}
+    font_sha = hashlib.sha256(text.FONT_PATH.read_bytes()).hexdigest()
+    text.font()  # raises on a font other than cv2's
+    check(font_sha == text.FONT_SHA256, f"font sha256 {font_sha}")
+    forms = json.loads((ROOT / "tests" / "fixtures" / "text_forms" / "forms.json").read_text())["forms"]
+    text.clear_caches()
+    t0 = time.perf_counter()
+    bad = []
+    for f in forms:
+        img = np.random.RandomState(f["seed"]).randint(0, 256, f["shape"]).astype(np.uint8)
+        text.put_text(img, f["text"], f["org"], f["face"], f["scale"], f["color"], f["thickness"])
+        (w, h), bl = text.get_text_size(f["text"], f["face"], f["scale"], f["thickness"])
+        if hashlib.sha256(img.tobytes()).hexdigest() != f["sha256"] or [[w, h], bl] != f["text_size"]:
+            bad.append(f["text"])
+    forms_ms = (time.perf_counter() - t0) * 1e3 / len(forms)
+    check(not bad, f"text forms unequal to cv2's: {bad[:5]}")
+    refusals = {}
+    for name, call in (("FONT_HERSHEY_DUPLEX", lambda: text.get_text_size("a", 2, 0.5, 1)),
+                       ("FONT_ITALIC", lambda: text.get_text_size("a", 16, 0.5, 1)),
+                       ("thickness 4", lambda: text.get_text_size("a", 0, 0.5, 4)),
+                       ("mirrors", lambda: text.get_text_size("a", 0, -0.5, 1)),
+                       ("U+4E2D", lambda: text.get_text_size("\u4e2d", 0, 0.5, 1)),
+                       ("bottomLeftOrigin", lambda: text.put_text(np.zeros((9, 9, 3), np.uint8), "a", (0, 5), 0,
+                                                                  0.5, (1, 2, 3), 1, True))):
+        try:
+            call()
+            refusals[name] = "not refused"
+        except text.TextError as e:
+            refusals[name] = "refused" if name in str(e) else f"wrong message: {e}"
+    check(all(v == "refused" for v in refusals.values()), f"refusals {refusals}")
+    rng = np.random.RandomState(21)
+    labels = [(f"{DET_CLASSES[rng.randint(8)]} {rng.randint(256)}m", (int(rng.randint(0, 1900)),
+                                                                      int(rng.randint(12, 1024))),
+               tuple(int(v) for v in rng.randint(0, 256, 3))) for _ in range(40)]
+    frame = rng.randint(0, 256, (1024, 2048, 3)).astype(np.uint8)
+    frame_ms = {}
+    for state in ("cold", "warm"):
+        if state == "cold":
+            text.clear_caches()
+        img = frame.copy()
+        t0 = time.perf_counter()
+        for s_, org, colour in labels:
+            draw.put_text(img, s_, org, text.FONT_HERSHEY_SIMPLEX, 0.5, colour, 1)
+        frame_ms[state] = (time.perf_counter() - t0) * 1e3
+    record.update(font_sha256=font_sha, forms=len(forms), unequal=len(bad), ms_per_form=forms_ms,
+                  frame_40_labels_ms=frame_ms, refusals=refusals, cache=dict(text.STATS))
+    print(f"text: font {text.FONT_PATH.name} sha256 {font_sha}; {len(forms)} committed forms equal to cv2 5.0.0's "
+          f"sha256 and getTextSize ({forms_ms:.3f} ms per form, caches cold at the start); refusals "
+          f"{sorted(refusals)}; 40 labels on a 1024x2048 frame {frame_ms['cold']:.3f} ms cold, "
+          f"{frame_ms['warm']:.3f} ms warm [{label}]", flush=True)
+    print(json.dumps({"text_phase": record}), flush=True)
+    return record
 
 
 def probe_codec_libraries():
@@ -5218,6 +5304,10 @@ def main():
         return 0
     if "--mp4v-only" in sys.argv[1:]:
         timed_phase("20 MPEG-4 Part 2", mp4v_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--text-only" in sys.argv[1:]:
+        timed_phase("21 text", text_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -5418,6 +5508,7 @@ def main():
     image_launches, _ = timed_phase("18 image formats", image_formats_phase, dev, label)
     j2k_launches, j2k_times, _ = timed_phase("19 JPEG 2000", jpeg2000_phase, dev, label)
     mp4v_launches, mp4v_times, _ = timed_phase("20 MPEG-4 Part 2", mp4v_phase, dev, label)
+    timed_phase("21 text", text_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])

@@ -126,7 +126,7 @@ def bench_train(network: str = NETWORK, hw: Tuple[int, int] = (512, 1024), batch
         "unit": "images/sec/chip",
         "vs_baseline": None,
         "ms_per_step": round(dt_b * 1e3, 2),
-        "est_mfu": round(mfu_b, 4),
+        "est_mfu": float(f"{mfu_b:.4g}"),  # 4 significant digits: a small run never prints 0.0
         "b4_ms_per_step": round(dt_s * 1e3, 2),
         "b4_img_per_s": round(small / dt_s, 2),
     }

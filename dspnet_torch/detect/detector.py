@@ -16,8 +16,9 @@ argmax path:
                                ``predict_raw`` (multitask_detector.py:307-334)
   * ``visualize_detection``  — boxes in per-class colours, nearest drawn last,
                                the "NNm" distance text and the seg overlay,
-                               drawn by ``utils/draw.py`` (no cv2; its text is
-                               a raster font of its own) (:336-399)
+                               drawn by ``utils/draw.py`` (no cv2; the text
+                               as cv2 5.0.0 draws it, ``utils/text.py``)
+                               (:336-399)
   * ``detect_and_visualize`` — image paths -> ``<stem>_out.jpg`` through the
                                port's JPEG encoder (q95 4:2:0, as cv2.imwrite);
                                a Motion-JPEG or MPEG-4 Part 2 video ->
@@ -63,7 +64,7 @@ from dspnet_torch.data import image_io, jpeg2000, jpeg2000_cuda, jpeg_cuda
 from dspnet_torch.data.cs_labels import train_id_palette
 from dspnet_torch.data.device_pipeline import resize_linear
 from dspnet_torch.ops.detection import multibox_detection
-from dspnet_torch.utils import draw
+from dspnet_torch.utils import draw, text
 from dspnet_torch.utils.precision import cast_floating
 
 #: RGB mean pixel (reference iterator.py:340; dspnet_tpu/data/augment.py)
@@ -332,7 +333,8 @@ class Detector:
             xmax, ymax = int(r[4] * width), int(r[5] * height)
             draw.rectangle(img, (xmin, ymin), (xmax, ymax), colors[cid], 2)
             cname = self.classes[cid] if self.classes else str(cid)
-            draw.put_text(img, f"{cname} {r[6] * 255.0:.0f}m", (xmin, max(12, ymin - 4)), colors[cid])
+            draw.put_text(img, f"{cname} {r[6] * 255.0:.0f}m", (xmin, max(12, ymin - 4)), text.FONT_HERSHEY_SIMPLEX,
+                          0.5, colors[cid], 1)
         return img
 
     def detect_and_visualize(self, inputs, out_dir: str = ".", thresh: float = 0.6,

@@ -14,76 +14,23 @@ has none): the counterparts of ``cv2.rectangle``, ``cv2.addWeighted``,
   ``add_weighted`` with 1 - alpha and alpha; :func:`seg_overlay_tensor` and
   :func:`add_weighted_tensor` are the same rules as torch ops on the
   tensors' device (the video demo overlays on the card), bit for bit;
-* :func:`put_text` draws a raster font of this module (3x5 glyphs on a
-  4-pixel advance, capitals for letters), because cv2's Hershey glyphs are
-  not in the repository. Its pixels differ from ``cv2.putText``'s, and only
-  there: for the demo's labels it stays inside the box
-  ``cv2.getTextSize`` gives at the same anchor (``tests/test_torch_demo.py``
-  checks the pixels outside it bit for bit).
+* :func:`put_text` is ``cv2.putText`` for the faces the demo uses
+  (:mod:`dspnet_torch.utils.text`: cv2 5.0.0's Rubik font, its layout,
+  rasteriser and blend, bit for bit), and :func:`label_box` sizes its
+  banner with the same module's ``getTextSize``.
 
 Colours are BGR tuples, images (H, W, 3) uint8 BGR, drawn on in place.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import torch
 
 from dspnet_torch.data import device_pipeline, image_io
+from dspnet_torch.utils import text
 
-_GLYPH_ROWS = {
-    "0": "### #.# #.# #.# ###", "1": ".#. ##. .#. .#. ###", "2": "### ..# ### #.. ###",
-    "3": "### ..# ### ..# ###", "4": "#.# #.# ### ..# ..#", "5": "### #.. ### ..# ###",
-    "6": "### #.. ### #.# ###", "7": "### ..# ..# ..# ..#", "8": "### #.# ### #.# ###",
-    "9": "### #.# ### ..# ###",
-    "A": ".#. #.# ### #.# #.#", "B": "##. #.# ##. #.# ##.", "C": "### #.. #.. #.. ###",
-    "D": "##. #.# #.# #.# ##.", "E": "### #.. ##. #.. ###", "F": "### #.. ##. #.. #..",
-    "G": "### #.. #.# #.# ###", "H": "#.# #.# ### #.# #.#", "I": "### .#. .#. .#. ###",
-    "J": "..# ..# ..# #.# ###", "K": "#.# #.# ##. #.# #.#", "L": "#.. #.. #.. #.. ###",
-    "M": "#.# ### ### #.# #.#", "N": "##. #.# #.# #.# #.#", "O": "### #.# #.# #.# ###",
-    "P": "### #.# ### #.. #..", "Q": "### #.# #.# ### ..#", "R": "##. #.# ##. #.# #.#",
-    "S": "### #.. ### ..# ###", "T": "### .#. .#. .#. .#.", "U": "#.# #.# #.# #.# ###",
-    "V": "#.# #.# #.# #.# .#.", "W": "#.# #.# ### ### #.#", "X": "#.# #.# .#. #.# #.#",
-    "Y": "#.# #.# .#. .#. .#.", "Z": "### ..# .#. #.. ###",
-    " ": "... ... ... ... ...", "-": "... ... ### ... ...", ".": "... ... ... ... .#.",
-    ":": "... .#. ... .#. ...", "_": "... ... ... ... ###", "/": "..# ..# .#. #.. #..",
-    "%": "#.# ..# .#. #.. #.#", "(": ".#. #.. #.. #.. .#.", ")": ".#. ..# ..# ..# .#.",
-    "?": "### ..# .#. ... .#.", "!": ".#. .#. .#. ... .#.", ",": "... ... ... .#. #..",
-    "+": "... .#. ### .#. ...", "=": "... ### ... ### ...", "'": ".#. .#. ... ... ...",
-}
-#: char -> (5, 3) bool glyph; a character without one draws as a block
-GLYPHS = {c: np.array([[p == "#" for p in row] for row in rows.split()]) for c, rows in _GLYPH_ROWS.items()}
-_BLOCK = np.ones((5, 3), bool)
-ADVANCE, GLYPH_H, GLYPH_W = 4, 5, 3
-
-
-def text_size(text: str) -> Tuple[int, int]:
-    """(width, height) in pixels of ``text`` in this module's font."""
-    return ADVANCE * len(text), GLYPH_H
-
-
-def _paint(img: np.ndarray, mask: np.ndarray, x0: int, y0: int, color):
-    """Set the pixels of ``mask`` (h, w) placed at (x0, y0), clipped."""
-    H, W = img.shape[:2]
-    h, w = mask.shape
-    ys, xs = max(0, -y0), max(0, -x0)
-    ye, xe = min(h, H - y0), min(w, W - x0)
-    if ys >= ye or xs >= xe:
-        return
-    region = img[y0 + ys:y0 + ye, x0 + xs:x0 + xe]
-    region[mask[ys:ye, xs:xe]] = color
-
-
-def put_text(img: np.ndarray, text: str, org, color) -> np.ndarray:
-    """Draw ``text`` with its baseline's left end at ``org`` = (x, y), as
-    ``cv2.putText``'s anchor: glyph rows y - 5 .. y - 1."""
-    x, y = int(org[0]), int(org[1])
-    for i, ch in enumerate(text):
-        glyph = GLYPHS.get(ch.upper(), _BLOCK)
-        _paint(img, glyph, x + ADVANCE * i, y - GLYPH_H, color)
-    return img
+put_text = text.put_text
 
 
 def rectangle(img: np.ndarray, pt1, pt2, color, thickness: int = 1) -> np.ndarray:
@@ -156,13 +103,14 @@ def seg_overlay_tensor(img: torch.Tensor, seg: torch.Tensor, palette, alpha: flo
     return add_weighted_tensor(img, 1.0 - alpha, seg_bgr, alpha, 0)
 
 
-def label_box(img: np.ndarray, text: str, bbox, box_color=(0, 255, 0)) -> np.ndarray:
+def label_box(img: np.ndarray, label: str, bbox, box_color=(0, 255, 0)) -> np.ndarray:
     """A labelled box with a filled banner behind its text
     (``dspnet_tpu/utils/misc.py::put_text``, reference utils.py:25-33): the
-    box at thickness 1, the banner in (128, 0, 0) as wide and high as the
-    text in this module's font, the text in white."""
+    box at thickness 1, the banner in (128, 0, 0) as wide and high as
+    ``getTextSize`` of the text in ``FONT_HERSHEY_PLAIN`` 0.6, the text in
+    white."""
     x1, y1 = int(bbox[0]), int(bbox[1])
     rectangle(img, (x1, y1), (int(bbox[2]), int(bbox[3])), box_color, 1)
-    tw, th = text_size(text)
+    (tw, th), _ = text.get_text_size(label, text.FONT_HERSHEY_PLAIN, 0.6, 1)
     rectangle(img, (x1, y1 - th), (x1 + tw, y1), (128, 0, 0), -1)
-    return put_text(img, text, (x1, y1), (255, 255, 255))
+    return text.put_text(img, label, (x1, y1), text.FONT_HERSHEY_PLAIN, 0.6, (255, 255, 255), 1)

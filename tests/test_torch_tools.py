@@ -644,13 +644,13 @@ def test_visualize_net_refuses_hlo():
                                                             for p in (ROOT / "dspnet_torch").rglob("*.py")))
 def test_no_cv2_pil_jax_in_the_port(path):
     """No module of the port (the tools of this slice among them) and not
-    ``chip_smoke.py`` imports cv2, PIL, jax, flax, the JAX package, or the
-    JAX checkpoints' stack (orbax, tensorstore, a Python zstd module), at
-    any depth of its code."""
+    ``chip_smoke.py`` imports cv2, PIL, fontTools, jax, flax, the JAX
+    package, or the JAX checkpoints' stack (orbax, tensorstore, a Python
+    zstd module), at any depth of its code."""
     tree = ast.parse((ROOT / path).read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
-    banned = [n for n in names if n.split(".")[0] in ("cv2", "PIL", "jax", "flax", "dspnet_tpu", "orbax",
-                                                         "tensorstore", "zstandard", "compression")]
+    banned = [n for n in names if n.split(".")[0] in ("cv2", "PIL", "fontTools", "jax", "flax", "dspnet_tpu",
+                                                         "orbax", "tensorstore", "zstandard", "compression")]
     assert not banned, (path, banned)
 

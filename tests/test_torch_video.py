@@ -163,19 +163,20 @@ def _jax_branch_vs_port(jdet, pdet, clip, api, tmp_path, monkeypatch):
         for r, q in zip(pr, jr):
             if r[1] < THRESH:
                 continue
-            text = f"{DET_CLASSES[int(r[0])]} {r[6] * 255.0:.0f}m"
-            ox, oy = int(r[2] * FRAME_HW[1]), max(12, int(r[3] * FRAME_HW[0]) - 4)
-            (tw, th), bl = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, 0.5, 1)
-            inside[max(oy - th, 0):oy + bl + 1, max(ox, 0):ox + tw + 1] = 1
             drawn += 1
             # rows equal within 1e-4 can put a corner on either side of a
-            # pixel edge: such a box's bands, both ways, are left out
+            # pixel edge: such a box's bands and its label, anchored at the
+            # corner, both ways, are left out
             corners = [(int(x[2] * FRAME_HW[1]), int(x[3] * FRAME_HW[0]), int(x[4] * FRAME_HW[1]),
                         int(x[5] * FRAME_HW[0])) for x in (r, q)]
             if corners[0] != corners[1]:
                 shifted += 1
-                for x1, y1, x2, y2 in corners:
+                for x, (x1, y1, x2, y2) in zip((r, q), corners):
                     draw.rectangle(inside, (x1, y1), (x2, y2), (1, 1, 1), 2)
+                    label = f"{DET_CLASSES[int(x[0])]} {x[6] * 255.0:.0f}m"
+                    (tw, th), bl = cv2.getTextSize(label, cv2.FONT_HERSHEY_SIMPLEX, 0.5, 1)
+                    oy = max(12, y1 - 4)
+                    inside[max(oy - th, 0):oy + bl + 1, max(x1, 0):x1 + tw + 1] = 1
         inside = inside[..., 0].astype(bool)
         np.testing.assert_array_equal(g[~inside], w[~inside], err_msg=f"frame {i}")
     print(f"{drawn} boxes drawn in 5 frames, {shifted} a pixel apart between the two packages' rows")
@@ -188,10 +189,8 @@ def test_jax_branch_equals_the_port_outside_the_text_boxes(served, tmp_path, mon
     ``VideoCapture`` pinned to ``CAP_OPENCV_MJPEG`` and its ``VideoWriter``
     replaced by a recorder of the frames handed to ``write``, against the
     port's rendered frames on the same weights: as many, in the same order,
-    equal bit for bit outside the text boxes (cv2's Hershey text against the
-    port's raster font, the rule of ``test_visualize_detection_equals_jax_
-    outside_the_text_boxes``), and outside the bands of a box whose corner
-    lands a pixel apart (rows equal within 1e-4 on either side of a pixel
+    equal bit for bit, the labels' text included (the name is older than
+    that), outside the bands of a box whose corner lands a pixel apart (rows equal within 1e-4 on either side of a pixel
     edge: at most 1 box in 100); the rows each side drew (after the 0.95
     NMS) agree within 1e-4, ids equal; the port writes
     ``detection_out.mp4`` as the JAX branch names it, mp4v that cv2 reads
@@ -238,7 +237,7 @@ def test_jax_branch_equals_the_port_on_an_mp4v_clip(served, tmp_path, monkeypatc
     """The same comparison on a cv2-written mp4v MP4 (the codec the JAX
     branch writes): the JAX branch reads it through cv2's FFmpeg backend
     (``CAP_FFMPEG``, the backend cv2 picks for it), the port through its
-    plain MPEG-4 decoder; equal outside the text boxes; both name
+    plain MPEG-4 decoder; equal, text included; both name
     ``detection_out.mp4``, and the port's is read back by cv2."""
     _, jdet, pdet, _ = served
     clip = tmp_path / "clip.mp4"
