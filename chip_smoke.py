@@ -269,11 +269,22 @@ Phases (any failure ends the run with a non-zero exit):
      of 40 labels with the glyph and layout caches cold and warm (phases 16
      and 20 print the draw stage's ms per frame and the cache's hits and
      misses);
- 22. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+ 22. AVIF through the four kernels of csrc/av1.cu: every committed form of
+     tests/fixtures/avif_forms/ (python tests/make_avif_fixtures.py) under
+     each flag equal to cv2's sha256 on the card, each AV1 item parsed once
+     and read under the three flags; each kernel (av1_recon, av1_deblock,
+     av1_cdef, av1_lr) == its plain version bit for bit on every item, the
+     plain stages over a process pool, two 1024x2048 textured scenes (cv2's
+     defaults, and speed 0 with loop restoration) among them; host parse
+     ms, each kernel's device us, launches, host us, bound and plain ms,
+     one read end to end; ``multi_demo --images`` on both scenes and one
+     ``DeviceAugIterator`` batch over ``YoloFormat(image_ext=".avif")``
+     into one ``train_step`` (kernel launches counted; plain calls 0);
+ 23. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
      12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's, the
      kernel results (the two TPU kernels' ports, the colour kernel, the three JPEG 2000 kernels and the three
      MPEG-4 kernels; each kernel's device, host, event and bound times at the main path's shapes, beside the
-     baseline kernels' times from this run, and at phases 10, 11, 17, 19 and 20's shapes) and each phase's
+     baseline kernels' times from this run, and at phases 10, 11, 17, 19, 20 and 22's shapes) and each phase's
      seconds with the script's total, then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
@@ -290,6 +301,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --jpeg2000-only    # phases 1, 2 and 19 alone, no result line
     python3 chip_smoke.py --mp4v-only        # phases 1, 2 and 20 alone, no result line
     python3 chip_smoke.py --text-only        # phases 1, 2 and 21 alone, no result line
+    python3 chip_smoke.py --avif-only        # phases 1, 2 and 22 alone, no result line
 
 """
 
@@ -5162,6 +5174,432 @@ def text_phase(dev, label):
     return record
 
 
+#: the kernels of ``csrc/av1.cu`` by name, as the profiler shows them
+AV1_KERNELS = {"recon": "av1_recon_kernel", "deblock": "av1_deblock_kernel", "cdef": "av1_cdef_kernel",
+               "lr": "av1_lr_kernel"}
+#: phase 22's 1024x2048 scenes (the deblocking levels of the speed-0 frame are 0; the default frame has no
+#: loop restoration: each kernel's line takes the scene where it runs)
+AVIF_SCENES = {"big_default.avif": "1024x2048 AVIF at cv2's defaults",
+               "big_s0.avif": "1024x2048 AVIF at speed 0 (loop restoration)"}
+
+
+def _union_count(shape, y0, y1, x0, x1) -> int:
+    """How many samples of a (H, W) plane the boxes [y0, y1) x [x0, x1)
+    cover together (each box clipped to the plane)."""
+    H, W = shape
+    y0, y1 = np.clip(y0, 0, H), np.clip(y1, 0, H)
+    x0, x1 = np.clip(x0, 0, W), np.clip(x1, 0, W)
+    k = (y1 > y0) & (x1 > x0)
+    d = np.zeros((H + 1, W + 1), np.int64)
+    for ys, xs, v in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1), (y1, x1, 1)):
+        np.add.at(d, (ys[k], xs[k]), v)
+    return int((d.cumsum(0).cumsum(1)[:H, :W] > 0).sum())
+
+
+def av1_work(packed, ref):
+    """What the function of each AV1 kernel must move and do for this frame,
+    from its data: ({kernel: bytes}, {kernel: integer operations}). Samples
+    count at the stream's depth (1 B at 8 bits, 2 B above), each read once
+    and each written once; ``ref`` holds the plain versions' planes.
+
+    recon: 8 B a transform block (position, size, type, mode, eob), 2 B a
+      coded coefficient, the palettes and colour maps in, every sample of
+      the frame out; about 12 operations a predicted sample, 4 (log2 w +
+      log2 h) + 3 a sample of a block with coefficients, 4 a coefficient.
+    deblock: the samples within the taps of a filtered edge (4 lines of
+      ``length`` samples across it, both directions) in, the samples it
+      changes out; about 5 operations a tap of a line.
+    cdef: the 8x8 luma blocks its direction search reads, and each plane's
+      filtered blocks with their 2-sample border, in; the CDEF indices and
+      one skip bit an 8x8; the samples it changes out; about 900 operations
+      a direction search, 150 a filtered sample.
+    lr: each restoration rectangle with its 3-sample border, from the CDEF
+      planes within the stripe and from the deblocked rows beside it, 8 B
+      of unit parameters a rectangle, the samples it changes out; about 32
+      operations a Wiener sample, 90 a self-guided one."""
+    from dspnet_torch.data import av1_filters
+    from dspnet_torch.data import av1_tables as T
+
+    parsed = packed.parsed
+    s, h = parsed.frame.seq, parsed.frame.hdr
+    bps = 1 if s.bit_depth == 8 else 2
+    subs = [(0, 0)] + [(s.ssx, s.ssy)] * (len(packed.dims) - 1)
+
+    def changed(after, before):
+        return sum(int((np.asarray(a) != np.asarray(b)).sum()) for a, b in zip(after, before))
+
+    tx = packed.txbs.astype(np.int64)
+    pels = tx[:, 19] * tx[:, 20]
+    coded = tx[:, 6] > 0
+    logs = np.log2(np.array(T.TX_W, np.float64))[tx[:, 4]] + np.log2(np.array(T.TX_H, np.float64))[tx[:, 4]]
+    frame_samples = sum(((h.height + sy) >> sy) * ((h.width + sx) >> sx) for sx, sy in subs)
+    nbytes = {"recon": 8 * len(tx) + 2 * len(packed.coefs) + bps * packed.palette.size + packed.maps.nbytes
+              + bps * frame_samples}
+    ops = {"recon": int(12 * pels[tx[:, 0] == 0].sum() + (pels * (4 * logs + 3))[coded].sum()
+                        + 4 * len(packed.coefs))}
+
+    reads = 0
+    for p, dims in enumerate(packed.dims):
+        boxes = []
+        for d in (0, 1):
+            e = packed.edges[d].astype(np.int64)
+            e = e[e[:, 0] == p]
+            x, y, half = e[:, 1], e[:, 2], e[:, 3] // 2
+            boxes.append((y, y + 4, x - half, x + half) if d == 0 else (y - half, y + half, x, x + 4))
+        reads += _union_count(dims, *(np.concatenate(v) for v in zip(*boxes)))
+    nbytes["deblock"] = bps * (reads + changed(ref["deblock"], ref["recon"]))
+    ops["deblock"] = int(20 * sum(int(e[:, 3].sum()) for e in packed.edges))
+
+    blocks = av1_filters.cdef_blocks(parsed, ref["deblock"]) if _cdef_runs(packed) else np.zeros((0, 5), np.int64)
+    reads, filtered = 0, 0
+    for p, dims in enumerate(packed.dims):
+        sx, sy = subs[p]
+        H, W = (h.mi_rows * 4) >> sy, (h.mi_cols * 4) >> sx
+        bh, bw = 8 >> sy, 8 >> sx
+        y0, x0 = (blocks[:, 0] * 4) >> sy, (blocks[:, 1] * 4) >> sx
+        on = np.zeros(len(blocks), bool)
+        if len(blocks):
+            pri, sec = av1_filters.block_strengths(parsed, blocks, p)[:2]
+            on = (pri > 0) | (sec > 0)
+        filtered += int(on.sum()) * bh * bw
+        box = [[y0[on] - 2], [y0[on] + bh + 2], [x0[on] - 2], [x0[on] + bw + 2]]
+        if p == 0:  # the direction search reads every block's 8x8 luma
+            for v, extra in zip(box, (y0, y0 + 8, x0, x0 + 8)):
+                v.append(extra)
+        reads += _union_count((min(H, dims[0]), min(W, dims[1])), *(np.concatenate(v) for v in box))
+    n8 = ((h.mi_rows + 1) // 2) * ((h.mi_cols + 1) // 2)
+    nbytes["cdef"] = (bps * (reads + changed(ref["cdef"], ref["deblock"])) + packed.cdef_idx.nbytes + (n8 + 7) // 8
+                      if len(blocks) else 0)
+    ops["cdef"] = 900 * len(blocks) + 150 * filtered
+
+    r = packed.rects.astype(np.int64)
+    reads = 0
+    for p in range(len(packed.dims)):
+        q = r[r[:, 0] == p]
+        sx, sy = subs[p]
+        shape = ((h.height + sy) >> sy, (h.width + sx) >> sx)
+        x0, y0, w, hh, s0, s1 = q[:, 1], q[:, 2], q[:, 3], q[:, 4], q[:, 6], q[:, 7]
+        reads += _union_count(shape, np.maximum(y0 - 3, s0), np.minimum(y0 + hh + 3, s1 + 1), x0 - 3, x0 + w + 3)
+        top = (np.maximum(y0 - 3, s0 - 2), s0)
+        bottom = (s1 + 1, np.minimum(y0 + hh + 3, s1 + 3))
+        reads += _union_count(shape, *(np.concatenate(v) for v in zip(top, bottom)),
+                              np.concatenate([x0 - 3] * 2), np.concatenate([x0 + w + 3] * 2))
+    nbytes["lr"] = bps * (reads + changed(ref["lr"], ref["cdef"])) + 8 * len(r) if len(r) else 0
+    ops["lr"] = int((r[:, 3] * r[:, 4] * np.where(r[:, 5] == 1, 32, 90)).sum())
+    return nbytes, ops
+
+
+def _cdef_runs(packed) -> bool:
+    s, h = packed.parsed.frame.seq, packed.parsed.frame.hdr
+    return bool(s.enable_cdef and not h.coded_lossless and not h.allow_intrabc)
+
+
+def _avif_plain(args):
+    """Every plain stage of one AV1 item of a committed AVIF form (a pool
+    worker's job): the reconstruction, deblocked, CDEF and restored planes,
+    and each stage's seconds."""
+    from dspnet_torch.data import av1_filters, av1_parse, av1_recon, avif
+
+    name, k = args
+    data = (ROOT / "tests" / "fixtures" / "avif_forms" / name).read_bytes()
+    p = avif.plan(data)
+    parsed = av1_parse.parse((p.color + p.alpha)[k].frame)
+    t = [time.perf_counter()]
+    rec = av1_recon.reconstruct(parsed)
+    t.append(time.perf_counter())
+    deb = [v.astype(np.int32) for v in av1_filters.deblock(parsed, rec)]
+    t.append(time.perf_counter())
+    cd = [v.astype(np.int32) for v in av1_filters.cdef(parsed, deb)]
+    t.append(time.perf_counter())
+    lr = [v.astype(np.int32) for v in av1_filters.loop_restore(parsed, deb, cd)]
+    t.append(time.perf_counter())
+    secs = dict(zip(("recon", "deblock", "cdef", "lr"), (b - a for a, b in zip(t, t[1:]))))
+    return {"recon": rec, "deblock": deb, "cdef": cd, "lr": lr}, secs
+
+
+def avif_phase(dev, label):
+    """Phase 22: AVIF through the four kernels of ``csrc/av1.cu``
+    (``data/av1_cuda.py``). Every AV1 item of every committed form of
+    ``tests/fixtures/avif_forms/`` parsed once on the host and decoded
+    through the four kernels, then read under each flag (film grain, the
+    grid, the alpha and libavif's colour rule as torch ops) to the sha256
+    cv2 gave (``forms.json``; no cv2 here); ``av1_cuda.decode`` itself on
+    five forms; the refusals by name. Meanwhile a process pool runs the
+    plain stages of every item, the two 1024x2048 scenes first (cv2's
+    defaults, and speed 0 with loop restoration). While it finishes them:
+    one read of each scene end to end, then, with every count set to 0 just
+    before, ``multi_demo --images`` on both scenes and one
+    ``DeviceAugIterator`` batch over ``YoloFormat(image_ext=".avif")`` into
+    one ``train_step``; no plain version runs there. Then each kernel is
+    held to its plain version bit for bit on every item, fed the plain
+    version's input, and on the two scenes: host parse ms, each kernel's
+    device us (torch.profiler, every launch of a call summed), launches,
+    the wrapper's host us, the bound (``av1_work``: the frame's bytes once
+    at 3.35 TB/s or its operations at 67 T/s, the larger) and the plain
+    version's ms. Returns ({kernel: {path: launches}}, {scene: {kernel:
+    timings}}, record)."""
+    import hashlib
+    import multiprocessing
+    import os
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.data import av1_cuda, av1_parse, avif, jpeg_cuda
+    from dspnet_torch.data.device_pipeline import DeviceAugIterator, device_augment_batch
+    from dspnet_torch.data.imdb import YoloFormat
+    from dspnet_torch.data.iterator import SampleIndex
+    from dspnet_torch.ops import matching_cuda, nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    net = "resnet-50_multi"
+    forms_dir = ROOT / "tests" / "fixtures" / "avif_forms"
+    meta = json.loads((forms_dir / "forms.json").read_text())["files"]
+    flags = {"color": 1, "gray": 0, "unchanged": -1}
+    launches = {"nms_keep_mask": {}, "bipartite_match": {}, **{k: {} for k in AV1_KERNELS}}
+    record, secs = {}, {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_avif_", dir=ROOT / "build"))
+
+    def reset():
+        nms_cuda.launches = matching_cuda.launches = 0
+        jpeg_cuda.launches = jpeg_cuda.images = 0
+        for d in (av1_cuda.launches, av1_cuda.plain_calls):
+            for k in d:
+                d[k] = 0
+
+    def sha(t):
+        return hashlib.sha256(np.ascontiguousarray(t.cpu().numpy()).tobytes()).hexdigest()
+
+    workers = os.cpu_count() or 1
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        # ---- 22a. every committed form under each flag, on the card; the plain stages over a pool
+        t0 = time.perf_counter()
+        equal, refused, items = 0, [], []
+        plans = {}
+        for name in sorted(meta):
+            try:
+                plans[name] = avif.plan((forms_dir / name).read_bytes())
+            except avif.AvifError as e:
+                check(all(r is None for r in meta[name]["cv2"].values()), f"{name}: refused ({e}) where cv2 reads it")
+                refused.append(name)
+                continue
+            items += [(name, k) for k in range(len(plans[name].color) + len(plans[name].alpha))]
+        big_staged, plain_secs, parse_ms = {}, {}, {}
+        order = sorted(items, key=lambda it: not it[0].startswith("big_"))
+        plain = pool.imap(_avif_plain, order)
+        staged, frames_out = {}, {}
+        for name, k in order:  # the card's path, while the pool runs the plain stages
+            coded = (plans[name].color + plans[name].alpha)[k]
+            reset()
+            t1 = time.perf_counter()
+            parsed = av1_parse.parse(coded.frame)
+            parse_ms[(name, k)] = (time.perf_counter() - t1) * 1e3
+            st = av1_cuda.stage(av1_cuda.pack(parsed), dev)
+            rec = av1_cuda.recon(st)
+            deb = av1_cuda.deblock(st, rec)
+            cd = av1_cuda.cdef(st, deb)
+            lr = av1_cuda.loop_restore(st, deb, cd)
+            check(av1_cuda.launches["recon"] == len(st.packed.waves) and sum(av1_cuda.plain_calls.values()) == 0,
+                  f"{name} item {k}: counts {av1_cuda.launches} {av1_cuda.plain_calls}")
+            staged[(name, k)] = (st, rec)
+            frames_out[(name, k)] = avif.finish(coded.frame, lr)
+        for name in sorted(plans):
+            plan, recs = plans[name], meta[name]["cv2"]
+            n_color = len(plan.color)
+            color = avif.assemble(plan, plan.color, [frames_out[(name, k)] for k in range(n_color)])
+            alpha = None
+            if plan.alpha and not plan.mono:
+                alpha = avif.assemble(plan, plan.alpha, [frames_out[(name, n_color + k)]
+                                                         for k in range(len(plan.alpha))])
+            for key, flag in flags.items():
+                rec = recs[key]
+                a_ = alpha if (flag == -1 or plan.premultiplied) else None
+                if rec is None:
+                    try:
+                        avif.to_output(plan, color, a_, flag)
+                    except ValueError:
+                        refused.append(f"{name}:{key}")
+                        continue
+                    check(False, f"{name} {key}: read on the card where cv2 returns None")
+                out = avif.to_output(plan, color, a_, flag)
+                check(out.device.type == "cuda" and (str(out.dtype).replace("torch.", ""), list(out.shape))
+                      == (rec["dtype"], rec["shape"]) and sha(out) == rec["sha256"],
+                      f"{name} {key}: the card's array is not cv2's")
+                equal += 1
+        for name in ("cv2_default.avif", "pil_alpha.avif", "made_grid.avif", "pil_grain6.avif", "cv2_d12.avif"):
+            reset()
+            got = av1_cuda.decode((forms_dir / name).read_bytes(), -1, dev)
+            check(sha(got) == meta[name]["cv2"]["unchanged"]["sha256"] and sum(av1_cuda.plain_calls.values()) == 0,
+                  f"{name}: av1_cuda.decode differs from cv2")
+        secs["committed forms"] = time.perf_counter() - t0
+        record["forms"] = {"files": len(meta), "items": len(items), "equal_cv2_on_card": equal,
+                           "refused": refused}
+        print(f"AVIF forms on the card: {len(meta)} files ({len(items)} AV1 items) x 3 flags, {equal} arrays equal "
+              f"to cv2's sha256 through the four kernels, refused by name where cv2 returns None: {refused}; "
+              f"{secs['committed forms']:.2f} s [{label}]", flush=True)
+
+        # ---- 22b. while the pool finishes the scenes' plain stages: one read of each scene end to end, then
+        # the main path: multi_demo, a loader batch and a train_step on .avif images
+        read_ms = {}
+        for name in AVIF_SCENES:
+            reset()
+            t1 = time.perf_counter()
+            out = av1_cuda.decode((forms_dir / name).read_bytes(), 1, dev)
+            read_ms[name] = (time.perf_counter() - t1) * 1e3
+            check(tuple(out.shape) == (1024, 2048, 3) and sha(out) == meta[name]["cv2"]["color"]["sha256"]
+                  and sum(av1_cuda.plain_calls.values()) == 0, f"{name} read differs from cv2's")
+        src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                           generator=torch.Generator().manual_seed(22))
+        model_dir = work / "model"
+        CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).save(
+            0, MultiTaskSolver(src.model, src.anchors, device=dev).init_state())
+        paths = [work / "scene_default.avif", work / "scene_s0.avif"]
+        paths[0].write_bytes((forms_dir / "big_default.avif").read_bytes())
+        paths[1].write_bytes((forms_dir / "big_s0.avif").read_bytes())
+        demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                     "--dtype", "bfloat16", "--vis-thresh", "0.3", "--out-dir", str(work / "out"),
+                     "--device", str(dev), "--images", ",".join(str(x) for x in paths)]
+        reset()
+        t1 = time.perf_counter()
+        written = multi_demo.main(demo_args)
+        torch.cuda.synchronize()
+        secs["multi_demo"] = time.perf_counter() - t1
+        got = {"nms": nms_cuda.launches, **{k: av1_cuda.launches[k] for k in AV1_KERNELS},
+               "plain_versions": sum(av1_cuda.plain_calls.values()), "nvjpeg_images": jpeg_cuda.images}
+        check(got["nms"] == 2 and got["plain_versions"] == 0 and got["nvjpeg_images"] == 0
+              and all(got[k] >= 1 for k in ("recon", "deblock", "cdef", "lr")),
+              f"multi_demo on .avif: counts {got}")
+        check([Path(w).name for w in written] == [x.stem + "_out.jpg" for x in paths], f"written {written}")
+        for k in AV1_KERNELS:
+            launches[k]["avif_demo"] = av1_cuda.launches[k]
+        launches["nms_keep_mask"]["avif_demo"] = got["nms"]
+        record["demo"] = {"counts": got, "seconds": secs["multi_demo"]}
+        print(f"multi_demo {net} {H}x{W} bf16 on the two 1024x2048 .avif scenes: {secs['multi_demo']:.2f} s; "
+              f"counts {got} [{label}]", flush=True)
+
+        B = 4
+        solver = MultiTaskSolver(src.model, src.anchors, batch_size=B, compute_dtype="bfloat16", device=dev,
+                                 seg_normalize="valid", learning_rate=5e-4)
+        state = solver.init_state()
+        classes = ["person", "rider", "car", "truck", "bus", "train", "motorcycle", "bicycle"]
+        rng = np.random.RandomState(220)
+        root = work / "yolo"
+        (root / "images").mkdir(parents=True)
+        (root / "labels").mkdir()
+        ids = []
+        sources = ["cv2_default.avif", "cv2_q75.avif", "cv2_s5.avif", "pil_444.avif"]  # 96x128 each
+        for i, src_name in enumerate(sources):
+            iid = f"im{i}"
+            ids.append(iid)
+            (root / "images" / (iid + ".avif")).write_bytes((forms_dir / src_name).read_bytes())
+            x, y = rng.uniform(0.1, 0.6, 2)
+            (root / "labels" / (iid + ".txt")).write_text(f"{rng.randint(8)} {x:.6f} {y:.6f} 0.2 0.2\n")
+        (root / "list.txt").write_text("\n".join(ids) + "\n")
+        index = SampleIndex(YoloFormat(str(root / "list.txt"), str(root / "images"), str(root / "labels"),
+                                       classes, image_ext=".avif").samples())
+        reset()
+        t1 = time.perf_counter()
+        it = DeviceAugIterator(index, B, (H, W), device=dev, seed=22, enable_aug=False, shuffle=False)
+        (batch, names), = list(it.epoch())
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        counts = {**{k: av1_cuda.launches[k] for k in AV1_KERNELS},
+                  "plain_versions": sum(av1_cuda.plain_calls.values()), "nvjpeg_images": jpeg_cuda.images}
+        check(counts["recon"] >= B and counts["plain_versions"] == 0 and counts["nvjpeg_images"] == 0,
+              f".avif loader counts {counts}")
+        loader_launches = {k: av1_cuda.launches[k] for k in AV1_KERNELS}
+        # the per-image reads (av1_cuda.decode, held to cv2's sha256 in 22a) through the batch augmentation
+        raw = torch.stack([av1_cuda.decode(Path(s_.image_path).read_bytes(), 1, dev) for s_ in index])
+        labels = torch.from_numpy(np.stack([s_.label for s_ in index]).astype(np.float32))
+        ref = device_augment_batch(raw, None, labels, torch.zeros(B, 6), it.lut, (H, W), enable_aug=False,
+                                   mean_pixels=it.mean_pixels)
+        check(torch.equal(batch["images"], ref["images"]), ".avif loader batch != the per-image reads")
+        reset()
+        state, m = solver.train_step(state, batch)
+        loss = float(m["loss"])
+        check(np.isfinite(loss), f".avif train_step loss {loss}")
+        check(matching_cuda.launches == 1, f".avif train_step launched the matcher {matching_cuda.launches} times")
+        for k in AV1_KERNELS:
+            launches[k]["avif_loader"] = loader_launches[k]
+        launches["bipartite_match"]["avif_train"] = matching_cuda.launches
+        record["loader"] = {"images": names, "load_s": load_s, "loss": loss, "counts": counts}
+        print(f"DeviceAugIterator b{B} over YoloFormat(image_ext='.avif') {H}x{W}: equal to the plain decodes "
+              f"through device_augment_batch; {load_s:.3f} s; one train_step loss {loss:.6g}; counts {counts} "
+              f"[{label}]", flush=True)
+        del solver, state, src
+
+        # ---- 22c. each kernel against its plain version on every item, fed the plain version's input
+        t0 = time.perf_counter()
+        max_err = {k: 0 for k in AV1_KERNELS}
+        for (name, k), (ref, ps) in zip(order, plain):
+            st, rec = staged.pop((name, k))
+            up = lambda arrs: [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev) for a in arrs]
+            rec_ref, deb_ref, cd_ref = up(ref["recon"]), up(ref["deblock"]), up(ref["cdef"])
+            outs = {"recon": rec, "deblock": av1_cuda.deblock(st, rec_ref), "cdef": av1_cuda.cdef(st, deb_ref),
+                    "lr": av1_cuda.loop_restore(st, deb_ref, cd_ref)}
+            for stage_name, got in outs.items():
+                want = up(ref[stage_name])
+                err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+                max_err[stage_name] = max(max_err[stage_name], err)
+                check(err == 0, f"{name} item {k}: {AV1_KERNELS[stage_name]} != its plain version "
+                                f"(max abs err {err})")
+            if name.startswith("big_"):
+                plain_secs[name] = ps
+                big_staged[name] = (st, rec_ref, deb_ref, cd_ref, ref)
+        secs["kernels vs plain"] = time.perf_counter() - t0
+        record["max_abs_err"] = max_err
+        print(f"av1_recon, av1_deblock, av1_cdef and av1_lr == their plain versions bit for bit on {len(items)} AV1 "
+              f"items of the committed forms, the two 1024x2048 scenes among them (max abs err {max_err}; plain "
+              f"stages over {workers} processes); {secs['kernels vs plain']:.2f} s after the main path [{label}]",
+              flush=True)
+
+        # ---- 22d. the 1024x2048 scenes: host parse, each kernel's times
+        timings, big = {}, {}
+        for name in AVIF_SCENES:
+            data = (forms_dir / name).read_bytes()
+            st, rec_ref, deb_ref, cd_ref, ref = big_staged[name]
+            packed = st.packed
+            h = packed.parsed.frame.hdr
+            t1 = time.perf_counter()
+            av1_cuda.pack(packed.parsed)
+            pack_ms = (time.perf_counter() - t1) * 1e3
+            work_bytes, work_ops = av1_work(packed, ref)
+            calls = {"recon": lambda: av1_cuda.recon(st), "deblock": lambda: av1_cuda.deblock(st, rec_ref),
+                     "cdef": lambda: av1_cuda.cdef(st, deb_ref), "lr": lambda: av1_cuda.loop_restore(st, deb_ref, cd_ref)}
+            per = {}
+            for k, fn in calls.items():
+                dev_us, per_call, how = j2k_device_us(fn, AV1_KERNELS[k], av1_cuda.launches, k, n=5)
+                bound = bound_us(work_bytes[k], work_ops[k])
+                per[k] = {"device_us": dev_us, "launches_per_call": per_call, "how": how,
+                          "host_us": j2k_host_us(fn, n=5), "bound_us": bound[0], "bound_by": bound[1],
+                          "plain_ms": plain_secs[name][k] * 1e3, "bytes": work_bytes[k], "ops": work_ops[k],
+                          "max_abs_err": max_err[k]}
+            big[name] = {"bytes": len(data), "parse_ms": parse_ms[(name, 0)], "pack_ms": pack_ms,
+                         "transform_blocks": int(len(packed.txbs)), "coefficients": int(len(packed.coefs)),
+                         "waves": len(packed.waves), "lr_type": list(h.lr_type), "rects": int(len(packed.rects)),
+                         "end_to_end_ms": read_ms[name], "kernels": per}
+            timings[name] = per
+            print(f"1024x2048 {name} ({len(data)} B, {len(packed.txbs)} transform blocks, {len(packed.coefs)} "
+                  f"coefficients, {len(packed.waves)} waves, restoration {list(h.lr_type)}): host parse "
+                  f"{parse_ms[(name, 0)]:.3f} ms, pack {pack_ms:.3f} ms, one read end to end {read_ms[name]:.3f} ms "
+                  f"(host clock with the stream's synchronize) [{label}]", flush=True)
+            for k, v in per.items():
+                print(f"  {AV1_KERNELS[k]}: device {v['device_us']:.3f} us/call ({v['launches_per_call']:g} launches, "
+                      f"{v['how']}), host {v['host_us']:.3f} us/call (wrapper), bound {v['bound_us']:.4f} us "
+                      f"({v['bound_by']}), plain {v['plain_ms']:.3f} ms (one process) [{label}]", flush=True)
+        record["1024x2048"] = big
+        del big_staged
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = secs
+    print(json.dumps({"avif_phase": record}), flush=True)
+    return launches, timings, record
+
+
 def probe_codec_libraries():
     """ROADMAP Queue A items 20 and 24 and Queue C item 4: which of the
     Video Codec SDK's headers and libraries (NVDEC / NVENC), libjpeg /
@@ -5249,7 +5687,8 @@ def main():
     # ---- 2. build
     t0 = time.perf_counter()
     libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
-                                   _build.CSRC / "jpeg2000.cu", _build.CSRC / "mpeg4.cu", *BASELINE_SOURCES,
+                                   _build.CSRC / "jpeg2000.cu", _build.CSRC / "mpeg4.cu", _build.CSRC / "av1.cu",
+                                   *BASELINE_SOURCES,
                                    COLOUR_BASELINE])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
@@ -5308,6 +5747,10 @@ def main():
         return 0
     if "--text-only" in sys.argv[1:]:
         timed_phase("21 text", text_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--avif-only" in sys.argv[1:]:
+        timed_phase("22 AVIF", avif_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -5509,6 +5952,7 @@ def main():
     j2k_launches, j2k_times, _ = timed_phase("19 JPEG 2000", jpeg2000_phase, dev, label)
     mp4v_launches, mp4v_times, _ = timed_phase("20 MPEG-4 Part 2", mp4v_phase, dev, label)
     timed_phase("21 text", text_phase, dev, label)
+    avif_launches, avif_times, _ = timed_phase("22 AVIF", avif_phase, dev, label)
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
@@ -5521,14 +5965,15 @@ def main():
                                  "deployment": deploy_launches["nms_keep_mask"], **host_launches["nms_keep_mask"],
                                  **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"],
                                  **forms_launches["nms_keep_mask"], **image_launches["nms_keep_mask"],
-                                 **j2k_launches["nms_keep_mask"], **mp4v_launches["nms_keep_mask"]},
+                                 **j2k_launches["nms_keep_mask"], **mp4v_launches["nms_keep_mask"],
+                                 **avif_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
                                    "options": opt_launches["bipartite_match"],
                                    "prepare": prep_launches["bipartite_match"], **host_launches["bipartite_match"],
                                    **jax_ckpt_launches["bipartite_match"], **image_launches["bipartite_match"],
-                                   **j2k_launches["bipartite_match"]},
+                                   **j2k_launches["bipartite_match"], **avif_launches["bipartite_match"]},
                "jpeg_ycc_to_bgr": {"real_data": real_launches["jpeg_ycc_to_bgr"],
                                    **ref_launches["jpeg_ycc_to_bgr"], "prepare": prep_launches["jpeg_ycc_to_bgr"],
                                    **host_launches["jpeg_ycc_to_bgr"], **jax_ckpt_launches["jpeg_ycc_to_bgr"],
@@ -5608,6 +6053,25 @@ def main():
                                 "one 1024x2048 P-VOP"),
                                ("yuv420_to_bgr", "swscale's unscaled YUV420P -> BGR24 (x86 SIMD rule)",
                                 "one 1024x2048 frame"))],
+        *[{"name": AV1_KERNELS[key], "route": "cuda", "source": "dspnet_torch/csrc/av1.cu",
+           "replaces": f"libaom 3.14's {lib} behind cv2.imdecode on libavif (dspnet_tpu/data/iterator.py:73), "
+                       "not a TPU kernel",
+           "launches": sum(avif_launches[key].values()), "launches_by_path": avif_launches[key],
+           "max_abs_err": float(avif_times[scene][key]["max_abs_err"]),
+           "ms": avif_times[scene][key]["device_us"] / 1e3, "plain_ms": avif_times[scene][key]["plain_ms"],
+           "bound_ms": avif_times[scene][key]["bound_us"] / 1e3, "bound_by": avif_times[scene][key]["bound_by"],
+           "library_ms": None, "at": AVIF_SCENES[scene], "host_us": avif_times[scene][key]["host_us"],
+           "how": avif_times[scene][key]["how"], "launches_per_call": avif_times[scene][key]["launches_per_call"],
+           "other_shapes": {AVIF_SCENES[other]: {k: avif_times[other][key][k] for k in
+                                                  ("device_us", "host_us", "bound_us", "plain_ms",
+                                                   "launches_per_call")}}}
+          for key, lib, scene, other in (
+              ("recon", "av1_predict_intra_block + av1_inv_txfm2d_add (dequantisation, inverse transforms, intra "
+                        "prediction, IntraBC, add and clip)", "big_default.avif", "big_s0.avif"),
+              ("deblock", "av1_filter_block_plane_vert / _horz (deblocking)", "big_default.avif", "big_s0.avif"),
+              ("cdef", "av1_cdef_frame (CDEF)", "big_default.avif", "big_s0.avif"),
+              ("lr", "av1_loop_restoration_filter_frame (Wiener, self-guided)", "big_s0.avif",
+               "big_default.avif"))],
     ]}))
     print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from dspnet_torch.data import augment as aug
-from dspnet_torch.data import image_io, jpeg, jpeg2000
+from dspnet_torch.data import heif, image_io, jpeg, jpeg2000
 from dspnet_torch.data.device_pipeline import (
     INTER_AREA,
     INTER_CUBIC,
@@ -200,13 +200,14 @@ class DetIterator:
         return plan, label
 
     def _read(self, sample):
-        """The image as JPEG bytes (decoded on the device), as JPEG 2000
-        bytes on a CUDA device (decoded there by ``data/jpeg2000_cuda.py``)
-        or, in another format, decoded here."""
+        """The image as JPEG bytes (decoded on the device), as JPEG 2000 or
+        AVIF bytes on a CUDA device (decoded there by
+        ``data/jpeg2000_cuda.py`` / ``data/av1_cuda.py``) or, in another
+        format, decoded here."""
         data, _ = load_sample_bytes(sample, with_seg=False)
         if data[:3] == image_io.JPEG_MAGIC:
             return data
-        if self.device.type == "cuda" and jpeg2000.is_jpeg2000(data):
+        if self.device.type == "cuda" and (jpeg2000.is_jpeg2000(data) or heif.is_avif(data)):
             return data
         return image_io.imdecode(data, image_io.IMREAD_COLOR)
 

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from dspnet_torch.data import augment as aug
-from dspnet_torch.data import image_io, jpeg, jpeg2000, jpeg2000_cuda, jpeg_cuda
+from dspnet_torch.data import av1_cuda, avif, heif, image_io, jpeg, jpeg2000, jpeg2000_cuda, jpeg_cuda
 from dspnet_torch.data.cs_labels import seg_label_lut
 from dspnet_torch.data.iterator import SampleIndex, load_sample_arrays, load_sample_bytes, shard_positions
 from dspnet_torch.data.prefetch import prefetch_to_device
@@ -325,20 +325,24 @@ def resize(images: torch.Tensor, hw: Tuple[int, int], interp: int = INTER_LINEAR
 
 
 def place_images(items, device) -> List[torch.Tensor]:
-    """JPEG or JPEG 2000 bytes or uint8 BGR arrays -> one (H_i, W_i, 3)
-    uint8 tensor each on ``device``: the JPEGs decoded there in one call
+    """JPEG, JPEG 2000 or AVIF bytes or uint8 BGR arrays -> one (H_i, W_i,
+    3) uint8 tensor each on ``device``: the JPEGs decoded there in one call
     (nvJPEG on CUDA, the plain decoder on the CPU), the JPEG 2000 files by
-    the kernels of ``data/jpeg2000_cuda.py`` (their plain versions on the
-    CPU), the arrays copied (through pinned memory on CUDA)."""
+    the kernels of ``data/jpeg2000_cuda.py`` and the AVIF files by those of
+    ``data/av1_cuda.py`` (their plain versions on the CPU), the arrays
+    copied (through pinned memory on CUDA)."""
     device = torch.device(device)
     out: List[Optional[torch.Tensor]] = [None] * len(items)
-    encoded = [i for i, x in enumerate(items) if isinstance(x, bytes) and not jpeg2000.is_jpeg2000(x)]
+    encoded = [i for i, x in enumerate(items)
+               if isinstance(x, bytes) and not jpeg2000.is_jpeg2000(x) and not heif.is_avif(x)]
     if encoded:
         for i, t in zip(encoded, jpeg_cuda.decode_images([items[i] for i in encoded], device)):
             out[i] = t
     for i, x in enumerate(items):
         if isinstance(x, bytes) and jpeg2000.is_jpeg2000(x):
             out[i] = jpeg2000_cuda.decode(x, jpeg2000.IMREAD_COLOR, device)
+        elif isinstance(x, bytes) and heif.is_avif(x):
+            out[i] = av1_cuda.decode(x, avif.IMREAD_COLOR, device)
     for i, x in enumerate(items):
         if out[i] is None:
             t = torch.from_numpy(x)
@@ -549,6 +553,8 @@ class DeviceAugIterator:
                 hw = jpeg.read_header(img)[:2]
             elif jpeg2000.is_jpeg2000(img):  # decoded on the card by jpeg2000_cuda
                 hw = jpeg2000.image_size(img)
+            elif heif.is_avif(img):  # decoded on the card by av1_cuda
+                hw = avif.image_size(img)
             else:
                 img = image_io.imdecode(img, image_io.IMREAD_COLOR)
                 hw = img.shape[:2]

@@ -1,5 +1,6 @@
-"""Image files without cv2: every still-image format cv2 5.0.0 reads
-beside AVIF, decoded and encoded on numpy.
+"""Image files without cv2: every still-image format cv2 5.0.0 reads,
+decoded on numpy (and torch for AVIF's colour), and the ones it writes
+beside AVIF, encoded.
 
 The JAX package reads and writes its data through ``cv2.imread`` /
 ``cv2.imdecode`` / ``cv2.imwrite``; the port runs where OpenCV (and PIL)
@@ -17,12 +18,16 @@ the committed forms of ``tests/fixtures/``).
   ``II*`` / ``MM*`` TIFF and BigTIFF (``data/tiff.py``, with
   ``data/ccitt.py``); ``RIFF....WEBP`` (``data/webp.py``, lossy frames in
   ``data/vp8.py``); ``GIF87a`` / ``GIF89a`` (``data/gif.py``); JPEG 2000,
-  ``jP`` boxes and raw ``FF 4F FF 51`` codestreams (``data/jpeg2000.py``).
-  AVIF (``ftypavif``) raises by name; so does any form cv2 returns None for.
+  ``jP`` boxes and raw ``FF 4F FF 51`` codestreams (``data/jpeg2000.py``);
+  an ``ftyp`` box naming ``avif`` or ``avis`` among its brands, AVIF
+  (``data/av1_cuda.py``'s decoder with its plain versions: HEIF items, AV1
+  intra decoding and libavif's colour rule, ``data/avif.py``). Any form
+  cv2 returns None for raises, by name.
   On the card the loader decodes JPEG files with nvJPEG
   (``data/jpeg_cuda.py``) and JPEG 2000 files with the kernels of
-  ``data/jpeg2000_cuda.py``; every other format decodes here, on the host,
-  and its array is uploaded.
+  ``data/jpeg2000_cuda.py`` and AVIF files with the kernels of
+  ``data/av1_cuda.py``; every other format decodes here, on the host, and
+  its array is uploaded.
 * What each flag returns follows each of cv2's readers, which differ: gray
   from colour is libpng's ``rgb_to_gray`` for PNG (:func:`rgb_to_gray`), the
   codecs' 14-bit rule for BMP, PxM, Sun raster and TIFF, cv2 5's 15-bit
@@ -60,7 +65,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from dspnet_torch.data import bmp, cvt_color, gif, hdr, jpeg, jpeg2000, pxm, sunras, tiff, webp
+from dspnet_torch.data import av1_cuda, bmp, cvt_color, gif, hdr, heif, jpeg, jpeg2000, pxm, sunras, tiff, webp
 
 # cv2's flag values, so call sites read like the JAX package's
 IMREAD_UNCHANGED = -1
@@ -405,9 +410,15 @@ def _decoder(data: bytes):
         return pxm.decode
     if jpeg2000.is_jpeg2000(data):
         return jpeg2000.decode
-    if data[4:12] in (b"ftypavif", b"ftypavis"):
-        raise ValueError("AVIF is not read by the port (an AV1 decoder; ROADMAP Queue C)")
+    if heif.is_avif(data):
+        return _avif_decode
     raise ValueError(f"unknown image format (magic bytes {data[:8]!r})")
+
+
+def _avif_decode(data: bytes, flags: int) -> np.ndarray:
+    """AVIF through ``data/av1_cuda.py``'s decoder with its plain versions
+    on the CPU."""
+    return np.ascontiguousarray(av1_cuda.decode(data, flags, "cpu").numpy())
 
 
 #: cv2's CMYK -> gray weights (``icvCvt_CMYK2Gray_8u_C4C1R``: 0.299,

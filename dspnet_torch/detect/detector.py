@@ -60,7 +60,7 @@ from typing import List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from dspnet_torch.data import image_io, jpeg2000, jpeg2000_cuda, jpeg_cuda
+from dspnet_torch.data import av1_cuda, avif, heif, image_io, jpeg2000, jpeg2000_cuda, jpeg_cuda
 from dspnet_torch.data.cs_labels import train_id_palette
 from dspnet_torch.data.device_pipeline import resize_linear
 from dspnet_torch.ops.detection import multibox_detection
@@ -274,9 +274,10 @@ class Detector:
         (H, W, 3) uint8 BGR array -> that image as a uint8 BGR tensor on the
         detector's device. A JPEG decodes there: on the card by nvJPEG and
         the colour kernel, on the CPU by the plain decoder; on the card a
-        JPEG 2000 file decodes by the kernels of ``data/jpeg2000_cuda.py``;
-        every other format (and JPEG 2000 on the CPU) decodes on the host to
-        cv2's pixels and is uploaded."""
+        JPEG 2000 file decodes by the kernels of ``data/jpeg2000_cuda.py``
+        and an AVIF file by those of ``data/av1_cuda.py``; every other format
+        (and JPEG 2000 and AVIF on the CPU) decodes on the host to cv2's
+        pixels and is uploaded."""
         if isinstance(image, torch.Tensor):
             return image.to(self.device)
         if isinstance(image, (str, os.PathLike)):
@@ -286,6 +287,8 @@ class Detector:
                 return jpeg_cuda.decode_images([data], self.device)[0]
             if self.device.type == "cuda" and jpeg2000.is_jpeg2000(data):
                 return jpeg2000_cuda.decode(data, jpeg2000.IMREAD_COLOR, self.device)
+            if self.device.type == "cuda" and heif.is_avif(data):
+                return av1_cuda.decode(data, avif.IMREAD_COLOR, self.device)
             image = image_io.imdecode(data)
         image = np.asarray(image)
         if image.dtype != np.uint8 or image.ndim != 3 or image.shape[-1] != 3:

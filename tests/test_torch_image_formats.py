@@ -307,12 +307,18 @@ def test_planar_16bit_gray_alpha_tiff_is_refused_where_cv2_reads_it(tile):
 
 
 def test_avif_refused_by_name():
-    """AVIF raises naming the format (JPEG 2000 is read since: see
-    ``tests/test_torch_jpeg2000.py``)."""
-    ok, avif = cv2.imencode(".avif", np.zeros((16, 16, 3), np.uint8))
+    """AVIF is read: cv2's file decodes to cv2's array under each flag (the
+    forms are in ``tests/test_torch_avif.py``); what the port refuses of it
+    raises naming the form (a layered image, which cv2 returns None for)."""
+    img = synthetic.make_example(np.random.RandomState(5), (16, 24), 2)[0]
+    ok, avif = cv2.imencode(".avif", img)
     assert ok
-    with pytest.raises(ValueError, match="AVIF"):
-        image_io.imdecode(avif.tobytes())
+    for flag in FLAGS.values():
+        _assert_same(image_io.imdecode(avif.tobytes(), flag), _cv2(avif.tobytes(), flag))
+    layered = (ROOT / "tests" / "fixtures" / "avif_forms" / "made_a1lx.avif").read_bytes()
+    assert _cv2(layered, cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="AVIF.*a1lx"):
+        image_io.imdecode(layered)
 
 
 def test_codec_writers_refuse_what_they_cannot_hold():
