@@ -280,12 +280,22 @@ Phases (any failure ends the run with a non-zero exit):
      one read end to end; ``multi_demo --images`` on both scenes and one
      ``DeviceAugIterator`` batch over ``YoloFormat(image_ext=".avif")``
      into one ``train_step`` (kernel launches counted; plain calls 0);
- 23. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
-     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's, the
-     kernel results (the two TPU kernels' ports, the colour kernel, the three JPEG 2000 kernels and the three
-     MPEG-4 kernels; each kernel's device, host, event and bound times at the main path's shapes, beside the
-     baseline kernels' times from this run, and at phases 10, 11, 17, 19, 20 and 22's shapes) and each phase's
-     seconds with the script's total, then the result line, last.
+ 23. H.264 through the three kernels of csrc/h264.cu: every committed form of
+     tests/fixtures/h264_forms/ (python tests/make_h264_fixtures.py) equal
+     to cv2's sha256 per frame on the card (count and order too), the
+     refusals by name; each kernel (h264_parse, h264_recon, h264_deblock)
+     == its plain version bit for bit on every picture of eight small forms
+     and on the 1024x2048 clip's first two; the kernels timed at the clip's
+     shapes beside their bounds (h264_work); ``multi_demo --images`` on the
+     13-frame 1024x2048 High CABAC clip (launches counted, plain calls 0)
+     and its ms per frame by stage;
+ 24. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
+     12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's,
+     phase 22's and 23's, the kernel results (the two TPU kernels' ports, the colour kernel, the three
+     JPEG 2000 kernels, the three MPEG-4 kernels, the four AV1 kernels and the three H.264 kernels; each
+     kernel's device, host, event and bound times at the main path's shapes, beside the baseline kernels'
+     times from this run, and at phases 10, 11, 17, 19, 20, 22 and 23's shapes) and each phase's seconds
+     with the script's total, then the result line, last.
 Prints nothing on standard output and exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --real-data-only   # phases 1, 2, 8 and 9 alone, no result line
@@ -302,6 +312,7 @@ Prints nothing on standard output and exits non-zero without a CUDA device.
     python3 chip_smoke.py --mp4v-only        # phases 1, 2 and 20 alone, no result line
     python3 chip_smoke.py --text-only        # phases 1, 2 and 21 alone, no result line
     python3 chip_smoke.py --avif-only        # phases 1, 2 and 22 alone, no result line
+    python3 chip_smoke.py --h264-only        # phases 1, 2 and 23 alone, no result line
 
 """
 
@@ -5635,6 +5646,473 @@ def probe_codec_libraries():
         return None
 
 
+H264_KERNELS = {"h264_parse": "h264_parse_kernel", "h264_recon": "h264_recon_kernel",
+                "h264_deblock": "h264_deblock_kernel"}
+#: the small forms whose every picture phase 23 also holds stage by stage to
+#: the plain versions (the plain Python decoder takes about 0.2 s a picture
+#: at 176x144): CAVLC and CABAC, P and B, direct both ways, weights, 8x8,
+#: slices, PCM, long-term references
+H264_STAGEWISE = ("cavlc_intra.mp4", "cavlc_p_partitions.mp4", "cavlc_longterm_mmco.mp4", "cabac_ipbb_temporal.mp4",
+                  "cabac_wp_explicit.mp4", "cabac_wp_implicit.mp4", "high_8x8_cabac.mp4", "cabac_slices_pb.mp4")
+
+
+def _h264_syntax_bytes(table, levels) -> int:
+    """The bytes of the macroblock layer's syntax, packed, for a parsed
+    picture's (table, levels) rows: 4 B a macroblock (type, partitions and
+    lists, CBP, QP, the transform flag, the chroma mode), 2 B of
+    sub-macroblock types (8x8 partitions), 8 B of intra 4x4 / 8x8 modes,
+    384 B of I_PCM samples, 1 B a distinct reference index and 4 B a
+    distinct nonzero motion vector difference per macroblock and list, 2 B
+    a nonzero level; no dense slots, no zero padding."""
+    from dspnet_torch.data import h264_parse as HP
+
+    table, levels = np.asarray(table, np.int64), np.asarray(levels)
+    typ = table[:, HP.F_TYPE]
+    inter = typ == HP.T_INTER
+    pcm = typ == HP.T_PCM
+    n = 4 * len(table) + 2 * int((inter & (table[:, HP.F_PART] == HP.PART_8x8)).sum())
+    n += 8 * int(np.isin(typ, (HP.T_I4, HP.T_I8)).sum()) + 384 * int(pcm.sum())
+    for lx in range(2):
+        refs = (table[inter, HP.F_REF0 + lx][:, None] >> (8 * np.arange(4))) & 0xFF
+        refs = np.where(refs == 0xFF, -1, refs)
+        n += sum(int(((refs[:, k] >= 0) & (refs[:, k, None] != refs[:, :k]).all(1)).sum()) for k in range(4))
+        mvd = table[inter, HP.F_MVD + 32 * lx:HP.F_MVD + 32 * lx + 32].reshape(-1, 16, 2)
+        key = np.sort((mvd[..., 0] + (1 << 15)) * (1 << 17) + mvd[..., 1] + (1 << 15), axis=1)
+        zero = (1 << 15) * (1 << 17) + (1 << 15)
+        distinct = np.concatenate([np.ones((len(key), 1), bool), key[:, 1:] != key[:, :-1]], 1) & (key != zero)
+        n += 4 * int(distinct.sum())
+    return n + 2 * int((levels[~pcm] != 0).sum())
+
+
+def h264_work(jobs, tables, pic):
+    """What the function of each H.264 kernel must move and do for the data
+    it ran on, counted from that data: ({kernel: bytes}, {kernel: integer
+    operations}). ``jobs`` and ``tables`` are a parse launch's slices and
+    its (table, levels) per picture; ``pic`` holds the timed picture's
+    (numpy) ``table``, ``levels``, ``slices``, ``mb`` (width, height),
+    motion field ``mv`` / ``ref`` / ``ref_id``, unfiltered planes ``pre``
+    and filtered planes ``post``.
+
+    parse: each slice's coded bytes in, the syntax it decodes out
+      (:func:`_h264_syntax_bytes`); about 16 operations a coded bit (a
+      CABAC bin or a VLC step).
+    recon: the picture's syntax in; from each reference picture the union
+      of the windows its blocks read (a 4x4 luma block's 4x4, 9 wide or
+      high where its vector is fractional that way; chroma 2x2, 3x3 where
+      fractional), only the lists the blocks use; the planes out (1 B a
+      sample) and the motion field (4 B of vector and 1 B of reference a
+      4x4 block and list in use); about 40 operations a predicted luma
+      sample at a fractional position and 2 at a whole one, 12 / 2 a chroma
+      sample, 4 an intra sample, 10 a sample of a block with coefficients.
+    deblock: the samples within the taps of the edges it filters (bS > 0:
+      luma p3..q3 at bS 4, p2..q2 else; chroma p1..q1), 5 B of fields a
+      macroblock and the motion field of the lists in use in; the samples
+      it changes out; about 20 operations a filtered luma line, 12 a chroma
+      one, 10 a bS."""
+    from dspnet_torch.data import h264_filters
+    from dspnet_torch.data import h264_parse as HP
+
+    nbytes, ops = {}, {}
+    coded = sum(len(j.rbsp) for j, _ in jobs)
+    out = 0
+    for k, (t, lv) in enumerate(tables):
+        m = next(s.mb_width * s.mb_height for j, s in jobs if j.picture == k)
+        out += _h264_syntax_bytes(t[:m], lv[:m])
+    nbytes["h264_parse"] = coded + out
+    ops["h264_parse"] = 16 * 8 * coded
+
+    table, levels = np.asarray(pic["table"], np.int64), np.asarray(pic["levels"])
+    mv, ref, ref_id = (np.asarray(pic[k], np.int64) for k in ("mv", "ref", "ref_id"))
+    Y = pic["pre"][0]
+    H, W = Y.shape
+    typ = table[:, HP.F_TYPE]
+    used = ref >= 0  # (2, H4, W4): the lists each 4x4 block predicts from
+    by, bx = np.nonzero(np.ones(ref.shape[1:], bool))
+    reads = 0
+    luma_ops = chroma_ops = 0
+    for rid in np.unique(ref_id[used]):
+        for c, (ph, pw, unit, span, taps) in enumerate(((H, W, 4, 4, 5), (H // 2, W // 2, 8, 2, 1),
+                                                         (H // 2, W // 2, 8, 2, 1))):
+            boxes = [[], [], [], []]
+            for lx in range(2):
+                on = (ref_id[lx] == rid).ravel()
+                mx, my = mv[lx, ..., 0].ravel()[on], mv[lx, ..., 1].ravel()[on]
+                x0, y0 = bx[on] * span + (mx >> (2 if c == 0 else 3)), by[on] * span + (my >> (2 if c == 0 else 3))
+                fx, fy = (mx & (unit - 1)) != 0, (my & (unit - 1)) != 0
+                lead = 2 if c == 0 else 0
+                boxes[0].append(y0 - lead * fy)
+                boxes[1].append(y0 + span + taps * fy - lead * fy)
+                boxes[2].append(x0 - lead * fx)
+                boxes[3].append(x0 + span + taps * fx - lead * fx)
+                frac = fx | fy
+                if c == 0:
+                    luma_ops += int(16 * (40 * frac.sum() + 2 * (~frac).sum()))
+                else:
+                    chroma_ops += int(4 * (12 * frac.sum() + 2 * (~frac).sum()))
+            reads += _union_count((ph, pw), *(np.concatenate(v) for v in boxes))
+    intra = typ <= HP.T_PCM
+    nz_blocks = sum(int(((table[:, HP.F_NZ] >> b) & 1).sum()) for b in range(16))
+    chroma_res = int(((table[:, HP.F_CBP] >> 4) != 0).sum())
+    n_list = int(used.sum())
+    samples = int(sum(p.size for p in pic["pre"]))
+    nbytes["h264_recon"] = _h264_syntax_bytes(table, levels) + reads + samples + 5 * n_list
+    ops["h264_recon"] = luma_ops + chroma_ops + 4 * 384 * int(intra.sum()) + 10 * (16 * nz_blocks + 128 * chroma_res)
+
+    mbw, mbh = pic["mb"]
+    bs = h264_filters.strengths(table, mv, ref_id, pic["slices"], mbw, mbh)  # (n, dir, edge, segment)
+    n_i, d_i, e_i, k_i = np.nonzero(bs)
+    strong = bs[n_i, d_i, e_i, k_i] == 4
+    mx, my = n_i % mbw, n_i // mbw
+    reads = 0
+    lines = {"luma": 0, "chroma": 0}
+    for c, plane in enumerate(pic["pre"]):
+        size, step, seg = (16, 4, 4) if c == 0 else (8, 2, 2)
+        keep = np.ones(len(n_i), bool) if c == 0 else (e_i % 2 == 0)
+        half = np.where(strong, 4, 3) if c == 0 else np.full(len(n_i), 2)
+        d, e, k, x, y, h = d_i[keep], e_i[keep], k_i[keep], mx[keep], my[keep], half[keep]
+        edge_x = size * x + step * e
+        edge_y = size * y + step * e
+        row0 = np.where(d == 0, size * y + seg * k, edge_y - h)
+        row1 = np.where(d == 0, size * y + seg * k + seg, edge_y + h)
+        col0 = np.where(d == 0, edge_x - h, size * x + seg * k)
+        col1 = np.where(d == 0, edge_x + h, size * x + seg * k + seg)
+        reads += _union_count(plane.shape, row0, row1, col0, col1)
+        lines["luma" if c == 0 else "chroma"] += seg * int(keep.sum())
+    changed = sum(int((np.asarray(a) != np.asarray(b)).sum()) for a, b in zip(pic["post"], pic["pre"]))
+    inter_lists = int(used[:, np.repeat(np.repeat(~intra.reshape(mbh, mbw), 4, 0), 4, 1)].sum())
+    nbytes["h264_deblock"] = reads + changed + 5 * len(table) + 5 * inter_lists
+    ops["h264_deblock"] = 20 * lines["luma"] + 12 * lines["chroma"] + 10 * int(bs.size)
+    return nbytes, ops
+
+
+def _h264_largest(a, b) -> int:
+    return int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def h264_stagewise(dev, err, samples, config, fourcc, limit=None, pick=None):
+    """The samples through ``h264_cuda.Decoder.decode`` on ``dev`` with its
+    stages wrapped: each kernel held to its plain version on the same inputs
+    (the plain parse of the batch's slices, the plain reconstruction from
+    the card's tables and references, the plain filter on the card's
+    unfiltered planes) on the first ``limit`` pictures (every one when
+    None), the largest difference of each kept in ``err``; with ``pick``,
+    that picture's (in decode order) inputs and outputs, and its parse
+    launch's, kept -> (pictures compared, plain seconds by kernel, what was
+    kept)."""
+    from dspnet_torch.data import h264_cuda
+
+    dec = h264_cuda.Decoder(dev, config, fourcc)
+    plain = dict.fromkeys(H264_KERNELS, 0.0)
+    seen = {"parsed": 0, "done": 0}
+    host, kept = {}, {}
+
+    def compared(k):
+        return limit is None or k < limit
+
+    def parse(jobs, n, device):
+        tables = h264_cuda.parse(jobs, n, device)
+        few = n if limit is None else max(0, min(limit - seen["parsed"], n))
+        if few:
+            t0 = time.perf_counter()
+            ref = h264_cuda.parse_ref([j for j in jobs if j[0].picture < few], few, torch.device("cpu"))
+            plain["h264_parse"] += time.perf_counter() - t0
+            for (t, lv), (rt, rlv) in zip(tables, ref):
+                n_mb = rt.shape[0]
+                err["h264_parse"] = max(err["h264_parse"], _h264_largest(t[:n_mb], rt),
+                                        _h264_largest(lv[:n_mb], rlv))
+                check(torch.equal(t[:n_mb].cpu(), rt) and torch.equal(lv[:n_mb].cpu(), rlv),
+                      f"h264_parse_kernel != plain in the batch from picture {seen['parsed']}")
+        if pick is not None and seen["parsed"] <= pick < seen["parsed"] + n:
+            kept["parse"] = (jobs, n, device)
+            kept["tables"] = tables
+        seen["parsed"] += n
+        return tables
+
+    def recon(table, levels, slices, sps, refs, col, poc):
+        y, u, v, mf = h264_cuda.recon(table, levels, slices, sps, refs, col, poc)
+        k = seen["done"]
+        if compared(k):
+            t0 = time.perf_counter()
+            ry, ru, rv, rmf = h264_cuda.recon_ref(table.cpu(), levels.cpu(), slices, sps, refs, col, poc)
+            plain["h264_recon"] += time.perf_counter() - t0
+            pairs = [(y, ry), (u, ru), (v, rv), (mf.mv, rmf.mv), (mf.ref, rmf.ref), (mf.ref_id, rmf.ref_id)]
+            err["h264_recon"] = max(err["h264_recon"], *(_h264_largest(a, b) for a, b in pairs))
+            check(all(torch.equal(a.cpu(), b.cpu()) for a, b in pairs), f"h264_recon_kernel != plain on picture {k}")
+            host["planes"] = (y.cpu().clone(), u.cpu().clone(), v.cpu().clone())
+            host["mf"] = rmf
+        if k == pick:
+            kept["recon"] = (table, levels, slices, sps, refs, col, poc)
+            kept["pre"] = (y.clone(), u.clone(), v.clone())
+            kept["mf"] = mf
+        return y, u, v, mf
+
+    def deblock(y, u, v, table, mf, slices, sps):
+        h264_cuda.deblock(y, u, v, table, mf, slices, sps)
+        k = seen["done"]
+        if compared(k):
+            hy, hu, hv = host.pop("planes")
+            t0 = time.perf_counter()
+            h264_cuda.deblock_ref(hy, hu, hv, table.cpu(), host.pop("mf"), slices, sps)
+            plain["h264_deblock"] += time.perf_counter() - t0
+            pairs = ((y, hy), (u, hu), (v, hv))
+            err["h264_deblock"] = max(err["h264_deblock"], *(_h264_largest(a, b) for a, b in pairs))
+            check(torch.equal(y.cpu(), hy) and torch.equal(u.cpu(), hu) and torch.equal(v.cpu(), hv),
+                  f"h264_deblock_kernel != plain on picture {k}")
+        if k == pick:
+            kept["post"] = (y.clone(), u.clone(), v.clone())
+        seen["done"] += 1
+
+    dec.stages.update(parse=parse, recon=recon, deblock=deblock)
+    for i in range(0, len(samples), 8):
+        dec.decode(samples[i:i + 8])
+    done = seen["done"] if limit is None else min(limit, seen["done"])
+    return done, plain, kept
+
+
+def h264_phase(dev, label):
+    """Phase 23: H.264 through the three kernels of ``csrc/h264.cu``
+    (``data/h264_cuda.py``). Every committed form of
+    ``tests/fixtures/h264_forms/`` decoded on the card against cv2's sha256
+    per frame (``forms.json``; no cv2 here: count, order and pixels), the
+    refusals by name; each kernel against its plain version on the same
+    inputs stage by stage (every picture of the small forms, the first
+    batch of the 1024x2048 clip); ``multi_demo --images`` on the 1024x2048
+    clip (High profile CABAC, I P B B, 13 frames) at resnet-50_multi
+    512x1024 bf16 with the launches counted and each stage's ms per frame;
+    the kernels timed at the clip's shapes beside their bounds. Returns
+    ({kernel: {path: launches}}, {kernel: times and the largest difference
+    from its plain version}, record)."""
+    import hashlib
+    import tempfile
+
+    from dspnet_torch.api import create_model
+    from dspnet_torch.cli import multi_demo
+    from dspnet_torch.data import avi, h264_cuda, jpeg_cuda, mp4, mpeg4, mpeg4_cuda
+    from dspnet_torch.data.device_pipeline import resize_linear
+    from dspnet_torch.detect import video
+    from dspnet_torch.detect.pipeline import ServingPipeline
+    from dspnet_torch.ops import nms_cuda
+    from dspnet_torch.train.solver import MultiTaskSolver
+    from dspnet_torch.utils import draw
+    from dspnet_torch.utils.checkpoint import CheckpointManager, checkpoint_prefix
+
+    net, thresh = "resnet-50_multi", 0.3
+    fixture = ROOT / "tests" / "fixtures" / "h264_forms"
+    meta = json.loads((fixture / "forms.json").read_text())["forms"]
+    launches = {"nms_keep_mask": {}, **{k: {} for k in H264_KERNELS}, "yuv420_to_bgr": {}}
+    record, secs = {}, {}
+    err = dict.fromkeys(H264_KERNELS, 0)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_h264_", dir=ROOT / "build"))
+
+    def reset():
+        for d in (h264_cuda.launches, h264_cuda.plain_calls, mpeg4_cuda.launches, mpeg4_cuda.plain_calls):
+            d.update(dict.fromkeys(d, 0))
+        nms_cuda.launches = jpeg_cuda.images = mpeg4.encodes = 0
+
+    def sha(t):
+        return hashlib.sha256(np.ascontiguousarray(t.cpu().numpy()).tobytes()).hexdigest()
+
+    def decode_all(dec, samples):
+        frames = []
+        for i in range(0, len(samples), 8):
+            frames += dec.decode(samples[i:i + 8])
+        return frames + dec.flush()
+
+    try:
+        # ---- 23a. the committed forms: cv2's sha256, kernels == plain, refusals
+        t0 = time.perf_counter()
+        n_forms = n_frames = n_pics = 0
+        for name, m in sorted(meta.items()):
+            if "refused" in m:
+                reset()
+                try:
+                    with avi.open_video(fixture / name) as reader:
+                        samples, stream = list(reader), reader.stream
+                    decode_all(h264_cuda.Decoder(dev, stream.extradata, stream.fourcc), samples)
+                    check(False, f"{name}: decoded, expected a refusal naming {m['refused']!r}")
+                except avi.VideoError as e:  # h264_nal.H264Error is one
+                    check(m["refused"] in str(e), f"{name}: the refusal does not name {m['refused']!r}: {e}")
+                check(sum(h264_cuda.launches.values()) == 0, f"{name}: launched before refusing")
+                continue
+            with avi.open_video(fixture / name) as reader:
+                samples, stream = list(reader), reader.stream
+            reset()
+            frames = decode_all(h264_cuda.Decoder(dev, stream.extradata, stream.fourcc), samples)
+            check([sha(f) for f in frames] == m["bgr_sha256"], f"{name}: frames != cv2's sha256 "
+                  f"({len(frames)} frames, cv2 {m['frames']})")
+            check(h264_cuda.plain_calls == dict.fromkeys(H264_KERNELS, 0) and
+                  mpeg4_cuda.plain_calls["yuv420_to_bgr"] == 0 and
+                  mpeg4_cuda.launches["yuv420_to_bgr"] == len(frames),
+                  f"{name}: launches {h264_cuda.launches}, plain calls {h264_cuda.plain_calls}")
+            if name in H264_STAGEWISE:
+                pics, _, _ = h264_stagewise(dev, err, samples, stream.extradata, stream.fourcc)
+                n_pics += pics
+            n_forms += 1
+            n_frames += len(frames)
+        secs["forms"] = time.perf_counter() - t0
+        n_refused = sum("refused" in m for m in meta.values())
+        record["forms"] = {"decoded": n_forms, "frames": n_frames, "refused": n_refused}
+        print(f"H.264 forms on the card: {n_forms} streams, {n_frames} frames == cv2's sha256 through the three "
+              f"kernels and the colour kernel (plain calls 0); each kernel == its plain version on every picture of "
+              f"{len(H264_STAGEWISE)} small forms ({n_pics} pictures); {n_refused} refusals by name; "
+              f"{secs['forms']:.1f} s [{label}]", flush=True)
+
+        # ---- 23b. the 1024x2048 clip: the kernels against their plain versions, timed
+        clip = fixture / "big_1024x2048.mp4"
+        with avi.open_video(clip) as reader:
+            samples, stream = list(reader), reader.stream
+        FH, FW, n_clip = stream.height, stream.width, len(samples)
+        t0 = time.perf_counter()
+        pics_checked, plain, kept = h264_stagewise(dev, err, samples[:8], stream.extradata, stream.fourcc,
+                                                   limit=2, pick=1)
+        secs["stagewise 1024x2048"] = time.perf_counter() - t0
+        jobs = kept["parse"][0]
+        table, levels, slices, sps = kept["recon"][:4]
+        check(slices[0].slice_type == 0, "the clip's second picture in decode order is not a P picture")
+        calls = {"h264_parse": lambda: h264_cuda.parse(*kept["parse"]),
+                 "h264_recon": lambda: h264_cuda.recon(*kept["recon"]),
+                 "h264_deblock": lambda: h264_cuda.deblock(*(p.clone() for p in kept["pre"]), table, kept["mf"],
+                                                           slices, sps)}
+        # bytes and operations: the parse of the batch, the reconstruction and filter of the P picture
+        n_mb = sps.mb_width * sps.mb_height
+        mf = kept["mf"]
+        nb, ops = h264_work(jobs, [(t.cpu().numpy(), lv.cpu().numpy()) for t, lv in kept["tables"]],
+                            {"table": table[:n_mb].cpu().numpy(), "levels": levels[:n_mb].cpu().numpy(),
+                             "slices": slices, "mb": (sps.mb_width, sps.mb_height), "mv": mf.mv.cpu().numpy(),
+                             "ref": mf.ref.cpu().numpy(), "ref_id": mf.ref_id.cpu().numpy(),
+                             "pre": [p.cpu().numpy() for p in kept["pre"]],
+                             "post": [p.cpu().numpy() for p in kept["post"]]})
+        per = {}
+        for k, fn in calls.items():
+            dev_us, per_call, how = j2k_device_us(fn, H264_KERNELS[k], h264_cuda.launches, k,
+                                                  n=3 if k == "h264_parse" else 5)
+            bound = bound_us(nb[k], ops[k])
+            per[k] = {"device_us": dev_us, "launches_per_call": per_call, "how": how,
+                      "host_us": j2k_host_us(fn, n=3 if k == "h264_parse" else 5), "max_abs_err": err[k],
+                      "bound_us": bound[0], "bound_by": bound[1], "bytes": nb[k], "ops": ops[k],
+                      "plain_ms": plain[k] * 1e3 / pics_checked}
+        record["1024x2048"] = {"bytes": int(sum(len(x) for x in samples)), "frames": n_clip,
+                               "stagewise_s": secs["stagewise 1024x2048"], "kernels": per,
+                               "slices_per_batch": len(jobs)}
+        print(f"1024x2048 H.264 clip ({n_clip} frames, {record['1024x2048']['bytes']} bytes, High CABAC I P B B, 4 "
+              f"slices a picture): each kernel == its plain version on its first two pictures (the plain Python "
+              f"decoder takes tens of seconds a picture there) [{label}]", flush=True)
+        for k, v in per.items():
+            print(f"  {H264_KERNELS[k]}: device {v['device_us']:.3f} us/call ({v['launches_per_call']:g} launches, "
+                  f"{v['how']}{', ' + str(len(jobs)) + ' slices of 8 pictures a launch' if k == 'h264_parse' else ''}), "
+                  f"host {v['host_us']:.3f} us/call (wrapper), bound {v['bound_us']:.4f} us ({v['bound_by']}), "
+                  f"plain {v['plain_ms']:.3f} ms (a picture, the mean of the first two) "
+                  f"[{label}]", flush=True)
+        del kept, calls
+
+        # ---- 23c. multi_demo on the clip: the counts, the written file
+        src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
+                           generator=torch.Generator().manual_seed(23))
+        model_dir = work / "model"
+        CheckpointManager(checkpoint_prefix(str(model_dir), net, H)).save(
+            0, MultiTaskSolver(src.model, src.anchors, device=dev).init_state())
+        del src
+        out_dir = work / "out"
+        demo_args = ["--network", net, "--data-shape", f"3,{H},{W}", "--model-dir", str(model_dir), "--epoch", "0",
+                     "--dtype", "bfloat16", "--vis-thresh", str(thresh), "--out-dir", str(out_dir),
+                     "--device", str(dev), "--images", str(clip)]
+        reset()
+        t0 = time.perf_counter()
+        written = multi_demo.main(demo_args)
+        torch.cuda.synchronize()
+        secs["multi_demo"] = time.perf_counter() - t0
+        got = {"nms": nms_cuda.launches, **h264_cuda.launches, "yuv420_to_bgr": mpeg4_cuda.launches["yuv420_to_bgr"],
+               "plain_calls": sum(h264_cuda.plain_calls.values()) + mpeg4_cuda.plain_calls["yuv420_to_bgr"],
+               "mp4v_encodes": mpeg4.encodes}
+        want = {"nms": 2 * 3, "h264_parse": -(-n_clip // 8), "h264_recon": n_clip, "h264_deblock": n_clip,
+                "yuv420_to_bgr": n_clip, "plain_calls": 0, "mp4v_encodes": n_clip}
+        check(got == want, f"multi_demo on the H.264 clip: counts {got}, expected {want}")
+        check(written == [str(out_dir / "detection_out.mp4")], f"multi_demo wrote {written}")
+        for k in H264_KERNELS:
+            launches[k]["h264_demo"] = got[k]
+        launches["yuv420_to_bgr"]["h264_demo"] = got["yuv420_to_bgr"]
+        launches["nms_keep_mask"]["h264_demo"] = got["nms"]
+        nms_cuda.launches = 0
+        with avi.open_video(written[0]) as reader:
+            out_samples, out_stream = list(reader), reader.stream
+        check((len(out_samples), out_stream.fps, out_stream.width, out_stream.height, out_stream.fourcc) ==
+              (n_clip, 25.0, FW, FH, "mp4v"), f"detection_out.mp4: {len(out_samples)} VOPs, {out_stream[:5]}")
+        record["demo"] = {"counts": got, "seconds": secs["multi_demo"]}
+        print(f"multi_demo {net} {H}x{W} bf16 --images big_1024x2048.mp4 (H.264, {n_clip} frames): "
+              f"{secs['multi_demo']:.2f} s with the model build; counts {got}; detection_out.mp4: {len(out_samples)} "
+              f"mp4v frames, 25 fps, {FW}x{FH} [{label}]", flush=True)
+
+        # ---- 23d. each stage per 1024x2048 frame (synchronised around each)
+        detector = multi_demo.get_detector(multi_demo.parse_args(demo_args))
+        stage = dict.fromkeys(("demux", "parse", "recon", "deblock", "colour", "resize", "serve", "nms 0.95",
+                               "overlay", "draw", "encode", "write"), 0.0)
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            stage[name] += time.perf_counter() - t
+            return out
+
+        def timed_stage(name, fn):
+            return lambda *args: timed(name, lambda: fn(*args))
+
+        with avi.open_video(clip) as reader:
+            samples = timed("demux", lambda: list(reader))
+        dec = h264_cuda.Decoder(dev, stream.extradata, stream.fourcc)
+        dec.stages.update({k: timed_stage(k, dec.stages[k]) for k in ("parse", "recon", "deblock", "colour")})
+        inside = sum(stage[k] for k in ("parse", "recon", "deblock", "colour"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = decode_all(dec, samples)
+        torch.cuda.synchronize()
+        # the decode's time outside its stages: NAL units, headers, the DPB's plan, the crop
+        stage["demux"] += time.perf_counter() - t0 - (sum(stage[k] for k in ("parse", "recon", "deblock", "colour"))
+                                                       - inside)
+        check(len(frames) == n_clip and [sha(f) for f in frames] == meta["big_1024x2048.mp4"]["bgr_sha256"],
+              "the staged decode of the clip != cv2's frames")
+        raws = [timed("resize", lambda: resize_linear(f, (H, W))) for f in frames]
+        pipe = ServingPipeline(detector, depth=2, raw=True)
+        for r in raws[:3]:
+            pipe.submit(r)
+        list(pipe.drain())
+
+        def serve_all():
+            res = [pipe.submit(r) for r in raws]
+            return [x for x in res if x is not None] + list(pipe.drain())
+
+        results = [x[1] for x in timed("serve", serve_all)]
+        rows = [detector._filter_rows(r["det"][0], 0.0) for r in results]
+        kept = [timed("nms 0.95", lambda: video.second_nms(d, (H, W), 0.95)) for d in rows]
+        segs = [torch.from_numpy(r["seg"][0]) for r in results]
+        overs = [timed("overlay", lambda: draw.seg_overlay_tensor(f, s_, detector.palette)) for f, s_ in zip(frames, segs)]
+        drawn = [timed("draw", lambda: detector.draw_boxes(o.cpu().numpy(), d, thresh)) for o, d in zip(overs, kept)]
+        del overs, frames, raws
+        encoder = mpeg4.Encoder(FW, FH)
+        encoded = [timed("encode", lambda: encoder.encode(torch.from_numpy(img).to(dev))) for img in drawn]
+        with mp4.Mp4Writer(str(work / "stages.mp4"), FW, FH, encoder.config, 25) as writer:
+            for e in encoded:
+                timed("write", lambda: writer.write(*e))
+        per_frame = {k: v * 1e3 / n_clip for k, v in stage.items()}
+        t0 = time.perf_counter()
+        detector.detect_and_visualize(str(clip), str(work / "again"), thresh)
+        total_ms = (time.perf_counter() - t0) * 1e3 / n_clip
+        record["stage_ms"] = per_frame
+        record["total_ms_per_frame"] = total_ms
+        print(f"H.264 video per {FH}x{FW} frame ({n_clip} frames, each stage synchronised; parse per batch of 8 "
+              f"pictures spread over its frames): " + ", ".join(f"{k} {v:.3f} ms" for k, v in per_frame.items())
+              + f"; stages summed {sum(per_frame.values()):.3f} ms; detect_and_visualize end to end {total_ms:.3f} "
+              f"ms/frame ({1e3 / total_ms:.2f} frames/s) [{label}]", flush=True)
+        launches["nms_keep_mask"]["h264_checks"] = nms_cuda.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    record["seconds"] = secs
+    record["max_abs_err"] = err
+    print(json.dumps({"h264_phase": record}), flush=True)
+    return launches, per, record
+
+
 phase_s = {}  # seconds of each phase, in order
 T0 = time.perf_counter()
 
@@ -5688,7 +6166,7 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
                                    _build.CSRC / "jpeg2000.cu", _build.CSRC / "mpeg4.cu", _build.CSRC / "av1.cu",
-                                   *BASELINE_SOURCES,
+                                   _build.CSRC / "h264.cu", *BASELINE_SOURCES,
                                    COLOUR_BASELINE])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
@@ -5751,6 +6229,10 @@ def main():
         return 0
     if "--avif-only" in sys.argv[1:]:
         timed_phase("22 AVIF", avif_phase, dev, label)
+        print_phase_seconds()
+        return 0
+    if "--h264-only" in sys.argv[1:]:
+        timed_phase("23 H.264", h264_phase, dev, label)
         print_phase_seconds()
         return 0
     t_phase3 = time.perf_counter()
@@ -5953,6 +6435,8 @@ def main():
     mp4v_launches, mp4v_times, _ = timed_phase("20 MPEG-4 Part 2", mp4v_phase, dev, label)
     timed_phase("21 text", text_phase, dev, label)
     avif_launches, avif_times, _ = timed_phase("22 AVIF", avif_phase, dev, label)
+    h264_launches, h264_times, _ = timed_phase("23 H.264", h264_phase, dev, label)
+    mp4v_launches["yuv420_to_bgr"].update(h264_launches["yuv420_to_bgr"])  # the colour kernel serves both codecs
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
         match_times.update(times["bipartite_match"])
@@ -5966,7 +6450,7 @@ def main():
                                  **jax_ckpt_launches["nms_keep_mask"], **video_launches["nms_keep_mask"],
                                  **forms_launches["nms_keep_mask"], **image_launches["nms_keep_mask"],
                                  **j2k_launches["nms_keep_mask"], **mp4v_launches["nms_keep_mask"],
-                                 **avif_launches["nms_keep_mask"]},
+                                 **avif_launches["nms_keep_mask"], **h264_launches["nms_keep_mask"]},
                "bipartite_match": {"training": match_launches, "cli": cli_launches["bipartite_match"],
                                    "real_data": real_launches["bipartite_match"],
                                    **ref_launches["bipartite_match"], "ssd": ssd_launches["bipartite_match"],
@@ -6072,6 +6556,21 @@ def main():
               ("cdef", "av1_cdef_frame (CDEF)", "big_default.avif", "big_s0.avif"),
               ("lr", "av1_loop_restoration_filter_frame (Wiener, self-guided)", "big_s0.avif",
                "big_default.avif"))],
+        *[{"name": H264_KERNELS[key], "route": "cuda", "source": "dspnet_torch/csrc/h264.cu",
+           "replaces": f"FFmpeg's {lib} behind cv2.VideoCapture (dspnet_tpu/detect/detector.py:289), not a TPU kernel",
+           "launches": sum(h264_launches[key].values()), "launches_by_path": h264_launches[key],
+           "max_abs_err": float(h264_times[key]["max_abs_err"]),
+           "ms": h264_times[key]["device_us"] / 1e3, "plain_ms": h264_times[key]["plain_ms"],
+           "bound_ms": h264_times[key]["bound_us"] / 1e3, "bound_by": h264_times[key]["bound_by"],
+           "library_ms": None, "at": at, "host_us": h264_times[key]["host_us"], "how": h264_times[key]["how"],
+           "launches_per_call": h264_times[key]["launches_per_call"]}
+          for key, lib, at in (("h264_parse", "h264_cabac.c / h264_cavlc.c macroblock layer (slice data: CABAC "
+                                              "and CAVLC)", "8 pictures of 1024x2048 (32 slices) in one launch"),
+                               ("h264_recon", "h264_mb.c (motion vectors, qpel / chroma MC, weights, intra "
+                                              "prediction, dequantisation, inverse transforms)",
+                                "one 1024x2048 P picture"),
+                               ("h264_deblock", "h264_loopfilter.c (bS, alpha / beta / tC0 filters)",
+                                "one 1024x2048 P picture"))],
     ]}))
     print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,7 +24,12 @@ marking a field pair) raises. The MPEG-4 Part 2 fourccs that cv2's FFmpeg
 maps to its ``mpeg4`` decoder (:data:`MPEG4_FOURCCS`: ``XVID``, ``DIVX``,
 ``DX50``, ``FMP4``, ``MP4V``, ``mp4v`` and the others measured) give
 "mpeg4": each frame chunk is one VOP, the VOL headers in band
-(``data/mpeg4_cuda.py`` decodes them). Every other fourcc raises and names it.
+(``data/mpeg4_cuda.py`` decodes them). The H.264 fourccs cv2's FFmpeg maps
+to its ``h264`` decoder (:data:`H264_FOURCCS`: ``H264``, ``X264``,
+``avc1``, ``DAVC``, ``VSSH`` and the others measured) give "h264": each
+chunk holds Annex B NAL units, the parameter sets in band
+(``data/h264_cuda.py`` decodes them). Every other fourcc raises and names
+it.
 
 :class:`AviWriter` writes AVI 1.0 with ``idx1`` (fourcc ``MJPG``, 25 frames
 per second by default as the JAX branch writes), the OpenDML header list
@@ -37,8 +42,9 @@ segment here also repeats the header list and ends with an ``idx1`` of its
 own frames; FFmpeg and this reader step over both.
 
 :func:`open_video` opens an AVI as :class:`AviReader` and an MP4 as
-``data/mp4.py``'s ``Mp4Reader``, which reads an ``mp4v`` track and refuses
-every other codec by name (H.264, HEVC, AV1, VP9, ...). :func:`probe_mp4`
+``data/mp4.py``'s ``Mp4Reader``, which reads an ``mp4v`` or H.264
+(``avc1`` / ``avc3``) track and refuses every other codec by name (HEVC,
+AV1, VP9, ...). :func:`probe_mp4`
 lives in ``data/mp4.py`` now and is imported here for its callers.
 """
 
@@ -59,6 +65,11 @@ MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVDJ", b"jpeg", b"JPEG")
 MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"MP4V", b"mp4v",
                  b"MP4S", b"mp4s", b"M4S2", b"m4s2", b"DIV1", b"div1", b"BLZ0", b"FFDS", b"3IV2", b"SEDG",
                  b"WV1F", b"DXGM", b"PM4V", b"SMP4", b"XVIX", b"SIPP", b"RMP4")
+#: fourccs cv2's FFmpeg reads with its ``h264`` decoder (each checked here
+#: with an AVI of Annex B samples given that fourcc; others give no frames)
+H264_FOURCCS = (b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1", b"Avc1", b"DAVC", b"davc", b"SMV2", b"smv2",
+                b"VSSH", b"vssh", b"Q264", b"q264", b"V264", b"v264", b"GAVC", b"gavc", b"UMSV", b"umsv", b"tshd",
+                b"TSHD", b"INMC", b"inmc", b"AI5Q", b"ai5q")
 #: the size at which the writer starts the next RIFF segment (OpenDML)
 RIFF_LIMIT = 1 << 30
 #: super index entries the writer reserves: one per RIFF segment
@@ -147,16 +158,17 @@ class AviReader:
         scale, rate = struct.unpack("<II", strh[20:28])
         width, height = struct.unpack("<ii", strf[4:12])
         compression = strf[16:20]
-        if compression not in MJPEG_FOURCCS + MPEG4_FOURCCS:
+        if compression not in MJPEG_FOURCCS + MPEG4_FOURCCS + H264_FOURCCS:
             raise VideoError(f"{self.path}: the video stream is coded as {_fourcc(compression)!r} "
                              f"(fourcc {compression!r}); the port reads Motion-JPEG "
-                             f"({', '.join(_fourcc(f) for f in MJPEG_FOURCCS)}) and MPEG-4 Part 2 "
-                             f"({', '.join(_fourcc(f) for f in MPEG4_FOURCCS)}) AVI; write the clip as mp4v "
+                             f"({', '.join(_fourcc(f) for f in MJPEG_FOURCCS)}), MPEG-4 Part 2 "
+                             f"({', '.join(_fourcc(f) for f in MPEG4_FOURCCS)}) and H.264 "
+                             f"({', '.join(_fourcc(f) for f in H264_FOURCCS)}) AVI; write the clip as H.264, mp4v "
                              "or Motion-JPEG")
         if scale == 0 or rate == 0:
             raise VideoError(f"{self.path}: the video stream's rate is {rate}/{scale}")
         (total,) = struct.unpack("<I", avih[16:20])
-        codec = "mjpeg" if compression in MJPEG_FOURCCS else "mpeg4"
+        codec = "mjpeg" if compression in MJPEG_FOURCCS else ("h264" if compression in H264_FOURCCS else "mpeg4")
         stream = Stream(width, abs(height), rate / scale, _fourcc(compression), dmlh if dmlh else total, codec)
         ids = (f"{index:02d}dc".encode(), f"{index:02d}db".encode())
         return stream, ids
@@ -389,9 +401,9 @@ def _rational(fps: float) -> Tuple[int, int]:
 
 def open_video(path) -> Union[AviReader, mp4.Mp4Reader]:
     """A video file's frames: an AVI opens as :class:`AviReader`, an MP4 as
-    ``mp4.Mp4Reader`` (an ``mp4v`` track; every other codec raises with its
-    name); anything else raises. Both readers' ``stream.codec`` says
-    "mjpeg" or "mpeg4"."""
+    ``mp4.Mp4Reader`` (an ``mp4v`` or H.264 track; every other codec raises
+    with its name); anything else raises. Both readers' ``stream.codec``
+    says "mjpeg", "mpeg4" or "h264"."""
     path = str(path)
     with open(path, "rb") as f:
         head = f.read(12)
@@ -399,4 +411,5 @@ def open_video(path) -> Union[AviReader, mp4.Mp4Reader]:
         return AviReader(path)
     if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"wide"):
         return mp4.Mp4Reader(path)
-    raise VideoError(f"{path}: not a video file the port reads (Motion-JPEG or MPEG-4 Part 2 AVI, mp4v MP4)")
+    raise VideoError(f"{path}: not a video file the port reads (Motion-JPEG, MPEG-4 Part 2 or H.264 AVI, mp4v or "
+                     "H.264 MP4)")

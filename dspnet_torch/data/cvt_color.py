@@ -71,3 +71,22 @@ def unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
     shifts = (np.arange(per)[::-1] * depth).astype(np.uint8)
     vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
     return vals.reshape(rows.shape[0], -1)[:, :width]
+
+
+#: cvtColor's ``COLOR_YUV2BGR`` weights in 14-bit fixed point: B from U, G
+#: from U and V, R from V
+YUV2BGR = (33292, -6472, -9519, 18678)
+
+
+def yuv_to_bgr(img: np.ndarray) -> np.ndarray:
+    """(..., 3) Y, U, V uint8 or uint16 -> BGR of the same dtype,
+    ``cv2.cvtColor(img, COLOR_YUV2BGR)`` bit for bit: each term rounded at
+    14 bits (+8192) and added to Y, then saturated."""
+    top = np.iinfo(img.dtype).max
+    d = (top + 1) // 2
+    y, u, v = (img[..., i].astype(np.int64) for i in range(3))
+    cb, cg1, cg2, cr = YUV2BGR
+    b = y + (((u - d) * cb + 8192) >> 14)
+    g = y + (((u - d) * cg1 + (v - d) * cg2 + 8192) >> 14)
+    r = y + (((v - d) * cr + 8192) >> 14)
+    return np.clip(np.stack([b, g, r], -1), 0, top).astype(img.dtype)

@@ -360,10 +360,14 @@ def imdecode(buf, flags: int = IMREAD_COLOR) -> np.ndarray:
         img, chunks = decode_png_frame(data)
         if img.ndim == 3:
             img = img[..., [2, 1, 0, 3][:img.shape[-1]]]  # RGB(A) -> BGR(A)
+        if chunks.animated and img.dtype == np.uint16 and flags != IMREAD_UNCHANGED:
+            # cv2's APNG reader takes 16 bits to 8 by v / 255, rounded and
+            # saturated (measured), before any gray conversion
+            img = np.minimum((img.astype(np.int32) + 127) // 255, 255).astype(np.uint8)
         if flags == IMREAD_GRAYSCALE and img.ndim == 3:
             # an APNG goes through cvtColor (15 bits), any other PNG through
-            # libpng's rgb_to_gray; 16-bit APNGs keep libpng's rule
-            if chunks.animated and img.dtype == np.uint8:
+            # libpng's rgb_to_gray
+            if chunks.animated:
                 img = cvt_color.cvtcolor_gray(img)
             else:
                 img = rgb_to_gray(img[..., 2::-1])

@@ -40,7 +40,8 @@ takes for sRGB) gives gray from one or two components, BGR / BGRA from
 three or four, gray of three by cvtColor's 15-bit rule, and nothing for
 colour from fewer than three; gray repeats the first component into BGR
 under ``IMREAD_COLOR`` and has no 2-channel ``IMREAD_UNCHANGED``. An sYCC
-``colr`` (which no writer here makes) raises. A palette (``pclr`` /
+``colr`` of three components gives the luma as gray and cvtColor's
+``COLOR_YUV2BGR`` of (Y, Cb, Cr) as colour, as cv2 does. A palette (``pclr`` /
 ``cmap``) and channel definitions (``cdef``) are applied as OpenJPEG
 applies them before cv2 sees the components.
 
@@ -1511,6 +1512,9 @@ class Rule:
     to_gray: bool
     shift: int
     dtype: type
+    #: the three channels are Y, Cb, Cr, taken to BGR by cvtColor's
+    #: ``COLOR_YUV2BGR`` (:func:`cvt_color.yuv_to_bgr`)
+    yuv: bool = False
 
 
 def output_rule(img: Image, flags: int) -> Rule:
@@ -1553,13 +1557,21 @@ def output_rule(img: Image, flags: int) -> Rule:
         if out_ch not in (1, 3):
             raise ValueError(f"JPEG 2000 gray into {out_ch} channels (cv2 returns None)")
         return Rule([0] * out_ch, False, shift, dtype)
-    raise ValueError("JPEG 2000 in sYCC is not read by the port (cv2 converts it with cvtColor's YUV rule)")
+    # sYCC (measured): the luma as gray, and as the one channel of a single
+    # component; colour through cvtColor's YUV rule of the first three
+    if out_ch == 1 or (nc == 1 and flags == IMREAD_UNCHANGED):
+        return Rule([0], False, shift, dtype)
+    if nc < 3 or out_ch == 4:
+        raise ValueError(f"JPEG 2000 sYCC of {nc} component(s) into {out_ch} channels (cv2 returns None)")
+    return Rule([0, 1, 2], False, shift, dtype, True)
 
 
 def apply_rule(img: Image, rule: Rule) -> np.ndarray:
     chans = [(img.planes[c] >> rule.shift).astype(rule.dtype) for c in rule.channels]
     if rule.to_gray:  # R, G, B -> BGR -> cvtColor
         return cvt_color.cvtcolor_gray(np.stack(chans[::-1], axis=-1))
+    if rule.yuv:
+        return cvt_color.yuv_to_bgr(np.stack(chans, axis=-1))
     if len(chans) == 1:
         return chans[0]
     return np.stack(chans, axis=-1)
@@ -1897,15 +1909,17 @@ def _fdwt53_lines(x: np.ndarray) -> np.ndarray:
 def encode(img, *, levels: Optional[int] = None, style: int = 0, progression: str = "LRCP",
            precincts: Optional[List[Tuple[int, int]]] = None, cblk: Tuple[int, int] = (6, 6), sop: bool = False,
            eph: bool = False, packed: Optional[str] = None, roi_shift: int = 0, codestream: bool = False,
-           map=map) -> bytes:
+           colour: Optional[int] = None, map=map) -> bytes:
     """A lossless ``.jp2`` of ``img``: (H, W) gray, (H, W, 3) BGR or (H, W,
     4) BGRA, uint8 or uint16 (see the module's text). The keywords exist for
     the fixture script: code-block ``style`` bits, ``progression``,
     ``precincts`` (log2 width, height per resolution), ``cblk`` (log2
     code-block width, height), SOP / EPH markers, packet headers ``packed``
     into "ppm" or "ppt", an ROI maxshift of ``roi_shift`` for the top-left
-    quarter of every subband, and a raw ``codestream``. ``map`` may be a
-    process pool's, to code the blocks in parallel."""
+    quarter of every subband, and a raw ``codestream``. ``colour=SYCC``
+    writes a (H, W, 3) image's channels as stored, taken for Y, Cb, Cr,
+    without the component transform, under an sYCC ``colr``. ``map`` may be
+    a process pool's, to code the blocks in parallel."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         raise ValueError(f"the JPEG 2000 writer takes uint8 or uint16, got {img.dtype}")
@@ -1913,7 +1927,9 @@ def encode(img, *, levels: Optional[int] = None, style: int = 0, progression: st
         img = img[..., 0]
     if img.ndim == 2:
         planes = [img]
-    elif img.ndim == 3 and img.shape[2] in (3, 4):
+    elif colour == SYCC and img.ndim == 3 and img.shape[2] == 3:
+        planes = [img[..., 0], img[..., 1], img[..., 2]]
+    elif img.ndim == 3 and img.shape[2] in (3, 4) and colour is None:
         planes = [img[..., 2], img[..., 1], img[..., 0]] + ([img[..., 3]] if img.shape[2] == 4 else [])
     else:
         raise ValueError(f"the JPEG 2000 writer takes (H, W), (H, W, 3) or (H, W, 4), got {img.shape}")
@@ -1925,7 +1941,7 @@ def encode(img, *, levels: Optional[int] = None, style: int = 0, progression: st
     nc = len(planes)
     nl = min(5, int(math.log2(min(height, width)))) if levels is None else levels
     comps = [p.astype(np.int64) - (1 << prec - 1) for p in planes]
-    mct = 1 if nc >= 3 else 0
+    mct = 1 if nc >= 3 and colour is None else 0
     if mct:
         r, g, b = comps[:3]
         comps[:3] = [(r + 2 * g + b) >> 2, b - g, r - g]
@@ -2027,7 +2043,7 @@ def encode(img, *, levels: Optional[int] = None, style: int = 0, progression: st
             bodies.append(marker + bytes(body))
         else:
             bodies.append(marker + hdr + bytes(body))
-    return _write_codestream(cs, coding, head, b"".join(heads), b"".join(bodies), packed, codestream, nc, prec)
+    return _write_codestream(cs, coding, head, b"".join(heads), b"".join(bodies), packed, codestream, nc, prec, colour)
 
 
 def _band_view(coef: np.ndarray, tc: TileComp, band: Band) -> np.ndarray:
@@ -2043,7 +2059,7 @@ def _marker(code: int, body: bytes) -> bytes:
 
 
 def _write_codestream(cs: Codestream, coding: Coding, head: Header, headers: bytes, body: bytes,
-                      packed: Optional[str], raw: bool, nc: int, prec: int) -> bytes:
+                      packed: Optional[str], raw: bool, nc: int, prec: int, colour: Optional[int] = None) -> bytes:
     siz = struct.pack(">HIIIIIIIIH", 0, cs.width, cs.height, 0, 0, cs.width, cs.height, 0, 0, nc)
     siz += bytes([prec - 1, 1, 1]) * nc
     cod = head.cod
@@ -2073,7 +2089,7 @@ def _write_codestream(cs: Codestream, coding: Coding, head: Header, headers: byt
     if raw:
         return stream
     ihdr = struct.pack(">IIHBBBB", cs.height, cs.width, nc, prec - 1, 7, 0, 0)
-    colr = struct.pack(">BBBI", 1, 0, 0, SRGB if nc >= 3 else GRAY)
+    colr = struct.pack(">BBBI", 1, 0, 0, colour or (SRGB if nc >= 3 else GRAY))
 
     def box(kind, data):
         return struct.pack(">I", len(data) + 8) + kind + data

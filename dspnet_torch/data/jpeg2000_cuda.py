@@ -43,7 +43,7 @@ from typing import List
 import numpy as np
 import torch
 
-from dspnet_torch.data import jpeg2000
+from dspnet_torch.data import cvt_color, jpeg2000
 from dspnet_torch.ops import _build
 
 #: columns of the block table (``csrc/jpeg2000.cu``'s B_* order)
@@ -290,7 +290,21 @@ def mct_store(st: Staged, samples: torch.Tensor) -> torch.Tensor:
                                    int(rule.dtype == np.uint16), chan, out.data_ptr(), _stream(samples.device))
     launches["mct_store"] += 1
     _build.check(lib, err, "mct_store_kernel")
+    if rule.yuv:  # sYCC: cvtColor's integer YUV rule as torch ops on the card
+        out = yuv_to_bgr(out)
     return out
+
+
+def yuv_to_bgr(img: torch.Tensor) -> torch.Tensor:
+    """``cvt_color.yuv_to_bgr`` as integer torch ops on ``img``'s device."""
+    top = 255 if img.dtype == torch.uint8 else 65535
+    d = (top + 1) // 2
+    y, u, v = (img[..., i].to(torch.int64) for i in range(3))
+    cb, cg1, cg2, cr = cvt_color.YUV2BGR
+    b = y + (((u - d) * cb + 8192) >> 14)
+    g = y + (((u - d) * cg1 + (v - d) * cg2 + 8192) >> 14)
+    r = y + (((v - d) * cr + 8192) >> 14)
+    return torch.stack([b, g, r], -1).clamp_(0, top).to(img.dtype)
 
 
 def decode(data, flags: int = jpeg2000.IMREAD_COLOR, device="cuda") -> torch.Tensor:

@@ -8,12 +8,15 @@ handler): its ``stsd`` sample entry (``mp4v`` with an ``esds`` whose
 DecoderSpecificInfo holds the VOS / VO / VOL headers), ``stsz``, ``stsc``,
 ``stco`` / ``co64``, ``stts`` (frames per second as cv2 reports them: the
 media timescale over the first sample's duration), ``stss`` and ``ctts``,
-and yields the samples in decode order. It refuses by name: a fragmented
-file (``moof`` / ``mvex``), an edit list that drops or shifts frames (more
-than one entry, an empty edit or a non-zero media time), composition
-offsets in ``ctts`` (frames out of decode order), more than one video
-track, and every sample entry other than ``mp4v`` (H.264, HEVC, AV1, VP9
-and the rest are named).
+and yields the samples in decode order. An ``avc1`` / ``avc3`` entry with
+an ``avcC`` is H.264 (``data/h264_cuda.py``): its ``ctts`` and an edit list
+shifting by the B-frame delay are read; an edit that drops frames raises
+(cv2 returns no frames for it). It refuses by name: a fragmented file
+(``moof`` / ``mvex``); for mp4v an edit list that drops or shifts frames
+(more than one entry, an empty edit or a non-zero media time) and
+composition offsets in ``ctts`` (frames out of decode order); more than one
+video track; and every other sample entry (HEVC, AV1, VP9 and the rest are
+named).
 
 :class:`Mp4Writer` writes ``ftyp`` (``isom``), ``free``, ``mdat`` and
 ``moov`` in the order cv2's FFmpeg muxer writes them: one ``mp4v`` track at
@@ -39,6 +42,8 @@ CODEC_NAMES = {
     "av01": "AV1", "vp09": "VP9", "vp08": "VP8", "mjp2": "Motion JPEG 2000", "jpeg": "Motion-JPEG",
     "mp4s": "MPEG-4 Systems", "s263": "H.263", "dvh1": "Dolby Vision", "dvhe": "Dolby Vision",
 }
+#: the sample entries of H.264 (an ``avcC`` box holds the configuration)
+H264_ENTRIES = ("avc1", "avc3")
 #: the movie and media timescales the writer uses (cv2's muxer: 1000 and
 #: 512 per frame at 25 fps)
 MOVIE_TIMESCALE = 1000
@@ -147,10 +152,10 @@ class Stream(NamedTuple):
     #: frames the header declares (an AVI's main header's or OpenDML's
     #: total; an MP4's sample count)
     declared_frames: int
-    #: the decoder the frames take: "mjpeg" or "mpeg4"
+    #: the decoder the frames take: "mjpeg", "mpeg4" or "h264"
     codec: str = "mjpeg"
-    #: the decoder's configuration (an mp4v track's VOS / VO / VOL headers;
-    #: none in an AVI, where MPEG-4's VOL is in band)
+    #: the decoder's configuration (an mp4v track's VOS / VO / VOL headers,
+    #: an H.264 track's avcC; none in an AVI, where both are in band)
     extradata: bytes = b""
 
 
@@ -182,12 +187,16 @@ class Mp4Reader:
             raise VideoError(f"{self.path}: the video track's stsd is empty")
         kind, ep, ee = entry
         fourcc = kind.decode("latin-1")
-        if fourcc != "mp4v":
+        avcc = _find(data, ep + 78, ee, b"avcC") if fourcc in H264_ENTRIES else []
+        if fourcc != "mp4v" and not avcc:
             name = CODEC_NAMES.get(fourcc, "an unknown codec")
-            raise VideoError(f"{self.path}: MP4 video coded as {name} ({fourcc!r}) is not read: the port decodes "
-                           "MPEG-4 Part 2 ('mp4v') in MP4 and Motion-JPEG or MPEG-4 Part 2 in AVI; write the clip "
-                           "as mp4v or Motion-JPEG")
-        self._check_edits(trak)
+            lack = " without an avcC box" if fourcc in H264_ENTRIES else ""
+            raise VideoError(f"{self.path}: MP4 video coded as {name} ({fourcc!r}){lack} is not read: the port "
+                           "decodes MPEG-4 Part 2 ('mp4v') and H.264 ('avc1', 'avc3') in MP4 and Motion-JPEG, "
+                           "MPEG-4 Part 2 or H.264 in AVI; write the clip as H.264, mp4v or Motion-JPEG")
+        h264 = bool(avcc)
+        if not h264:
+            self._check_edits(trak)
         mdhd = _find(data, *mdia, b"mdhd")
         if not mdhd:
             raise VideoError(f"{self.path}: the video track has no media header (mdhd)")
@@ -197,19 +206,25 @@ class Mp4Reader:
         else:
             (timescale,) = struct.unpack(">I", data[mdhd + 12:mdhd + 16])
         width, height = struct.unpack(">HH", data[ep + 24:ep + 28])
-        esds = _find(data, ep + 78, ee, b"esds")
-        if not esds:
-            raise VideoError(f"{self.path}: the mp4v sample entry has no esds")
-        extradata = _decoder_specific_info(data[esds[0][0]:esds[0][1]])
+        if h264:
+            extradata = data[avcc[0][0]:avcc[0][1]]
+        else:
+            esds = _find(data, ep + 78, ee, b"esds")
+            if not esds:
+                raise VideoError(f"{self.path}: the mp4v sample entry has no esds")
+            extradata = _decoder_specific_info(data[esds[0][0]:esds[0][1]])
         self._samples = self._sample_table(stbl)
-        if any(offset for _, offset in self._table(stbl, b"ctts", 8, ">Ii")):
+        ctts = self._table(stbl, b"ctts", 8, ">Ii")
+        if h264:
+            self._check_h264_edits(trak, ctts)
+        elif any(offset for _, offset in ctts):
             raise VideoError(f"{self.path}: composition time offsets (ctts): frames out of decode order, as "
                              "B-VOPs need, are not read")
         durations = self._table(stbl, b"stts", 8, ">II")
         fps = timescale / durations[0][1] if durations and durations[0][1] else 0.0
         stss = self._table(stbl, b"stss", 4, ">I")
         self.keyframes = [s[0] - 1 for s in stss] if _find(data, *stbl, b"stss") else list(range(len(self)))
-        self.stream = Stream(width, height, fps, fourcc, len(self._samples), "mpeg4", extradata)
+        self.stream = Stream(width, height, fps, fourcc, len(self._samples), "h264" if h264 else "mpeg4", extradata)
 
     def _check_edits(self, trak) -> None:
         data = self._data
@@ -222,6 +237,38 @@ class Mp4Reader:
                 if len(entries) > 1 or any(e[1] != 0 or e[2] != 1 for e in entries):
                     raise VideoError(f"{self.path}: an edit list that drops or shifts frames is not read "
                                    f"(elst entries {[e[:3] for e in entries]})")
+
+    def _check_h264_edits(self, trak, ctts) -> None:
+        """An H.264 track's edit list as FFmpeg's MOV demuxer treats it
+        (measured through cv2): one edit whose media time is at most the
+        earliest composition time (decode time plus ``ctts`` offset: the
+        B-frame delay) drops no frame; one that starts later drops frames,
+        and cv2 then returns none."""
+        data = self._data
+        stbl = next(iter(_find(data, *trak, b"mdia")), None)
+        stts = []
+        if stbl is not None:
+            for minf in _find(data, *stbl, b"minf"):
+                for st in _find(data, *minf, b"stbl"):
+                    stts = self._table(st, b"stts", 8, ">II")
+        dts = [0]
+        for count, delta in stts:
+            for _ in range(count):
+                dts.append(dts[-1] + delta)
+        offsets = [off for count, off in ctts for _ in range(count)] or [0]
+        first = min(d + o for d, o in zip(dts, offsets))
+        for edts in _find(data, *trak, b"edts"):
+            for p, _ in _find(data, *edts, b"elst"):
+                version = data[p]
+                (count,) = struct.unpack(">I", data[p + 4:p + 8])
+                fmt, size = (">QqHH", 20) if version == 1 else (">IiHH", 12)
+                entries = [struct.unpack(fmt, data[p + 8 + i * size:p + 8 + (i + 1) * size]) for i in range(count)]
+                if len(entries) > 1 or any(e[1] < 0 or e[2] != 1 for e in entries):
+                    raise VideoError(f"{self.path}: an edit list of {len(entries)} entries, empty edits or a rate "
+                                     f"other than 1 is not read (elst entries {[e[:3] for e in entries]})")
+                if entries and entries[0][1] > first:
+                    raise VideoError(f"{self.path}: an edit list that drops frames (media time {entries[0][1]} "
+                                     f"after the earliest composition time {first}): cv2 returns no frames from it")
 
     def _table(self, stbl, kind: bytes, size: int, fmt: str) -> list:
         found = _find(self._data, *stbl, kind)

@@ -1042,11 +1042,34 @@ COLOUR = (_round_int16(_CY << 13), _round_int16(104597 << 13), _round_int16(1322
           _round_int16(-53279 << 13), _round_int16(-25675 << 13), _round_int16((16 << 16) << 3))
 
 
-def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def swscale_colour(matrix: int = 2, full_range: bool = False) -> tuple:
+    """swscale's x86 YUV -> BGR coefficients as ``COLOUR`` holds them, for a
+    matrix (H.264 / ISO 23001-8 ``matrix_coefficients``; swscale's table by
+    ``sws_getCoefficients``) and range, as cv2 5.0.0 converts a frame that
+    carries them (measured for BT.601 and BT.709, limited and full)."""
+    crv, cbu, cgu, cgv = _YUV2RGB_TABLES.get(matrix, _YUV2RGB_TABLES[2])
+    cy, oy = 1 << 16, 0
+    if full_range:
+        crv, cbu, cgu, cgv = ((c * 224) // 255 for c in (crv, cbu, cgu, cgv))
+    else:
+        cy, oy = _CY, 16 << 16
+    return (_round_int16(cy << 13), _round_int16(crv << 13), _round_int16(cbu << 13), _round_int16(-cgv << 13),
+            _round_int16(-cgu << 13), _round_int16(oy << 3))
+
+
+#: swscale's ff_yuv2rgb_coeffs (crv, cbu, cgu, cgv) by matrix_coefficients
+_YUV2RGB_TABLES = {1: (117489, 138438, 13975, 34925),
+                   2: (104597, 132201, 25675, 53279), 5: (104597, 132201, 25675, 53279),
+                   6: (104597, 132201, 25675, 53279)}
+
+
+def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int,
+                  coef: tuple = COLOUR) -> torch.Tensor:
     """cv2's colour rule (the module's step 4) on torch tensors: (H16, W16)
     and two (H16 / 2, W16 / 2) uint8 planes -> the (height, width, 3) uint8
-    BGR frame, each term ``pmulhw``'s floor of the 16-bit product."""
-    yc, vr, ub, vg, ug, yo = COLOUR
+    BGR frame, each term ``pmulhw``'s floor of the 16-bit product;
+    ``coef`` another matrix or range (:func:`swscale_colour`)."""
+    yc, vr, ub, vg, ug, yo = coef
     yy = y[:height, :width].to(torch.int32)
     uu = u.repeat_interleave(2, 0).repeat_interleave(2, 1)[:height, :width].to(torch.int32)
     vv = v.repeat_interleave(2, 0).repeat_interleave(2, 1)[:height, :width].to(torch.int32)

@@ -214,17 +214,19 @@ def _matrices(device: torch.device, intra: tuple, inter: tuple) -> Tuple[torch.T
             torch.tensor(inter, dtype=torch.int32, device=device))
 
 
-def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int, width: int,
+                  coef: tuple = mpeg4.COLOUR) -> torch.Tensor:
     """``yuv420_to_bgr_kernel`` on a CUDA device, ``mpeg4.yuv420_to_bgr`` on
-    the CPU -> the (height, width, 3) uint8 BGR frame."""
+    the CPU -> the (height, width, 3) uint8 BGR frame (``coef``: swscale's
+    coefficients of the frame's matrix and range, ``mpeg4.swscale_colour``)."""
     if y.device.type == "cpu":
         plain_calls["yuv420_to_bgr"] += 1
-        return mpeg4.yuv420_to_bgr(y, u, v, height, width)
+        return mpeg4.yuv420_to_bgr(y, u, v, height, width, coef)
     if not all(p.dtype == torch.uint8 and p.is_contiguous() for p in (y, u, v)) or y.shape[0] < height \
             or y.shape[1] < width or u.shape != v.shape or u.shape[0] * 2 < height or u.shape[1] * 2 < width:
         raise ValueError("yuv420_to_bgr takes contiguous uint8 planes covering the frame")
     out = torch.empty(height, width, 3, dtype=torch.uint8, device=y.device)
-    coef = (ctypes.c_int * 6)(*mpeg4.COLOUR)
+    coef = (ctypes.c_int * 6)(*coef)
     lib = load_library()
     err = lib.dspnet_yuv420_to_bgr(y.data_ptr(), u.data_ptr(), v.data_ptr(), y.shape[1], u.shape[1], height, width,
                                    coef, out.data_ptr(), _stream(y.device))

@@ -598,7 +598,11 @@ def _rgba(data: bytes, img: _Image) -> np.ndarray:
         return out
     alpha = _alpha(img)
     if ph in (0, 1):
-        if img.bps == 16:
+        if img.planar == 2 and ph == 0:  # libtiff's separate path reads gray unmapped
+            g = s[..., 0] if img.bps == 8 else _LUT16[s[..., 0]]
+        elif img.bps == 16 and img.planar == 2:  # and maps 16 bits through Bitdepth16To8
+            g = _gray_map(img)[_LUT16[s[..., 0]]]
+        elif img.bps == 16:
             g = _gray_map(img)[_bw16_high_bytes(data, img, s)]
         else:
             g = _gray_map(img)[s[..., 0]]
@@ -610,8 +614,6 @@ def _rgba(data: bytes, img: _Image) -> np.ndarray:
             out[..., 3] = a
             if alpha == 2:
                 out[..., :3] = _UA[a[..., None], out[..., :3]]
-        if img.planar == 2 and ph == 0:  # libtiff's separate path reads gray unmapped
-            out[..., :3] = (s[..., :1] if img.bps == 8 else _LUT16[s[..., :1]])
         return out
     if ph == 3:
         out[..., :3] = _colormap(img)[s[..., 0]]
@@ -656,9 +658,6 @@ def _cv2_type(img: _Image):
         if fmt not in (1, 2):
             raise TiffError(f"{bps}-bit float TIFF: cv2 returns None")
         if bps == 16 and ncn == 2 and fmt == 1:  # gray + alpha: 8-bit gray through the RGBA reader (measured)
-            if img.planar == 2:
-                raise TiffError("16-bit planar gray + alpha TIFF: cv2's RGBA reader gives pixels the port does "
-                                "not follow yet (ROADMAP Queue C)")
             return np.uint8, 1
         return (np.int16 if fmt == 2 else np.uint16), ncn
     if bps == 32:

@@ -1,8 +1,10 @@
 """The video branch of the demo (counterpart of the video branch of
 ``dspnet_tpu/detect/detector.py::Detector.detect_and_visualize``,
-``:284-333``; reference multitask_detector.py:401-458) for Motion-JPEG AVI
-and MPEG-4 Part 2 (mp4v ``.mp4``; ``XVID``, ``DIVX``, ``FMP4`` and the other
-fourccs of ``data/avi.py`` in ``.avi``).
+``:284-333``; reference multitask_detector.py:401-458) for Motion-JPEG AVI,
+MPEG-4 Part 2 (mp4v ``.mp4``; ``XVID``, ``DIVX``, ``FMP4`` and the other
+fourccs of ``data/avi.py`` in ``.avi``) and H.264 (``avc1`` / ``avc3``
+``.mp4``; ``H264``, ``X264``, ``avc1`` and the other fourccs of
+``data/avi.py`` in ``.avi``).
 
 For each frame, in order:
 
@@ -15,7 +17,10 @@ For each frame, in order:
    decoder on the CPU); MPEG-4 Part 2 by ``mpeg4_cuda.Decoder`` on the card
    (the parse kernel over the batch's VOPs, then the reconstruction and
    colour kernels VOP by VOP) and on the CPU (those kernels' plain
-   versions); either gives cv2's frames;
+   versions); H.264 by ``h264_cuda.Decoder`` (the parse kernel over the
+   batch's slices, then the reconstruction and deblocking kernels picture by
+   picture, the colour kernel; the plain versions on the CPU), its delayed
+   frames flushed at the end as FFmpeg's are; each gives cv2's frames;
 3. ``device_pipeline.resize_linear`` takes the frame to the data shape on
    the device (cv2's ``INTER_LINEAR``, its area rule at an exact 2x);
 4. ``ServingPipeline(depth=2, raw=True)`` serves it, the full frame as the
@@ -46,7 +51,7 @@ from typing import Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from dspnet_torch.data import avi, jpeg_cuda, mp4, mpeg4, mpeg4_cuda
+from dspnet_torch.data import avi, h264_cuda, jpeg_cuda, mp4, mpeg4, mpeg4_cuda
 from dspnet_torch.data.device_pipeline import resize_linear
 from dspnet_torch.ops.nms import nms as host_nms
 from dspnet_torch.utils import draw
@@ -90,6 +95,12 @@ def _frames(detector, reader) -> Iterator[torch.Tensor]:
         for chunk in _chunks(reader):
             yield from jpeg_cuda.decode_images(chunk, detector.device)
         return
+    if stream.codec == "h264":
+        dec = h264_cuda.Decoder(detector.device, stream.extradata, stream.fourcc)
+        for chunk in _chunks(reader):
+            yield from dec.decode(chunk)
+        yield from dec.flush()
+        return
     dec = mpeg4_cuda.Decoder(detector.device, stream.extradata, stream.fourcc)
     for chunk in _chunks(reader):
         yield from dec.decode(chunk)
@@ -121,7 +132,7 @@ def render(detector, reader, thresh: float = 0.6, video_nms: float = 0.95) -> It
 
 
 def detect_video(detector, path, out_dir: str = ".", thresh: float = 0.6, video_nms: float = 0.95) -> List[str]:
-    """A Motion-JPEG or MPEG-4 Part 2 video through the detector into
+    """A Motion-JPEG, MPEG-4 Part 2 or H.264 video through the detector into
     ``out_dir/detection_out.mp4``; returns ``[that path]``, or ``[]`` for a
     clip without frames (as the JAX branch, which opens its writer at the
     first frame). Any other file raises ``avi.VideoError`` naming what it

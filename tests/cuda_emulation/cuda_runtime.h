@@ -1,5 +1,5 @@
 // A host emulation of the few CUDA runtime pieces dspnet_torch/csrc/av1.cu
-// uses, so that the source compiles with g++ and its kernels run on the CPU
+// and csrc/h264.cu use, so that the source compiles with g++ and its kernels run on the CPU
 // for tests: each CUDA thread of a block is a std::thread, __syncthreads is
 // a std::barrier over the block, blocks run one after another, __shared__
 // variables are static (one block at a time shares them). Build with
@@ -35,6 +35,7 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error (host emul
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __restrict__
 #define __constant__ static
 #define __shared__ static
@@ -72,3 +73,4 @@ EmuLaunch<K> emu_launch(K kernel, dim3 grid, dim3 block) {
   return EmuLaunch<K>{kernel, grid, block};
 }
 #define AV1_LAUNCH(kernel, grid, block, stream) emu_launch(kernel, dim3(grid), dim3(block))
+#define H264_LAUNCH(kernel, grid, block, stream) emu_launch(kernel, dim3(grid), dim3(block))

@@ -654,6 +654,13 @@ def tiff_forms(s: dict) -> dict:
                            "planar RGB, Deflate")
     f["planar_rgba_unassoc.tif"] = (tiff_simple(s["bgra"][..., [2, 1, 0, 3]].copy(), 2, planar=True, extra=[2]),
                                     "planar RGBA, unassociated alpha")
+    la16 = np.random.RandomState(16).randint(0, 65536, (19, 27, 2)).astype(np.uint16)
+    for ph, tile, extra in ((1, None, 2), (1, None, 1), (0, None, 2), (1, (32, 64), 2), (0, (32, 64), 0),
+                            (1, (16, 16), 2)):
+        name = f"planar_ga16_{'white' if ph == 0 else 'black'}_{'tiles%dx%d' % tile if tile else 'strips'}_x{extra}.tif"
+        f[name] = (tiff_simple(la16, ph, extra=[extra], planar=True, tile=tile),
+                   f"planar 16-bit gray + alpha (ExtraSamples {extra}), min-is-{'white' if ph == 0 else 'black'}, "
+                   + (f"tiles of {tile[0]}x{tile[1]}" if tile else "strips"))
     f["tiled_rgb16.tif"] = (tiff_simple(u16[..., ::-1].copy(), 2, tile=(32, 32)), "tiles of 32x32, 16-bit RGB")
     f["tiled_rgb_deflate.tif"] = (tiff_simple(street[..., ::-1].copy(), 2, tile=(16, 16), compress="deflate"),
                                   "tiles of 16x16, RGB, Deflate")
@@ -771,7 +778,46 @@ def png_forms(s: dict) -> dict:
                 name = f"apng_{mode.lower()}_{'default' if default else 'frame0'}_d{dispose}b{blend}.png"
                 f[name] = (buf.getvalue(), f"PIL APNG {mode}, {'a default image' if default else 'IDAT as frame 0'}"
                                            f", dispose {dispose}, blend {blend}")
+    rng = np.random.RandomState(20)
+    for ct, kind in ((2, "rgb"), (6, "rgba"), (0, "gray"), (4, "graya")):
+        frames = [rng.randint(0, 65536, (12, 16, {0: 1, 4: 2, 2: 3, 6: 4}[ct])).astype(np.uint16) for _ in range(3)]
+        for default in (False, True):
+            f[f"apng16_{kind}_{'default' if default else 'frame0'}.png"] = (
+                apng16(frames, ct, default), f"16-bit APNG, colour type {ct}, "
+                                             f"{'a default image' if default else 'IDAT as frame 0'}, by hand")
     return f
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def apng16(frames, color_type: int, default: bool) -> bytes:
+    """A 16-bit APNG of ``frames`` ((H, W, C) uint16, C by ``color_type``)
+    written chunk by chunk (neither cv2 nor PIL writes one): ``acTL``, then the
+    first frame in ``IDAT`` (a default image outside the animation when
+    ``default``, else frame 0 behind its ``fcTL``), then each later frame
+    as ``fcTL`` + ``fdAT`` (no offsets, dispose and blend 0)."""
+    h, w = frames[0].shape[:2]
+
+    def idat(a):
+        rows = a.astype(">u2").reshape(h, -1).view(np.uint8).reshape(h, -1)
+        return zlib.compress(b"".join(b"\0" + r.tobytes() for r in rows))
+
+    out = [b"\x89PNG\r\n\x1a\n", _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, color_type, 0, 0, 0)),
+           _png_chunk(b"acTL", struct.pack(">II", len(frames) - int(default), 0))]
+    seq = 0
+    for i, frame in enumerate(frames):
+        if i or not default:
+            out.append(_png_chunk(b"fcTL", struct.pack(">IIIIIHHBB", seq, w, h, 0, 0, 1, 25, 0, 0)))
+            seq += 1
+        if i == 0:
+            out.append(_png_chunk(b"IDAT", idat(frame)))
+        else:
+            out.append(_png_chunk(b"fdAT", struct.pack(">I", seq) + idat(frame)))
+            seq += 1
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
 
 
 # ------------------------------------------------------------------ WebP

@@ -207,6 +207,10 @@ def port_forms(s: dict) -> dict:
         struct.pack(">HHH", c, 0, c) for c in range(1, 4))
     f["box_cdef_alpha_first.jp2"] = (with_header_boxes(J.encode(s["bgra"]), box(b"cdef", cdef)),
                                      "cdef with alpha as component 0")
+    f["port_sycc.jp2"] = (J.encode(sm, colour=J.SYCC), "sYCC (colr 18) of three full-size 8-bit components")
+    f["port_sycc16.jp2"] = (J.encode(s["u16"], colour=J.SYCC), "sYCC (colr 18) of three full-size 16-bit components")
+    f["box_sycc_gray.jp2"] = (with_header_boxes(J.encode(s["gray"]), b"", J.SYCC), "sYCC (colr 18) over one component")
+    f["box_sycc_bgra.jp2"] = (with_header_boxes(J.encode(s["bgra"]), b"", J.SYCC), "sYCC (colr 18) over four components")
     f["refused_signed.jp2"] = (patch_siz(J.encode(sm), 1, 0x87), "a signed component (cv2 returns None)")
     f["refused_prec7.jp2"] = (patch_siz(J.encode(s["gray"]), 0, 0x06), "precision 7 (cv2 returns None)")
     return f

@@ -292,18 +292,19 @@ def test_jpeg_in_tiff_is_counted_apart_from_jpeg_files():
 
 @pytest.mark.parametrize("tile", [None, (32, 64)])
 def test_planar_16bit_gray_alpha_tiff_is_refused_where_cv2_reads_it(tile):
-    """A deliberate difference (ROADMAP Queue C): cv2 5.0.0 reads a planar
-    16-bit gray + alpha TIFF through libtiff's RGBA reader to pixels the
-    port does not follow yet; the port raises, naming the form, and does
-    not return other pixels."""
+    """Repaired (ROADMAP Queue C item 5): cv2 5.0.0 reads a planar 16-bit
+    gray + alpha TIFF through libtiff 4.7.1's separate RGBA path, where gray
+    takes ``Bitdepth16To8`` ((v + 128) // 257), unmapped for min-is-white,
+    before alpha is unassociated; the port's array is cv2's under every flag
+    and ExtraSamples value. The name is kept from when the port refused it."""
     from tests.make_image_fixtures import tiff_simple
 
     la16 = np.random.RandomState(16).randint(0, 65536, (19, 27, 2)).astype(np.uint16)
-    data = tiff_simple(la16, 1, extra=[2], planar=True, tile=tile)
-    for flag in FLAGS.values():
-        assert _cv2(data, flag) is not None
-        with pytest.raises(tiff.TiffError, match="planar gray"):
-            image_io.imdecode(data, flag)
+    for photometric in (0, 1):
+        for extra in (0, 1, 2):
+            data = tiff_simple(la16, photometric, extra=[extra], planar=True, tile=tile)
+            for flag in FLAGS.values():
+                _assert_same(image_io.imdecode(data, flag), _cv2(data, flag), f"{photometric} {extra} {flag}")
 
 
 def test_avif_refused_by_name():

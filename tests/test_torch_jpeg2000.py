@@ -282,3 +282,19 @@ def test_python_loader_over_yolo_jp2_equals_jax(tmp_path):
             for k in wb:
                 assert gb[k].dtype == wb[k].dtype, k
                 np.testing.assert_array_equal(gb[k], wb[k], err_msg=k)
+
+
+def test_sycc_colour_rule_on_the_card_path_equals_cvtcolor():
+    """sYCC's colour (ROADMAP Queue C item 5): ``cvt_color.yuv_to_bgr`` and
+    the card's torch version (``jpeg2000_cuda.yuv_to_bgr``, run on CPU
+    tensors) equal ``cv2.cvtColor(COLOR_YUV2BGR)`` on every 8-bit triple and
+    on random 16-bit ones."""
+    from dspnet_torch.data import cvt_color
+
+    a = np.arange(1 << 24, dtype=np.uint32)
+    u8 = np.stack([(a >> 16) & 255, (a >> 8) & 255, a & 255], -1).astype(np.uint8).reshape(4096, 4096, 3)
+    u16 = np.random.RandomState(18).randint(0, 65536, (256, 256, 3)).astype(np.uint16)
+    for img in (u8, u16):
+        want = cv2.cvtColor(img, cv2.COLOR_YUV2BGR)
+        np.testing.assert_array_equal(cvt_color.yuv_to_bgr(img), want)
+        np.testing.assert_array_equal(jpeg2000_cuda.yuv_to_bgr(torch.from_numpy(img[:512])).numpy(), want[:512])

@@ -36,7 +36,7 @@ from dspnet_tpu.detect import detector as jax_detector_module
 from dspnet_tpu.detect.detector import Detector as JaxDetector
 from dspnet_tpu.ops.nms import nms as jax_nms
 from dspnet_torch.api import create_model
-from dspnet_torch.data import avi, jpeg, jpeg_cuda, mp4, mpeg4, mpeg4_cuda, synthetic
+from dspnet_torch.data import avi, h264_cuda, jpeg, jpeg_cuda, mp4, mpeg4, mpeg4_cuda, synthetic
 from dspnet_torch.data.cs_labels import DET_CLASSES, train_id_palette
 from dspnet_torch.detect import video
 from dspnet_torch.detect.detector import Detector
@@ -393,15 +393,16 @@ def _mp4(fourcc: bytes) -> bytes:
 
 
 def test_refusals(served, tmp_path):
-    """MP4s of other codecs are refused by their codec's name (H.264, HEVC,
-    AV1 and VP9 sample entries) through ``avi.open_video`` and
-    ``detect_and_visualize``, the message saying to write mp4v or
-    Motion-JPEG; the committed mp4v clip and an XVID AVI are read; an AVI
-    coded otherwise than Motion-JPEG or MPEG-4 Part 2 names its fourcc; an
-    interlaced AVI1 field pair is refused; MPEG-4 tools outside Simple
-    Profile (a B-VOP, quarter-pel, a packed bitstream) raise by name through
-    ``detect_and_visualize``; a webcam id raises and says why; no
-    ``detection_out.mp4`` is left behind."""
+    """MP4s of other codecs are refused by their codec's name (HEVC, AV1 and
+    VP9 sample entries, and an ``avc1`` entry without its ``avcC``) through
+    ``avi.open_video`` and ``detect_and_visualize``, the message saying to
+    write H.264, mp4v or Motion-JPEG; the committed mp4v clip, an H.264
+    ``avc1`` MP4, an XVID AVI and an H264 AVI are read; an interlaced H.264
+    stream is refused by name; an interlaced AVI1 field pair is refused;
+    MPEG-4 tools outside Simple Profile (a B-VOP, quarter-pel, a packed
+    bitstream) raise by name through ``detect_and_visualize``; a webcam id
+    raises and says why; no ``detection_out.mp4`` is left behind. (Until
+    H.264 was read, this test held the ``avc1`` MP4 and the H264 AVI refused.)"""
     _, _, pdet, clip = served
     assert avi.probe_mp4(str(FIXTURE / "mp4v.mp4")) == "mp4v"
     with avi.open_video(FIXTURE / "mp4v.mp4") as reader:
@@ -422,8 +423,18 @@ def test_refusals(served, tmp_path):
     with avi.open_video(tmp_path / "xvid.avi") as reader:
         assert (reader.stream.codec, reader.stream.fourcc) == ("mpeg4", "XVID")
     (tmp_path / "h264.avi").write_bytes(data[:i] + b"H264" + data[i + 4:])
-    with pytest.raises(avi.VideoError, match="H264.*write the clip as mp4v or Motion-JPEG"):
-        avi.open_video(tmp_path / "h264.avi")
+    with avi.open_video(tmp_path / "h264.avi") as reader:
+        assert (reader.stream.codec, reader.stream.fourcc) == ("h264", "H264")
+    h264_forms = ROOT / "tests" / "fixtures" / "h264_forms"
+    with avi.open_video(h264_forms / "cabac_ipbb_spatial.mp4") as reader:
+        assert (reader.stream.codec, reader.stream.fourcc) == ("h264", "avc1")
+        dec = h264_cuda.Decoder("cpu", reader.stream.extradata, reader.stream.fourcc)
+        assert len(dec.decode(list(reader)) + dec.flush()) == len(reader) > 0
+    with pytest.raises(avi.VideoError, match="interlaced"):
+        pdet.detect_and_visualize(str(h264_forms / "refused_interlaced.mp4"), str(tmp_path / "out"))
+    (tmp_path / "foreign.avi").write_bytes(data[:i] + b"ABCD" + data[i + 4:])
+    with pytest.raises(avi.VideoError, match="ABCD.*write the clip as H.264, mp4v or Motion-JPEG"):
+        avi.open_video(tmp_path / "foreign.avi")
     field = b"\xff\xd8\xff\xe0\x00\x10AVI1\x01" + bytes(9) + jpeg.encode(np.zeros((8, 16, 3), np.uint8))[2:]
     with avi.AviWriter(tmp_path / "fields.avi", 16, 16) as writer:
         writer.write(field)
