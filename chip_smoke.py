@@ -280,19 +280,24 @@ Phases (any failure ends the run with a non-zero exit):
      one read end to end; ``multi_demo --images`` on both scenes and one
      ``DeviceAugIterator`` batch over ``YoloFormat(image_ext=".avif")``
      into one ``train_step`` (kernel launches counted; plain calls 0);
- 23. H.264 through the three kernels of csrc/h264.cu: every committed form of
-     tests/fixtures/h264_forms/ (python tests/make_h264_fixtures.py) equal
-     to cv2's sha256 per frame on the card (count and order too), the
-     refusals by name; each kernel (h264_parse, h264_recon, h264_deblock)
-     == its plain version bit for bit on every picture of eight small forms
-     and on the 1024x2048 clip's first two; the kernels timed at the clip's
-     shapes beside their bounds (h264_work); ``multi_demo --images`` on the
-     13-frame 1024x2048 High CABAC clip (launches counted, plain calls 0)
-     and its ms per frame by stage;
+ 23. H.264 through the six kernels of csrc/h264.cu (the parse; the
+     reconstruction's h264_mv_kernel, h264_inter_kernel, h264_intra_kernel;
+     the deblocking filter's h264_bs_kernel, h264_filter_kernel): every
+     committed form of tests/fixtures/h264_forms/ (python
+     tests/make_h264_fixtures.py) equal to cv2's sha256 per frame on the
+     card (count and order too), the refusals by name; each stage
+     (h264_parse, h264_recon, h264_deblock) == its plain version bit for
+     bit on every picture of eight small forms and on the 1024x2048 clip's
+     first two (an I and a P picture); on those two, the stages' kernels
+     before their redesign (baselines/h264_wave_per_thread.cu) == the new
+     ones and both timed in turns, old, new, new, old, each kernel's device
+     us beside its bound (h264_work); ``multi_demo --images`` on the
+     13-frame 1024x2048 High CABAC clip (launches of each kernel counted,
+     plain calls 0) and its ms per frame by stage;
  24. JSON lines with nvJPEG's record, phase 9's numbers, phase 11's, phase
      12's, phase 13's, phase 14's, phase 15's, phase 16's, phase 17's, phase 18's, phase 19's, phase 20's,
      phase 22's and 23's, the kernel results (the two TPU kernels' ports, the colour kernel, the three
-     JPEG 2000 kernels, the three MPEG-4 kernels, the four AV1 kernels and the three H.264 kernels; each
+     JPEG 2000 kernels, the three MPEG-4 kernels, the four AV1 kernels and the six H.264 kernels; each
      kernel's device, host, event and bound times at the main path's shapes, beside the baseline kernels'
      times from this run, and at phases 10, 11, 17, 19, 20, 22 and 23's shapes) and each phase's seconds
      with the script's total, then the result line, last.
@@ -401,6 +406,9 @@ BASELINE_SOURCES = (ROOT / "baselines" / "nms_two_launch.cu", ROOT / "baselines"
 # the colour kernel before it took every sampling geometry, timed
 # beside the current one on the same 4:2:0 planes
 COLOUR_BASELINE = ROOT / "baselines" / "jpeg_colour_per_sample.cu"
+# the H.264 reconstruction and deblocking kernels before their redesign (one
+# block, a thread a macroblock), timed beside the current ones in phase 23
+H264_BASELINE = ROOT / "baselines" / "h264_wave_per_thread.cu"
 
 
 def baseline_kernels(dev):
@@ -460,6 +468,65 @@ def colour_baseline(dev):
         return out
 
     return colour
+
+
+def h264_baseline(dev):
+    """Bind the H.264 kernels before their redesign
+    (``baselines/h264_wave_per_thread.cu``), with the inputs and outputs the
+    wrapper of the time gave them: returns (recon_launches, deblock_launches)
+    with the arguments of ``h264_cuda.recon_launches`` / ``deblock_launches``
+    and their results (the outputs and [(kernel, launch)]; one launch a
+    stage)."""
+    import ctypes
+
+    from dspnet_torch.data import h264_cuda
+    from dspnet_torch.ops import _build
+
+    lib = _build.load_library(H264_BASELINE)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.dspnet_h264_recon.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp]
+    lib.dspnet_h264_deblock.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, vp, vp, i, i, vp]
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def recon_launches(table, levels, slices, sps, refs, col, poc):
+        mbw, mbh = sps.mb_width, sps.mb_height
+        ids = sorted(refs)
+        ptrs = np.array([[refs[p].y.data_ptr(), refs[p].u.data_ptr(), refs[p].v.data_ptr()] for p in ids]
+                        or [[0, 0, 0]], np.int64)
+        rec, refptr = h264_cuda._upload([h264_cuda.slice_records(slices, {p: k for k, p in enumerate(ids)}, poc),
+                                         ptrs], dev)
+        y = torch.empty(16 * mbh, 16 * mbw, dtype=torch.uint8, device=dev)
+        u, v = (torch.empty(8 * mbh, 8 * mbw, dtype=torch.uint8, device=dev) for _ in range(2))
+        mv = torch.zeros(2, 4 * mbh, 4 * mbw, 2, dtype=torch.int32, device=dev)
+        ref = torch.full((2, 4 * mbh, 4 * mbw), -1, dtype=torch.int32, device=dev)
+        rid = torch.full((2, 4 * mbh, 4 * mbw), -1, dtype=torch.int32, device=dev)
+        tab, lev = table[:mbw * mbh].contiguous(), levels[:mbw * mbh].contiguous()
+        cm = (col.mv.data_ptr(), col.ref.data_ptr(), col.ref_id.data_ptr()) if col is not None else (0, 0, 0)
+
+        def launch():
+            err = lib.dspnet_h264_recon(tab.data_ptr(), lev.data_ptr(), rec.data_ptr(), refptr.data_ptr(),
+                                        h264_cuda._tables(dev).data_ptr(), mbw, mbh, 1, poc, y.data_ptr(),
+                                        u.data_ptr(), v.data_ptr(), 16 * mbw, 8 * mbw, mv.data_ptr(), ref.data_ptr(),
+                                        rid.data_ptr(), *cm, stream())
+            _build.check(lib, err, "baseline h264_recon_kernel")
+
+        return (y, u, v, h264_cuda.CardMotion(mv, ref, rid, (rec, refptr, refs))), [("h264_recon_kernel", launch)]
+
+    def deblock_launches(y, u, v, table, mf, slices, sps):
+        mbw, mbh = sps.mb_width, sps.mb_height
+        tab = table[:mbw * mbh].contiguous()
+
+        def launch():
+            err = lib.dspnet_h264_deblock(tab.data_ptr(), mf.records[0].data_ptr(), mf.mv.data_ptr(),
+                                          mf.ref_id.data_ptr(), h264_cuda._tables(dev).data_ptr(), mbw, mbh, 1,
+                                          y.data_ptr(), u.data_ptr(), v.data_ptr(), 16 * mbw, 8 * mbw, stream())
+            _build.check(lib, err, "baseline h264_deblock_kernel")
+
+        return [("h264_deblock_kernel", launch)]
+
+    return recon_launches, deblock_launches
 
 
 def bound_us(nbytes, ops):
@@ -5646,8 +5713,17 @@ def probe_codec_libraries():
         return None
 
 
-H264_KERNELS = {"h264_parse": "h264_parse_kernel", "h264_recon": "h264_recon_kernel",
-                "h264_deblock": "h264_deblock_kernel"}
+#: the stages of csrc/h264.cu (h264_cuda.KERNELS names each one's kernels)
+H264_STAGES = ("h264_parse", "h264_recon", "h264_deblock")
+#: what each kernel stands in for in FFmpeg behind cv2.VideoCapture
+H264_REPLACES = {
+    "h264_parse_kernel": "h264_cabac.c / h264_cavlc.c macroblock layer (slice data: CABAC and CAVLC)",
+    "h264_mv_kernel": "h264_mvpred.h / h264_direct.c (motion vector prediction, P_Skip, B direct)",
+    "h264_inter_kernel": "h264_mb.c inter half, h264qpel, h264chroma, h264idct (residual, motion compensation, "
+                         "weights)",
+    "h264_intra_kernel": "h264_mb.c intra half, h264pred (Intra 4x4 / 8x8 / 16x16, chroma, I_PCM)",
+    "h264_bs_kernel": "h264_loopfilter.c bS (check_mv, the edge rules)",
+    "h264_filter_kernel": "h264_loopfilter.c alpha / beta / tC0 filters"}
 #: the small forms whose every picture phase 23 also holds stage by stage to
 #: the plain versions (the plain Python decoder takes about 0.2 s a picture
 #: at 176x144): CAVLC and CABAC, P and B, direct both ways, weights, 8x8,
@@ -5658,20 +5734,28 @@ H264_STAGEWISE = ("cavlc_intra.mp4", "cavlc_p_partitions.mp4", "cavlc_longterm_m
 
 def _h264_syntax_bytes(table, levels) -> int:
     """The bytes of the macroblock layer's syntax, packed, for a parsed
-    picture's (table, levels) rows: 4 B a macroblock (type, partitions and
-    lists, CBP, QP, the transform flag, the chroma mode), 2 B of
-    sub-macroblock types (8x8 partitions), 8 B of intra 4x4 / 8x8 modes,
-    384 B of I_PCM samples, 1 B a distinct reference index and 4 B a
-    distinct nonzero motion vector difference per macroblock and list, 2 B
-    a nonzero level; no dense slots, no zero padding."""
+    picture's (table, levels) rows (:func:`_h264_syntax_parts` summed)."""
+    return sum(_h264_syntax_parts(table, levels).values())
+
+
+def _h264_syntax_parts(table, levels) -> dict:
+    """The bytes of the macroblock layer's syntax, packed, for a parsed
+    picture's (table, levels) rows, by part: "mb", 4 B a macroblock (type,
+    partitions and lists, CBP, QP, the transform flag, the chroma mode) and
+    2 B of sub-macroblock types (8x8 partitions); "intra", 8 B of intra 4x4
+    / 8x8 modes and 384 B of I_PCM samples; "motion", 1 B a distinct
+    reference index and 4 B a distinct nonzero motion vector difference per
+    macroblock and list; "levels", 2 B a nonzero level; no dense slots, no
+    zero padding."""
     from dspnet_torch.data import h264_parse as HP
 
     table, levels = np.asarray(table, np.int64), np.asarray(levels)
     typ = table[:, HP.F_TYPE]
     inter = typ == HP.T_INTER
     pcm = typ == HP.T_PCM
-    n = 4 * len(table) + 2 * int((inter & (table[:, HP.F_PART] == HP.PART_8x8)).sum())
-    n += 8 * int(np.isin(typ, (HP.T_I4, HP.T_I8)).sum()) + 384 * int(pcm.sum())
+    parts = {"mb": 4 * len(table) + 2 * int((inter & (table[:, HP.F_PART] == HP.PART_8x8)).sum()),
+             "intra": 8 * int(np.isin(typ, (HP.T_I4, HP.T_I8)).sum()) + 384 * int(pcm.sum())}
+    n = 0
     for lx in range(2):
         refs = (table[inter, HP.F_REF0 + lx][:, None] >> (8 * np.arange(4))) & 0xFF
         refs = np.where(refs == 0xFF, -1, refs)
@@ -5681,7 +5765,9 @@ def _h264_syntax_bytes(table, levels) -> int:
         zero = (1 << 15) * (1 << 17) + (1 << 15)
         distinct = np.concatenate([np.ones((len(key), 1), bool), key[:, 1:] != key[:, :-1]], 1) & (key != zero)
         n += 4 * int(distinct.sum())
-    return n + 2 * int((levels[~pcm] != 0).sum())
+    parts["motion"] = n
+    parts["levels"] = 2 * int((levels[~pcm] != 0).sum())
+    return parts
 
 
 def h264_work(jobs, tables, pic):
@@ -5708,7 +5794,18 @@ def h264_work(jobs, tables, pic):
       luma p3..q3 at bS 4, p2..q2 else; chroma p1..q1), 5 B of fields a
       macroblock and the motion field of the lists in use in; the samples
       it changes out; about 20 operations a filtered luma line, 12 a chroma
-      one, 10 a bS."""
+      one, 10 a bS.
+
+    Each stage's count is also split among its kernels (keys the kernels'
+    names; what one kernel hands the next is the stage's own and counted
+    nowhere): h264_mv_kernel the macroblock and motion syntax in, the motion
+    field out, about 30 operations a 4x4 block and list; h264_inter_kernel
+    the levels and the reference windows in, the inter macroblocks' samples
+    out, the prediction and residual operations; h264_intra_kernel the
+    intra modes and I_PCM samples in, the intra macroblocks' samples out,
+    their operations; h264_bs_kernel the fields and the motion field in, the
+    bS operations; h264_filter_kernel the taps in and the changed samples
+    out, the filter's operations."""
     from dspnet_torch.data import h264_filters
     from dspnet_torch.data import h264_parse as HP
 
@@ -5718,8 +5815,8 @@ def h264_work(jobs, tables, pic):
     for k, (t, lv) in enumerate(tables):
         m = next(s.mb_width * s.mb_height for j, s in jobs if j.picture == k)
         out += _h264_syntax_bytes(t[:m], lv[:m])
-    nbytes["h264_parse"] = coded + out
-    ops["h264_parse"] = 16 * 8 * coded
+    nbytes["h264_parse"] = nbytes["h264_parse_kernel"] = coded + out
+    ops["h264_parse"] = ops["h264_parse_kernel"] = 16 * 8 * coded
 
     table, levels = np.asarray(pic["table"], np.int64), np.asarray(pic["levels"])
     mv, ref, ref_id = (np.asarray(pic[k], np.int64) for k in ("mv", "ref", "ref_id"))
@@ -5755,8 +5852,16 @@ def h264_work(jobs, tables, pic):
     chroma_res = int(((table[:, HP.F_CBP] >> 4) != 0).sum())
     n_list = int(used.sum())
     samples = int(sum(p.size for p in pic["pre"]))
-    nbytes["h264_recon"] = _h264_syntax_bytes(table, levels) + reads + samples + 5 * n_list
-    ops["h264_recon"] = luma_ops + chroma_ops + 4 * 384 * int(intra.sum()) + 10 * (16 * nz_blocks + 128 * chroma_res)
+    syntax = _h264_syntax_parts(table, levels)
+    intra_samples = samples * int(intra.sum()) // len(table)
+    nbytes["h264_mv_kernel"] = syntax["mb"] + syntax["motion"] + 5 * n_list
+    nbytes["h264_inter_kernel"] = syntax["levels"] + reads + samples - intra_samples
+    nbytes["h264_intra_kernel"] = syntax["intra"] + intra_samples
+    ops["h264_mv_kernel"] = 30 * n_list
+    ops["h264_inter_kernel"] = luma_ops + chroma_ops + 10 * (16 * nz_blocks + 128 * chroma_res)
+    ops["h264_intra_kernel"] = 4 * 384 * int(intra.sum())
+    for d in (nbytes, ops):
+        d["h264_recon"] = d["h264_mv_kernel"] + d["h264_inter_kernel"] + d["h264_intra_kernel"]
 
     mbw, mbh = pic["mb"]
     bs = h264_filters.strengths(table, mv, ref_id, pic["slices"], mbw, mbh)  # (n, dir, edge, segment)
@@ -5780,8 +5885,12 @@ def h264_work(jobs, tables, pic):
         lines["luma" if c == 0 else "chroma"] += seg * int(keep.sum())
     changed = sum(int((np.asarray(a) != np.asarray(b)).sum()) for a, b in zip(pic["post"], pic["pre"]))
     inter_lists = int(used[:, np.repeat(np.repeat(~intra.reshape(mbh, mbw), 4, 0), 4, 1)].sum())
-    nbytes["h264_deblock"] = reads + changed + 5 * len(table) + 5 * inter_lists
-    ops["h264_deblock"] = 20 * lines["luma"] + 12 * lines["chroma"] + 10 * int(bs.size)
+    nbytes["h264_bs_kernel"] = 5 * len(table) + 5 * inter_lists
+    nbytes["h264_filter_kernel"] = reads + changed
+    ops["h264_bs_kernel"] = 10 * int(bs.size)
+    ops["h264_filter_kernel"] = 20 * lines["luma"] + 12 * lines["chroma"]
+    for d in (nbytes, ops):
+        d["h264_deblock"] = d["h264_bs_kernel"] + d["h264_filter_kernel"]
     return nbytes, ops
 
 
@@ -5789,20 +5898,63 @@ def _h264_largest(a, b) -> int:
     return int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max()) if a.numel() else 0
 
 
-def h264_stagewise(dev, err, samples, config, fourcc, limit=None, pick=None):
+def h264_launch_us(launches, prepare=None, n=3):
+    """Device us of each of a stage's launches [(kernel, launch)]: CUDA
+    events around each launch, the mean of ``n`` rounds after one to warm
+    up; ``prepare`` runs before each round, outside the events -> {kernel:
+    us}."""
+    out = {name: 0.0 for name, _ in launches}
+    for r in range(n + 1):
+        if prepare is not None:
+            prepare()
+        marks = []
+        for name, launch in launches:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch()
+            end.record()
+            marks.append((name, start, end))
+        torch.cuda.synchronize()
+        if r:
+            for name, start, end in marks:
+                out[name] += start.elapsed_time(end) * 1e3 / n
+    return out
+
+
+def h264_device_us(fn, names, n=5):
+    """Device us per call of ``fn`` from torch.profiler, every launch of the
+    kernels ``names`` summed, and how: (us, "torch.profiler") when it
+    recorded each kernel ``n`` times, else (None, what it recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    evts = {name: [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+            for name in names}
+    if all(len(v) == n for v in evts.values()):
+        return sum(e.device_time for v in evts.values() for e in v) / n, "torch.profiler"
+    return None, "the profiler recorded " + ", ".join(f"{len(v)} of {n} {k}" for k, v in evts.items())
+
+
+def h264_stagewise(dev, err, samples, config, fourcc, limit=None, picks=()):
     """The samples through ``h264_cuda.Decoder.decode`` on ``dev`` with its
-    stages wrapped: each kernel held to its plain version on the same inputs
+    stages wrapped: each stage held to its plain version on the same inputs
     (the plain parse of the batch's slices, the plain reconstruction from
     the card's tables and references, the plain filter on the card's
     unfiltered planes) on the first ``limit`` pictures (every one when
-    None), the largest difference of each kept in ``err``; with ``pick``,
-    that picture's (in decode order) inputs and outputs, and its parse
-    launch's, kept -> (pictures compared, plain seconds by kernel, what was
-    kept)."""
+    None), the largest difference of each kept in ``err``; for each picture
+    of ``picks`` (in decode order) its inputs and outputs kept under its
+    index, and the first one's parse launch -> (pictures compared, plain
+    seconds by stage, what was kept)."""
     from dspnet_torch.data import h264_cuda
 
     dec = h264_cuda.Decoder(dev, config, fourcc)
-    plain = dict.fromkeys(H264_KERNELS, 0.0)
+    plain = dict.fromkeys(H264_STAGES, 0.0)
     seen = {"parsed": 0, "done": 0}
     host, kept = {}, {}
 
@@ -5822,7 +5974,7 @@ def h264_stagewise(dev, err, samples, config, fourcc, limit=None, pick=None):
                                         _h264_largest(lv[:n_mb], rlv))
                 check(torch.equal(t[:n_mb].cpu(), rt) and torch.equal(lv[:n_mb].cpu(), rlv),
                       f"h264_parse_kernel != plain in the batch from picture {seen['parsed']}")
-        if pick is not None and seen["parsed"] <= pick < seen["parsed"] + n:
+        if picks and seen["parsed"] <= picks[0] < seen["parsed"] + n:
             kept["parse"] = (jobs, n, device)
             kept["tables"] = tables
         seen["parsed"] += n
@@ -5837,13 +5989,13 @@ def h264_stagewise(dev, err, samples, config, fourcc, limit=None, pick=None):
             plain["h264_recon"] += time.perf_counter() - t0
             pairs = [(y, ry), (u, ru), (v, rv), (mf.mv, rmf.mv), (mf.ref, rmf.ref), (mf.ref_id, rmf.ref_id)]
             err["h264_recon"] = max(err["h264_recon"], *(_h264_largest(a, b) for a, b in pairs))
-            check(all(torch.equal(a.cpu(), b.cpu()) for a, b in pairs), f"h264_recon_kernel != plain on picture {k}")
+            check(all(torch.equal(a.cpu(), b.cpu()) for a, b in pairs),
+                  f"the reconstruction kernels != plain on picture {k}")
             host["planes"] = (y.cpu().clone(), u.cpu().clone(), v.cpu().clone())
             host["mf"] = rmf
-        if k == pick:
-            kept["recon"] = (table, levels, slices, sps, refs, col, poc)
-            kept["pre"] = (y.clone(), u.clone(), v.clone())
-            kept["mf"] = mf
+        if k in picks:
+            kept[k] = {"recon": (table, levels, slices, sps, refs, col, poc), "pre": (y.clone(), u.clone(), v.clone()),
+                       "mf": mf}
         return y, u, v, mf
 
     def deblock(y, u, v, table, mf, slices, sps):
@@ -5857,9 +6009,9 @@ def h264_stagewise(dev, err, samples, config, fourcc, limit=None, pick=None):
             pairs = ((y, hy), (u, hu), (v, hv))
             err["h264_deblock"] = max(err["h264_deblock"], *(_h264_largest(a, b) for a, b in pairs))
             check(torch.equal(y.cpu(), hy) and torch.equal(u.cpu(), hu) and torch.equal(v.cpu(), hv),
-                  f"h264_deblock_kernel != plain on picture {k}")
-        if k == pick:
-            kept["post"] = (y.clone(), u.clone(), v.clone())
+                  f"the deblocking kernels != plain on picture {k}")
+        if k in picks:
+            kept[k]["post"] = (y.clone(), u.clone(), v.clone())
         seen["done"] += 1
 
     dec.stages.update(parse=parse, recon=recon, deblock=deblock)
@@ -5869,19 +6021,139 @@ def h264_stagewise(dev, err, samples, config, fourcc, limit=None, pick=None):
     return done, plain, kept
 
 
+def h264_clip_timings(dev, err, kept, jobs, plain, pics_checked, label):
+    """Phase 23b on what ``h264_stagewise`` kept of a clip's first batch
+    (picture 0 an I picture, 1 a P picture): per picture the stages'
+    bounds (``h264_work``), the kernels before their redesign and the
+    current ones on the same inputs, equal, and timed in turns (old, new,
+    new, old; CUDA events around each launch), the stages' torch.profiler
+    time on the P picture where it records every launch, host us and plain
+    ms; the parse launch timed -> {"P": {stage: ...}, "I": ..., "parse": ...}."""
+    from dspnet_torch.data import h264_cuda
+
+    old_recon, old_deblock = h264_baseline(dev)
+    parse_us, _, parse_how = j2k_device_us(lambda: h264_cuda.parse(*kept["parse"]), "h264_parse_kernel",
+                                           h264_cuda.kernel_launches, "h264_parse_kernel", n=2)
+    per = {}
+    for tag, k in (("P", 1), ("I", 0)):
+        table, levels, slices, sps = kept[k]["recon"][:4]
+        check(all(x.slice_type == (0 if tag == "P" else 2) for x in slices),
+              f"picture {k} of the clip in decode order is not an {tag} picture")
+        n_mb = sps.mb_width * sps.mb_height
+        mf = kept[k]["mf"]
+        nb, ops = h264_work(jobs, [(t.cpu().numpy(), lv.cpu().numpy()) for t, lv in kept["tables"]],
+                            {"table": table[:n_mb].cpu().numpy(), "levels": levels[:n_mb].cpu().numpy(),
+                             "slices": slices, "mb": (sps.mb_width, sps.mb_height), "mv": mf.mv.cpu().numpy(),
+                             "ref": mf.ref.cpu().numpy(), "ref_id": mf.ref_id.cpu().numpy(),
+                             "pre": [p.cpu().numpy() for p in kept[k]["pre"]],
+                             "post": [p.cpu().numpy() for p in kept[k]["post"]]})
+        # each stage's launches, the kernels before their redesign and the current ones, on the same inputs
+        new_out, new_recon = h264_cuda.recon_launches(*kept[k]["recon"])
+        old_out, old_recon_l = old_recon(*kept[k]["recon"])
+        pre = kept[k]["pre"]
+        planes = {"new": [p.clone() for p in pre], "old": [p.clone() for p in pre]}
+        new_deblock = h264_cuda.deblock_launches(*planes["new"], table, mf, slices, sps)
+        old_deblock_l = old_deblock(*planes["old"], table, mf, slices, sps)
+        stage_launches = {("h264_recon", "new"): new_recon, ("h264_recon", "old"): old_recon_l,
+                          ("h264_deblock", "new"): new_deblock, ("h264_deblock", "old"): old_deblock_l}
+        turns = {key: [] for key in stage_launches}
+        for which in ("old", "new", "new", "old"):
+            for stage in ("h264_recon", "h264_deblock"):
+                prepare = None
+                if stage == "h264_deblock":
+                    prepare = (lambda w=which: [d.copy_(x) for d, x in zip(planes[w], pre)])
+                turns[(stage, which)].append(h264_launch_us(stage_launches[(stage, which)], prepare))
+        # old == new: planes and motion field out of the reconstruction, planes out of the filter
+        pairs = list(zip(new_out[:3], old_out[:3])) + [(getattr(new_out[3], f), getattr(old_out[3], f))
+                                                        for f in ("mv", "ref", "ref_id")]
+        pairs += list(zip(planes["new"], planes["old"])) + list(zip(planes["new"], kept[k]["post"]))
+        check(all(torch.equal(x, y) for x, y in pairs), f"the {tag} picture: the kernels before and after "
+              f"their redesign disagree")
+        rec = per.setdefault(tag, {})
+        for stage in ("h264_recon", "h264_deblock"):
+            kernels = list(h264_cuda.KERNELS[stage])
+            call = {"h264_recon": lambda: h264_cuda.recon(*kept[k]["recon"]),
+                    "h264_deblock": lambda: h264_cuda.deblock(*(p.clone() for p in pre), table, mf, slices,
+                                                              sps)}[stage]
+            # torch.profiler on the P picture only (phase 23's time)
+            prof_us, how = h264_device_us(call, kernels, n=5) if tag == "P" else (None, "events only")
+            new_us = [sum(t.values()) for t in turns[(stage, "new")]]
+            old_us = [sum(t.values()) for t in turns[(stage, "old")]]
+            bound = bound_us(nb[stage], ops[stage])
+            rec[stage] = {"device_us": prof_us if prof_us is not None else new_us[0], "how": how,
+                          "new_us_turns": new_us, "old_us_turns": old_us,
+                          "kernels": {}, "host_us": j2k_host_us(call, n=5), "max_abs_err": err[stage],
+                          "bound_us": bound[0], "bound_by": bound[1], "bytes": nb[stage], "ops": ops[stage],
+                          "plain_ms": plain[stage] * 1e3 / pics_checked}
+            for name in kernels:
+                kb = bound_us(nb[name], ops[name])
+                rec[stage]["kernels"][name] = {"device_us": [t[name] for t in turns[(stage, "new")]],
+                                               "bound_us": kb[0], "bound_by": kb[1], "bytes": nb[name],
+                                               "ops": ops[name]}
+            print(f"  {stage} on the {tag} picture: device us old {old_us[0]:.1f} [{old_us[1]:.1f}] -> new "
+                  f"{new_us[0]:.1f} [{new_us[1]:.1f}] (CUDA events around each launch, turns old, new, new, "
+                  f"old; the stage's kernels summed; torch.profiler: "
+                  f"{'%.1f' % prof_us if prof_us is not None else how}); "
+                  + ", ".join(f"{n_} {v['device_us'][0]:.1f} [{v['device_us'][1]:.1f}] us, bound "
+                              f"{v['bound_us']:.4f} us ({v['bound_by']})"
+                              for n_, v in rec[stage]["kernels"].items())
+                  + f"; stage bound {bound[0]:.4f} us ({bound[1]}); host {rec[stage]['host_us']:.1f} us "
+                  f"(wrapper); plain {rec[stage]['plain_ms']:.1f} ms (a picture, the mean of the first two) "
+                  f"[{label}]", flush=True)
+        if tag == "P":
+            pb = bound_us(nb["h264_parse"], ops["h264_parse"])
+            per["parse"] = {"device_us": parse_us, "how": parse_how, "max_abs_err": err["h264_parse"],
+                            "host_us": j2k_host_us(lambda: h264_cuda.parse(*kept["parse"]), n=2),
+                            "bound_us": pb[0], "bound_by": pb[1], "bytes": nb["h264_parse"],
+                            "ops": ops["h264_parse"], "plain_ms": plain["h264_parse"] * 1e3 / pics_checked}
+        del new_out, old_out, planes, stage_launches, new_recon, old_recon_l, new_deblock, old_deblock_l
+    print(f"  h264_parse_kernel: device {per['parse']['device_us']:.3f} us/call ({parse_how}, {len(jobs)} slices "
+          f"of 8 pictures a launch), host {per['parse']['host_us']:.3f} us/call (wrapper), bound "
+          f"{per['parse']['bound_us']:.4f} us ({per['parse']['bound_by']}), plain {per['parse']['plain_ms']:.3f} "
+          f"ms (a picture) [{label}]", flush=True)
+    return per
+
+
+def h264_kernel_entry(times, stage, name):
+    """A kernel's numbers for the ``kernels`` line from phase 23's record:
+    its device us on the 1024x2048 P picture (the parse: the batch of 8
+    pictures) and its bound there, its stage's largest difference from the
+    plain version, the stage's plain ms and host us (a kernel of a stage has
+    no plain version of its own: the stage's is the plain version of its
+    kernels together), the stage's old (before the redesign) and new device
+    us, and the I picture's."""
+    if stage == "h264_parse":
+        t = times["parse"]
+        return {"max_abs_err": float(t["max_abs_err"]), "ms": t["device_us"] / 1e3, "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"], "library_ms": None,
+                "at": "8 pictures of 1024x2048 (32 slices) in one launch", "host_us": t["host_us"], "how": t["how"]}
+    t, i = times["P"][stage], times["I"][stage]
+    k = t["kernels"][name]
+    return {"max_abs_err": float(t["max_abs_err"]), "ms": k["device_us"][0] / 1e3, "plain_ms": t["plain_ms"],
+            "bound_ms": k["bound_us"] / 1e3, "bound_by": k["bound_by"], "library_ms": None,
+            "at": "one 1024x2048 P picture", "how": "CUDA events around each launch",
+            "stage": {"name": stage, "host_us": t["host_us"], "device_us": t["device_us"], "how": t["how"],
+                      "new_us_turns": t["new_us_turns"], "old_us_turns": t["old_us_turns"],
+                      "bound_us": t["bound_us"], "bound_by": t["bound_by"], "plain_is": "the stage's"},
+            "I_picture": {"device_us": i["kernels"][name]["device_us"], "bound_us": i["kernels"][name]["bound_us"],
+                          "stage_old_us_turns": i["old_us_turns"], "stage_new_us_turns": i["new_us_turns"]}}
+
+
 def h264_phase(dev, label):
-    """Phase 23: H.264 through the three kernels of ``csrc/h264.cu``
+    """Phase 23: H.264 through the six kernels of ``csrc/h264.cu``
     (``data/h264_cuda.py``). Every committed form of
     ``tests/fixtures/h264_forms/`` decoded on the card against cv2's sha256
     per frame (``forms.json``; no cv2 here: count, order and pixels), the
-    refusals by name; each kernel against its plain version on the same
-    inputs stage by stage (every picture of the small forms, the first
-    batch of the 1024x2048 clip); ``multi_demo --images`` on the 1024x2048
-    clip (High profile CABAC, I P B B, 13 frames) at resnet-50_multi
-    512x1024 bf16 with the launches counted and each stage's ms per frame;
-    the kernels timed at the clip's shapes beside their bounds. Returns
-    ({kernel: {path: launches}}, {kernel: times and the largest difference
-    from its plain version}, record)."""
+    refusals by name; each stage against its plain version on the same
+    inputs (every picture of the small forms, the first two of the
+    1024x2048 clip); on the clip's I and P pictures the kernels before their
+    redesign (``baselines/h264_wave_per_thread.cu``) against the current
+    ones and both timed in turns beside the bounds; ``multi_demo --images``
+    on the 1024x2048 clip (High profile CABAC, I P B B, 13 frames) at
+    resnet-50_multi 512x1024 bf16 with each kernel's launches counted and
+    each stage's ms per frame. Returns ({kernel: {path: launches}}, {"P" /
+    "I": {stage: times, bounds, the largest difference from its plain
+    version, each kernel's}, "parse": ...}, record)."""
     import hashlib
     import tempfile
 
@@ -5899,13 +6171,14 @@ def h264_phase(dev, label):
     net, thresh = "resnet-50_multi", 0.3
     fixture = ROOT / "tests" / "fixtures" / "h264_forms"
     meta = json.loads((fixture / "forms.json").read_text())["forms"]
-    launches = {"nms_keep_mask": {}, **{k: {} for k in H264_KERNELS}, "yuv420_to_bgr": {}}
+    launches = {"nms_keep_mask": {}, **{k: {} for k in h264_cuda.kernel_launches}, "yuv420_to_bgr": {}}
     record, secs = {}, {}
-    err = dict.fromkeys(H264_KERNELS, 0)
+    err = dict.fromkeys(H264_STAGES, 0)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_h264_", dir=ROOT / "build"))
 
     def reset():
-        for d in (h264_cuda.launches, h264_cuda.plain_calls, mpeg4_cuda.launches, mpeg4_cuda.plain_calls):
+        for d in (h264_cuda.launches, h264_cuda.kernel_launches, h264_cuda.plain_calls, mpeg4_cuda.launches,
+                  mpeg4_cuda.plain_calls):
             d.update(dict.fromkeys(d, 0))
         nms_cuda.launches = jpeg_cuda.images = mpeg4.encodes = 0
 
@@ -5940,7 +6213,7 @@ def h264_phase(dev, label):
             frames = decode_all(h264_cuda.Decoder(dev, stream.extradata, stream.fourcc), samples)
             check([sha(f) for f in frames] == m["bgr_sha256"], f"{name}: frames != cv2's sha256 "
                   f"({len(frames)} frames, cv2 {m['frames']})")
-            check(h264_cuda.plain_calls == dict.fromkeys(H264_KERNELS, 0) and
+            check(h264_cuda.plain_calls == dict.fromkeys(H264_STAGES, 0) and
                   mpeg4_cuda.plain_calls["yuv420_to_bgr"] == 0 and
                   mpeg4_cuda.launches["yuv420_to_bgr"] == len(frames),
                   f"{name}: launches {h264_cuda.launches}, plain calls {h264_cuda.plain_calls}")
@@ -5957,53 +6230,25 @@ def h264_phase(dev, label):
               f"{len(H264_STAGEWISE)} small forms ({n_pics} pictures); {n_refused} refusals by name; "
               f"{secs['forms']:.1f} s [{label}]", flush=True)
 
-        # ---- 23b. the 1024x2048 clip: the kernels against their plain versions, timed
+        # ---- 23b. the 1024x2048 clip: each stage against its plain version; the kernels before and after their
+        # redesign equal, and timed in turns on an I and a P picture
         clip = fixture / "big_1024x2048.mp4"
         with avi.open_video(clip) as reader:
             samples, stream = list(reader), reader.stream
         FH, FW, n_clip = stream.height, stream.width, len(samples)
         t0 = time.perf_counter()
         pics_checked, plain, kept = h264_stagewise(dev, err, samples[:8], stream.extradata, stream.fourcc,
-                                                   limit=2, pick=1)
+                                                   limit=2, picks=(0, 1))
         secs["stagewise 1024x2048"] = time.perf_counter() - t0
         jobs = kept["parse"][0]
-        table, levels, slices, sps = kept["recon"][:4]
-        check(slices[0].slice_type == 0, "the clip's second picture in decode order is not a P picture")
-        calls = {"h264_parse": lambda: h264_cuda.parse(*kept["parse"]),
-                 "h264_recon": lambda: h264_cuda.recon(*kept["recon"]),
-                 "h264_deblock": lambda: h264_cuda.deblock(*(p.clone() for p in kept["pre"]), table, kept["mf"],
-                                                           slices, sps)}
-        # bytes and operations: the parse of the batch, the reconstruction and filter of the P picture
-        n_mb = sps.mb_width * sps.mb_height
-        mf = kept["mf"]
-        nb, ops = h264_work(jobs, [(t.cpu().numpy(), lv.cpu().numpy()) for t, lv in kept["tables"]],
-                            {"table": table[:n_mb].cpu().numpy(), "levels": levels[:n_mb].cpu().numpy(),
-                             "slices": slices, "mb": (sps.mb_width, sps.mb_height), "mv": mf.mv.cpu().numpy(),
-                             "ref": mf.ref.cpu().numpy(), "ref_id": mf.ref_id.cpu().numpy(),
-                             "pre": [p.cpu().numpy() for p in kept["pre"]],
-                             "post": [p.cpu().numpy() for p in kept["post"]]})
-        per = {}
-        for k, fn in calls.items():
-            dev_us, per_call, how = j2k_device_us(fn, H264_KERNELS[k], h264_cuda.launches, k,
-                                                  n=3 if k == "h264_parse" else 5)
-            bound = bound_us(nb[k], ops[k])
-            per[k] = {"device_us": dev_us, "launches_per_call": per_call, "how": how,
-                      "host_us": j2k_host_us(fn, n=3 if k == "h264_parse" else 5), "max_abs_err": err[k],
-                      "bound_us": bound[0], "bound_by": bound[1], "bytes": nb[k], "ops": ops[k],
-                      "plain_ms": plain[k] * 1e3 / pics_checked}
         record["1024x2048"] = {"bytes": int(sum(len(x) for x in samples)), "frames": n_clip,
-                               "stagewise_s": secs["stagewise 1024x2048"], "kernels": per,
-                               "slices_per_batch": len(jobs)}
+                               "stagewise_s": secs["stagewise 1024x2048"], "slices_per_batch": len(jobs)}
         print(f"1024x2048 H.264 clip ({n_clip} frames, {record['1024x2048']['bytes']} bytes, High CABAC I P B B, 4 "
-              f"slices a picture): each kernel == its plain version on its first two pictures (the plain Python "
+              f"slices a picture): each stage == its plain version on its first two pictures (the plain Python "
               f"decoder takes tens of seconds a picture there) [{label}]", flush=True)
-        for k, v in per.items():
-            print(f"  {H264_KERNELS[k]}: device {v['device_us']:.3f} us/call ({v['launches_per_call']:g} launches, "
-                  f"{v['how']}{', ' + str(len(jobs)) + ' slices of 8 pictures a launch' if k == 'h264_parse' else ''}), "
-                  f"host {v['host_us']:.3f} us/call (wrapper), bound {v['bound_us']:.4f} us ({v['bound_by']}), "
-                  f"plain {v['plain_ms']:.3f} ms (a picture, the mean of the first two) "
-                  f"[{label}]", flush=True)
-        del kept, calls
+        per = h264_clip_timings(dev, err, kept, jobs, plain, pics_checked, label)
+        record["1024x2048"]["kernels"] = per
+        del kept
 
         # ---- 23c. multi_demo on the clip: the counts, the written file
         src = create_model(net, (H, W), num_classes=NUM_CLASSES, device=dev,
@@ -6021,15 +6266,19 @@ def h264_phase(dev, label):
         written = multi_demo.main(demo_args)
         torch.cuda.synchronize()
         secs["multi_demo"] = time.perf_counter() - t0
-        got = {"nms": nms_cuda.launches, **h264_cuda.launches, "yuv420_to_bgr": mpeg4_cuda.launches["yuv420_to_bgr"],
+        got = {"nms": nms_cuda.launches, **h264_cuda.launches, **h264_cuda.kernel_launches,
+               "yuv420_to_bgr": mpeg4_cuda.launches["yuv420_to_bgr"],
                "plain_calls": sum(h264_cuda.plain_calls.values()) + mpeg4_cuda.plain_calls["yuv420_to_bgr"],
                "mp4v_encodes": mpeg4.encodes}
-        want = {"nms": 2 * 3, "h264_parse": -(-n_clip // 8), "h264_recon": n_clip, "h264_deblock": n_clip,
+        per_stage = {"h264_parse": -(-n_clip // 8), "h264_recon": n_clip, "h264_deblock": n_clip}
+        want = {"nms": 2 * 3, **per_stage, **{k: per_stage[st] for st, ks in h264_cuda.KERNELS.items() for k in ks},
                 "yuv420_to_bgr": n_clip, "plain_calls": 0, "mp4v_encodes": n_clip}
         check(got == want, f"multi_demo on the H.264 clip: counts {got}, expected {want}")
         check(written == [str(out_dir / "detection_out.mp4")], f"multi_demo wrote {written}")
-        for k in H264_KERNELS:
+        for k in h264_cuda.kernel_launches:
             launches[k]["h264_demo"] = got[k]
+        print("kernel launches a picture in multi_demo: " + ", ".join(
+            f"{k} {got[k] / n_clip:g}" for k in h264_cuda.kernel_launches) + f" [{label}]", flush=True)
         launches["yuv420_to_bgr"]["h264_demo"] = got["yuv420_to_bgr"]
         launches["nms_keep_mask"]["h264_demo"] = got["nms"]
         nms_cuda.launches = 0
@@ -6167,7 +6416,7 @@ def main():
     libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
                                    _build.CSRC / "jpeg2000.cu", _build.CSRC / "mpeg4.cu", _build.CSRC / "av1.cu",
                                    _build.CSRC / "h264.cu", *BASELINE_SOURCES,
-                                   COLOUR_BASELINE])
+                                   COLOUR_BASELINE, H264_BASELINE])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for lib in libs:
@@ -6436,6 +6685,7 @@ def main():
     timed_phase("21 text", text_phase, dev, label)
     avif_launches, avif_times, _ = timed_phase("22 AVIF", avif_phase, dev, label)
     h264_launches, h264_times, _ = timed_phase("23 H.264", h264_phase, dev, label)
+    from dspnet_torch.data.h264_cuda import KERNELS as h264_kernel_names
     mp4v_launches["yuv420_to_bgr"].update(h264_launches["yuv420_to_bgr"])  # the colour kernel serves both codecs
     for times in (ssd_times, opt_times):
         nms_times.update(times["nms_keep_mask"])
@@ -6556,21 +6806,12 @@ def main():
               ("cdef", "av1_cdef_frame (CDEF)", "big_default.avif", "big_s0.avif"),
               ("lr", "av1_loop_restoration_filter_frame (Wiener, self-guided)", "big_s0.avif",
                "big_default.avif"))],
-        *[{"name": H264_KERNELS[key], "route": "cuda", "source": "dspnet_torch/csrc/h264.cu",
-           "replaces": f"FFmpeg's {lib} behind cv2.VideoCapture (dspnet_tpu/detect/detector.py:289), not a TPU kernel",
-           "launches": sum(h264_launches[key].values()), "launches_by_path": h264_launches[key],
-           "max_abs_err": float(h264_times[key]["max_abs_err"]),
-           "ms": h264_times[key]["device_us"] / 1e3, "plain_ms": h264_times[key]["plain_ms"],
-           "bound_ms": h264_times[key]["bound_us"] / 1e3, "bound_by": h264_times[key]["bound_by"],
-           "library_ms": None, "at": at, "host_us": h264_times[key]["host_us"], "how": h264_times[key]["how"],
-           "launches_per_call": h264_times[key]["launches_per_call"]}
-          for key, lib, at in (("h264_parse", "h264_cabac.c / h264_cavlc.c macroblock layer (slice data: CABAC "
-                                              "and CAVLC)", "8 pictures of 1024x2048 (32 slices) in one launch"),
-                               ("h264_recon", "h264_mb.c (motion vectors, qpel / chroma MC, weights, intra "
-                                              "prediction, dequantisation, inverse transforms)",
-                                "one 1024x2048 P picture"),
-                               ("h264_deblock", "h264_loopfilter.c (bS, alpha / beta / tC0 filters)",
-                                "one 1024x2048 P picture"))],
+        *[{"name": name, "route": "cuda", "source": "dspnet_torch/csrc/h264.cu",
+           "replaces": f"FFmpeg's {H264_REPLACES[name]} behind cv2.VideoCapture (dspnet_tpu/detect/detector.py:289), "
+                       "not a TPU kernel",
+           "launches": sum(h264_launches[name].values()), "launches_by_path": h264_launches[name],
+           **h264_kernel_entry(h264_times, stage, name)}
+          for stage in H264_STAGES for name in h264_kernel_names[stage]],
     ]}))
     print_phase_seconds()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 // H.264 decoding on the card: the slice-data parse, the reconstruction and
 // the deblocking filter of 8-bit 4:2:0 (and 4:0:0) progressive frames, as
-// three kernels; plain C interface.
+// six kernels; plain C interface.
 //
 // The counterpart of the JAX package's cv2.VideoCapture (FFmpeg's h264
 // decoder) behind dspnet_tpu/detect/detector.py:289: H.264 decoding is not a
@@ -21,21 +21,38 @@
 // macroblock table the thread writes in global memory. What bounds it: the
 // serial chain of bins of one slice.
 //
-// h264_recon_kernel: one launch per picture, one thread block; macroblock
-// (x, y) runs in wave x + 2y (its left, top, top-right and top-left
-// neighbours, which intra prediction and motion vector prediction read, are
-// in earlier waves), a thread per macroblock of the wave, __syncthreads
-// between waves. Each thread derives the motion vectors (median and
-// directional prediction, P_Skip, B direct spatial and temporal from the
-// co-located picture's motion field), predicts each 4x4 block (6-tap luma,
-// bilinear chroma, weighted prediction), dequantises and inverse transforms
-// the residual and adds it, or predicts intra blocks in order. What bounds
-// it: the waves and the serial work per macroblock.
+// The reconstruction, one picture a call of its three kernels in order.
+// Only what reads a neighbour's result of the same picture keeps the
+// standard's order, macroblock (x, y) after (x + 1, y - 1): rows of
+// macroblocks are handed to blocks in order, and a row waits on the
+// progress the row above publishes (a persistent grid no larger than what
+// is co-resident; sync words zeroed before each launch).
+//   h264_mv_kernel: the motion vectors and references (median and
+//     directional prediction, P_Skip, B direct spatial and temporal from the
+//     co-located picture's motion field), a warp a row; integer work on
+//     the motion field alone.
+//   h264_inter_kernel: every macroblock at once, a block each: the
+//     residual (dequantisation, 4x4 / 8x8 / DC transforms, threads over
+//     transform rows, then a thread a sample) and, for inter macroblocks,
+//     the prediction from reference windows staged in shared memory (6-tap
+//     luma, bilinear chroma, weighted prediction), added and clipped.
+//   h264_intra_kernel: the intra macroblocks in the standard's order, after
+//     every inter sample is in place; threads over the samples of each
+//     4x4 / 8x8 / 16x16 prediction, the macroblock's neighbourhood in shared
+//     memory; rows without intra macroblocks pass straight through.
+// What bounds it: the chain of rows, each waiting on the one above, in the
+// motion vector and intra stages; the inter stage's reference reads.
 //
-// h264_deblock_kernel: one launch per picture, one thread block, the same
-// waves (macroblock (x, y)'s top edge reads rows (x + 1, y - 1)'s left edge
-// has changed), a thread per macroblock filtering its vertical and then
-// horizontal edges in place.
+// The deblocking filter, in place, two kernels:
+//   h264_bs_kernel: every edge segment's boundary strength at once, a
+//     thread a segment (the table, the motion field and reference ids);
+//   h264_filter_kernel: the standard's order across macroblocks as above
+//     (a block a row); within a macroblock the 4 vertical edges and then
+//     the 4 horizontal ones, the threads over an edge's 16 luma and 16
+//     chroma lines; a macroblock whose bS are all 0 is passed over.
+//
+// The kernels as they were before (one block on one SM, a thread a
+// macroblock) are kept in baselines/h264_wave_per_thread.cu as a yardstick.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,10 +60,14 @@
 #ifndef H264_LAUNCH
 #define H264_LAUNCH(kernel, grid, block, stream) kernel<<<(grid), (block), 0, (stream)>>>
 #endif
-// the largest block of the wave kernels (they stride rows by blockDim; a
-// host emulation builds with a small one)
+// the launch geometry's caps: threads a block and blocks a grid (every
+// kernel strides by blockDim and gridDim; a host emulation builds with small
+// ones, and its tests force a grid smaller than a picture's rows and one larger)
 #ifndef H264_MAX_THREADS
 #define H264_MAX_THREADS 1024
+#endif
+#ifndef H264_MAX_BLOCKS
+#define H264_MAX_BLOCKS (1 << 30)
 #endif
 
 namespace {
@@ -1086,6 +1107,66 @@ enum { R_TYPE, R_SPATIAL, R_WEIGHTED, R_LDENOM, R_CDENOM, R_CIP, R_DIRECT8, R_CB
 constexpr int R_SLOT = 16, R_LONG = 144, R_PID = 208, R_WEIGHTS = 272, R_IMPLICIT = 656, R_DSF = 1680,
               R_LS4 = 1712, R_LS8 = 2288, R_SIZE = 3056;
 constexpr int NO_DSF = 1 << 20;
+// residual words a macroblock: luma 16x16 raster, then Cb and Cr 8x8
+constexpr int N_RES = 384;
+
+// ---- rows of macroblocks across blocks (h264_mv_kernel, h264_intra_kernel,
+// h264_filter_kernel): sync[0] is the ticket that hands out rows in order,
+// sync[1 + y] how many macroblocks of row y are done, stored after the
+// row's writes are fenced; row y reads row y - 1 with acquire order.
+// A row waits only on a row with a smaller ticket, taken by a block that is
+// running, so the grid needs no co-residency to finish; it is sized to what
+// is co-resident only so that no block idles. What another block wrote in
+// the same launch is read from L2 (__ldcg): the SM's L1 may hold a stale
+// copy of a line that a neighbour row changed since.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+#ifdef __CUDA_ARCH__
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+#else
+  return __atomic_load_n(p, __ATOMIC_ACQUIRE);
+#endif
+}
+
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+#else
+  __atomic_store_n(p, v, __ATOMIC_RELAXED);
+#endif
+}
+
+// the next row for this block, the same in every thread (mbh when none is left)
+__device__ int take_row(int* sync) {
+  __shared__ int row;
+  __syncthreads();  // every thread has read the previous row
+  if (threadIdx.x == 0) row = atomicAdd(sync, 1);
+  __syncthreads();
+  return row;
+}
+
+// thread 0 states that the macroblocks of row y before x are done where it
+// has not yet (`done`, its last statement; nothing was written since the
+// last fence), then waits until row y - 1 has done `need`; every thread
+// returns after
+__device__ void wait_row(int* sync, int y, int x, int need, int& done) {
+  if (threadIdx.x == 0) {
+    if (done < x) st_relaxed(sync + 1 + y, done = x);
+    if (y > 0)
+      while (ld_acquire(sync + y) < need) {
+      }
+  }
+  __syncthreads();
+}
+
+// every thread's writes of macroblock x of row y made visible to the card
+// (a fence each: it returns when they are), then thread 0 stores its progress
+__device__ void done_row(int* sync, int y, int x, int& done) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_relaxed(sync + 1 + y, done = x + 1);
+}
 
 struct Pic {
   const int32_t* tab;
@@ -1098,6 +1179,8 @@ struct Pic {
   int32_t *mv, *ref, *rid;              // the picture's motion field
   const int32_t *cmv, *cref, *crid;     // the co-located picture's (or null)
   int w4, h4;
+  int32_t* res;                         // the residual of intra macroblocks (N_RES words each)
+  int* sync;                            // 1 + mbh words, zeroed before each row kernel
 };
 
 struct Nb {
@@ -1111,25 +1194,46 @@ __device__ int read_ref(const int32_t* row, int lx, int k) {
 
 __device__ int imedian(int a, int b, int c) { return imax(imin(a, b), imin(imax(a, b), c)); }
 
+// what h264_mv_kernel reads of a macroblock's neighbourhood, staged in shared
+// memory by the block's threads at once (one round trip to L2 instead of a
+// chain of dependent loads): ref, mv x, mv y of each 4x4 block and list
+struct MvCache {
+  int row[N_FIELDS];  // the macroblock's table row
+  int slice[4];       // the slices of A (left), B (top), C (top-right), D (top-left); -1 outside the picture
+  int top[2][6][3];   // the 4x4 blocks above, x4 - 1 .. x4 + 4
+  int left[2][4][3];  // the 4x4 blocks to the left, y4 .. y4 + 3
+  int cur[2][16][4];  // the macroblock's own as they are derived, and their picture ids
+};
+
 struct Mv {
   const Pic* P;
+  MvCache* C;
   int mb, slice, mbx4, mby4;
   uint16_t done;  // the current macroblock's 4x4 blocks done
-  __device__ int64_t at(int lx, int y4, int x4) const { return ((int64_t)lx * P->h4 + y4) * P->w4 + x4; }
+  // availability by address, as the standard has it: the same slice, and
+  // earlier in decoding order (within the macroblock, a block done)
   __device__ Nb nb(int x4, int y4, int lx) const {
     Nb n = {0, -1, 0, 0};
     if (x4 < 0 || y4 < 0 || x4 >= P->w4 || y4 >= P->h4) return n;
-    int m = (y4 >> 2) * P->mbw + (x4 >> 2);
-    if (P->tab[(int64_t)m * N_FIELDS + F_SLICE] != slice) return n;
-    if (m > mb) return n;
-    if (m == mb && !((done >> blk_at(y4 & 3, x4 & 3)) & 1)) return n;
+    int dx = (x4 >> 2) - (mbx4 >> 2), dy = (y4 >> 2) - (mby4 >> 2);
+    const int* v;
+    if (dy == 0 && dx == 0) {
+      if (!((done >> blk_at(y4 & 3, x4 & 3)) & 1)) return n;
+      v = C->cur[lx][blk_at(y4 & 3, x4 & 3)];
+    } else if (dy == 0 && dx == -1) {
+      if (C->slice[0] != slice) return n;
+      v = C->left[lx][y4 - mby4];
+    } else if (dy == -1) {
+      if (C->slice[dx == 0 ? 1 : (dx > 0 ? 2 : 3)] != slice) return n;
+      v = C->top[lx][x4 - mbx4 + 1];
+    } else {
+      return n;  // later in decoding order
+    }
     n.ok = 1;
-    int64_t i = at(lx, y4, x4);
-    int r = P->ref[i];
-    if (r < 0) return n;
-    n.ref = r;
-    n.mx = P->mv[2 * i];
-    n.my = P->mv[2 * i + 1];
+    if (v[0] < 0) return n;
+    n.ref = v[0];
+    n.mx = v[1];
+    n.my = v[2];
     return n;
   }
   __device__ void neighbours(int x4, int y4, int w4, int lx, Nb& a, Nb& b, Nb& c) const {
@@ -1161,11 +1265,10 @@ struct Mv {
     py = imedian(a.my, b.my, c.my);
   }
   __device__ void store(int blk, int lx, int ref, int mx, int my, int pid) const {
-    int64_t i = at(lx, mby4 + blk_y(blk), mbx4 + blk_x(blk));
-    P->ref[i] = ref;
-    P->mv[2 * i] = mx;
-    P->mv[2 * i + 1] = my;
-    P->rid[i] = pid;
+    C->cur[lx][blk][0] = ref;
+    C->cur[lx][blk][1] = mx;
+    C->cur[lx][blk][2] = my;
+    C->cur[lx][blk][3] = pid;
   }
   __device__ void colocated(int x4, int y4, int& mx, int& my, int& refc, int& ridc) const {
     int64_t i0 = ((int64_t)0 * P->h4 + y4) * P->w4 + x4, i1 = ((int64_t)1 * P->h4 + y4) * P->w4 + x4;
@@ -1315,71 +1418,179 @@ __device__ __noinline__ void derive_mb(const Pic& P, int mb, const int32_t* row,
   }
 }
 
-// ---- inter prediction of one 4x4 luma block and its two 2x2 chroma blocks
+// h264_mv_kernel: the motion field, rows of macroblocks over the grid, a
+// block (a warp) a row. A macroblock that predicts from its neighbours (every
+// inter one but temporal direct, which reads only the co-located picture)
+// waits until the row above has done x + 1; the threads then stage its
+// table row, its neighbours' slices and the motion of the 4x4 blocks above
+// and to its left in shared memory, and thread 0 derives its vectors from
+// there; the threads then write the macroblock's motion field out.
+__global__ void h264_mv_kernel(Pic P) {
+  __shared__ MvCache cache;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int* sync = P.sync;
+  constexpr int ITEMS = N_FIELDS + 4 + 2 * 10 * 3;  // the table row, the neighbours' slices, their motion
+  for (int y = take_row(sync); y < P.mbh; y = take_row(sync)) {
+    int done = 0;
+    for (int x = 0; x < P.mbw; x++) {
+      const int mb = y * P.mbw + x;
+      const int32_t* grow = P.tab + (int64_t)mb * N_FIELDS;
+      const int32_t* rec = P.rec + (int64_t)grow[F_SLICE] * R_SIZE;
+      const int t = grow[F_TYPE];
+      const int near = t > T_PCM && !((t == T_BSKIP || t == T_BDIRECT) && !rec[R_SPATIAL]);
+      if (near) wait_row(sync, y, x, imin(x + 2, P.mbw), done);
+      const int x4 = 4 * x, y4 = 4 * y;
+      // each thread issues its loads, then stores them (one round trip to L2)
+      for (int base = 0; base < ITEMS; base += 5 * nt) {
+        int v[5];
+#pragma unroll
+        for (int k = 0; k < 5; k++) {
+          const int i = base + tid + k * nt;
+          v[k] = -1;
+          if (i < N_FIELDS) {
+            v[k] = grow[i];
+          } else if (i < N_FIELDS + 4) {
+            int q = i - N_FIELDS;  // A, B, C, D
+            int nx = x + (q == 0 || q == 3 ? -1 : (q == 2 ? 1 : 0)), ny = y - (q == 0 ? 0 : 1);
+            if (nx >= 0 && ny >= 0 && nx < P.mbw) v[k] = P.tab[(int64_t)(ny * P.mbw + nx) * N_FIELDS + F_SLICE];
+          } else if (i < ITEMS) {
+            int j = i - N_FIELDS - 4, lx = j / 30, e = (j / 3) % 10, c = j % 3;
+            int bx = e < 6 ? x4 - 1 + e : x4 - 1, by = e < 6 ? y4 - 1 : y4 + e - 6;
+            if (c) v[k] = 0;
+            if (near && bx >= 0 && by >= 0 && bx < P.w4) {
+              int64_t q = ((int64_t)lx * P.h4 + by) * P.w4 + bx;
+              v[k] = c == 0 ? __ldcg(P.ref + q) : __ldcg(P.mv + 2 * q + c - 1);
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 5; k++) {
+          const int i = base + tid + k * nt;
+          if (i < N_FIELDS) {
+            cache.row[i] = v[k];
+          } else if (i < N_FIELDS + 4) {
+            cache.slice[i - N_FIELDS] = v[k];
+          } else if (i < ITEMS) {
+            int j = i - N_FIELDS - 4, lx = j / 30, e = (j / 3) % 10, c = j % 3;
+            if (e < 6) cache.top[lx][e][c] = v[k];
+            else cache.left[lx][e - 6][c] = v[k];
+          }
+        }
+      }
+      for (int i = tid; i < 2 * 16 * 4; i += nt)  // no references until derived (intra: none)
+        cache.cur[i / 64][(i / 4) & 15][i % 4] = i % 4 == 0 || i % 4 == 3 ? -1 : 0;
+      __syncthreads();
+      if (tid == 0) {
+        Mv M;
+        M.P = &P;
+        M.C = &cache;
+        M.mb = mb;
+        M.slice = cache.row[F_SLICE];
+        M.mbx4 = x4;
+        M.mby4 = y4;
+        M.done = 0;
+        derive_mb(P, mb, cache.row, rec, M);
+      }
+      __syncthreads();
+      for (int i = tid; i < 2 * 16; i += nt) {
+        const int lx = i >> 4, b = i & 15;
+        const int64_t q = ((int64_t)lx * P.h4 + y4 + blk_y(b)) * P.w4 + x4 + blk_x(b);
+        const int* c = cache.cur[lx][b];
+        P.ref[q] = c[0];
+        P.mv[2 * q] = c[1];
+        P.mv[2 * q + 1] = c[2];
+        P.rid[q] = c[3];
+      }
+      done_row(sync, y, x, done);  // (its barrier: the cache is the next macroblock's)
+    }
+  }
+}
+
+// ---- transforms and prediction helpers
+__device__ __forceinline__ void idct4_1d(int a0, int a1, int a2, int a3, int o[4]) {
+  int e = a0 + a2, f = a0 - a2, g = (a1 >> 1) - a3, h = a1 + (a3 >> 1);
+  o[0] = e + h;
+  o[1] = f + g;
+  o[2] = f - g;
+  o[3] = e - h;
+}
+
+__device__ __forceinline__ void idct8_1d(int x[8]) {
+  int a0 = x[0] + x[4], a4 = x[0] - x[4], a2 = (x[2] >> 1) - x[6], a6 = x[2] + (x[6] >> 1);
+  int b0 = a0 + a6, b2 = a4 + a2, b4 = a4 - a2, b6 = a0 - a6;
+  int a1 = -x[3] + x[5] - x[7] - (x[7] >> 1);
+  int a3 = x[1] + x[7] - x[3] - (x[3] >> 1);
+  int a5 = -x[1] + x[7] + x[5] + (x[5] >> 1);
+  int a7 = x[3] + x[5] + x[1] + (x[1] >> 1);
+  int b1 = a1 + (a7 >> 2), b7 = a7 - (a1 >> 2), b3 = a3 + (a5 >> 2), b5 = (a3 >> 2) - a5;
+  x[0] = b0 + b7; x[1] = b2 + b5; x[2] = b4 + b3; x[3] = b6 + b1;
+  x[4] = b6 - b1; x[5] = b4 - b3; x[6] = b2 - b5; x[7] = b0 - b7;
+}
+
+__device__ int deq4(int c, int ls, int qp) {
+  int q6 = qp / 6;
+  return qp >= 24 ? (c * ls) << (q6 - 4) : (c * ls + (1 << (3 - q6))) >> (4 - q6);
+}
+
+__device__ int deq8(int c, int ls, int qp) {
+  int q6 = qp / 6;
+  return qp >= 36 ? (c * ls) << (q6 - 6) : (c * ls + (1 << (5 - q6))) >> (6 - q6);
+}
+
+// the Intra16x16 DC coefficient of the 4x4 block at (i, j) of the DC matrix:
+// the Hadamard transform of the DC levels, dequantised
+__device__ int i16_dc(const int16_t* dcl, int i, int j, int ls0, int qp) {
+  const int H[4][4] = {{1, 1, 1, 1}, {1, 1, -1, -1}, {1, -1, -1, 1}, {1, -1, 1, -1}};
+  int f = 0;
+  for (int k = 0; k < 4; k++) {
+    int s = 0;
+    for (int l = 0; l < 4; l++) s += dcl[k * 4 + l] * H[l][j];
+    f += H[i][k] * s;
+  }
+  return deq8(f, ls0, qp);
+}
+
 __device__ int luma_sample(const uint8_t* p, int stride, int w, int h, int x, int y) {
   return p[clip3(0, h - 1, y) * stride + clip3(0, w - 1, x)];
 }
 
-__device__ __noinline__ void luma_pred4(const uint8_t* p, int stride, int w, int h, int x, int y, int mvx, int mvy, int out[16]) {
-  int xi = x + (mvx >> 2) - 2, yi = y + (mvy >> 2) - 2;
-  int win[9][9];
-  for (int r = 0; r < 9; r++)
-    for (int c = 0; c < 9; c++) win[r][c] = luma_sample(p, stride, w, h, xi + c, yi + r);
-  int fx = mvx & 3, fy = mvy & 3;
-  for (int i = 0; i < 4; i++)
-    for (int j = 0; j < 4; j++) {
+// quarter-sample luma at (i, j) of a 4x4 block from its 9x9 window (the
+// block's first sample at (2, 2)), fraction (fx, fy); only the half-sample
+// values the position needs are computed, and a whole or one-way fraction
+// reads only the window's middle rows or columns
+__device__ int luma_qpel(const uint8_t* w, int i, int j, int fx, int fy) {
+#define W_(r, c) ((int)w[(r) * 9 + (c)])
 #define TAP(a, b, c, d, e, f) ((a) - 5 * (b) + 20 * (c) + 20 * (d) - 5 * (e) + (f))
-      int G = win[i + 2][j + 2];
-      int b1r[2], h1c[2];
-      for (int k = 0; k < 2; k++) {
-        int rr = i + 2 + k;
-        b1r[k] = TAP(win[rr][j], win[rr][j + 1], win[rr][j + 2], win[rr][j + 3], win[rr][j + 4], win[rr][j + 5]);
-        int cc = j + 2 + k;
-        h1c[k] = TAP(win[i][cc], win[i + 1][cc], win[i + 2][cc], win[i + 3][cc], win[i + 4][cc], win[i + 5][cc]);
-      }
-      int b = clip1((b1r[0] + 16) >> 5), s = clip1((b1r[1] + 16) >> 5);
-      int hh = clip1((h1c[0] + 16) >> 5), m = clip1((h1c[1] + 16) >> 5);
-      int jj = 0;
-      if (fx == 2 || fy == 2) {
-        int bcol[6];
-        for (int r = 0; r < 6; r++) {
-          int rr = i + r;
-          bcol[r] = TAP(win[rr][j], win[rr][j + 1], win[rr][j + 2], win[rr][j + 3], win[rr][j + 4], win[rr][j + 5]);
-        }
-        jj = clip1((TAP(bcol[0], bcol[1], bcol[2], bcol[3], bcol[4], bcol[5]) + 512) >> 10);
-      }
+#define ROW(r) TAP(W_(r, j), W_(r, j + 1), W_(r, j + 2), W_(r, j + 3), W_(r, j + 4), W_(r, j + 5))
+#define COL(c) TAP(W_(i, c), W_(i + 1, c), W_(i + 2, c), W_(i + 3, c), W_(i + 4, c), W_(i + 5, c))
+  auto G = [&] { return W_(i + 2, j + 2); };
+  auto b = [&] { return clip1((ROW(i + 2) + 16) >> 5); };
+  auto s = [&] { return clip1((ROW(i + 3) + 16) >> 5); };
+  auto hh = [&] { return clip1((COL(j + 2) + 16) >> 5); };
+  auto m = [&] { return clip1((COL(j + 3) + 16) >> 5); };
+  auto jj = [&] { return clip1((TAP(ROW(i), ROW(i + 1), ROW(i + 2), ROW(i + 3), ROW(i + 4), ROW(i + 5)) + 512) >> 10); };
+  switch (fy * 4 + fx) {
+    case 0: return G();
+    case 4: return (G() + hh() + 1) >> 1;
+    case 8: return hh();
+    case 12: return (W_(i + 3, j + 2) + hh() + 1) >> 1;
+    case 1: return (G() + b() + 1) >> 1;
+    case 5: return (b() + hh() + 1) >> 1;
+    case 9: return (hh() + jj() + 1) >> 1;
+    case 13: return (hh() + s() + 1) >> 1;
+    case 2: return b();
+    case 6: return (b() + jj() + 1) >> 1;
+    case 10: return jj();
+    case 14: return (jj() + s() + 1) >> 1;
+    case 3: return (W_(i + 2, j + 3) + b() + 1) >> 1;
+    case 7: return (b() + m() + 1) >> 1;
+    case 11: return (jj() + m() + 1) >> 1;
+    default: return (m() + s() + 1) >> 1;
+  }
+#undef COL
+#undef ROW
 #undef TAP
-      int Hn = win[i + 2][j + 3], Mn = win[i + 3][j + 2], v;
-      switch (fy * 4 + fx) {
-        case 0: v = G; break;
-        case 4: v = (G + hh + 1) >> 1; break;
-        case 8: v = hh; break;
-        case 12: v = (Mn + hh + 1) >> 1; break;
-        case 1: v = (G + b + 1) >> 1; break;
-        case 5: v = (b + hh + 1) >> 1; break;
-        case 9: v = (hh + jj + 1) >> 1; break;
-        case 13: v = (hh + s + 1) >> 1; break;
-        case 2: v = b; break;
-        case 6: v = (b + jj + 1) >> 1; break;
-        case 10: v = jj; break;
-        case 14: v = (jj + s + 1) >> 1; break;
-        case 3: v = (Hn + b + 1) >> 1; break;
-        case 7: v = (b + m + 1) >> 1; break;
-        case 11: v = (jj + m + 1) >> 1; break;
-        default: v = (m + s + 1) >> 1; break;
-      }
-      out[i * 4 + j] = v;
-    }
-}
-
-__device__ void chroma_pred2(const uint8_t* p, int stride, int w, int h, int x, int y, int mvx, int mvy, int out[4]) {
-  int xi = x + (mvx >> 3), yi = y + (mvy >> 3), fx = mvx & 7, fy = mvy & 7;
-  for (int i = 0; i < 2; i++)
-    for (int j = 0; j < 2; j++) {
-      int A = luma_sample(p, stride, w, h, xi + j, yi + i), B = luma_sample(p, stride, w, h, xi + j + 1, yi + i);
-      int C = luma_sample(p, stride, w, h, xi + j, yi + i + 1), D = luma_sample(p, stride, w, h, xi + j + 1, yi + i + 1);
-      out[i * 2 + j] = ((8 - fx) * (8 - fy) * A + fx * (8 - fy) * B + (8 - fx) * fy * C + fx * fy * D + 32) >> 6;
-    }
+#undef W_
 }
 
 __device__ int weigh(int p0, int p1, int use0, int use1, int w0, int o0, int w1, int o1, int denom, int mode) {
@@ -1392,416 +1603,163 @@ __device__ int weigh(int p0, int p1, int use0, int use1, int w0, int o0, int w1,
   return clip1(p * w + o);
 }
 
-// ---- the residual of one macroblock: luma res[256] (raster 16x16), chroma resc[2][64]
-__device__ void idct4(int* d) {  // (4x4 raster in place): rows, columns, (x + 32) >> 6
-  for (int r = 0; r < 4; r++) {
-    int* a = d + 4 * r;
-    int e = a[0] + a[2], f = a[0] - a[2], g = (a[1] >> 1) - a[3], h = a[1] + (a[3] >> 1);
-    a[0] = e + h; a[1] = f + g; a[2] = f - g; a[3] = e - h;
-  }
-  for (int c = 0; c < 4; c++) {
-    int a0 = d[c], a1 = d[4 + c], a2 = d[8 + c], a3 = d[12 + c];
-    int e = a0 + a2, f = a0 - a2, g = (a1 >> 1) - a3, h = a1 + (a3 >> 1);
-    d[c] = (e + h + 32) >> 6; d[4 + c] = (f + g + 32) >> 6; d[8 + c] = (f - g + 32) >> 6; d[12 + c] = (e - h + 32) >> 6;
-  }
-}
-
-__device__ void idct8_1d(int* v, int step) {
-  int x[8];
-  for (int k = 0; k < 8; k++) x[k] = v[k * step];
-  int a0 = x[0] + x[4], a4 = x[0] - x[4], a2 = (x[2] >> 1) - x[6], a6 = x[2] + (x[6] >> 1);
-  int b0 = a0 + a6, b2 = a4 + a2, b4 = a4 - a2, b6 = a0 - a6;
-  int a1 = -x[3] + x[5] - x[7] - (x[7] >> 1);
-  int a3 = x[1] + x[7] - x[3] - (x[3] >> 1);
-  int a5 = -x[1] + x[7] + x[5] + (x[5] >> 1);
-  int a7 = x[3] + x[5] + x[1] + (x[1] >> 1);
-  int b1 = a1 + (a7 >> 2), b7 = a7 - (a1 >> 2), b3 = a3 + (a5 >> 2), b5 = (a3 >> 2) - a5;
-  int o[8] = {b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1, b4 - b3, b2 - b5, b0 - b7};
-  for (int k = 0; k < 8; k++) v[k * step] = o[k];
-}
-
-__device__ int deq4(int c, int ls, int qp) {
-  int q6 = qp / 6;
-  return qp >= 24 ? (c * ls) << (q6 - 4) : (c * ls + (1 << (3 - q6))) >> (4 - q6);
-}
-
-__device__ __noinline__ void residual_mb(const Pic& P, const int32_t* row, const int16_t* lv, const int32_t* rec, int* res,
-                            int* resc) {
-  int t = row[F_TYPE], qp = row[F_QP], intra = t <= T_PCM;
-  for (int i = 0; i < 256; i++) res[i] = 0;
-  for (int i = 0; i < 128; i++) resc[i] = 0;
-  if (t == T_PCM) return;
-  const int* ls4 = rec + R_LS4;  // [6 lists][6][16]
-  const int* ls8 = rec + R_LS8;  // [2][6][64]
-  int d[64];
-  if (row[F_T8]) {
-    const int* ls = ls8 + ((intra ? 0 : 1) * 6 + qp % 6) * 64;
-    int q6 = qp / 6;
-    for (int k = 0; k < 4; k++) {
-      for (int i = 0; i < 64; i++) {
-        int c = lv[64 * k + i];
-        d[i] = qp >= 36 ? (c * ls[i]) << (q6 - 6) : (c * ls[i] + (1 << (5 - q6))) >> (6 - q6);
+// h264_inter_kernel: every macroblock at once, a block a macroblock (the
+// grid strides when smaller). Step 1, threads over transform rows and
+// window samples: the levels dequantised and transformed along rows, and
+// for an inter macroblock each 4x4 block's reference windows (9x9 luma,
+// 3x3 chroma per list in use, clamped at the picture's edge) staged in
+// shared memory. Step 2, a thread a sample: the column transform gives its
+// residual; an inter macroblock's sample is predicted from the windows
+// (6-tap quarter-sample luma, bilinear chroma), weighted, added and
+// clipped; an intra macroblock's residual goes to P.res for
+// h264_intra_kernel. I_PCM waits for h264_intra_kernel. The shared arrays
+// alternate between two copies from one macroblock to the next, so one
+// barrier a macroblock orders step 1 after the reads of two before.
+__global__ void h264_inter_kernel(Pic P) {
+  __shared__ int coef_[2][N_RES];           // after the row transform, at the levels' positions
+  __shared__ uint8_t win_[2][2][16][81];    // luma windows by list and 4x4 block
+  __shared__ uint8_t cwin_[2][2][2][16][9]; // chroma windows by list, plane and 4x4 block
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int W = 16 * P.mbw, H = 16 * P.mbh;
+  int buf = 0;
+  for (int mb = blockIdx.x; mb < P.mbw * P.mbh; mb += gridDim.x) {
+    const int32_t* row = P.tab + (int64_t)mb * N_FIELDS;
+    const int16_t* lv = P.lev + (int64_t)mb * N_LEVELS;
+    const int32_t* rec = P.rec + (int64_t)row[F_SLICE] * R_SIZE;
+    const int t = row[F_TYPE], qp = row[F_QP], intra = t <= T_PCM, t8 = row[F_T8];
+    const int mx = mb % P.mbw, my = mb / P.mbw;
+    if (t == T_PCM) continue;  // the same in every thread
+    int* coef = coef_[buf];
+    uint8_t(*win)[16][81] = win_[buf];
+    uint8_t(*cwin)[2][16][9] = cwin_[buf];
+    buf ^= 1;
+    const int* ls4 = rec + R_LS4;  // [6 lists][6][16]
+    // ---- step 1
+    if (t8) {
+      const int* ls = rec + R_LS8 + ((intra ? 0 : 1) * 6 + qp % 6) * 64;
+      for (int i = tid; i < 32; i += nt) {  // 8x8 block k, row r
+        int k = i >> 3, r = i & 7, x[8];
+#pragma unroll
+        for (int c = 0; c < 8; c++) x[c] = deq8(lv[64 * k + 8 * r + c], ls[8 * r + c], qp);
+        idct8_1d(x);
+#pragma unroll
+        for (int c = 0; c < 8; c++) coef[64 * k + 8 * r + c] = x[c];
       }
-      for (int r = 0; r < 8; r++) idct8_1d(d + 8 * r, 1);
-      for (int c = 0; c < 8; c++) idct8_1d(d + c, 8);
-      for (int y = 0; y < 8; y++)
-        for (int x = 0; x < 8; x++) res[(8 * (k >> 1) + y) * 16 + 8 * (k & 1) + x] = (d[y * 8 + x] + 32) >> 6;
-    }
-  } else {
-    const int* ls = ls4 + ((intra ? 0 : 3) * 6 + qp % 6) * 16;
-    int dc[16];
-    if (t == T_I16) {
-      int c[16], f[16];
-      for (int i = 0; i < 16; i++) c[i] = lv[L_DC + i];
-      const int H[4][4] = {{1, 1, 1, 1}, {1, 1, -1, -1}, {1, -1, -1, 1}, {1, -1, 1, -1}};
-      int tmp[16];
-      for (int i = 0; i < 4; i++)
-        for (int j = 0; j < 4; j++) {
-          int s = 0;
-          for (int k = 0; k < 4; k++) s += H[i][k] * c[k * 4 + j];
-          tmp[i * 4 + j] = s;
-        }
-      for (int i = 0; i < 4; i++)
-        for (int j = 0; j < 4; j++) {
-          int s = 0;
-          for (int k = 0; k < 4; k++) s += tmp[i * 4 + k] * H[k][j];
-          f[i * 4 + j] = s;
-        }
-      int q6 = qp / 6;
-      for (int i = 0; i < 16; i++)
-        dc[i] = qp >= 36 ? (f[i] * ls[0]) << (q6 - 6) : (f[i] * ls[0] + (1 << (5 - q6))) >> (6 - q6);
-    }
-    for (int b = 0; b < 16; b++) {
-      for (int i = 0; i < 16; i++) d[i] = deq4(lv[16 * b + i], ls[i], qp);
-      if (t == T_I16) d[0] = dc[blk_y(b) * 4 + blk_x(b)];
-      idct4(d);
-      int x0 = 4 * blk_x(b), y0 = 4 * blk_y(b);
-      for (int y = 0; y < 4; y++)
-        for (int x = 0; x < 4; x++) res[(y0 + y) * 16 + x0 + x] = d[y * 4 + x];
-    }
-  }
-  if (!P.chroma) return;
-  for (int comp = 0; comp < 2; comp++) {
-    int qpc = P.T[O_CQP + clip3(0, 51, qp + rec[R_CBOFF + comp])];
-    const int* ls = ls4 + (((intra ? 1 : 4) + comp) * 6 + qpc % 6) * 16;
-    const int16_t* c = lv + L_CDC + 4 * comp;
-    int f[4] = {c[0] + c[1] + c[2] + c[3], c[0] - c[1] + c[2] - c[3], c[0] + c[1] - c[2] - c[3],
-                c[0] - c[1] - c[2] + c[3]};
-    for (int k = 0; k < 4; k++) {
-      for (int i = 0; i < 16; i++) d[i] = deq4(lv[L_CAC + 64 * comp + 16 * k + i], ls[i], qpc);
-      d[0] = ((f[k] * ls[0]) << (qpc / 6)) >> 5;
-      idct4(d);
-      for (int y = 0; y < 4; y++)
-        for (int x = 0; x < 4; x++) resc[comp * 64 + (4 * (k >> 1) + y) * 8 + 4 * (k & 1) + x] = d[y * 4 + x];
-    }
-  }
-}
-
-// ---- intra prediction
-__device__ int mb_ok_intra(const Pic& P, int mb, int nb) {
-  if (nb < 0) return 0;
-  const int32_t* r = P.tab + (int64_t)mb * N_FIELDS;
-  const int32_t* n = P.tab + (int64_t)nb * N_FIELDS;
-  if (n[F_SLICE] != r[F_SLICE] || nb > mb) return 0;
-  if (P.rec[(int64_t)r[F_SLICE] * R_SIZE + R_CIP] && n[F_TYPE] > T_PCM) return 0;
-  return 1;
-}
-
-__device__ __noinline__ void intra4(int mode, const int* top, const int* left, int tl, int has_top, int has_left, int* P) {
-  // top[0..7], left[0..3]; tl is p[-1,-1]
-#define T_(i) ((i) < 0 ? tl : top[i])
-#define L_(i) ((i) < 0 ? tl : left[i])
-  for (int y = 0; y < 4; y++)
-    for (int x = 0; x < 4; x++) {
-      int v = 0;
-      switch (mode) {
-        case 0: v = top[x]; break;
-        case 1: v = left[y]; break;
-        case 2:
-          if (has_top && has_left) v = (top[0] + top[1] + top[2] + top[3] + left[0] + left[1] + left[2] + left[3] + 4) >> 3;
-          else if (has_left) v = (left[0] + left[1] + left[2] + left[3] + 2) >> 2;
-          else if (has_top) v = (top[0] + top[1] + top[2] + top[3] + 2) >> 2;
-          else v = 128;
-          break;
-        case 3:
-          v = (x == 3 && y == 3) ? (top[6] + 3 * top[7] + 2) >> 2 : (top[x + y] + 2 * top[x + y + 1] + top[x + y + 2] + 2) >> 2;
-          break;
-        case 4:
-          if (x > y) v = (T_(x - y - 2) + 2 * T_(x - y - 1) + T_(x - y) + 2) >> 2;
-          else if (x < y) v = (L_(y - x - 2) + 2 * L_(y - x - 1) + L_(y - x) + 2) >> 2;
-          else v = (T_(0) + 2 * tl + L_(0) + 2) >> 2;
-          break;
-        case 5: {
-          int z = 2 * x - y;
-          if (z >= 0 && !(z & 1)) v = (T_(x - (y >> 1) - 1) + T_(x - (y >> 1)) + 1) >> 1;
-          else if (z >= 0) v = (T_(x - (y >> 1) - 2) + 2 * T_(x - (y >> 1) - 1) + T_(x - (y >> 1)) + 2) >> 2;
-          else if (z == -1) v = (L_(0) + 2 * tl + T_(0) + 2) >> 2;
-          else v = (L_(y - 1) + 2 * L_(y - 2) + L_(y - 3) + 2) >> 2;
-          break;
-        }
-        case 6: {
-          int z = 2 * y - x;
-          if (z >= 0 && !(z & 1)) v = (L_(y - (x >> 1) - 1) + L_(y - (x >> 1)) + 1) >> 1;
-          else if (z >= 0) v = (L_(y - (x >> 1) - 2) + 2 * L_(y - (x >> 1) - 1) + L_(y - (x >> 1)) + 2) >> 2;
-          else if (z == -1) v = (L_(0) + 2 * tl + T_(0) + 2) >> 2;
-          else v = (T_(x - 1) + 2 * T_(x - 2) + T_(x - 3) + 2) >> 2;
-          break;
-        }
-        case 7:
-          if (!(y & 1)) v = (T_(x + (y >> 1)) + T_(x + (y >> 1) + 1) + 1) >> 1;
-          else v = (T_(x + (y >> 1)) + 2 * T_(x + (y >> 1) + 1) + T_(x + (y >> 1) + 2) + 2) >> 2;
-          break;
-        default: {
-          int z = x + 2 * y;
-          if (z < 5 && !(z & 1)) v = (L_(y + (x >> 1)) + L_(y + (x >> 1) + 1) + 1) >> 1;
-          else if (z < 5) v = (L_(y + (x >> 1)) + 2 * L_(y + (x >> 1) + 1) + L_(y + (x >> 1) + 2) + 2) >> 2;
-          else if (z == 5) v = (L_(2) + 3 * L_(3) + 2) >> 2;
-          else v = L_(3);
-        }
+    } else {
+      const int* ls = ls4 + ((intra ? 0 : 3) * 6 + qp % 6) * 16;
+      for (int i = tid; i < 64; i += nt) {  // 4x4 block b, row r
+        int b = i >> 2, r = i & 3, d[4], o[4];
+#pragma unroll
+        for (int c = 0; c < 4; c++) d[c] = deq4(lv[16 * b + 4 * r + c], ls[4 * r + c], qp);
+        if (t == T_I16 && r == 0) d[0] = i16_dc(lv + L_DC, blk_y(b), blk_x(b), ls[0], qp);
+        idct4_1d(d[0], d[1], d[2], d[3], o);
+#pragma unroll
+        for (int c = 0; c < 4; c++) coef[16 * b + 4 * r + c] = o[c];
       }
-      P[y * 4 + x] = v;
     }
-#undef T_
-#undef L_
-}
-
-__device__ __noinline__ void intra8(int mode, const int* top0, const int* left0, int tl0, int has_top, int has_left, int has_tl,
-                       int* P) {
-  int ft[16], fl[8], ftl = 0;
-  if (has_top) {
-    ft[0] = has_tl ? (tl0 + 2 * top0[0] + top0[1] + 2) >> 2 : (3 * top0[0] + top0[1] + 2) >> 2;
-    for (int x = 1; x < 15; x++) ft[x] = (top0[x - 1] + 2 * top0[x] + top0[x + 1] + 2) >> 2;
-    ft[15] = (top0[14] + 3 * top0[15] + 2) >> 2;
-  }
-  if (has_tl) {
-    if (has_top && has_left) ftl = (top0[0] + 2 * tl0 + left0[0] + 2) >> 2;
-    else if (has_top) ftl = (3 * tl0 + top0[0] + 2) >> 2;
-    else if (has_left) ftl = (3 * tl0 + left0[0] + 2) >> 2;
-    else ftl = tl0;
-  }
-  if (has_left) {
-    fl[0] = has_tl ? (tl0 + 2 * left0[0] + left0[1] + 2) >> 2 : (3 * left0[0] + left0[1] + 2) >> 2;
-    for (int y = 1; y < 7; y++) fl[y] = (left0[y - 1] + 2 * left0[y] + left0[y + 1] + 2) >> 2;
-    fl[7] = (left0[6] + 3 * left0[7] + 2) >> 2;
-  }
-#define T_(i) ((i) < 0 ? ftl : ft[i])
-#define L_(i) ((i) < 0 ? ftl : fl[i])
-  int dc = 128;
-  if (mode == 2) {
-    int st = 0, sl = 0;
-    for (int k = 0; k < 8; k++) {
-      if (has_top) st += ft[k];
-      if (has_left) sl += fl[k];
-    }
-    if (has_top && has_left) dc = (st + sl + 8) >> 4;
-    else if (has_left) dc = (sl + 4) >> 3;
-    else if (has_top) dc = (st + 4) >> 3;
-  }
-  for (int y = 0; y < 8; y++)
-    for (int x = 0; x < 8; x++) {
-      int v = 0;
-      switch (mode) {
-        case 0: v = ft[x]; break;
-        case 1: v = fl[y]; break;
-        case 2: v = dc; break;
-        case 3:
-          v = (x == 7 && y == 7) ? (ft[14] + 3 * ft[15] + 2) >> 2 : (ft[x + y] + 2 * ft[x + y + 1] + ft[x + y + 2] + 2) >> 2;
-          break;
-        case 4:
-          if (x > y) v = (T_(x - y - 2) + 2 * T_(x - y - 1) + T_(x - y) + 2) >> 2;
-          else if (x < y) v = (L_(y - x - 2) + 2 * L_(y - x - 1) + L_(y - x) + 2) >> 2;
-          else v = (T_(0) + 2 * ftl + L_(0) + 2) >> 2;
-          break;
-        case 5: {
-          int z = 2 * x - y;
-          if (z >= 0 && !(z & 1)) v = (T_(x - (y >> 1) - 1) + T_(x - (y >> 1)) + 1) >> 1;
-          else if (z >= 0) v = (T_(x - (y >> 1) - 2) + 2 * T_(x - (y >> 1) - 1) + T_(x - (y >> 1)) + 2) >> 2;
-          else if (z == -1) v = (L_(0) + 2 * ftl + T_(0) + 2) >> 2;
-          else v = (L_(y - 2 * x - 1) + 2 * L_(y - 2 * x - 2) + L_(y - 2 * x - 3) + 2) >> 2;
-          break;
-        }
-        case 6: {
-          int z = 2 * y - x;
-          if (z >= 0 && !(z & 1)) v = (L_(y - (x >> 1) - 1) + L_(y - (x >> 1)) + 1) >> 1;
-          else if (z >= 0) v = (L_(y - (x >> 1) - 2) + 2 * L_(y - (x >> 1) - 1) + L_(y - (x >> 1)) + 2) >> 2;
-          else if (z == -1) v = (L_(0) + 2 * ftl + T_(0) + 2) >> 2;
-          else v = (T_(x - 2 * y - 1) + 2 * T_(x - 2 * y - 2) + T_(x - 2 * y - 3) + 2) >> 2;
-          break;
-        }
-        case 7:
-          if (!(y & 1)) v = (T_(x + (y >> 1)) + T_(x + (y >> 1) + 1) + 1) >> 1;
-          else v = (T_(x + (y >> 1)) + 2 * T_(x + (y >> 1) + 1) + T_(x + (y >> 1) + 2) + 2) >> 2;
-          break;
-        default: {
-          int z = x + 2 * y;
-          if (z < 13 && !(z & 1)) v = (L_(y + (x >> 1)) + L_(y + (x >> 1) + 1) + 1) >> 1;
-          else if (z < 13) v = (L_(y + (x >> 1)) + 2 * L_(y + (x >> 1) + 1) + L_(y + (x >> 1) + 2) + 2) >> 2;
-          else if (z == 13) v = (L_(6) + 3 * L_(7) + 2) >> 2;
-          else v = L_(7);
-        }
-      }
-      P[y * 8 + x] = v;
-    }
-#undef T_
-#undef L_
-}
-
-__device__ __noinline__ void intra_mb(const Pic& P, int mb, const int32_t* row, const int16_t* lv, const int* res, const int* resc) {
-  int t = row[F_TYPE];
-  int mx = mb % P.mbw, my = mb / P.mbw;
-  int X = 16 * mx, Yp = 16 * my;
-  uint8_t* Y = P.Y;
-  int ys = P.ys, cs = P.cs;
-  if (t == T_PCM) {
-    for (int i = 0; i < 256; i++) Y[(Yp + i / 16) * ys + X + i % 16] = (uint8_t)(lv[i] & 0xFF);
     if (P.chroma)
-      for (int i = 0; i < 64; i++) {
-        P.U[(Yp / 2 + i / 8) * cs + X / 2 + i % 8] = (uint8_t)(lv[256 + i] & 0xFF);
-        P.V[(Yp / 2 + i / 8) * cs + X / 2 + i % 8] = (uint8_t)(lv[320 + i] & 0xFF);
-      }
-    return;
-  }
-  int A = mb_ok_intra(P, mb, mx > 0 ? mb - 1 : -1);
-  int Bn = mb_ok_intra(P, mb, my > 0 ? mb - P.mbw : -1);
-  int C = mb_ok_intra(P, mb, (my > 0 && mx < P.mbw - 1) ? mb - P.mbw + 1 : -1);
-  int D = mb_ok_intra(P, mb, (my > 0 && mx > 0) ? mb - P.mbw - 1 : -1);
-  if (t == T_I16) {
-    int mode = row[F_I16];
-    int top[16], left[16], tl = D ? Y[(Yp - 1) * ys + X - 1] : 0;
-    for (int k = 0; k < 16; k++) {
-      top[k] = Bn ? Y[(Yp - 1) * ys + X + k] : 0;
-      left[k] = A ? Y[(Yp + k) * ys + X - 1] : 0;
-    }
-    int dc = 128, a = 0, b = 0, c = 0;
-    if (mode == 2) {
-      int st = 0, sl = 0;
-      for (int k = 0; k < 16; k++) { st += top[k]; sl += left[k]; }
-      if (Bn && A) dc = (st + sl + 16) >> 5;
-      else if (A) dc = (sl + 8) >> 4;
-      else if (Bn) dc = (st + 8) >> 4;
-    } else if (mode == 3) {
-      int H = 0, V = 0;
-      for (int k = 0; k < 8; k++) {
-        H += (k + 1) * (top[8 + k] - (k < 7 ? top[6 - k] : tl));
-        V += (k + 1) * (left[8 + k] - (k < 7 ? left[6 - k] : tl));
-      }
-      a = 16 * (left[15] + top[15]);
-      b = (5 * H + 32) >> 6;
-      c = (5 * V + 32) >> 6;
-    }
-    for (int y = 0; y < 16; y++)
-      for (int x = 0; x < 16; x++) {
-        int p = mode == 0 ? top[x] : (mode == 1 ? left[y] : (mode == 2 ? dc : clip1((a + b * (x - 7) + c * (y - 7) + 16) >> 5)));
-        Y[(Yp + y) * ys + X + x] = (uint8_t)clip1(p + res[y * 16 + x]);
-      }
-  } else if (t == T_I4) {
-    for (int b = 0; b < 16; b++) {
-      int bx = blk_x(b), by = blk_y(b), x = X + 4 * bx, y = Yp + 4 * by;
-      int mode = (row[b < 8 ? F_IM0 : F_IM1] >> (4 * (b & 7))) & 15;
-      int has_top = by > 0 || Bn, has_left = bx > 0 || A;
-      int has_tl = (by > 0 && bx > 0) ? 1 : (by > 0 ? A : (bx > 0 ? Bn : D));
-      int has_tr = by == 0 ? (bx < 3 ? Bn : C) : (bx < 3 && blk_at(by - 1, bx + 1) < b);
-      int top[8], left[4], tl = has_tl ? Y[(y - 1) * ys + x - 1] : 0;
-      for (int k = 0; k < 4; k++) {
-        top[k] = has_top ? Y[(y - 1) * ys + x + k] : 0;
-        left[k] = has_left ? Y[(y + k) * ys + x - 1] : 0;
-      }
-      for (int k = 4; k < 8; k++) top[k] = has_top ? (has_tr ? Y[(y - 1) * ys + x + k] : top[3]) : 0;
-      int Pr[16];
-      intra4(mode, top, left, tl, has_top, has_left, Pr);
-      for (int yy = 0; yy < 4; yy++)
-        for (int xx = 0; xx < 4; xx++)
-          Y[(y + yy) * ys + x + xx] = (uint8_t)clip1(Pr[yy * 4 + xx] + res[(4 * by + yy) * 16 + 4 * bx + xx]);
-    }
-  } else if (t == T_I8) {
-    for (int k = 0; k < 4; k++) {
-      int bx = k & 1, by = k >> 1, x = X + 8 * bx, y = Yp + 8 * by;
-      int mode = (row[k < 2 ? F_IM0 : F_IM1] >> (16 * (k & 1))) & 15;
-      int has_top = by > 0 || Bn, has_left = bx > 0 || A;
-      int has_tl = (bx && by) ? 1 : (by ? A : (bx ? Bn : D));
-      int has_tr = by == 0 ? (bx == 0 ? Bn : C) : (bx == 0);
-      int top[16], left[8], tl = has_tl ? Y[(y - 1) * ys + x - 1] : 0;
-      for (int q = 0; q < 8; q++) {
-        top[q] = has_top ? Y[(y - 1) * ys + x + q] : 0;
-        left[q] = has_left ? Y[(y + q) * ys + x - 1] : 0;
-      }
-      for (int q = 8; q < 16; q++) top[q] = has_top ? (has_tr ? Y[(y - 1) * ys + x + q] : top[7]) : 0;
-      int Pr[64];
-      intra8(mode, top, left, tl, has_top, has_left, has_tl, Pr);
-      for (int yy = 0; yy < 8; yy++)
-        for (int xx = 0; xx < 8; xx++)
-          Y[(y + yy) * ys + x + xx] = (uint8_t)clip1(Pr[yy * 8 + xx] + res[(8 * by + yy) * 16 + 8 * bx + xx]);
-    }
-  }
-  if (!P.chroma) return;
-  int mode = row[F_CPRED], cx = X / 2, cy = Yp / 2;
-  for (int comp = 0; comp < 2; comp++) {
-    uint8_t* pl = comp ? P.V : P.U;
-    int top[8], left[8], tl = D ? pl[(cy - 1) * cs + cx - 1] : 0;
-    for (int k = 0; k < 8; k++) {
-      top[k] = Bn ? pl[(cy - 1) * cs + cx + k] : 0;
-      left[k] = A ? pl[(cy + k) * cs + cx - 1] : 0;
-    }
-    int a = 0, b = 0, c = 0;
-    if (mode == 3) {
-      int H = 0, V = 0;
-      for (int k = 0; k < 4; k++) {
-        H += (k + 1) * (top[4 + k] - (k < 3 ? top[2 - k] : tl));
-        V += (k + 1) * (left[4 + k] - (k < 3 ? left[2 - k] : tl));
-      }
-      a = 16 * (left[7] + top[7]);
-      b = (34 * H + 32) >> 6;
-      c = (34 * V + 32) >> 6;
-    }
-    for (int by = 0; by < 2; by++)
-      for (int bx = 0; bx < 2; bx++) {
-        int dc = 128;
-        if (mode == 0) {
-          int st = 0, sl = 0;
-          for (int k = 0; k < 4; k++) { st += top[4 * bx + k]; sl += left[4 * by + k]; }
-          if ((bx == 0 && by == 0) || (bx == 1 && by == 1)) {
-            if (Bn && A) dc = (st + sl + 4) >> 3;
-            else if (A) dc = (sl + 2) >> 2;
-            else if (Bn) dc = (st + 2) >> 2;
-          } else if (bx == 1) {
-            dc = Bn ? (st + 2) >> 2 : (A ? (sl + 2) >> 2 : 128);
-          } else {
-            dc = A ? (sl + 2) >> 2 : (Bn ? (st + 2) >> 2 : 128);
-          }
+      for (int i = tid; i < 32; i += nt) {  // plane comp, 4x4 block k, row r
+        int comp = i >> 4, k = (i >> 2) & 3, r = i & 3, d[4], o[4];
+        int qpc = P.T[O_CQP + clip3(0, 51, qp + rec[R_CBOFF + comp])];
+        const int* ls = ls4 + (((intra ? 1 : 4) + comp) * 6 + qpc % 6) * 16;
+        const int16_t* cl = lv + L_CAC + 64 * comp + 16 * k;
+#pragma unroll
+        for (int c = 0; c < 4; c++) d[c] = deq4(cl[4 * r + c], ls[4 * r + c], qpc);
+        if (r == 0) {
+          const int16_t* dc = lv + L_CDC + 4 * comp;
+          int f = k == 0 ? dc[0] + dc[1] + dc[2] + dc[3]
+                         : (k == 1 ? dc[0] - dc[1] + dc[2] - dc[3]
+                                   : (k == 2 ? dc[0] + dc[1] - dc[2] - dc[3] : dc[0] - dc[1] - dc[2] + dc[3]));
+          d[0] = ((f * ls[0]) << (qpc / 6)) >> 5;
         }
-        for (int y = 4 * by; y < 4 * by + 4; y++)
-          for (int x = 4 * bx; x < 4 * bx + 4; x++) {
-            int p = mode == 0 ? dc : (mode == 1 ? left[y] : (mode == 2 ? top[x] : clip1((a + b * (x - 3) + c * (y - 3) + 16) >> 5)));
-            pl[(cy + y) * cs + cx + x] = (uint8_t)clip1(p + resc[comp * 64 + y * 8 + x]);
-          }
+        idct4_1d(d[0], d[1], d[2], d[3], o);
+#pragma unroll
+        for (int c = 0; c < 4; c++) coef[256 + 64 * comp + 16 * k + 4 * r + c] = o[c];
       }
-  }
-}
-
-__device__ __noinline__ void inter_mb(const Pic& P, int mb, const int32_t* row, const int32_t* rec, const int* res, const int* resc) {
-  int mx = mb % P.mbw, my = mb / P.mbw;
-  int W = 16 * P.mbw, H = 16 * P.mbh;
-  for (int b = 0; b < 16; b++) {
-    int x4 = 4 * mx + blk_x(b), y4 = 4 * my + blk_y(b);
-    int64_t i0 = ((int64_t)0 * P.h4 + y4) * P.w4 + x4, i1 = ((int64_t)1 * P.h4 + y4) * P.w4 + x4;
-    int r0 = P.ref[i0], r1 = P.ref[i1];
-    int use[2] = {r0 >= 0, r1 >= 0};
-    int py[2][16], pc[2][2][4];
-    for (int lx = 0; lx < 2; lx++) {
-      if (!use[lx]) continue;
-      int64_t i = lx ? i1 : i0;
-      int r = lx ? r1 : r0;
-      int slot = rec[R_SLOT + 32 * lx + r];
-      const uint8_t* ry = (const uint8_t*)P.refs[3 * slot];
-      int mvx = P.mv[2 * i], mvy = P.mv[2 * i + 1];
-      luma_pred4(ry, P.ys, W, H, 4 * x4, 4 * y4, mvx, mvy, py[lx]);
-      if (P.chroma) {
-        chroma_pred2((const uint8_t*)P.refs[3 * slot + 1], P.cs, W / 2, H / 2, 2 * x4, 2 * y4, mvx, mvy, pc[lx][0]);
-        chroma_pred2((const uint8_t*)P.refs[3 * slot + 2], P.cs, W / 2, H / 2, 2 * x4, 2 * y4, mvx, mvy, pc[lx][1]);
+    if (!intra) {
+      for (int i = tid; i < 2 * 16 * 81; i += nt) {
+        int lx = i / (16 * 81), b = (i / 81) & 15, e = i % 81;
+        int x4 = 4 * mx + blk_x(b), y4 = 4 * my + blk_y(b);
+        int64_t q = ((int64_t)lx * P.h4 + y4) * P.w4 + x4;
+        int r = P.ref[q], mvx = P.mv[2 * q], mvy = P.mv[2 * q + 1], wr = e / 9, wc = e % 9;
+        // a whole vector component reads the middle 4 of its 9
+        if (r < 0 || (!(mvy & 3) && (wr < 2 || wr > 5)) || (!(mvx & 3) && (wc < 2 || wc > 5))) continue;
+        const uint8_t* ry = (const uint8_t*)P.refs[3 * rec[R_SLOT + 32 * lx + r]];
+        int xi = 4 * x4 + (mvx >> 2) - 2, yi = 4 * y4 + (mvy >> 2) - 2;
+        win[lx][b][e] = (uint8_t)luma_sample(ry, P.ys, W, H, xi + wc, yi + wr);
       }
+      if (P.chroma)
+        for (int i = tid; i < 2 * 2 * 16 * 9; i += nt) {
+          int lx = i / (2 * 16 * 9), comp = (i / (16 * 9)) & 1, b = (i / 9) & 15, e = i % 9;
+          int x4 = 4 * mx + blk_x(b), y4 = 4 * my + blk_y(b);
+          int64_t q = ((int64_t)lx * P.h4 + y4) * P.w4 + x4;
+          int r = P.ref[q];
+          if (r < 0) continue;
+          const uint8_t* pl = (const uint8_t*)P.refs[3 * rec[R_SLOT + 32 * lx + r] + 1 + comp];
+          int xi = 2 * x4 + (P.mv[2 * q] >> 3), yi = 2 * y4 + (P.mv[2 * q + 1] >> 3);
+          cwin[lx][comp][b][e] = (uint8_t)luma_sample(pl, P.cs, W / 2, H / 2, xi + e % 3, yi + e / 3);
+        }
     }
-    int mode = rec[R_WEIGHTED];
-    for (int plane = 0; plane < (P.chroma ? 3 : 1); plane++) {
+    __syncthreads();
+    // ---- step 2
+    const int n = P.chroma ? N_RES : 256;
+    for (int s = tid; s < n; s += nt) {
+      int res, plane, sy, sx, b;
+      if (s < 256) {
+        plane = 0;
+        sy = s >> 4;
+        sx = s & 15;
+        if (t8) {
+          int k = ((sy >> 3) << 1) | (sx >> 3), x[8];
+#pragma unroll
+          for (int r = 0; r < 8; r++) x[r] = coef[64 * k + 8 * r + (sx & 7)];
+          idct8_1d(x);
+          int v = 0;
+#pragma unroll
+          for (int r = 0; r < 8; r++)
+            if (r == (sy & 7)) v = x[r];
+          res = (v + 32) >> 6;
+        } else {
+          int bb = blk_at(sy >> 2, sx >> 2), c = sx & 3, o[4];
+          idct4_1d(coef[16 * bb + c], coef[16 * bb + 4 + c], coef[16 * bb + 8 + c], coef[16 * bb + 12 + c], o);
+          int r = sy & 3;
+          res = ((r == 0 ? o[0] : r == 1 ? o[1] : r == 2 ? o[2] : o[3]) + 32) >> 6;
+        }
+        b = blk_at(sy >> 2, sx >> 2);
+      } else {
+        int comp = (s - 256) >> 6;
+        plane = 1 + comp;
+        sy = ((s - 256) >> 3) & 7;
+        sx = s & 7;
+        int k = ((sy >> 2) << 1) | (sx >> 2), c = sx & 3, o[4];
+        const int* cf = coef + 256 + 64 * comp + 16 * k;
+        idct4_1d(cf[c], cf[4 + c], cf[8 + c], cf[12 + c], o);
+        int r = sy & 3;
+        res = ((r == 0 ? o[0] : r == 1 ? o[1] : r == 2 ? o[2] : o[3]) + 32) >> 6;
+        b = blk_at(sy >> 1, sx >> 1);
+      }
+      if (intra) {
+        P.res[(int64_t)mb * N_RES + s] = res;
+        continue;
+      }
+      int x4 = 4 * mx + blk_x(b), y4 = 4 * my + blk_y(b);
+      int64_t q0 = ((int64_t)0 * P.h4 + y4) * P.w4 + x4, q1 = ((int64_t)1 * P.h4 + y4) * P.w4 + x4;
+      int r0 = P.ref[q0], r1 = P.ref[q1];
+      int use[2] = {r0 >= 0, r1 >= 0}, p[2] = {0, 0};
+      for (int lx = 0; lx < 2; lx++) {
+        if (!use[lx]) continue;
+        int64_t q = lx ? q1 : q0;
+        int mvx = P.mv[2 * q], mvy = P.mv[2 * q + 1];
+        if (plane == 0) {
+          p[lx] = luma_qpel(win[lx][b], sy & 3, sx & 3, mvx & 3, mvy & 3);
+        } else {
+          const uint8_t* w = cwin[lx][plane - 1][b];
+          int i = sy & 1, j = sx & 1, fx = mvx & 7, fy = mvy & 7;
+          p[lx] = ((8 - fx) * (8 - fy) * w[i * 3 + j] + fx * (8 - fy) * w[i * 3 + j + 1] +
+                   (8 - fx) * fy * w[i * 3 + 3 + j] + fx * fy * w[i * 3 + 4 + j] + 32) >> 6;
+        }
+      }
+      int mode = rec[R_WEIGHTED];
       int w0 = 0, o0 = 0, w1 = 0, o1 = 0, denom = 0;
       if (mode == 1) {
         denom = plane == 0 ? rec[R_LDENOM] : rec[R_CDENOM];
@@ -1812,56 +1770,277 @@ __device__ __noinline__ void inter_mb(const Pic& P, int mb, const int32_t* row, 
         w0 = 64 - w1;
         denom = 5;
       }
-      if (plane == 0) {
-        for (int yy = 0; yy < 4; yy++)
-          for (int xx = 0; xx < 4; xx++) {
-            int p = weigh(py[0][yy * 4 + xx], py[1][yy * 4 + xx], use[0], use[1], w0, o0, w1, o1, denom, mode);
-            P.Y[(4 * y4 + yy) * P.ys + 4 * x4 + xx] = (uint8_t)clip1(p + res[(4 * blk_y(b) + yy) * 16 + 4 * blk_x(b) + xx]);
-          }
-      } else {
-        uint8_t* pl = plane == 1 ? P.U : P.V;
-        for (int yy = 0; yy < 2; yy++)
-          for (int xx = 0; xx < 2; xx++) {
-            int p = weigh(pc[0][plane - 1][yy * 2 + xx], pc[1][plane - 1][yy * 2 + xx], use[0], use[1], w0, o0, w1, o1,
-                          denom, mode);
-            pl[(2 * y4 + yy) * P.cs + 2 * x4 + xx] =
-                (uint8_t)clip1(p + resc[(plane - 1) * 64 + (2 * blk_y(b) + yy) * 8 + 2 * blk_x(b) + xx]);
-          }
-      }
+      int v = clip1(weigh(p[0], p[1], use[0], use[1], w0, o0, w1, o1, denom, mode) + res);
+      if (plane == 0) P.Y[(int64_t)(16 * my + sy) * P.ys + 16 * mx + sx] = (uint8_t)v;
+      else (plane == 1 ? P.U : P.V)[(int64_t)(8 * my + sy) * P.cs + 8 * mx + sx] = (uint8_t)v;
     }
   }
 }
 
-__global__ void h264_recon_kernel(Pic P) {
-  int waves = P.mbw + 2 * (P.mbh - 1);
-  for (int w = 0; w < waves; w++) {
-    for (int my = threadIdx.x; my < P.mbh; my += blockDim.x) {
-      int mx = w - 2 * my;
-      if (mx < 0 || mx >= P.mbw) continue;
-      int mb = my * P.mbw + mx;
-      const int32_t* row = P.tab + (int64_t)mb * N_FIELDS;
-      const int16_t* lv = P.lev + (int64_t)mb * N_LEVELS;
-      const int32_t* rec = P.rec + (int64_t)row[F_SLICE] * R_SIZE;
-      Mv M;
-      M.P = &P;
-      M.mb = mb;
-      M.slice = row[F_SLICE];
-      M.mbx4 = 4 * mx;
-      M.mby4 = 4 * my;
-      M.done = 0;
-      for (int lx = 0; lx < 2; lx++)  // no references until derived (intra: none)
-        for (int b = 0; b < 16; b++) M.store(b, lx, -1, 0, 0, -1);
-      derive_mb(P, mb, row, rec, M);
-      int res[256], resc[128];
-      residual_mb(P, row, lv, rec, res, resc);
-      if (row[F_TYPE] <= T_PCM) intra_mb(P, mb, row, lv, res, resc);
-      else inter_mb(P, mb, row, rec, res, resc);
+// ---- intra prediction, a sample at a time
+__device__ int mb_ok_intra(const Pic& P, int mb, int nb) {
+  if (nb < 0) return 0;
+  const int32_t* r = P.tab + (int64_t)mb * N_FIELDS;
+  const int32_t* n = P.tab + (int64_t)nb * N_FIELDS;
+  if (n[F_SLICE] != r[F_SLICE] || nb > mb) return 0;
+  if (P.rec[(int64_t)r[F_SLICE] * R_SIZE + R_CIP] && n[F_TYPE] > T_PCM) return 0;
+  return 1;
+}
+
+// Intra4x4 (or, with n = 8, Intra8x8 on the filtered edges) mode `mode` at
+// (x, y): top(i) for i in [0, 2n), left(i) for i in [0, n), tl the corner
+template <int n, class Top, class Left>
+__device__ int intra_nxn(int mode, Top top, Left left, int tl, int x, int y, int dc) {
+#define T_(i) ((i) < 0 ? tl : top(i))
+#define L_(i) ((i) < 0 ? tl : left(i))
+  switch (mode) {
+    case 0: return top(x);
+    case 1: return left(y);
+    case 2: return dc;
+    case 3:
+      return (x == n - 1 && y == n - 1) ? (top(2 * n - 2) + 3 * top(2 * n - 1) + 2) >> 2
+                                        : (top(x + y) + 2 * top(x + y + 1) + top(x + y + 2) + 2) >> 2;
+    case 4:
+      if (x > y) return (T_(x - y - 2) + 2 * T_(x - y - 1) + T_(x - y) + 2) >> 2;
+      if (x < y) return (L_(y - x - 2) + 2 * L_(y - x - 1) + L_(y - x) + 2) >> 2;
+      return (T_(0) + 2 * tl + L_(0) + 2) >> 2;
+    case 5: {
+      int z = 2 * x - y;
+      if (z >= 0 && !(z & 1)) return (T_(x - (y >> 1) - 1) + T_(x - (y >> 1)) + 1) >> 1;
+      if (z >= 0) return (T_(x - (y >> 1) - 2) + 2 * T_(x - (y >> 1) - 1) + T_(x - (y >> 1)) + 2) >> 2;
+      if (z == -1) return (L_(0) + 2 * tl + T_(0) + 2) >> 2;
+      if (n == 4) return (L_(y - 1) + 2 * L_(y - 2) + L_(y - 3) + 2) >> 2;
+      return (L_(y - 2 * x - 1) + 2 * L_(y - 2 * x - 2) + L_(y - 2 * x - 3) + 2) >> 2;
     }
-    __syncthreads();
+    case 6: {
+      int z = 2 * y - x;
+      if (z >= 0 && !(z & 1)) return (L_(y - (x >> 1) - 1) + L_(y - (x >> 1)) + 1) >> 1;
+      if (z >= 0) return (L_(y - (x >> 1) - 2) + 2 * L_(y - (x >> 1) - 1) + L_(y - (x >> 1)) + 2) >> 2;
+      if (z == -1) return (L_(0) + 2 * tl + T_(0) + 2) >> 2;
+      if (n == 4) return (T_(x - 1) + 2 * T_(x - 2) + T_(x - 3) + 2) >> 2;
+      return (T_(x - 2 * y - 1) + 2 * T_(x - 2 * y - 2) + T_(x - 2 * y - 3) + 2) >> 2;
+    }
+    case 7:
+      if (!(y & 1)) return (T_(x + (y >> 1)) + T_(x + (y >> 1) + 1) + 1) >> 1;
+      return (T_(x + (y >> 1)) + 2 * T_(x + (y >> 1) + 1) + T_(x + (y >> 1) + 2) + 2) >> 2;
+    default: {
+      int z = x + 2 * y;
+      if (z < 2 * n - 3 && !(z & 1)) return (L_(y + (x >> 1)) + L_(y + (x >> 1) + 1) + 1) >> 1;
+      if (z < 2 * n - 3) return (L_(y + (x >> 1)) + 2 * L_(y + (x >> 1) + 1) + L_(y + (x >> 1) + 2) + 2) >> 2;
+      if (z == 2 * n - 3) return (L_(n - 2) + 3 * L_(n - 1) + 2) >> 2;
+      return L_(n - 1);
+    }
+  }
+#undef T_
+#undef L_
+}
+
+// h264_intra_kernel: the intra macroblocks, after h264_inter_kernel, so
+// each reads its inter neighbours' finished samples; rows of macroblocks
+// over the grid, a block a row, waiting on the row above only at an intra
+// macroblock (a row without one passes straight through). A macroblock's
+// neighbourhood (the row above with its top-right, the column to its left)
+// and its own samples live in shared memory while its 4x4 / 8x8 blocks are
+// predicted in order, the threads over each block's samples.
+__global__ void h264_intra_kernel(Pic P) {
+  __shared__ int lc[17][25];    // luma: row 0 the samples above (col 0 top-left), col 0 the left ones
+  __shared__ int cc[2][9][9];   // chroma, the same way
+  __shared__ int f8[25];        // Intra8x8's filtered top (16), left (8) and corner
+  __shared__ int prm[3 + 2 * 7];  // Intra16x16 DC or plane a, b, c; chroma a, b, c and four DCs per plane
+  __shared__ int res[N_RES];      // the macroblock's residual
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int* sync = P.sync;
+  for (int y = take_row(sync); y < P.mbh; y = take_row(sync)) {
+    int done = 0;
+    for (int x = 0; x < P.mbw; x++) {
+      const int mb = y * P.mbw + x;
+      const int32_t* row = P.tab + (int64_t)mb * N_FIELDS;
+      const int t = row[F_TYPE];
+      if (t > T_PCM) continue;  // the same in every thread
+      wait_row(sync, y, x, imin(x + 2, P.mbw), done);
+      const int16_t* lv = P.lev + (int64_t)mb * N_LEVELS;
+      const int X = 16 * x, Yp = 16 * y, cx = 8 * x, cy = 8 * y;
+      uint8_t* Y = P.Y;
+      const int ys = P.ys, cs = P.cs;
+      if (t == T_PCM) {
+        for (int i = tid; i < (P.chroma ? N_RES : 256); i += nt) {
+          uint8_t v = (uint8_t)(lv[i] & 0xFF);
+          if (i < 256) Y[(int64_t)(Yp + i / 16) * ys + X + i % 16] = v;
+          else (i < 320 ? P.U : P.V)[(int64_t)(cy + (i & 63) / 8) * cs + cx + i % 8] = v;
+        }
+        done_row(sync, y, x, done);
+        continue;
+      }
+      const int A = mb_ok_intra(P, mb, x > 0 ? mb - 1 : -1);
+      const int Bn = mb_ok_intra(P, mb, y > 0 ? mb - P.mbw : -1);
+      const int C = mb_ok_intra(P, mb, (y > 0 && x < P.mbw - 1) ? mb - P.mbw + 1 : -1);
+      const int D = mb_ok_intra(P, mb, (y > 0 && x > 0) ? mb - P.mbw - 1 : -1);
+      // ---- the residual, and the neighbourhood (0 where not available)
+      for (int i = tid; i < N_RES + 25 + 16 + (P.chroma ? 2 * 17 : 0); i += nt) {
+        const int j = i - N_RES;
+        if (j < 0) {
+          res[i] = P.res[(int64_t)mb * N_RES + i];
+        } else if (j < 25) {
+          int ok = j == 0 ? D : (j <= 16 ? Bn : C);
+          lc[0][j] = ok ? __ldcg(Y + (int64_t)(Yp - 1) * ys + X - 1 + j) : 0;
+        } else if (j < 41) {
+          lc[j - 24][0] = A ? __ldcg(Y + (int64_t)(Yp + j - 25) * ys + X - 1) : 0;
+        } else {
+          int comp = (j - 41) / 17, k = (j - 41) % 17;
+          const uint8_t* pl = comp ? P.V : P.U;
+          if (k < 9) cc[comp][0][k] = (k == 0 ? D : Bn) ? __ldcg(pl + (int64_t)(cy - 1) * cs + cx - 1 + k) : 0;
+          else cc[comp][k - 8][0] = A ? __ldcg(pl + (int64_t)(cy + k - 9) * cs + cx - 1) : 0;
+        }
+      }
+      __syncthreads();
+      const int cmode = row[F_CPRED];
+      if (tid == 0) {
+        if (t == T_I16) {
+          int mode = row[F_I16];
+          if (mode == 2) {
+            int st = 0, sl = 0;
+            for (int k = 0; k < 16; k++) { st += lc[0][1 + k]; sl += lc[1 + k][0]; }
+            prm[0] = Bn && A ? (st + sl + 16) >> 5 : (A ? (sl + 8) >> 4 : (Bn ? (st + 8) >> 4 : 128));
+          } else if (mode == 3) {
+            int Hs = 0, Vs = 0;
+            for (int k = 0; k < 8; k++) {
+              Hs += (k + 1) * (lc[0][9 + k] - lc[0][7 - k]);
+              Vs += (k + 1) * (lc[9 + k][0] - lc[7 - k][0]);
+            }
+            prm[0] = 16 * (lc[16][0] + lc[0][16]);
+            prm[1] = (5 * Hs + 32) >> 6;
+            prm[2] = (5 * Vs + 32) >> 6;
+          }
+        }
+        for (int comp = 0; P.chroma && comp < 2; comp++) {
+          int* q = prm + 3 + 7 * comp;
+          if (cmode == 3) {
+            int Hs = 0, Vs = 0;
+            for (int k = 0; k < 4; k++) {
+              Hs += (k + 1) * (cc[comp][0][5 + k] - cc[comp][0][3 - k]);
+              Vs += (k + 1) * (cc[comp][5 + k][0] - cc[comp][3 - k][0]);
+            }
+            q[0] = 16 * (cc[comp][8][0] + cc[comp][0][8]);
+            q[1] = (34 * Hs + 32) >> 6;
+            q[2] = (34 * Vs + 32) >> 6;
+          } else if (cmode == 0) {
+            for (int by = 0; by < 2; by++)
+              for (int bx = 0; bx < 2; bx++) {
+                int st = 0, sl = 0, dc;
+                for (int k = 0; k < 4; k++) { st += cc[comp][0][1 + 4 * bx + k]; sl += cc[comp][1 + 4 * by + k][0]; }
+                if (bx == by) dc = Bn && A ? (st + sl + 4) >> 3 : (A ? (sl + 2) >> 2 : (Bn ? (st + 2) >> 2 : 128));
+                else if (bx == 1) dc = Bn ? (st + 2) >> 2 : (A ? (sl + 2) >> 2 : 128);
+                else dc = A ? (sl + 2) >> 2 : (Bn ? (st + 2) >> 2 : 128);
+                q[3 + 2 * by + bx] = dc;
+              }
+          }
+        }
+      }
+      __syncthreads();
+      // ---- luma into lc[1..16][1..16]
+      if (t == T_I16) {
+        int mode = row[F_I16];
+        for (int s = tid; s < 256; s += nt) {
+          int sy = s >> 4, sx = s & 15;
+          int p = mode == 0 ? lc[0][1 + sx]
+                            : (mode == 1 ? lc[1 + sy][0]
+                                         : (mode == 2 ? prm[0] : clip1((prm[0] + prm[1] * (sx - 7) + prm[2] * (sy - 7) + 16) >> 5)));
+          lc[1 + sy][1 + sx] = clip1(p + res[s]);
+        }
+      } else if (t == T_I4) {
+        for (int b = 0; b < 16; b++) {
+          const int bx = blk_x(b), by = blk_y(b), r0 = 4 * by, c0 = 4 * bx + 1;
+          const int mode = (row[b < 8 ? F_IM0 : F_IM1] >> (4 * (b & 7))) & 15;
+          const int has_top = by > 0 || Bn, has_left = bx > 0 || A;
+          const int has_tl = (by > 0 && bx > 0) ? 1 : (by > 0 ? A : (bx > 0 ? Bn : D));
+          const int has_tr = by == 0 ? (bx < 3 ? Bn : C) : (bx < 3 && blk_at(by - 1, bx + 1) < b);
+          auto top = [&](int k) { return has_top ? lc[r0][c0 + (k < 4 || has_tr ? k : 3)] : 0; };
+          auto left = [&](int k) { return has_left ? lc[r0 + 1 + k][c0 - 1] : 0; };
+          const int tl = has_tl ? lc[r0][c0 - 1] : 0;
+          for (int s = tid; s < 16; s += nt) {
+            int i = s >> 2, j = s & 3, dc = 128;
+            if (mode == 2) {
+              int st = top(0) + top(1) + top(2) + top(3), sl = left(0) + left(1) + left(2) + left(3);
+              dc = has_top && has_left ? (st + sl + 4) >> 3 : (has_left ? (sl + 2) >> 2 : (has_top ? (st + 2) >> 2 : 128));
+            }
+            int p = intra_nxn<4>(mode, top, left, tl, j, i, dc);
+            lc[r0 + 1 + i][c0 + j] = clip1(p + res[(r0 + i) * 16 + c0 - 1 + j]);
+          }
+          __syncthreads();
+        }
+      } else {  // T_I8
+        for (int k = 0; k < 4; k++) {
+          const int bx = k & 1, by = k >> 1, r0 = 8 * by, c0 = 8 * bx + 1;
+          const int mode = (row[k < 2 ? F_IM0 : F_IM1] >> (16 * (k & 1))) & 15;
+          const int has_top = by > 0 || Bn, has_left = bx > 0 || A;
+          const int has_tl = (bx && by) ? 1 : (by ? A : (bx ? Bn : D));
+          const int has_tr = by == 0 ? (bx == 0 ? Bn : C) : (bx == 0);
+          auto top0 = [&](int q) { return has_top ? lc[r0][c0 + (q < 8 || has_tr ? q : 7)] : 0; };
+          auto left0 = [&](int q) { return has_left ? lc[r0 + 1 + q][c0 - 1] : 0; };
+          const int tl0 = has_tl ? lc[r0][c0 - 1] : 0;
+          for (int i = tid; i < 25; i += nt) {
+            int v = 0;
+            if (i < 16) {
+              if (has_top)
+                v = i == 0 ? (has_tl ? (tl0 + 2 * top0(0) + top0(1) + 2) >> 2 : (3 * top0(0) + top0(1) + 2) >> 2)
+                           : (i == 15 ? (top0(14) + 3 * top0(15) + 2) >> 2 : (top0(i - 1) + 2 * top0(i) + top0(i + 1) + 2) >> 2);
+            } else if (i < 24) {
+              int q = i - 16;
+              if (has_left)
+                v = q == 0 ? (has_tl ? (tl0 + 2 * left0(0) + left0(1) + 2) >> 2 : (3 * left0(0) + left0(1) + 2) >> 2)
+                           : (q == 7 ? (left0(6) + 3 * left0(7) + 2) >> 2 : (left0(q - 1) + 2 * left0(q) + left0(q + 1) + 2) >> 2);
+            } else if (has_tl) {
+              v = has_top && has_left ? (top0(0) + 2 * tl0 + left0(0) + 2) >> 2
+                                      : (has_top ? (3 * tl0 + top0(0) + 2) >> 2 : (has_left ? (3 * tl0 + left0(0) + 2) >> 2 : tl0));
+            }
+            f8[i] = v;
+          }
+          __syncthreads();
+          auto ft = [&](int q) { return f8[q]; };
+          auto fl = [&](int q) { return f8[16 + q]; };
+          int dc = 128;
+          if (mode == 2) {
+            int st = 0, sl = 0;
+            for (int q = 0; q < 8; q++) {
+              if (has_top) st += f8[q];
+              if (has_left) sl += f8[16 + q];
+            }
+            dc = has_top && has_left ? (st + sl + 8) >> 4 : (has_left ? (sl + 4) >> 3 : (has_top ? (st + 4) >> 3 : 128));
+          }
+          for (int s = tid; s < 64; s += nt) {
+            int i = s >> 3, j = s & 7;
+            int p = intra_nxn<8>(mode, ft, fl, f8[24], j, i, dc);
+            lc[r0 + 1 + i][c0 + j] = clip1(p + res[(r0 + i) * 16 + c0 - 1 + j]);
+          }
+          __syncthreads();
+        }
+      }
+      __syncthreads();
+      // ---- the luma out, chroma predicted and added
+      for (int s = tid; s < (P.chroma ? N_RES : 256); s += nt) {
+        if (s < 256) {
+          Y[(int64_t)(Yp + (s >> 4)) * ys + X + (s & 15)] = (uint8_t)lc[1 + (s >> 4)][1 + (s & 15)];
+          continue;
+        }
+        int comp = (s - 256) >> 6, sy = ((s - 256) >> 3) & 7, sx = s & 7;
+        const int* q = prm + 3 + 7 * comp;
+        int p = cmode == 0 ? q[3 + 2 * (sy >> 2) + (sx >> 2)]
+                           : (cmode == 1 ? cc[comp][1 + sy][0]
+                                         : (cmode == 2 ? cc[comp][0][1 + sx] : clip1((q[0] + q[1] * (sx - 3) + q[2] * (sy - 3) + 16) >> 5)));
+        (comp ? P.V : P.U)[(int64_t)(cy + sy) * cs + cx + sx] = (uint8_t)clip1(p + res[s]);
+      }
+      done_row(sync, y, x, done);
+    }
+    if (tid == 0 && done < P.mbw) st_relaxed(sync + 1 + y, P.mbw);
   }
 }
 
 // ================================================================== deblocking
+
+// per macroblock, what h264_bs_kernel hands h264_filter_kernel: bS by
+// direction (vertical first), edge and segment (32 bytes), then indexA and
+// indexB by direction, edge and plane (luma, Cb, Cr; 48 bytes)
+constexpr int DB_BYTES = 80, DB_INDEX = 32;
 
 struct Db {
   const int32_t* tab;
@@ -1870,6 +2049,8 @@ struct Db {
   const int32_t* T;
   uint8_t *Y, *U, *V;
   int mbw, mbh, chroma, ys, cs, w4, h4;
+  uint8_t* bs;  // DB_BYTES a macroblock: bS, then the filter's indices (h264_bs_kernel)
+  int* sync;    // 1 + mbh words, zeroed before h264_filter_kernel
 };
 
 __device__ int far4(const int32_t* mv, int64_t a, int64_t b) {
@@ -1890,9 +2071,77 @@ __device__ int check_mv(const Db& D, int py, int px, int qy, int qx) {
   return 0;
 }
 
+// the neighbour across edge 0 of direction `vert`, or -1
+__device__ __forceinline__ int edge_nb(const Db& D, int mb, int vert) {
+  int mx = mb % D.mbw, my = mb / D.mbw;
+  return vert ? (mx > 0 ? mb - 1 : -1) : (my > 0 ? mb - D.mbw : -1);
+}
+
+// bS of segment k of edge e of macroblock mb, direction vertical (d 0) or
+// horizontal (d 1); 0 where the edge is not filtered
+__device__ int strength(const Db& D, int mb, int d, int e, int k) {
+  const int32_t* row = D.tab + (int64_t)mb * N_FIELDS;
+  const int32_t* rec = D.rec + (int64_t)row[F_SLICE] * R_SIZE;
+  int idc = rec[R_DBIDC], vert = d == 0;
+  if (idc == 1) return 0;
+  int nb = edge_nb(D, mb, vert);
+  if (e == 0) {
+    if (nb < 0) return 0;
+    if (idc == 2 && D.tab[(int64_t)nb * N_FIELDS + F_SLICE] != row[F_SLICE]) return 0;
+  } else if (row[F_T8] && (e & 1)) {
+    return 0;
+  }
+  const int32_t* prow = D.tab + (int64_t)(e == 0 ? nb : mb) * N_FIELDS;
+  int mx = mb % D.mbw, my = mb / D.mbw;
+  int qy = 4 * my + (vert ? k : e), qx = 4 * mx + (vert ? e : k);
+  int py = vert ? qy : qy - 1, px = vert ? qx - 1 : qx;
+  if (row[F_TYPE] <= T_PCM || prow[F_TYPE] <= T_PCM) return e == 0 ? 4 : 3;
+  int nzq = (row[F_NZ] >> blk_at(qy & 3, qx & 3)) & 1, nzp = (prow[F_NZ] >> blk_at(py & 3, px & 3)) & 1;
+  return (nzq || nzp) ? 2 : check_mv(D, py, px, qy, qx);
+}
+
+// indexA and indexB of the filter of edge e of macroblock mb, direction
+// vert, plane (0 luma, 1 Cb, 2 Cr): the average of the two sides' QP (I_PCM's
+// taken as 0; for chroma each side's QP_C through its own slice's offset)
+// with the current slice's FilterOffsetA / B; 0 where the edge is the picture's
+__device__ void edge_index(const Db& D, int mb, int vert, int e, int plane, uint8_t* out) {
+  const int nb = e == 0 ? edge_nb(D, mb, vert) : mb;
+  if (nb < 0) {
+    out[0] = out[1] = 0;
+    return;
+  }
+  const int32_t* row = D.tab + (int64_t)mb * N_FIELDS;
+  const int32_t* rec = D.rec + (int64_t)row[F_SLICE] * R_SIZE;
+  const int32_t* prow = D.tab + (int64_t)nb * N_FIELDS;
+  int qpq = row[F_TYPE] == T_PCM ? 0 : row[F_QP], qpp = prow[F_TYPE] == T_PCM ? 0 : prow[F_QP];
+  if (plane) {
+    const int32_t* prec = D.rec + (int64_t)prow[F_SLICE] * R_SIZE;
+    qpp = D.T[O_CQP + clip3(0, 51, qpp + prec[R_CBOFF + plane - 1])];
+    qpq = D.T[O_CQP + clip3(0, 51, qpq + rec[R_CBOFF + plane - 1])];
+  }
+  int qav = (qpp + qpq + 1) >> 1;
+  out[0] = (uint8_t)clip3(0, 51, qav + rec[R_DBA]);
+  out[1] = (uint8_t)clip3(0, 51, qav + rec[R_DBB]);
+}
+
+// h264_bs_kernel: every edge segment's bS at once, a thread a segment; the
+// threads of segments 0-2 of an edge also give its indices for the three
+// planes, so the filter's chain of macroblocks reads no table
+__global__ void h264_bs_kernel(Db D) {
+  const int n = D.mbw * D.mbh * 32;
+  for (int g = blockIdx.x * blockDim.x + threadIdx.x; g < n; g += gridDim.x * blockDim.x) {
+    const int mb = g >> 5, d = (g >> 4) & 1, e = (g >> 2) & 3, k = g & 3;
+    uint8_t* out = D.bs + (int64_t)mb * DB_BYTES;
+    out[g & 31] = (uint8_t)strength(D, mb, d, e, k);
+    if (k < 3) edge_index(D, mb, d == 0, e, k, out + DB_INDEX + 2 * ((4 * d + e) * 3 + k));
+  }
+}
+
+// one line across an edge, q0 at s (samples in shared memory)
 __device__ void filter_line(uint8_t* s, int step, int bs, int alpha, int beta, const int* tc0, int chroma) {
+  if (bs <= 0) return;
   int p0 = s[-step], p1 = s[-2 * step], q0 = s[0], q1 = s[step];
-  if (!(bs > 0 && iabs(p0 - q0) < alpha && iabs(p1 - p0) < beta && iabs(q1 - q0) < beta)) return;
+  if (!(iabs(p0 - q0) < alpha && iabs(p1 - p0) < beta && iabs(q1 - q0) < beta)) return;
   int p2 = chroma ? 0 : s[-3 * step], q2 = chroma ? 0 : s[2 * step];
   if (bs < 4) {
     int t0 = tc0[bs - 1];
@@ -1931,86 +2180,121 @@ __device__ void filter_line(uint8_t* s, int step, int bs, int alpha, int beta, c
   }
 }
 
-__device__ __noinline__ void deblock_mb(const Db& D, int mb) {
-  const int32_t* row = D.tab + (int64_t)mb * N_FIELDS;
-  const int32_t* rec = D.rec + (int64_t)row[F_SLICE] * R_SIZE;
-  int idc = rec[R_DBIDC], aoff = rec[R_DBA], boff = rec[R_DBB];
-  if (idc == 1) return;
-  int mx = mb % D.mbw, my = mb / D.mbw;
-  int t8 = row[F_T8];
-  int qpq = row[F_TYPE] == T_PCM ? 0 : row[F_QP];
-  for (int vert = 1; vert >= 0; vert--) {
-    int nb = vert ? (mx > 0 ? mb - 1 : -1) : (my > 0 ? mb - D.mbw : -1);
-    for (int edge = 0; edge < 4; edge++) {
-      if (edge == 0) {
-        if (nb < 0) continue;
-        if (idc == 2 && D.tab[(int64_t)nb * N_FIELDS + F_SLICE] != row[F_SLICE]) continue;
-      } else if (t8 && (edge & 1)) {
-        continue;
-      }
-      int bs[4], any = 0;
-      int pmb = edge == 0 ? nb : mb;
-      const int32_t* prow = D.tab + (int64_t)pmb * N_FIELDS;
-      for (int k = 0; k < 4; k++) {
-        int qy = 4 * my + (vert ? k : edge), qx = 4 * mx + (vert ? edge : k);
-        int py = vert ? qy : qy - 1, px = vert ? qx - 1 : qx;
-        int v;
-        if (row[F_TYPE] <= T_PCM || prow[F_TYPE] <= T_PCM) {
-          v = edge == 0 ? 4 : 3;
-        } else {
-          int nzq = (row[F_NZ] >> blk_at(qy & 3, qx & 3)) & 1, nzp = (prow[F_NZ] >> blk_at(py & 3, px & 3)) & 1;
-          v = (nzq || nzp) ? 2 : check_mv(D, py, px, qy, qx);
+// h264_filter_kernel: the standard's order, rows of macroblocks over the
+// grid, a block a row. A macroblock whose bS are all 0 changes nothing and
+// waits for nothing; another waits until the row above has done x + 1,
+// stages in shared memory (4-byte words, each thread's loads issued
+// together) its samples with the 4 luma (4 chroma) columns to its left and
+// rows (2 chroma rows) above, its bS and its edges' parameters, filters its
+// vertical edges and then its horizontal ones there (alpha, beta and tC0
+// from the bS kernel's indices and the tables, held in shared memory), the
+// threads over the 16 luma and 16 chroma lines (a vertical edge changes
+// only the samples of its lines, so each line walks the 4 edges in order on
+// its own), and writes back the words the filter may have changed (no
+// other block writes those samples until this one's progress is stored).
+__global__ void h264_filter_kernel(Db D) {
+  __shared__ uint32_t lyw[20][5];     // luma rows y - 4 .. y + 15, columns x - 4 .. x + 15
+  __shared__ uint32_t lcw[2][10][3];  // chroma rows y - 2 .. y + 7, columns x - 4 .. x + 7
+  __shared__ uint32_t bsw[DB_BYTES / 4];  // the bS kernel's bytes of the macroblock
+  __shared__ int ftab[52 * 5];            // alpha, beta, tC0 by bS 1-3, by index
+  uint8_t(*ly)[20] = (uint8_t(*)[20])lyw;
+  uint8_t(*lc)[10][12] = (uint8_t(*)[10][12])lcw;
+  const uint8_t* bss = (const uint8_t*)bsw;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int* sync = D.sync;
+  constexpr int WORDS = 100 + 60 + DB_BYTES / 4;
+  for (int i = tid; i < 52 * 5; i += nt)  // (take_row's barrier follows)
+    ftab[i] = D.T[i % 5 == 0 ? O_ALPHA + i / 5 : (i % 5 == 1 ? O_BETA + i / 5 : O_TC0 + 3 * (i / 5) + i % 5 - 2)];
+  for (int y = take_row(sync); y < D.mbh; y = take_row(sync)) {
+    int done = 0;
+    for (int x = 0; x < D.mbw; x++) {
+      const int mb = y * D.mbw + x;
+      const uint32_t* w = (const uint32_t*)(D.bs + (int64_t)mb * DB_BYTES);
+      int mask = 0;  // edges with a nonzero bS, bit 4 d + e; the same in every thread
+      for (int e = 0; e < 8; e++) mask |= (w[e] != 0) << e;
+      if (!mask) continue;
+      wait_row(sync, y, x, imin(x + 2, D.mbw), done);
+      const int X = 16 * x, Yp = 16 * y, cx = 8 * x, cy = 8 * y;
+      for (int base = 0; base < WORDS; base += 6 * nt) {
+        uint32_t v[6];
+#pragma unroll
+        for (int k = 0; k < 6; k++) {
+          const int i = base + tid + k * nt;
+          v[k] = 0;
+          if (i < 100) {
+            int r = Yp - 4 + i / 5, c = X - 4 + 4 * (i % 5);
+            if (r >= 0 && c >= 0) v[k] = __ldcg((const uint32_t*)(D.Y + (int64_t)r * D.ys + c));
+          } else if (i < 160) {
+            int j = i - 100, r = cy - 2 + (j % 30) / 3, c = cx - 4 + 4 * (j % 3);
+            if (D.chroma && r >= 0 && c >= 0)
+              v[k] = __ldcg((const uint32_t*)((j >= 30 ? D.V : D.U) + (int64_t)r * D.cs + c));
+          } else if (i < WORDS) {
+            v[k] = w[i - 160];
+          }
         }
-        bs[k] = v;
-        any |= v;
-      }
-      if (!any) continue;
-      int qpp = prow[F_TYPE] == T_PCM ? 0 : prow[F_QP];
-      int qav = (qpp + qpq + 1) >> 1;
-      int ia = clip3(0, 51, qav + aoff), ib = clip3(0, 51, qav + boff);
-      int alpha = D.T[O_ALPHA + ia], beta = D.T[O_BETA + ib];
-      const int* tc0 = D.T + O_TC0 + 3 * ia;
-      int X = 16 * mx + (vert ? 4 * edge : 0), Yy = 16 * my + (vert ? 0 : 4 * edge);
-      for (int l = 0; l < 16; l++) {
-        uint8_t* s = vert ? D.Y + (int64_t)(Yy + l) * D.ys + X : D.Y + (int64_t)Yy * D.ys + X + l;
-        filter_line(s, vert ? 1 : D.ys, bs[l >> 2], alpha, beta, tc0, 0);
-      }
-      if (!D.chroma || (edge & 1)) continue;
-      const int32_t* prec = D.rec + (int64_t)prow[F_SLICE] * R_SIZE;
-      for (int comp = 0; comp < 2; comp++) {
-        int qcp = D.T[O_CQP + clip3(0, 51, qpp + prec[R_CBOFF + comp])];
-        int qcq = D.T[O_CQP + clip3(0, 51, qpq + rec[R_CBOFF + comp])];
-        int qc = (qcp + qcq + 1) >> 1;
-        int ca = clip3(0, 51, qc + aoff), cb = clip3(0, 51, qc + boff);
-        int calpha = D.T[O_ALPHA + ca], cbeta = D.T[O_BETA + cb];
-        const int* ctc0 = D.T + O_TC0 + 3 * ca;
-        uint8_t* pl = comp ? D.V : D.U;
-        int cx = 8 * mx + (vert ? 2 * edge : 0), cy = 8 * my + (vert ? 0 : 2 * edge);
-        for (int l = 0; l < 8; l++) {
-          uint8_t* s = vert ? pl + (int64_t)(cy + l) * D.cs + cx : pl + (int64_t)cy * D.cs + cx + l;
-          filter_line(s, vert ? 1 : D.cs, bs[l >> 1], calpha, cbeta, ctc0, 1);
+#pragma unroll
+        for (int k = 0; k < 6; k++) {
+          const int i = base + tid + k * nt;
+          if (i < 100) lyw[i / 5][i % 5] = v[k];
+          else if (i < 160) lcw[(i - 100) / 30][((i - 100) % 30) / 3][(i - 100) % 3] = v[k];
+          else if (i < WORDS) bsw[i - 160] = v[k];
         }
       }
+      __syncthreads();
+      const int lines = D.chroma ? 32 : 16;
+      for (int d = 0; d < 2; d++) {
+        for (int l = tid; l < lines; l += nt) {
+          const int luma = l < 16, comp = (l - 16) >> 3, cl = (l - 16) & 7;
+          for (int e = 0; e < 4; e++) {
+            if (!((mask >> (4 * d + e)) & 1) || (!luma && (e & 1))) continue;
+            const uint8_t* ix = bss + DB_INDEX + 2 * ((4 * d + e) * 3 + (luma ? 0 : 1 + comp));
+            const int* ta = ftab + 5 * ix[0];  // alpha and tC0 by indexA
+            const int beta = ftab[5 * ix[1] + 1];
+            const uint8_t* bs = bss + 16 * d + 4 * e;
+            if (luma) {
+              uint8_t* s = d == 0 ? &ly[4 + l][4 + 4 * e] : &ly[4 + 4 * e][4 + l];
+              filter_line(s, d == 0 ? 1 : 20, bs[l >> 2], ta[0], beta, ta + 2, 0);
+            } else {
+              uint8_t* s = d == 0 ? &lc[comp][2 + cl][4 + 2 * e] : &lc[comp][2 + 2 * e][4 + cl];
+              filter_line(s, d == 0 ? 1 : 12, bs[cl >> 1], ta[0], beta, ta + 2, 1);
+            }
+          }
+        }
+        __syncthreads();
+      }
+      // back: the macroblock's rows with the word to their left, and the words above it
+      for (int i = tid; i < 100 + 60; i += nt) {
+        if (i < 100) {
+          int r = i / 5, c = i % 5;
+          if (r >= 4 ? (c > 0 || x > 0) : (r >= 1 && c > 0 && y > 0))
+            *(uint32_t*)(D.Y + (int64_t)(Yp - 4 + r) * D.ys + X - 4 + 4 * c) = lyw[r][c];
+        } else if (D.chroma) {
+          int j = i - 100, comp = j / 30, r = (j % 30) / 3, c = j % 3;
+          if (r >= 2 ? (c > 0 || x > 0) : (r == 1 && c > 0 && y > 0))
+            *(uint32_t*)((comp ? D.V : D.U) + (int64_t)(cy - 2 + r) * D.cs + cx - 4 + 4 * c) = lcw[comp][r][c];
+        }
+      }
+      done_row(sync, y, x, done);
     }
+    if (tid == 0 && done < D.mbw) st_relaxed(sync + 1 + y, D.mbw);
   }
 }
 
-__global__ void h264_deblock_kernel(Db D) {
-  int waves = D.mbw + 2 * (D.mbh - 1);
-  for (int w = 0; w < waves; w++) {
-    for (int my = threadIdx.x; my < D.mbh; my += blockDim.x) {
-      int mx = w - 2 * my;
-      if (mx < 0 || mx >= D.mbw) continue;
-      deblock_mb(D, my * D.mbw + mx);
-    }
-    __syncthreads();
-  }
-}
+// the threads of a block, at most `natural` and H264_MAX_THREADS
+int threads_for(int natural) { return natural < H264_MAX_THREADS ? natural : H264_MAX_THREADS; }
 
-int threads_for(int mbh) {
-  int t = 32;
-  while (t < mbh && t < 1024) t *= 2;
-  return t < H264_MAX_THREADS ? t : H264_MAX_THREADS;
+// a grid for `work` blocks of `threads` threads of `kernel`, no larger than
+// what is co-resident on the card and H264_MAX_BLOCKS
+template <class K>
+int grid_for(K kernel, int threads, int work) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  long long g = (long long)(per_sm > 1 ? per_sm : 1) * sms;
+  if (g > work) g = work;
+  if (g > H264_MAX_BLOCKS) g = H264_MAX_BLOCKS;
+  return g < 1 ? 1 : (int)g;
 }
 
 }  // namespace
@@ -2030,9 +2314,13 @@ int dspnet_h264_parse(const void* bits, const void* slices, int nslice, const vo
   return (int)cudaGetLastError();
 }
 
-int dspnet_h264_recon(const void* tab, const void* lev, const void* rec, const void* refs, const void* tables, int mbw,
-                      int mbh, int chroma, int poc, void* y, void* u, void* v, int ys, int cs, void* mv, void* ref,
-                      void* rid, const void* cmv, const void* cref, const void* crid, void* stream) {
+// one kernel of the reconstruction: 0 h264_mv_kernel, 1 h264_inter_kernel,
+// 2 h264_intra_kernel, launched in that order on the stream; res holds
+// N_RES int32 a macroblock, sync 1 + mbh int32 (zeroed here before a row kernel)
+int dspnet_h264_recon_stage(int stage, const void* tab, const void* lev, const void* rec, const void* refs,
+                            const void* tables, int mbw, int mbh, int chroma, int poc, void* y, void* u, void* v,
+                            int ys, int cs, void* mv, void* ref, void* rid, const void* cmv, const void* cref,
+                            const void* crid, void* res, void* sync, void* stream) {
   Pic P;
   P.tab = (const int32_t*)tab;
   P.lev = (const int16_t*)lev;
@@ -2056,12 +2344,32 @@ int dspnet_h264_recon(const void* tab, const void* lev, const void* rec, const v
   P.crid = (const int32_t*)crid;
   P.w4 = 4 * mbw;
   P.h4 = 4 * mbh;
-  H264_LAUNCH(h264_recon_kernel, 1, threads_for(mbh), (cudaStream_t)stream)(P);
+  P.res = (int32_t*)res;
+  P.sync = (int*)sync;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (stage == 1) {
+    int threads = threads_for(256);
+    int grid = mbw * mbh < H264_MAX_BLOCKS ? mbw * mbh : H264_MAX_BLOCKS;
+    H264_LAUNCH(h264_inter_kernel, grid, threads, st)(P);
+    return (int)cudaGetLastError();
+  }
+  int err = (int)cudaMemsetAsync(sync, 0, sizeof(int) * (1 + mbh), st);
+  if (err) return err;
+  if (stage == 0) {
+    int threads = threads_for(32);
+    H264_LAUNCH(h264_mv_kernel, grid_for(h264_mv_kernel, threads, mbh), threads, st)(P);
+  } else {
+    int threads = threads_for(256);
+    H264_LAUNCH(h264_intra_kernel, grid_for(h264_intra_kernel, threads, mbh), threads, st)(P);
+  }
   return (int)cudaGetLastError();
 }
 
-int dspnet_h264_deblock(const void* tab, const void* rec, const void* mv, const void* rid, const void* tables, int mbw,
-                        int mbh, int chroma, void* y, void* u, void* v, int ys, int cs, void* stream) {
+// one kernel of the deblocking filter: 0 h264_bs_kernel, 1
+// h264_filter_kernel (in place); bs holds DB_BYTES a macroblock, sync 1 + mbh int32
+int dspnet_h264_deblock_stage(int stage, const void* tab, const void* rec, const void* mv, const void* rid,
+                              const void* tables, int mbw, int mbh, int chroma, void* y, void* u, void* v, int ys,
+                              int cs, void* bs, void* sync, void* stream) {
   Db D;
   D.tab = (const int32_t*)tab;
   D.rec = (const int32_t*)rec;
@@ -2078,7 +2386,19 @@ int dspnet_h264_deblock(const void* tab, const void* rec, const void* mv, const 
   D.cs = cs;
   D.w4 = 4 * mbw;
   D.h4 = 4 * mbh;
-  H264_LAUNCH(h264_deblock_kernel, 1, threads_for(mbh), (cudaStream_t)stream)(D);
+  D.bs = (uint8_t*)bs;
+  D.sync = (int*)sync;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (stage == 0) {
+    int threads = threads_for(256), segments = mbw * mbh * 32;
+    int grid = (segments + threads - 1) / threads;
+    H264_LAUNCH(h264_bs_kernel, grid < H264_MAX_BLOCKS ? grid : H264_MAX_BLOCKS, threads, st)(D);
+    return (int)cudaGetLastError();
+  }
+  int err = (int)cudaMemsetAsync(sync, 0, sizeof(int) * (1 + mbh), st);
+  if (err) return err;
+  int threads = threads_for(32);
+  H264_LAUNCH(h264_filter_kernel, grid_for(h264_filter_kernel, threads, mbh), threads, st)(D);
   return (int)cudaGetLastError();
 }
 

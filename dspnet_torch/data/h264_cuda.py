@@ -13,18 +13,21 @@ once through pinned memory on the caller's current stream; then
 * :func:`parse`: ``h264_parse_kernel``, one thread per slice, every slice of
   the batch in one launch -> per picture the macroblock table
   (``h264_parse.MB_FIELDS``) and the int16 levels;
-* :func:`recon`: ``h264_recon_kernel``, one launch per picture, macroblocks
-  in wavefronts on x + 2y (intra prediction and motion vector prediction
-  read the left, top and top-right neighbours), the motion vectors derived
-  inside it -> the unfiltered Y, U, V planes and the picture's motion field
-  (kept on the card for later direct prediction and deblocking);
-* :func:`deblock`: ``h264_deblock_kernel``, one launch per picture, in
-  wavefronts on x + 2y, in place;
+* :func:`recon`: per picture ``h264_mv_kernel`` (the motion vectors, rows
+  of macroblocks over the grid in the standard's order),
+  ``h264_inter_kernel`` (every macroblock's residual and the inter
+  prediction, a block a macroblock) and ``h264_intra_kernel`` (the intra
+  macroblocks in the standard's order) -> the unfiltered Y, U, V planes and
+  the picture's motion field (kept on the card for later direct prediction
+  and deblocking);
+* :func:`deblock`: per picture ``h264_bs_kernel`` (every boundary strength)
+  and ``h264_filter_kernel`` (the edges in the standard's order), in place;
 * the crop, and ``mpeg4_cuda.yuv420_to_bgr`` (``yuv420_to_bgr_kernel``)
   for cv2's BGR frames.
 
-Each wrapper adds one to :data:`launches` where it launches its kernel and
-nowhere else. On a CPU tensor each runs its plain version (``h264_parse``,
+Each stage adds one to :data:`launches` a call (a picture; the parse a
+batch) and each launch of a kernel one to :data:`kernel_launches`, where it
+launches it and nowhere else. On a CPU tensor each runs its plain version (``h264_parse``,
 ``h264_recon``, ``h264_filters``; counted in :data:`plain_calls`); on a
 CUDA tensor it launches the kernel or raises. A stream the port does not
 read raises ``h264_nal.H264Error`` naming what it holds; nothing on a card
@@ -49,8 +52,14 @@ from dspnet_torch.data.h264_dpb import Dpb, Frame
 from dspnet_torch.data.h264_recon import RefPicture, SliceInfo
 from dspnet_torch.ops import _build
 
-#: kernel launches by kernel; a caller may reset them to 0
+#: the kernels of each stage, in the order a call launches them
+KERNELS = {"h264_parse": ("h264_parse_kernel",),
+           "h264_recon": ("h264_mv_kernel", "h264_inter_kernel", "h264_intra_kernel"),
+           "h264_deblock": ("h264_bs_kernel", "h264_filter_kernel")}
+#: calls of each stage on a card (a picture; the parse a batch); a caller may reset them to 0
 launches = {"h264_parse": 0, "h264_recon": 0, "h264_deblock": 0}
+#: launches of each kernel
+kernel_launches = {k: 0 for names in KERNELS.values() for k in names}
 #: calls of each plain version (0 on the card's path)
 plain_calls = {"h264_parse": 0, "h264_recon": 0, "h264_deblock": 0}
 
@@ -311,10 +320,11 @@ def load_library() -> ctypes.CDLL:
     lib = _build.load_library(_SOURCE)
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.dspnet_h264_parse.argtypes = [vp, vp, i, vp, vp, vp, vp, i, vp, vp]
-    lib.dspnet_h264_recon.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp, vp, vp]
-    lib.dspnet_h264_deblock.argtypes = [vp, vp, vp, vp, vp, i, i, i, vp, vp, vp, i, i, vp]
-    for f in (lib.dspnet_h264_parse, lib.dspnet_h264_recon, lib.dspnet_h264_deblock, lib.dspnet_h264_tables_size,
-              lib.dspnet_h264_record_size):
+    lib.dspnet_h264_recon_stage.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp,
+                                            vp, vp, vp, vp]
+    lib.dspnet_h264_deblock_stage.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, vp, vp, vp, i, i, vp, vp, vp]
+    for f in (lib.dspnet_h264_parse, lib.dspnet_h264_recon_stage, lib.dspnet_h264_deblock_stage,
+              lib.dspnet_h264_tables_size, lib.dspnet_h264_record_size):
         f.restype = i
     return lib
 
@@ -449,6 +459,7 @@ def parse(jobs, n_pictures: int, device):
                                 tab.data_ptr(), lev.data_ptr(), scratch.data_ptr(), n, status.data_ptr(),
                                 _stream(device))
     launches["h264_parse"] += 1
+    kernel_launches["h264_parse_kernel"] += 1
     _build.check(lib, err, "h264_parse_kernel")
     st = status.cpu().numpy()
     for (job, _), (code, bit) in zip(jobs, st.tolist()):
@@ -491,11 +502,29 @@ class CardMotion:
         self.mv, self.ref, self.ref_id, self.records = mv, ref, ref_id, records
 
 
-def recon(table, levels, slices, sps, refs, col, poc):
-    """``h264_recon_kernel`` for one picture on a CUDA device (one launch),
-    :func:`recon_ref` on the CPU -> (Y, U, V uint8 planes, motion field)."""
-    if not _on_card(table):
-        return recon_ref(table, levels, slices, sps, refs, col, poc)
+#: int32 words of residual a macroblock (luma 16x16, then Cb and Cr 8x8)
+N_RES = 384
+#: bytes a macroblock that h264_bs_kernel hands h264_filter_kernel (bS, the filter's indices)
+DB_BYTES = 80
+
+
+def _kernel(lib, entry, stage: int, name: str, args, tensors):
+    """One launch of kernel ``name`` through ``entry(stage, *args)``, counted;
+    ``tensors``, whose pointers ``args`` holds, live as long as the launch."""
+
+    def launch(tensors=tensors):
+        err = entry(stage, *args)
+        kernel_launches[name] += 1
+        _build.check(lib, err, name)
+
+    return name, launch
+
+
+def recon_launches(table, levels, slices, sps, refs, col, poc):
+    """The outputs of one picture's reconstruction on a CUDA device and its
+    kernels' launches, in order: ((Y, U, V, motion field), [(kernel name,
+    launch)]). Nothing runs until each launch is called (:func:`recon` calls
+    them; ``chip_smoke.py`` also times each)."""
     dev = table.device
     mbw, mbh = sps.mb_width, sps.mb_height
     chroma = sps.chroma_format_idc != 0
@@ -512,15 +541,31 @@ def recon(table, levels, slices, sps, refs, col, poc):
     rid = torch.full((2, 4 * mbh, 4 * mbw), -1, dtype=torch.int32, device=dev)
     n = mbw * mbh
     tab, lev = table[:n].contiguous(), levels[:n].contiguous()
+    res = torch.empty(n, N_RES, dtype=torch.int32, device=dev)
+    sync = torch.empty(1 + mbh, dtype=torch.int32, device=dev)
     cm = (col.mv.data_ptr(), col.ref.data_ptr(), col.ref_id.data_ptr()) if col is not None else (0, 0, 0)
     lib = load_library()
-    err = lib.dspnet_h264_recon(tab.data_ptr(), lev.data_ptr(), rec.data_ptr(), refptr.data_ptr(),
-                                _tables(dev).data_ptr(), mbw, mbh, int(chroma), poc, y.data_ptr(),
-                                u.data_ptr() if chroma else 0, v.data_ptr() if chroma else 0, 16 * mbw, 8 * mbw,
-                                mv.data_ptr(), ref.data_ptr(), rid.data_ptr(), *cm, _stream(dev))
+    args = (tab.data_ptr(), lev.data_ptr(), rec.data_ptr(), refptr.data_ptr(), _tables(dev).data_ptr(), mbw, mbh,
+            int(chroma), poc, y.data_ptr(), u.data_ptr() if chroma else 0, v.data_ptr() if chroma else 0, 16 * mbw,
+            8 * mbw, mv.data_ptr(), ref.data_ptr(), rid.data_ptr(), *cm, res.data_ptr(), sync.data_ptr(),
+            _stream(dev))
+    kept = (rec, refptr, refs, tab, lev, res, sync, col, y, u, v, mv, ref, rid)
+    kernels = [_kernel(lib, lib.dspnet_h264_recon_stage, k, name, args, kept)
+               for k, name in enumerate(KERNELS["h264_recon"])]
+    return (y, u, v, CardMotion(mv, ref, rid, (rec, refptr, refs))), kernels
+
+
+def recon(table, levels, slices, sps, refs, col, poc):
+    """The reconstruction of one picture on a CUDA device (its three kernels,
+    :data:`KERNELS`), :func:`recon_ref` on the CPU -> (Y, U, V uint8
+    planes, motion field)."""
+    if not _on_card(table):
+        return recon_ref(table, levels, slices, sps, refs, col, poc)
+    out, kernels = recon_launches(table, levels, slices, sps, refs, col, poc)
+    for _, launch in kernels:
+        launch()
     launches["h264_recon"] += 1
-    _build.check(lib, err, "h264_recon_kernel")
-    return y, u, v, CardMotion(mv, ref, rid, (rec, refptr, refs))
+    return out
 
 
 def deblock_ref(y, u, v, table, mf, slices, sps):
@@ -534,23 +579,33 @@ def deblock_ref(y, u, v, table, mf, slices, sps):
             dst.copy_(torch.from_numpy(src))
 
 
-def deblock(y, u, v, table, mf, slices, sps):
-    """``h264_deblock_kernel`` for one picture on a CUDA device (one launch,
-    in place; ``mf`` the :class:`CardMotion` :func:`recon` returned, whose
-    slice records it reads), :func:`deblock_ref` on the CPU."""
-    if not _on_card(y):
-        return deblock_ref(y, u, v, table, mf, slices, sps)
+def deblock_launches(y, u, v, table, mf, slices, sps):
+    """The launches of one picture's deblocking filter on a CUDA device, in
+    order: [(kernel name, launch)], in place on the planes; ``mf`` the
+    :class:`CardMotion` :func:`recon` returned, whose slice records it reads."""
     dev = y.device
     mbw, mbh = sps.mb_width, sps.mb_height
     chroma = u is not None
     tab = table[:mbw * mbh].contiguous()
+    bs = torch.empty(mbw * mbh, DB_BYTES, dtype=torch.uint8, device=dev)
+    sync = torch.empty(1 + mbh, dtype=torch.int32, device=dev)
     lib = load_library()
-    err = lib.dspnet_h264_deblock(tab.data_ptr(), mf.records[0].data_ptr(), mf.mv.data_ptr(), mf.ref_id.data_ptr(),
-                                  _tables(dev).data_ptr(), mbw, mbh, int(chroma), y.data_ptr(),
-                                  u.data_ptr() if chroma else 0, v.data_ptr() if chroma else 0, 16 * mbw, 8 * mbw,
-                                  _stream(dev))
+    args = (tab.data_ptr(), mf.records[0].data_ptr(), mf.mv.data_ptr(), mf.ref_id.data_ptr(), _tables(dev).data_ptr(),
+            mbw, mbh, int(chroma), y.data_ptr(), u.data_ptr() if chroma else 0, v.data_ptr() if chroma else 0,
+            16 * mbw, 8 * mbw, bs.data_ptr(), sync.data_ptr(), _stream(dev))
+    kept = (tab, bs, sync, mf, y, u, v)
+    return [_kernel(lib, lib.dspnet_h264_deblock_stage, k, name, args, kept)
+            for k, name in enumerate(KERNELS["h264_deblock"])]
+
+
+def deblock(y, u, v, table, mf, slices, sps):
+    """The deblocking filter of one picture on a CUDA device (its two
+    kernels, :data:`KERNELS`, in place), :func:`deblock_ref` on the CPU."""
+    if not _on_card(y):
+        return deblock_ref(y, u, v, table, mf, slices, sps)
+    for _, launch in deblock_launches(y, u, v, table, mf, slices, sps):
+        launch()
     launches["h264_deblock"] += 1
-    _build.check(lib, err, "h264_deblock_kernel")
 
 
 def _np(t):

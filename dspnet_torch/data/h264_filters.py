@@ -7,8 +7,9 @@ top neighbours have already filtered. (A frame-wide pass of every vertical
 edge and then every horizontal edge is not the same: macroblock (x, y)'s
 top edge reads rows that (x + 1, y - 1)'s left edge has changed.)
 Macroblocks on one wavefront x + 2y touch disjoint samples, so the plain
-version filters a wavefront's macroblocks together, edge by edge, as
-``csrc/h264.cu``'s ``h264_deblock_kernel`` does (a thread a macroblock).
+version filters a wavefront's macroblocks together, edge by edge
+(``csrc/h264.cu``'s ``h264_filter_kernel`` keeps the same order with a row
+of macroblocks a block, each row after the one above).
 
 * bS (8.7.2.1): 4 on a macroblock edge with an intra side, 3 inside an intra
   macroblock, 2 where either 4x4 block (the 8x8 block under

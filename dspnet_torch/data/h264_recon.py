@@ -23,8 +23,8 @@ intra macroblocks one by one in decode order, since they read their
 neighbours' unfiltered samples. The output is the unfiltered planes and the
 picture's motion field (per 4x4 block and list: vector, reference index and
 the reference picture's id), which the deblocking filter and later direct
-prediction read. ``csrc/h264.cu``'s ``h264_recon_kernel`` computes the same
-planes and motion field.
+prediction read. ``csrc/h264.cu``'s ``h264_mv_kernel``, ``h264_inter_kernel``
+and ``h264_intra_kernel`` compute the same planes and motion field.
 """
 
 from __future__ import annotations

@@ -346,13 +346,13 @@ class Detector:
         q95 4:2:0 by ``data/jpeg.py``), or one video path (``.avi`` /
         ``.mp4``) -> ``detection_out.mp4`` (``detect/video.py``, with the
         reference's second host NMS at ``video_nms``); returns the written
-        paths. Motion-JPEG and MPEG-4 Part 2 are read; another codec raises
-        with its name; a webcam id raises."""
+        paths. Motion-JPEG, MPEG-4 Part 2 and H.264 are read; another codec
+        raises with its name; a webcam id raises."""
         if isinstance(inputs, int):
             raise NotImplementedError(
                 f"webcam {inputs} is not read: neither the card's machine nor the test machine has a camera, "
                 "and the JAX CLI passes --images as a string, so it cannot reach this branch either "
-                "(ROADMAP Queue A item 24); pass a clip written as mp4v or Motion-JPEG")
+                "(ROADMAP Queue A item 24); pass a clip written as H.264, mp4v or Motion-JPEG")
         if isinstance(inputs, (str, os.PathLike)) and str(inputs).lower().endswith((".mp4", ".avi")):
             from dspnet_torch.detect import video
 

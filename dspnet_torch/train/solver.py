@@ -98,6 +98,16 @@ def _global_count(count: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
+def _without_onednn():
+    was = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = was
+
+
+@contextlib.contextmanager
 def _mode(module: nn.Module, train: bool):
     was = module.training
     module.train(train)
@@ -253,7 +263,7 @@ class MultiTaskSolver:
         running statistics update on the way. Under data parallelism both
         are summed over the ranks (the global batch's)."""
         names = [n for n, p in state.params.items() if p.requires_grad]
-        with torch.enable_grad():
+        with torch.enable_grad(), self._convolution_backend():
             loss, metrics = self._loss_fn(state, batch, train=True)
             grads = torch.autograd.grad(loss, [state.params[n] for n in names],
                                         allow_unused=True, materialize_grads=True)
@@ -264,6 +274,16 @@ class MultiTaskSolver:
             summed = pdist.all_reduce_(torch.stack([metrics[k].double() for k in keys]))
             metrics = dict(zip(keys, summed.unbind(0)))
         return names, list(grads), metrics
+
+    def _convolution_backend(self):
+        """PyTorch's own convolution for a bfloat16 step on the CPU: oneDNN's
+        bfloat16 weight gradient there (PyTorch 2.13, an AMX CPU) now and then
+        leaves a kernel tap that reads only padding unwritten (a 3x3 stride-2
+        convolution of a 1x1 map: NaN or garbage at that tap, more often on a
+        loaded host). Other dtypes and the card keep the default backend."""
+        if self.device.type == "cpu" and self.compute_dtype == torch.bfloat16:
+            return _without_onednn()
+        return contextlib.nullcontext()
 
     def _apply_updates(self, state: TrainState, names: List[str], grads: List[torch.Tensor]):
         """One SGD update of the trainable parameters, in place. Frozen

@@ -1,18 +1,28 @@
 // A host emulation of the few CUDA runtime pieces dspnet_torch/csrc/av1.cu
-// and csrc/h264.cu use, so that the source compiles with g++ and its kernels run on the CPU
-// for tests: each CUDA thread of a block is a std::thread, __syncthreads is
-// a std::barrier over the block, blocks run one after another, __shared__
-// variables are static (one block at a time shares them). Build with
-//   g++ -std=c++20 -O1 -fPIC -shared -I tests/cuda_emulation -x c++ \
-//       dspnet_torch/csrc/av1.cu -o libav1_emulated.so -lpthread
+// and csrc/h264.cu use, so that the source compiles with g++ and its kernels
+// run on the CPU for tests. The CUDA threads of a block are fibers (ucontext)
+// of the calling thread, each on its own stack, set up once a launch and
+// restarted for every block of the grid; __syncthreads passes control to the
+// next fiber in turn, so a block's threads all reach a barrier before any
+// passes it, and the emulation takes one core however many threads a block
+// has (the tests run beside others). Blocks run one after another;
+// __shared__ variables are static (one block at a time shares them).
+// Atomics, fences and L2 loads act on host memory; a kernel that waits on a
+// block with a smaller index (rows taken in order by a ticket) never waits
+// here. Build with
+//   g++ -std=c++20 -O1 -fPIC -shared -I tests/cuda_emulation -x c++
+//       dspnet_torch/csrc/av1.cu -o libav1_emulated.so
 // (tests/test_torch_avif_emulated.py does).
 #pragma once
+#include <ucontext.h>
+
 #include <algorithm>
-#include <barrier>
+#include <atomic>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
-#include <thread>
+#include <functional>
+#include <memory>
 #include <vector>
 
 using std::max;
@@ -22,14 +32,31 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 blockDim, gridDim;
-inline std::barrier<>* emu_barrier = nullptr;
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "no error (host emulation)"; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
+// a card of 4 SMs with room for 2 blocks each
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 4;
+  return 0;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 2;
+  return 0;
+}
 
 #define __global__
 #define __device__
@@ -40,10 +67,51 @@ inline const char* cudaGetErrorString(cudaError_t) { return "no error (host emul
 #define __constant__ static
 #define __shared__ static
 
-inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
+// the fibers of the running block
+struct EmuBlock {
+  static constexpr size_t STACK = 1 << 20;  // bytes a fiber
+  unsigned n = 0, cur = 0, finished = 0;
+  std::vector<ucontext_t> ctx;
+  std::vector<char> done;
+  std::vector<std::unique_ptr<char[]>> stacks;
+  ucontext_t caller;
+  std::function<void()> body;
+  void fibers(unsigned threads) {  // stacks kept for later launches
+    n = threads;
+    ctx.resize(n);
+    done.assign(n, 0);
+    while (stacks.size() < n) stacks.emplace_back(new char[STACK]);
+  }
+  void next() {  // from fiber cur to the next one that has not ended
+    unsigned me = cur, to = (cur + 1) % n;
+    while (done[to]) to = (to + 1) % n;
+    if (to == me) return;
+    cur = to;
+    threadIdx = dim3(to);
+    swapcontext(&ctx[me], &ctx[to]);
+  }
+};
+inline EmuBlock emu_block;
+
+inline void emu_fiber_main() {
+  emu_block.body();
+  emu_block.done[emu_block.cur] = 1;
+  if (++emu_block.finished == emu_block.n) setcontext(&emu_block.caller);
+  emu_block.next();  // never returns here
+}
+
+inline void __syncthreads() {
+  if (emu_block.n > 1) emu_block.next();
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 inline unsigned long long atomicAdd(unsigned long long* a, unsigned long long v) {
   return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST);
 }
+inline int atomicAdd(int* a, int v) { return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST); }
 
 template <class K>
 struct EmuLaunch {
@@ -53,18 +121,30 @@ struct EmuLaunch {
   void operator()(A... args) {
     gridDim = grid;
     blockDim = block;
+    EmuBlock& b = emu_block;
+    b.fibers(block.x);
+    b.body = [&] { kernel(args...); };
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
-        std::barrier<> bar(block.x);
-        emu_barrier = &bar;
-        std::vector<std::thread> threads;
-        for (unsigned t = 0; t < block.x; ++t)
-          threads.emplace_back([&, t] {
-            threadIdx = dim3(t);
-            blockIdx = dim3(bx, by);
-            kernel(args...);
-          });
-        for (auto& th : threads) th.join();
+        blockIdx = dim3(bx, by);
+        if (block.x == 1) {
+          threadIdx = dim3(0);
+          b.n = 1;
+          kernel(args...);
+          continue;
+        }
+        for (unsigned t = 0; t < block.x; ++t) {
+          getcontext(&b.ctx[t]);
+          b.ctx[t].uc_stack.ss_sp = b.stacks[t].get();
+          b.ctx[t].uc_stack.ss_size = EmuBlock::STACK;
+          b.ctx[t].uc_link = nullptr;
+          makecontext(&b.ctx[t], emu_fiber_main, 0);
+        }
+        std::fill(b.done.begin(), b.done.end(), 0);
+        b.finished = 0;
+        b.cur = 0;
+        threadIdx = dim3(0);
+        swapcontext(&b.caller, &b.ctx[0]);
       }
   }
 };

@@ -1,7 +1,8 @@
 """The kernels of ``csrc/av1.cu`` on the CPU: the source compiled with g++
 against a host emulation of the CUDA runtime
-(``tests/cuda_emulation/cuda_runtime.h``: a std::thread per CUDA thread, a
-std::barrier per block), bound in place of the nvcc library, and driven
+(``tests/cuda_emulation/cuda_runtime.h``: the threads of a block as fibers
+that pass each barrier in turn, blocks one after another), bound in place of
+the nvcc library, and driven
 through ``data/av1_cuda.py``'s kernel path with host pointers. Each kernel
 equals its plain version bit for bit on committed forms that take every
 kind of transform block (intra with palettes, filter intra and CfL,

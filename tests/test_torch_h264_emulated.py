@@ -1,27 +1,33 @@
 """The kernels of ``csrc/h264.cu`` on the CPU: the source compiled with g++
 against a host emulation of the CUDA runtime
-(``tests/cuda_emulation/cuda_runtime.h``: a std::thread per CUDA thread, a
-std::barrier per block; ``H264_LAUNCH`` is the source's launch macro), bound
-in place of the nvcc library and driven through ``data/h264_cuda.py``'s
-kernel path with host pointers.
+(``tests/cuda_emulation/cuda_runtime.h``: the threads of a block as fibers
+that pass each barrier in turn, blocks one after another; ``H264_LAUNCH`` is
+the source's launch macro), bound in place of the nvcc library and driven
+through ``data/h264_cuda.py``'s kernel path with host pointers.
 
 * every committed decodable form of ``tests/fixtures/h264_forms/``, the
   1024x2048 clip's 13 frames included, gives cv2's frames (``forms.json``'s
-  sha256) through the three emulated kernels, and no plain version runs;
+  sha256) through the six emulated kernels, and no plain version runs;
 * stage by stage on forms of every tool (CAVLC and CABAC, P and B, both
   direct modes, weights, the 8x8 transform, slices, long-term references):
-  the parse kernel's tables, the reconstruction kernel's planes and motion
-  field and the deblocking kernel's planes equal the plain versions' on the
-  same inputs.
+  the parse kernel's tables, the reconstruction's planes and motion field
+  and the deblocking filter's planes equal the plain versions' on the same
+  inputs;
+* the same stage by stage on those forms with the launch geometry forced
+  (``H264_MAX_THREADS``, ``H264_MAX_BLOCKS``): a grid smaller than a
+  picture's rows (a block takes several rows, the inter kernel several
+  macroblocks) with 4 threads a block, and a grid larger than the rows (blocks
+  that find no row) with 32.
 
-The wave kernels run blocks of 8 threads in the emulation (``H264_MAX_THREADS``: each
-thread strides the wave's rows, as on the card with 32 to 1,024), since a
-std::thread a CUDA thread is slow to synchronise. This checks the kernels'
-arithmetic and their host layout on the CPU; the card runs the same source built
-by nvcc (``tests/test_torch_h264_cuda.py``,
+The kernels run at most 64 blocks of at most 8 threads by default here
+(every kernel strides by its block and grid, as on the card with 1 to 256
+threads and a grid as large as the work or as what is co-resident). This checks
+the kernels' arithmetic, their order and their host layout on the CPU; the
+card runs the same source built by nvcc (``tests/test_torch_h264_cuda.py``,
 ``chip_smoke.py`` phase 23). Skips where no g++ with C++20 is found.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -46,32 +52,58 @@ STAGEWISE = ["cavlc_intra.mp4", "cavlc_p_partitions.mp4", "cavlc_longterm_mmco.m
              "cabac_cip_nodirect8.mp4", "cavlc_qp_range.mp4"]
 
 
+#: the geometries the emulated library is built with: the default (blocks of
+#: at most 8 threads, grids of at most 64 blocks), a grid smaller than a
+#: picture's rows, and one larger
+GEOMETRY = {"default": ("-DH264_MAX_THREADS=8", "-DH264_MAX_BLOCKS=64"),
+            "small": ("-DH264_MAX_THREADS=4", "-DH264_MAX_BLOCKS=2"),
+            "large": ("-DH264_MAX_THREADS=32", "-DH264_MAX_BLOCKS=4096")}
+
+
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The emulated library bound as ``h264_cuda``'s, with every tensor
-    taken for a card tensor and no stream, restored afterwards."""
+def libraries(tmp_path_factory):
+    """The source built once per geometry (the compilers run side by side)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile csrc/h264.cu against the host emulation")
-    out = tmp_path_factory.mktemp("h264emu") / "libh264_emulated.so"
-    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-I", str(ROOT / "tests" / "cuda_emulation"),
-                           "-DH264_MAX_THREADS=8", "-x", "c++", str(_build.CSRC / "h264.cu"), "-o", str(out),
-                           "-lpthread"],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        if "c++20" in proc.stderr or "barrier" in proc.stderr:
-            pytest.skip(f"g++ without C++20's <barrier>: {proc.stderr[:200]}")
-        raise AssertionError(proc.stderr)
-    lib = ctypes.CDLL(str(out))
-    lib.dspnet_cuda_error_string.restype = ctypes.c_char_p
+    out = tmp_path_factory.mktemp("h264emu")
+    procs = {g: subprocess.Popen([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-I",
+                                  str(ROOT / "tests" / "cuda_emulation"), *flags, "-x", "c++",
+                                  str(_build.CSRC / "h264.cu"), "-o", str(out / f"libh264_{g}.so")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for g, flags in GEOMETRY.items()}
+    libs = {}
+    for g, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            if "c++20" in log:
+                pytest.skip(f"g++ without C++20: {log[:200]}")
+            raise AssertionError(log)
+        libs[g] = ctypes.CDLL(str(out / f"libh264_{g}.so"))
+        libs[g].dspnet_cuda_error_string.restype = ctypes.c_char_p
+    return libs
+
+
+@contextlib.contextmanager
+def _bound(lib):
+    """``lib`` bound as ``h264_cuda``'s, with every tensor taken for a card
+    tensor and no stream, restored afterwards."""
     saved = (_build.load_library, h264_cuda._on_card, h264_cuda._stream)
     h264_cuda.load_library.cache_clear()
     _build.load_library = lambda source: lib
     h264_cuda._on_card = lambda x: True
     h264_cuda._stream = lambda device: ctypes.c_void_p(0)
-    yield lib
-    _build.load_library, h264_cuda._on_card, h264_cuda._stream = saved
-    h264_cuda.load_library.cache_clear()
+    try:
+        yield lib
+    finally:
+        _build.load_library, h264_cuda._on_card, h264_cuda._stream = saved
+        h264_cuda.load_library.cache_clear()
+
+
+@pytest.fixture
+def emulated(libraries):
+    with _bound(libraries["default"]) as lib:
+        yield lib
 
 
 def _sha(img) -> str:
@@ -88,7 +120,7 @@ def test_emulated_kernels_give_cv2s_frames(emulated, name):
     """A form through the emulated parse, reconstruction and deblocking
     kernels: cv2's frames, every launch counted, no plain stage."""
     samples, stream = _read(name)
-    for d in (h264_cuda.launches, h264_cuda.plain_calls):
+    for d in (h264_cuda.launches, h264_cuda.kernel_launches, h264_cuda.plain_calls):
         d.update(dict.fromkeys(d, 0))
     dec = h264_cuda.Decoder("cpu", stream.extradata, stream.fourcc)
     frames = []
@@ -99,16 +131,24 @@ def test_emulated_kernels_give_cv2s_frames(emulated, name):
     assert h264_cuda.plain_calls == dict.fromkeys(h264_cuda.plain_calls, 0)
     assert h264_cuda.launches["h264_parse"] == -(-len(samples) // 8)
     assert h264_cuda.launches["h264_recon"] == h264_cuda.launches["h264_deblock"] >= len(frames)
+    for stage, kernels in h264_cuda.KERNELS.items():
+        assert all(h264_cuda.kernel_launches[k] == h264_cuda.launches[stage] for k in kernels), \
+            h264_cuda.kernel_launches
 
 
-@pytest.mark.parametrize("name", STAGEWISE)
-def test_emulated_kernels_equal_their_plain_versions(emulated, name):
-    """Each kernel against its plain version on the same inputs, picture by
-    picture, through ``Decoder.decode`` with its stages wrapped: tables and
-    levels, planes and motion field, filtered planes."""
+#: the plain stages' results by (form, picture in decode order): the
+#: reconstruction's planes and motion field, and the filtered planes (the
+#: geometry cases compare with what the default case computed)
+_PLAIN = {}
+
+
+def _against_plain(name, check_parse: bool):
+    """The form through ``Decoder.decode`` with its stages wrapped, each
+    kernel's output held to its plain version's on the same inputs, picture
+    by picture: tables and levels (``check_parse``), planes and motion
+    field, filtered planes."""
     samples, stream = _read(name)
     dec = h264_cuda.Decoder("cpu", stream.extradata, stream.fourcc)
-    plain = {}
     done = []
 
     def parse(jobs, n, device):
@@ -119,26 +159,49 @@ def test_emulated_kernels_equal_their_plain_versions(emulated, name):
             np.testing.assert_array_equal(lv[:m].numpy(), rlv.numpy(), err_msg=f"{name} parse levels")
         return tables
 
-    def recon(*args):
-        y, u, v, mf = h264_cuda.recon(*args)
-        ry, ru, rv, rmf = h264_cuda.recon_ref(*args)
+    def recon(table, levels, slices, sps, refs, col, poc):
+        y, u, v, mf = h264_cuda.recon(table, levels, slices, sps, refs, col, poc)
+        key = (name, len(done))
+        if key not in _PLAIN:
+            ry, ru, rv, rmf = h264_cuda.recon_ref(table, levels, slices, sps, refs, col, poc)
+            filtered = [p.clone() for p in (ry, ru, rv)]
+            h264_cuda.deblock_ref(*filtered, table, rmf, slices, sps)
+            _PLAIN[key] = (ry, ru, rv, rmf, filtered)
+        ry, ru, rv, rmf, _ = _PLAIN[key]
         for a, b, what in ((y, ry, "Y"), (u, ru, "U"), (v, rv, "V"), (mf.mv, rmf.mv, "mv"),
                            (mf.ref, rmf.ref, "ref"), (mf.ref_id, rmf.ref_id, "ref id")):
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f"{name} picture {len(done)} recon {what}")
-        plain["planes"], plain["mf"] = (ry, ru, rv), rmf
         return y, u, v, mf
 
     def deblock(y, u, v, table, mf, slices, sps):
         h264_cuda.deblock(y, u, v, table, mf, slices, sps)
-        ry, ru, rv = plain["planes"]
-        h264_cuda.deblock_ref(ry, ru, rv, table, plain["mf"], slices, sps)
-        for a, b, what in ((y, ry, "Y"), (u, ru, "U"), (v, rv, "V")):
+        for a, b, what in zip((y, u, v), _PLAIN[(name, len(done))][4], "YUV"):
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f"{name} picture {len(done)} deblock {what}")
         done.append(1)
 
-    dec.stages.update(parse=parse, recon=recon, deblock=deblock)
+    dec.stages.update(recon=recon, deblock=deblock, **({"parse": parse} if check_parse else {}))
     frames = []
     for i in range(0, len(samples), 8):
         frames += dec.decode(samples[i:i + 8])
     frames += dec.flush()
     assert [_sha(f.numpy()) for f in frames] == META[name]["bgr_sha256"] and len(done) >= len(frames)
+
+
+@pytest.mark.parametrize("name", STAGEWISE)
+def test_emulated_kernels_equal_their_plain_versions(emulated, name):
+    """Each kernel against its plain version on the same inputs, picture by
+    picture, through ``Decoder.decode`` with its stages wrapped: tables and
+    levels, planes and motion field, filtered planes."""
+    _against_plain(name, check_parse=True)
+
+
+@pytest.mark.parametrize("geometry", ["small", "large"])
+@pytest.mark.parametrize("name", STAGEWISE)
+def test_forced_launch_geometry_equals_the_plain_versions(libraries, name, geometry):
+    """The reconstruction and the deblocking filter built with a grid smaller
+    than a picture's rows (2 blocks of 4 threads: a block takes rows in
+    turn, the inter kernel strides over macroblocks) and with one larger
+    (4,096 blocks of 32: most find no row), picture by picture equal to the
+    plain versions."""
+    with _bound(libraries[geometry]):
+        _against_plain(name, check_parse=False)
