@@ -409,6 +409,11 @@ COLOUR_BASELINE = ROOT / "baselines" / "jpeg_colour_per_sample.cu"
 # the H.264 reconstruction and deblocking kernels before their redesign (one
 # block, a thread a macroblock), timed beside the current ones in phase 23
 H264_BASELINE = ROOT / "baselines" / "h264_wave_per_thread.cu"
+# the H.264 and MPEG-4 Part 2 parse kernels before their redesign (one
+# thread a slice / a VOP), held equal to and timed beside the current ones
+# in phases 23 and 20
+H264_PARSE_BASELINE = ROOT / "baselines" / "h264_parse_per_thread.cu"
+MP4V_PARSE_BASELINE = ROOT / "baselines" / "mp4v_parse_per_thread.cu"
 
 
 def baseline_kernels(dev):
@@ -527,6 +532,100 @@ def h264_baseline(dev):
         return [("h264_deblock_kernel", launch)]
 
     return recon_launches, deblock_launches
+
+
+def h264_parse_baseline(dev):
+    """Bind the H.264 parse kernel before its redesign
+    (``baselines/h264_parse_per_thread.cu``) with the inputs and outputs its
+    wrapper gave it: returns parse_launches(jobs, n_pictures) with the
+    results of ``h264_cuda.parse_launches`` ((table, levels, scratch,
+    status), [(kernel, launch)])."""
+    import ctypes
+
+    from dspnet_torch.data import h264_cuda
+    from dspnet_torch.data import h264_parse as HP
+    from dspnet_torch.ops import _build
+
+    lib = _build.load_library(H264_PARSE_BASELINE)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.dspnet_h264_parse.argtypes = [vp, vp, i, vp, vp, vp, vp, i, vp, vp]
+
+    def parse_launches(jobs, n_pictures):
+        bits, table = h264_cuda.stage(jobs, dev)
+        n = max(s.mb_width * s.mb_height for _, s in jobs)
+        tab = torch.zeros(n_pictures, n, HP.N_FIELDS, dtype=torch.int32, device=dev)
+        lev = torch.zeros(n_pictures, n, HP.N_LEVELS, dtype=torch.int16, device=dev)
+        scratch = torch.zeros(n_pictures, n, h264_cuda.N_SCRATCH, dtype=torch.uint8, device=dev)
+        status = torch.zeros(len(jobs), 2, dtype=torch.int32, device=dev)
+
+        def launch(kept=(bits, table)):
+            err = lib.dspnet_h264_parse(bits.data_ptr(), table.data_ptr(), len(jobs),
+                                        h264_cuda._tables(dev).data_ptr(), tab.data_ptr(), lev.data_ptr(),
+                                        scratch.data_ptr(), n, status.data_ptr(),
+                                        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            _build.check(lib, err, "baseline h264_parse_kernel")
+
+        return (tab, lev, scratch, status), [("h264_parse_kernel", launch)]
+
+    return parse_launches
+
+
+def mp4v_parse_baseline(dev):
+    """Bind the MPEG-4 parse kernel before its redesign
+    (``baselines/mp4v_parse_per_thread.cu``) with the inputs its wrapper gave
+    it (int32 lookup tables; a per-VOP scratch region of the whole VOP's
+    prediction state, DC 1024 and the rest 0): returns
+    parse_launches(bits, vops, vol) -> ((mb, levels, status), [(kernel,
+    launch)], prepare), ``prepare`` refilling the scratch before a launch."""
+    import ctypes
+
+    from dspnet_torch.data import mpeg4, mpeg4_cuda
+    from dspnet_torch.ops import _build
+
+    lib = _build.load_library(MP4V_PARSE_BASELINE)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.dspnet_mp4v_parse.argtypes = [vp, vp, i, vp, vp, vp, i, i, i, i, vp, i, vp, vp, vp, vp]
+    lut = torch.from_numpy(mpeg4.luts().ravel().astype(np.int32)).to(dev)
+    rll = torch.tensor([(last << 16) | (run << 8) | level for table in (mpeg4.INTRA_RLL, mpeg4.INTER_RLL)
+                        for last, run, level in table], dtype=torch.int32, device=dev)
+
+    def parse_launches(bits, vops, vol):
+        maxes = mpeg4_cuda._tables(dev)[2]
+        nvop, n = len(vops), vol.mb_num
+        luma = (2 * vol.mb_width + 1) * (2 * vol.mb_height + 1)
+        chroma = (vol.mb_width + 1) * (vol.mb_height + 1)
+        words = luma + 2 * chroma + 8 * (luma + 2 * chroma) + 2 * (luma + 1) + n
+        scratch = torch.empty(nvop, words, dtype=torch.int32, device=dev)
+        mb = torch.zeros(nvop, n, 12, dtype=torch.int32, device=dev)
+        levels = torch.zeros(nvop, n * 6, 64, dtype=torch.int16, device=dev)
+        status = torch.zeros(nvop, 2, dtype=torch.int32, device=dev)
+
+        def prepare():
+            scratch.zero_()
+            scratch[:, :luma + 2 * chroma] = 1024
+
+        def launch(kept=(bits, vops)):
+            err = lib.dspnet_mp4v_parse(bits.data_ptr(), vops.data_ptr(), nvop, lut.data_ptr(), rll.data_ptr(),
+                                        maxes.data_ptr(), vol.mb_width, vol.mb_height, vol.time_bits,
+                                        int(vol.resync), scratch.data_ptr(), words, mb.data_ptr(), levels.data_ptr(),
+                                        status.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            _build.check(lib, err, "baseline mp4v_parse_kernel")
+
+        prepare()
+        return (mb, levels, status), [("mp4v_parse_kernel", launch)], prepare
+
+    return parse_launches
+
+
+def parse_turns(new, old, old_prepare=None, rounds=2):
+    """Device us of the new and the old parse launch on the same inputs in
+    turns (old, new, new, old), CUDA events around each launch, the mean of
+    ``rounds`` after one to warm up -> (new [us, us], old [us, us])."""
+    out = {"new": [], "old": []}
+    for which in ("old", "new", "new", "old"):
+        launches, prepare = (new, None) if which == "new" else (old, old_prepare)
+        out[which].append(sum(h264_launch_us(launches, prepare, n=rounds).values()))
+    return out["new"], out["old"]
 
 
 def bound_us(nbytes, ops):
@@ -4866,9 +4965,13 @@ def mp4v_phase(dev, label):
     per frame (cv2's 2048x1024 clip among them: half-pel MVs with f_code up
     to 6, both rounding types, intra macroblocks in P-VOPs, MVs off the
     frame's edges), each kernel against its plain version bit for bit stage
-    by stage (the plain parse over a process pool), the refusals by name; a
-    1024x2048 textured clip of 24 frames (two GOPs) written by the port on
-    the card, its kernels against their plain versions and timed; ``multi_demo
+    by stage (the plain parse over a process pool; on 2 VOPs a batch of
+    cv2's 2048x1024 clip), the parse kernel against the one before its
+    redesign (``baselines/mp4v_parse_per_thread.cu``) on every batch, the
+    refusals by name; a 1024x2048 textured clip of 24 frames (two GOPs)
+    written by the port on the card, its kernels against their plain versions
+    (2 VOPs a batch) and timed, the parse before and after its redesign in
+    turns with its longest VOP's VLC symbols; ``multi_demo
     --images clip.mp4`` at resnet-50_multi 512x1024 bf16 (seed 20) with the
     launches counted, its ``detection_out.mp4`` read back by the port's
     decoder, each stage's ms per frame, the writer's bytes and PSNR. Returns
@@ -4915,10 +5018,16 @@ def mp4v_phase(dev, label):
     def largest(a, b):
         return int((torch.as_tensor(a).cpu().to(torch.int32) - torch.as_tensor(b).cpu().to(torch.int32)).abs().max())
 
-    def stagewise(samples, config, fourcc, pmap):
+    old_parse = mp4v_parse_baseline(dev)
+    plain_vops = {"mp4v_parse": 0}
+
+    def stagewise(samples, config, fourcc, pmap, plain_per_batch=None):
         """Each batch of 8 through the kernels and their plain versions on
-        the same inputs, the largest difference of each kept in ``err``;
-        -> (frames, plain seconds by kernel)."""
+        the same inputs (the plain versions on the first ``plain_per_batch``
+        VOPs of a batch, every one when None), the parse kernel also against
+        the kernel before its redesign on every VOP (tables, levels and
+        status), the largest difference of each kept in ``err``; -> (frames,
+        plain seconds by kernel)."""
         dec = mpeg4_cuda.Decoder(dev, config, fourcc)
         frames, plain = [], dict.fromkeys(MP4V_KERNELS, 0.0)
         for i in range(0, len(samples), 8):
@@ -4929,17 +5038,31 @@ def mp4v_phase(dev, label):
                 continue
             bits, vops = mpeg4_cuda.stage([c[0] for c in coded], [c[1] for c in coded], dev)
             mb, levels = mpeg4_cuda.parse(bits, vops, dec.vol)
+            (new_mb, new_lv, new_st), new_l = mpeg4_cuda.parse_launches(bits, vops, dec.vol)
+            (old_mb, old_lv, old_st), old_l, _ = old_parse(bits, vops, dec.vol)
+            new_l[0][1]()
+            old_l[0][1]()
+            err["mp4v_parse"] = max(err["mp4v_parse"], largest(mb, old_mb), largest(levels, old_lv),
+                                    largest(new_st, old_st))
+            check(torch.equal(mb, old_mb) and torch.equal(levels, old_lv) and torch.equal(new_st, old_st) and
+                  torch.equal(mb, new_mb) and torch.equal(levels, new_lv),
+                  f"mp4v_parse_kernel != the kernel before its redesign on the batch from VOP {i}")
             jobs = [(x, config if config else x, h.bitpos, h.kind, h.qp, h.fcode, h.dc_threshold) for x, h in coded]
             if not config:  # the VOL is in band: parse it from the first sample of the stream
                 jobs = [(x, samples[0], *rest) for x, _, *rest in jobs]
-            for k, (mb_ref, lv_ref, s_ref) in enumerate(pmap(_plain_parse, jobs)):
+            for k, (mb_ref, lv_ref, s_ref) in enumerate(pmap(_plain_parse, jobs[:plain_per_batch])):
                 plain["mp4v_parse"] += s_ref
+                plain_vops["mp4v_parse"] += 1
                 err["mp4v_parse"] = max(err["mp4v_parse"], largest(mb[k], mb_ref), largest(levels[k], lv_ref))
                 check(np.array_equal(mb[k].cpu().numpy(), mb_ref) and np.array_equal(levels[k].cpu().numpy(), lv_ref),
                       f"mp4v_parse_kernel != plain on VOP {i + k}")
             for k, (_, hdr) in enumerate(coded):
                 ref = dec.ref if hdr.kind == "P" else None
                 planes = mpeg4_cuda.recon(mb[k], levels[k], dec.vol, hdr.rounding, ref)
+                if plain_per_batch is not None and k >= plain_per_batch:
+                    dec.ref = planes
+                    frames.append(mpeg4_cuda.yuv420_to_bgr(*planes, dec.vol.height, dec.vol.width))
+                    continue
                 t0 = time.perf_counter()
                 want = mpeg4_cuda.recon_ref(mb[k].cpu(), levels[k].cpu(), dec.vol, hdr.rounding,
                                             None if ref is None else tuple(p.cpu() for p in ref))
@@ -4981,7 +5104,9 @@ def mp4v_phase(dev, label):
             check(mpeg4_cuda.plain_calls == dict.fromkeys(MP4V_KERNELS, 0) and
                   mpeg4_cuda.launches["mp4v_recon"] == len(frames) == mpeg4_cuda.launches["yuv420_to_bgr"],
                   f"{name}: launches {mpeg4_cuda.launches}, plain calls {mpeg4_cuda.plain_calls}")
-            again, _ = stagewise(samples, stream.extradata, stream.fourcc, pool.map)
+            # the plain versions on 2 VOPs a batch of cv2's 2048x1024 clip (a plain VOP there takes about a second)
+            again, _ = stagewise(samples, stream.extradata, stream.fourcc, pool.map,
+                                 2 if m["width"] * m["height"] > 640 * 480 else None)
             check([sha(f) for f in again] == want, f"{name}: stagewise frames != cv2's sha256")
             n_forms += 1
             n_vops += len(frames)
@@ -5017,7 +5142,8 @@ def mp4v_phase(dev, label):
         check(len(samples) == n_frames and [h.kind for h in headers].count("I") == 2,
               f"the clip: {len(samples)} VOPs, kinds {[h.kind for h in headers]}")
         t0 = time.perf_counter()
-        frames, plain = stagewise(samples, stream.extradata, "mp4v", pool.map)
+        plain_vops["mp4v_parse"] = 0
+        frames, plain = stagewise(samples, stream.extradata, "mp4v", pool.map, plain_per_batch=2)
         secs["stagewise 1024x2048"] = time.perf_counter() - t0
         encoded_db = [psnr(f.cpu().numpy(), s.cpu().numpy()) for f, s in zip(frames, src_frames)]
         # the kernels timed at the clip's shapes: the parse of the first batch
@@ -5041,16 +5167,29 @@ def mp4v_phase(dev, label):
                       "yuv420_to_bgr": FH * FW * 3 // 2 + FH * FW * 3}
         ops = {"mp4v_parse": 0, "mp4v_recon": n_mb * 6 * (64 * 20 + 2 * 8 * 40) + 3 * nz,
                "yuv420_to_bgr": FH * FW * 12}
-        plain_ms = {"mp4v_parse": plain["mp4v_parse"] / n_frames * 8e3, "mp4v_recon": plain["mp4v_recon"] / n_frames * 1e3,
-                    "yuv420_to_bgr": plain["yuv420_to_bgr"] / n_frames * 1e3}
+        plain_ms = {"mp4v_parse": plain["mp4v_parse"] / plain_vops["mp4v_parse"] * 8e3,
+                    "mp4v_recon": plain["mp4v_recon"] / plain_vops["mp4v_parse"] * 1e3,
+                    "yuv420_to_bgr": plain["yuv420_to_bgr"] / plain_vops["mp4v_parse"] * 1e3}
+        # the parse before and after its redesign in turns (old, new, new, old; CUDA events around each launch),
+        # and the chain: VLC symbols of the longest VOP of the batch
+        steps = torch.zeros(len(vops), dtype=torch.int32, device=dev)
+        (_, _, _), new_l = mpeg4_cuda.parse_launches(bits, vops, vol, steps=steps)
+        (_, _, _), old_l, old_prep = old_parse(bits, vops, vol)
+        new_us, old_us = parse_turns(new_l, old_l, old_prep)
+        chain = int(steps.max())
         per = {}
         for k, fn in calls.items():
-            dev_us, per_call, how = j2k_device_us(fn, MP4V_KERNELS[k], mpeg4_cuda.launches, k,
-                                                  n=3 if k == "mp4v_parse" else 20)
+            if k == "mp4v_parse":  # events around each launch, the first new turn (the profiler drops launches)
+                dev_us, per_call, how = new_us[0], 1.0, "CUDA events around each launch"
+            else:
+                dev_us, per_call, how = j2k_device_us(fn, MP4V_KERNELS[k], mpeg4_cuda.launches, k, n=20)
             bound = bound_us(work_bytes[k], ops[k])
             per[k] = {"device_us": dev_us, "launches_per_call": per_call, "how": how,
                       "host_us": j2k_host_us(fn, n=3 if k == "mp4v_parse" else 20), "max_abs_err": err[k],
                       "bound_us": bound[0], "bound_by": bound[1], "plain_ms": plain_ms[k], "bytes": work_bytes[k]}
+        per["mp4v_parse"].update(new_us_turns=new_us, old_us_turns=old_us, chain_steps=chain,
+                                 ns_per_step=new_us[0] * 1e3 / chain, us_per_mb=new_us[0] / n_mb,
+                                 old_ns_per_step=old_us[0] * 1e3 / chain, plain_vops=plain_vops["mp4v_parse"])
         timings = per
         record["1024x2048"] = {"bytes": int(sum(len(x) for x in samples)), "container_ms": container_ms,
                                "vop_headers_ms": headers_ms, "writer_psnr_db": [min(encoded_db), max(encoded_db)],
@@ -5059,12 +5198,18 @@ def mp4v_phase(dev, label):
               f"s ({record['1024x2048']['bytes']} bytes, {min(encoded_db):.2f}-{max(encoded_db):.2f} dB against the "
               f"source frames): each kernel == its plain version on every VOP; host: container {container_ms:.3f} ms, "
               f"{n_frames} VOP headers {headers_ms:.3f} ms [{label}]", flush=True)
+        pv = per["mp4v_parse"]
+        print(f"  mp4v_parse_kernel before -> after its redesign, in turns old, new, new, old (CUDA events around each "
+              f"launch, 8 VOPs): old {old_us[0]:.1f} [{old_us[1]:.1f}] us -> new {new_us[0]:.1f} [{new_us[1]:.1f}] us "
+              f"({old_us[0] / new_us[0]:.2f}x), equal on every batch; the longest VOP's chain {chain} VLC symbols: new "
+              f"{pv['ns_per_step']:.1f} ns a symbol, {pv['us_per_mb']:.3f} us a macroblock ({n_mb} a VOP); old "
+              f"{pv['old_ns_per_step']:.1f} ns a symbol [{label}]", flush=True)
+        plain_how = {"mp4v_parse": f"8 VOPs, from {pv['plain_vops']} VOPs over {workers} processes"}
         for k, v in per.items():
             print(f"  {MP4V_KERNELS[k]}: device {v['device_us']:.3f} us/call ({v['launches_per_call']:g} launches, "
                   f"{v['how']}{', 8 VOPs a launch' if k == 'mp4v_parse' else ''}), host {v['host_us']:.3f} us/call "
                   f"(wrapper), bound {v['bound_us']:.4f} us ({v['bound_by']}), plain {v['plain_ms']:.3f} ms "
-                  f"({'8 VOPs, summed over ' + str(workers) + ' processes' if k == 'mp4v_parse' else 'one process'}) "
-                  f"[{label}]", flush=True)
+                  f"({plain_how.get(k, 'one process')}) [{label}]", flush=True)
         del base, src_frames, frames
 
         # ---- 20c. multi_demo on the clip: the counts, the written file
@@ -5941,16 +6086,36 @@ def h264_device_us(fn, names, n=5):
     return None, "the profiler recorded " + ", ".join(f"{len(v)} of {n} {k}" for k, v in evts.items())
 
 
-def h264_stagewise(dev, err, samples, config, fourcc, limit=None, picks=()):
+def h264_parse_vs_old(err, old_parse, jobs, n, tables, where):
+    """The parse kernel and the kernel before its redesign (``old_parse``,
+    :func:`h264_parse_baseline`) on a batch: tables, levels, scratch and
+    status equal, and equal to what the wrapper returned (``tables``); the
+    largest difference kept in ``err``."""
+    from dspnet_torch.data import h264_cuda
+
+    new_out, new_l = h264_cuda.parse_launches(jobs, n, tables[0][0].device)
+    old_out, old_l = old_parse(jobs, n)
+    new_l[0][1]()
+    old_l[0][1]()
+    err["h264_parse"] = max(err["h264_parse"], *(_h264_largest(a, b) for a, b in zip(new_out, old_out)))
+    check(all(torch.equal(a, b) for a, b in zip(new_out, old_out)) and
+          all(torch.equal(t, new_out[0][k]) and torch.equal(lv, new_out[1][k]) for k, (t, lv) in enumerate(tables)),
+          f"h264_parse_kernel != the kernel before its redesign in {where}")
+
+
+def h264_stagewise(dev, err, samples, config, fourcc, limit=None, picks=(), old_parse=None, parse_limit=None):
     """The samples through ``h264_cuda.Decoder.decode`` on ``dev`` with its
     stages wrapped: each stage held to its plain version on the same inputs
     (the plain parse of the batch's slices, the plain reconstruction from
     the card's tables and references, the plain filter on the card's
     unfiltered planes) on the first ``limit`` pictures (every one when
-    None), the largest difference of each kept in ``err``; for each picture
-    of ``picks`` (in decode order) its inputs and outputs kept under its
-    index, and the first one's parse launch -> (pictures compared, plain
-    seconds by stage, what was kept)."""
+    None; the parse on its first ``parse_limit`` when given), the largest
+    difference of each kept in ``err``; the parse kernel
+    also held to the kernel before its redesign (``old_parse``,
+    :func:`h264_parse_baseline`) on every batch: tables, levels, scratch and
+    status; for each picture of ``picks`` (in decode order) its inputs and
+    outputs kept under its index, and the first one's parse launch ->
+    (pictures compared, plain seconds by stage, what was kept)."""
     from dspnet_torch.data import h264_cuda
 
     dec = h264_cuda.Decoder(dev, config, fourcc)
@@ -5963,7 +6128,10 @@ def h264_stagewise(dev, err, samples, config, fourcc, limit=None, picks=()):
 
     def parse(jobs, n, device):
         tables = h264_cuda.parse(jobs, n, device)
-        few = n if limit is None else max(0, min(limit - seen["parsed"], n))
+        if old_parse is not None:
+            h264_parse_vs_old(err, old_parse, jobs, n, tables, f"the batch from picture {seen['parsed']}")
+        plimit = limit if parse_limit is None else parse_limit
+        few = n if plimit is None else max(0, min(plimit - seen["parsed"], n))
         if few:
             t0 = time.perf_counter()
             ref = h264_cuda.parse_ref([j for j in jobs if j[0].picture < few], few, torch.device("cpu"))
@@ -6032,8 +6200,23 @@ def h264_clip_timings(dev, err, kept, jobs, plain, pics_checked, label):
     from dspnet_torch.data import h264_cuda
 
     old_recon, old_deblock = h264_baseline(dev)
-    parse_us, _, parse_how = j2k_device_us(lambda: h264_cuda.parse(*kept["parse"]), "h264_parse_kernel",
-                                           h264_cuda.kernel_launches, "h264_parse_kernel", n=2)
+    # the parse before and after its redesign in turns (old, new, new, old; CUDA events around each launch), and
+    # the chain: bins of the longest slice of the batch, and that slice's macroblocks
+    pjobs, pn, _ = kept["parse"]
+    steps = torch.zeros(len(pjobs), dtype=torch.int32, device=dev)
+    (ptab, _, _, _), new_l = h264_cuda.parse_launches(pjobs, pn, dev, steps=steps)
+    new_l[0][1]()
+    parse_new, parse_old = parse_turns(new_l, h264_parse_baseline(dev)(pjobs, pn)[1])
+    longest = int(steps.argmax())
+    job = pjobs[longest][0]
+    from dspnet_torch.data import h264_parse as HP
+
+    slice_mbs = int((ptab[job.picture, :, HP.F_SLICE] == job.index).sum())
+    chain = {"chain_steps": int(steps.max()), "slice_mbs": slice_mbs, "new_us_turns": parse_new,
+             "old_us_turns": parse_old, "ns_per_step": parse_new[0] * 1e3 / int(steps.max()),
+             "us_per_mb": parse_new[0] / slice_mbs, "old_ns_per_step": parse_old[0] * 1e3 / int(steps.max()),
+             "steps_by_slice": steps.cpu().tolist()}
+    parse_us, parse_how = parse_new[0], "CUDA events around each launch"
     per = {}
     for tag, k in (("P", 1), ("I", 0)):
         table, levels, slices, sps = kept[k]["recon"][:4]
@@ -6105,12 +6288,18 @@ def h264_clip_timings(dev, err, kept, jobs, plain, pics_checked, label):
             per["parse"] = {"device_us": parse_us, "how": parse_how, "max_abs_err": err["h264_parse"],
                             "host_us": j2k_host_us(lambda: h264_cuda.parse(*kept["parse"]), n=2),
                             "bound_us": pb[0], "bound_by": pb[1], "bytes": nb["h264_parse"],
-                            "ops": ops["h264_parse"], "plain_ms": plain["h264_parse"] * 1e3 / pics_checked}
+                            "ops": ops["h264_parse"], "plain_ms": plain["h264_parse"] * 1e3, **chain}  # one picture
         del new_out, old_out, planes, stage_launches, new_recon, old_recon_l, new_deblock, old_deblock_l
     print(f"  h264_parse_kernel: device {per['parse']['device_us']:.3f} us/call ({parse_how}, {len(jobs)} slices "
           f"of 8 pictures a launch), host {per['parse']['host_us']:.3f} us/call (wrapper), bound "
           f"{per['parse']['bound_us']:.4f} us ({per['parse']['bound_by']}), plain {per['parse']['plain_ms']:.3f} "
           f"ms (a picture) [{label}]", flush=True)
+    print(f"  h264_parse_kernel before -> after its redesign, in turns old, new, new, old (CUDA events around each "
+          f"launch): old {parse_old[0]:.1f} [{parse_old[1]:.1f}] us -> new {parse_new[0]:.1f} [{parse_new[1]:.1f}] us "
+          f"({parse_old[0] / parse_new[0]:.2f}x), equal on every batch (tables, levels, scratch, status); the longest "
+          f"slice's chain {chain['chain_steps']} bins over {slice_mbs} macroblocks: new {chain['ns_per_step']:.1f} ns "
+          f"a bin, {chain['us_per_mb']:.3f} us a macroblock; old {chain['old_ns_per_step']:.1f} ns a bin [{label}]",
+          flush=True)
     return per
 
 
@@ -6126,7 +6315,9 @@ def h264_kernel_entry(times, stage, name):
         t = times["parse"]
         return {"max_abs_err": float(t["max_abs_err"]), "ms": t["device_us"] / 1e3, "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"], "library_ms": None,
-                "at": "8 pictures of 1024x2048 (32 slices) in one launch", "host_us": t["host_us"], "how": t["how"]}
+                "at": "8 pictures of 1024x2048 (32 slices) in one launch", "host_us": t["host_us"], "how": t["how"],
+                **{k: t[k] for k in ("new_us_turns", "old_us_turns", "chain_steps", "slice_mbs", "ns_per_step",
+                                     "us_per_mb", "old_ns_per_step")}}
     t, i = times["P"][stage], times["I"][stage]
     k = t["kernels"][name]
     return {"max_abs_err": float(t["max_abs_err"]), "ms": k["device_us"][0] / 1e3, "plain_ms": t["plain_ms"],
@@ -6146,9 +6337,13 @@ def h264_phase(dev, label):
     per frame (``forms.json``; no cv2 here: count, order and pixels), the
     refusals by name; each stage against its plain version on the same
     inputs (every picture of the small forms, the first two of the
-    1024x2048 clip); on the clip's I and P pictures the kernels before their
-    redesign (``baselines/h264_wave_per_thread.cu``) against the current
-    ones and both timed in turns beside the bounds; ``multi_demo --images``
+    1024x2048 clip, the parse on its first); the parse kernel against the one
+    before its redesign (``baselines/h264_parse_per_thread.cu``) on every
+    batch of every form, timed in turns with its longest slice's bins; on
+    the clip's I and P pictures the reconstruction and deblocking kernels
+    before their redesign (``baselines/h264_wave_per_thread.cu``) against
+    the current ones and both timed in turns beside the bounds;
+    ``multi_demo --images``
     on the 1024x2048 clip (High profile CABAC, I P B B, 13 frames) at
     resnet-50_multi 512x1024 bf16 with each kernel's launches counted and
     each stage's ms per frame. Returns ({kernel: {path: launches}}, {"P" /
@@ -6191,6 +6386,7 @@ def h264_phase(dev, label):
             frames += dec.decode(samples[i:i + 8])
         return frames + dec.flush()
 
+    old_parse = h264_parse_baseline(dev)
     try:
         # ---- 23a. the committed forms: cv2's sha256, kernels == plain, refusals
         t0 = time.perf_counter()
@@ -6210,7 +6406,20 @@ def h264_phase(dev, label):
             with avi.open_video(fixture / name) as reader:
                 samples, stream = list(reader), reader.stream
             reset()
-            frames = decode_all(h264_cuda.Decoder(dev, stream.extradata, stream.fourcc), samples)
+            dec = h264_cuda.Decoder(dev, stream.extradata, stream.fourcc)
+            if name not in H264_STAGEWISE:  # (those hold the parse to its old kernel below)
+                batches = []
+
+                def parse_vs_old(jobs, n, device):
+                    tables = h264_cuda.parse(jobs, n, device)
+                    batches.append((jobs, n, tables))
+                    return tables
+
+                dec.stages["parse"] = parse_vs_old
+            frames = decode_all(dec, samples)
+            if name not in H264_STAGEWISE:
+                for k, (jobs, n, tables) in enumerate(batches):
+                    h264_parse_vs_old(err, old_parse, jobs, n, tables, f"{name}, batch {k}")
             check([sha(f) for f in frames] == m["bgr_sha256"], f"{name}: frames != cv2's sha256 "
                   f"({len(frames)} frames, cv2 {m['frames']})")
             check(h264_cuda.plain_calls == dict.fromkeys(H264_STAGES, 0) and
@@ -6218,7 +6427,7 @@ def h264_phase(dev, label):
                   mpeg4_cuda.launches["yuv420_to_bgr"] == len(frames),
                   f"{name}: launches {h264_cuda.launches}, plain calls {h264_cuda.plain_calls}")
             if name in H264_STAGEWISE:
-                pics, _, _ = h264_stagewise(dev, err, samples, stream.extradata, stream.fourcc)
+                pics, _, _ = h264_stagewise(dev, err, samples, stream.extradata, stream.fourcc, old_parse=old_parse)
                 n_pics += pics
             n_forms += 1
             n_frames += len(frames)
@@ -6237,15 +6446,16 @@ def h264_phase(dev, label):
             samples, stream = list(reader), reader.stream
         FH, FW, n_clip = stream.height, stream.width, len(samples)
         t0 = time.perf_counter()
-        pics_checked, plain, kept = h264_stagewise(dev, err, samples[:8], stream.extradata, stream.fourcc,
-                                                   limit=2, picks=(0, 1))
+        pics_checked, plain, kept = h264_stagewise(dev, err, samples, stream.extradata, stream.fourcc,
+                                                   limit=2, picks=(0, 1), old_parse=old_parse, parse_limit=1)
         secs["stagewise 1024x2048"] = time.perf_counter() - t0
         jobs = kept["parse"][0]
         record["1024x2048"] = {"bytes": int(sum(len(x) for x in samples)), "frames": n_clip,
                                "stagewise_s": secs["stagewise 1024x2048"], "slices_per_batch": len(jobs)}
         print(f"1024x2048 H.264 clip ({n_clip} frames, {record['1024x2048']['bytes']} bytes, High CABAC I P B B, 4 "
-              f"slices a picture): each stage == its plain version on its first two pictures (the plain Python "
-              f"decoder takes tens of seconds a picture there) [{label}]", flush=True)
+              f"slices a picture): the reconstruction and deblocking == their plain versions on its first two pictures, "
+              f"the parse on its first (the plain Python decoder takes seconds a picture there), and the parse == "
+              f"the kernel before its redesign on both batches [{label}]", flush=True)
         per = h264_clip_timings(dev, err, kept, jobs, plain, pics_checked, label)
         record["1024x2048"]["kernels"] = per
         del kept
@@ -6416,7 +6626,7 @@ def main():
     libs = _build.build_libraries([_build.CSRC / "nms.cu", _build.CSRC / "match.cu", _build.CSRC / "jpeg.cu",
                                    _build.CSRC / "jpeg2000.cu", _build.CSRC / "mpeg4.cu", _build.CSRC / "av1.cu",
                                    _build.CSRC / "h264.cu", *BASELINE_SOURCES,
-                                   COLOUR_BASELINE, H264_BASELINE])
+                                   COLOUR_BASELINE, H264_BASELINE, H264_PARSE_BASELINE, MP4V_PARSE_BASELINE])
     print(f"build: {', '.join(str(x.relative_to(ROOT)) for x in libs)} ready in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
     for lib in libs:
@@ -6780,7 +6990,9 @@ def main():
            "ms": mp4v_times[key]["device_us"] / 1e3, "plain_ms": mp4v_times[key]["plain_ms"],
            "bound_ms": mp4v_times[key]["bound_us"] / 1e3, "bound_by": mp4v_times[key]["bound_by"],
            "library_ms": None, "at": at, "host_us": mp4v_times[key]["host_us"], "how": mp4v_times[key]["how"],
-           "launches_per_call": mp4v_times[key]["launches_per_call"]}
+           "launches_per_call": mp4v_times[key]["launches_per_call"],
+           **{k: mp4v_times[key][k] for k in ("new_us_turns", "old_us_turns", "chain_steps", "ns_per_step", "us_per_mb",
+                                             "old_ns_per_step") if k in mp4v_times[key]}}
           for key, lib, at in (("mp4v_parse", "mpeg4videodec.c / h263dec.c macroblock layer (VLCs, MV and AC/DC "
                                               "prediction, scans)", "8 VOPs of 1024x2048 in one launch"),
                                ("mp4v_recon", "unquantize, x86 simple IDCT and hpeldsp motion compensation",

@@ -12,14 +12,21 @@
 // h264_recon.recon_picture, h264_filters.deblock_picture), which cv2 5.0.0
 // equals on the committed forms.
 //
-// h264_parse_kernel: a thread block per slice (one thread working), every
-// slice of a batch in one launch. Parsing needs no pixels and no motion
-// vectors, so slices parse side by side. The CABAC context states (1024
-// bytes) live in the block's shared memory; the neighbour state of the
-// slice's macroblocks (types, coded block pattern, counts and coded flags,
-// reference indices, motion vector differences) is read back from the
-// macroblock table the thread writes in global memory. What bounds it: the
-// serial chain of bins of one slice.
+// h264_parse_kernel: a warp per slice (a block each), every slice of a
+// batch in one launch. Parsing needs no pixels and no motion vectors, so
+// slices parse side by side. What bounds it: neither bytes nor operations
+// but the serial chain of bins (CABAC) or codes (CAVLC) of one slice, so
+// every link of the chain is a register or shared-memory step: lane 0 reads
+// the RBSP through a 64-bit register window refilled a word at a time (the
+// next word loaded ahead), renormalises CABAC in one shift, reads each
+// context's state as its transition record, decodes CAVLC codes by
+// two-level lookup tables, and keeps the neighbour state (the left and
+// upper macroblocks' table rows and scratch) in a shared ring of the
+// current and previous rows; each macroblock's row, scratch and levels are
+// built in shared memory and stored by the warp in one coalesced pass while
+// lane 0 parses the next. The kernel as it was before (one thread, every
+// step a device-memory access) is kept in baselines/h264_parse_per_thread.cu
+// as a yardstick.
 //
 // The reconstruction, one picture a call of its three kernels in order.
 // Only what reads a neighbour's result of the same picture keeps the
@@ -60,6 +67,13 @@
 #ifndef H264_LAUNCH
 #define H264_LAUNCH(kernel, grid, block, stream) kernel<<<(grid), (block), 0, (stream)>>>
 #endif
+#ifndef H264_LAUNCH_SHARED
+#define H264_LAUNCH_SHARED(kernel, grid, block, shared, stream) kernel<<<(grid), (block), (shared), (stream)>>>
+#endif
+// a kernel's dynamic shared memory (sized at launch)
+#ifndef DYNAMIC_SHARED
+#define DYNAMIC_SHARED(name) extern __shared__ __align__(16) uint8_t name[]
+#endif
 // the launch geometry's caps: threads a block and blocks a grid (every
 // kernel strides by blockDim and gridDim; a host emulation builds with small
 // ones, and its tests force a grid smaller than a picture's rows and one larger)
@@ -68,6 +82,11 @@
 #endif
 #ifndef H264_MAX_BLOCKS
 #define H264_MAX_BLOCKS (1 << 30)
+#endif
+// threads a block of the parse kernel: a warp (1 to 32; its loops over
+// lanes stride by blockDim, and lane 0 alone parses)
+#ifndef H264_PARSE_THREADS
+#define H264_PARSE_THREADS (H264_MAX_THREADS < 32 ? H264_MAX_THREADS : 32)
 #endif
 
 namespace {
@@ -130,35 +149,86 @@ __device__ __forceinline__ int blk_at(int y, int x) { return (x & 1) | ((y & 1) 
 
 // ================================================================== parse
 
+// The slice's RBSP through a 64-bit window: refilled a 32-bit word at a time
+// from device memory, the next word loaded one refill ahead, so that a
+// refill never waits on a load. Bits at and past the slice's last byte read
+// as 0; pos counts bits from the slice's start as the standard's reader
+// would, and err takes E_OVERRUN where a read_bits reads past the end.
 struct Bits {
-  const uint8_t* data;
-  int64_t pos, end;
-  int err;
-  __device__ int bit() {
-    if (pos >= end) {
-      err = E_OVERRUN;
-      pos++;
-      return 0;
-    }
-    int b = (data[pos >> 3] >> (7 - (pos & 7))) & 1;
-    pos++;
-    return b;
+  const uint32_t* words;  // the slice's bytes as aligned words (from the word holding its first byte)
+  uint64_t cache;         // the bits from pos on, left-aligned
+  int next;               // the bit (of words) after the cache's last, a multiple of 32
+  int lim;                // the bit past the slice's last byte
+  int base;               // the bit of the slice's first byte
+  uint32_t ahead;         // the word at next
+  int avail;              // valid bits in cache: 33 to 64 between reads
+  int pos, end, err;
+  int steps;              // VLC and Exp-Golomb codes read (the CAVLC chain's steps)
+
+  __device__ __forceinline__ uint32_t word(int bit) const {
+    if (bit >= lim) return 0;
+    const uint32_t v = __byte_perm(words[bit >> 5], 0, 0x0123);  // big-endian
+    const int keep = lim - bit;
+    return keep < 32 ? v & ~(0xFFFFFFFFu >> keep) : v;
   }
-  __device__ int u(int n) {
-    int v = 0;
-    for (int i = 0; i < n; i++) v = (v << 1) | bit();
+  __device__ __forceinline__ void refill() {
+    cache |= (uint64_t)ahead << (32 - avail);
+    avail += 32;
+    next += 32;
+    ahead = word(next);
+  }
+  __device__ void start(const uint8_t* data, int bit, int nbytes) {
+    const uintptr_t a = (uintptr_t)data;
+    words = (const uint32_t*)(a & ~(uintptr_t)3);
+    base = (int)(a & 3) * 8;
+    const int at = base + bit;
+    lim = base + nbytes * 8;
+    next = at & ~31;
+    ahead = word(next);
+    cache = 0;
+    avail = 0;
+    refill();
+    refill();
+    const int k = (int)(at & 31);
+    cache <<= k;
+    avail -= k;
+    pos = bit;
+    end = nbytes * 8;
+    err = 0;
+    steps = 0;
+  }
+  // the next n bits, 1 <= n <= 32, not consumed
+  __device__ __forceinline__ uint32_t peek(int n) const { return (uint32_t)(cache >> (64 - n)); }
+  // consume n bits, 0 <= n <= 32
+  __device__ __forceinline__ void skip(int n) {
+    cache <<= n;
+    avail -= n;
+    pos += n;
+    if (__builtin_expect(avail <= 32, 0)) refill();
+  }
+  __device__ __forceinline__ uint32_t take(int n) {
+    const uint32_t v = n ? peek(n) : 0u;
+    skip(n);
     return v;
   }
-  __device__ int peek16() {
-    int v = 0;
-    for (int i = 0; i < 16; i++) {
-      int64_t p = pos + i;
-      v = (v << 1) | (p < end ? (data[p >> 3] >> (7 - (p & 7))) & 1 : 0);
-    }
+  __device__ __forceinline__ int bit() {
+    const int b = (int)take(1);
+    if (pos > end) err = E_OVERRUN;
+    return b;
+  }
+  __device__ __forceinline__ int u(int n) {
+    const int v = (int)take(n);
+    if (n && pos > end) err = E_OVERRUN;
     return v;
   }
   __device__ int ue() {
-    int zeros = 0;
+    steps++;
+    const int z = __clzll(cache);
+    if (!err && z <= 31 && pos + 2 * z + 1 <= end) {  // the prefix and suffix inside the slice
+      skip(z + 1);
+      return (int)((1u << z) - 1 + take(z));
+    }
+    int zeros = 0;  // the reader one bit at a time, errors as they fall
     while (bit() == 0) {
       if (++zeros > 31 || err) {
         err = err ? err : E_VLC;
@@ -167,120 +237,180 @@ struct Bits {
     }
     return (int)((1u << zeros) - 1 + (zeros ? (unsigned)u(zeros) : 0u));
   }
-  __device__ int se() {
-    int k = ue();
+  __device__ __forceinline__ int se() {
+    const int k = ue();
     return (k & 1) ? (k + 1) >> 1 : -(k >> 1);
-  }
-  // whether data precede the RBSP's stop bit
-  __device__ bool more_rbsp_data() const {
-    int64_t last = (end >> 3) - 1;
-    while (last >= 0 && data[last] == 0) last--;
-    if (last < 0) return false;
-    int byte = data[last];
-    int tz = 0;
-    while (!((byte >> tz) & 1)) tz++;
-    return pos < last * 8 + 7 - tz;
   }
 };
 
-struct Cabac {
-  Bits* bs;
-  uint8_t* state;
-  int range, offset;
-  const int* T;
+// The CABAC decoding engine; its tables in shared memory: ctab[s] for each
+// state s = pStateIdx << 1 | valMPS, (rangeTabLPS of its four quarters, a
+// byte each; the next state after an MPS | after an LPS << 8 | valMPS <<
+// 16), and each context's state held as its ctab record, so that a bin
+// waits on one shared-memory load (the next record is stored after it). The
+// offset is the top 9 bits of a 64-bit register w whose lower bits are the
+// slice's next bits, wbits of them (17 to 55), refilled a word at a time by
+// the reader's loader; renormalisation is one shift of w and range by the
+// leading zeros of range. The bits consumed (the reader's pos) and E_OVERRUN
+// (16 bits past the end, where the bits read as 0) are settled at the
+// macroblock's end, before I_PCM and at the slice's end: nothing reads them
+// between.
+struct Engine {
+  Bits bs;  // the reader: its loader feeds w while the engine runs
+  const uint2* ctab;
+  uint2* state;  // the contexts' records
+  uint64_t w;
+  int wbits, range;
+  int steps;  // bins decoded (the CABAC chain's steps)
+
+  __device__ __forceinline__ void fill() {
+    if (__builtin_expect(wbits <= 23, 0)) {
+      w |= (uint64_t)bs.ahead << (23 - wbits);
+      wbits += 32;
+      bs.next += 32;
+      bs.ahead = bs.word(bs.next);
+    }
+  }
+  // from the reader's position: the offset's 9 bits and the bits after them
   __device__ void start() {
     range = 510;
-    offset = 0;
-    for (int i = 0; i < 9; i++) offset = (offset << 1) | nbit();
+    w = bs.cache;
+    wbits = bs.avail - 9;
   }
-  __device__ int nbit() {
-    if (bs->pos >= bs->end) {
-      if (bs->pos >= bs->end + 16) bs->err = E_OVERRUN;
-      bs->pos++;
-      return 0;
-    }
-    return bs->bit();
+  __device__ __forceinline__ void settle() {
+    bs.pos = bs.next - bs.base - wbits;
+    if (bs.pos > bs.end + 16) bs.err = E_OVERRUN;
   }
-  __device__ int decision(int ctx) {
-    int s = state[ctx];
-    int p = s >> 1, mps = s & 1, b;
-    int lps = T[O_LPS + p * 4 + ((range >> 6) & 3)];
-    range -= lps;
-    if (offset >= range) {
-      b = 1 - mps;
-      offset -= range;
-      range = lps;
-      if (p == 0) mps = 1 - mps;
-      state[ctx] = (uint8_t)((T[O_LPSN + p] << 1) | mps);
-    } else {
-      b = mps;
-      state[ctx] = (uint8_t)((T[O_MPS + p] << 1) | mps);
+  // back to the reader at the engine's position (I_PCM)
+  __device__ void to_reader() {
+    settle();
+    bs.cache = w << 9;
+    bs.avail = wbits;
+    while (bs.avail <= 32) bs.refill();
+  }
+  __device__ __forceinline__ int chain_steps() const { return steps + bs.steps; }
+  __device__ __forceinline__ void renorm() {
+    const int n = __clz(range) - 23;
+    range <<= n;
+    w <<= n;
+    wbits -= n;
+    fill();
+  }
+  // a bin of context ctx whose record t the caller loaded (ahead, where it
+  // knew the context before the previous bin's value); its next record is
+  // stored and left in next, for a caller that decodes ctx again
+  __device__ __forceinline__ int decision(int ctx, uint2 t, uint2& next) {
+    steps++;
+    const int lps = (t.x >> (((range >> 6) & 3) << 3)) & 0xFF;
+    const int r = range - lps;
+    // the offset against r << 55: on the high word alone (the low word of r << 55 is 0)
+    const uint32_t rs = (uint32_t)r << 23;
+    const bool lps_bin = (uint32_t)(w >> 32) >= rs;  // selects, no branch
+    w -= (uint64_t)(lps_bin ? rs : 0u) << 32;
+    range = lps_bin ? lps : r;
+    next = ctab[(t.y >> (lps_bin ? 8 : 0)) & 0xFF];
+    state[ctx] = next;
+    renorm();
+    return (int)((t.y >> 16) & 1) ^ (int)lps_bin;
+  }
+  __device__ __forceinline__ int decision(int ctx) {
+    uint2 next;
+    return decision(ctx, state[ctx], next);
+  }
+  __device__ __forceinline__ int bypass() {
+    steps++;
+    const uint32_t top = (uint32_t)(w >> 63), rs = (uint32_t)range << 23;
+    w <<= 1;
+    wbits -= 1;
+    int b = 0;
+    if (top || (uint32_t)(w >> 32) >= rs) {  // the offset doubled plus a bit, which may carry past the register
+      w -= (uint64_t)rs << 32;
+      b = 1;
     }
-    while (range < 256) {
-      range <<= 1;
-      offset = (offset << 1) | nbit();
-    }
+    fill();
     return b;
   }
-  __device__ int bypass() {
-    offset = (offset << 1) | nbit();
-    if (offset >= range) {
-      offset -= range;
-      return 1;
-    }
+  __device__ __forceinline__ int terminate() {
+    steps++;
+    range -= 2;
+    if ((uint32_t)(w >> 32) >= (uint32_t)range << 23) return 1;
+    renorm();
     return 0;
   }
-  __device__ int terminate() {
-    range -= 2;
-    if (offset >= range) return 1;
-    while (range < 256) {
-      range <<= 1;
-      offset = (offset << 1) | nbit();
-    }
-    return 0;
+};
+
+// one macroblock's slot of the shared ring of the current and previous rows:
+// its table row (N_FIELDS words, h264_parse.MB_FIELDS) and its scratch bytes
+constexpr int SLOT_BYTES = 352;  // N_FIELDS * 4 + N_SCRATCH, rounded up to 16
+constexpr int SCRATCH_AT = N_FIELDS * 4;
+// the parse's tables copied to shared memory: the int32 tables from O_LPS
+// to O_ALPHA (their offsets less O_LPS), and the CAVLC lookup tables
+constexpr int N_TS = O_ALPHA - O_LPS;
+// the CAVLC lookup tables (h264_cuda._vlc_tables): words [0] the region's
+// size, [1 + k] where code table k starts; an entry is symbol << 8 | length
+// (0: no code), or -(start << 4 | bits) for a second-level table indexed by
+// the bits after the first 8
+enum { V_TOKEN = 0, V_CDC_TOKEN = 4, V_TZ = 5, V_CDC_TZ = 20, V_RUN = 23, N_VLC_TABLES = 30 };
+
+// the parse kernel's dynamic shared memory, in bytes from its start
+struct ParseLayout {
+  int ctab, state, ts, vlc, levels, info, ring, bytes;
+  __host__ __device__ ParseLayout(int nvlc, int mbw_max) {
+    ctab = 0;                          // 128 uint2
+    state = ctab + 128 * 8;            // 1024 contexts' records (uint2)
+    ts = state + 1024 * 8;             // N_TS int32
+    vlc = ts + 4 * N_TS;               // nvlc int32
+    levels = (vlc + 4 * nvlc + 15) & ~15;  // 2 x N_LEVELS int16, a macroblock's levels, double-buffered
+    info = levels + 4 * N_LEVELS;      // 2 x 4 int32, what each step hands the warp
+    ring = (info + 32 + 15) & ~15;     // (mbw_max + 1) slots
+    bytes = ring + (mbw_max + 1) * SLOT_BYTES;
   }
 };
 
 struct Parser {
-  Bits bs;
-  Cabac ce;
-  const int* T;
-  const int* sl;
-  int32_t* tab;   // the picture's macroblock table
-  int16_t* lev;   // the picture's levels
-  uint8_t* sc;    // the picture's scratch
+  Engine e;  // e.bs reads CAVLC too
+  const int* Ts;
+  const int* vlcs;
+  uint8_t* ring;  // the slots
+  int16_t* lv;    // the current macroblock's levels (shared, zeroed)
   int slice_index, first, st, cabac, cip, t8mode, direct8, chroma, mbw, mbh, nmb;
   int nref[2];
-  int mb, mbA, mbB, qp, prev_dqp;
+  int mb, mbA, mbB, qp, prev_dqp, cur, nslot, stop;
   int err;
+  // the step machine: the macroblock a step enters, skips left of a run
+  int m, skips, done;
 
-  __device__ int32_t* row(int m) { return tab + (int64_t)m * N_FIELDS; }
-  __device__ uint8_t* scr(int m) { return sc + (int64_t)m * N_SCRATCH; }
-  __device__ void fail(int code) {
+  __device__ __forceinline__ int T(int off) const { return Ts[off - O_LPS]; }
+  __device__ __forceinline__ int slot(int m_) const {
+    const int s = cur + (m_ - mb);
+    return s < 0 ? s + nslot : s;
+  }
+  __device__ __forceinline__ int32_t* row(int m_) { return (int32_t*)(ring + slot(m_) * SLOT_BYTES); }
+  __device__ __forceinline__ uint8_t* scr(int m_) { return ring + slot(m_) * SLOT_BYTES + SCRATCH_AT; }
+  __device__ __forceinline__ void fail(int code) {
     if (!err) err = code;
   }
-  __device__ int avail(int m) { return m >= first && m < mb; }
+  __device__ __forceinline__ bool more_rbsp_data() const { return e.bs.pos < stop; }
+  __device__ int avail(int m_) { return m_ >= first && m_ < mb; }
   __device__ int nb(int which) {
     int x = mb % mbw, y = mb / mbw, n = -1;
     if (which == 0) n = x > 0 ? mb - 1 : -1;
-    else if (which == 1) n = y > 0 ? mb - mbw : -1;
-    else if (which == 2) n = (y > 0 && x < mbw - 1) ? mb - mbw + 1 : -1;
-    else n = (y > 0 && x > 0) ? mb - mbw - 1 : -1;
+    else n = y > 0 ? mb - mbw : -1;
     return (n >= 0 && avail(n)) ? n : -1;
   }
-  __device__ int type(int m) { return row(m)[F_TYPE]; }
-  __device__ int is_intra(int m) { return type(m) <= T_PCM; }
-  __device__ int is_skip(int m) { int t = type(m); return t == T_PSKIP || t == T_BSKIP; }
-  __device__ void left4(int b, int& m, int& bb) {
+  __device__ int type(int m_) { return row(m_)[F_TYPE]; }
+  __device__ int is_intra(int m_) { return type(m_) <= T_PCM; }
+  __device__ int is_skip(int m_) { int t = type(m_); return t == T_PSKIP || t == T_BSKIP; }
+  __device__ void left4(int b, int& m_, int& bb) {
     int x = blk_x(b), y = blk_y(b);
-    if (x > 0) { m = mb; bb = blk_at(y, x - 1); } else { m = mbA; bb = blk_at(y, 3); }
+    if (x > 0) { m_ = mb; bb = blk_at(y, x - 1); } else { m_ = mbA; bb = blk_at(y, 3); }
   }
-  __device__ void top4(int b, int& m, int& bb) {
+  __device__ void top4(int b, int& m_, int& bb) {
     int x = blk_x(b), y = blk_y(b);
-    if (y > 0) { m = mb; bb = blk_at(y - 1, x); } else { m = mbB; bb = blk_at(3, x); }
+    if (y > 0) { m_ = mb; bb = blk_at(y - 1, x); } else { m_ = mbB; bb = blk_at(3, x); }
   }
-  __device__ int refidx(int m, int lx, int k) {
-    int r = (row(m)[F_REF0 + lx] >> (8 * k)) & 0xFF;
+  __device__ int refidx(int m_, int lx, int k) {
+    int r = (row(m_)[F_REF0 + lx] >> (8 * k)) & 0xFF;
     return r == 0xFF ? -1 : r;
   }
   __device__ void set_ref(int lx, int k, int r) {
@@ -289,9 +419,9 @@ struct Parser {
     v = (v & ~(0xFFu << (8 * k))) | ((uint32_t)(r & 0xFF) << (8 * k));
     rw[F_REF0 + lx] = (int32_t)v;
   }
-  __device__ int mvd_of(int m, int lx, int b, int c) { return row(m)[F_MVD + (lx * 16 + b) * 2 + c]; }
-  __device__ int imode_of(int m, int b) {
-    int32_t w = row(m)[b < 8 ? F_IM0 : F_IM1];
+  __device__ int mvd_of(int m_, int lx, int b, int c) { return row(m_)[F_MVD + (lx * 16 + b) * 2 + c]; }
+  __device__ int imode_of(int m_, int b) {
+    int32_t w = row(m_)[b < 8 ? F_IM0 : F_IM1];
     return (w >> (4 * (b & 7))) & 15;
   }
   __device__ void set_imode(int b, int mode) {
@@ -302,34 +432,32 @@ struct Parser {
     rw[f] = (int32_t)v;
   }
 
-  // ---- setting up a macroblock
-  __device__ void enter(int m) {
-    mb = m;
+  // ---- setting up a macroblock: its slot cleared (the levels were cleared
+  // when the warp stored the previous ones)
+  __device__ void enter(int m_, int16_t* levels) {
+    cur = m_ == first ? 0 : (cur + 1 == nslot ? 0 : cur + 1);
+    mb = m_;
+    lv = levels;
     mbA = nb(0);
     mbB = nb(1);
-    int32_t* rw = row(m);
-    for (int i = 0; i < N_FIELDS; i++) rw[i] = 0;
+    uint4* w = (uint4*)(ring + cur * SLOT_BYTES);
+    for (int i = 0; i < SLOT_BYTES / 16; i++) w[i] = make_uint4(0, 0, 0, 0);
+    int32_t* rw = row(m_);
     rw[F_SLICE] = slice_index;
     rw[F_REF0] = rw[F_REF1] = -1;
-    uint8_t* s = scr(m);
-    for (int i = 0; i < N_SCRATCH; i++) s[i] = 0;
-    s[SC_CODED] = 1;
+    scr(m_)[SC_CODED] = 1;
   }
 
+  // the nonzero 4x4 blocks from the coefficient counts: a block's levels
+  // are nonzero where its count is (an 8x8 block's where any of its four)
   __device__ void finish() {
     int32_t* rw = row(mb);
     rw[F_QP] = qp;
     int t = rw[F_TYPE], nz = 0;
-    const int16_t* lv = lev + (int64_t)mb * N_LEVELS;
     if (t != T_PCM) {
+      const uint8_t* s = scr(mb) + SC_COUNT;
       for (int b = 0; b < 16; b++) {
-        int any = 0;
-        if (rw[F_T8]) {
-          int k = b >> 2;
-          for (int i = 0; i < 64 && !any; i++) any = lv[64 * k + i] != 0;
-        } else {
-          for (int i = 0; i < 16 && !any; i++) any = lv[16 * b + i] != 0;
-        }
+        int any = rw[F_T8] ? (s[b & ~3] | s[(b & ~3) + 1] | s[(b & ~3) + 2] | s[(b & ~3) + 3]) : s[b];
         if (any) nz |= 1 << b;
       }
     }
@@ -351,71 +479,71 @@ struct Parser {
   // ---- CABAC elements
   __device__ int mb_skip_flag() {
     int inc = (mbA >= 0 && !is_skip(mbA)) + (mbB >= 0 && !is_skip(mbB));
-    return ce.decision((st == ST_P ? 11 : 24) + inc);
+    return e.decision((st == ST_P ? 11 : 24) + inc);
   }
   __device__ int intra_type(int base, int in_i) {
     int luma, c0, c1, p1, p0;
     if (in_i) {
       int inc = (mbA >= 0 && type(mbA) != T_I4 && type(mbA) != T_I8) + (mbB >= 0 && type(mbB) != T_I4 && type(mbB) != T_I8);
-      if (!ce.decision(base + inc)) return 0;
+      if (!e.decision(base + inc)) return 0;
       int s = base + 3;
       luma = s; c0 = s + 1; c1 = s + 2; p1 = s + 3; p0 = s + 4;
     } else {
-      if (!ce.decision(base)) return 0;
+      if (!e.decision(base)) return 0;
       int s = base + 1;
       luma = s; c0 = s + 1; c1 = s + 1; p1 = s + 2; p0 = s + 2;
     }
-    if (ce.terminate()) return 25;
-    int t = 1 + 12 * ce.decision(luma);
-    if (ce.decision(c0)) t += 4 + 4 * ce.decision(c1);
-    t += 2 * ce.decision(p1);
-    t += ce.decision(p0);
+    if (e.terminate()) return 25;
+    int t = 1 + 12 * e.decision(luma);
+    if (e.decision(c0)) t += 4 + 4 * e.decision(c1);
+    t += 2 * e.decision(p1);
+    t += e.decision(p0);
     return t;
   }
-  __device__ __noinline__ int cabac_mb_type() {
+  __device__ __forceinline__ int cabac_mb_type() {
     if (st == ST_I) return intra_type(3, 1);
     if (st == ST_P) {
-      if (ce.decision(14) == 0) {
-        if (ce.decision(15) == 0) return 3 * ce.decision(16);
-        return 2 - ce.decision(17);
+      if (e.decision(14) == 0) {
+        if (e.decision(15) == 0) return 3 * e.decision(16);
+        return 2 - e.decision(17);
       }
       return 5 + intra_type(17, 0);
     }
     int inc = (mbA >= 0 && type(mbA) != T_BSKIP && type(mbA) != T_BDIRECT) +
               (mbB >= 0 && type(mbB) != T_BSKIP && type(mbB) != T_BDIRECT);
-    if (!ce.decision(27 + inc)) return 0;
-    if (!ce.decision(30)) return 1 + ce.decision(32);
-    int bits = ce.decision(31) << 3;
-    bits |= ce.decision(32) << 2;
-    bits |= ce.decision(32) << 1;
-    bits |= ce.decision(32);
+    if (!e.decision(27 + inc)) return 0;
+    if (!e.decision(30)) return 1 + e.decision(32);
+    int bits = e.decision(31) << 3;
+    bits |= e.decision(32) << 2;
+    bits |= e.decision(32) << 1;
+    bits |= e.decision(32);
     if (bits < 8) return bits + 3;
     if (bits == 13) return 23 + intra_type(32, 0);
     if (bits == 14) return 11;
     if (bits == 15) return 22;
-    bits = (bits << 1) | ce.decision(32);
+    bits = (bits << 1) | e.decision(32);
     return bits - 4;
   }
   __device__ int cabac_sub_type() {
     if (st == ST_P) {
-      if (ce.decision(21)) return 0;
-      if (!ce.decision(22)) return 1;
-      return ce.decision(23) ? 2 : 3;
+      if (e.decision(21)) return 0;
+      if (!e.decision(22)) return 1;
+      return e.decision(23) ? 2 : 3;
     }
-    if (!ce.decision(36)) return 0;
-    if (!ce.decision(37)) return 1 + ce.decision(39);
+    if (!e.decision(36)) return 0;
+    if (!e.decision(37)) return 1 + e.decision(39);
     int t = 3;
-    if (ce.decision(38)) {
-      if (ce.decision(39)) return 11 + ce.decision(39);
+    if (e.decision(38)) {
+      if (e.decision(39)) return 11 + e.decision(39);
       t += 4;
     }
-    t += 2 * ce.decision(39);
-    t += ce.decision(39);
+    t += 2 * e.decision(39);
+    t += e.decision(39);
     return t;
   }
-  __device__ int ref_cond(int m, int b, int lx) {
-    if (m < 0 || is_skip(m) || is_intra(m) || scr(m)[SC_DIRECT + (b >> 2)]) return 0;
-    return refidx(m, lx, b >> 2) > 0;
+  __device__ int ref_cond(int m_, int b, int lx) {
+    if (m_ < 0 || is_skip(m_) || is_intra(m_) || scr(m_)[SC_DIRECT + (b >> 2)]) return 0;
+    return refidx(m_, lx, b >> 2) > 0;
   }
   __device__ int cabac_ref(int lx, int blk) {
     int ma, ba, mbb, bb;
@@ -423,7 +551,7 @@ struct Parser {
     top4(blk, mbb, bb);
     int inc = ref_cond(ma, ba, lx) + 2 * ref_cond(mbb, bb, lx);
     int ref = 0;
-    while (ce.decision(54 + inc)) {
+    while (e.decision(54 + inc)) {
       ref++;
       inc = (inc >> 2) + 4;
       if (ref >= 32) {
@@ -433,57 +561,57 @@ struct Parser {
     }
     return ref;
   }
-  __device__ __noinline__ int cabac_mvd(int lx, int blk, int comp) {
+  __device__ __forceinline__ int cabac_mvd(int lx, int blk, int comp) {
     int ma, ba, mbb, bb;
     left4(blk, ma, ba);
     top4(blk, mbb, bb);
     int s = (ma >= 0 ? iabs(mvd_of(ma, lx, ba, comp)) : 0) + (mbb >= 0 ? iabs(mvd_of(mbb, lx, bb, comp)) : 0);
     int base = comp == 0 ? 40 : 47;
     int inc = s < 3 ? 0 : (s <= 32 ? 1 : 2);
-    if (!ce.decision(base + inc)) return 0;
-    int m = 1, ctx = base + 3;
-    while (m < 9 && ce.decision(ctx)) {
-      if (m < 4) ctx++;
-      m++;
+    if (!e.decision(base + inc)) return 0;
+    int m_ = 1, ctx = base + 3;
+    while (m_ < 9 && e.decision(ctx)) {
+      if (m_ < 4) ctx++;
+      m_++;
     }
-    if (m >= 9) {
+    if (m_ >= 9) {
       int k = 3;
-      while (ce.bypass()) {
-        m += 1 << k;
+      while (e.bypass()) {
+        m_ += 1 << k;
         if (++k > 24) {
           fail(E_RANGE);
           return 0;
         }
       }
-      while (k--) m += ce.bypass() << k;
+      while (k--) m_ += e.bypass() << k;
     }
-    return ce.bypass() ? -m : m;
+    return e.bypass() ? -m_ : m_;
   }
-  __device__ int luma_bit(int m, int k) {
-    if (m < 0 || type(m) == T_PCM) return 1;
-    return (row(m)[F_CBP] >> k) & 1;
+  __device__ int luma_bit(int m_, int k) {
+    if (m_ < 0 || type(m_) == T_PCM) return 1;
+    return (row(m_)[F_CBP] >> k) & 1;
   }
-  __device__ int chroma_of(int m) {
-    if (m < 0) return 0;
-    if (type(m) == T_PCM) return 2;
-    return row(m)[F_CBP] >> 4;
+  __device__ int chroma_of(int m_) {
+    if (m_ < 0) return 0;
+    if (type(m_) == T_PCM) return 2;
+    return row(m_)[F_CBP] >> 4;
   }
-  __device__ __noinline__ int cabac_cbp() {
+  __device__ __forceinline__ int cabac_cbp() {
     int cbp = 0;
     for (int k = 0; k < 4; k++) {
       int x = k & 1, y = k >> 1;
       int ba = x ? (cbp >> (k - 1)) & 1 : luma_bit(mbA, k + 1);
       int bb = y ? (cbp >> (k - 2)) & 1 : luma_bit(mbB, k + 2);
-      cbp |= ce.decision(73 + (1 - ba) + 2 * (1 - bb)) << k;
+      cbp |= e.decision(73 + (1 - ba) + 2 * (1 - bb)) << k;
     }
     if (!chroma) return cbp;
     int ca = chroma_of(mbA), cb = chroma_of(mbB);
-    if (!ce.decision(77 + (ca > 0) + 2 * (cb > 0))) return cbp;
-    return cbp | ((1 + ce.decision(81 + (ca == 2) + 2 * (cb == 2))) << 4);
+    if (!e.decision(77 + (ca > 0) + 2 * (cb > 0))) return cbp;
+    return cbp | ((1 + e.decision(81 + (ca == 2) + 2 * (cb == 2))) << 4);
   }
   __device__ int cabac_dqp() {
     int inc = prev_dqp != 0, n = 0;
-    while (ce.decision(60 + inc)) {
+    while (e.decision(60 + inc)) {
       inc = inc < 2 ? 2 : 3;
       if (++n > 102) {
         fail(E_RANGE);
@@ -492,24 +620,26 @@ struct Parser {
     }
     return (n & 1) ? (n + 1) >> 1 : -((n + 1) >> 1);
   }
-  __device__ int cpred_cond(int m) {
-    if (m < 0) return 0;
-    int t = type(m);
-    return (t == T_I4 || t == T_I8 || t == T_I16) && row(m)[F_CPRED] != 0;
+  __device__ int cpred_cond(int m_) {
+    if (m_ < 0) return 0;
+    int t = type(m_);
+    return (t == T_I4 || t == T_I8 || t == T_I16) && row(m_)[F_CPRED] != 0;
   }
   __device__ int cabac_cpred() {
-    if (!ce.decision(64 + cpred_cond(mbA) + cpred_cond(mbB))) return 0;
-    if (!ce.decision(67)) return 1;
-    return ce.decision(67) ? 3 : 2;
+    if (!e.decision(64 + cpred_cond(mbA) + cpred_cond(mbB))) return 0;
+    if (!e.decision(67)) return 1;
+    return e.decision(67) ? 3 : 2;
   }
   __device__ int cabac_t8() {
     int inc = (mbA >= 0 && row(mbA)[F_T8]) + (mbB >= 0 && row(mbB)[F_T8]);
-    return ce.decision(399 + inc);
+    return e.decision(399 + inc);
   }
 
-  // ---- macroblock layer
-  __device__ __noinline__ void macroblock() {
-    int t = cabac ? cabac_mb_type() : bs.ue();
+  // ---- macroblock layer: the type's syntax, then (all but I_PCM) the coded
+  // block pattern, the residual and the quantiser, each parsed at one place
+  __device__ __forceinline__ void macroblock() {
+    int32_t* rw = row(mb);
+    int t = cabac ? cabac_mb_type() : e.bs.ue();
     int intra = -1;
     if (st == ST_I) {
       intra = t;
@@ -520,31 +650,67 @@ struct Parser {
       if (t > 48) { fail(E_RANGE); return; }
       if (t >= 23) intra = t - 23;
     }
+    int cbp_of = -1, small = 0;  // the coded_block_pattern to read: 1 intra, 0 inter, -1 none
     if (intra >= 0) {
       if (intra > 25) { fail(E_RANGE); return; }
-      intra_mb(intra);
-      return;
+      if (intra == 25) { pcm(); return; }
+      if (intra == 0) {
+        intra_nxn();
+        cbp_of = 1;
+      } else {
+        int k = intra - 1;
+        rw[F_TYPE] = T_I16;
+        rw[F_CBP] = (k >= 12 ? 15 : 0) | (((k % 12) / 4) << 4);
+        rw[F_I16] = k % 4;
+        chroma_mode();
+      }
+    } else {
+      // part: 0-2 16x16 / 16x8 / 8x16 with predictions p0, p1; 3 8x8 sub-macroblocks; 4 B_Direct_16x16
+      int part, p0 = 0, p1 = 0, ref0 = 0;
+      if (st == ST_P) {
+        if (t >= 3) { part = 3; ref0 = t == 4; }
+        else if (t == 0) { part = 0; p0 = 1; }
+        else { part = t == 1 ? 1 : 2; p0 = p1 = 1; }
+      } else if (t == 0) {
+        part = 4;
+      } else if (t == 22) {
+        part = 3;
+      } else if (t <= 3) {
+        part = 0;
+        p0 = t;
+      } else {
+        const int pairs[9][2] = {{1, 1}, {2, 2}, {1, 2}, {2, 1}, {1, 3}, {2, 3}, {3, 1}, {3, 2}, {3, 3}};
+        int k = t - 4;
+        part = k % 2 == 0 ? 1 : 2;
+        p0 = pairs[k / 2][0];
+        p1 = pairs[k / 2][1];
+      }
+      if (part == 4) {
+        rw[F_TYPE] = T_BDIRECT;
+        for (int k = 0; k < 4; k++) scr(mb)[SC_DIRECT + k] = 1;
+        small = !direct8;
+      } else {
+        rw[F_TYPE] = T_INTER;
+        if (part == 3) small = inter_8x8(ref0);
+        else inter_mb(part, p0, p1);
+      }
+      cbp_of = 0;
     }
-    if (st == ST_P) {
-      if (t >= 3) { inter_8x8(t == 4); return; }
-      if (t == 0) inter_mb(0, 1, 0);
-      else inter_mb(t == 1 ? 1 : 2, 1, 1);
-      return;
+    if (cbp_of >= 0) {
+      int cbp = coded_block_pattern(cbp_of);
+      rw[F_CBP] = cbp;
+      if (!cbp_of && (cbp & 15) && t8mode && !small) rw[F_T8] = cabac ? cabac_t8() : e.bs.u(1);
     }
-    if (t == 0) { b_direct(); return; }
-    if (t == 22) { inter_8x8(0); return; }
-    if (t <= 3) { inter_mb(0, t, 0); return; }
-    const int pairs[9][2] = {{1, 1}, {2, 2}, {1, 2}, {2, 1}, {1, 3}, {2, 3}, {3, 1}, {3, 2}, {3, 3}};
-    int k = t - 4;
-    inter_mb(k % 2 == 0 ? 1 : 2, pairs[k / 2][0], pairs[k / 2][1]);
+    residual_and_qp();
+    finish();
   }
 
   __device__ int chroma_mode() {
     if (!chroma) return 0;
-    int m = cabac ? cabac_cpred() : bs.ue();
-    if (m > 3) fail(E_RANGE);
-    row(mb)[F_CPRED] = m;
-    return m;
+    int m_ = cabac ? cabac_cpred() : e.bs.ue();
+    if (m_ > 3) fail(E_RANGE);
+    row(mb)[F_CPRED] = m_;
+    return m_;
   }
 
   __device__ int pred_mode(int blk) {
@@ -553,60 +719,49 @@ struct Parser {
     left4(blk, ms[0], bs2[0]);
     top4(blk, ms[1], bs2[1]);
     for (int i = 0; i < 2; i++) {
-      int m = ms[i];
-      if (m < 0 || (cip && !is_intra(m))) return 2;
-      int t = type(m);
-      modes[k++] = (t == T_I4 || t == T_I8) ? imode_of(m, bs2[i]) : 2;
+      int m_ = ms[i];
+      if (m_ < 0 || (cip && !is_intra(m_))) return 2;
+      int t = type(m_);
+      modes[k++] = (t == T_I4 || t == T_I8) ? imode_of(m_, bs2[i]) : 2;
     }
     return imin(modes[0], modes[1]);
   }
 
-  __device__ __noinline__ void intra_mb(int t) {
+  // Intra 4x4 / 8x8: the transform flag and the prediction modes
+  __device__ __forceinline__ void intra_nxn() {
     int32_t* rw = row(mb);
-    if (t == 25) { pcm(); return; }
-    if (t == 0) {
-      int t8 = 0;
-      if (t8mode) t8 = cabac ? cabac_t8() : bs.u(1);
-      rw[F_T8] = t8;
-      rw[F_TYPE] = t8 ? T_I8 : T_I4;
-      for (int blk = 0; blk < 16; blk += t8 ? 4 : 1) {
-        int pred = pred_mode(blk), flag, r = 0;
-        if (cabac) {
-          flag = ce.decision(68);
-          if (!flag) {
-            r = ce.decision(69);
-            r |= ce.decision(69) << 1;
-            r |= ce.decision(69) << 2;
-          }
-        } else {
-          flag = bs.u(1);
-          if (!flag) r = bs.u(3);
+    int t8 = 0;
+    if (t8mode) t8 = cabac ? cabac_t8() : e.bs.u(1);
+    rw[F_T8] = t8;
+    rw[F_TYPE] = t8 ? T_I8 : T_I4;
+    for (int blk = 0; blk < 16; blk += t8 ? 4 : 1) {
+      int pred = pred_mode(blk), flag, r = 0;
+      if (cabac) {
+        flag = e.decision(68);
+        if (!flag) {
+          r = e.decision(69);
+          r |= e.decision(69) << 1;
+          r |= e.decision(69) << 2;
         }
-        int mode = flag ? pred : (r < pred ? r : r + 1);
-        for (int b = blk; b < blk + (t8 ? 4 : 1); b++) set_imode(b, mode);
+      } else {
+        flag = e.bs.u(1);
+        if (!flag) r = e.bs.u(3);
       }
-      chroma_mode();
-      rw[F_CBP] = coded_block_pattern(1);
-    } else {
-      int k = t - 1;
-      rw[F_TYPE] = T_I16;
-      rw[F_CBP] = (k >= 12 ? 15 : 0) | (((k % 12) / 4) << 4);
-      rw[F_I16] = k % 4;
-      chroma_mode();
+      int mode = flag ? pred : (r < pred ? r : r + 1);
+      for (int b = blk; b < blk + (t8 ? 4 : 1); b++) set_imode(b, mode);
     }
-    residual_and_qp();
-    finish();
+    chroma_mode();
   }
 
   __device__ int coded_block_pattern(int intra) {
     if (cabac) return cabac_cbp();
-    int k = bs.ue();
+    int k = e.bs.ue();
     if (!chroma) {
       if (k > 15) { fail(E_RANGE); return 0; }
-      return T[O_CBP400 + (intra ? 16 : 0) + k];
+      return T(O_CBP400 + (intra ? 16 : 0) + k);
     }
     if (k > 47) { fail(E_RANGE); return 0; }
-    return T[(intra ? O_CBP_INTRA : O_CBP_INTER) + k];
+    return T((intra ? O_CBP_INTRA : O_CBP_INTER) + k);
   }
 
   __device__ void pcm() {
@@ -619,21 +774,20 @@ struct Parser {
     for (int i = 0; i < 8; i++) s[SC_CCOUNT + i] = 16;
     s[SC_DC] = s[SC_DC + 1] = s[SC_DC + 2] = 1;
     int n = 256 + (chroma ? 128 : 0);
-    if (cabac) bs.pos = ce.bs->pos;
-    while (bs.pos % 8)
-      if (bs.u(1)) fail(E_RANGE);
-    int16_t* lv = lev + (int64_t)mb * N_LEVELS;
-    for (int i = 0; i < n; i++) lv[i] = (int16_t)bs.u(8);
-    if (cabac) ce.start();
+    if (cabac) e.to_reader();
+    while (e.bs.pos % 8)
+      if (e.bs.u(1)) fail(E_RANGE);
+    for (int i = 0; i < n; i++) lv[i] = (int16_t)e.bs.u(8);
+    if (cabac) e.start();
     finish();
   }
 
   __device__ int ref_idx(int lx, int blk) {
-    int n = nref[lx];
+    int n = lx ? nref[1] : nref[0];
     if (n == 1) return 0;
     int r;
     if (cabac) r = cabac_ref(lx, blk);
-    else r = n == 2 ? 1 - bs.bit() : bs.ue();
+    else r = n == 2 ? 1 - e.bs.bit() : e.bs.ue();
     if (r >= n) fail(E_RANGE);
     return r;
   }
@@ -641,7 +795,7 @@ struct Parser {
   __device__ void mvd(int lx, const int* blocks, int nb_) {
     int32_t* rw = row(mb);
     for (int c = 0; c < 2; c++) {
-      int d = cabac ? cabac_mvd(lx, blocks[0], c) : bs.se();
+      int d = cabac ? cabac_mvd(lx, blocks[0], c) : e.bs.se();
       if (d < -8192 || d > 8191) fail(E_RANGE);
       for (int i = 0; i < nb_; i++) rw[F_MVD + (lx * 16 + blocks[i]) * 2 + c] = d;
     }
@@ -669,9 +823,9 @@ struct Parser {
     return 1;
   }
 
-  __device__ __noinline__ void inter_mb(int part, int p0, int p1) {
+  // the partitions' reference indices and motion vector differences
+  __device__ __forceinline__ void inter_mb(int part, int p0, int p1) {
     int32_t* rw = row(mb);
-    rw[F_TYPE] = T_INTER;
     int nparts = part == 0 ? 1 : 2;
     int preds[2] = {p0, p1};
     int blocks[16];
@@ -688,19 +842,18 @@ struct Parser {
           int n = part_blocks(part, j, blocks);
           mvd(lx, blocks, n);
         }
-    inter_residual(0);
     rw[F_PART] = part;
     rw[F_PRED] = p0 | (p1 << 2);
-    finish();
   }
 
-  __device__ __noinline__ void inter_8x8(int ref0) {
+  // the sub-macroblocks' types, reference indices and motion vector
+  // differences -> whether a partition is smaller than 8x8 (no 8x8 transform)
+  __device__ __forceinline__ int inter_8x8(int ref0) {
     int32_t* rw = row(mb);
-    rw[F_TYPE] = T_INTER;
     int subs[4];
     const int bsubs[13] = {SUB_DIRECT, 4, 8, 12, 1 | 4, 2 | 4, 1 | 8, 2 | 8, 1 | 12, 2 | 12, 3 | 4, 3 | 8, 3 | 12};
     for (int k = 0; k < 4; k++) {
-      int s = cabac ? cabac_sub_type() : bs.ue();
+      int s = cabac ? cabac_sub_type() : e.bs.ue();
       if (s > (st == ST_P ? 3 : 12)) { fail(E_RANGE); s = 0; }
       subs[k] = st == ST_P ? (s | 4) : bsubs[s];
       if (subs[k] == SUB_DIRECT) scr(mb)[SC_DIRECT + k] = 1;
@@ -724,34 +877,18 @@ struct Parser {
       if (subs[k] != SUB_DIRECT && (subs[k] & 3) != 0) small = 1;
       if (!direct8 && subs[k] == SUB_DIRECT) small = 1;
     }
-    inter_residual(small);
     rw[F_PART] = 3;
     uint32_t sub = 0;
     for (int k = 0; k < 4; k++) sub |= (uint32_t)subs[k] << (5 * k);
     rw[F_SUB] = (int32_t)sub;
-    finish();
-  }
-
-  __device__ void b_direct() {
-    row(mb)[F_TYPE] = T_BDIRECT;
-    for (int k = 0; k < 4; k++) scr(mb)[SC_DIRECT + k] = 1;
-    inter_residual(!direct8);
-    finish();
-  }
-
-  __device__ void inter_residual(int small) {
-    int32_t* rw = row(mb);
-    int cbp = coded_block_pattern(0);
-    rw[F_CBP] = cbp;
-    if ((cbp & 15) && t8mode && !small) rw[F_T8] = cabac ? cabac_t8() : bs.u(1);
-    residual_and_qp();
+    return small;
   }
 
   __device__ void residual_and_qp() {
     int32_t* rw = row(mb);
     int cbp = rw[F_CBP], i16 = rw[F_TYPE] == T_I16;
     if (cbp || i16) {
-      int d = cabac ? cabac_dqp() : bs.se();
+      int d = cabac ? cabac_dqp() : e.bs.se();
       if (d < -26 || d > 25) fail(E_RANGE);
       qp = (qp + d + 52) % 52;
       prev_dqp = d;
@@ -762,120 +899,121 @@ struct Parser {
   }
 
   // ---- residual: neighbour state
-  __device__ int luma_count(int m, int b, int* ok) {
-    if (m < 0) { *ok = 0; return 0; }
+  __device__ int luma_count(int m_, int b, int* ok) {
+    if (m_ < 0) { *ok = 0; return 0; }
     *ok = 1;
-    if (type(m) == T_PCM) return 16;
-    return scr(m)[SC_COUNT + b];
+    if (type(m_) == T_PCM) return 16;
+    return scr(m_)[SC_COUNT + b];
   }
-  __device__ int chroma_count(int m, int c, int comp, int* ok) {
-    if (m < 0) { *ok = 0; return 0; }
+  __device__ int chroma_count(int m_, int c, int comp, int* ok) {
+    if (m_ < 0) { *ok = 0; return 0; }
     *ok = 1;
-    if (type(m) == T_PCM) return 16;
-    return scr(m)[SC_CCOUNT + 4 * comp + c];
+    if (type(m_) == T_PCM) return 16;
+    return scr(m_)[SC_CCOUNT + 4 * comp + c];
   }
-  __device__ int cbf_luma(int m, int b) {
-    if (m < 0) return is_intra(mb);
-    int t = type(m);
+  __device__ int cbf_luma(int m_, int b) {
+    if (m_ < 0) return is_intra(mb);
+    int t = type(m_);
     if (t == T_PCM) return 1;
-    if (t == T_PSKIP || t == T_BSKIP || !((row(m)[F_CBP] >> (b >> 2)) & 1)) return 0;
-    if (row(m)[F_T8]) return 1;
-    return scr(m)[SC_COUNT + b] > 0;
+    if (t == T_PSKIP || t == T_BSKIP || !((row(m_)[F_CBP] >> (b >> 2)) & 1)) return 0;
+    if (row(m_)[F_T8]) return 1;
+    return scr(m_)[SC_COUNT + b] > 0;
   }
-  __device__ int cbf_chroma_ac(int m, int c, int comp) {
-    if (m < 0) return is_intra(mb);
-    int t = type(m);
+  __device__ int cbf_chroma_ac(int m_, int c, int comp) {
+    if (m_ < 0) return is_intra(mb);
+    int t = type(m_);
     if (t == T_PCM) return 1;
-    if (t == T_PSKIP || t == T_BSKIP || (row(m)[F_CBP] >> 4) != 2) return 0;
-    return scr(m)[SC_CCOUNT + 4 * comp + c] > 0;
+    if (t == T_PSKIP || t == T_BSKIP || (row(m_)[F_CBP] >> 4) != 2) return 0;
+    return scr(m_)[SC_CCOUNT + 4 * comp + c] > 0;
   }
-  __device__ int cbf_dc(int m, int which) {
-    if (m < 0) return is_intra(mb);
-    int t = type(m);
+  __device__ int cbf_dc(int m_, int which) {
+    if (m_ < 0) return is_intra(mb);
+    int t = type(m_);
     if (t == T_PCM) return 1;
-    if (which == 0) return t == T_I16 ? scr(m)[SC_DC] : 0;
-    if (t == T_PSKIP || t == T_BSKIP || (row(m)[F_CBP] >> 4) == 0) return 0;
-    return scr(m)[SC_DC + which];
+    if (which == 0) return t == T_I16 ? scr(m_)[SC_DC] : 0;
+    if (t == T_PSKIP || t == T_BSKIP || (row(m_)[F_CBP] >> 4) == 0) return 0;
+    return scr(m_)[SC_DC + which];
   }
 
-  __device__ __noinline__ void residual(int i16) {
+  // each block's coefficients go straight to the macroblock's levels in
+  // shared memory: coefficient i to lv[at + zz[zs * i + zo]] (zz null: at +
+  // i). The blocks are listed in the standard's order first, so that one
+  // call decodes each.
+  __device__ __forceinline__ void residual(int i16) {
     int32_t* rw = row(mb);
-    int16_t* lv = lev + (int64_t)mb * N_LEVELS;
     int cbp = rw[F_CBP], t8 = rw[F_T8];
-    const int* zz4 = T + O_ZZ4;
-    const int* zz8 = T + O_ZZ8;
-    int c[64];
-    if (i16) {
-      block(0, 16, 0, 0, 0, c);
-      for (int i = 0; i < 16; i++) lv[L_DC + zz4[i]] = (int16_t)c[i];
-    }
+    const int* zz4 = Ts + (O_ZZ4 - O_LPS);
+    const int* zz8 = Ts + (O_ZZ8 - O_LPS);
+    // a block: cat | kind << 3 | b << 5 | comp << 9 | scan << 10 (0 none, 1 4x4, 2 8x8) | (zs == 4) << 12 |
+    // zo << 13 | at << 15
+    uint32_t list[27];
+    int nl = 0;
+    auto add = [&](int cat, int kind, int b, int comp, int scan, int zs4, int zo, int at) {
+      list[nl++] = (uint32_t)(cat | kind << 3 | b << 5 | comp << 9 | scan << 10 | zs4 << 12 | zo << 13 | at << 15);
+    };
+    if (i16) add(0, 0, 0, 0, 1, 0, 0, L_DC);
     for (int k = 0; k < 4; k++) {
       if (!((cbp >> k) & 1)) continue;
       if (t8 && cabac) {
-        block(5, 64, 0, 4 * k, 0, c);
-        int cnt = 0;
-        for (int i = 0; i < 64; i++) {
-          lv[64 * k + zz8[i]] = (int16_t)c[i];
-          cnt += c[i] != 0;
-        }
-        for (int b = 4 * k; b < 4 * k + 4; b++) scr(mb)[SC_COUNT + b] = (uint8_t)cnt;
+        add(5, 0, 4 * k, 0, 2, 0, 0, 64 * k);
         continue;
       }
       for (int b = 4 * k; b < 4 * k + 4; b++) {
-        if (i16) {
-          block(1, 15, 1, b, 0, c);
-          for (int i = 0; i < 15; i++) lv[16 * b + zz4[i + 1]] = (int16_t)c[i];
-        } else if (t8) {
-          block(2, 16, 1, b, 0, c);
-          for (int i = 0; i < 16; i++) lv[64 * k + zz8[4 * i + (b - 4 * k)]] = (int16_t)c[i];
-        } else {
-          block(2, 16, 1, b, 0, c);
-          for (int i = 0; i < 16; i++) lv[16 * b + zz4[i]] = (int16_t)c[i];
-        }
+        if (i16) add(1, 1, b, 0, 1, 0, 1, 16 * b);
+        else if (t8) add(2, 1, b, 0, 2, 1, b - 4 * k, 64 * k);
+        else add(2, 1, b, 0, 1, 0, 0, 16 * b);
       }
     }
-    if (!chroma || !(cbp >> 4)) return;
-    for (int comp = 0; comp < 2; comp++) {
-      block(3, 4, 2, comp, comp, c);
-      for (int i = 0; i < 4; i++) lv[L_CDC + 4 * comp + i] = (int16_t)c[i];
+    if (chroma && (cbp >> 4)) {
+      for (int comp = 0; comp < 2; comp++) add(3, 2, comp, comp, 0, 0, 0, L_CDC + 4 * comp);
+      if ((cbp >> 4) == 2)
+        for (int comp = 0; comp < 2; comp++)
+          for (int cc = 0; cc < 4; cc++) add(4, 3, cc, comp, 1, 0, 1, L_CAC + 64 * comp + 16 * cc);
     }
-    if ((cbp >> 4) != 2) return;
-    for (int comp = 0; comp < 2; comp++)
-      for (int cc = 0; cc < 4; cc++) {
-        block(4, 15, 3, cc, comp, c);
-        for (int i = 0; i < 15; i++) lv[L_CAC + 64 * comp + 16 * cc + zz4[i + 1]] = (int16_t)c[i];
-      }
+    const uint64_t ns = 0x400F04100F10ull;  // coefficients by category, a byte each
+#pragma unroll 1
+    for (int j = 0; j < nl; j++) {
+      const uint32_t d = list[j];
+      const int cat = d & 7, kind = (d >> 3) & 3, b = (d >> 5) & 15, comp = (d >> 9) & 1, scan = (d >> 10) & 3;
+      const int* zz = scan == 0 ? nullptr : (scan == 1 ? zz4 : zz8);
+      const int cnt = block(cat, (int)((ns >> (8 * cat)) & 0xFF), kind, b, comp, (int)(d >> 15), zz, (d >> 12) & 1 ? 4 : 1,
+                            (d >> 13) & 3);
+      if (cat == 5)
+        for (int bb = b; bb < b + 4; bb++) scr(mb)[SC_COUNT + bb] = (uint8_t)cnt;
+    }
   }
 
   // kind: 0 luma DC, 1 luma 4x4 (b = blk), 2 chroma DC (comp), 3 chroma AC (b = chroma block)
-  __device__ void block(int cat, int n, int kind, int b, int comp, int* out) {
-    for (int i = 0; i < n; i++) out[i] = 0;
-    if (cabac) cabac_block(cat, n, kind, b, comp, out);
-    else cavlc_block(n, kind, b, comp, out);
-    int cnt = 0;
-    for (int i = 0; i < n; i++) cnt += out[i] != 0;
+  __device__ __forceinline__ int block(int cat, int n, int kind, int b, int comp, int at, const int* zz, int zs,
+                                       int zo) {
+    int cnt = cabac ? cabac_block(cat, n, kind, b, comp, at, zz, zs, zo) : cavlc_block(n, kind, b, comp, at, zz, zs, zo);
     uint8_t* s = scr(mb);
     if (kind == 0) s[SC_DC] = cnt > 0;
     else if (kind == 1 && cat != 5) s[SC_COUNT + b] = (uint8_t)cnt;
     else if (kind == 2) s[SC_DC + 1 + comp] = cnt > 0;
     else if (kind == 3) s[SC_CCOUNT + 4 * comp + b] = (uint8_t)cnt;
+    return cnt;
   }
 
-  // a prefix code of (len, bits) pairs: the index of the one matching the next bits
-  __device__ int vlc(const int* lens, const int* bits, int n) {
-    int peek = bs.peek16();
-    for (int i = 0; i < n; i++) {
-      int l = lens[i];
-      if (l && (peek >> (16 - l)) == bits[i]) {
-        bs.pos += l;
-        return i;
-      }
+  // a prefix code from its lookup table: the symbol of the next bits
+  __device__ __forceinline__ int vlc(Bits& bs, int table) {
+    bs.steps++;
+    const uint32_t peek = bs.peek(16);
+    int en = vlcs[vlcs[1 + table] + (peek >> 8)];
+    if (en < 0) {
+      const int sub = -en;
+      en = vlcs[(sub >> 4) + ((peek & 0xFF) >> (8 - (sub & 15)))];
     }
-    fail(E_VLC);
-    return 0;
+    const int len = en & 0xFF;
+    if (!len) {
+      fail(E_VLC);
+      return 0;
+    }
+    bs.skip(len);
+    return en >> 8;
   }
 
-  __device__ __noinline__ void cavlc_block(int n, int kind, int b, int comp, int* out) {
+  __device__ __forceinline__ int cavlc_block(int n, int kind, int b, int comp, int at, const int* zz, int zs, int zo) {
     int table;
     if (kind == 2) {
       table = 4;
@@ -896,10 +1034,11 @@ struct Parser {
       int nc = (oka && okb) ? (na + nbv + 1) >> 1 : (oka ? na : (okb ? nbv : 0));
       table = nc < 2 ? 0 : (nc < 4 ? 1 : (nc < 8 ? 2 : 3));
     }
-    int tok = table == 4 ? vlc(T + O_CDC_LEN, T + O_CDC_BITS, 20) : vlc(T + O_CT_LEN + table * 68, T + O_CT_BITS + table * 68, 68);
-    int tc = tok >> 2, t1 = tok & 3;
-    if (tc > n) { fail(E_RANGE); return; }
-    if (!tc) return;
+    Bits& bs = e.bs;
+    int tok = vlc(bs, table == 4 ? V_CDC_TOKEN : V_TOKEN + table);
+    int tc = tok >> 2, t1 = tok & 3, cnt = 0;
+    if (tc > n) { fail(E_RANGE); return 0; }
+    if (!tc) { return 0; }
     int levels[16], runs[16];
     int suffix = (tc > 10 && t1 < 3) ? 1 : 0;
     for (int i = 0; i < tc; i++) {
@@ -908,8 +1047,16 @@ struct Parser {
         continue;
       }
       int prefix = 0;
-      while (bs.bit() == 0) {
-        if (++prefix > 32 || bs.err) { fail(E_RANGE); return; }
+      bs.steps++;  // a level code
+      const int z = __clzll(bs.cache);
+      if (!bs.err && z <= 32 && bs.pos + z + 1 <= bs.end) {
+        prefix = z;
+        bs.skip(z);
+        bs.skip(1);
+      } else {
+        while (bs.bit() == 0) {
+          if (++prefix > 32 || bs.err) { fail(E_RANGE); return 0; }
+        }
       }
       int code = imin(15, prefix) << suffix;
       int size = (prefix == 14 && suffix == 0) ? 4 : (prefix >= 15 ? prefix - 3 : suffix);
@@ -923,18 +1070,12 @@ struct Parser {
       if (iabs(level) > (3 << (suffix - 1)) && suffix < 6) suffix++;
     }
     int zeros = 0;
-    if (tc < n) {
-      if (table == 4) zeros = vlc(T + O_CTZ_LEN + (tc - 1) * 4, T + O_CTZ_BITS + (tc - 1) * 4, 4);
-      else zeros = vlc(T + O_TZ_LEN + (tc - 1) * 16, T + O_TZ_BITS + (tc - 1) * 16, 16);
-    }
-    if (zeros + tc > n) { fail(E_RANGE); return; }
+    if (tc < n) zeros = vlc(bs, table == 4 ? V_CDC_TZ + tc - 1 : V_TZ + tc - 1);
+    if (zeros + tc > n) { fail(E_RANGE); return 0; }
     for (int i = 0; i < tc - 1; i++) {
       int r = 0;
-      if (zeros > 0) {
-        int k = imin(zeros, 7) - 1;
-        r = vlc(T + O_RUN_LEN + k * 16, T + O_RUN_BITS + k * 16, 16);
-      }
-      if (r > zeros) { fail(E_RANGE); return; }
+      if (zeros > 0) r = vlc(bs, V_RUN + imin(zeros, 7) - 1);
+      if (r > zeros) { fail(E_RANGE); return 0; }
       runs[i] = r;
       zeros -= r;
     }
@@ -942,11 +1083,14 @@ struct Parser {
     int pos = -1;
     for (int i = tc - 1; i >= 0; i--) {
       pos += runs[i] + 1;
-      out[pos] = levels[i];
+      lv[at + (zz ? zz[zs * pos + zo] : pos)] = (int16_t)levels[i];
+      cnt++;
     }
+    return cnt;
   }
 
-  __device__ __noinline__ void cabac_block(int cat, int n, int kind, int b, int comp, int* out) {
+  __device__ __forceinline__ int cabac_block(int cat, int n, int kind, int b, int comp, int at, const int* zz, int zs,
+                                          int zo) {
     if (cat != 5) {
       int inc;
       if (kind == 0) {
@@ -964,139 +1108,291 @@ struct Parser {
         if (b & 2) { mbb = mb; cb = b - 2; } else { mbb = mbB; cb = b + 2; }
         inc = cbf_chroma_ac(ma, ca, comp) + 2 * cbf_chroma_ac(mbb, cb, comp);
       }
-      if (!ce.decision(85 + 4 * cat + inc)) return;
+      if (!e.decision(85 + 4 * cat + inc)) return 0;
     }
-    int sig_base, last_base, abs_base;
-    if (cat == 5) {
-      sig_base = 402; last_base = 417; abs_base = 426;
-    } else {
-      const int off[5] = {0, 15, 29, 44, 47}, aoff[5] = {0, 10, 20, 30, 39};
-      sig_base = 105 + off[cat]; last_base = 166 + off[cat]; abs_base = 227 + aoff[cat];
-    }
-    uint8_t sig[64];
-    for (int i = 0; i < n; i++) sig[i] = 0;
+    // the context bases by category (sig, last, abs): 0-4 packed a byte each, 5 the 8x8 block's
+    const uint64_t off = 0x2F2C1D0F00ull, aoff = 0x271E140A00ull;
+    const int sig_base = cat == 5 ? 402 : 105 + (int)((off >> (8 * cat)) & 0xFF);
+    const int last_base = cat == 5 ? 417 : 166 + (int)((off >> (8 * cat)) & 0xFF);
+    const int abs_base = cat == 5 ? 426 : 227 + (int)((aoff >> (8 * cat)) & 0xFF);
+    // the significance map as bits, coefficients 0-31 and 32-63; a loop for
+    // each way the contexts advance (4x4 and DC blocks, chroma DC, 8x8)
+    // The records of position i + 1's significance context and of position
+    // i's last context are loaded before position i's significance bin, so
+    // that no bin waits on a load; where the next significance context is
+    // the same one (8x8 and chroma DC maps), its new record is used.
+    uint32_t sig_lo = 0u, sig_hi = 0u;
     int i = 0;
-    for (; i < n - 1; i++) {
-      int si, li;
-      if (cat == 5) { si = sig_base + T[O_SIG8 + i]; li = last_base + T[O_LAST8 + i]; }
-      else if (cat == 3) { si = sig_base + imin(i, 2); li = last_base + imin(i, 2); }
-      else { si = sig_base + i; li = last_base + i; }
-      if (ce.decision(si)) {
-        sig[i] = 1;
-        if (ce.decision(li)) break;
-      }
-    }
-    if (i == n - 1) sig[n - 1] = 1;
-    int eq1 = 0, gt1 = 0;
-    for (int k = n - 1; k >= 0; k--) {
-      if (!sig[k]) continue;
-      int level;
-      int inc = gt1 ? 0 : imin(4, 1 + eq1);
-      if (!ce.decision(abs_base + inc)) {
-        level = 1;
-        eq1++;
-      } else {
-        int ctx = abs_base + 5 + imin(4 - (cat == 3), gt1);
-        int m = 1;
-        while (m < 14 && ce.decision(ctx)) m++;
-        if (m >= 14) {
-          int kk = 0;
-          while (ce.bypass()) {
-            m += 1 << kk;
-            if (++kk > 24) { fail(E_RANGE); return; }
-          }
-          while (kk--) m += ce.bypass() << kk;
+    const int last_i = n - 1;
+    uint2 ts = e.state[sig_base], ns, nl;
+    if (cat == 5) {
+      const int* sig8 = Ts + (O_SIG8 - O_LPS);
+      const int* last8 = Ts + (O_LAST8 - O_LPS);
+      for (; i < last_i; i++) {
+        const int cs = sig_base + sig8[i], cn = sig_base + sig8[i + 1], cl = last_base + last8[i];
+        const uint2 tn = e.state[cn], tl = e.state[cl];
+        if (e.decision(cs, ts, ns)) {
+          if (i < 32) sig_lo |= 1u << i;
+          else sig_hi |= 1u << (i - 32);
+          if (e.decision(cl, tl, nl)) break;
         }
-        level = m + 1;
-        gt1++;
+        ts = cn == cs ? ns : tn;
       }
-      out[k] = ce.bypass() ? -level : level;
+    } else if (cat == 3) {
+      for (; i < last_i; i++) {
+        const int cs = sig_base + imin(i, 2), cn = sig_base + imin(i + 1, 2), cl = last_base + imin(i, 2);
+        const uint2 tn = e.state[cn], tl = e.state[cl];
+        if (e.decision(cs, ts, ns)) {
+          sig_lo |= 1u << i;
+          if (e.decision(cl, tl, nl)) break;
+        }
+        ts = cn == cs ? ns : tn;
+      }
+    } else {
+      for (; i < last_i; i++) {
+        const uint2 tn = e.state[sig_base + i + 1], tl = e.state[last_base + i];
+        if (e.decision(sig_base + i, ts, ns)) {
+          sig_lo |= 1u << i;
+          if (e.decision(last_base + i, tl, nl)) break;
+        }
+        ts = tn;
+      }
     }
+    if (i == last_i) {
+      if (i < 32) sig_lo |= 1u << i;
+      else sig_hi |= 1u << (i - 32);
+    }
+    // the levels, last first; the next level's first context is one of two
+    // (whether this level is 1 or more), both loaded before this level's bins
+    int eq1 = 0, gt1 = 0, cnt = 0;
+    const int ctx_gt = abs_base + 5;
+    uint2 ta = e.state[abs_base + 1], na;
+    for (int w = 1; w >= 0; w--) {
+      uint32_t bitsw = w ? sig_hi : sig_lo;
+      while (bitsw) {
+        const int k = 32 * w + 31 - __clz(bitsw);
+        bitsw &= ~(1u << (k & 31));
+        int level;
+        const int inc = gt1 ? 0 : imin(4, 1 + eq1), inc_one = gt1 ? 0 : imin(4, 2 + eq1);
+        const int ctx = ctx_gt + imin(4 - (cat == 3), gt1);  // the level's further bins
+        const uint2 t_one = e.state[abs_base + inc_one], t_more = e.state[abs_base], t_gt = e.state[ctx];
+        if (!e.decision(abs_base + inc, ta, na)) {
+          level = 1;
+          eq1++;
+          ta = inc_one == inc ? na : t_one;
+        } else {
+          ta = inc == 0 ? na : t_more;
+          // the same context bin after bin: its record stays in a register
+          int m_ = 1;
+          uint2 tg = t_gt, ng;
+          while (m_ < 14 && e.decision(ctx, tg, ng)) {
+            tg = ng;
+            m_++;
+          }
+          if (m_ >= 14) {
+            int kk = 0;
+            while (e.bypass()) {
+              m_ += 1 << kk;
+              if (++kk > 24) { fail(E_RANGE); return cnt; }
+            }
+            while (kk--) m_ += e.bypass() << kk;
+          }
+          level = m_ + 1;
+          gt1++;
+        }
+        lv[at + (zz ? zz[zs * k + zo] : k)] = (int16_t)(e.bypass() ? -level : level);
+        cnt++;
+      }
+    }
+    return cnt;
   }
 
-  // ---- the slice
-  __device__ void run() {
-    qp = sl[S_QP];
-    prev_dqp = 0;
-    if (cabac) {
-      while (bs.pos % 8)
-        if (bs.u(1) != 1) { fail(E_RANGE); return; }
-      ce.bs = &bs;
-      ce.T = T;
-      ce.start();
-      const int* table = T + O_CABAC + (st == ST_I ? 3 : sl[S_IDC]) * 2048;
-      int q = clip3(0, 51, qp);
-      for (int k = 0; k < 1024; k++) {
-        int pre = clip3(1, 126, ((table[2 * k] * q) >> 4) + table[2 * k + 1]);
-        ce.state[k] = (uint8_t)(pre <= 63 ? (63 - pre) << 1 : ((pre - 64) << 1) | 1);
-      }
+  // ---- the slice, a macroblock a step: the macroblock entered (its slot
+  // and levels then ready for the warp to store), or -1; done set at the
+  // end. skips: a CAVLC P / B slice's mb_skip_run still to enter, or
+  // READ_RUN (the next step reads a run) or CODED (a coded macroblock next)
+  static constexpr int READ_RUN = -1, CODED = -2;
+  __device__ __forceinline__ int step(int16_t* levels) {
+    if (done) return -1;
+    if (st != ST_I && !cabac && skips == READ_RUN) {
+      if (err || e.bs.err) { end_slice(); return -1; }
+      skips = e.bs.ue();
+      if (skips <= 0) skips = CODED;
     }
-    int m = first;
-    while (!err && !bs.err) {
-      if (st != ST_I && !cabac) {
-        int run_ = bs.ue();
-        for (int k = 0; k < run_ && !err; k++) {
-          if (m >= nmb) { fail(E_OVERRUN); return; }
-          enter(m);
-          skip_mb();
-          m++;
-        }
-        if (run_ > 0 && !bs.more_rbsp_data()) break;
-      }
-      if (m >= nmb) { fail(E_OVERRUN); return; }
-      enter(m);
-      if (st != ST_I && cabac && mb_skip_flag()) skip_mb();
-      else macroblock();
+    if (skips > 0) {
+      if (m >= nmb) { fail(E_OVERRUN); end_slice(); return -1; }
+      enter(m, levels);
+      skip_mb();
       m++;
-      if (!cabac) {
-        if (!bs.more_rbsp_data()) break;
-      } else if (ce.terminate()) {
-        break;
+      if (--skips == 0) {
+        skips = CODED;
+        if (!more_rbsp_data()) end_slice();
       }
+      return mb;
     }
-    if (bs.err && !err) err = bs.err;
-    if (!err && !cabac && bs.more_rbsp_data()) err = E_TRAILING;
+    if (!cabac && st != ST_I) skips = READ_RUN;
+    else if (err || e.bs.err) { end_slice(); return -1; }
+    if (m >= nmb) { fail(E_OVERRUN); end_slice(); return -1; }
+    enter(m, levels);
+    if (st != ST_I && cabac && mb_skip_flag()) skip_mb();
+    else macroblock();
+    m++;
+    if (!cabac) {
+      if (!more_rbsp_data()) end_slice();
+    } else {
+      const int last = e.terminate();
+      e.settle();
+      if (last) end_slice();
+    }
+    return mb;
+  }
+  __device__ void end_slice() {
+    done = 1;
+    if (e.bs.err && !err) err = e.bs.err;
+    if (!err && !cabac && more_rbsp_data()) err = E_TRAILING;
   }
 };
 
+// lanes other than 0 stage the next bytes of the slice into L1 ahead of
+// lane 0's reader
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+#else
+  (void)p;
+#endif
+}
+
+// h264_parse_kernel: a warp per slice (grid-stride over the batch's
+// slices). Lane 0 runs the slice's chain of bins and symbols a macroblock a
+// step: the bitstream through a register window, the tables, context
+// states, the neighbour state of the current and previous rows of
+// macroblocks (a ring of slots) and the macroblock's levels in shared
+// memory. After each step the warp stores the macroblock's table row,
+// scratch and levels in one coalesced pass (the levels double-buffered, so
+// lane 0 parses the next macroblock meanwhile) and the other lanes
+// prefetch the bytes ahead. Every loop over lanes strides by blockDim.x
+// (1 to 32 threads).
 __global__ void h264_parse_kernel(const uint8_t* bits, const int32_t* slices, int nslice, const int32_t* tables,
-                                  int32_t* tab, int16_t* lev, uint8_t* scratch, int pic_mbs, int32_t* status) {
-  __shared__ uint8_t state[1024];
-  const int s = blockIdx.x;
-  if (s >= nslice || threadIdx.x != 0) return;
-  const int32_t* sl = slices + (int64_t)s * S_FIELDS;
-  Parser p;
-  p.T = tables;
-  p.sl = sl;
-  p.bs.data = bits + sl[S_OFFSET];
-  p.bs.pos = sl[S_BIT];
-  p.bs.end = (int64_t)sl[S_BYTES] * 8;
-  p.bs.err = 0;
-  p.ce.state = state;
-  p.ce.bs = &p.bs;
-  p.ce.T = tables;
-  int pic = sl[S_PIC];
-  p.tab = tab + (int64_t)pic * pic_mbs * N_FIELDS;
-  p.lev = lev + (int64_t)pic * pic_mbs * N_LEVELS;
-  p.sc = scratch + (int64_t)pic * pic_mbs * N_SCRATCH;
-  p.slice_index = sl[S_INDEX];
-  p.first = sl[S_FIRST];
-  p.st = sl[S_TYPE];
-  p.cabac = sl[S_CABAC];
-  p.cip = sl[S_CIP];
-  p.t8mode = sl[S_T8MODE];
-  p.direct8 = sl[S_DIRECT8];
-  p.chroma = sl[S_CHROMA];
-  p.mbw = sl[S_MBW];
-  p.mbh = sl[S_MBH];
-  p.nmb = p.mbw * p.mbh;
-  p.nref[0] = sl[S_NREF0];
-  p.nref[1] = sl[S_NREF1];
-  p.err = 0;
-  p.mb = p.first;
-  p.run();
-  status[2 * s] = p.err;
-  status[2 * s + 1] = (int32_t)p.bs.pos;
+                                  int nvlc, int mbw_max, int32_t* tab, int16_t* lev, uint8_t* scratch, int pic_mbs,
+                                  int32_t* status, int32_t* steps) {
+  DYNAMIC_SHARED(smem);
+  const ParseLayout L(nvlc, mbw_max);
+  uint2* ctab = (uint2*)(smem + L.ctab);
+  uint2* state = (uint2*)(smem + L.state);
+  int* ts = (int*)(smem + L.ts);
+  int* vlcs = (int*)(smem + L.vlc);
+  int16_t* lbuf = (int16_t*)(smem + L.levels);
+  int* info = (int*)(smem + L.info);
+  const int lane = threadIdx.x, nt = blockDim.x;
+  const unsigned warp = nt >= 32 ? 0xFFFFFFFFu : (1u << nt) - 1;  // the block's lanes
+  for (int s = lane; s < 128; s += nt) {
+    const int p = s >> 1, mps = s & 1;
+    uint32_t lps4 = 0;
+    for (int q = 0; q < 4; q++) lps4 |= (uint32_t)tables[O_LPS + p * 4 + q] << (8 * q);
+    const int on_mps = (tables[O_MPS + p] << 1) | mps;
+    const int on_lps = (tables[O_LPSN + p] << 1) | (p == 0 ? 1 - mps : mps);
+    ctab[s] = make_uint2(lps4, (uint32_t)(on_mps | (on_lps << 8) | (mps << 16)));
+  }
+  for (int i = lane; i < N_TS; i += nt) ts[i] = tables[O_LPS + i];
+  for (int i = lane; i < nvlc; i += nt) vlcs[i] = tables[N_TABLES + i];
+  for (int i = lane; i < N_LEVELS; i += nt) ((int*)lbuf)[i] = 0;  // 2 x N_LEVELS int16
+  for (int si = blockIdx.x; si < nslice; si += gridDim.x) {
+    const int32_t* sl = slices + (int64_t)si * S_FIELDS;
+    const int st = sl[S_TYPE], cabac = sl[S_CABAC];
+    __syncwarp(warp);  // the tables in place; the previous slice's last levels stored and cleared
+    if (cabac) {
+      const int* init = tables + O_CABAC + (st == ST_I ? 3 : sl[S_IDC]) * 2048;
+      const int q = clip3(0, 51, sl[S_QP]);
+      for (int k = lane; k < 1024; k += nt) {
+        int pre = clip3(1, 126, ((init[2 * k] * q) >> 4) + init[2 * k + 1]);
+        state[k] = ctab[pre <= 63 ? (63 - pre) << 1 : ((pre - 64) << 1) | 1];
+      }
+    }
+    const int pic = sl[S_PIC], nbytes = sl[S_BYTES];
+    const uint8_t* data = bits + sl[S_OFFSET];
+    int32_t* ptab = tab + (int64_t)pic * pic_mbs * N_FIELDS;
+    int16_t* plev = lev + (int64_t)pic * pic_mbs * N_LEVELS;
+    uint8_t* pscr = scratch + (int64_t)pic * pic_mbs * N_SCRATCH;
+    Parser p;
+    if (lane == 0) {
+      p.Ts = ts;
+      p.vlcs = vlcs;
+      p.ring = smem + L.ring;
+      p.e.ctab = ctab;
+      p.e.state = state;
+      p.e.steps = 0;
+      p.e.bs.start(data, sl[S_BIT], nbytes);
+      p.slice_index = sl[S_INDEX];
+      p.first = sl[S_FIRST];
+      p.st = st;
+      p.cabac = cabac;
+      p.cip = sl[S_CIP];
+      p.t8mode = sl[S_T8MODE];
+      p.direct8 = sl[S_DIRECT8];
+      p.chroma = sl[S_CHROMA];
+      p.mbw = sl[S_MBW];
+      p.mbh = sl[S_MBH];
+      p.nmb = p.mbw * p.mbh;
+      p.nslot = p.mbw + 1;
+      p.nref[0] = sl[S_NREF0];
+      p.nref[1] = sl[S_NREF1];
+      p.err = 0;
+      p.mb = p.first;
+      p.cur = 0;
+      p.qp = sl[S_QP];
+      p.prev_dqp = 0;
+      p.m = p.first;
+      p.skips = Parser::READ_RUN;
+      p.done = 0;
+      // the RBSP's stop bit: data precede it
+      int last = nbytes - 1;
+      while (last >= 0 && data[last] == 0) last--;
+      p.stop = -1;
+      if (last >= 0) {
+        int tz = 0;
+        while (!((data[last] >> tz) & 1)) tz++;
+        p.stop = last * 8 + 7 - tz;
+      }
+      if (cabac) {
+        while (p.e.bs.pos % 8)
+          if (p.e.bs.u(1) != 1) { p.fail(E_RANGE); p.done = 1; break; }
+      }
+    }
+    __syncwarp(warp);  // the context states
+    if (lane == 0 && cabac && !p.done) p.e.start();
+    for (int it = 0;; it++) {
+      int16_t* lb = lbuf + (it & 1) * N_LEVELS;
+      int* in = info + (it & 1) * 4;
+      if (lane == 0) {
+        in[0] = p.step(lb);
+        in[1] = p.done;
+        in[2] = p.e.bs.pos >> 3;
+        if (p.done) {
+          status[2 * si] = p.err;
+          status[2 * si + 1] = p.e.bs.pos;
+          if (steps) steps[si] = p.e.chain_steps();
+        }
+      }
+      __syncwarp(warp);
+      const int m = in[0], done = in[1];
+      if (m >= 0) {
+        const int32_t* src = (const int32_t*)(smem + L.ring + ((m - sl[S_FIRST]) % (sl[S_MBW] + 1)) * SLOT_BYTES);
+        int32_t* dst = ptab + (int64_t)m * N_FIELDS;
+        for (int i = lane; i < N_FIELDS; i += nt) dst[i] = src[i];
+        uint32_t* sdst = (uint32_t*)(pscr + (int64_t)m * N_SCRATCH);
+        for (int i = lane; i < N_SCRATCH / 4; i += nt) sdst[i] = ((const uint32_t*)(src + N_FIELDS))[i];
+        int* lsrc = (int*)lb;
+        int* ldst = (int*)(plev + (int64_t)m * N_LEVELS);
+        for (int i = lane; i < N_LEVELS / 2; i += nt) {
+          ldst[i] = lsrc[i];
+          lsrc[i] = 0;
+        }
+      }
+      if (done) break;
+      if (lane > 0) prefetch_l1(data + imax(0, imin(in[2] + 128 * lane, nbytes - 1)));
+    }
+  }
 }
 
 // ================================================================== reconstruction
@@ -2306,11 +2602,20 @@ const char* dspnet_cuda_error_string(int err) { return cudaGetErrorString((cudaE
 int dspnet_h264_tables_size() { return N_TABLES; }
 int dspnet_h264_record_size() { return R_SIZE; }
 
-int dspnet_h264_parse(const void* bits, const void* slices, int nslice, const void* tables, void* tab, void* lev,
-                      void* scratch, int pic_mbs, void* status, void* stream) {
-  H264_LAUNCH(h264_parse_kernel, nslice, 1, (cudaStream_t)stream)(
-      (const uint8_t*)bits, (const int32_t*)slices, nslice, (const int32_t*)tables, (int32_t*)tab, (int16_t*)lev,
-      (uint8_t*)scratch, pic_mbs, (int32_t*)status);
+// the parse of a batch's slices: nvlc words of CAVLC lookup tables follow
+// the N_TABLES words of tables; mbw_max the widest picture's macroblocks;
+// steps (null, or an int32 a slice) takes each slice's chain steps (CABAC
+// bins, or CAVLC codes)
+int dspnet_h264_parse(const void* bits, const void* slices, int nslice, const void* tables, int nvlc, int mbw_max,
+                      void* tab, void* lev, void* scratch, int pic_mbs, void* status, void* steps, void* stream) {
+  if (nslice <= 0) return 0;
+  const ParseLayout L(nvlc, mbw_max);
+  int err = (int)cudaFuncSetAttribute(h264_parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err) return err;
+  const int grid = nslice < H264_MAX_BLOCKS ? nslice : H264_MAX_BLOCKS;
+  H264_LAUNCH_SHARED(h264_parse_kernel, grid, H264_PARSE_THREADS, L.bytes, (cudaStream_t)stream)(
+      (const uint8_t*)bits, (const int32_t*)slices, nslice, (const int32_t*)tables, nvlc, mbw_max, (int32_t*)tab,
+      (int16_t*)lev, (uint8_t*)scratch, pic_mbs, (int32_t*)status, (int32_t*)steps);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,11 @@ the DPB (POC, reference lists as picture ids, marking, output order);
 :func:`stage` copies the batch's slice data and its slice table to the card
 once through pinned memory on the caller's current stream; then
 
-* :func:`parse`: ``h264_parse_kernel``, one thread per slice, every slice of
-  the batch in one launch -> per picture the macroblock table
-  (``h264_parse.MB_FIELDS``) and the int16 levels;
+* :func:`parse`: ``h264_parse_kernel``, a warp per slice (lane 0 runs the
+  slice's chain of bins and symbols from shared memory, the warp stores
+  each macroblock's results), every slice of the batch in one launch -> per
+  picture the macroblock table (``h264_parse.MB_FIELDS``) and the int16
+  levels;
 * :func:`recon`: per picture ``h264_mv_kernel`` (the motion vectors, rows
   of macroblocks over the grid in the standard's order),
   ``h264_inter_kernel`` (every macroblock's residual and the inter
@@ -302,7 +304,7 @@ R_SLOT, R_POC, R_LONG, R_PID, R_WEIGHTS, R_IMPLICIT, R_DSF, R_LS4, R_LS8 = 16, 8
 NO_DSF = 1 << 20
 #: scratch bytes per macroblock of the parse kernel
 N_SCRATCH = 32
-#: bytes after a batch's last slice, so the kernel's 16-bit peeks stay inside
+#: bytes after a batch's last slice, so the kernel's word loads of its last bytes stay inside
 PAD = 8
 
 
@@ -319,7 +321,7 @@ def load_library() -> ctypes.CDLL:
     """Build ``csrc/h264.cu`` (at first use) and bind it."""
     lib = _build.load_library(_SOURCE)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dspnet_h264_parse.argtypes = [vp, vp, i, vp, vp, vp, vp, i, vp, vp]
+    lib.dspnet_h264_parse.argtypes = [vp, vp, i, vp, i, i, vp, vp, vp, i, vp, vp, vp]
     lib.dspnet_h264_recon_stage.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, i, vp, vp, vp, i, i, vp, vp, vp, vp, vp,
                                             vp, vp, vp, vp]
     lib.dspnet_h264_deblock_stage.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, vp, vp, vp, i, i, vp, vp, vp]
@@ -329,10 +331,72 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+#: bits the first level of a CAVLC lookup table is indexed by
+VLC_FIRST_BITS = 8
+
+
+def _vlc_codes() -> List[Tuple[np.ndarray, np.ndarray]]:
+    """The CAVLC code tables as (lengths, codes), in ``csrc/h264.cu``'s V_*
+    order: coeff_token by nC table (4), chroma DC coeff_token, total_zeros by
+    TotalCoeff (15), chroma DC total_zeros (3), run_before by zerosLeft (7);
+    a code's symbol is its index in the table."""
+    from dspnet_torch.data import h264_tables as T
+
+    return ([(T.COEFF_TOKEN_LEN[t].ravel(), T.COEFF_TOKEN_BITS[t].ravel()) for t in range(4)]
+            + [(T.CDC_TOKEN_LEN.ravel(), T.CDC_TOKEN_BITS.ravel())]
+            + [(T.TOTAL_ZEROS_LEN[k], T.TOTAL_ZEROS_BITS[k]) for k in range(15)]
+            + [(T.CDC_TOTAL_ZEROS_LEN[k], T.CDC_TOTAL_ZEROS_BITS[k]) for k in range(3)]
+            + [(T.RUN_LEN[k], T.RUN_BITS[k]) for k in range(7)])
+
+
+@functools.cache
+def vlc_tables() -> np.ndarray:
+    """The CAVLC codes as the parse kernel's two-level lookup tables, one
+    int32 region: [0] its size, [1 + k] where table k's first level starts,
+    then the tables. A first level is indexed by the next 8 bits; an entry
+    is ``symbol << 8 | length``, 0 where no code starts, or ``-(start << 4 |
+    bits)`` for a second level at ``start`` indexed by the ``bits`` bits
+    after the first 8. Raises on codes that are not prefix-free."""
+    codes = _vlc_codes()
+    out = [0] * (1 + len(codes))
+    for k, (lens, bits) in enumerate(codes):
+        first = [0] * (1 << VLC_FIRST_BITS)
+        longer: Dict[int, list] = {}
+
+        def fill(table, lo, span, entry):
+            if any(table[lo:lo + span]):
+                raise ValueError(f"CAVLC code table {k} is not prefix-free")
+            table[lo:lo + span] = [entry] * span
+
+        for sym, (n, code) in enumerate(zip(lens.tolist(), bits.tolist())):
+            if not n:
+                continue
+            if n <= VLC_FIRST_BITS:
+                shift = VLC_FIRST_BITS - n
+                fill(first, code << shift, 1 << shift, sym << 8 | n)
+            else:
+                longer.setdefault(code >> (n - VLC_FIRST_BITS), []).append((n, code, sym))
+        out[1 + k] = len(out)
+        out += first
+        for prefix, entries in sorted(longer.items()):
+            if first[prefix]:
+                raise ValueError(f"CAVLC code table {k} is not prefix-free")
+            sub_bits = max(n for n, _, _ in entries) - VLC_FIRST_BITS
+            second = [0] * (1 << sub_bits)
+            for n, code, sym in entries:
+                rest, shift = code & ((1 << (n - VLC_FIRST_BITS)) - 1), sub_bits - (n - VLC_FIRST_BITS)
+                fill(second, rest << shift, 1 << shift, sym << 8 | n)
+            out[out[1 + k] + prefix] = -(len(out) << 4 | sub_bits)
+            out += second
+    out[0] = len(out)
+    return np.array(out, np.int32)
+
+
 @functools.cache
 def _host_tables() -> np.ndarray:
     """The parse, reconstruction and deblocking tables in ``csrc/h264.cu``'s
-    O_* order, one int32 array."""
+    O_* order, one int32 array, then the CAVLC lookup tables
+    (:func:`vlc_tables`)."""
     from dspnet_torch.data import h264_tables as T
 
     parts = [T.CABAC_INIT.ravel(), T.RANGE_LPS.ravel(), T.TRANS_MPS, T.TRANS_LPS, np.append(T.SIG8x8, 0),
@@ -340,7 +404,7 @@ def _host_tables() -> np.ndarray:
              T.CDC_TOKEN_BITS.ravel(), T.TOTAL_ZEROS_LEN.ravel(), T.TOTAL_ZEROS_BITS.ravel(),
              T.CDC_TOTAL_ZEROS_LEN.ravel(), T.CDC_TOTAL_ZEROS_BITS.ravel(), T.RUN_LEN.ravel(), T.RUN_BITS.ravel(),
              T.CBP_INTRA, T.CBP_INTER, np.array(h264_parse._CBP_400[0] + h264_parse._CBP_400[1]), T.ZIGZAG4,
-             T.ZIGZAG8, T.ALPHA, T.BETA, T.TC0.ravel(), T.CHROMA_QP]
+             T.ZIGZAG8, T.ALPHA, T.BETA, T.TC0.ravel(), T.CHROMA_QP, vlc_tables()]
     return np.concatenate([np.asarray(x, np.int64) for x in parts]).astype(np.int32)
 
 
@@ -441,26 +505,46 @@ def parse_ref(jobs: List[Tuple[SliceJob, N.Syntax]], n_pictures: int, device) ->
     return out
 
 
-def parse(jobs, n_pictures: int, device):
-    """``h264_parse_kernel`` on a CUDA device (one launch, a thread block
-    per slice), :func:`parse_ref` on the CPU. Raises when a slice fails to
-    parse, naming it and the bit."""
+def parse_launches(jobs, n_pictures: int, device, steps: Optional[torch.Tensor] = None):
+    """The outputs of a batch's parse on a CUDA device and its kernel's
+    launch: ((table (n_pictures, n_mb, N_FIELDS) int32, levels int16,
+    scratch (n_pictures, n_mb, N_SCRATCH) uint8, status (slices, 2) int32),
+    [(kernel name, launch)]). Nothing runs until the launch is called
+    (:func:`parse` calls it; ``chip_smoke.py`` also times it). ``steps``, an
+    int32 a slice, takes each slice's chain steps (CABAC bins, or CAVLC
+    codes)."""
     device = torch.device(device)
     bits, table = stage(jobs, device)
-    if not _on_card(bits):
-        return parse_ref(jobs, n_pictures, device)
     n = max(s.mb_width * s.mb_height for _, s in jobs)
     tab = torch.zeros(n_pictures, n, h264_parse.N_FIELDS, dtype=torch.int32, device=device)
     lev = torch.zeros(n_pictures, n, h264_parse.N_LEVELS, dtype=torch.int16, device=device)
     scratch = torch.zeros(n_pictures, n, N_SCRATCH, dtype=torch.uint8, device=device)
     status = torch.zeros(len(jobs), 2, dtype=torch.int32, device=device)
     lib = load_library()
-    err = lib.dspnet_h264_parse(bits.data_ptr(), table.data_ptr(), len(jobs), _tables(device).data_ptr(),
-                                tab.data_ptr(), lev.data_ptr(), scratch.data_ptr(), n, status.data_ptr(),
-                                _stream(device))
+    args = (bits.data_ptr(), table.data_ptr(), len(jobs), _tables(device).data_ptr(), len(vlc_tables()),
+            max(s.mb_width for _, s in jobs), tab.data_ptr(), lev.data_ptr(), scratch.data_ptr(), n,
+            status.data_ptr(), None if steps is None else steps.data_ptr(), _stream(device))
+
+    def launch(kept=(bits, table)):
+        err = lib.dspnet_h264_parse(*args)
+        kernel_launches["h264_parse_kernel"] += 1
+        _build.check(lib, err, "h264_parse_kernel")
+
+    return (tab, lev, scratch, status), [("h264_parse_kernel", launch)]
+
+
+def parse(jobs, n_pictures: int, device):
+    """``h264_parse_kernel`` on a CUDA device (one launch, a warp per slice),
+    :func:`parse_ref` on the CPU. Raises when a slice fails to parse, naming
+    it and the bit, and when the launch is refused (a picture too wide for
+    the kernel's shared memory)."""
+    device = torch.device(device)
+    if not _on_card(torch.empty(0, device=device)):
+        return parse_ref(jobs, n_pictures, device)
+    (tab, lev, scratch, status), kernels = parse_launches(jobs, n_pictures, device)
+    for _, launch in kernels:
+        launch()
     launches["h264_parse"] += 1
-    kernel_launches["h264_parse_kernel"] += 1
-    _build.check(lib, err, "h264_parse_kernel")
     st = status.cpu().numpy()
     for (job, _), (code, bit) in zip(jobs, st.tolist()):
         if code:

@@ -8,9 +8,11 @@ DECODE_BATCH`` of them at a time): the host reads each sample's VOP header
 its VOP table to the card once through pinned memory on the caller's current
 stream, and then:
 
-* :func:`parse`: ``mp4v_parse_kernel``, one thread per VOP, the batch's
-  coded VOPs in one launch -> per VOP the (mb_num, 12) macroblock table
-  (:data:`mpeg4.MB_FIELDS`) and the (mb_num * 6, 64) int16 quantised levels;
+* :func:`parse`: ``mp4v_parse_kernel``, a warp per VOP (lane 0 runs the
+  VOP's chain of VLC symbols from shared memory, the warp stores each
+  macroblock's results), the batch's coded VOPs in one launch -> per VOP
+  the (mb_num, 12) macroblock table (:data:`mpeg4.MB_FIELDS`) and the
+  (mb_num * 6, 64) int16 quantised levels;
 * :func:`recon`: ``mp4v_recon_kernel``, one launch per VOP in decode order,
   a thread per 8x8 block, from the previous VOP's planes -> the Y, U, V
   uint8 planes at the macroblock-aligned size;
@@ -51,7 +53,7 @@ launches = {"mp4v_parse": 0, "mp4v_recon": 0, "yuv420_to_bgr": 0}
 plain_calls = {"mp4v_parse": 0, "mp4v_recon": 0, "yuv420_to_bgr": 0}
 
 _SOURCE = _build.CSRC / "mpeg4.cu"
-#: bytes after a batch's last sample, so the kernel's 8-byte reads stay inside
+#: bytes after a batch's last sample, so the kernel's word loads of its last bytes stay inside
 PAD = 16
 
 
@@ -60,7 +62,7 @@ def load_library() -> ctypes.CDLL:
     """Build ``csrc/mpeg4.cu`` (at first use) and bind it."""
     lib = _build.load_library(_SOURCE)
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dspnet_mp4v_parse.argtypes = [vp, vp, i, vp, vp, vp, i, i, i, i, vp, i, vp, vp, vp, vp]
+    lib.dspnet_mp4v_parse.argtypes = [vp, vp, i, vp, vp, vp, i, i, i, i, vp, vp, vp, vp, vp]
     lib.dspnet_mp4v_recon.argtypes = [vp, vp, i, i, i, i, i, i, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.dspnet_yuv420_to_bgr.argtypes = [vp, vp, vp, i, i, i, i, ctypes.POINTER(i), vp, vp]
     for f in (lib.dspnet_mp4v_parse, lib.dspnet_mp4v_recon, lib.dspnet_yuv420_to_bgr):
@@ -68,34 +70,55 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
 def _stream(device: torch.device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+#: bits the TCOEF lookup tables are indexed by: the longest code and its sign bit
+TCOEF_BITS = mpeg4.LUT_BITS + 1
+#: the TCOEF lookup entry of the escape code
+T_ESCAPE = -2
+
+
 @functools.cache
-def _host_tables() -> np.ndarray:
-    """The VLC lookup tables, the TCOEF tables' (last, run, level) and their
-    LMAX / RMAX, as the kernel reads them, in one int32 array."""
-    rll = [(last << 16) | (run << 8) | level for table in (mpeg4.INTRA_RLL, mpeg4.INTER_RLL)
-           for last, run, level in table]
+def _host_tables() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The tables as the kernel reads them: the lookup tables of the VLCs
+    before the TCOEF ones (int16 ``symbol << 8 | length``, -1 where no code
+    starts); the two TCOEF lookup tables, indexed by the next 13 bits, each
+    entry a code with the sign bit after it (int32 ``length | last << 5 |
+    signed level << 8 | (run + 1) << 24``, the length counting the sign;
+    :data:`T_ESCAPE` for the escape code, -1 where no code starts); the
+    TCOEF tables' LMAX / RMAX (int32)."""
+    luts = mpeg4.luts()
+    first = luts[:mpeg4.LUT_NAMES.index("intra_tcoef")]
+    if first.min() < -1 or first.max() > np.iinfo(np.int16).max:
+        raise ValueError("an MPEG-4 VLC lookup entry does not fit int16")
+    tco = []
+    for lut, rll in zip(luts[-2:], (mpeg4.INTRA_RLL, mpeg4.INTER_RLL)):
+        for peek in range(1 << TCOEF_BITS):
+            e = int(lut[peek >> 1])
+            sym, n = e >> 8, e & 0xFF
+            if e < 0:
+                tco.append(-1)
+            elif sym == mpeg4.ESCAPE:
+                tco.append(T_ESCAPE)
+            else:
+                last, run, level = rll[sym]
+                if (peek >> (TCOEF_BITS - 1 - n)) & 1:  # the sign bit after the code
+                    level = -level
+                tco.append((n + 1) | last << 5 | (level & 0xFFFF) << 8 | (run + 1) << 24)
     maxes = np.concatenate([mpeg4.INTRA_LMAX.ravel(), mpeg4.INTRA_RMAX.ravel(), mpeg4.INTER_LMAX.ravel(),
                             mpeg4.INTER_RMAX.ravel()])
-    return np.concatenate([mpeg4.luts().ravel(), np.array(rll, np.int32), maxes.astype(np.int32)])
+    return first.astype(np.int16).ravel(), np.array(tco, np.int32), maxes.astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    t = torch.from_numpy(_host_tables()).to(device)
-    n_lut = len(mpeg4.LUT_NAMES) << mpeg4.LUT_BITS
-    return t[:n_lut], t[n_lut:n_lut + 204], t[n_lut + 204:]
-
-
-def scratch_words(vol: mpeg4.Vol) -> int:
-    """int32 words of one VOP's parse state (the kernel's scratch layout):
-    DC values, AC rows and columns (int16), MVs and quantisers."""
-    luma = (2 * vol.mb_width + 1) * (2 * vol.mb_height + 1)
-    chroma = (vol.mb_width + 1) * (vol.mb_height + 1)
-    return luma + 2 * chroma + 8 * (luma + 2 * chroma) + 2 * (luma + 1) + vol.mb_num
+    return tuple(torch.from_numpy(t).to(device) for t in _host_tables())
 
 
 def stage(samples: List[bytes], headers: List[mpeg4.VopHeader], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,31 +159,43 @@ def parse_ref(bits: torch.Tensor, vops: torch.Tensor, vol: mpeg4.Vol) -> Tuple[t
     return (torch.from_numpy(np.stack(mbs)).to(bits.device), torch.from_numpy(np.stack(lvs)).to(bits.device))
 
 
-def parse(bits: torch.Tensor, vops: torch.Tensor, vol: mpeg4.Vol) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``mp4v_parse_kernel`` on a CUDA device (one launch, one thread per
-    VOP), :func:`parse_ref` on the CPU. Raises when a VOP fails to parse."""
-    if bits.device.type == "cpu":
-        return parse_ref(bits, vops, vol)
-    if bits.dtype != torch.uint8 or vops.dtype != torch.int32 or not vops.is_contiguous():
-        raise ValueError("parse takes stage()'s uint8 bytes and int32 VOP table")
+def parse_launches(bits: torch.Tensor, vops: torch.Tensor, vol: mpeg4.Vol, steps: Optional[torch.Tensor] = None):
+    """The outputs of a batch's parse on a CUDA device and its kernel's
+    launch: ((mb (B, mb_num, 12) int32, levels (B, mb_num * 6, 64) int16,
+    status (B, 2) int32), [(kernel name, launch)]). Nothing runs until the
+    launch is called (:func:`parse` calls it; ``chip_smoke.py`` also times
+    it); each launch adds one to :data:`launches`. ``steps``, an int32 a
+    VOP, takes each VOP's chain steps (VLC symbols)."""
     dev = bits.device
     nvop, n = len(vops), vol.mb_num
-    words = scratch_words(vol)
-    luma = (2 * vol.mb_width + 1) * (2 * vol.mb_height + 1)
-    chroma = (vol.mb_width + 1) * (vol.mb_height + 1)
-    scratch = torch.zeros(nvop, words, dtype=torch.int32, device=dev)
-    scratch[:, :luma + 2 * chroma] = 1024
     mb = torch.zeros(nvop, n, 12, dtype=torch.int32, device=dev)
     levels = torch.zeros(nvop, n * 6, 64, dtype=torch.int16, device=dev)
     status = torch.zeros(nvop, 2, dtype=torch.int32, device=dev)
-    lut, rll, maxes = _tables(dev)
+    lut, tco, maxes = _tables(dev)
     lib = load_library()
-    err = lib.dspnet_mp4v_parse(bits.data_ptr(), vops.data_ptr(), nvop, lut.data_ptr(), rll.data_ptr(),
-                                maxes.data_ptr(), vol.mb_width, vol.mb_height, vol.time_bits, int(vol.resync),
-                                scratch.data_ptr(), words, mb.data_ptr(), levels.data_ptr(), status.data_ptr(),
-                                _stream(dev))
-    launches["mp4v_parse"] += 1
-    _build.check(lib, err, "mp4v_parse_kernel")
+    args = (bits.data_ptr(), vops.data_ptr(), nvop, lut.data_ptr(), tco.data_ptr(), maxes.data_ptr(), vol.mb_width,
+            vol.mb_height, vol.time_bits, int(vol.resync), mb.data_ptr(), levels.data_ptr(), status.data_ptr(),
+            None if steps is None else steps.data_ptr(), _stream(dev))
+
+    def launch(kept=(bits, vops)):
+        err = lib.dspnet_mp4v_parse(*args)
+        launches["mp4v_parse"] += 1
+        _build.check(lib, err, "mp4v_parse_kernel")
+
+    return (mb, levels, status), [("mp4v_parse_kernel", launch)]
+
+
+def parse(bits: torch.Tensor, vops: torch.Tensor, vol: mpeg4.Vol) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mp4v_parse_kernel`` on a CUDA device (one launch, a warp per VOP),
+    :func:`parse_ref` on the CPU. Raises when a VOP fails to parse, and when
+    the launch is refused (a VOP too wide for the kernel's shared memory)."""
+    if not _on_card(bits):
+        return parse_ref(bits, vops, vol)
+    if bits.dtype != torch.uint8 or vops.dtype != torch.int32 or not vops.is_contiguous():
+        raise ValueError("parse takes stage()'s uint8 bytes and int32 VOP table")
+    (mb, levels, status), kernels = parse_launches(bits, vops, vol)
+    for _, launch in kernels:
+        launch()
     st = status.cpu().numpy()
     for k, (code, bit) in enumerate(st.tolist()):
         if code:
@@ -182,7 +217,7 @@ def recon(mb: torch.Tensor, levels: torch.Tensor, vol: mpeg4.Vol, rounding: int,
     """``mp4v_recon_kernel`` for one VOP on a CUDA device (an I-VOP when
     ``ref`` is None, else a P-VOP from ``ref``'s planes), :func:`recon_ref`
     on the CPU -> (Y, U, V) uint8 planes at the macroblock-aligned size."""
-    if mb.device.type == "cpu":
+    if not _on_card(mb):
         return recon_ref(mb, levels, vol, rounding, ref)
     n = vol.mb_num
     if mb.shape != (n, 12) or levels.shape != (n * 6, 64) or mb.dtype != torch.int32 \
@@ -219,7 +254,7 @@ def yuv420_to_bgr(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, height: int
     """``yuv420_to_bgr_kernel`` on a CUDA device, ``mpeg4.yuv420_to_bgr`` on
     the CPU -> the (height, width, 3) uint8 BGR frame (``coef``: swscale's
     coefficients of the frame's matrix and range, ``mpeg4.swscale_colour``)."""
-    if y.device.type == "cpu":
+    if not _on_card(y):
         plain_calls["yuv420_to_bgr"] += 1
         return mpeg4.yuv420_to_bgr(y, u, v, height, width, coef)
     if not all(p.dtype == torch.uint8 and p.is_contiguous() for p in (y, u, v)) or y.shape[0] < height \

@@ -1,12 +1,15 @@
-// A host emulation of the few CUDA runtime pieces dspnet_torch/csrc/av1.cu
-// and csrc/h264.cu use, so that the source compiles with g++ and its kernels
+// A host emulation of the few CUDA runtime pieces dspnet_torch/csrc/av1.cu,
+// csrc/h264.cu and csrc/mpeg4.cu use, so that the source compiles with g++ and its kernels
 // run on the CPU for tests. The CUDA threads of a block are fibers (ucontext)
 // of the calling thread, each on its own stack, set up once a launch and
 // restarted for every block of the grid; __syncthreads passes control to the
 // next fiber in turn, so a block's threads all reach a barrier before any
 // passes it, and the emulation takes one core however many threads a block
 // has (the tests run beside others). Blocks run one after another;
-// __shared__ variables are static (one block at a time shares them).
+// __shared__ variables are static (one block at a time shares them), and
+// a launch's dynamic shared memory (DYNAMIC_SHARED) one buffer of the size
+// the launch names. __syncwarp is __syncthreads (a block of at most 32
+// threads is one warp).
 // Atomics, fences and L2 loads act on host memory; a kernel that waits on a
 // block with a smaller index (rows taken in order by a ticket) never waits
 // here. Build with
@@ -34,9 +37,33 @@ struct dim3 {
 };
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 
+struct uint2 {
+  unsigned x, y;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return uint4{x, y, z, w}; }
+inline int __clz(int x) { return x ? __builtin_clz((unsigned)x) : 32; }
+inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
+// byte i of the result is byte (s >> 4i) & 7 of the 8 bytes y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = ((unsigned long long)y << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; i++) r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
+inline int __clzll(long long x) { return x ? __builtin_clzll((unsigned long long)x) : 64; }
+
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return 0; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K>
+cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return 0;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "no error (host emulation)"; }
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n);
@@ -66,6 +93,11 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t
 #define __restrict__
 #define __constant__ static
 #define __shared__ static
+#define __align__(n) alignas(n)
+
+// the running launch's dynamic shared memory
+inline std::vector<uint4> emu_dynamic_shared;
+#define DYNAMIC_SHARED(name) uint8_t* name = reinterpret_cast<uint8_t*>(emu_dynamic_shared.data())
 
 // the fibers of the running block
 struct EmuBlock {
@@ -103,6 +135,7 @@ inline void emu_fiber_main() {
 inline void __syncthreads() {
   if (emu_block.n > 1) emu_block.next();
 }
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { __syncthreads(); }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <class T>
 inline T __ldcg(const T* p) {
@@ -117,10 +150,12 @@ template <class K>
 struct EmuLaunch {
   K kernel;
   dim3 grid, block;
+  size_t shared;
   template <class... A>
   void operator()(A... args) {
     gridDim = grid;
     blockDim = block;
+    emu_dynamic_shared.assign((shared + 15) / 16, uint4{});
     EmuBlock& b = emu_block;
     b.fibers(block.x);
     b.body = [&] { kernel(args...); };
@@ -149,8 +184,10 @@ struct EmuLaunch {
   }
 };
 template <class K>
-EmuLaunch<K> emu_launch(K kernel, dim3 grid, dim3 block) {
-  return EmuLaunch<K>{kernel, grid, block};
+EmuLaunch<K> emu_launch(K kernel, dim3 grid, dim3 block, size_t shared = 0) {
+  return EmuLaunch<K>{kernel, grid, block, shared};
 }
 #define AV1_LAUNCH(kernel, grid, block, stream) emu_launch(kernel, dim3(grid), dim3(block))
 #define H264_LAUNCH(kernel, grid, block, stream) emu_launch(kernel, dim3(grid), dim3(block))
+#define H264_LAUNCH_SHARED(kernel, grid, block, shared, stream) emu_launch(kernel, dim3(grid), dim3(block), shared)
+#define MP4V_LAUNCH(kernel, grid, block, shared, stream) emu_launch(kernel, dim3(grid), dim3(block), shared)

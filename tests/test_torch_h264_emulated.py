@@ -16,8 +16,11 @@ through ``data/h264_cuda.py``'s kernel path with host pointers.
 * the same stage by stage on those forms with the launch geometry forced
   (``H264_MAX_THREADS``, ``H264_MAX_BLOCKS``): a grid smaller than a
   picture's rows (a block takes several rows, the inter kernel several
-  macroblocks) with 4 threads a block, and a grid larger than the rows (blocks
-  that find no row) with 32.
+  macroblocks, the parse several slices) with 4 threads a block, and a grid
+  larger than the rows (blocks that find no row) with 32; the parse kernel
+  runs with 1 thread a block in the default build
+  (``H264_PARSE_THREADS``), so its warp is held to the plain parse with 1,
+  4 and 32 lanes.
 
 The kernels run at most 64 blocks of at most 8 threads by default here
 (every kernel strides by its block and grid, as on the card with 1 to 256
@@ -53,9 +56,11 @@ STAGEWISE = ["cavlc_intra.mp4", "cavlc_p_partitions.mp4", "cavlc_longterm_mmco.m
 
 
 #: the geometries the emulated library is built with: the default (blocks of
-#: at most 8 threads, grids of at most 64 blocks), a grid smaller than a
-#: picture's rows, and one larger
-GEOMETRY = {"default": ("-DH264_MAX_THREADS=8", "-DH264_MAX_BLOCKS=64"),
+#: at most 8 threads, the parse's of 1, grids of at most 64 blocks), a grid
+#: smaller than a picture's rows (and than a batch's slices: the parse's
+#: blocks take slices in turn), and one larger; the parse runs a warp of 1,
+#: 4 and 32 threads
+GEOMETRY = {"default": ("-DH264_MAX_THREADS=8", "-DH264_MAX_BLOCKS=64", "-DH264_PARSE_THREADS=1"),
             "small": ("-DH264_MAX_THREADS=4", "-DH264_MAX_BLOCKS=2"),
             "large": ("-DH264_MAX_THREADS=32", "-DH264_MAX_BLOCKS=4096")}
 
@@ -137,15 +142,16 @@ def test_emulated_kernels_give_cv2s_frames(emulated, name):
 
 
 #: the plain stages' results by (form, picture in decode order): the
-#: reconstruction's planes and motion field, and the filtered planes (the
+#: reconstruction's planes and motion field, and the filtered planes; and
+#: by (form, "parse", first picture of the batch) the parse's tables (the
 #: geometry cases compare with what the default case computed)
 _PLAIN = {}
 
 
-def _against_plain(name, check_parse: bool):
+def _against_plain(name):
     """The form through ``Decoder.decode`` with its stages wrapped, each
     kernel's output held to its plain version's on the same inputs, picture
-    by picture: tables and levels (``check_parse``), planes and motion
+    by picture: tables and levels, planes and motion
     field, filtered planes."""
     samples, stream = _read(name)
     dec = h264_cuda.Decoder("cpu", stream.extradata, stream.fourcc)
@@ -153,7 +159,10 @@ def _against_plain(name, check_parse: bool):
 
     def parse(jobs, n, device):
         tables = h264_cuda.parse(jobs, n, device)
-        for (t, lv), (rt, rlv) in zip(tables, h264_cuda.parse_ref(jobs, n, torch.device("cpu"))):
+        key = (name, "parse", len(done))
+        if key not in _PLAIN:
+            _PLAIN[key] = h264_cuda.parse_ref(jobs, n, torch.device("cpu"))
+        for (t, lv), (rt, rlv) in zip(tables, _PLAIN[key]):
             m = rt.shape[0]
             np.testing.assert_array_equal(t[:m].numpy(), rt.numpy(), err_msg=f"{name} parse table")
             np.testing.assert_array_equal(lv[:m].numpy(), rlv.numpy(), err_msg=f"{name} parse levels")
@@ -179,7 +188,7 @@ def _against_plain(name, check_parse: bool):
             np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=f"{name} picture {len(done)} deblock {what}")
         done.append(1)
 
-    dec.stages.update(recon=recon, deblock=deblock, **({"parse": parse} if check_parse else {}))
+    dec.stages.update(parse=parse, recon=recon, deblock=deblock)
     frames = []
     for i in range(0, len(samples), 8):
         frames += dec.decode(samples[i:i + 8])
@@ -192,16 +201,16 @@ def test_emulated_kernels_equal_their_plain_versions(emulated, name):
     """Each kernel against its plain version on the same inputs, picture by
     picture, through ``Decoder.decode`` with its stages wrapped: tables and
     levels, planes and motion field, filtered planes."""
-    _against_plain(name, check_parse=True)
+    _against_plain(name)
 
 
 @pytest.mark.parametrize("geometry", ["small", "large"])
 @pytest.mark.parametrize("name", STAGEWISE)
 def test_forced_launch_geometry_equals_the_plain_versions(libraries, name, geometry):
-    """The reconstruction and the deblocking filter built with a grid smaller
-    than a picture's rows (2 blocks of 4 threads: a block takes rows in
-    turn, the inter kernel strides over macroblocks) and with one larger
-    (4,096 blocks of 32: most find no row), picture by picture equal to the
-    plain versions."""
+    """The parse, the reconstruction and the deblocking filter built with a
+    grid smaller than a picture's rows (2 blocks of 4 threads: a block takes
+    rows, and slices, in turn, the inter kernel strides over macroblocks)
+    and with one larger (4,096 blocks of 32: most find no row; the parse a
+    full warp), picture by picture equal to the plain versions."""
     with _bound(libraries[geometry]):
-        _against_plain(name, check_parse=False)
+        _against_plain(name)
